@@ -1,8 +1,8 @@
 """Procedural test and benchmark meshes, written as Wavefront OBJ files.
 
-numpy only. The files are read by the host asset layer that both packages
-share (``stillleben_tpu.assets.mesh.Mesh``), so both packages load the very
-same geometry and nothing needs a download:
+numpy only. The port reads the files with its own ``assets.mesh.Mesh`` and
+the JAX package with ``stillleben_tpu.assets.mesh.Mesh``, so both packages
+load the very same geometry and nothing needs a download:
 
 - ``cube``: the 24-vertex cube of ``stillleben_tpu/assets/primitive.py:18``
   (corners at +-1, per-face normals and uvs);

@@ -18,7 +18,7 @@ from .physics.types import BodyParams, BodyState, HullAtlas
 from .render.atlas import RenderInputs, SceneAtlas
 
 
-def template_from_numpy(tpl, device) -> SceneTemplate:
+def template_from_numpy(tpl, device="cuda") -> SceneTemplate:
     """A JAX ``SceneTemplate`` of numpy arrays -> the port's template on
     ``device``. Fields the port does not have (``tex_combo_quad``) are
     dropped; an image-based light map is not ported and must be None."""
@@ -41,7 +41,7 @@ def template_from_numpy(tpl, device) -> SceneTemplate:
     )
 
 
-def state_from_numpy(state, device) -> BodyState:
+def state_from_numpy(state, device="cuda") -> BodyState:
     """A JAX ``BodyState`` of numpy arrays -> the port's ``BodyState``.
     An unbatched state (NB, ...) gets a batch axis of 1."""
     st = tensors_from_numpy(BodyState, state, device)

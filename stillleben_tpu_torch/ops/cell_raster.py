@@ -22,82 +22,16 @@ and launches the kernel for CUDA tensors. A failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from . import nvcc
+
 FIELDS = 16  # 15 line coefficients [L0|L1|L2|Lsum|Lz] x (x, y, c) + 1 pad
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "cell_raster.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-class _Library:
-    """The built shared library, loaded once per process."""
-
-    handle: ctypes.CDLL | None = None
-
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(home, "bin", "nvcc")
-        if os.path.exists(cand):
-            nvcc = cand
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: cannot build the cell-raster kernel")
-    return nvcc
-
-
-def build() -> tuple[str, str]:
-    """Compile ``csrc/cell_raster.cu`` for sm_90a into ``_build/``.
-
-    Returns (library path, compiler output). The library name carries a
-    hash of the source and flags, so an edited source is rebuilt; the
-    compile writes a temporary file and renames it into place."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libcell_raster_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path, "(cached build)"
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, log
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    if _Library.handle is None:
-        path, _ = build()
-        lib = ctypes.CDLL(path)
-        fn = lib.sl_cell_raster
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _Library.handle = lib
-    return _Library.handle
+SOURCE = "cell_raster.cu"
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+]
 
 
 def cell_raster_reference(
@@ -208,19 +142,16 @@ def cell_raster(
         raise ValueError(f"cell_raster: unsupported device {G.device}")
     if (tile * tile) not in (256, 1024, 4096):
         raise ValueError(f"cell_raster kernel: tile {tile} not supported (16, 32, 64)")
-    lib = load_library()
+    lib = nvcc.load(SOURCE, "sl_cell_raster", _ARGTYPES)
     n_cells, C = ids.shape
     w = torch.empty((n_cells, tile * tile), dtype=torch.float32, device=G.device)
     t = torch.empty((n_cells, tile * tile), dtype=torch.int32, device=G.device)
-    with torch.cuda.device(G.device):
-        stream = torch.cuda.current_stream().cuda_stream
     err = lib.sl_cell_raster(
         G.data_ptr(), ids.data_ptr(), cell_tile.data_ptr(), md.data_ptr(),
         w.data_ptr(), t.data_ptr(), n_cells, C, tile, tw, n_tiles,
-        float(near), float(far), stream,
+        float(near), float(far), nvcc.stream_of(G),
     )
-    if err != 0:
-        raise RuntimeError(f"cell_raster kernel launch failed: cudaError {err}")
+    nvcc.check(err, "cell_raster")
     cell_raster.launches += 1
     cell_raster.launches_by_tile[tile] = cell_raster.launches_by_tile.get(tile, 0) + 1
     return w, t

@@ -1,0 +1,40 @@
+"""Toolchain check: ``o = 2 * x`` as a hand-written kernel and in PyTorch.
+
+Replaces the toy Pallas kernel ``k`` of ``tools/tpu_smoke.py:73-76``.
+``chip_smoke.py`` builds and launches it first, on an (8, 128) f32 tensor,
+and requires it to equal ``double_reference`` exactly. No datagen path
+runs it. CPU tensors take the plain version; CUDA tensors launch the
+kernel (``double.launches`` counts those launches).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import nvcc
+
+SOURCE = "smoke.cu"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
+def double_reference(x: torch.Tensor) -> torch.Tensor:
+    return 2 * x
+
+
+def double(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise TypeError("double: expected a contiguous float32 tensor")
+    if x.device.type == "cpu":
+        return double_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"double: unsupported device {x.device}")
+    lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
+    o = torch.empty_like(x)
+    nvcc.check(lib.sl_smoke(x.data_ptr(), o.data_ptr(), x.numel(), nvcc.stream_of(x)), "smoke")
+    double.launches += 1
+    return o
+
+
+double.launches = 0

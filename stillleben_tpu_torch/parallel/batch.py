@@ -41,7 +41,7 @@ class SceneTemplate(NamedTuple):
     base_z: torch.Tensor  # scalar
 
 
-def template_from_scene(scene, device) -> SceneTemplate:
+def template_from_scene(scene, device="cuda") -> SceneTemplate:
     """Build the template from a host ``scene.scene.Scene`` (batch.py:47-82,
     without background plane or light map: the JAX template's ``light_map``
     field has no counterpart)."""

@@ -8,8 +8,7 @@ Field names match the JAX package so tests compare them one by one.
 
 ``build_scene_atlas`` is a numpy port of the JAX package's function for untextured,
 sticker-free meshes (the datagen slice). A textured material or a sticker
-raises. The host asset layer (mesh loading, decimation) is shared with the
-JAX package, which imports no jax in those modules.
+raises. Meshes come from the port's own asset layer (``assets/mesh.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stillleben_tpu.assets.decimate import decimate_faces
-
+from ..assets.decimate import decimate_faces
 from ..core.tree import tensors_from_numpy
 
 TEXTURE_SIZE = 256
@@ -139,7 +137,7 @@ def _material(gm) -> dict:
 def build_scene_atlas_numpy(objects) -> dict:
     """numpy port of ``build_scene_atlas`` (atlas.py:275-578) for untextured
     meshes without stickers or a background plane. ``objects`` are host
-    objects with ``.mesh`` (a shared ``stillleben_tpu.assets.mesh.Mesh``).
+    objects with ``.mesh`` (an ``assets.mesh.Mesh``).
     Returns a dict of numpy arrays keyed by SceneAtlas field name."""
     pos_l, nrm_l, uv_l, col_l, tan_l, vid_l, vobj_l = [], [], [], [], [], [], []
     face_l, fobj_l, fmat_l, fcull_l = [], [], [], []

@@ -15,7 +15,8 @@ import torch
 
 from .atlas import RenderInputs, SceneAtlas
 from .rasterize import geometry_stage, rasterize
-from .rasterize_tiled import rasterize_tiled
+from ..ops.fine_raster import TILES_PER_CELL
+from .rasterize_tiled import RASTERS, rasterize_tiled
 from .shading import shade
 from .shadow import render_shadow_maps
 from .tonemap import tone_map
@@ -26,13 +27,21 @@ class FrameConfig(NamedTuple):
     height: int
     shading: str = "pbr"  # only "pbr" is ported
     ssao: bool = False  # not ported: must stay False
-    tiled: bool = True  # cell raster (True) or brute-force oracle (False)
+    tiled: bool = True  # binned raster (True) or brute-force oracle (False)
     shadow_size: int = 2048  # reference default (render_pass.cpp:271-294)
     max_lights: int = 3
     sample_textures: bool = False  # not ported: must stay False
     sample_stickers: bool = False  # not ported: must stay False
     shadow_mode: str = "vsm"  # only "vsm" is ported
     alpha_peel: bool = False  # not ported: must stay False
+    # the raster: "cells" (default) or the classic span-class path, the
+    # JAX package's SL_RASTER; the fields below serve the classic path
+    raster: str = "cells"
+    tile_capacity: int = 256  # slots of each tile's list
+    big_capacity: int = 64  # "big" triangles per frame (both paths)
+    fine_chunk: int = 128  # triangles per fine-kernel chunk
+    pixel_stage: bool | None = None  # exact sub-4-px stage; None = F > 20,000
+    fine_tiles_per_cell: int = 1  # tiles per kernel block (SL_FINE_TPG)
 
     def check(self) -> None:
         unported = dict(
@@ -43,6 +52,13 @@ class FrameConfig(NamedTuple):
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"FrameConfig: not ported yet: {bad}")
+        if self.raster not in RASTERS:
+            raise ValueError(f"FrameConfig: raster {self.raster!r} not in {RASTERS}")
+        if self.fine_tiles_per_cell not in TILES_PER_CELL:
+            raise ValueError(
+                f"FrameConfig: fine_tiles_per_cell {self.fine_tiles_per_cell} not in "
+                f"{TILES_PER_CELL} (the kernel's instantiations)"
+            )
 
 
 class RenderedFrame(NamedTuple):
@@ -64,10 +80,14 @@ def render_frame_core(atlas: SceneAtlas, inputs: RenderInputs, cfg: FrameConfig)
     H, W = cfg.height, cfg.width
     geom = geometry_stage(atlas, inputs, W, H)
     shadow_maps, shadow_matrices = render_shadow_maps(
-        atlas, inputs, cfg.shadow_size, cfg.max_lights
+        atlas, inputs, cfg.shadow_size, cfg.max_lights, cfg.raster, cfg.fine_tiles_per_cell
     )
     if cfg.tiled:
-        gbuf = rasterize_tiled(geom, atlas, inputs, W, H)
+        gbuf = rasterize_tiled(
+            geom, atlas, inputs, W, H, raster=cfg.raster, tile_capacity=cfg.tile_capacity,
+            big_capacity=cfg.big_capacity, fine_chunk=cfg.fine_chunk,
+            pixel_stage=cfg.pixel_stage, tiles_per_cell=cfg.fine_tiles_per_cell,
+        )
     else:
         gbuf = rasterize(geom, atlas, inputs, W, H)
     out = shade(atlas, inputs, geom, gbuf, shadow_maps, shadow_matrices, cfg.max_lights)

@@ -1,17 +1,27 @@
-"""Tile-binned compact-cell rasterizer (the camera and shadow z-buffer).
+"""Tile-binned rasterizers (the camera and shadow z-buffer).
 
-Counterpart of the cell path of ``stillleben_tpu/render/rasterize_tiled.py``
-(``rasterize_vertices_cells``, ``untile_img``, ``rasterize_tiled``). Every
-active triangle emits one (tile + depth)-keyed pair per tile it may cover
-(1-, 4- and 16-slot span classes; big or behind-camera triangles go to
-every tile); one stable sort orders the pairs by tile, near first; each
-tile's pairs are cut into cells of ``CHUNK`` triangles under a static cell
-budget; the cell kernel (``ops/cell_raster.py``) z-buffers every cell; a
-scatter-min merges cells into tiles with the lowest id winning ties.
+Counterpart of ``stillleben_tpu/render/rasterize_tiled.py``, both paths:
 
-The class windows, the budget and the sort are the same as in JAX, so the
-cells (and the kernel's inputs) have the same layout in both packages.
-The classic span-class path is not ported.
+- the compact-cell path (``rasterize_vertices_cells``, the default): every
+  active triangle emits one (tile + depth)-keyed pair per tile it may cover
+  (1-, 4- and 16-slot span classes; big or behind-camera triangles go to
+  every tile); one stable sort orders the pairs by tile, near first; each
+  tile's pairs are cut into cells of ``CHUNK`` triangles under a static
+  cell budget; the cell kernel (``ops/cell_raster.py``) z-buffers every
+  cell; a scatter-min merges cells into tiles with the lowest id winning
+  ties;
+- the classic span-class path (``rasterize_vertices``, ``raster="classic"``):
+  sub-4-px triangles go to an exact per-pixel stage (two scatter-mins),
+  triangles of up to 4x4 tiles to per-tile lists of ``tile_capacity``
+  slots (depth-sorted, the farthest dropped), the rest to one global list
+  of ``big_capacity`` slots appended to every tile; the fine kernel
+  (``ops/fine_raster.py``) z-buffers each tile's chunks in order.
+
+Class windows, capacities and sorts are the same as in JAX, so the kernels'
+inputs have the same layout in both packages. Not ported: the facing cull
+(``cull_sign``, ``SL_BACKFACE_CULL``) and the classic path's XLA scan
+fallback (``use_pallas=False``), which breaks equal-depth ties by slot, not
+by id.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 
 from ..core import math as m
 from ..ops.cell_raster import FIELDS, cell_raster
+from ..ops.fine_raster import fine_raster
 from .atlas import RenderInputs, SceneAtlas
 from .camera import DEFAULT_FAR, DEFAULT_NEAR
 from .rasterize import GBuffer, GeometryBuffers
@@ -29,6 +40,10 @@ SPAN_TILES = 4
 CHUNK = 128  # triangles per cell (C)
 TILE_CAP = 8192  # per-tile pair cap: beyond it the farthest pairs drop
 BIG_CAPACITY = 64  # "big" triangles per camera frame
+PIXEL_WINDOW = 4  # classic path: tiny-class bbox limit in pixels
+MAX_TILES_PER_PASS = 4096  # classic path: tiles per fine-kernel launch (caps
+# the gathered line table at high tile counts, e.g. 2048^2 shadow maps)
+RASTERS = ("cells", "classic")
 
 
 def _edge_lines(v: torch.Tensor) -> torch.Tensor:
@@ -46,6 +61,42 @@ def untile_img(x: torch.Tensor, tw: int, th: int, pad_h: int, pad_w: int,
     return (
         x.reshape(th, tw, tile, tile).permute(0, 2, 1, 3).reshape(pad_h, pad_w)[:height, :width]
     )
+
+
+def _bounds(v, depth_attr, tri_active, width: int, height: int, near: float, far: float):
+    """Classify (rasterize_tiled.py:434-456): returns (all_front, the
+    clipped pixel bbox x0, x1, y0, y1, zmin, active), where active drops
+    triangles behind the near plane and front triangles off screen or out
+    of the depth range."""
+    w = v[..., 2]
+    all_front = (w > 1e-6).all(dim=-1)
+    safe_w = torch.where(w.abs() < 1e-9, torch.full_like(w, 1e-9), w)
+    u_px = v[..., 0] / safe_w
+    v_px = v[..., 1] / safe_w
+    umin, umax = u_px.amin(-1), u_px.amax(-1)
+    vmin, vmax = v_px.amin(-1), v_px.amax(-1)
+    x0 = torch.clamp(torch.floor(umin), 0, width - 1)
+    x1 = torch.clamp(torch.ceil(umax), 0, width - 1)
+    y0 = torch.clamp(torch.floor(vmin), 0, height - 1)
+    y1 = torch.clamp(torch.ceil(vmax), 0, height - 1)
+    on_screen = (umax >= 0) & (umin < width) & (vmax >= 0) & (vmin < height)
+    zmin = depth_attr.amin(-1)
+    zmax = depth_attr.amax(-1)
+    in_range = (zmax > near) & (zmin <= far)
+    active = tri_active & (zmax > near)
+    active = active & ~(all_front & (~on_screen | ~in_range))
+    return all_front, x0, x1, y0, y1, zmin, active
+
+
+def _line_table(v: torch.Tensor, depth_attr: torch.Tensor):
+    """(Lf (F, 3, 3), LT (F, FIELDS)): the edge lines and the packed line
+    table [L0|L1|L2|Lsum|Lz] x (x, y, c) with one pad column."""
+    Lf = _edge_lines(v)
+    Lsum = Lf[:, 0] + Lf[:, 1] + Lf[:, 2]
+    d = depth_attr[:, :, None]
+    Lz = Lf[:, 0] * d[:, 0] + Lf[:, 1] * d[:, 1] + Lf[:, 2] * d[:, 2]
+    pad = torch.zeros((v.shape[0], FIELDS - 15), device=v.device)
+    return Lf, torch.cat([Lf.reshape(-1, 9), Lsum, Lz, pad], dim=1)
 
 
 def build_cells(
@@ -69,24 +120,9 @@ def build_cells(
     n_tiles = tw * th
     i32 = dict(dtype=torch.int32, device=dev)
 
-    w = v[..., 2]
-    all_front = (w > 1e-6).all(dim=-1)
-    safe_w = torch.where(w.abs() < 1e-9, torch.full_like(w, 1e-9), w)
-    u_px = v[..., 0] / safe_w
-    v_px = v[..., 1] / safe_w
-    umin, umax = u_px.amin(-1), u_px.amax(-1)
-    vmin, vmax = v_px.amin(-1), v_px.amax(-1)
-    x0 = torch.clamp(torch.floor(umin), 0, width - 1)
-    x1 = torch.clamp(torch.ceil(umax), 0, width - 1)
-    y0 = torch.clamp(torch.floor(vmin), 0, height - 1)
-    y1 = torch.clamp(torch.ceil(vmax), 0, height - 1)
-    on_screen = (umax >= 0) & (umin < width) & (vmax >= 0) & (vmin < height)
-    zmin = depth_attr.amin(-1)
-    zmax = depth_attr.amax(-1)
-    in_range = (zmax > near) & (zmin <= far)
-    active = tri_active & (zmax > near)
-    active = active & ~(all_front & (~on_screen | ~in_range))
-
+    all_front, x0, x1, y0, y1, zmin, active = _bounds(
+        v, depth_attr, tri_active, width, height, near, far
+    )
     tx0 = (x0 / tile).to(torch.int32)
     tx1 = (x1 / tile).to(torch.int32)
     ty0 = (y0 / tile).to(torch.int32)
@@ -198,14 +234,7 @@ def build_cells(
         -1,
     ).to(torch.int32)  # (MAXC, C)
 
-    # packed line table [L0|L1|L2|Lsum|Lz] x (x, y, c), natural layout
-    Lf = _edge_lines(v)
-    Lsum = Lf[:, 0] + Lf[:, 1] + Lf[:, 2]
-    d = depth_attr[:, :, None]
-    Lz = Lf[:, 0] * d[:, 0] + Lf[:, 1] * d[:, 1] + Lf[:, 2] * d[:, 2]
-    LT = torch.cat(
-        [Lf.reshape(-1, 9), Lsum, Lz, torch.zeros((F, FIELDS - 15), device=dev)], dim=1
-    )
+    _, LT = _line_table(v, depth_attr)
     G = LT[torch.clamp(ids, min=0).long().reshape(-1)].reshape(max_cells, C, FIELDS)
     return G, ids, cell_tile, tw, th, n_tiles
 
@@ -261,21 +290,286 @@ def rasterize_vertices_cells(
     return depth_img, tri_img
 
 
+def _compact(mask: torch.Tensor, cap: int):
+    """The first ``cap`` indices where ``mask`` holds, by a cumsum rank and
+    a scatter into a dump slot at ``cap`` (rasterize_tiled.py:503-508), no
+    sort: returns (ids (cap,) i32, 0 past the count; ok (cap,) bool)."""
+    F = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+    src = torch.where(mask & (rank < cap), rank, cap).long()
+    ar = torch.arange(F, dtype=torch.int32, device=mask.device)
+    ids = torch.zeros(cap + 1, dtype=torch.int32, device=mask.device).scatter_(0, src, ar)[:cap]
+    ok = torch.arange(cap, device=mask.device) < mask.sum()
+    return ids, ok
+
+
+def build_tile_lists(
+    v: torch.Tensor,  # (F, 3, 3) homogeneous vertex coords (u*w, v*w, w)
+    depth_attr: torch.Tensor,  # (F, 3)
+    tri_active: torch.Tensor,  # (F,) bool
+    width: int,
+    height: int,
+    near: float,
+    far: float,
+    tile_capacity: int,
+    big_capacity: int,
+    fine_chunk: int,
+    pixel_stage: bool,
+    tile: int = TILE,
+):
+    """Everything of the classic path before the fine kernel
+    (rasterize_tiled.py:428-609). Returns a dict: ``ids`` (n_tiles,
+    n_chunks, fine_chunk) i32, each tile's slots (its ``tile_capacity``
+    list, then the global big list, -1 where masked); ``LT`` (F, FIELDS)
+    the packed line table; ``Lf`` the edge lines; ``tw``, ``th``,
+    ``n_tiles``; and what the pixel stage needs (``tiny``, ``px_span_x``,
+    ``px_span_y``, ``x0``, ``y0``)."""
+    dev = v.device
+    F = v.shape[0]
+    tw = -(-width // tile)
+    th = -(-height // tile)
+    n_tiles = tw * th
+    all_front, x0, x1, y0, y1, zmin, active = _bounds(
+        v, depth_attr, tri_active, width, height, near, far
+    )
+    px_span_x = (x1.to(torch.int32) - x0.to(torch.int32)) + 1
+    px_span_y = (y1.to(torch.int32) - y0.to(torch.int32)) + 1
+    if pixel_stage:
+        tiny = active & all_front & (px_span_x <= PIXEL_WINDOW) & (px_span_y <= PIXEL_WINDOW)
+    else:  # low-poly scenes: everything goes through the tile lists
+        tiny = torch.zeros_like(active)
+    tx0 = (x0 / tile).to(torch.int32)
+    tx1 = (x1 / tile).to(torch.int32)
+    ty0 = (y0 / tile).to(torch.int32)
+    ty1 = (y1 / tile).to(torch.int32)
+    span_x = tx1 - tx0 + 1
+    span_y = ty1 - ty0 + 1
+    small = active & all_front & ~tiny & (span_x <= SPAN_TILES) & (span_y <= SPAN_TILES)
+    big = active & ~small & ~tiny
+    znorm = torch.clamp(zmin / far, 0.0, 1.0) * 0.999
+
+    def span_class_pairs(mask, span_budget, cap):
+        """(key, tri) pairs of a compacted span class (:501-528)."""
+        ids, ok = _compact(mask, cap)
+        il = ids.long()
+        s = torch.arange(span_budget * span_budget, dtype=torch.int32, device=dev)
+        sx = s % span_budget
+        sy = s // span_budget
+        ptx = tx0[il][None, :] + sx[:, None]
+        pty = ty0[il][None, :] + sy[:, None]
+        pok = ok[None, :] & (sx[:, None] < span_x[il][None, :]) & (sy[:, None] < span_y[il][None, :])
+        ptile = pty * tw + ptx
+        key = torch.where(
+            pok, ptile.to(torch.float32) + znorm[il][None, :], float(n_tiles + 2)
+        ).reshape(-1)
+        tri = ids[None, :].expand(s.shape[0], cap).reshape(-1)
+        return key, tri
+
+    small2 = small & (span_x <= 2) & (span_y <= 2)
+    small4 = small & ~small2
+    cap2 = int(min(F, max(16384, F // 8)))
+    cap4 = int(min(F, max(4096, F // 32)))
+    key2, tri2 = span_class_pairs(small2, 2, cap2)
+    key4, tri4 = span_class_pairs(small4, SPAN_TILES, cap4)
+    key = torch.cat([key2, key4])
+    pair_tri = torch.cat([tri2, tri4])
+
+    # per-tile lists (:539-548): a stable sort of the f32 keys, then the
+    # first tile_capacity pairs from each tile's left search position
+    sorted_key, order = torch.sort(key, stable=True)
+    sorted_tri = pair_tri[order]
+    sorted_tile = torch.floor(sorted_key).to(torch.int32)
+    tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(sorted_key, tiles.to(torch.float32))
+    offs = torch.arange(tile_capacity, device=dev)
+    gi = torch.clamp(starts[:, None] + offs[None, :], 0, sorted_tri.shape[0] - 1)
+    tile_ok = sorted_tile[gi] == tiles[:, None]
+    # the global big list (:550-570) appended to every tile
+    big_ids, big_ok = _compact(big, big_capacity)
+    tile_tris = torch.cat([sorted_tri[gi], big_ids[None].expand(n_tiles, -1)], dim=1)
+    tile_ok = torch.cat([tile_ok, big_ok[None].expand(n_tiles, -1)], dim=1)
+
+    K = tile_tris.shape[1]
+    n_chunks = -(-K // fine_chunk)
+    ids = torch.full((n_tiles, n_chunks * fine_chunk), -1, dtype=torch.int32, device=dev)
+    ids[:, :K] = torch.where(tile_ok, tile_tris, -1)
+    Lf, LT = _line_table(v, depth_attr)
+    return dict(
+        ids=ids.reshape(n_tiles, n_chunks, fine_chunk), LT=LT, Lf=Lf, tw=tw, th=th,
+        n_tiles=n_tiles, tiny=tiny, px_span_x=px_span_x, px_span_y=px_span_y, x0=x0, y0=y0,
+    )
+
+
+def fine_stage(ids, LT, md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell=1):
+    """The row gather into G and the fine kernel, slabbed over
+    ``MAX_TILES_PER_PASS`` tiles (:627-659). Returns per-tile (w, t)."""
+    n_tiles, n_chunks, _ = ids.shape
+    w_parts, t_parts = [], []
+    for t0 in range(0, n_tiles, MAX_TILES_PER_PASS):
+        ids_s = ids[t0 : t0 + MAX_TILES_PER_PASS]
+        nts = ids_s.shape[0]
+        g = LT[torch.clamp(ids_s, min=0).reshape(-1).long()]  # row gather
+        g = g.reshape(nts, n_chunks, fine_chunk, FIELDS).transpose(2, 3).contiguous()
+        w, t = fine_raster(
+            g, ids_s.contiguous(), md_tiles[t0 : t0 + nts].contiguous(), float(near), float(far),
+            fine_chunk, tw, tile_offset=t0, tile=tile, tiles_per_cell=tiles_per_cell,
+        )
+        w_parts.append(w)
+        t_parts.append(t)
+    return torch.cat(w_parts), torch.cat(t_parts)
+
+
+def rasterize_vertices(
+    v: torch.Tensor,
+    depth_attr: torch.Tensor,
+    tri_active: torch.Tensor,
+    width: int,
+    height: int,
+    near: float,
+    far: float,
+    tile_capacity: int,
+    big_capacity: int,
+    fine_chunk: int,
+    pixel_stage: bool = True,
+    tile: int = TILE,
+    tiles_per_cell: int = 1,
+):
+    """Classic span-class binned z-buffer (rasterize_tiled.py:386-668, the
+    kernel path). Returns (depth image, triangle-id image), both (H, W).
+    The depth-peel floor is 0 everywhere (alpha peel is not ported)."""
+    lists = build_tile_lists(
+        v, depth_attr, tri_active, width, height, near, far, tile_capacity, big_capacity,
+        fine_chunk, pixel_stage, tile=tile,
+    )
+    tw, th, n_tiles = lists["tw"], lists["th"], lists["n_tiles"]
+    md_tiles = torch.zeros((n_tiles, tile * tile), device=v.device)
+    depth_t, tri_t = fine_stage(
+        lists["ids"], lists["LT"], md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell
+    )
+    pad_w, pad_h = tw * tile, th * tile
+    depth_img = untile_img(depth_t, tw, th, pad_h, pad_w, height, width, tile)
+    tri_img = untile_img(tri_t, tw, th, pad_h, pad_w, height, width, tile)
+    if pixel_stage:
+        depth_img, tri_img = _run_pixel_stages(
+            lists["Lf"], depth_attr, lists["tiny"], lists["px_span_x"], lists["px_span_y"],
+            lists["x0"], lists["y0"], width, height, near, far, depth_img, tri_img,
+        )
+    return depth_img, tri_img
+
+
+def _run_pixel_stages(
+    Lf, depth_attr, tiny, px_span_x, px_span_y, x0, y0, width, height, near, far,
+    depth_img, tri_img,
+):
+    """The exact per-pixel stage (:764-795): sub-2-px triangles pay a
+    4-pair window, the compacted 2-4-px rest a 16-pair window; both pair
+    lists feed one resolve."""
+    F = Lf.shape[0]
+    tiny2 = tiny & (px_span_x <= 2) & (px_span_y <= 2)
+    pid2, w2, tid2 = _pixel_pairs(
+        Lf, depth_attr, tiny2, x0, y0, width, height, near, far, window=2
+    )
+    tiny4 = tiny & ~tiny2
+    cap4 = int(min(F, max(4096, F // 16)))
+    ids4, ok4 = _compact(tiny4, cap4)
+    il = ids4.long()
+    pid4, w4, tid4 = _pixel_pairs(
+        Lf[il], depth_attr[il], ok4, x0[il], y0[il], width, height, near, far,
+        window=4, tri_ids=ids4,
+    )
+    return _resolve_pixel_pairs(
+        torch.cat([pid2, pid4]), torch.cat([w2, w4]), torch.cat([tid2, tid4]),
+        width, height, depth_img, tri_img,
+    )
+
+
+def _pixel_pairs(Lf, depth_attr, tiny, x0, y0, width, height, near, far,
+                 window=PIXEL_WINDOW, tri_ids=None):
+    """(pixel id, depth, triangle id) covering pairs of one tiny span class
+    (:798-857): centre coverage of every (triangle, window pixel) pair;
+    ``tri_ids`` names the triangles of a compacted subset."""
+    dev = Lf.device
+    F = Lf.shape[0]
+    n_px = width * height
+    win = torch.arange(window * window, dtype=torch.int32, device=dev)
+    px = x0.to(torch.int32)[None, :] + (win % window)[:, None]  # (n_win, F)
+    py = y0.to(torch.int32)[None, :] + (win // window)[:, None]
+    in_image = (px < width) & (py < height)
+    pix_id = py * width + px
+    cx = px.to(torch.float32) + 0.5
+    cy = py.to(torch.float32) + 0.5
+    E0 = Lf[None, :, 0, 0] * cx + Lf[None, :, 0, 1] * cy + Lf[None, :, 0, 2]
+    E1 = Lf[None, :, 1, 0] * cx + Lf[None, :, 1, 1] * cy + Lf[None, :, 1, 2]
+    E2 = Lf[None, :, 2, 0] * cx + Lf[None, :, 2, 1] * cy + Lf[None, :, 2, 2]
+    inside = ((E0 >= 0) & (E1 >= 0) & (E2 >= 0)) | ((E0 <= 0) & (E1 <= 0) & (E2 <= 0))
+    Esum = E0 + E1 + E2
+    denom = torch.where(Esum.abs() < 1e-20, torch.ones_like(Esum), Esum)
+    wp = (
+        E0 * depth_attr[None, :, 0] + E1 * depth_attr[None, :, 1] + E2 * depth_attr[None, :, 2]
+    ) / denom
+    covers = (
+        tiny[None, :] & in_image & inside & (Esum.abs() > 1e-20) & (wp > near) & (wp <= far)
+    )
+    pid = torch.where(covers, pix_id, n_px).reshape(-1)  # n_px = dump slot
+    wflat = torch.where(covers, wp, float("inf")).reshape(-1)
+    tids = torch.arange(F, dtype=torch.int32, device=dev) if tri_ids is None else tri_ids
+    return pid, wflat, tids[None, :].expand(window * window, F).reshape(-1)
+
+
+def _resolve_pixel_pairs(pid, wflat, tid_pairs, width, height, depth_img, tri_img):
+    """Winner per pixel with two scatter-mins (:860-887): the depth, then
+    the lowest id among the pairs at exactly that depth; merged into the
+    tile result with a strict ``<``, so the tile result keeps a tie."""
+    n_px = width * height
+    dev = wflat.device
+    pid = pid.long()
+    dmin = torch.full((n_px + 1,), float("inf"), device=dev).scatter_reduce_(
+        0, pid, wflat, "amin"
+    )
+    big_id = 2**31 - 1
+    cand = torch.where((wflat <= dmin[pid]) & torch.isfinite(wflat), tid_pairs, big_id)
+    twin = torch.full((n_px + 1,), big_id, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, pid, cand, "amin"
+    )
+    cw = dmin[:n_px].reshape(height, width)
+    ctri = twin[:n_px].reshape(height, width)
+    better = cw < depth_img
+    return torch.where(better, cw, depth_img), torch.where(better, ctri, tri_img)
+
+
 def rasterize_tiled(
     geom: GeometryBuffers,
     atlas: SceneAtlas,
     inputs: RenderInputs,
     width: int,
     height: int,
+    raster: str = "cells",
+    tile_capacity: int = 256,
+    big_capacity: int = BIG_CAPACITY,
+    fine_chunk: int = 128,
+    pixel_stage: bool | None = None,
+    tiles_per_cell: int = 1,
 ) -> GBuffer:
-    """Camera raster (rasterize_tiled.py:890-934, cell path, two-sided).
-    Barycentrics and facing are recomputed in shading."""
+    """Camera raster (rasterize_tiled.py:890-934, two-sided), through the
+    cell path or, with ``raster="classic"``, the span-class path (the JAX
+    package's ``SL_RASTER``). ``pixel_stage`` None means on for more than
+    20,000 faces. Barycentrics and facing are recomputed in shading."""
     faces = atlas.faces.long()
     v = geom.pix_hom[faces]  # (F, 3, 3)
     visible = inputs.obj_visible[atlas.face_obj.long()]
-    depth_img, tri_img = rasterize_vertices_cells(
-        v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, BIG_CAPACITY
-    )
+    if raster == "cells":
+        depth_img, tri_img = rasterize_vertices_cells(
+            v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, big_capacity
+        )
+    elif raster == "classic":
+        if pixel_stage is None:
+            pixel_stage = faces.shape[0] > 20_000
+        depth_img, tri_img = rasterize_vertices(
+            v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, tile_capacity,
+            big_capacity, fine_chunk, pixel_stage, tiles_per_cell=tiles_per_cell,
+        )
+    else:
+        raise ValueError(f"rasterize_tiled: raster {raster!r} not in {RASTERS}")
     return GBuffer(
         tri_id=tri_img,
         depth=depth_img,

@@ -1,11 +1,12 @@
 """Shadow maps: per-light ortho depth raster, VSM moments, VSM lookup.
 
 Counterpart of the default path of ``stillleben_tpu/render/shadow.py``:
-``render_shadow_maps`` (:207-301), the cell branch of
-``_ortho_rasterize_depth`` (:113-152), ``build_vsm`` (:304-324) and
-``shadow_factor_vsm_planar`` with 4 taps (:331-380). The depth pass runs
-the same cell kernel as the camera raster, on the decimated caster proxy.
-Not ported yet: PCF, the classic raster branch, the shadow-pass face cull.
+``render_shadow_maps`` (:207-301), both branches of
+``_ortho_rasterize_depth`` (:85-204) with ``_splat_tiny_depth`` (:24-82),
+``build_vsm`` (:304-324) and ``shadow_factor_vsm_planar`` with 4 taps
+(:331-380). The depth pass runs the same raster as the camera (cells or
+classic), on the decimated caster proxy. Not ported yet: PCF, the
+shadow-pass face cull (``SL_SHADOW_CULL``).
 """
 
 from __future__ import annotations
@@ -14,11 +15,48 @@ import torch
 
 from ..core import math as m
 from .atlas import RenderInputs, SceneAtlas
-from .rasterize_tiled import rasterize_vertices_cells
+from .rasterize_tiled import _edge_lines, _compact, rasterize_vertices, rasterize_vertices_cells
 
 SHADOW_BIAS = 3e-5  # reference render_shader.frag:335
 VSM_MIN_VARIANCE = 1e-6
 VSM_BLEED = 0.3
+
+
+def _splat_tiny_depth(
+    p: torch.Tensor,  # (F, 3, 3) homogeneous (x, y, 1) shadow-pixel verts
+    zf: torch.Tensor,  # (F, 3) light-space depth per vertex
+    tiny: torch.Tensor,  # (F,) bool: triangles whose bbox fits the window
+    size: int,
+    window: int = 2,
+) -> torch.Tensor:
+    """Exact depth-only z-buffer of sub-window triangles as one scatter-min
+    over their window^2 candidate pixels -> (S, S), 1 = far
+    (shadow.py:24-82)."""
+    n_px = size * size
+    x0 = torch.floor(p[..., 0].amin(-1)).to(torch.int32)
+    y0 = torch.floor(p[..., 1].amin(-1)).to(torch.int32)
+    Lf = _edge_lines(p)
+    win = torch.arange(window * window, dtype=torch.int32, device=p.device)
+    px = x0[None, :] + (win % window)[:, None]  # (n_win, F)
+    py = y0[None, :] + (win // window)[:, None]
+    cx = px.to(torch.float32) + 0.5
+    cy = py.to(torch.float32) + 0.5
+    E0 = Lf[None, :, 0, 0] * cx + Lf[None, :, 0, 1] * cy + Lf[None, :, 0, 2]
+    E1 = Lf[None, :, 1, 0] * cx + Lf[None, :, 1, 1] * cy + Lf[None, :, 1, 2]
+    E2 = Lf[None, :, 2, 0] * cx + Lf[None, :, 2, 1] * cy + Lf[None, :, 2, 2]
+    inside = ((E0 >= 0) & (E1 >= 0) & (E2 >= 0)) | ((E0 <= 0) & (E1 <= 0) & (E2 <= 0))
+    Esum = E0 + E1 + E2
+    denom = torch.where(Esum.abs() < 1e-20, torch.ones_like(Esum), Esum)
+    wp = (E0 * zf[None, :, 0] + E1 * zf[None, :, 1] + E2 * zf[None, :, 2]) / denom
+    covers = (
+        tiny[None, :] & inside & (Esum.abs() > 1e-20) & (wp > 0.0) & (wp <= 1.0)
+        & (px >= 0) & (px < size) & (py >= 0) & (py < size)
+    )
+    pid = torch.where(covers, py * size + px, n_px).reshape(-1).long()  # n_px: dump slot
+    img = torch.ones(n_px + 1, device=p.device).scatter_reduce_(
+        0, pid, torch.where(covers, wp, 1.0).reshape(-1), "amin"
+    )
+    return img[:n_px].reshape(size, size)
 
 
 def _ortho_rasterize_depth(
@@ -27,17 +65,50 @@ def _ortho_rasterize_depth(
     faces: torch.Tensor,  # (F, 3)
     tri_on: torch.Tensor,  # (F,) bool
     size: int,
+    raster: str = "cells",
+    tiles_per_cell: int = 1,
 ) -> torch.Tensor:
     """Depth-only ortho raster -> (size, size) min-depth map (1 = far).
-    Tiles of 32 px for maps >= 1024^2 (else 16) and cells of 128
-    triangles: the JAX package's values off the TPU (shadow.py:137,140)."""
+
+    Cells: tiles of 32 px for maps >= 1024^2 (else 16) and cells of 128
+    triangles, the JAX package's values off the TPU (shadow.py:137,140).
+    Classic (shadow.py:162-204): sub-2-px triangles and the compacted
+    2-4-px class are splatted exactly; the rest goes through the span-class
+    raster with 64-px tiles for maps >= 1024^2 (else 16); the map is the
+    minimum of the three."""
     faces = faces.long()
     p = torch.cat([xy, torch.ones_like(xy[:, :1])], -1)[faces]  # (F, 3, 3), w == 1
     zf = z[faces]
-    tile = 32 if size >= 1024 else 16
-    depth_img, _ = rasterize_vertices_cells(
-        p, zf, tri_on, size, size, near=-1e-3, far=1.0, big_capacity=16, tile=tile
+    if raster == "cells":
+        tile = 32 if size >= 1024 else 16
+        depth_img, _ = rasterize_vertices_cells(
+            p, zf, tri_on, size, size, near=-1e-3, far=1.0, big_capacity=16, tile=tile
+        )
+        return torch.clamp(depth_img, max=1.0)
+
+    xmin, xmax = p[..., 0].amin(-1), p[..., 0].amax(-1)
+    ymin, ymax = p[..., 1].amin(-1), p[..., 1].amax(-1)
+    on_map = (xmax >= 0) & (xmin < size) & (ymax >= 0) & (ymin < size)
+    spx = torch.ceil(xmax) - torch.floor(xmin)
+    spy = torch.ceil(ymax) - torch.floor(ymin)
+    tiny2 = tri_on & on_map & (spx <= 2) & (spy <= 2)
+    tiny4 = tri_on & on_map & ~tiny2 & (spx <= 4) & (spy <= 4)
+    F = p.shape[0]
+    cap4 = int(min(F, max(8192, F // 2)))
+    ids4, ok4 = _compact(tiny4, cap4)
+    il = ids4.long()
+    # the 2-4-px triangles that fit cap4 leave the binned path
+    in_splat4 = torch.zeros(F, dtype=torch.bool, device=p.device).index_put_(
+        (il[ok4],), torch.ones((), dtype=torch.bool, device=p.device)
     )
+    tile = 64 if size >= 1024 else 16
+    depth_img, _ = rasterize_vertices(
+        p, zf, tri_on & ~tiny2 & ~in_splat4, size, size, near=-1e-3, far=1.0,
+        tile_capacity=128, big_capacity=16, fine_chunk=128, pixel_stage=False, tile=tile,
+        tiles_per_cell=tiles_per_cell,
+    )
+    depth_img = torch.minimum(depth_img, _splat_tiny_depth(p, zf, tiny2, size))
+    depth_img = torch.minimum(depth_img, _splat_tiny_depth(p[il], zf[il], ok4, size, window=4))
     return torch.clamp(depth_img, max=1.0)
 
 
@@ -57,9 +128,13 @@ def build_vsm(depth_map: torch.Tensor, taps: int = 4) -> torch.Tensor:
     return torch.stack([mu, m2], dim=-1)
 
 
-def render_shadow_maps(atlas: SceneAtlas, inputs: RenderInputs, size: int, max_lights: int):
+def render_shadow_maps(
+    atlas: SceneAtlas, inputs: RenderInputs, size: int, max_lights: int,
+    raster: str = "cells", tiles_per_cell: int = 1,
+):
     """Returns (VSM maps (L, S, S, 2), matrices (L, 4, 4) world -> (u, v, z)).
-    The light axis is a loop (one depth raster per light)."""
+    The light axis is a loop (one depth raster per light); ``raster``
+    picks the depth pass's raster, as the camera's."""
     n_lights = min(inputs.light_directions.shape[0], max_lights)
     dev = atlas.shadow_positions.device
     caster = inputs.obj_casts_shadows & inputs.obj_visible
@@ -100,7 +175,9 @@ def render_shadow_maps(atlas: SceneAtlas, inputs: RenderInputs, size: int, max_l
         u = (wl[:, 0] / ext * 0.5 + 0.5) * size
         v = (wl[:, 1] / ext * 0.5 + 0.5) * size
         z = torch.clamp(wl[:, 2] / zmax, 0.0, 1.0)
-        d = _ortho_rasterize_depth(torch.stack([u, v], -1), z, atlas.shadow_faces, tri_on, size)
+        d = _ortho_rasterize_depth(
+            torch.stack([u, v], -1), z, atlas.shadow_faces, tri_on, size, raster, tiles_per_cell
+        )
         vsm = build_vsm(d)
         maps.append(torch.where(light_on, vsm, torch.ones_like(vsm)))
 

@@ -1,6 +1,6 @@
 """A minimal host scene: what a batch template reads, and nothing else.
 
-Holds objects (shared ``stillleben_tpu.assets.mesh.Mesh`` meshes with pose,
+Holds objects (``assets.mesh.Mesh`` meshes with pose,
 instance index, PBR overrides, shadow flag, static flag and mass
 properties), the viewport and projection, lights, ambient light,
 background colour and exposure, with the reference's defaults
@@ -17,13 +17,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from stillleben_tpu.physics.bodies import (
+from ..physics.bodies import (
     DEFAULT_DENSITY,
     aggregate_mass_properties,
     transform_hull,
     transform_mass_properties,
 )
-
 from ..physics.contacts import Floor, make_floor
 from ..physics.tabletop import FLOOR_TOP_Z
 from ..render.camera import DEFAULT_HFOV_DEG, projection_from_fov
@@ -131,7 +130,7 @@ class Scene:
     def all_dynamic(self) -> bool:
         return all(not o.static for o in self.objects)
 
-    def default_floor(self, device) -> Floor:
+    def default_floor(self, device="cuda") -> Floor:
         """The tabletop floor, present only when every object is dynamic
         (scene.py:408-411)."""
         return make_floor(height=FLOOR_TOP_Z, enabled=self.all_dynamic(), friction=0.5,

@@ -47,6 +47,16 @@ CFG = FrameConfig(width=W, height=H, max_lights=1, shadow_size=SHADOW_SIZE)
 
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
+    return make_frames(tmp_path_factory, "cells")
+
+
+def make_frames(tmp_path_factory, raster):
+    """Both packages' frames of one settled scene through ``raster``, with
+    what the checks need. The JAX package takes the classic path from
+    ``SL_RASTER=classic``, which the caller sets, with its Pallas kernel
+    in interpret mode, whose tie rule the port follows."""
+    jax_cfg = JAX_CFG if raster == "cells" else JAX_CFG._replace(use_pallas=True)
+    cfg = CFG._replace(raster=raster)
     meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
     rng = np.random.default_rng(7)
     mr = [(float(rng.random()), float(rng.random())) for _ in meshes]
@@ -54,10 +64,10 @@ def frames(tmp_path_factory):
     poses, cam, light = jax_settle_scene(
         jax.random.PRNGKey(3), tpl, jax_default_config(), settle_iterations=10
     )
-    fj = to_numpy(jax_render(tpl, poses, cam, JAX_CFG, light))
+    fj = to_numpy(jax_render(tpl, poses, cam, jax_cfg, light))
     ptpl = template_from_numpy(to_numpy(tpl), "cpu")
     pposes, pcam, plight = (torch.from_numpy(np.array(x)) for x in (poses, cam, light))
-    fp = render_with_poses(ptpl, pposes, pcam, CFG, plight)
+    fp = render_with_poses(ptpl, pposes, pcam, cfg, plight)
     fp = type(fp)(*(x.to(torch.int32).numpy() if x.dtype == torch.uint16 else x.numpy() for x in fp))
 
     # both packages' inputs of this frame and their triangle-id images
@@ -67,17 +77,19 @@ def frames(tmp_path_factory):
         light_directions=tpl.base_inputs.light_directions.at[0].set(light),
     )
     jgeom = jax_geometry_stage(tpl.render_atlas, jin, W, H)
-    tri_j = np.asarray(jax_rasterize_tiled(jgeom, tpl.render_atlas, jin, W, H).tri_id)
+    tri_j = np.asarray(jax_rasterize_tiled(
+        jgeom, tpl.render_atlas, jin, W, H, use_pallas=jax_cfg.use_pallas,
+    ).tri_id)
     pin = ptpl.base_inputs._replace(
         obj_to_world=torch.from_numpy(np.asarray(jin.obj_to_world)), cam_pose=pcam,
         light_directions=torch.from_numpy(np.asarray(jin.light_directions)),
     )
     pgeom = geometry_stage(ptpl.render_atlas, pin, W, H)
-    tri_p = rasterize_tiled(pgeom, ptpl.render_atlas, pin, W, H).tri_id.numpy()
+    tri_p = rasterize_tiled(pgeom, ptpl.render_atlas, pin, W, H, raster=raster).tri_id.numpy()
     v = np.asarray(jgeom.pix_hom)[np.asarray(tpl.render_atlas.faces)]
     shadows = (
-        to_numpy(jax_shadow_maps(tpl.render_atlas, jin, jgeom, JAX_CFG)),
-        [x.numpy() for x in render_shadow_maps(ptpl.render_atlas, pin, SHADOW_SIZE, 1)],
+        to_numpy(jax_shadow_maps(tpl.render_atlas, jin, jgeom, jax_cfg)),
+        [x.numpy() for x in render_shadow_maps(ptpl.render_atlas, pin, SHADOW_SIZE, 1, raster)],
     )
     well = well_conditioned(fj.barycentric_coeffs, fp.barycentric_coeffs, tri_j, v)
     pen = penumbra(fj, shadows[0], np.asarray(cam))

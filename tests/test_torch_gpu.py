@@ -32,7 +32,7 @@ pytestmark = pytest.mark.gpu
 def scene(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: these tests compare the port on the card with the CPU")
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
     cpu, gpu = port_template(meshes, "cpu"), port_template(meshes, "cuda")
     poses, cams, lights = settle_scene(torch.Generator().manual_seed(4), 1, cpu, default_config(), 10)
     return cpu, gpu, poses[0], cams[0], lights[0]

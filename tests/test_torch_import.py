@@ -1,6 +1,8 @@
-"""The port imports no jax: a fresh interpreter that refuses every jax
-module imports the whole package, builds a template from mesh files and
-renders a frame on the CPU."""
+"""The port imports neither jax nor the JAX package: a fresh interpreter
+that refuses every ``jax``, ``jaxlib`` and ``stillleben_tpu`` module (the
+port, ``stillleben_tpu_torch``, is another top-level name) imports the whole
+port, loads meshes from files through the port's own ``Mesh``, builds a
+template and renders a frame through each raster on the CPU."""
 
 import subprocess
 import sys
@@ -10,18 +12,20 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    class NoJax(importlib.abc.MetaPathFinder):
-        def find_spec(self, name, path, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("jax is blocked: " + name)
+    BLOCKED = ("jax", "jaxlib", "stillleben_tpu")
 
-    sys.meta_path.insert(0, NoJax())
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked: " + name)
+
+    sys.meta_path.insert(0, Refuse())
     import torch
     import stillleben_tpu_torch
     for mod in pkgutil.walk_packages(stillleben_tpu_torch.__path__, "stillleben_tpu_torch."):
         importlib.import_module(mod.name)
 
-    from stillleben_tpu.assets.mesh import Mesh
+    from stillleben_tpu_torch.assets.mesh import Mesh
     from stillleben_tpu_torch.assets.procedural import write_meshes
     from stillleben_tpu_torch.parallel.batch import generate_batch, template_from_scene
     from stillleben_tpu_torch.physics.types import default_config
@@ -37,11 +41,12 @@ SCRIPT = textwrap.dedent(
         mesh.scale_to_bbox_diagonal(diag)
         scene.add_object(Object(mesh))
     tpl = template_from_scene(scene, "cpu")
-    cfg = FrameConfig(width=32, height=32, max_lights=1, shadow_size=32)
-    frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, cfg, default_config(),
-                            settle_iterations=1)
-    assert frames.valid.any()
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    for raster in ("cells", "classic"):
+        cfg = FrameConfig(width=32, height=32, max_lights=1, shadow_size=32, raster=raster)
+        frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, cfg, default_config(),
+                                settle_iterations=1)
+        assert frames.valid.any(), raster
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")
     """

@@ -1,6 +1,9 @@
 """The datagen slice of the port end to end on the CPU: its own template
-construction against the JAX package's, and ``generate_batch`` producing every
-``RenderedFrame`` field with the JAX package's shapes and dtypes."""
+construction against the JAX package's, each from its own loader of the
+same mesh files (the JAX side cooking hulls with its Python decomposition,
+the port's one algorithm), and ``generate_batch`` through either raster
+producing every ``RenderedFrame`` field with the JAX package's shapes and
+dtypes."""
 
 import numpy as np
 import pytest
@@ -15,7 +18,13 @@ from torch_port_scene import H, SHADOW_SIZE, W, build_meshes, jax_template, port
 
 @pytest.fixture(scope="module")
 def meshes(tmp_path_factory):
-    return build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    """The port's own meshes."""
+    return build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+
+
+@pytest.fixture(scope="module")
+def jax_meshes(tmp_path_factory):
+    return build_meshes(str(tmp_path_factory.mktemp("jax_meshes")), native_decomp=False)
 
 
 def _leaves(tree, prefix=""):
@@ -27,10 +36,10 @@ def _leaves(tree, prefix=""):
         yield prefix.rstrip("."), tree
 
 
-def test_template_from_scene_matches_jax(meshes):
+def test_template_from_scene_matches_jax(meshes, jax_meshes):
     rng = np.random.default_rng(7)
     mr = [(float(rng.random()), float(rng.random())) for _ in meshes]
-    jt = to_numpy(jax_template(meshes, metallic_roughness=mr))
+    jt = to_numpy(jax_template(jax_meshes, metallic_roughness=mr))
     pt = port_template(meshes, metallic_roughness=mr)
     compared = 0
     for path, value in _leaves(pt):
@@ -54,9 +63,26 @@ def test_template_from_scene_matches_jax(meshes):
 
 
 def test_generate_batch_end_to_end_on_cpu(meshes):
+    check_generate_batch(meshes, FrameConfig(width=W, height=H, max_lights=1,
+                                             shadow_size=SHADOW_SIZE))
+
+
+def test_generate_batch_classic_end_to_end_on_cpu(meshes):
+    check_generate_batch(meshes, FrameConfig(width=W, height=H, max_lights=1,
+                                             shadow_size=SHADOW_SIZE, raster="classic"))
+
+
+def test_frame_config_rejects_unknown_choices():
+    with pytest.raises(ValueError):
+        FrameConfig(width=W, height=H, raster="scanline").check()
+    with pytest.raises(ValueError):
+        FrameConfig(width=W, height=H, raster="classic", fine_tiles_per_cell=3).check()
+    FrameConfig(width=W, height=H, raster="classic", fine_tiles_per_cell=8).check()
+
+
+def check_generate_batch(meshes, cfg):
     tpl = port_template(meshes)
     assert isinstance(tpl, SceneTemplate)
-    cfg = FrameConfig(width=W, height=H, max_lights=1, shadow_size=SHADOW_SIZE)
     frames = generate_batch(torch.Generator().manual_seed(0), 2, tpl, cfg, default_config(),
                             settle_iterations=3)
     want = dict(

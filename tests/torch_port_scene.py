@@ -13,17 +13,24 @@ W = H = 48
 SHADOW_SIZE = 64
 
 
-def build_meshes(directory: str, subdiv: int = 3):
+def build_meshes(directory: str, subdiv: int = 3, port: bool = False, native_decomp: bool = True):
     """cube (0.25 bbox diagonal, class 1), sphere (0.3, class 2) and a
-    dense blob (0.25, class 3) loaded from the procedural OBJ files by the
-    asset layer both packages share. The convex cooking cache goes to
-    ``directory`` too."""
-    from stillleben_tpu.assets.mesh import Mesh
+    dense blob (0.25, class 3) loaded from the procedural OBJ files, by the
+    port's own ``Mesh`` (``port=True``) or by the JAX package's. The convex
+    cooking cache goes to ``directory`` too. ``native_decomp=False`` makes
+    the JAX package cook hulls with its Python decomposition, the one
+    algorithm the port has, so templates of both packages can be compared."""
+    if port:
+        from stillleben_tpu_torch.assets.mesh import Mesh
+    else:
+        from stillleben_tpu.assets.mesh import Mesh
     from stillleben_tpu_torch.assets.procedural import write_meshes
 
     paths = write_meshes(directory, subdiv=subdiv)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STILLLEBEN_TPU_MESH_CACHE", os.path.join(directory, "mesh_cache"))
+        if not native_decomp:
+            mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "0")
         cube = Mesh(paths["cube"])
         sphere = Mesh(paths["sphere"])
         blob = Mesh(paths["blob"], flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
@@ -113,16 +120,19 @@ def depth_f64(v, depth_attr, tri_img):
     return out
 
 
-def check_depth(d_port, d_ref, d64, mask, tol=1e-5, ill_tol=1e-4, max_ill_frac=0.01):
+def check_depth(d_port, d_ref, d64, mask, tol=1e-5, ill_tol=1e-4, max_ill_frac=0.01,
+                well_tol=None):
     """Depth within ``tol`` of the reference at every pixel of ``mask``
-    where both are within ``tol`` of the float64 value. The homogeneous
+    where both are within ``well_tol`` (default ``tol``) of the float64
+    value. The homogeneous
     depth of a triangle only a pixel or two across is ill-conditioned in
     float32 (large line coefficients cancel): there the rounding of either
     side alone (fused multiply-adds in XLA, none in PyTorch, or a different
     interpolation formula) moves it by more than ``tol``. At those pixels,
     at most ``max_ill_frac`` of ``mask``, the port must be within
     ``ill_tol`` of the float64 value."""
-    well = (np.abs(d_ref - d64) <= tol) & (np.abs(d_port - d64) <= tol)
+    well_tol = tol if well_tol is None else well_tol
+    well = (np.abs(d_ref - d64) <= well_tol) & (np.abs(d_port - d64) <= well_tol)
     np.testing.assert_allclose(d_port[mask & well], d_ref[mask & well], rtol=0, atol=tol)
     ill = mask & ~well
     assert ill.sum() <= max_ill_frac * mask.sum(), f"{ill.sum()} ill-conditioned pixels"
