@@ -14,15 +14,25 @@ Phases (one line each or more; any failure exits non-zero):
    serve the kernel captures and the per-render breakdown.
 5. kernels: each raster kernel against its plain PyTorch version on the
    inputs one render of the bench scene really produces: the cell kernel
-   (K1) at the camera (tile 16) and 2048^2 shadow (tile 32) shapes, the
-   classic fine kernel (K2) at the camera (tile 16) and shadow (tile 64)
-   shapes, and K3 (4 and 8 tiles per block) against K2; all bitwise; each
-   timed warm with CUDA events beside its bound.
+   (K1, cells to tiles, the merge included) at the camera (tile 16) and
+   2048^2 shadow (tile 32) shapes, the classic fine kernel (K2) at the
+   camera (tile 16) and shadow (tile 64) shapes, and K3 (4 and 8 tiles per
+   block) against K2; all ``torch.equal``; each timed warm with CUDA
+   events beside its bound (bytes, or the operations this input needs:
+   ``needed_ops``), on inputs that leave only its fixed costs (K1 with no
+   valid cell; K2 with every slot masked, beside a fill of its outputs)
+   and with only its heaviest cell or tile. Then,
+   on the same inputs, the torch stages that the kernels' row gathers and
+   merge replace: ``G = LT[ids]`` and the per-cell floor of the cells
+   path, its cells -> tiles merge, and the classic path's gather and
+   transpose.
 6. main path, cells: ``generate_batch`` B = 8 at 640x480 (10 objects,
    100 x 4 settle, 2048^2 VSM shadow, PBR, full ground truth); content
-   checks; K1's launch counts; scenes/s of a second, warm call.
+   checks; K1's launch counts, and no call of its plain version; scenes/s
+   of a second, warm call.
 7. main path, classic: ``generate_batch`` B = 8 with ``raster="classic"``;
-   the same checks; K2's launch counts at both shapes; scenes/s.
+   the same checks; K2's launch counts at both shapes, and no call of its
+   plain version; scenes/s.
 8. breakdown: the 8 settled poses rendered with both rasters (ms per
    render; per scene the classic-vs-cells instance agreement, split into
    the classic raster's holes, where its pixel stage dropped triangles
@@ -33,8 +43,8 @@ Phases (one line each or more; any failure exits non-zero):
    of each raster against the brute-force oracle's (cells >= 99.9%,
    classic >= 97%, the JAX package's own bound for its classic path).
 
-The second-to-last line is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+The last three lines are a JSON object of the kernels, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script exits non-zero and prints no result.
 """
 
@@ -51,13 +61,28 @@ WIDTH, HEIGHT = 640, 480
 BATCH = 8
 SHADOW_SIZE = 2048
 SEED = 0
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
-PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES = 3.35e12  # HBM3
-# operations of one (triangle slot, pixel) evaluation of K1/K2: 5 edge
-# lines x (2 mul + 2 add), 1 division, 6 inside compares, |Esum| and its
-# compare, near/far/floor compares, the 2 compares of the running minimum
-OPS_PER_EVAL = 20 + 1 + 6 + 2 + 3 + 2
+# float32 instructions that are not fused multiply-adds: the data sheet's
+# 67 TFLOP/s counts an FMA as two operations; one instruction per lane and
+# clock is 132 SMs x 128 lanes x 1.98 GHz. The raster kernels are built
+# with --fmad=false and explicit _rn intrinsics, so each counted operation
+# is one instruction.
+PEAK_F32_OPS = 132 * 128 * 1.98e9  # 33.5e12 per second
+# The operations that z-buffering K1's and K2's inputs needs, counted
+# from this run's data. Per (live slot, 8x4-pixel patch of its tile) a
+# cull, whether the triangle can touch the patch: per edge its value at the
+# patch's middle (2 mul + 2 add), its half-range over the patch (2 abs + 2
+# mul + 1 add) and two range tests (2 add + 2 compares), and 2 to combine
+# the edges. Per pixel of a patch that the cull keeps, the inside test: E0,
+# E1, E2 (2 mul + 2 add each) and 6 sign compares. Per pixel inside, the
+# depth path: Esum and Ez (2 mul + 2 add each), the division, |Esum| and its
+# compare, the near/far/floor compares and the 2 compares of the running
+# minimum.
+CULL_OPS = 3 * 13 + 2
+INSIDE_OPS = 3 * 4 + 6
+DEPTH_OPS = 2 * 4 + 1 + 2 + 3 + 2
+ROW_BYTES = 16 * 4  # one packed line row LT[id]
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 
 
@@ -142,8 +167,48 @@ def cuda_time(torch, fn, reps: int) -> float:
 def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     """The least milliseconds the card could take: the larger of bytes over
     the memory rate and float32 operations over the peak rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def needed_ops(torch, rows, ox, oy, tile: int) -> tuple[int, int, int, int]:
+    """The operations that z-buffering the line rows ``rows`` (S, 16) of
+    live slots needs, each slot over its tile at pixel origin (ox, oy)
+    (S,): CULL_OPS per (slot, patch), INSIDE_OPS per pixel of each (slot,
+    patch) pair whose patch the triangle can touch, DEPTH_OPS per (slot,
+    pixel) inside. The cull is exact (float64, no margin). Returns
+    (operations, slot-patch pairs, kept pairs, inside pairs)."""
+    dev = rows.device
+    f64 = torch.float64
+    pxo = torch.arange(0, tile, 8, device=dev, dtype=f64).repeat(tile // 4)
+    pyo = torch.arange(0, tile, 4, device=dev, dtype=f64).repeat_interleave(tile // 8)
+    lane = torch.arange(32, device=dev)
+    dx, dy = (lane % 8).to(f64) + 0.5, (lane // 8).to(f64) + 0.5
+    pairs = rows.shape[0] * pxo.numel()
+    kept = inside = 0
+    for s0 in range(0, rows.shape[0], 4096):
+        g = rows[s0:s0 + 4096].to(f64)
+        xo, yo = ox[s0:s0 + 4096].to(f64)[:, None], oy[s0:s0 + 4096].to(f64)[:, None]
+        xc, yc = xo + pxo + 4.0, yo + pyo + 2.0  # (s, P) patch middles
+        below = torch.zeros(xc.shape, dtype=torch.bool, device=dev)
+        above = torch.zeros_like(below)
+        for e in range(3):
+            lx, ly, lc = g[:, 3 * e, None], g[:, 3 * e + 1, None], g[:, 3 * e + 2, None]
+            c = lx * xc + ly * yc + lc
+            r = lx.abs() * 3.5 + ly.abs() * 1.5
+            below |= c + r < 0
+            above |= c - r > 0
+        s_i, p_i = torch.nonzero(~(below & above), as_tuple=True)
+        kept += int(s_i.numel())
+        X = (xo[s_i] + pxo[p_i, None]) + dx  # (k, 32) pixel centres
+        Y = (yo[s_i] + pyo[p_i, None]) + dy
+        gk = g[s_i]
+        E = [gk[:, 3 * e, None] * X + gk[:, 3 * e + 1, None] * Y + gk[:, 3 * e + 2, None]
+             for e in range(3)]
+        ins = ((E[0] >= 0) & (E[1] >= 0) & (E[2] >= 0)) | ((E[0] <= 0) & (E[1] <= 0) & (E[2] <= 0))
+        inside += int(ins.sum())
+    n_ops = pairs * CULL_OPS + kept * 32 * INSIDE_OPS + inside * DEPTH_OPS
+    return n_ops, pairs, kept, inside
 
 
 def compare(torch, kernel_out, plain_out) -> tuple[bool, float]:
@@ -176,6 +241,27 @@ def capture(module, attr: str, key, run) -> dict:
     finally:
         setattr(module, attr, original)
     return captured
+
+
+def count_calls(module, attrs, run):
+    """Run ``run()`` with each ``module.attr`` wrapped to count its calls;
+    returns (its result, {attr: calls})."""
+    counts = dict.fromkeys(attrs, 0)
+    originals = {a: getattr(module, a) for a in attrs}
+
+    def counter(attr):
+        def wrapped(*args, **kwargs):
+            counts[attr] += 1
+            return originals[attr](*args, **kwargs)
+        return wrapped
+
+    for a in attrs:
+        setattr(module, a, counter(a))
+    try:
+        return run(), counts
+    finally:
+        for a, f in originals.items():
+            setattr(module, a, f)
 
 
 def check_frames(torch, frames, what: str) -> str:
@@ -291,43 +377,79 @@ def main() -> None:
     if set(k2_in) != {16, 64}:
         fail(f"expected a tile-16 camera and a tile-64 shadow fine pass, got {sorted(k2_in)}")
     k1, k2, k3 = {}, {}, {}
+    uses = {16: "camera", 32: "shadow", 64: "shadow"}
     for tile, (args, _) in sorted(k1_in.items()):
-        G, ids, cell_tile, md, near, far, tw, _, n_tiles = args
+        LT, ids, cell_tile, md, near, far, tw, _, n_tiles = args
         out_k = cr.cell_raster(*args)
-        bitwise, err = compare(torch, out_k, cr.cell_raster_reference(*args))
+        bitwise, err = compare(torch, out_k, cr.cell_raster_plain(*args))
         ms = cuda_time(torch, lambda: cr.cell_raster(*args), 50)
-        plain_ms = cuda_time(torch, lambda: cr.cell_raster_reference(*args), 3)
+        plain_ms = cuda_time(torch, lambda: cr.cell_raster_plain(*args), 3)
+        # what the merge alone costs: the key buffer's fill and unpack, no
+        # valid cell; and what the cell with the most live slots costs alone
         valid = cell_tile < n_tiles
-        slots = int(((ids >= 0) & valid[:, None]).sum())
-        n_bytes = (slots * G.shape[2] * 4 + (ids.numel() + cell_tile.numel() + md.numel()) * 4
-                   + 2 * out_k[0].numel() * 4)
-        b_ms, b_by = bound(n_bytes, slots * tile * tile * OPS_PER_EVAL)
-        use = "camera" if tile == 16 else "shadow"
-        phase("kernel", f"K1 {use}: tile {tile}, {ids.shape[0]} cells x C {ids.shape[1]}, "
-                        f"{int(valid.sum())} valid, {slots} unmasked slots in valid cells; bitwise "
-                        f"equal: {bitwise}; max_abs_err {err}; kernel {ms:.4f} ms, plain "
-                        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
-                        f"{slots * tile * tile * OPS_PER_EVAL} ops) ({name}; {card})")
+        no_cells = torch.full_like(cell_tile, n_tiles)
+        keys_ms = cuda_time(
+            torch, lambda: cr.cell_raster(LT, ids, no_cells, md, near, far, tw, tile, n_tiles), 50)
+        heavy = no_cells.clone()
+        top = int(((ids >= 0).sum(1) * valid).argmax())
+        heavy[top] = cell_tile[top]
+        heavy_ms = cuda_time(
+            torch, lambda: cr.cell_raster(LT, ids, heavy, md, near, far, tw, tile, n_tiles), 50)
+        live = (ids >= 0) & valid[:, None]
+        slots = int(live.sum())
+        slot_tile = cell_tile[:, None].expand_as(ids)[live]
+        n_ops, pairs, kept, inside = needed_ops(
+            torch, LT[ids[live].long()], tile * (slot_tile % tw), tile * (slot_tile // tw), tile)
+        n_bytes = (slots * ROW_BYTES + (ids.numel() + cell_tile.numel()) * 4
+                   + (0 if md is None else n_tiles * tile * tile * 4) + 2 * out_k[0].numel() * 4)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        phase("kernel", f"K1 {uses[tile]}: tile {tile}, {ids.shape[0]} cells x C {ids.shape[1]}, "
+                        f"{int(valid.sum())} valid, {slots} live slots in valid cells, "
+                        f"{n_tiles} tiles; equal: {bitwise}; max_abs_err {err}; kernel {ms:.4f} ms "
+                        f"(with no valid cell {keys_ms:.4f} ms, the heaviest cell "
+                        f"({int((ids[top] >= 0).sum())} live slots) alone {heavy_ms:.4f} ms), "
+                        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
+                        f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
+                        f"pairs inside) ({name}; {card})")
         if not bitwise:
             fail(f"K1 tile {tile}: kernel and plain version differ")
         k1[tile] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     for tile, (args, kw) in sorted(k2_in.items()):
-        G, ids, md = args[:3]
+        LT, ids, md = args[:3]
+        tw, tile_offset = args[6], kw.get("tile_offset", 0)
         out_k = fr.fine_raster(*args, **kw)
-        bitwise, err = compare(torch, out_k, fr.fine_raster_reference(*args, **kw))
+        bitwise, err = compare(torch, out_k, fr.fine_raster_plain(*args, **kw))
         ms = cuda_time(torch, lambda: fr.fine_raster(*args, **kw), 50)
-        plain_ms = cuda_time(torch, lambda: fr.fine_raster_reference(*args, **kw), 3)
-        slots = int((ids >= 0).sum())
-        n_bytes = (slots * G.shape[2] * 4 + (ids.numel() + md.numel()) * 4
+        plain_ms = cuda_time(torch, lambda: fr.fine_raster_plain(*args, **kw), 3)
+        # what empty tiles alone cost (every slot masked), against a fill of
+        # the outputs; and what the heaviest tile costs alone
+        no_slots = torch.full_like(ids, -1)
+        empty_ms = cuda_time(torch, lambda: fr.fine_raster(LT, no_slots, *args[2:], **kw), 50)
+        fill_ms = cuda_time(torch, lambda: (torch.full_like(out_k[0], float("inf")),
+                                            torch.full_like(out_k[1], -1)), 50)
+        heavy = no_slots.clone()
+        top = int((ids >= 0).flatten(1).sum(1).argmax())
+        heavy[top] = ids[top]
+        heavy_ms = cuda_time(torch, lambda: fr.fine_raster(LT, heavy, *args[2:], **kw), 50)
+        live = ids >= 0
+        slots = int(live.sum())
+        gi = tile_offset + torch.arange(ids.shape[0], device=dev)[:, None, None].expand_as(ids)[live]
+        n_ops, pairs, kept, inside = needed_ops(
+            torch, LT[ids[live].long()], tile * (gi % tw), tile * (gi // tw), tile)
+        n_bytes = (slots * ROW_BYTES + (ids.numel() + md.numel()) * 4
                    + 2 * out_k[0].numel() * 4)
-        b_ms, b_by = bound(n_bytes, slots * tile * tile * OPS_PER_EVAL)
-        occupied = int((ids >= 0).any(-1).sum())
-        use = "camera" if tile == 16 else "shadow"
-        phase("kernel", f"K2 {use}: tile {tile}, {ids.shape[0]} tiles x {ids.shape[1]} chunks x "
-                        f"C {ids.shape[2]}, {occupied} occupied chunks, {slots} unmasked slots; "
-                        f"bitwise equal: {bitwise}; max_abs_err {err}; kernel {ms:.4f} ms, plain "
-                        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
-                        f"{slots * tile * tile * OPS_PER_EVAL} ops) ({name}; {card})")
+        b_ms, b_by = bound(n_bytes, n_ops)
+        occupied = int(live.any(-1).sum())
+        per_tile = live.flatten(1).sum(1)
+        phase("kernel", f"K2 {uses[tile]}: tile {tile}, {ids.shape[0]} tiles x {ids.shape[1]} "
+                        f"chunks x C {ids.shape[2]}, {occupied} occupied chunks, {slots} live "
+                        f"slots, {int((per_tile > 0).sum())} occupied tiles, at most "
+                        f"{int(per_tile.max())} slots in a tile; equal: {bitwise}; max_abs_err "
+                        f"{err}; kernel {ms:.4f} ms (every slot masked {empty_ms:.4f} ms, a fill of "
+                        f"the outputs {fill_ms:.4f} ms, the heaviest tile alone {heavy_ms:.4f} ms), "
+                        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
+                        f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
+                        f"pairs inside) ({name}; {card})")
         if not bitwise:
             fail(f"K2 tile {tile}: kernel and plain version differ")
         k2[tile] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -335,12 +457,44 @@ def main() -> None:
             kw3 = dict(kw, tiles_per_cell=tpg)
             bitwise3, err3 = compare(torch, fr.fine_raster(*args, **kw3), out_k)
             ms3 = cuda_time(torch, lambda: fr.fine_raster(*args, **kw3), 50)
-            phase("kernel", f"K3 {use}: tile {tile}, {tpg} tiles per block; bitwise equal to K2: "
+            phase("kernel", f"K3 {uses[tile]}: tile {tile}, {tpg} tiles per block; equal to K2: "
                             f"{bitwise3}; kernel {ms3:.4f} ms ({name}; {card})")
             if not bitwise3:
                 fail(f"K3 tile {tile} tpg {tpg}: differs from K2")
             k3[(tile, tpg)] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by)
+
+    # the torch stages of the earlier design that the kernels now do: the
+    # row gather G = LT[ids] and the per-cell floor before K1 and the
+    # cells -> tiles merge after it; the gather and transpose before K2
+    for tile, (args, _) in sorted(k1_in.items()):
+        LT, ids, cell_tile, _, near, far, tw, _, n_tiles = args
+        n, C = ids.shape
+
+        def gather():
+            return LT[torch.clamp(ids, min=0).long().reshape(-1)].reshape(n, C, cr.FIELDS)
+
+        G = gather()
+        mdc = torch.zeros((n, tile * tile), device=dev)
+        w_c, t_c = cr.cell_raster_reference(G, ids, cell_tile, mdc, near, far, tw, tile, n_tiles)
+        g_ms = cuda_time(torch, gather, 50)
+        z_ms = cuda_time(torch, lambda: torch.zeros((n, tile * tile), device=dev), 50)
+        m_ms = cuda_time(torch, lambda: cr.merge_cells(w_c, t_c, cell_tile, n_tiles), 50)
+        phase("stages", f"cells {uses[tile]}, tile {tile}: gather G = LT[ids] {g_ms:.4f} ms, "
+                        f"per-cell floor zeros {z_ms:.4f} ms, merge_cells {m_ms:.4f} ms "
+                        f"({name}; {card})")
+        del G, mdc, w_c, t_c
+    for tile, (args, kw) in sorted(k2_in.items()):
+        LT, ids = args[:2]
+        n_tiles, n_chunks, C = ids.shape
+
+        def gather_t():
+            g = LT[torch.clamp(ids, min=0).reshape(-1).long()]
+            return g.reshape(n_tiles, n_chunks, C, fr.FIELDS).transpose(2, 3).contiguous()
+
+        f_ms = cuda_time(torch, gather_t, 50)
+        phase("stages", f"classic {uses[tile]}, tile {tile}: gather + transpose {f_ms:.4f} ms "
+                        f"({name}; {card})")
 
     # 6. the main path through the cell raster
     gen = torch.Generator().manual_seed(SEED)
@@ -348,15 +502,20 @@ def main() -> None:
     fr.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = generate_batch(gen, BATCH, tpl, cfg, solver_cfg)
+    frames, plain_calls = count_calls(
+        cr, ("cell_raster_plain", "merge_cells", "cell_raster_reference"),
+        lambda: generate_batch(gen, BATCH, tpl, cfg, solver_cfg))
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     k1_launches = dict(cr.cell_raster.launches_by_tile)
     phase("main", f"cells: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: first call {cold_s:.3f} s; "
-                  f"K1 launches by tile {k1_launches}, K2/K3 launches {fr.fine_raster.launches}")
+                  f"K1 launches by tile {k1_launches}, K2/K3 launches {fr.fine_raster.launches}; "
+                  f"calls of K1's plain pieces {plain_calls}")
     phase("main", f"cells: content: {check_frames(torch, frames, 'cells')}")
     if k1_launches.get(16, 0) <= 0 or k1_launches.get(32, 0) <= 0:
         fail(f"the cells path did not launch K1 for both passes: {k1_launches}")
+    if any(plain_calls.values()):
+        fail(f"the cells path on the card called K1's plain pieces: {plain_calls}")
     del frames
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -371,16 +530,21 @@ def main() -> None:
     fr.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frames = generate_batch(gen, BATCH, tpl, ccfg, solver_cfg)
+    frames, plain_calls = count_calls(
+        fr, ("fine_raster_plain", "fine_raster_reference"),
+        lambda: generate_batch(gen, BATCH, tpl, ccfg, solver_cfg))
     torch.cuda.synchronize()
     classic_s = time.perf_counter() - t0
     k2_launches = dict(fr.fine_raster.launches_by_shape)
     phase("main", f"classic: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: {classic_s:.3f} s, "
                   f"{BATCH / classic_s:.4f} scenes/s ({name}; {card}); K2 launches by (tile, "
-                  f"tiles per block) {k2_launches}, K1 launches {cr.cell_raster.launches}")
+                  f"tiles per block) {k2_launches}, K1 launches {cr.cell_raster.launches}; calls "
+                  f"of K2's plain pieces {plain_calls}")
     phase("main", f"classic: content: {check_frames(torch, frames, 'classic')}")
     if k2_launches.get((16, 1), 0) <= 0 or k2_launches.get((64, 1), 0) <= 0:
         fail(f"the classic path did not launch K2 for both passes: {k2_launches}")
+    if any(plain_calls.values()):
+        fail(f"the classic path on the card called K2's plain pieces: {plain_calls}")
     del frames
 
     # 8. where the time goes: the settle above, then 8 renders per raster
@@ -453,7 +617,6 @@ def main() -> None:
         if same < need or n_obj == 0:
             fail(f"the {raster} raster disagrees with the brute-force oracle")
 
-    uses = {16: "camera", 32: "shadow", 64: "shadow"}
     for tile in (16, 32):
         kernels.append(dict(
             name=f"cell_raster[{uses[tile]}, tile {tile}]", route="cuda",

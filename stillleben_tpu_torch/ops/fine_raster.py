@@ -1,10 +1,11 @@
 """Classic-raster fine stage: the Hopper kernel and its plain PyTorch version.
 
 Replaces ``stillleben_tpu/ops/fine_raster.py::_kernel`` and
-``::_kernel_grouped`` (reached through ``fine_raster_pallas``). Each screen
-tile has ``n_chunks`` chunks of C triangle slots (id -1 = masked). Per tile
-and pixel centre the five homogeneous edge lines ``[L0|L1|L2|Lsum|Lz]`` are
-evaluated, the inside test for either winding applied, and
+``::_kernel_grouped`` (reached through ``fine_raster_pallas``), together
+with the row gather before them (``rasterize_tiled.py:627-659``). Each
+screen tile has ``n_chunks`` chunks of C triangle ids (-1 = masked). Per
+tile and pixel centre the five homogeneous edge lines ``[L0|L1|L2|Lsum|Lz]``
+are evaluated, the inside test for either winding applied, and
 ``wp = Ez / Esum`` kept where ``|Esum| > 1e-20`` and ``near < wp <= far``
 and ``wp > md + 1e-5`` and ``id >= 0``. Within a chunk the minimum ``wp``
 wins, the lowest id at equal depth; across chunks a chunk wins only with a
@@ -12,20 +13,21 @@ strictly smaller depth, so an equal-depth tie keeps the earlier chunk's
 id. A single running compare over all slots of a tile is NOT the same
 function: it would give such a tie to the lower id.
 
-Layout (the JAX package's, so both packages take the same arrays):
-``G (n_tiles, n_chunks, FIELDS, C)`` f32 triangle-minor,
-``ids (n_tiles, n_chunks, C)`` i32, ``md (n_tiles, tile^2)`` f32 and
-``tile_offset``, the global id of tile row 0 (the caller slabs big maps).
+- ``fine_raster_reference`` is the function of the JAX kernel on the
+  gathered rows, in the JAX package's layout: ``G (n_tiles, n_chunks,
+  FIELDS, C)`` f32 triangle-minor, ``ids (n_tiles, n_chunks, C)`` i32,
+  ``md (n_tiles, tile^2)`` f32 and ``tile_offset``, the global id of tile
+  row 0 (the caller slabs big maps).
+- ``fine_raster_plain`` gathers ``G`` from the line table ``LT (F,
+  FIELDS)`` and calls it.
+- ``fine_raster`` takes ``LT`` and ``ids``: the plain version for tensors
+  on the CPU, the CUDA kernels (``csrc/fine_raster.cu``) for CUDA tensors,
+  which gather the live rows themselves. ``tiles_per_cell`` 1 is K2, 4 or 8
+  is K3; the result does not depend on it. A failed build or launch
+  raises.
 
-What bounds it on the card: at the camera shape (tile 16, C 128)
-arithmetic over the unmasked slots x tile^2 pixels; at the shadow shape
-(tile 64) the bytes of ``md`` and the outputs. The CUDA source
-(``csrc/fine_raster.cu``) runs one block per tile (``tiles_per_cell`` = 1,
-K2) or per TPG tiles (4 or 8, K3), skips fully masked chunks and keeps the
-z-buffer in registers; see the note at its top.
-
-Dispatch: ``fine_raster`` takes the plain version for tensors on the CPU
-and launches the kernel for CUDA tensors. A failed build or launch raises.
+What bounds it on the card: the bytes of ``md`` and the outputs, for most
+tiles are empty. See the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ from . import nvcc
 FIELDS = 16  # 15 line coefficients [L0|L1|L2|Lsum|Lz] x (x, y, c) + 1 pad row
 TILES_PER_CELL = (1, 4, 8)  # the kernel's instantiations (TPG)
 TILES = (16, 32, 64)
+# triangles per chunk, at most: the kernel stages a chunk's rows (68 B a
+# slot) in a block's shared memory (227 KB on the H100)
+MAX_CHUNK = 2048
 SOURCE = "fine_raster.cu"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
 ]
 _STEP_ELEMS = 1 << 22  # plain version: (tiles x C x tile^2) per step
@@ -118,11 +123,33 @@ def fine_raster_reference(
     return w_out, t_out
 
 
-def _check(G, ids, md, chunk, tile, tiles_per_cell):
+def fine_raster_plain(
+    LT: torch.Tensor,  # (F, FIELDS) f32 packed line table
+    ids: torch.Tensor,  # (n_tiles, n_chunks, C) i32, -1 = masked
+    md: torch.Tensor,  # (n_tiles, tile^2) f32 depth-peel floor
+    near: float,
+    far: float,
+    chunk: int,
+    tw: int,
+    tile_offset: int = 0,
+    tile: int = 16,
+    tiles_per_cell: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row gather into the triangle-minor ``G`` and
+    ``fine_raster_reference``. Returns per-tile (w, t)."""
     n_tiles, n_chunks, C = ids.shape
-    dev = G.device
+    G = LT[torch.clamp(ids, min=0).reshape(-1).long()]
+    G = G.reshape(n_tiles, n_chunks, C, FIELDS).transpose(2, 3).contiguous()
+    return fine_raster_reference(
+        G, ids, md, near, far, chunk, tw, tile_offset, tile, tiles_per_cell
+    )
+
+
+def _check(LT, ids, md, chunk, tile, tiles_per_cell):
+    n_tiles, n_chunks, C = ids.shape
+    dev = LT.device
     want = (
-        (G, torch.float32, (n_tiles, n_chunks, FIELDS, C)),
+        (LT, torch.float32, (LT.shape[0], FIELDS)),
         (ids, torch.int32, (n_tiles, n_chunks, C)),
         (md, torch.float32, (n_tiles, tile * tile)),
     )
@@ -131,12 +158,14 @@ def _check(G, ids, md, chunk, tile, tiles_per_cell):
             raise ValueError(f"fine_raster: tensors on {t.device} and {dev}")
         if t.dtype != dt:
             raise TypeError(f"fine_raster: expected {dt}, got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if tuple(t.shape) != shape or t.dim() != len(shape):
             raise ValueError(f"fine_raster: expected shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("fine_raster: inputs must be contiguous")
     if C != chunk:
         raise ValueError(f"fine_raster: chunk {chunk} but C = {C}")
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"fine_raster: chunk {chunk} not in [1, {MAX_CHUNK}]")
     if tile not in TILES:
         raise ValueError(f"fine_raster: tile {tile} not supported {TILES}")
     if tiles_per_cell not in TILES_PER_CELL:
@@ -144,7 +173,7 @@ def _check(G, ids, md, chunk, tile, tiles_per_cell):
 
 
 def fine_raster(
-    G: torch.Tensor,
+    LT: torch.Tensor,
     ids: torch.Tensor,
     md: torch.Tensor,
     near: float,
@@ -155,26 +184,31 @@ def fine_raster(
     tile: int = 16,
     tiles_per_cell: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile (w, t): best depth (inf = none) and winner id (-1).
+    """Per-tile (w, t): best depth (inf = none) and winner id (-1). Every
+    id must index a row of ``LT``.
 
-    CPU tensors take ``fine_raster_reference``; CUDA tensors launch the
-    kernel (``fine_raster.launches`` and ``fine_raster.launches_by_shape``,
-    keyed by (tile, tiles_per_cell), count those launches)."""
-    _check(G, ids, md, chunk, tile, tiles_per_cell)
-    if G.device.type == "cpu":
-        return fine_raster_reference(
-            G, ids, md, near, far, chunk, tw, tile_offset, tile, tiles_per_cell
+    CPU tensors take ``fine_raster_plain``; CUDA tensors launch the kernel
+    (``fine_raster.launches`` and ``fine_raster.launches_by_shape``, keyed
+    by (tile, tiles_per_cell), count those launches)."""
+    _check(LT, ids, md, chunk, tile, tiles_per_cell)
+    if LT.device.type == "cpu":
+        return fine_raster_plain(
+            LT, ids, md, near, far, chunk, tw, tile_offset, tile, tiles_per_cell
         )
-    if G.device.type != "cuda":
-        raise ValueError(f"fine_raster: unsupported device {G.device}")
+    if LT.device.type != "cuda":
+        raise ValueError(f"fine_raster: unsupported device {LT.device}")
+    if LT.data_ptr() % 16:
+        raise ValueError("fine_raster: LT must be 16-byte aligned (cp.async rows)")
     lib = nvcc.load(SOURCE, "sl_fine_raster", _ARGTYPES)
     n_tiles, n_chunks, C = ids.shape
-    w = torch.empty((n_tiles, tile * tile), dtype=torch.float32, device=G.device)
-    t = torch.empty((n_tiles, tile * tile), dtype=torch.int32, device=G.device)
+    w = torch.empty((n_tiles, tile * tile), dtype=torch.float32, device=LT.device)
+    t = torch.empty((n_tiles, tile * tile), dtype=torch.int32, device=LT.device)
+    words = -(-n_chunks // 32)  # occupancy mask words per tile
+    work = torch.empty(1 + n_tiles * (1 + words), dtype=torch.int32, device=LT.device)
     err = lib.sl_fine_raster(
-        G.data_ptr(), ids.data_ptr(), md.data_ptr(), w.data_ptr(), t.data_ptr(),
-        n_tiles, n_chunks, C, tile, tw, int(tile_offset), tiles_per_cell,
-        float(near), float(far), nvcc.stream_of(G),
+        LT.data_ptr(), ids.data_ptr(), md.data_ptr(), w.data_ptr(), t.data_ptr(),
+        work.data_ptr(), n_tiles, n_chunks, C, tile, tw, int(tile_offset), tiles_per_cell,
+        float(near), float(far), nvcc.stream_of(LT),
     )
     nvcc.check(err, "fine_raster")
     key = (tile, tiles_per_cell)

@@ -2,9 +2,10 @@
 
 Each source has a plain C entry point; it is compiled by nvcc into its own
 shared library under the gitignored ``_build/`` at first use and loaded
-with ctypes. The library name carries a hash of the source and the flags,
-so an edited source is rebuilt; the compile writes a temporary file and
-renames it into place. ``build_all`` starts one nvcc per source at once.
+with ctypes. The library name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt;
+the compile writes a temporary file and renames it into place.
+``build_all`` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -45,8 +46,11 @@ def _find_nvcc() -> str:
 def build(source: str) -> tuple[str, str]:
     """Compile ``csrc/<source>``; returns (library path, compiler output)."""
     path = os.path.join(CSRC, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}_{digest}.so")
     if os.path.exists(lib_path):

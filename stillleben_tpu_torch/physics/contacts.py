@@ -49,7 +49,7 @@ class Floor(NamedTuple):
 
 
 def make_floor(height=0.0, enabled=True, friction=0.5, restitution=0.0,
-               friction_static=None, device="cpu") -> Floor:
+               friction_static=None, device="cuda") -> Floor:
     f32 = dict(dtype=torch.float32, device=device)
     return Floor(
         height=torch.tensor(height, **f32),

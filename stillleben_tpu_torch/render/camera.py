@@ -16,7 +16,7 @@ DEFAULT_HFOV_DEG = 58.0  # reference src/scene.cpp:138
 
 def projection_from_intrinsics(
     fx, fy, cx, cy, width, height, near: float = DEFAULT_NEAR, far: float = DEFAULT_FAR,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """The reference's 4x4 projection (src/scene.cpp:222-253), row-major."""
     n, f = near, far
@@ -41,7 +41,7 @@ def projection_from_intrinsics(
 
 def projection_from_fov(
     hfov_rad, width, height, near: float = DEFAULT_NEAR, far: float = DEFAULT_FAR,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """Horizontal-FOV camera (reference src/scene.cpp:260-271): principal
     point at the image centre, fx = fy = W / (2 tan(fov / 2))."""

@@ -15,7 +15,7 @@ import torch
 
 from .atlas import RenderInputs, SceneAtlas
 from .rasterize import geometry_stage, rasterize
-from ..ops.fine_raster import TILES_PER_CELL
+from ..ops.fine_raster import MAX_CHUNK, TILES_PER_CELL
 from .rasterize_tiled import RASTERS, rasterize_tiled
 from .shading import shade
 from .shadow import render_shadow_maps
@@ -58,6 +58,11 @@ class FrameConfig(NamedTuple):
             raise ValueError(
                 f"FrameConfig: fine_tiles_per_cell {self.fine_tiles_per_cell} not in "
                 f"{TILES_PER_CELL} (the kernel's instantiations)"
+            )
+        if not 0 < self.fine_chunk <= MAX_CHUNK:
+            raise ValueError(
+                f"FrameConfig: fine_chunk {self.fine_chunk} not in [1, {MAX_CHUNK}] (a chunk's "
+                "rows must fit the fine kernel's shared memory)"
             )
 
 

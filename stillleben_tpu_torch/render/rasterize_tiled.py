@@ -8,14 +8,16 @@ Counterpart of ``stillleben_tpu/render/rasterize_tiled.py``, both paths:
   every tile); one stable sort orders the pairs by tile, near first; each
   tile's pairs are cut into cells of ``CHUNK`` triangles under a static
   cell budget; the cell kernel (``ops/cell_raster.py``) z-buffers every
-  cell; a scatter-min merges cells into tiles with the lowest id winning
-  ties;
+  cell and merges cells into tiles, the lowest id winning ties;
 - the classic span-class path (``rasterize_vertices``, ``raster="classic"``):
   sub-4-px triangles go to an exact per-pixel stage (two scatter-mins),
   triangles of up to 4x4 tiles to per-tile lists of ``tile_capacity``
   slots (depth-sorted, the farthest dropped), the rest to one global list
   of ``big_capacity`` slots appended to every tile; the fine kernel
   (``ops/fine_raster.py``) z-buffers each tile's chunks in order.
+
+Both kernels take the packed line table ``LT`` and the triangle ids and
+gather the rows themselves.
 
 Class windows, capacities and sorts are the same as in JAX, so the kernels'
 inputs have the same layout in both packages. Not ported: the facing cull
@@ -42,7 +44,7 @@ TILE_CAP = 8192  # per-tile pair cap: beyond it the farthest pairs drop
 BIG_CAPACITY = 64  # "big" triangles per camera frame
 PIXEL_WINDOW = 4  # classic path: tiny-class bbox limit in pixels
 MAX_TILES_PER_PASS = 4096  # classic path: tiles per fine-kernel launch (caps
-# the gathered line table at high tile counts, e.g. 2048^2 shadow maps)
+# the plain version's gathered line table at high tile counts)
 RASTERS = ("cells", "classic")
 
 
@@ -110,9 +112,9 @@ def build_cells(
     big_capacity: int,
     tile: int = TILE,
 ):
-    """Everything before the kernel (rasterize_tiled.py:94-334): returns
-    (G, ids, cell_tile, tw, th, n_tiles) with G (MAXC, C, FIELDS) the
-    gathered line rows and ids (MAXC, C) the triangle ids (-1 = masked)."""
+    """Everything before the kernel (rasterize_tiled.py:94-333): returns
+    (LT, ids, cell_tile, tw, th, n_tiles) with LT (F, FIELDS) the packed
+    line table and ids (MAXC, C) the triangle ids (-1 = masked)."""
     dev = v.device
     F = v.shape[0]
     tw = -(-width // tile)
@@ -235,31 +237,7 @@ def build_cells(
     ).to(torch.int32)  # (MAXC, C)
 
     _, LT = _line_table(v, depth_attr)
-    G = LT[torch.clamp(ids, min=0).long().reshape(-1)].reshape(max_cells, C, FIELDS)
-    return G, ids, cell_tile, tw, th, n_tiles
-
-
-def merge_cells(w_c, t_c, cell_tile, n_tiles: int):
-    """Cells -> tiles: scatter-min of depth, then the lowest id among cells
-    at that depth (rasterize_tiled.py:360-377). Returns (depth, tri) per
-    tile, (n_tiles, tile^2)."""
-    dev = w_c.device
-    pix = w_c.shape[1]
-    inf = float("inf")
-    idx = cell_tile.long()[:, None].expand(-1, pix)
-    wt = torch.full((n_tiles + 1, pix), inf, device=dev).scatter_reduce_(
-        0, idx, w_c, "amin"
-    )
-    big_id = 2**31 - 1
-    cand = torch.where(
-        (w_c <= wt[cell_tile.long()]) & (w_c < inf) & (t_c >= 0), t_c, big_id
-    )
-    tt = torch.full((n_tiles + 1, pix), big_id, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, idx, cand, "amin"
-    )
-    depth_t = wt[:n_tiles]
-    tri_t = torch.where(depth_t < inf, tt[:n_tiles], -1)
-    return depth_t, tri_t
+    return LT, ids, cell_tile, tw, th, n_tiles
 
 
 def rasterize_vertices_cells(
@@ -276,14 +254,12 @@ def rasterize_vertices_cells(
     """Compact-cell binned z-buffer (rasterize_tiled.py:54-383). Returns
     (depth image, triangle-id image), both (H, W). The depth-peel floor
     the kernel takes is 0 everywhere (alpha peel is not ported)."""
-    G, ids, cell_tile, tw, th, n_tiles = build_cells(
+    LT, ids, cell_tile, tw, th, n_tiles = build_cells(
         v, depth_attr, tri_active, width, height, near, far, big_capacity, tile=tile
     )
-    mdc = torch.zeros((ids.shape[0], tile * tile), device=v.device)
-    w_c, t_c = cell_raster(
-        G.contiguous(), ids, cell_tile, mdc, float(near), float(far), tw, tile, n_tiles
+    depth_t, tri_t = cell_raster(
+        LT, ids, cell_tile, None, float(near), float(far), tw, tile, n_tiles
     )
-    depth_t, tri_t = merge_cells(w_c, t_c, cell_tile, n_tiles)
     pad_w, pad_h = tw * tile, th * tile
     depth_img = untile_img(depth_t, tw, th, pad_h, pad_w, height, width, tile)
     tri_img = untile_img(tri_t, tw, th, pad_h, pad_w, height, width, tile)
@@ -401,21 +377,20 @@ def build_tile_lists(
 
 
 def fine_stage(ids, LT, md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell=1):
-    """The row gather into G and the fine kernel, slabbed over
-    ``MAX_TILES_PER_PASS`` tiles (:627-659). Returns per-tile (w, t)."""
-    n_tiles, n_chunks, _ = ids.shape
+    """The fine kernel, slabbed over ``MAX_TILES_PER_PASS`` tiles
+    (:627-659). Returns per-tile (w, t)."""
+    n_tiles = ids.shape[0]
     w_parts, t_parts = [], []
     for t0 in range(0, n_tiles, MAX_TILES_PER_PASS):
         ids_s = ids[t0 : t0 + MAX_TILES_PER_PASS]
-        nts = ids_s.shape[0]
-        g = LT[torch.clamp(ids_s, min=0).reshape(-1).long()]  # row gather
-        g = g.reshape(nts, n_chunks, fine_chunk, FIELDS).transpose(2, 3).contiguous()
         w, t = fine_raster(
-            g, ids_s.contiguous(), md_tiles[t0 : t0 + nts].contiguous(), float(near), float(far),
-            fine_chunk, tw, tile_offset=t0, tile=tile, tiles_per_cell=tiles_per_cell,
+            LT, ids_s.contiguous(), md_tiles[t0 : t0 + ids_s.shape[0]].contiguous(), float(near),
+            float(far), fine_chunk, tw, tile_offset=t0, tile=tile, tiles_per_cell=tiles_per_cell,
         )
         w_parts.append(w)
         t_parts.append(t)
+    if len(w_parts) == 1:
+        return w_parts[0], t_parts[0]
     return torch.cat(w_parts), torch.cat(t_parts)
 
 

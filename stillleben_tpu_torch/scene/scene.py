@@ -62,7 +62,7 @@ class Scene:
         self.viewport = (int(viewport[0]), int(viewport[1]))
         self.camera_pose = np.eye(4, dtype=np.float32)
         self.projection = projection_from_fov(
-            math.radians(DEFAULT_HFOV_DEG), *self.viewport
+            math.radians(DEFAULT_HFOV_DEG), *self.viewport, device="cpu"
         ).numpy()
         self.objects: list[Object] = []
         self.light_directions = np.zeros((NUM_LIGHTS, 3), np.float32)

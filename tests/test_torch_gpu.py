@@ -49,7 +49,7 @@ def test_cells_on_cuda_match_cpu(scene):
     act = torch.ones(v.shape[0], dtype=torch.bool)
     c = build_cells(v, v[..., 2], act, W, H, 0.1, 10.0, BIG_CAPACITY)
     g = build_cells(v.cuda(), v[..., 2].cuda(), act.cuda(), W, H, 0.1, 10.0, BIG_CAPACITY)
-    for a, b in zip(c[:3], g[:3]):  # G, ids, cell_tile
+    for a, b in zip(c[:3], g[:3]):  # LT, ids, cell_tile
         assert torch.equal(a, b.cpu())
 
 
