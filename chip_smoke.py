@@ -1,47 +1,61 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the datagen main path at
-the benchmark's size, through every hand-written kernel, on both rasters.
+the benchmark's size and full configuration, through every hand-written
+kernel, on both rasters.
 
     python3 chip_smoke.py
+
+Two configurations of the same 10 objects at 640x480, B = 8: **bench-full**
+(the JAX package's bench workload "textured": the dense mesh with its
+base-colour texture, a 3 x 3 m checker background plane, the sky light map
+with skybox, SSAO, trilinear textures, 2048^2 VSM shadow) and
+**bench-slice** (the untextured configuration of the earlier slices: no
+plane, light map, textures or SSAO).
 
 Phases (one line each or more; any failure exits non-zero):
 
 1. device: the card's name, count and power limit; TF32 off.
 2. build: one nvcc per ``stillleben_tpu_torch/csrc/*.cu`` source, all at
    once, for sm_90a (ptxas reports printed).
-3. toolchain: the ``o = 2x`` kernel (K4) on an (8, 128) tensor, exact.
-4. scene, settle: the bench scene; one settle of B = 8 scenes, whose poses
-   serve the kernel captures and the per-render breakdown.
+3. toolchain: the ``o = 2x`` kernel (K4) on an (8, 128) tensor, exact,
+   timed beside an empty kernel's launch, the bound of a kernel that small.
+4. light map, scene, settle: the sky's precompute on the card, once; both
+   templates; one settle of B = 8 scenes, whose poses serve the kernel
+   captures and the per-render breakdown of both configurations.
 5. kernels: each raster kernel against its plain PyTorch version on the
-   inputs one render of the bench scene really produces: the cell kernel
-   (K1, cells to tiles, the merge included) at the camera (tile 16) and
-   2048^2 shadow (tile 32) shapes, the classic fine kernel (K2) at the
+   inputs one render of each configuration really produces: the cell
+   kernel (K1, cells to tiles, the merge included) at the camera (tile 16)
+   and 2048^2 shadow (tile 32) shapes, the classic fine kernel (K2) at the
    camera (tile 16) and shadow (tile 64) shapes, and K3 (4 and 8 tiles per
    block) against K2; all ``torch.equal``; each timed warm with CUDA
    events beside its bound (bytes, or the operations this input needs:
-   ``needed_ops``), on inputs that leave only its fixed costs (K1 with no
-   valid cell; K2 with every slot masked, beside a fill of its outputs)
-   and with only its heaviest cell or tile. Then,
-   on the same inputs, the torch stages that the kernels' row gathers and
-   merge replace: ``G = LT[ids]`` and the per-cell floor of the cells
-   path, its cells -> tiles merge, and the classic path's gather and
-   transpose.
-6. main path, cells: ``generate_batch`` B = 8 at 640x480 (10 objects,
-   100 x 4 settle, 2048^2 VSM shadow, PBR, full ground truth); content
-   checks; K1's launch counts, and no call of its plain version; scenes/s
-   of a second, warm call.
-7. main path, classic: ``generate_batch`` B = 8 with ``raster="classic"``;
-   the same checks; K2's launch counts at both shapes, and no call of its
-   plain version; scenes/s.
-8. breakdown: the 8 settled poses rendered with both rasters (ms per
-   render; per scene the classic-vs-cells instance agreement, split into
-   the classic raster's holes, where its pixel stage dropped triangles
-   beyond a static capacity, and every other disagreement, which must stay
-   under 3%), then with K3 (``fine_tiles_per_cell`` 4 and 8), bitwise
-   equal to K2's frames.
-9. reference: on the CPU tests' small scene at 160x120, the instance map
-   of each raster against the brute-force oracle's (cells >= 99.9%,
-   classic >= 97%, the JAX package's own bound for its classic path).
+   ``needed_ops``), on inputs that leave only its fixed costs and with
+   only its heaviest cell or tile. Then the torch stages that the kernels'
+   row gathers and merge replace.
+6. main path: ``generate_batch`` B = 8 of bench-full through the cell
+   raster, first and warm call; content checks (finite, object pixels, the
+   plane's pixels valid with class and instance 0, the skybox behind);
+   K1's launch counts and no call of its plain version; scenes/s.
+7. bench-slice: ``generate_batch`` B = 8 through each raster, one warm call
+   each; the same checks; K1's and K2's launch counts; scenes/s.
+8. breakdown: the 8 settled poses rendered with both rasters in both
+   configurations (ms per render; classic against cells per scene, split
+   into the classic raster's holes and every other disagreement, which
+   must stay under 3%); bench-full against bench-slice and against itself
+   with textures, light map or SSAO off (each must change the image); the
+   device time of one bench-full render by stage (CUDA events at the
+   render's stage marks); K3's frames bitwise equal to K2's.
+9. extras, one scene at 640x480: stickers on two objects (pixels change
+   inside the stickers' range and nowhere else), the anisotropic and
+   bilinear filters, the reference SSAO, the alpha peel on the cutout
+   texture (K1's second camera pass takes the depth-peel floor and equals
+   its plain version; discarded pixels show a deeper surface), a
+   background image.
+10. card against CPU: the small full scene at 160x120 rendered by the port
+    on both devices, by the rules of ``tests/test_torch_gpu.py``.
+11. reference: on the CPU tests' small scene at 160x120, the instance map
+    of each raster against the brute-force oracle's (cells >= 99.9%,
+    classic >= 97%, the JAX package's own bound for its classic path).
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -95,24 +109,37 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def load_meshes(subdiv: int):
-    """(dense, cube, sphere) from the procedural OBJ files, classes 1..3."""
+# the sky's analytic sun (bench.py:122-124); the template does not read it
+SUN_LIGHT = ((0.3 / 0.98994949, 0.5 / 0.98994949, -0.8 / 0.98994949), (3.0, 2.8, 2.5))
+
+
+def load_meshes(subdiv: int, textured: bool = False, cutout: bool = False):
+    """(dense, cube, sphere) from the procedural OBJ files, classes 1..3;
+    ``textured``: the dense mesh with its uv map and base-colour PNG;
+    ``cutout``: a fourth mesh, the cube with the cutout texture (class 4)."""
     from stillleben_tpu_torch.assets.mesh import Mesh
     from stillleben_tpu_torch.assets.procedural import write_meshes
 
     build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
     os.environ["STILLLEBEN_TPU_MESH_CACHE"] = os.path.join(build, "mesh_cache")
     paths = write_meshes(os.path.join(build, "meshes"), subdiv=subdiv, seed=0)
-    dense = Mesh(paths["blob"], flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
+    dense = Mesh(paths["blob_textured" if textured else "blob"],
+                 flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
     dense.center_bbox()
-    cube = Mesh(paths["cube"])
-    sphere = Mesh(paths["sphere"])
-    for i, mesh in enumerate((dense, cube, sphere)):
+    meshes = [dense, Mesh(paths["cube"]), Mesh(paths["sphere"])]
+    if cutout:
+        meshes.append(Mesh(paths["cube_cutout"]))
+    for i, mesh in enumerate(meshes):
         mesh.class_index = i + 1
-    return dense, cube, sphere
+    return meshes
 
 
-def build_scene(order, width: int, height: int):
+def build_scene(order, width: int, height: int, light_map=None, plane: float = 0.0):
+    """Objects with the seeded metallic/roughness overrides of
+    bench.py:116-118; with ``light_map`` and ``plane`` > 0 the sky and a
+    ``plane`` x ``plane`` m background plane with the 512^2 checker."""
+    from stillleben_tpu_torch.assets.procedural import checker_texture
+    from stillleben_tpu_torch.assets.texture import Texture2D
     from stillleben_tpu_torch.scene.scene import Object, Scene
 
     import numpy as np
@@ -123,6 +150,10 @@ def build_scene(order, width: int, height: int):
         scene.add_object(
             Object(mesh, metallic=float(rng.random()), roughness=float(rng.random()))
         )
+    scene.light_map = light_map
+    if plane:
+        scene.background_plane_size[:] = plane
+        scene.background_plane_texture = Texture2D(checker_texture())
     return scene
 
 
@@ -135,6 +166,50 @@ def bench_scene():
     cube.scale_to_bbox_diagonal(0.2)
     sphere.scale_to_bbox_diagonal(0.15)
     return build_scene([dense, cube, sphere] * 3 + [cube], WIDTH, HEIGHT)
+
+
+def bench_full_scene(light_map):
+    """The bench workload "textured" (bench.py:87-136): the same 10
+    objects, the dense mesh with its base-colour texture, the sky light
+    map and a 3 x 3 m background plane with the checker."""
+    dense, cube, sphere = load_meshes(subdiv=6, textured=True)
+    dense.scale_to_bbox_diagonal(0.25)
+    cube.scale_to_bbox_diagonal(0.2)
+    sphere.scale_to_bbox_diagonal(0.15)
+    return build_scene([dense, cube, sphere] * 3 + [cube], WIDTH, HEIGHT, light_map, plane=3.0)
+
+
+def extras_scene(light_map):
+    """One scene for what bench-full leaves off: the cube with the cutout
+    texture, the textured dense mesh and a sphere, both with a seeded
+    sticker of its own size, and a cube; sky and plane as in bench-full."""
+    import numpy as np
+
+    from stillleben_tpu_torch.assets.texture import Texture
+
+    dense, cube, sphere, cutout = load_meshes(subdiv=6, textured=True, cutout=True)
+    dense.scale_to_bbox_diagonal(0.25)
+    cube.scale_to_bbox_diagonal(0.2)
+    sphere.scale_to_bbox_diagonal(0.15)
+    cutout.scale_to_bbox_diagonal(0.25)
+    scene = build_scene([cutout, dense, sphere, cube], WIDTH, HEIGHT, light_map, plane=3.0)
+    rng = np.random.default_rng(SEED)
+    for o, (h, w) in zip(scene.objects[1:3], ((48, 64), (32, 24))):
+        pixels = rng.integers(0, 256, size=(h, w, 4), dtype=np.uint8)
+        pixels[..., 3] = np.maximum(pixels[..., 3], 128)
+        o.sticker_texture = Texture(pixels)
+        o.sticker_range = np.array([-0.5, -0.5, 1.0, 1.0], np.float32)
+        o.sticker_rotation = np.array([0.9238795, 0.3826834, 0.0, 0.0], np.float32)
+    return scene
+
+
+def small_full_scene(light_map):
+    """The small scene with the textured dense mesh, sky and plane, 160x120."""
+    dense, cube, sphere = load_meshes(subdiv=3, textured=True)
+    dense.scale_to_bbox_diagonal(0.25)
+    cube.scale_to_bbox_diagonal(0.25)
+    sphere.scale_to_bbox_diagonal(0.3)
+    return build_scene([dense, cube, sphere], 160, 120, light_map, plane=3.0)
 
 
 def small_scene():
@@ -279,6 +354,153 @@ def check_frames(torch, frames, what: str) -> str:
     return f"object pixels per scene {inst_px.tolist()}, classes {classes}, rgb std {rgb_std:.2f}"
 
 
+def check_k1(torch, cr, args, label: str, card: str) -> dict:
+    """K1 on one captured call: equal to its plain version, timed beside
+    its bound, with its fixed cost and its heaviest cell apart."""
+    LT, ids, cell_tile, md, near, far, tw, tile, n_tiles = args
+    out_k = cr.cell_raster(*args)
+    bitwise, err = compare(torch, out_k, cr.cell_raster_plain(*args))
+    ms = cuda_time(torch, lambda: cr.cell_raster(*args), 50)
+    plain_ms = cuda_time(torch, lambda: cr.cell_raster_plain(*args), 3)
+    # what the merge alone costs: the key buffer's fill and unpack, no
+    # valid cell; and what the cell with the most live slots costs alone
+    valid = cell_tile < n_tiles
+    no_cells = torch.full_like(cell_tile, n_tiles)
+    keys_ms = cuda_time(
+        torch, lambda: cr.cell_raster(LT, ids, no_cells, md, near, far, tw, tile, n_tiles), 50)
+    heavy = no_cells.clone()
+    top = int(((ids >= 0).sum(1) * valid).argmax())
+    heavy[top] = cell_tile[top]
+    heavy_ms = cuda_time(
+        torch, lambda: cr.cell_raster(LT, ids, heavy, md, near, far, tw, tile, n_tiles), 50)
+    live = (ids >= 0) & valid[:, None]
+    slots = int(live.sum())
+    slot_tile = cell_tile[:, None].expand_as(ids)[live]
+    n_ops, pairs, kept, inside = needed_ops(
+        torch, LT[ids[live].long()], tile * (slot_tile % tw), tile * (slot_tile // tw), tile)
+    n_bytes = (slots * ROW_BYTES + (ids.numel() + cell_tile.numel()) * 4
+               + (0 if md is None else n_tiles * tile * tile * 4) + 2 * out_k[0].numel() * 4)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    phase("kernel", f"K1 {label}: tile {tile}, md_tiles {'given' if md is not None else 'None'}, "
+                    f"{ids.shape[0]} cells x C {ids.shape[1]}, "
+                    f"{int(valid.sum())} valid, {slots} live slots in valid cells, "
+                    f"{n_tiles} tiles; equal: {bitwise}; max_abs_err {err}; kernel {ms:.4f} ms "
+                    f"(with no valid cell {keys_ms:.4f} ms, the heaviest cell "
+                    f"({int((ids[top] >= 0).sum())} live slots) alone {heavy_ms:.4f} ms), "
+                    f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
+                    f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
+                    f"pairs inside) ({card})")
+    if not bitwise:
+        fail(f"K1 {label} tile {tile}: kernel and plain version differ")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_k2(torch, fr, args, kw, label: str, card: str) -> tuple[dict, tuple]:
+    """K2 on one captured call, as ``check_k1``; also returns its output."""
+    LT, ids, md = args[:3]
+    tw, tile_offset, tile = args[6], kw.get("tile_offset", 0), kw["tile"]
+    out_k = fr.fine_raster(*args, **kw)
+    bitwise, err = compare(torch, out_k, fr.fine_raster_plain(*args, **kw))
+    ms = cuda_time(torch, lambda: fr.fine_raster(*args, **kw), 50)
+    plain_ms = cuda_time(torch, lambda: fr.fine_raster_plain(*args, **kw), 3)
+    # what empty tiles alone cost (every slot masked), against a fill of
+    # the outputs; and what the heaviest tile costs alone
+    no_slots = torch.full_like(ids, -1)
+    empty_ms = cuda_time(torch, lambda: fr.fine_raster(LT, no_slots, *args[2:], **kw), 50)
+    fill_ms = cuda_time(torch, lambda: (torch.full_like(out_k[0], float("inf")),
+                                        torch.full_like(out_k[1], -1)), 50)
+    heavy = no_slots.clone()
+    top = int((ids >= 0).flatten(1).sum(1).argmax())
+    heavy[top] = ids[top]
+    heavy_ms = cuda_time(torch, lambda: fr.fine_raster(LT, heavy, *args[2:], **kw), 50)
+    live = ids >= 0
+    slots = int(live.sum())
+    gi = tile_offset + torch.arange(ids.shape[0], device=ids.device)[:, None, None].expand_as(ids)[live]
+    n_ops, pairs, kept, inside = needed_ops(
+        torch, LT[ids[live].long()], tile * (gi % tw), tile * (gi // tw), tile)
+    n_bytes = slots * ROW_BYTES + (ids.numel() + md.numel()) * 4 + 2 * out_k[0].numel() * 4
+    b_ms, b_by = bound(n_bytes, n_ops)
+    occupied = int(live.any(-1).sum())
+    per_tile = live.flatten(1).sum(1)
+    phase("kernel", f"K2 {label}: tile {tile}, {ids.shape[0]} tiles x {ids.shape[1]} "
+                    f"chunks x C {ids.shape[2]}, {occupied} occupied chunks, {slots} live "
+                    f"slots, {int((per_tile > 0).sum())} occupied tiles, at most "
+                    f"{int(per_tile.max())} slots in a tile; equal: {bitwise}; max_abs_err "
+                    f"{err}; kernel {ms:.4f} ms (every slot masked {empty_ms:.4f} ms, a fill of "
+                    f"the outputs {fill_ms:.4f} ms, the heaviest tile alone {heavy_ms:.4f} ms), "
+                    f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
+                    f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
+                    f"pairs inside) ({card})")
+    if not bitwise:
+        fail(f"K2 {label} tile {tile}: kernel and plain version differ")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), out_k
+
+
+def stage_times(torch, run) -> list[tuple[str, float]]:
+    """Run ``run()`` once with the render's stage marks recording CUDA
+    events; returns (stage, ms) in order, each stage ending at its mark."""
+    from stillleben_tpu_torch.render import stages
+
+    events = []
+
+    def hook(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    torch.cuda.synchronize()
+    stages.set_hook(hook)
+    try:
+        hook("start")
+        run()
+    finally:
+        stages.set_hook(None)
+    torch.cuda.synchronize()
+    return [(name, events[i][1].elapsed_time(e)) for i, (name, e) in enumerate(events[1:])]
+
+
+def check_full_frames(torch, frames, what: str) -> str:
+    """What the full configuration adds to ``check_frames``: the plane's
+    pixels are valid with class, instance and vertex ids 0; every scene
+    shows objects too; behind everything is the skybox (alpha 1), never the
+    background colour (alpha 0)."""
+    inst = frames.instance_index.to(torch.int32)
+    plane = frames.valid & (inst == 0)
+    plane_px = plane.flatten(1).sum(1)
+    obj_px = (frames.valid & (inst > 0)).flatten(1).sum(1)
+    sky = ~frames.valid
+    if not (plane_px > 0).all() or not (obj_px > 0).all():
+        fail(f"{what}: plane pixels {plane_px.tolist()}, object pixels {obj_px.tolist()}")
+    if (frames.class_index.to(torch.int32)[plane] != 0).any() or (
+            frames.vertex_indices[plane] != 0).any():
+        fail(f"{what}: plane pixels with a class or a vertex id")
+    if not (frames.hdr[sky][:, 3] == 1).all():
+        fail(f"{what}: background colour where the skybox must show")
+    return (f"plane pixels per scene {plane_px.tolist()} (class 0, instance 0), object pixels "
+            f"{obj_px.tolist()}, skybox pixels {sky.flatten(1).sum(1).tolist()} (alpha 1)")
+
+
+def sticker_footprint(torch, scene, frame):
+    """(H, W) bool: pixels of an object with a sticker whose object
+    coordinates project into the sticker's range (widened by 1e-4 of it,
+    for pixels on its border)."""
+    dev = frame.hdr.device
+    inst = frame.instance_index.to(torch.int32)
+    obj = torch.cat([frame.object_coordinates[..., :3],
+                     torch.ones_like(frame.object_coordinates[..., :1])], -1)
+    out = torch.zeros(inst.shape, dtype=torch.bool, device=dev)
+    for o in scene.objects:
+        if o.sticker_texture is None:
+            continue
+        vp = torch.from_numpy(o.sticker_view_projection()).to(dev)
+        rng = torch.from_numpy(o.sticker_range).to(dev)
+        st = obj @ vp.T
+        uv = (st[..., :2] / st[..., 3:4] - rng[:2]) / rng[2:]
+        inside = ((uv > -1e-4) & (uv < 1 + 1e-4)).all(-1)
+        out |= frame.valid & (inst == o.instance_index) & inside
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
@@ -299,11 +521,13 @@ def main() -> None:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     phase("device", f"{name}; count {torch.cuda.device_count()}; torch {torch.__version__}, "
                     f"CUDA {torch.version.cuda}; {card}")
+    card = f"{name}; {card}"
 
     # 2. build: every source at once
     from stillleben_tpu_torch.ops import cell_raster as cr
     from stillleben_tpu_torch.ops import fine_raster as fr
     from stillleben_tpu_torch.ops import nvcc, smoke
+    from stillleben_tpu_torch.render import frame as frame_mod
     from stillleben_tpu_torch.render import rasterize_tiled as rt
 
     t0 = time.perf_counter()
@@ -314,7 +538,7 @@ def main() -> None:
 
     kernels = []  # the JSON line's entries
 
-    # 3. toolchain: K4
+    # 3. toolchain: K4, beside an empty kernel's launch
     x = torch.randn(8, 128, generator=torch.Generator().manual_seed(SEED)).to(dev)
     smoke.double.launches = 0
     o = smoke.double(x)
@@ -325,148 +549,117 @@ def main() -> None:
     ms = cuda_time(torch, lambda: smoke.double(x), 100)
     plain_ms = cuda_time(torch, lambda: smoke.double_reference(x), 100)
     library_ms = cuda_time(torch, lambda: torch.mul(x, 2.0), 100)
+    launch_ms = cuda_time(torch, lambda: smoke.empty_launch(dev), 100)
     b_ms, b_by = bound(2 * x.numel() * 4, x.numel())
     phase("toolchain", f"o = 2x on (8, 128) f32: exact {exact}; kernel {ms:.4f} ms, plain "
-                       f"{plain_ms:.4f} ms, torch.mul {library_ms:.4f} ms, bound {b_ms:.6f} ms "
-                       f"({b_by}) ({name}; {card})")
+                       f"{plain_ms:.4f} ms, torch.mul {library_ms:.4f} ms, an empty kernel's "
+                       f"launch {launch_ms:.4f} ms (the bound of a kernel this small), bytes "
+                       f"bound {b_ms:.6f} ms ({b_by}) ({card})")
     if not exact or k4_launches != 1:
         fail(f"the toolchain kernel is wrong (exact {exact}, launches {k4_launches})")
     kernels.append(dict(
         name="smoke[o = 2x, (8, 128)]", route="cuda", source="stillleben_tpu_torch/csrc/smoke.cu",
         replaces="tools/tpu_smoke.py:73", launches=k4_launches, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        launch_bound_ms=launch_ms,
     ))
 
-    # 4. scene and one settle of B scenes
+    # 4. the scenes, the light map's precompute, and one settle of B scenes
     from stillleben_tpu_torch.parallel.batch import (
         generate_batch, render_with_poses, settle_scene, template_from_scene,
     )
     from stillleben_tpu_torch.physics.types import default_config
-    from stillleben_tpu_torch.render.frame import FrameConfig
+    from stillleben_tpu_torch.render.frame import FrameConfig, render_frame_core
+    from stillleben_tpu_torch.render.light_map import LightMap
+
+    from stillleben_tpu_torch.assets.procedural import sky_equirect
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    light_map = LightMap.from_equirect(sky_equirect(), lights=[SUN_LIGHT])  # on the card
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    if light_map.data.cubemap.device.type != "cuda":
+        fail(f"LightMap.from_equirect put the light map on {light_map.data.cubemap.device}")
+    phase("light map", f"precompute of the 64x128 sky (512^2 cube, 32^2 irradiance of 64 x 16 "
+                       f"samples + SH, 5 prefiltered levels of 256 samples): {lm_s:.3f} s, once "
+                       f"per template ({card})")
 
     t0 = time.perf_counter()
     scene = bench_scene()
     tpl = template_from_scene(scene)  # on the card by default
-    atlas = tpl.render_atlas
-    if atlas.faces.device.type != "cuda":
+    full = bench_full_scene(light_map)
+    ftpl = template_from_scene(full)
+    atlas, fatlas = tpl.render_atlas, ftpl.render_atlas
+    if atlas.faces.device.type != "cuda" or ftpl.light_map.cubemap.device.type != "cuda":
         fail(f"template_from_scene put the template on {atlas.faces.device}")
-    phase("scene", f"{len(scene.objects)} objects, {atlas.faces.shape[0]} faces, "
-                   f"{atlas.shadow_faces.shape[0]} shadow-proxy faces, "
-                   f"{tpl.hull_atlas.verts.shape[0]} hulls, built in {time.perf_counter() - t0:.1f} s")
+    phase("scene", f"bench-slice: {len(scene.objects)} objects, {atlas.faces.shape[0]} faces, "
+                   f"{atlas.shadow_faces.shape[0]} shadow-proxy faces; bench-full: "
+                   f"{fatlas.num_objects} slots (the plane last), {fatlas.faces.shape[0]} faces, "
+                   f"{fatlas.shadow_faces.shape[0]} shadow-proxy faces, "
+                   f"{int((fatlas.mat_base_tex >= 0).sum())} textured materials, tex_combo "
+                   f"{tuple(fatlas.tex_combo.shape)}; {tpl.hull_atlas.verts.shape[0]} hulls; "
+                   f"built in {time.perf_counter() - t0:.1f} s")
+    if fatlas.num_objects != len(full.objects) + 1 or ftpl.base_inputs.obj_instance.shape[0] != 11:
+        fail("bench-full: the background plane's slot is missing")
     cfg = FrameConfig(width=WIDTH, height=HEIGHT, shading="pbr", max_lights=1,
-                      shadow_mode="vsm", shadow_size=SHADOW_SIZE)
+                      shadow_mode="vsm", shadow_size=SHADOW_SIZE, ssao=False,
+                      sample_textures=False, sample_stickers=False)
     ccfg = cfg._replace(raster="classic", tile_capacity=256, big_capacity=64, fine_chunk=128,
                         pixel_stage=None, fine_tiles_per_cell=1)
+    fcfg = FrameConfig(width=WIDTH, height=HEIGHT, shading="pbr", ssao=True, ssao_mode="fast",
+                       max_lights=1, shadow_size=SHADOW_SIZE, shadow_mode="vsm",
+                       texture_filter="trilinear", sample_textures=True, sample_stickers=False,
+                       tile_capacity=128, fine_chunk=128)
+    fccfg = fcfg._replace(raster="classic")
     solver_cfg = default_config()
     gen = torch.Generator().manual_seed(SEED + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    poses8, cams8, lights8 = settle_scene(gen, BATCH, tpl, solver_cfg)
+    poses8, cams8, lights8 = settle_scene(gen, BATCH, ftpl, solver_cfg)
     torch.cuda.synchronize()
     settle_s = time.perf_counter() - t0
-    phase("settle", f"settle_scene of {BATCH} scenes: {settle_s:.3f} s ({name}; {card})")
+    phase("settle", f"settle_scene of {BATCH} scenes: {settle_s:.3f} s ({card})")
 
-    def render(c, b=0):
-        return render_with_poses(tpl, poses8[b], cams8[b], c, lights8[b])
+    def render(c, b=0, t=None):
+        return render_with_poses(tpl if t is None else t, poses8[b], cams8[b], c, lights8[b])
 
-    # 5. kernels against their plain versions, on one render's real inputs
-    k1_in = capture(rt, "cell_raster", lambda a, kw: a[7], lambda: render(cfg))
-    if set(k1_in) != {16, 32}:
-        fail(f"expected a tile-16 camera and a tile-32 shadow cell pass, got {sorted(k1_in)}")
-    k2_in = capture(rt, "fine_raster", lambda a, kw: kw["tile"], lambda: render(ccfg))
-    if set(k2_in) != {16, 64}:
-        fail(f"expected a tile-16 camera and a tile-64 shadow fine pass, got {sorted(k2_in)}")
+    # 5. kernels against their plain versions, on one render's real inputs,
+    # of each configuration
     k1, k2, k3 = {}, {}, {}
     uses = {16: "camera", 32: "shadow", 64: "shadow"}
-    for tile, (args, _) in sorted(k1_in.items()):
-        LT, ids, cell_tile, md, near, far, tw, _, n_tiles = args
-        out_k = cr.cell_raster(*args)
-        bitwise, err = compare(torch, out_k, cr.cell_raster_plain(*args))
-        ms = cuda_time(torch, lambda: cr.cell_raster(*args), 50)
-        plain_ms = cuda_time(torch, lambda: cr.cell_raster_plain(*args), 3)
-        # what the merge alone costs: the key buffer's fill and unpack, no
-        # valid cell; and what the cell with the most live slots costs alone
-        valid = cell_tile < n_tiles
-        no_cells = torch.full_like(cell_tile, n_tiles)
-        keys_ms = cuda_time(
-            torch, lambda: cr.cell_raster(LT, ids, no_cells, md, near, far, tw, tile, n_tiles), 50)
-        heavy = no_cells.clone()
-        top = int(((ids >= 0).sum(1) * valid).argmax())
-        heavy[top] = cell_tile[top]
-        heavy_ms = cuda_time(
-            torch, lambda: cr.cell_raster(LT, ids, heavy, md, near, far, tw, tile, n_tiles), 50)
-        live = (ids >= 0) & valid[:, None]
-        slots = int(live.sum())
-        slot_tile = cell_tile[:, None].expand_as(ids)[live]
-        n_ops, pairs, kept, inside = needed_ops(
-            torch, LT[ids[live].long()], tile * (slot_tile % tw), tile * (slot_tile // tw), tile)
-        n_bytes = (slots * ROW_BYTES + (ids.numel() + cell_tile.numel()) * 4
-                   + (0 if md is None else n_tiles * tile * tile * 4) + 2 * out_k[0].numel() * 4)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        phase("kernel", f"K1 {uses[tile]}: tile {tile}, {ids.shape[0]} cells x C {ids.shape[1]}, "
-                        f"{int(valid.sum())} valid, {slots} live slots in valid cells, "
-                        f"{n_tiles} tiles; equal: {bitwise}; max_abs_err {err}; kernel {ms:.4f} ms "
-                        f"(with no valid cell {keys_ms:.4f} ms, the heaviest cell "
-                        f"({int((ids[top] >= 0).sum())} live slots) alone {heavy_ms:.4f} ms), "
-                        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
-                        f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
-                        f"pairs inside) ({name}; {card})")
-        if not bitwise:
-            fail(f"K1 tile {tile}: kernel and plain version differ")
-        k1[tile] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    for tile, (args, kw) in sorted(k2_in.items()):
-        LT, ids, md = args[:3]
-        tw, tile_offset = args[6], kw.get("tile_offset", 0)
-        out_k = fr.fine_raster(*args, **kw)
-        bitwise, err = compare(torch, out_k, fr.fine_raster_plain(*args, **kw))
-        ms = cuda_time(torch, lambda: fr.fine_raster(*args, **kw), 50)
-        plain_ms = cuda_time(torch, lambda: fr.fine_raster_plain(*args, **kw), 3)
-        # what empty tiles alone cost (every slot masked), against a fill of
-        # the outputs; and what the heaviest tile costs alone
-        no_slots = torch.full_like(ids, -1)
-        empty_ms = cuda_time(torch, lambda: fr.fine_raster(LT, no_slots, *args[2:], **kw), 50)
-        fill_ms = cuda_time(torch, lambda: (torch.full_like(out_k[0], float("inf")),
-                                            torch.full_like(out_k[1], -1)), 50)
-        heavy = no_slots.clone()
-        top = int((ids >= 0).flatten(1).sum(1).argmax())
-        heavy[top] = ids[top]
-        heavy_ms = cuda_time(torch, lambda: fr.fine_raster(LT, heavy, *args[2:], **kw), 50)
-        live = ids >= 0
-        slots = int(live.sum())
-        gi = tile_offset + torch.arange(ids.shape[0], device=dev)[:, None, None].expand_as(ids)[live]
-        n_ops, pairs, kept, inside = needed_ops(
-            torch, LT[ids[live].long()], tile * (gi % tw), tile * (gi // tw), tile)
-        n_bytes = (slots * ROW_BYTES + (ids.numel() + md.numel()) * 4
-                   + 2 * out_k[0].numel() * 4)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        occupied = int(live.any(-1).sum())
-        per_tile = live.flatten(1).sum(1)
-        phase("kernel", f"K2 {uses[tile]}: tile {tile}, {ids.shape[0]} tiles x {ids.shape[1]} "
-                        f"chunks x C {ids.shape[2]}, {occupied} occupied chunks, {slots} live "
-                        f"slots, {int((per_tile > 0).sum())} occupied tiles, at most "
-                        f"{int(per_tile.max())} slots in a tile; equal: {bitwise}; max_abs_err "
-                        f"{err}; kernel {ms:.4f} ms (every slot masked {empty_ms:.4f} ms, a fill of "
-                        f"the outputs {fill_ms:.4f} ms, the heaviest tile alone {heavy_ms:.4f} ms), "
-                        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes} B, "
-                        f"{n_ops} ops: {pairs} slot-patch pairs, {kept} kept, {inside} slot-pixel "
-                        f"pairs inside) ({name}; {card})")
-        if not bitwise:
-            fail(f"K2 tile {tile}: kernel and plain version differ")
-        k2[tile] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        for tpg in (4, 8):
-            kw3 = dict(kw, tiles_per_cell=tpg)
-            bitwise3, err3 = compare(torch, fr.fine_raster(*args, **kw3), out_k)
-            ms3 = cuda_time(torch, lambda: fr.fine_raster(*args, **kw3), 50)
-            phase("kernel", f"K3 {uses[tile]}: tile {tile}, {tpg} tiles per block; equal to K2: "
-                            f"{bitwise3}; kernel {ms3:.4f} ms ({name}; {card})")
-            if not bitwise3:
-                fail(f"K3 tile {tile} tpg {tpg}: differs from K2")
-            k3[(tile, tpg)] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+    captured = {}
+    for conf, t, c_cells, c_classic in (("bench-slice", tpl, cfg, ccfg),
+                                        ("bench-full", ftpl, fcfg, fccfg)):
+        k1_in = capture(rt, "cell_raster", lambda a, kw: a[7], lambda: render(c_cells, 0, t))
+        if set(k1_in) != {16, 32}:
+            fail(f"expected a tile-16 camera and a tile-32 shadow cell pass, got {sorted(k1_in)}")
+        k2_in = capture(rt, "fine_raster", lambda a, kw: kw["tile"], lambda: render(c_classic, 0, t))
+        if set(k2_in) != {16, 64}:
+            fail(f"expected a tile-16 camera and a tile-64 shadow fine pass, got {sorted(k2_in)}")
+        captured[conf] = (k1_in, k2_in)
+        for tile, (args, _) in sorted(k1_in.items()):
+            k1[(conf, tile)] = check_k1(torch, cr, args, f"{conf} {uses[tile]}", card)
+        for tile, (args, kw) in sorted(k2_in.items()):
+            k2[(conf, tile)], out_k = check_k2(torch, fr, args, kw, f"{conf} {uses[tile]}", card)
+            if conf != "bench-slice":
+                continue
+            for tpg in (4, 8):
+                kw3 = dict(kw, tiles_per_cell=tpg)
+                bitwise3, err3 = compare(torch, fr.fine_raster(*args, **kw3), out_k)
+                ms3 = cuda_time(torch, lambda: fr.fine_raster(*args, **kw3), 50)
+                phase("kernel", f"K3 {conf} {uses[tile]}: tile {tile}, {tpg} tiles per block; "
+                                f"equal to K2: {bitwise3}; kernel {ms3:.4f} ms ({card})")
+                if not bitwise3:
+                    fail(f"K3 tile {tile} tpg {tpg}: differs from K2")
+                e = k2[(conf, tile)]
+                k3[(tile, tpg)] = dict(max_abs_err=err3, ms=ms3, plain_ms=e["plain_ms"],
+                                       bound_ms=e["bound_ms"], bound_by=e["bound_by"])
 
     # the torch stages of the earlier design that the kernels now do: the
     # row gather G = LT[ids] and the per-cell floor before K1 and the
     # cells -> tiles merge after it; the gather and transpose before K2
+    k1_in, k2_in = captured["bench-slice"]
     for tile, (args, _) in sorted(k1_in.items()):
         LT, ids, cell_tile, _, near, far, tw, _, n_tiles = args
         n, C = ids.shape
@@ -482,7 +675,7 @@ def main() -> None:
         m_ms = cuda_time(torch, lambda: cr.merge_cells(w_c, t_c, cell_tile, n_tiles), 50)
         phase("stages", f"cells {uses[tile]}, tile {tile}: gather G = LT[ids] {g_ms:.4f} ms, "
                         f"per-cell floor zeros {z_ms:.4f} ms, merge_cells {m_ms:.4f} ms "
-                        f"({name}; {card})")
+                        f"({card})")
         del G, mdc, w_c, t_c
     for tile, (args, kw) in sorted(k2_in.items()):
         LT, ids = args[:2]
@@ -494,9 +687,10 @@ def main() -> None:
 
         f_ms = cuda_time(torch, gather_t, 50)
         phase("stages", f"classic {uses[tile]}, tile {tile}: gather + transpose {f_ms:.4f} ms "
-                        f"({name}; {card})")
+                        f"({card})")
+    del captured, k1_in, k2_in
 
-    # 6. the main path through the cell raster
+    # 6. the main path: bench-full through the cell raster, first and warm
     gen = torch.Generator().manual_seed(SEED)
     cr.reset_launch_counts()
     fr.reset_launch_counts()
@@ -504,83 +698,143 @@ def main() -> None:
     t0 = time.perf_counter()
     frames, plain_calls = count_calls(
         cr, ("cell_raster_plain", "merge_cells", "cell_raster_reference"),
-        lambda: generate_batch(gen, BATCH, tpl, cfg, solver_cfg))
+        lambda: generate_batch(gen, BATCH, ftpl, fcfg, solver_cfg))
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    k1_launches = dict(cr.cell_raster.launches_by_tile)
-    phase("main", f"cells: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: first call {cold_s:.3f} s; "
-                  f"K1 launches by tile {k1_launches}, K2/K3 launches {fr.fine_raster.launches}; "
-                  f"calls of K1's plain pieces {plain_calls}")
-    phase("main", f"cells: content: {check_frames(torch, frames, 'cells')}")
-    if k1_launches.get(16, 0) <= 0 or k1_launches.get(32, 0) <= 0:
-        fail(f"the cells path did not launch K1 for both passes: {k1_launches}")
+    full_k1_launches = dict(cr.cell_raster.launches_by_tile)
+    phase("main", f"bench-full, cells: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: first call "
+                  f"{cold_s:.3f} s; K1 launches by tile {full_k1_launches}, K2/K3 launches "
+                  f"{fr.fine_raster.launches}; calls of K1's plain pieces {plain_calls}")
+    phase("main", f"bench-full, cells: content: {check_frames(torch, frames, 'bench-full cells')}; "
+                  f"{check_full_frames(torch, frames, 'bench-full cells')}")
+    if full_k1_launches.get(16, 0) <= 0 or full_k1_launches.get(32, 0) <= 0:
+        fail(f"the cells path did not launch K1 for both passes: {full_k1_launches}")
     if any(plain_calls.values()):
         fail(f"the cells path on the card called K1's plain pieces: {plain_calls}")
     del frames
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    generate_batch(gen, BATCH, tpl, cfg, solver_cfg)
+    generate_batch(gen, BATCH, ftpl, fcfg, solver_cfg)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    phase("main", f"cells: warm call {warm_s:.3f} s: {BATCH / warm_s:.4f} scenes/s "
-                  f"({name}; {card})")
+    phase("main", f"bench-full, cells: warm call {warm_s:.3f} s: {BATCH / warm_s:.4f} scenes/s "
+                  f"({card})")
 
-    # 7. the main path through the classic raster
-    cr.reset_launch_counts()
-    fr.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frames, plain_calls = count_calls(
-        fr, ("fine_raster_plain", "fine_raster_reference"),
-        lambda: generate_batch(gen, BATCH, tpl, ccfg, solver_cfg))
-    torch.cuda.synchronize()
-    classic_s = time.perf_counter() - t0
-    k2_launches = dict(fr.fine_raster.launches_by_shape)
-    phase("main", f"classic: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: {classic_s:.3f} s, "
-                  f"{BATCH / classic_s:.4f} scenes/s ({name}; {card}); K2 launches by (tile, "
-                  f"tiles per block) {k2_launches}, K1 launches {cr.cell_raster.launches}; calls "
-                  f"of K2's plain pieces {plain_calls}")
-    phase("main", f"classic: content: {check_frames(torch, frames, 'classic')}")
-    if k2_launches.get((16, 1), 0) <= 0 or k2_launches.get((64, 1), 0) <= 0:
-        fail(f"the classic path did not launch K2 for both passes: {k2_launches}")
-    if any(plain_calls.values()):
-        fail(f"the classic path on the card called K2's plain pieces: {plain_calls}")
-    del frames
-
-    # 8. where the time goes: the settle above, then 8 renders per raster
-    def render_all(c):
-        render(c)  # warm
+    # 7. bench-slice, the untextured configuration of the earlier slices:
+    # one warm call through each raster
+    results = {}
+    for label, c, mod, attrs in (
+        ("cells", cfg, cr, ("cell_raster_plain", "merge_cells", "cell_raster_reference")),
+        ("classic", ccfg, fr, ("fine_raster_plain", "fine_raster_reference")),
+    ):
+        cr.reset_launch_counts()
+        fr.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = [render(c, b) for b in range(BATCH)]
+        frames, plain_calls = count_calls(
+            mod, attrs, lambda: generate_batch(gen, BATCH, tpl, c, solver_cfg))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        results[label] = (dict(cr.cell_raster.launches_by_tile),
+                          dict(fr.fine_raster.launches_by_shape))
+        phase("main", f"bench-slice, {label}: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: {s:.3f} s, "
+                      f"{BATCH / s:.4f} scenes/s ({card}); K1 launches by tile "
+                      f"{results[label][0]}, K2 launches by (tile, tiles per block) "
+                      f"{results[label][1]}; calls of the plain pieces {plain_calls}")
+        phase("main", f"bench-slice, {label}: content: {check_frames(torch, frames, label)}")
+        if any(plain_calls.values()):
+            fail(f"the {label} path on the card called plain pieces: {plain_calls}")
+        del frames
+    k1_launches, k2_launches = results["cells"][0], results["classic"][1]
+    if k1_launches.get(16, 0) <= 0 or k1_launches.get(32, 0) <= 0 or results["cells"][1]:
+        fail(f"the cells path did not launch K1 alone for both passes: {results['cells']}")
+    if (k2_launches.get((16, 1), 0) <= 0 or k2_launches.get((64, 1), 0) <= 0
+            or results["classic"][0]):
+        fail(f"the classic path did not launch K2 alone for both passes: {results['classic']}")
+
+    # 8. where the time goes: the settle above, then 8 renders per raster
+    # and configuration, on the same settled poses
+    def render_all(c, t=None):
+        render(c, 0, t)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [render(c, b, t) for b in range(BATCH)]
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) / BATCH * 1e3
 
+    def raster_agreement(conf, cells_frames, classic_frames, c, t):
+        # The classic pixel stage keeps the first max(4096, F/16) triangles
+        # of its 2-4-px class (rasterize_tiled.py:780 in the JAX package)
+        # and drops the rest: a dropped triangle in view leaves a hole, a
+        # pixel the cell raster covers and the classic one does not. Every
+        # other disagreement must stay under 3% of the image.
+        for b, (fc, fk) in enumerate(zip(cells_frames, classic_frames)):
+            stage = capture(rt, "_run_pixel_stages", lambda a, kw: 0, lambda: render(c, b, t))
+            n_tiny4 = cap4 = 0  # no pixel stage under 20,000 faces
+            if stage:
+                Lf, _, tiny, span_x, span_y = stage[0][0][:5]
+                n_tiny4 = int((tiny & ~((span_x <= 2) & (span_y <= 2))).sum())
+                cap4 = min(Lf.shape[0], max(4096, Lf.shape[0] // 16))
+            differ = fc.instance_index != fk.instance_index
+            # a hole shows what lies behind: another object, the plane or nothing
+            holes = int((differ & fc.valid & (~fk.valid | (fk.depth > fc.depth))).sum())
+            other = int(differ.sum()) - holes
+            agree = 1.0 - int(differ.sum()) / differ.numel()
+            phase("breakdown", f"{conf} scene {b}: classic vs cells instance agreement "
+                               f"{agree:.6f}; classic holes {holes} px, other disagreement "
+                               f"{other} px; pixel stage 2-4-px class {n_tiny4} triangles, "
+                               f"{max(0, n_tiny4 - cap4)} beyond its {cap4} slots")
+            if other > 0.03 * differ.numel() or (holes > 0.03 * differ.numel() and n_tiny4 <= cap4):
+                fail(f"{conf} scene {b}: the classic raster disagrees with the cell raster")
+
     cells_frames, cells_ms = render_all(cfg)
     classic_frames, classic_ms = render_all(ccfg)
-    phase("breakdown", f"settle of {BATCH} scenes {settle_s:.3f} s; render {cells_ms:.2f} ms "
-                       f"(cells), {classic_ms:.2f} ms (classic) per scene ({name}; {card})")
-    # The classic pixel stage keeps the first max(4096, F/16) triangles of
-    # its 2-4-px class (rasterize_tiled.py:780 in the JAX package) and
-    # drops the rest: a dropped triangle in view leaves a hole, a pixel the
-    # cell raster covers and the classic one does not. Every other
-    # disagreement must stay under 3% of the image.
-    for b, (fc, fk) in enumerate(zip(cells_frames, classic_frames)):
-        stage = capture(rt, "_run_pixel_stages", lambda a, kw: 0, lambda: render(ccfg, b))
-        Lf, _, tiny, span_x, span_y = stage[0][0][:5]
-        n_tiny4 = int((tiny & ~((span_x <= 2) & (span_y <= 2))).sum())
-        cap4 = min(Lf.shape[0], max(4096, Lf.shape[0] // 16))
-        differ = fc.instance_index != fk.instance_index
-        holes = int((differ & fc.valid & ~fk.valid).sum())
-        other = int(differ.sum()) - holes
-        agree = 1.0 - int(differ.sum()) / differ.numel()
-        phase("breakdown", f"scene {b}: classic vs cells instance agreement {agree:.6f}; "
-                           f"classic holes {holes} px, other disagreement {other} px; pixel "
-                           f"stage 2-4-px class {n_tiny4} triangles, {max(0, n_tiny4 - cap4)} "
-                           f"beyond its {cap4} slots")
-        if other > 0.03 * differ.numel() or (holes > 0.03 * differ.numel() and n_tiny4 <= cap4):
-            fail(f"scene {b}: the classic raster disagrees with the cell raster")
-    del cells_frames
+    cr.reset_launch_counts()
+    fr.reset_launch_counts()
+    full_cells, full_cells_ms = render_all(fcfg, ftpl)
+    full_classic, plain_calls = count_calls(
+        fr, ("fine_raster_plain", "fine_raster_reference"), lambda: render_all(fccfg, ftpl))
+    full_classic, full_classic_ms = full_classic
+    full_k2_launches = dict(fr.fine_raster.launches_by_shape)
+    if any(plain_calls.values()) or full_k2_launches.get((16, 1), 0) <= 0:
+        fail(f"bench-full classic: plain calls {plain_calls}, K2 launches {full_k2_launches}")
+    phase("breakdown", f"settle of {BATCH} scenes {settle_s:.3f} s; render per scene: bench-slice "
+                       f"{cells_ms:.2f} ms (cells), {classic_ms:.2f} ms (classic); bench-full "
+                       f"{full_cells_ms:.2f} ms (cells), {full_classic_ms:.2f} ms (classic; K2 "
+                       f"launches {full_k2_launches}) ({card})")
+    for b, f in enumerate(full_classic):
+        stacked = type(f)(*(x[None] for x in f))
+        check_frames(torch, stacked, f"bench-full classic scene {b}")
+        check_full_frames(torch, stacked, f"bench-full classic scene {b}")
+    raster_agreement("bench-slice", cells_frames, classic_frames, ccfg, tpl)
+    raster_agreement("bench-full", full_cells, full_classic, fccfg, ftpl)
+    # bench-full against bench-slice on the same poses, and one of
+    # texture, image-based light and SSAO off at a time (scene 0)
+    ref = full_cells[0].hdr[..., :3]
+
+    def mean_abs(f):
+        return float((f.hdr[..., :3] - ref).abs().mean())
+
+    diffs = {
+        "bench-slice": mean_abs(cells_frames[0]),
+        "textures off": mean_abs(render(fcfg._replace(sample_textures=False), 0, ftpl)),
+        "light map off": mean_abs(render(fcfg, 0, ftpl._replace(light_map=None))),
+        "SSAO off": mean_abs(render(fcfg._replace(ssao=False), 0, ftpl)),
+    }
+    rgb_differs = float((full_cells[0].rgb != cells_frames[0].rgb).any(-1).float().mean())
+    phase("breakdown", f"bench-full scene 0, mean |hdr rgb difference| to the same poses with: "
+                       f"{ {k: round(v, 6) for k, v in diffs.items()} }; rgb differs from "
+                       f"bench-slice's on {rgb_differs:.4f} of the pixels")
+    if min(diffs.values()) <= 0 or rgb_differs <= 0:
+        fail(f"a stage of bench-full changes nothing: {diffs}")
+    del cells_frames, full_cells, full_classic
+    for conf, c, t in (("bench-full cells", fcfg, ftpl), ("bench-full classic", fccfg, ftpl)):
+        times = stage_times(torch, lambda: render(c, 0, t))
+        total = sum(ms for _, ms in times)
+        phase("stages", f"{conf}, one render, device ms by stage (CUDA events at the stage "
+                        f"marks; the host issues the ops, so a stage is at least its launches): "
+                        + ", ".join(f"{n} {ms:.3f}" for n, ms in times)
+                        + f"; total {total:.3f} ms ({card})")
     k3_launches = {}
     for tpg in (4, 8):
         cr.reset_launch_counts()
@@ -599,7 +853,105 @@ def main() -> None:
             fail(f"K3 ({tpg} tiles per block) frames differ from K2's")
     del classic_frames, tpg_frames
 
-    # 9. both rasters against the brute-force oracle on a small input
+    # 9. the rest of the slice, one scene at 640x480: stickers, the other
+    # texture filters, the reference SSAO, the alpha peel, a background image
+    xs = extras_scene(light_map)
+    xtpl = template_from_scene(xs)
+    xp, xc, xl = settle_scene(torch.Generator().manual_seed(SEED + 3), 1, xtpl, solver_cfg, 25)
+    xcfg = fcfg._replace(sample_stickers=True)
+
+    def xrender(c, t=xtpl):
+        return render_with_poses(t, xp[0], xc[0], c, xl[0])
+
+    base = xrender(xcfg)
+    check_frames(torch, type(base)(*(x[None] for x in base)), "extras")
+    no_sticker = xrender(xcfg._replace(sample_stickers=False))
+    in_range = sticker_footprint(torch, xs, base)
+    changed = (base.hdr != no_sticker.hdr).any(-1)
+    phase("extras", f"stickers on 2 objects: {int(in_range.sum())} px inside a sticker's range, "
+                    f"{int(changed.sum())} px changed by the stickers, "
+                    f"{int((changed & ~in_range).sum())} of them outside")
+    if not changed.any() or (changed & ~in_range).any():
+        fail("the stickers changed nothing, or pixels outside their range")
+    for what, c in (("aniso", xcfg._replace(texture_filter="aniso")),
+                    ("bilinear", xcfg._replace(texture_filter="bilinear")),
+                    ("ssao reference", xcfg._replace(ssao_mode="reference"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = xrender(c)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_frames(torch, type(f)(*(x[None] for x in f)), what)
+        d = float((f.hdr[..., :3] - base.hdr[..., :3]).abs().mean())
+        phase("extras", f"{what}: finite; mean |hdr rgb difference| to trilinear + fast SSAO "
+                        f"{d:.6f}; {ms:.1f} ms, first call ({card})")
+        if d <= 0:
+            fail(f"{what} changed nothing")
+    # the peel: K1's second camera pass takes the depth-peel floor
+    calls = []
+    gbufs = []
+    orig_cell, orig_rast = rt.cell_raster, frame_mod.rasterize_tiled
+
+    def rec_cell(*a):
+        calls.append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
+        return orig_cell(*a)
+
+    def rec_rast(*a, **kw):
+        gbufs.append(orig_rast(*a, **kw))
+        return gbufs[-1]
+
+    cr.reset_launch_counts()
+    rt.cell_raster, frame_mod.rasterize_tiled = rec_cell, rec_rast
+    try:
+        peeled = xrender(xcfg._replace(alpha_peel=True))
+    finally:
+        rt.cell_raster, frame_mod.rasterize_tiled = orig_cell, orig_rast
+    peel_launches = cr.cell_raster.launches_by_tile.get(16, 0)
+    with_md = [a for a in calls if a[7] == 16 and a[3] is not None]
+    if len(gbufs) != 2 or len(with_md) != 1 or peel_launches != 2:
+        fail(f"the peel render made {len(gbufs)} camera passes, {len(with_md)} with md_tiles")
+    k1[("peel", 16)] = check_k1(torch, cr, with_md[0], "extras peel pass (camera)", card)
+    check_frames(torch, type(peeled)(*(x[None] for x in peeled)), "peel")
+    discarded = (gbufs[0].tri_id >= 0) & ~base.valid
+    shown = discarded & peeled.valid
+    deeper = peeled.depth[shown] > gbufs[0].depth[shown]
+    phase("extras", f"alpha peel on the cutout texture: {int(discarded.sum())} px discarded by "
+                    f"the first pass, {int(shown.sum())} show a surface after the peel, "
+                    f"{int(deeper.sum())} of them deeper than the first pass's winner")
+    if discarded.sum() < 10 or not deeper.all() or shown.sum() == 0:
+        fail("the alpha peel did not show the surfaces behind the cutout")
+    if not torch.equal(peeled.valid | discarded, base.valid | discarded):
+        fail("the alpha peel changed pixels the first pass did not discard")
+    # a background image behind the objects, the plane hidden
+    vis = xtpl.base_inputs.obj_visible.clone()
+    vis[-1] = False
+    inputs = xtpl.base_inputs._replace(obj_visible=vis, cam_pose=xc[0])
+    otw = inputs.obj_to_world.clone()
+    otw[: xp.shape[1]] = xp[0]
+    inputs = inputs._replace(obj_to_world=otw)
+    image = torch.rand((HEIGHT, WIDTH, 4), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    f = render_frame_core(xtpl.render_atlas, inputs, xcfg, background_image=image,
+                          light_map=xtpl.light_map)
+    back = ~f.valid
+    ok = torch.equal(f.hdr[back][:, :3], image[back][:, :3]) and bool((f.hdr[back][:, 3] == 1).all())
+    phase("extras", f"background image: {int(back.sum())} background px show the image: {ok}")
+    if back.sum() == 0 or not ok or not torch.isfinite(f.hdr).all():
+        fail("the background image does not show behind the objects")
+    del base, no_sticker, peeled, f, gbufs, calls
+
+    # 10. the card against the port's own CPU run: the small full scene at
+    # 160x120, the device passed explicitly to both
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_gpu import compare_full_frames
+
+    small_lm = LightMap.from_equirect(sky_equirect(), lights=[SUN_LIGHT], device="cpu")
+    small_cpu = template_from_scene(small_full_scene(small_lm), "cpu")
+    small_gpu = template_from_scene(small_full_scene(small_lm), "cuda")
+    sp, sc, sl = settle_scene(torch.Generator().manual_seed(SEED + 4), 1, small_cpu, solver_cfg, 10)
+    summary = compare_full_frames(small_cpu, small_gpu, sp[0], sc[0], sl[0], (160, 120))
+    phase("card vs cpu", f"small full scene 160x120, cuda against cpu: {summary} ({card})")
+
+    # 11. both rasters against the brute-force oracle on a small input
     small = small_scene()
     stpl = template_from_scene(small)
     scfg = cfg._replace(width=160, height=120, shadow_size=512)
@@ -617,23 +969,35 @@ def main() -> None:
         if same < need or n_obj == 0:
             fail(f"the {raster} raster disagrees with the brute-force oracle")
 
-    for tile in (16, 32):
-        kernels.append(dict(
-            name=f"cell_raster[{uses[tile]}, tile {tile}]", route="cuda",
-            source="stillleben_tpu_torch/csrc/cell_raster.cu",
-            replaces="stillleben_tpu/ops/cell_raster.py:43", launches=k1_launches[tile],
-            library_ms=None, **k1[tile],
-        ))
-    for tile in (16, 64):
-        kernels.append(dict(
-            name=f"fine_raster[{uses[tile]}, tile {tile}]", route="cuda",
-            source="stillleben_tpu_torch/csrc/fine_raster.cu",
-            replaces="stillleben_tpu/ops/fine_raster.py:98", launches=k2_launches[(tile, 1)],
-            library_ms=None, **k2[tile],
-        ))
+    # the kernels' line: K1 and K2 at each configuration's shapes; launches
+    # are those of that configuration's main path (bench-full classic: its
+    # 8 renders and their warm-up on the settled poses)
+    launches = {"bench-slice": (k1_launches, k2_launches),
+                "bench-full": (full_k1_launches, full_k2_launches)}
+    for conf in ("bench-slice", "bench-full"):
+        for tile in (16, 32):
+            kernels.append(dict(
+                name=f"cell_raster[{conf} {uses[tile]}, tile {tile}]", route="cuda",
+                source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                replaces="stillleben_tpu/ops/cell_raster.py:43", launches=launches[conf][0][tile],
+                library_ms=None, **k1[(conf, tile)],
+            ))
+        for tile in (16, 64):
+            kernels.append(dict(
+                name=f"fine_raster[{conf} {uses[tile]}, tile {tile}]", route="cuda",
+                source="stillleben_tpu_torch/csrc/fine_raster.cu",
+                replaces="stillleben_tpu/ops/fine_raster.py:98",
+                launches=launches[conf][1][(tile, 1)], library_ms=None, **k2[(conf, tile)],
+            ))
+    kernels.append(dict(
+        name="cell_raster[extras peel pass, camera, tile 16, md_tiles given]", route="cuda",
+        source="stillleben_tpu_torch/csrc/cell_raster.cu",
+        replaces="stillleben_tpu/ops/cell_raster.py:43", launches=len(with_md),
+        library_ms=None, **k1[("peel", 16)],
+    ))
     for (tile, tpg), entry in sorted(k3.items()):
         kernels.append(dict(
-            name=f"fine_raster_grouped[{uses[tile]}, tile {tile}, {tpg} tiles per block]",
+            name=f"fine_raster_grouped[bench-slice {uses[tile]}, tile {tile}, {tpg} tiles per block]",
             route="cuda", source="stillleben_tpu_torch/csrc/fine_raster.cu",
             replaces="stillleben_tpu/ops/fine_raster.py:130",
             launches=k3_launches.get((tile, tpg), 0), library_ms=None, **entry,
@@ -641,7 +1005,7 @@ def main() -> None:
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel was not launched on its path: {[k['name'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
+    print(smi[0] if smi else "nvidia-smi gave nothing", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

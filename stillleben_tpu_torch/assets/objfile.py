@@ -2,7 +2,8 @@
 
 Copied from ``stillleben_tpu/assets/objfile.py:18-269`` (``_load_mtl``,
 ``load_obj``, ``load_ply``). The STL, OFF and DAE loaders of that file are
-not ported yet.
+not ported yet. A ``map_Kd`` image is decoded by the port's own codec
+(``assets/image.py``: PNG and binary PPM; any other format raises).
 
 Covers the practical subset the reference reaches through Assimp
 (src/mesh.cpp:219-239): triangulated (we fan-triangulate polygons), per-face
@@ -15,6 +16,7 @@ import os
 
 import numpy as np
 
+from .image import read_image
 from .gltf import GltfDocument, GltfMaterial, GltfNode, GltfPrimitive
 
 
@@ -136,11 +138,8 @@ def load_obj(path: str) -> GltfDocument:
             tex_path = getattr(mat, "_tex_path", None)
             if tex_path and os.path.exists(tex_path):
                 if tex_path not in img_cache:
-                    from PIL import Image
-
-                    img = Image.open(tex_path).convert("RGBA")
                     img_cache[tex_path] = len(doc.images)
-                    doc.images.append(np.asarray(img, dtype=np.uint8))
+                    doc.images.append(read_image(tex_path))
                 mat.base_color_texture = img_cache[tex_path]
             mat_idx = len(doc.materials)
             doc.materials.append(mat)

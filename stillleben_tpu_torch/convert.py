@@ -16,14 +16,14 @@ from .physics.contacts import Floor
 from .physics.tabletop import TabletopGeom
 from .physics.types import BodyParams, BodyState, HullAtlas
 from .render.atlas import RenderInputs, SceneAtlas
+from .render.light_map import LightMapData
 
 
 def template_from_numpy(tpl, device="cuda") -> SceneTemplate:
     """A JAX ``SceneTemplate`` of numpy arrays -> the port's template on
-    ``device``. Fields the port does not have (``tex_combo_quad``) are
-    dropped; an image-based light map is not ported and must be None."""
-    if getattr(tpl, "light_map", None) is not None:
-        raise NotImplementedError("light maps are not ported yet")
+    ``device``, textured atlas and light map (a ``LightMapData`` of numpy
+    arrays, or None) included. Fields the port does not have
+    (``tex_combo_quad``) are dropped."""
     params = tensors_from_numpy(BodyParams, tpl.body_params, device)
     if params.friction_static is None:  # JAX's default: the dynamic coefficient
         params = params._replace(friction_static=params.friction)
@@ -38,7 +38,14 @@ def template_from_numpy(tpl, device="cuda") -> SceneTemplate:
         base_inputs=tensors_from_numpy(RenderInputs, tpl.base_inputs, device),
         bbox_corners=torch.from_numpy(np.array(tpl.bbox_corners)).to(device),
         base_z=torch.from_numpy(np.array(tpl.base_z)).to(device),
+        light_map=light_map_from_numpy(getattr(tpl, "light_map", None), device),
     )
+
+
+def light_map_from_numpy(data, device="cuda") -> LightMapData | None:
+    """A JAX ``LightMapData`` of numpy arrays -> the port's, so a test can
+    feed one package's precompute into the other's shading."""
+    return None if data is None else tensors_from_numpy(LightMapData, data, device)
 
 
 def state_from_numpy(state, device="cuda") -> BodyState:

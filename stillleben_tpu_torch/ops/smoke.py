@@ -4,7 +4,9 @@ Replaces the toy Pallas kernel ``k`` of ``tools/tpu_smoke.py:73-76``.
 ``chip_smoke.py`` builds and launches it first, on an (8, 128) f32 tensor,
 and requires it to equal ``double_reference`` exactly. No datagen path
 runs it. CPU tensors take the plain version; CUDA tensors launch the
-kernel (``double.launches`` counts those launches).
+kernel (``double.launches`` counts those launches). ``empty_launch``
+launches a kernel that does nothing: its time on the card is the launch
+floor that bounds a kernel this small.
 """
 
 from __future__ import annotations
@@ -38,3 +40,12 @@ def double(x: torch.Tensor) -> torch.Tensor:
 
 
 double.launches = 0
+
+
+def empty_launch(device="cuda") -> None:
+    """Launch the empty kernel on ``device``'s current stream."""
+    lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
+    fn = lib.sl_empty
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nvcc.check(fn(torch.cuda.current_stream(device).cuda_stream), "empty")

@@ -7,7 +7,9 @@ substeps, redrop) -> random camera fit -> random light -> render -> full GT.
 
 The settle runs the whole batch at once (the state carries a batch axis);
 the render runs one scene after the other, because each scene's cell list
-is data-dependent. Sharding and ``generate_stream`` are not ported yet.
+is data-dependent. The template carries the scene's background plane (one
+more slot of the render atlas) and its image-based light map, which every
+scene of the batch shares. Sharding and ``generate_stream`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..physics.contacts import Floor, hull_pairs_host
 from ..physics.types import BodyParams, HullAtlas, SolverConfig, build_hull_atlas_numpy
 from ..core.tree import tensors_from_numpy
 from ..render.atlas import RenderInputs, SceneAtlas, build_scene_atlas, render_inputs_from_scene
+from ..render.light_map import LightMapData
 from ..render.frame import FrameConfig, RenderedFrame, render_frame_core
 from ..scene.camera_fit import choose_random_camera_pose, choose_random_light_direction
 
@@ -39,16 +42,25 @@ class SceneTemplate(NamedTuple):
     base_inputs: RenderInputs
     bbox_corners: torch.Tensor  # (NB, 8, 3) mesh-frame bbox corners
     base_z: torch.Tensor  # scalar
+    light_map: LightMapData | None = None  # the image-based light of every scene
 
 
 def template_from_scene(scene, device="cuda") -> SceneTemplate:
-    """Build the template from a host ``scene.scene.Scene`` (batch.py:47-82,
-    without background plane or light map: the JAX template's ``light_map``
-    field has no counterpart)."""
+    """Build the template from a host ``scene.scene.Scene`` (batch.py:47-82):
+    the background plane and the light map are carried along. The light
+    map's own analytic lights are not read, as in the JAX template."""
     phys = scene.compile_physics()
     hulls = build_hull_atlas_numpy(phys["hull_lists"])
     atlas = tensors_from_numpy(HullAtlas, hulls, device)
-    render_atlas = build_scene_atlas(scene.objects, device)
+    bg_plane = None
+    if np.any(scene.background_plane_size):
+        tex = scene.background_plane_texture
+        bg_plane = dict(size=scene.background_plane_size,
+                        texture=tex.pixels if tex is not None else None)
+    render_atlas = build_scene_atlas(scene.objects, device, background_plane=bg_plane)
+    light_map = None
+    if scene.light_map is not None:
+        light_map = LightMapData(*(x.to(device) for x in scene.light_map.data))
     corners = np.zeros((max(len(scene.objects), 1), 8, 3), np.float32)
     for i, o in enumerate(scene.objects):
         corners[i] = o.mesh.bbox.corners()
@@ -63,6 +75,7 @@ def template_from_scene(scene, device="cuda") -> SceneTemplate:
         base_inputs=render_inputs_from_scene(scene, render_atlas, device),
         bbox_corners=torch.from_numpy(corners).to(device),
         base_z=torch.tensor(base_z, dtype=torch.float32, device=device),
+        light_map=light_map,
     )
 
 
@@ -114,7 +127,7 @@ def render_with_poses(
         dirs = inputs.light_directions.clone()
         dirs[0] = light_dir
         inputs = inputs._replace(light_directions=dirs)
-    return render_frame_core(tpl.render_atlas, inputs, cfg)
+    return render_frame_core(tpl.render_atlas, inputs, cfg, light_map=tpl.light_map)
 
 
 def generate_batch(

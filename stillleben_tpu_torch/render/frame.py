@@ -1,10 +1,14 @@
-"""Whole-frame render: geometry -> shadow maps -> raster -> shade -> tone map.
+"""Whole-frame render: geometry -> shadow maps -> raster -> shade (with the
+alpha-peel rounds) -> SSAO -> background -> tone map.
 
 Counterpart of ``stillleben_tpu/render/frame.py::render_frame_core``
-(:74-199) for the datagen slice. ``FrameConfig`` keeps the JAX field names
-of the options the slice implements; the others are not ported yet
-(ROADMAP.md lists them) and the constructor rejects values the port does
-not implement, so a config never silently means something else.
+(:74-199). ``FrameConfig`` keeps the JAX field names and defaults of the
+options the port implements; ``check()`` rejects the values it does not
+(``shading`` other than "pbr", ``shadow_mode`` other than "vsm"; ROADMAP.md
+lists them), so a config never silently means something else. Fields of the
+JAX config that only choose a TPU layout or precision (``use_pallas``,
+``shading_dtype``) have no counterpart; ``raster`` and
+``fine_tiles_per_cell`` stand for its environment variables.
 """
 
 from __future__ import annotations
@@ -14,26 +18,41 @@ from typing import NamedTuple
 import torch
 
 from .atlas import RenderInputs, SceneAtlas
+from .ibl import sample_skybox
+from .light_map import LightMapData
 from .rasterize import geometry_stage, rasterize
 from ..ops.fine_raster import MAX_CHUNK, TILES_PER_CELL
 from .rasterize_tiled import RASTERS, rasterize_tiled
-from .shading import shade
+from .shading import FrameOutputs, shade
 from .shadow import render_shadow_maps
+from .ssao import ssao_apply
+from .stages import mark
 from .tonemap import tone_map
+
+TEXTURE_FILTERS = ("trilinear", "bilinear", "aniso")
+SSAO_MODES = ("fast", "reference")
 
 
 class FrameConfig(NamedTuple):
     width: int
     height: int
     shading: str = "pbr"  # only "pbr" is ported
-    ssao: bool = False  # not ported: must stay False
+    ssao: bool = True
+    ssao_mode: str = "fast"  # static ring taps | "reference": the exact
+    # 64-sample hemisphere (ssao_shader.frag:13-57), one gather per sample
     tiled: bool = True  # binned raster (True) or brute-force oracle (False)
     shadow_size: int = 2048  # reference default (render_pass.cpp:271-294)
     max_lights: int = 3
-    sample_textures: bool = False  # not ported: must stay False
-    sample_stickers: bool = False  # not ported: must stay False
+    sample_textures: bool = True  # False skips the texture fetches
+    sample_stickers: bool = True
     shadow_mode: str = "vsm"  # only "vsm" is ported
-    alpha_peel: bool = False  # not ported: must stay False
+    texture_filter: str = "trilinear"  # mip-mapped, the reference's GL filter
+    # (context.cpp:617-649) | "bilinear": one mip tap | "aniso": 4
+    # trilinear taps along the footprint's major axis (context.cpp:635)
+    alpha_peel: bool = False  # the alpha cutoff at the raster stage: pixels
+    # whose winner failed it are rastered again behind it; turn on when
+    # atlas.has_cutout_materials(atlas)
+    alpha_peel_rounds: int = 1  # layers of overlapping cutouts covered
     # the raster: "cells" (default) or the classic span-class path, the
     # JAX package's SL_RASTER; the fields below serve the classic path
     raster: str = "cells"
@@ -44,16 +63,20 @@ class FrameConfig(NamedTuple):
     fine_tiles_per_cell: int = 1  # tiles per kernel block (SL_FINE_TPG)
 
     def check(self) -> None:
-        unported = dict(
-            shading=self.shading != "pbr", ssao=self.ssao,
-            sample_textures=self.sample_textures, sample_stickers=self.sample_stickers,
-            shadow_mode=self.shadow_mode != "vsm", alpha_peel=self.alpha_peel,
-        )
+        unported = dict(shading=self.shading != "pbr", shadow_mode=self.shadow_mode != "vsm")
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"FrameConfig: not ported yet: {bad}")
         if self.raster not in RASTERS:
             raise ValueError(f"FrameConfig: raster {self.raster!r} not in {RASTERS}")
+        if self.texture_filter not in TEXTURE_FILTERS:
+            raise ValueError(
+                f"FrameConfig: texture_filter {self.texture_filter!r} not in {TEXTURE_FILTERS}"
+            )
+        if self.ssao_mode not in SSAO_MODES:
+            raise ValueError(f"FrameConfig: ssao_mode {self.ssao_mode!r} not in {SSAO_MODES}")
+        if self.alpha_peel_rounds < 0:
+            raise ValueError("FrameConfig: alpha_peel_rounds must be >= 0")
         if self.fine_tiles_per_cell not in TILES_PER_CELL:
             raise ValueError(
                 f"FrameConfig: fine_tiles_per_cell {self.fine_tiles_per_cell} not in "
@@ -80,28 +103,80 @@ class RenderedFrame(NamedTuple):
     valid: torch.Tensor  # (H, W) bool
 
 
-def render_frame_core(atlas: SceneAtlas, inputs: RenderInputs, cfg: FrameConfig) -> RenderedFrame:
+def _select(mask: torch.Tensor, b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``b`` where the (H, W) ``mask`` holds, else ``a``, for a field of any
+    trailing shape; uint16 goes through int32 (no uint16 select on CUDA)."""
+    mask = mask.reshape(mask.shape + (1,) * (a.dim() - 2))
+    if a.dtype == torch.uint16:
+        return torch.where(mask, b.to(torch.int32), a.to(torch.int32)).to(torch.uint16)
+    return torch.where(mask, b, a)
+
+
+def render_frame_core(
+    atlas: SceneAtlas,
+    inputs: RenderInputs,
+    cfg: FrameConfig,
+    background_image: torch.Tensor | None = None,  # (H, W, 3|4) f32 linear
+    light_map: LightMapData | None = None,
+    depth_peel_depth: torch.Tensor | None = None,  # (H, W) floor of the first pass
+) -> RenderedFrame:
     cfg.check()
     H, W = cfg.height, cfg.width
+    dev = inputs.cam_pose.device
     geom = geometry_stage(atlas, inputs, W, H)
+    mark("geometry")
     shadow_maps, shadow_matrices = render_shadow_maps(
         atlas, inputs, cfg.shadow_size, cfg.max_lights, cfg.raster, cfg.fine_tiles_per_cell
     )
-    if cfg.tiled:
-        gbuf = rasterize_tiled(
-            geom, atlas, inputs, W, H, raster=cfg.raster, tile_capacity=cfg.tile_capacity,
-            big_capacity=cfg.big_capacity, fine_chunk=cfg.fine_chunk,
-            pixel_stage=cfg.pixel_stage, tiles_per_cell=cfg.fine_tiles_per_cell,
-        )
-    else:
-        gbuf = rasterize(geom, atlas, inputs, W, H)
-    out = shade(atlas, inputs, geom, gbuf, shadow_maps, shadow_matrices, cfg.max_lights)
+    mark("shadow pass")
 
-    # background colour, alpha 0 (the reference clears to transparent black)
-    bg = torch.cat([inputs.background_color[:3], torch.zeros(1, device=out.hdr.device)])
-    composed = torch.where(out.valid[..., None], out.hdr, bg.expand(H, W, 4))
-    mapped = tone_map(composed, out.hdr * out.valid[..., None], inputs.manual_exposure)
+    def raster_and_shade(min_depth) -> FrameOutputs:
+        if cfg.tiled:
+            gbuf = rasterize_tiled(
+                geom, atlas, inputs, W, H, raster=cfg.raster, tile_capacity=cfg.tile_capacity,
+                big_capacity=cfg.big_capacity, fine_chunk=cfg.fine_chunk,
+                pixel_stage=cfg.pixel_stage, tiles_per_cell=cfg.fine_tiles_per_cell,
+                min_depth=min_depth,
+            )
+        else:
+            gbuf = rasterize(geom, atlas, inputs, W, H, min_depth=min_depth)
+        mark("camera raster")
+        return shade(
+            atlas, inputs, geom, gbuf, shadow_maps, shadow_matrices, cfg.max_lights,
+            light_map=light_map, sample_textures=cfg.sample_textures,
+            sample_stickers=cfg.sample_stickers, texture_filter=cfg.texture_filter,
+        )
+
+    out = raster_and_shade(depth_peel_depth)
+    for _ in range(cfg.alpha_peel_rounds if cfg.alpha_peel else 0):
+        # the alpha cutoff at the raster stage: pixels whose z-winner failed
+        # the cutoff are rastered again with that depth as the floor, so
+        # colour and ground truth come from the surface behind the cutout,
+        # as GL's fragment discard before the depth write does
+        base_md = depth_peel_depth if depth_peel_depth is not None else torch.zeros((H, W), device=dev)
+        out2 = raster_and_shade(torch.where(out.discarded, out.raster_depth, base_md))
+        out = FrameOutputs(*(_select(out.discarded, b, a) for a, b in zip(out, out2)))
+    mark("assemble")
+
+    # SSAO multiplies the objects' RGB (reference render_pass.cpp:662-694)
+    hdr_obj = out.hdr
+    if cfg.ssao:
+        hdr_obj = ssao_apply(hdr_obj, out.cam_coordinates, out.normals, out.valid,
+                             inputs.projection, mode=cfg.ssao_mode)
+    mark("SSAO")
+
+    # background: image > skybox > colour (alpha 0: the reference clears to
+    # transparent black and writes colour only through the image or skybox)
+    if background_image is not None:
+        bg = torch.cat([background_image[..., :3], torch.ones((H, W, 1), device=dev)], -1)
+    elif light_map is not None:
+        bg = torch.cat([sample_skybox(light_map, inputs, W, H), torch.ones((H, W, 1), device=dev)], -1)
+    else:
+        bg = torch.cat([inputs.background_color[:3], torch.zeros(1, device=dev)]).expand(H, W, 4)
+    composed = torch.where(out.valid[..., None], hdr_obj, bg)
+    mapped = tone_map(composed, hdr_obj * out.valid[..., None], inputs.manual_exposure)
     rgb_u8 = torch.round(torch.clamp(mapped, 0.0, 1.0) * 255.0).to(torch.uint8)
+    mark("background + tone map")
     return RenderedFrame(
         rgb=rgb_u8, hdr=composed, object_coordinates=out.object_coordinates,
         cam_coordinates=out.cam_coordinates, class_index=out.class_index,

@@ -100,10 +100,12 @@ def rasterize(
     near: float = DEFAULT_NEAR,
     far: float = DEFAULT_FAR,
     chunk: int = 64,
+    min_depth: torch.Tensor | None = None,
 ) -> GBuffer:
     """Chunked brute-force z-buffer over all (triangle, pixel) pairs
     (rasterize.py:132-236): the exact oracle for the cell raster. Ties in
-    depth keep the lowest triangle id."""
+    depth keep the lowest triangle id. ``min_depth`` (H, W) is the
+    depth-peel floor: fragments at or below it by 1e-5 are discarded."""
     faces = atlas.faces.long()
     dev = geom.pix_hom.device
     v_all = geom.pix_hom[faces]  # (F, 3, 3)
@@ -116,6 +118,8 @@ def rasterize(
     best_tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     best_bary = torch.zeros((height, width, 3), device=dev)
     best_front = torch.zeros((height, width), dtype=torch.bool, device=dev)
+    if min_depth is None:
+        min_depth = torch.zeros((height, width), device=dev)
 
     for base in range(0, F, chunk):
         vc = v_all[base : base + chunk]
@@ -139,7 +143,7 @@ def rasterize(
             & (Esum.abs() > 1e-20)
             & (wp > near)
             & (wp <= far)
-            & (wp > 1e-5)  # the depth-peel floor test against a floor of 0
+            & (wp > min_depth[None] + 1e-5)
             & vis[:, None, None]
         )
         score = torch.where(ok, wp, inf)

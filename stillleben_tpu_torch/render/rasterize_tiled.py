@@ -65,6 +65,14 @@ def untile_img(x: torch.Tensor, tw: int, th: int, pad_h: int, pad_w: int,
     )
 
 
+def tile_img(img: torch.Tensor, tw: int, th: int, tile: int) -> torch.Tensor:
+    """(H, W) image -> (n_tiles, tile^2) tile-major, zero-padded to whole
+    tiles: the layout of the kernels' depth-peel floor."""
+    height, width = img.shape
+    md = torch.nn.functional.pad(img, (0, tw * tile - width, 0, th * tile - height))
+    return md.reshape(th, tile, tw, tile).permute(0, 2, 1, 3).reshape(tw * th, tile * tile)
+
+
 def _bounds(v, depth_attr, tri_active, width: int, height: int, near: float, far: float):
     """Classify (rasterize_tiled.py:434-456): returns (all_front, the
     clipped pixel bbox x0, x1, y0, y1, zmin, active), where active drops
@@ -250,15 +258,23 @@ def rasterize_vertices_cells(
     far: float,
     big_capacity: int,
     tile: int = TILE,
+    min_depth: torch.Tensor | None = None,
 ):
     """Compact-cell binned z-buffer (rasterize_tiled.py:54-383). Returns
-    (depth image, triangle-id image), both (H, W). The depth-peel floor
-    the kernel takes is 0 everywhere (alpha peel is not ported)."""
+    (depth image, triangle-id image), both (H, W). ``min_depth`` (H, W) is
+    the depth-peel floor: only depths above it by 1e-5 count (None = 0
+    everywhere). The kernel reads it tiled, with one more row of zeros
+    that invalid cells index (rasterize_tiled.py:336-348)."""
     LT, ids, cell_tile, tw, th, n_tiles = build_cells(
         v, depth_attr, tri_active, width, height, near, far, big_capacity, tile=tile
     )
+    md_tiles = None
+    if min_depth is not None:
+        md_tiles = torch.cat(
+            [tile_img(min_depth, tw, th, tile), torch.zeros((1, tile * tile), device=v.device)]
+        )
     depth_t, tri_t = cell_raster(
-        LT, ids, cell_tile, None, float(near), float(far), tw, tile, n_tiles
+        LT, ids, cell_tile, md_tiles, float(near), float(far), tw, tile, n_tiles
     )
     pad_w, pad_h = tw * tile, th * tile
     depth_img = untile_img(depth_t, tw, th, pad_h, pad_w, height, width, tile)
@@ -408,16 +424,21 @@ def rasterize_vertices(
     pixel_stage: bool = True,
     tile: int = TILE,
     tiles_per_cell: int = 1,
+    min_depth: torch.Tensor | None = None,
 ):
     """Classic span-class binned z-buffer (rasterize_tiled.py:386-668, the
     kernel path). Returns (depth image, triangle-id image), both (H, W).
-    The depth-peel floor is 0 everywhere (alpha peel is not ported)."""
+    ``min_depth`` (H, W) is the depth-peel floor (None = 0 everywhere); the
+    pixel stage applies it too."""
     lists = build_tile_lists(
         v, depth_attr, tri_active, width, height, near, far, tile_capacity, big_capacity,
         fine_chunk, pixel_stage, tile=tile,
     )
     tw, th, n_tiles = lists["tw"], lists["th"], lists["n_tiles"]
-    md_tiles = torch.zeros((n_tiles, tile * tile), device=v.device)
+    if min_depth is None:
+        md_tiles = torch.zeros((n_tiles, tile * tile), device=v.device)
+    else:
+        md_tiles = tile_img(min_depth, tw, th, tile)
     depth_t, tri_t = fine_stage(
         lists["ids"], lists["LT"], md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell
     )
@@ -427,13 +448,13 @@ def rasterize_vertices(
     if pixel_stage:
         depth_img, tri_img = _run_pixel_stages(
             lists["Lf"], depth_attr, lists["tiny"], lists["px_span_x"], lists["px_span_y"],
-            lists["x0"], lists["y0"], width, height, near, far, depth_img, tri_img,
+            lists["x0"], lists["y0"], width, height, near, far, min_depth, depth_img, tri_img,
         )
     return depth_img, tri_img
 
 
 def _run_pixel_stages(
-    Lf, depth_attr, tiny, px_span_x, px_span_y, x0, y0, width, height, near, far,
+    Lf, depth_attr, tiny, px_span_x, px_span_y, x0, y0, width, height, near, far, min_depth,
     depth_img, tri_img,
 ):
     """The exact per-pixel stage (:764-795): sub-2-px triangles pay a
@@ -442,14 +463,14 @@ def _run_pixel_stages(
     F = Lf.shape[0]
     tiny2 = tiny & (px_span_x <= 2) & (px_span_y <= 2)
     pid2, w2, tid2 = _pixel_pairs(
-        Lf, depth_attr, tiny2, x0, y0, width, height, near, far, window=2
+        Lf, depth_attr, tiny2, x0, y0, width, height, near, far, min_depth, window=2
     )
     tiny4 = tiny & ~tiny2
     cap4 = int(min(F, max(4096, F // 16)))
     ids4, ok4 = _compact(tiny4, cap4)
     il = ids4.long()
     pid4, w4, tid4 = _pixel_pairs(
-        Lf[il], depth_attr[il], ok4, x0[il], y0[il], width, height, near, far,
+        Lf[il], depth_attr[il], ok4, x0[il], y0[il], width, height, near, far, min_depth,
         window=4, tri_ids=ids4,
     )
     return _resolve_pixel_pairs(
@@ -458,7 +479,7 @@ def _run_pixel_stages(
     )
 
 
-def _pixel_pairs(Lf, depth_attr, tiny, x0, y0, width, height, near, far,
+def _pixel_pairs(Lf, depth_attr, tiny, x0, y0, width, height, near, far, min_depth=None,
                  window=PIXEL_WINDOW, tri_ids=None):
     """(pixel id, depth, triangle id) covering pairs of one tiny span class
     (:798-857): centre coverage of every (triangle, window pixel) pair;
@@ -485,6 +506,9 @@ def _pixel_pairs(Lf, depth_attr, tiny, x0, y0, width, height, near, far,
     covers = (
         tiny[None, :] & in_image & inside & (Esum.abs() > 1e-20) & (wp > near) & (wp <= far)
     )
+    if min_depth is not None:  # depth-peel passes only (:846-851)
+        md_pair = min_depth.reshape(-1)[torch.clamp(pix_id, 0, n_px - 1).long()]
+        covers = covers & (wp > md_pair + 1e-5)
     pid = torch.where(covers, pix_id, n_px).reshape(-1)  # n_px = dump slot
     wflat = torch.where(covers, wp, float("inf")).reshape(-1)
     tids = torch.arange(F, dtype=torch.int32, device=dev) if tri_ids is None else tri_ids
@@ -524,17 +548,20 @@ def rasterize_tiled(
     fine_chunk: int = 128,
     pixel_stage: bool | None = None,
     tiles_per_cell: int = 1,
+    min_depth: torch.Tensor | None = None,
 ) -> GBuffer:
     """Camera raster (rasterize_tiled.py:890-934, two-sided), through the
     cell path or, with ``raster="classic"``, the span-class path (the JAX
     package's ``SL_RASTER``). ``pixel_stage`` None means on for more than
-    20,000 faces. Barycentrics and facing are recomputed in shading."""
+    20,000 faces. ``min_depth`` (H, W) is the depth-peel floor of an
+    alpha-peel pass. Barycentrics and facing are recomputed in shading."""
     faces = atlas.faces.long()
     v = geom.pix_hom[faces]  # (F, 3, 3)
     visible = inputs.obj_visible[atlas.face_obj.long()]
     if raster == "cells":
         depth_img, tri_img = rasterize_vertices_cells(
-            v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, big_capacity
+            v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, big_capacity,
+            min_depth=min_depth,
         )
     elif raster == "classic":
         if pixel_stage is None:
@@ -542,6 +569,7 @@ def rasterize_tiled(
         depth_img, tri_img = rasterize_vertices(
             v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, tile_capacity,
             big_capacity, fine_chunk, pixel_stage, tiles_per_cell=tiles_per_cell,
+            min_depth=min_depth,
         )
     else:
         raise ValueError(f"rasterize_tiled: raster {raster!r} not in {RASTERS}")

@@ -1,9 +1,10 @@
 """A minimal host scene: what a batch template reads, and nothing else.
 
 Holds objects (``assets.mesh.Mesh`` meshes with pose,
-instance index, PBR overrides, shadow flag, static flag and mass
-properties), the viewport and projection, lights, ambient light,
-background colour and exposure, with the reference's defaults
+instance index, PBR overrides, shadow flag, static flag, mass properties,
+sticker and forced colour), the viewport and projection, lights, ambient
+light, the image-based light map, background colour, image and plane, and
+exposure, with the reference's defaults
 (``stillleben_tpu/scene/scene.py:52-83``). ``compile_physics`` ports
 ``Scene._compile`` (:299-373) and ``default_floor`` ports
 ``Scene._default_floor`` (:408-411). The public ``Scene``/``Object`` API,
@@ -16,7 +17,9 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from ..core import math as m
 from ..physics.bodies import (
     DEFAULT_DENSITY,
     aggregate_mass_properties,
@@ -39,7 +42,10 @@ DEFAULT_RESTITUTION = 0.1
 class Object:
     """A mesh instance: the fields of ``stillleben_tpu.Object`` a template
     reads. ``metallic``/``roughness`` of -1 mean no override. The physics
-    material and density are the reference defaults."""
+    material and density are the reference defaults. A sticker is a
+    ``Texture`` projected onto the object along ``sticker_rotation`` (wxyz)
+    over ``sticker_range`` (x, y, w, h; zeros = none). ``color`` with
+    ``force_color`` replaces the mesh's vertex colours."""
 
     mesh: object
     pose: np.ndarray = field(default_factory=lambda: np.eye(4, dtype=np.float32))
@@ -48,6 +54,28 @@ class Object:
     metallic: float = -1.0
     roughness: float = -1.0
     casts_shadows: bool = True
+    sticker_texture: object = None
+    sticker_range: np.ndarray = field(default_factory=lambda: np.zeros(4, np.float32))
+    sticker_rotation: np.ndarray = field(
+        default_factory=lambda: np.array([1.0, 0, 0, 0], np.float32)
+    )
+    color: np.ndarray | None = None
+    force_color: bool = False
+
+    def sticker_view_projection(self) -> np.ndarray:
+        """The frustum that projects the sticker onto the object (reference
+        src/object.cpp:494-513; row-major)."""
+        diagonal = self.mesh.bbox.diagonal
+        proj = np.array(
+            [[2.0 / diagonal, 0, 0, 0], [0, 2.0 / diagonal, 0, 0], [0, 0, 1, 1], [0, 0, 0, 1]],
+            np.float32,
+        )
+        trans = np.eye(4, dtype=np.float32)
+        trans[2, 3] = 1.0
+        rot = np.eye(4, dtype=np.float32)
+        q = torch.from_numpy(np.asarray(self.sticker_rotation, np.float32))
+        rot[:3, :3] = m.quat_to_matrix(q).numpy()
+        return proj @ trans @ rot
 
     def mass_properties(self):
         """(mass, com, inertia) in the mesh frame, pretransform applied."""
@@ -69,7 +97,12 @@ class Scene:
         self.light_colors = np.zeros((NUM_LIGHTS, 3), np.float32)
         self.light_colors[0] = 300.0  # radiance units (scene.h:226-230)
         self.ambient_light = np.zeros(3, np.float32)
+        self.light_map = None  # a render.light_map.LightMap
         self.background_color = np.ones(4, np.float32)
+        self.background_image = None  # a Texture, drawn behind everything
+        self.background_plane_pose = np.eye(4, dtype=np.float32)
+        self.background_plane_size = np.zeros(2, np.float32)  # zeros = no plane
+        self.background_plane_texture = None  # a Texture2D
         self.manual_exposure = -1.0
 
     def add_object(self, obj: Object) -> None:

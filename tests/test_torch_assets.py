@@ -24,6 +24,7 @@ from stillleben_tpu_torch.assets.decimate import decimate_faces
 from stillleben_tpu_torch.assets.mesh import Mesh
 from stillleben_tpu_torch.assets.procedural import write_meshes
 from stillleben_tpu_torch.physics.bodies import aggregate_mass_properties
+import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdist)
 
 
 def write_ply(path, seed=3):

@@ -33,6 +33,7 @@ from stillleben_tpu_torch.ops.cell_raster import (
     keys_to_depth,
     merge_cells,
 )
+import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdist)
 
 NEAR, FAR = 0.1, 10.0
 SPREAD = 6  # triangle vertices within +-SPREAD px of a centre

@@ -31,6 +31,7 @@ from stillleben_tpu_torch.ops.fine_raster import (
     fine_raster_plain,
 )
 from stillleben_tpu_torch.render.frame import FrameConfig
+import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdist)
 
 NEAR, FAR = 0.1, 10.0
 TIED = 16  # slots of chunk 0 copied (geometry) into chunk 1 and into 16..31

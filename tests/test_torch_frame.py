@@ -42,7 +42,8 @@ JAX_CFG = JaxFrameConfig(
     shadow_mode="vsm", sample_textures=False, sample_stickers=False, alpha_peel=False,
     shading_dtype="f32",
 )
-CFG = FrameConfig(width=W, height=H, max_lights=1, shadow_size=SHADOW_SIZE)
+CFG = FrameConfig(width=W, height=H, max_lights=1, shadow_size=SHADOW_SIZE, ssao=False,
+                  sample_textures=False, sample_stickers=False)
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,10 @@
-"""The port imports neither jax nor the JAX package: a fresh interpreter
-that refuses every ``jax``, ``jaxlib`` and ``stillleben_tpu`` module (the
-port, ``stillleben_tpu_torch``, is another top-level name) imports the whole
-port, loads meshes from files through the port's own ``Mesh``, builds a
-template and renders a frame through each raster on the CPU."""
+"""The port imports neither jax nor the JAX package, nor an image library:
+a fresh interpreter that refuses every ``jax``, ``jaxlib``,
+``stillleben_tpu``, ``PIL`` and ``cv2`` module (the port,
+``stillleben_tpu_torch``, is another top-level name) imports the whole
+port, loads meshes and their PNG texture from files through the port's own
+``Mesh`` and codec, builds a template with a background plane and a light
+map, and renders a full frame through each raster on the CPU."""
 
 import subprocess
 import sys
@@ -12,7 +14,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "stillleben_tpu")
+    BLOCKED = ("jax", "jaxlib", "stillleben_tpu", "PIL", "cv2")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -22,11 +24,18 @@ SCRIPT = textwrap.dedent(
     sys.meta_path.insert(0, Refuse())
     import torch
     import stillleben_tpu_torch
+    names = set()
     for mod in pkgutil.walk_packages(stillleben_tpu_torch.__path__, "stillleben_tpu_torch."):
         importlib.import_module(mod.name)
+        names.add(mod.name.removeprefix("stillleben_tpu_torch."))
+    new = {"assets.image", "assets.texture", "render.light_map", "render.ibl", "render.ssao",
+           "render.stages"}
+    assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
-    from stillleben_tpu_torch.assets.procedural import write_meshes
+    from stillleben_tpu_torch.assets.procedural import checker_texture, sky_equirect, write_meshes
+    from stillleben_tpu_torch.assets.texture import Texture2D
+    from stillleben_tpu_torch.render.light_map import LightMap
     from stillleben_tpu_torch.parallel.batch import generate_batch, template_from_scene
     from stillleben_tpu_torch.physics.types import default_config
     from stillleben_tpu_torch.render.frame import FrameConfig
@@ -34,18 +43,22 @@ SCRIPT = textwrap.dedent(
 
     paths = write_meshes(sys.argv[1], subdiv=2)
     scene = Scene((32, 32))
-    for name, diag in (("cube", 0.25), ("sphere", 0.3), ("blob", 0.25)):
-        flags = Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL if name == "blob" else 0
+    for name, diag in (("cube", 0.25), ("sphere", 0.3), ("blob_textured", 0.25)):
+        flags = Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL if name == "blob_textured" else 0
         mesh = Mesh(paths[name], flags=flags)
         mesh.center_bbox()
         mesh.scale_to_bbox_diagonal(diag)
         scene.add_object(Object(mesh))
+    scene.background_plane_size[:] = 3.0
+    scene.background_plane_texture = Texture2D(checker_texture(64))
+    scene.light_map = LightMap.from_equirect(sky_equirect(8, 16), device="cpu")
     tpl = template_from_scene(scene, "cpu")
+    assert (tpl.render_atlas.mat_base_tex >= 0).sum() == 2 and tpl.light_map is not None
     for raster in ("cells", "classic"):
         cfg = FrameConfig(width=32, height=32, max_lights=1, shadow_size=32, raster=raster)
         frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, cfg, default_config(),
                                 settle_iterations=1)
-        assert frames.valid.any(), raster
+        assert frames.valid.any() and (frames.hdr[..., 3] > 0.9999).all(), raster
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")
@@ -54,7 +67,8 @@ SCRIPT = textwrap.dedent(
 
 
 def test_port_runs_without_jax(tmp_path):
-    env_cache = {"STILLLEBEN_TPU_MESH_CACHE": str(tmp_path / "mesh_cache")}
+    # one torch thread: the test runs beside other pytest-xdist workers
+    env_cache = {"STILLLEBEN_TPU_MESH_CACHE": str(tmp_path / "mesh_cache"), "OMP_NUM_THREADS": "1"}
     import os
 
     env = dict(os.environ, **env_cache)

@@ -8,6 +8,15 @@ import os
 
 import numpy as np
 import pytest
+import torch
+
+# pytest-xdist runs several workers on one machine. With torch's default of
+# one intra-op thread per core in each of them the OpenMP pools oversubscribe
+# the cores and spin against each other: six workers on eight cores took over
+# 25 minutes for a file that runs in 30 s alone, and 60 s with one thread
+# each. Every port test file imports this module, so the limit holds for all.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 W = H = 48
 SHADOW_SIZE = 64
@@ -152,3 +161,97 @@ def well_conditioned(bary_a, bary_b, tri, v, tol=1e-5):
         np.abs(bary_b[ys, xs] - b64).max(1) <= tol
     )
     return ok
+
+
+# --- the full frame: textures, stickers, background plane, light map -------
+
+SUN = (np.array([0.3, 0.5, -0.8], np.float32) / np.linalg.norm([0.3, 0.5, -0.8]),
+       np.array([3.0, 2.8, 2.5], np.float32))
+
+
+def build_full_meshes(directory: str, subdiv: int = 3, port: bool = False):
+    """cube (class 1), sphere (2), the textured blob (3) and the cube with
+    the cutout texture (4), by the port's ``Mesh`` or the JAX package's."""
+    if port:
+        from stillleben_tpu_torch.assets.mesh import Mesh
+    else:
+        from stillleben_tpu.assets.mesh import Mesh
+    from stillleben_tpu_torch.assets.procedural import write_meshes
+
+    paths = write_meshes(directory, subdiv=subdiv)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STILLLEBEN_TPU_MESH_CACHE", os.path.join(directory, "mesh_cache"))
+        mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "0")
+        cube = Mesh(paths["cube"])
+        sphere = Mesh(paths["sphere"])
+        blob = Mesh(paths["blob_textured"], flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
+        cutout = Mesh(paths["cube_cutout"])
+    cube.scale_to_bbox_diagonal(0.25)
+    sphere.scale_to_bbox_diagonal(0.3)
+    blob.center_bbox()
+    blob.scale_to_bbox_diagonal(0.25)
+    cutout.scale_to_bbox_diagonal(0.25)
+    for i, mesh in enumerate((cube, sphere, blob, cutout)):
+        mesh.class_index = i + 1
+    return cube, sphere, blob, cutout
+
+
+def sticker_pixels(seed: int, h: int, w: int) -> np.ndarray:
+    """A seeded (h, w, 4) uint8 sticker, alpha at least 128."""
+    st = np.random.default_rng(seed).integers(0, 256, size=(h, w, 4), dtype=np.uint8)
+    st[..., 3] = np.maximum(st[..., 3], 128)
+    return st
+
+
+def fill_full_scene(scene, meshes, make_object, texture_cls, texture2d_cls, light_map,
+                    stickers: bool = False, overrides: bool = True):
+    """The same full scene into either package's host ``Scene``: the objects
+    (seeded metallic/roughness overrides; with ``stickers`` a sticker of its
+    own size on every object but the first), a 3 x 3 m plane with the
+    512^2 checker, and the light map."""
+    from stillleben_tpu_torch.assets.procedural import checker_texture
+
+    rng = np.random.default_rng(7)
+    for i, mesh in enumerate(meshes):
+        o = make_object(mesh)
+        if overrides:
+            o.metallic, o.roughness = float(rng.random()), float(rng.random())
+        if stickers and i > 0:
+            o.sticker_texture = texture_cls(sticker_pixels(i, 20 + 6 * i, 30 - 4 * i))
+            o.sticker_range = np.array([-0.5, -0.5, 1.0, 1.0], np.float32)
+            o.sticker_rotation = np.array([0.9238795, 0.3826834, 0.0, 0.0], np.float32)
+        scene.add_object(o)
+    scene.light_map = light_map
+    scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+    scene.background_plane_texture = texture2d_cls(checker_texture())
+    return scene
+
+
+def jax_light_map():
+    """The JAX package's precompute of the benchmark's sky panorama."""
+    from stillleben_tpu.render.light_map import LightMap
+    from stillleben_tpu_torch.assets.procedural import sky_equirect
+
+    return LightMap.from_equirect(sky_equirect(), lights=[SUN])
+
+
+def jax_full_template(meshes, light_map, stickers=False, overrides=True, size=(W, H)):
+    import stillleben_tpu as sl
+    from stillleben_tpu.parallel.batch import template_from_scene
+
+    scene = sl.Scene(size)
+    scene.seed(0)
+    fill_full_scene(scene, meshes, sl.Object, sl.Texture, sl.Texture2D, light_map,
+                    stickers, overrides)
+    return template_from_scene(scene)
+
+
+def port_full_template(meshes, light_map, device="cpu", stickers=False, overrides=True,
+                       size=(W, H)):
+    from stillleben_tpu_torch.assets.texture import Texture, Texture2D
+    from stillleben_tpu_torch.parallel.batch import template_from_scene
+    from stillleben_tpu_torch.scene.scene import Object, Scene
+
+    scene = fill_full_scene(Scene(size), meshes, Object, Texture, Texture2D, light_map,
+                            stickers, overrides)
+    return template_from_scene(scene, device)
