@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the datagen main path at
-the benchmark's size and full configuration, through every hand-written
-kernel, on both rasters.
+the benchmark's size, in every configuration that the JAX package's
+``bench.py`` runs, through every hand-written kernel, on both rasters.
 
     python3 chip_smoke.py
 
-Two configurations of the same 10 objects at 640x480, B = 8: **bench-full**
-(the JAX package's bench workload "textured": the dense mesh with its
+Two configurations of the same 10 objects at 640x480: **bench-full** (the
+JAX package's bench workload "textured": the dense mesh with its
 base-colour texture, a 3 x 3 m checker background plane, the sky light map
 with skybox, SSAO, trilinear textures, 2048^2 VSM shadow) and
 **bench-slice** (the untextured configuration of the earlier slices: no
-plane, light map, textures or SSAO).
+plane, light map, textures or SSAO). On bench-full, the two rungs of
+``bench.py``: **tuned** (``TUNED.json``: back-face cull, 1-tap VSM, nearest
+prefiltered level, the frame contact cadence with 128 narrowphase pairs
+and the sleep exit, B = 16) and **refmode** (reference quality: PCF, the
+reference SSAO, 3 shadowed light slots, the substep cadence, B = 8).
 
 Phases (one line each or more; any failure exits non-zero):
 
@@ -21,7 +25,7 @@ Phases (one line each or more; any failure exits non-zero):
    timed beside an empty kernel's launch, the bound of a kernel that small.
 4. light map, scene, settle: the sky's precompute on the card, once; both
    templates; one settle of B = 8 scenes, whose poses serve the kernel
-   captures and the per-render breakdown of both configurations.
+   captures and the per-render breakdowns.
 5. kernels: each raster kernel against its plain PyTorch version on the
    inputs one render of each configuration really produces: the cell
    kernel (K1, cells to tiles, the merge included) at the camera (tile 16)
@@ -36,8 +40,9 @@ Phases (one line each or more; any failure exits non-zero):
    raster, first and warm call; content checks (finite, object pixels, the
    plane's pixels valid with class and instance 0, the skybox behind);
    K1's launch counts and no call of its plain version; scenes/s.
-7. bench-slice: ``generate_batch`` B = 8 through each raster, one warm call
-   each; the same checks; K1's and K2's launch counts; scenes/s.
+7. bench-slice: ``generate_batch`` B = 2 with 25 settle frames (cut from
+   B = 8 and 100 frames to leave time for phase 10) through each raster;
+   the same checks; K1's and K2's launch counts; scenes/s.
 8. breakdown: the 8 settled poses rendered with both rasters in both
    configurations (ms per render; classic against cells per scene, split
    into the classic raster's holes and every other disagreement, which
@@ -51,9 +56,21 @@ Phases (one line each or more; any failure exits non-zero):
    texture (K1's second camera pass takes the depth-peel floor and equals
    its plain version; discarded pixels show a deeper surface), a
    background image.
-10. card against CPU: the small full scene at 160x120 rendered by the port
-    on both devices, by the rules of ``tests/test_torch_gpu.py``.
-11. reference: on the CPU tests' small scene at 160x120, the instance map
+10. rungs: ``generate_batch`` of tuned (B = 16) and refmode (B = 8), first
+    call each, with their settle seconds and each scene's stop frame, the
+    content checks of phase 6, K1's launches (1 and 3 shadow passes per
+    scene) and no plain version called; ``generate_stream`` of 3 tuned
+    batches, 2 ahead, the training fields narrowed on the card (steady
+    scenes/s; one batch's narrowing and copy timed alone); refmode's render
+    by stage; K1 against its plain version on the tuned camera raster (back
+    faces culled) and on each of refmode's 3 PCF shadow passes, K2 on a
+    classic render with both culls (and its launches over 8 such renders);
+    one render each with the shadow off, flat and phong (phong's frame
+    equal to pbr's).
+11. card against CPU: the small full scene at 160x120 rendered by the port
+    on both devices in the bench-full, tuned and refmode frame
+    configurations, by the rules of ``tests/test_torch_gpu.py``.
+12. reference: on the CPU tests' small scene at 160x120, the instance map
     of each raster against the brute-force oracle's (cells >= 99.9%,
     classic >= 97%, the JAX package's own bound for its classic path).
 
@@ -73,6 +90,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 640, 480
 BATCH = 8
+TUNED_BATCH = 16  # TUNED.json's BENCH_BATCH
+SLICE_BATCH, SLICE_ITERATIONS = 2, 25  # phase 7, cut to stay in time
 SHADOW_SIZE = 2048
 SEED = 0
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W)
@@ -339,6 +358,46 @@ def count_calls(module, attrs, run):
             setattr(module, a, f)
 
 
+def capture_all(module, attr: str, run) -> list:
+    """Run ``run()`` with ``module.attr`` wrapped so that every call's
+    arguments are kept (cloned), in call order."""
+    calls = []
+    original = getattr(module, attr)
+
+    def recorder(*args, **kwargs):
+        calls.append((tuple(a.clone() if hasattr(a, "clone") else a for a in args), dict(kwargs)))
+        return original(*args, **kwargs)
+
+    setattr(module, attr, recorder)
+    try:
+        run()
+    finally:
+        setattr(module, attr, original)
+    return calls
+
+
+def record_settles(torch, tt, run):
+    """Run ``run()`` with ``tabletop.settle_with_stop`` timed (the device
+    synchronized around it) and its stop frames kept; returns (run's
+    result, [(seconds, stop frames per scene)])."""
+    settles = []
+    original = tt.settle_with_stop
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        settles.append((time.perf_counter() - t0, out[1].tolist()))
+        return out
+
+    tt.settle_with_stop = timed
+    try:
+        return run(), settles
+    finally:
+        tt.settle_with_stop = original
+
+
 def check_frames(torch, frames, what: str) -> str:
     for f in ("hdr", "object_coordinates", "cam_coordinates", "normals",
               "barycentric_coeffs", "depth"):
@@ -499,6 +558,220 @@ def sticker_footprint(torch, scene, frame):
         inside = ((uv > -1e-4) & (uv < 1 + 1e-4)).all(-1)
         out |= frame.valid & (inst == o.instance_index) & inside
     return out
+
+
+def run_rungs(torch, cr, fr, rt, ftpl, fcfg, light_map, render, card) -> dict:
+    """Phase 10: the tuned and the reference-quality rungs of bench.py on
+    the bench-full template, their kernels against the plain versions, and
+    one render each of the other modes. Returns the kernels' JSON entries."""
+    import copy
+
+    import numpy as np
+
+    from stillleben_tpu_torch.parallel.batch import _to_host, generate_batch, generate_stream
+    from stillleben_tpu_torch.physics import tabletop as tt
+    from stillleben_tpu_torch.physics.types import default_config
+
+    plain_k1 = ("cell_raster_plain", "merge_cells", "cell_raster_reference")
+    plain_k2 = ("fine_raster_plain", "fine_raster_reference")
+    # TUNED.json: the back-face cull, the 1-tap VSM, the nearest prefiltered
+    # level; the frame cadence, 128 narrowphase pairs, the sleep exit; B = 16
+    tuned_cfg = fcfg._replace(backface_cull=True, vsm_taps=1, ibl_prefilter="nearest")
+    tuned_solver = default_config()._replace(contact_gen="frame", max_narrow_pairs=128,
+                                             sleep_frames=10)
+    # bench.py:226-242, :282-286: PCF, the reference SSAO, 3 shadowed light
+    # slots; the substep cadence with 256 pairs; B = 8
+    ref_cfg = fcfg._replace(shadow_mode="pcf", ssao_mode="reference", max_lights=3)
+    ref_solver = default_config()._replace(contact_gen="substep", max_narrow_pairs=256)
+    # BENCH_LIGHTS=3 gives the light map two more lights (bench.py:124-130),
+    # on bench-full's precomputed data. Neither package's template reads a
+    # light map's lights: the template's three slots hold the scene's light
+    # 0, replaced by each scene's random light, and two dark slots, whose
+    # shadow passes run all the same. So the rung renders bench-full's
+    # template.
+    lm3 = copy.copy(light_map)
+    for d in ((-0.5, -0.3, -0.9), (-0.3, -0.3, -0.9)):
+        lm3.light_directions = np.concatenate(
+            [lm3.light_directions, (np.asarray(d, np.float32) / np.linalg.norm(d))[None]])
+        lm3.light_colors = np.concatenate([lm3.light_colors, np.float32([[1.5, 1.5, 1.6]])])
+    rtpl = ftpl
+    phase("rungs", f"refmode light map: {len(lm3.light_directions)} lights, bench-full's "
+                   f"precomputed data shared: {lm3.data is light_map.data}; light slots of the "
+                   f"template: {rtpl.base_inputs.light_colors.shape[0]}")
+
+    def drive(batch, cfg, solver, seed):
+        """One generate_batch from zeroed launch counts; returns (frames,
+        seconds, settles, K1 launches by tile, K2 launches, plain calls)."""
+        cr.reset_launch_counts()
+        fr.reset_launch_counts()
+        gen = torch.Generator().manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (frames, plain), settles = record_settles(torch, tt, lambda: count_calls(
+            cr, plain_k1, lambda: generate_batch(gen, batch, ftpl if cfg is tuned_cfg else rtpl,
+                                                 cfg, solver)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (frames, secs, settles, dict(cr.cell_raster.launches_by_tile),
+                fr.fine_raster.launches, plain)
+
+    out = {}
+    for name, batch, cfg, solver, seed, shadow_passes in (
+        ("tuned", TUNED_BATCH, tuned_cfg, tuned_solver, SEED + 5, 1),
+        ("refmode", BATCH, ref_cfg, ref_solver, SEED + 7, 3),
+    ):
+        frames, secs, settles, k1, k2, plain = drive(batch, cfg, solver, seed)
+        (settle_s, stops), = settles
+        phase("rungs", f"{name}: generate_batch B={batch} {WIDTH}x{HEIGHT}, first call: "
+                       f"{secs:.3f} s, {batch / secs:.4f} scenes/s; settle ({solver.contact_gen} "
+                       f"cadence, {solver.max_narrow_pairs} pairs, sleep_frames "
+                       f"{solver.sleep_frames}) {settle_s:.3f} s, stop frame per scene {stops}; "
+                       f"render {(secs - settle_s) / batch * 1e3:.2f} ms per scene; K1 launches "
+                       f"by tile {k1}, K2/K3 launches {k2}; calls of K1's plain pieces {plain} "
+                       f"({card})")
+        phase("rungs", f"{name}: content: {check_frames(torch, frames, name)}; "
+                       f"{check_full_frames(torch, frames, name)}")
+        if (k1.get(16, 0) != batch or k1.get(32, 0) != shadow_passes * batch or k2
+                or any(plain.values())):
+            fail(f"{name}: K1 launches {k1}, K2 launches {k2}, plain calls {plain}")
+        out[name] = dict(k1=k1, frames=frames if name == "tuned" else None)
+        del frames
+
+    # the tuned rung's steady state: generate_stream, 3 batches, 2 ahead,
+    # the training subset narrowed on the card
+    fields = ("rgb", "instance_index", "class_index", "depth")
+    ready = []
+    cr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def stream():
+        got = []
+        for b in generate_stream(ftpl, tuned_cfg, tuned_solver, batch=TUNED_BATCH, n_batches=3,
+                                 seed=SEED + 6, prefetch=2, gt_fields=fields):
+            ready.append(time.perf_counter() - t0)
+            got.append(b)
+        return got
+
+    (batches, plain), settles = record_settles(torch, tt, lambda: count_calls(cr, plain_k1, stream))
+    stream_s = time.perf_counter() - t0
+    stream_k1 = dict(cr.cell_raster.launches_by_tile)
+    for b in batches:
+        want = {"rgb": (np.uint8, 4), "instance_index": (np.uint16, 0),
+                "class_index": (np.uint16, 0), "depth": (np.float16, 0)}
+        for f, (dt, ch) in want.items():
+            shape = (TUNED_BATCH, HEIGHT, WIDTH) + ((ch,) if ch else ())
+            if b[f].dtype != dt or b[f].shape != shape:
+                fail(f"stream: {f} is {b[f].dtype} {b[f].shape}, expected {dt.__name__} {shape}")
+        if not np.isfinite(b["depth"]).all() or not (b["instance_index"] > 0).any(axis=(1, 2)).all():
+            fail("stream: non-finite depth or a scene without object pixels")
+    # what the copy stream overlaps: one batch's narrowing and copy alone
+    frames = out["tuned"]["frames"]
+    narrowed = {f: getattr(frames, f) for f in fields}
+    narrowed = {f: x.to(torch.float16) if x.dtype == torch.float32 else x for f, x in narrowed.items()}
+    copy_stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host, _ = _to_host(narrowed, copy_stream)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t1) * 1e3
+    n_bytes = sum(x.numel() * x.element_size() for x in narrowed.values())
+    phase("rungs", f"tuned: generate_stream 3 x B={TUNED_BATCH} (prefetch 2, fields {fields}): "
+                   f"{stream_s:.3f} s, steady {3 * TUNED_BATCH / stream_s:.4f} scenes/s; batches "
+                   f"read back at {[round(t, 3) for t in ready]} s; settles "
+                   f"{[(round(t, 3), st) for t, st in settles]}; K1 launches by tile {stream_k1}; "
+                   f"plain calls {plain}; one batch's narrowing + copy to pinned memory alone "
+                   f"({n_bytes} B) {copy_ms:.2f} ms ({card})")
+    if len(batches) != 3 or any(plain.values()) or stream_k1.get(16, 0) != 3 * TUNED_BATCH:
+        fail(f"stream: {len(batches)} batches, K1 launches {stream_k1}, plain calls {plain}")
+    del batches, frames, narrowed, host, out["tuned"]["frames"]
+
+    # the rungs' renders of phase 4's 8 settled poses, and where the time
+    # of one refmode render goes
+    per_render = {}
+    for name, c in (("tuned", tuned_cfg), ("refmode", ref_cfg)):
+        render(c, 0, rtpl)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(BATCH):
+            render(c, b, rtpl)
+        torch.cuda.synchronize()
+        per_render[name] = round((time.perf_counter() - t0) / BATCH * 1e3, 2)
+    times = stage_times(torch, lambda: render(ref_cfg, 0, rtpl))
+    phase("stages", f"render per scene on phase 4's poses, ms: {per_render}; refmode, one "
+                    "render, device ms by stage: " + ", ".join(f"{n} {ms:.3f}" for n, ms in times)
+                    + f"; total {sum(ms for _, ms in times):.3f} ms ({card})")
+
+    # the kernels on the rungs' inputs: K1 on the tuned camera raster (back
+    # faces culled) and on each of refmode's 3 PCF shadow passes; K2 on a
+    # classic render with both culls
+    k1, k2 = {}, {}
+    calls = capture_all(rt, "cell_raster", lambda: render(tuned_cfg, 0, ftpl))
+    cam = [a for a, _ in calls if a[7] == 16]
+    if len(cam) != 1:
+        fail(f"tuned render: {len(cam)} camera passes")
+    k1["tuned camera"] = check_k1(torch, cr, cam[0], "tuned camera, back faces culled", card)
+    calls = capture_all(rt, "cell_raster", lambda: render(ref_cfg, 0, rtpl))
+    shadow = [a for a, _ in calls if a[7] == 32]
+    if len(shadow) != 3:
+        fail(f"refmode render: {len(shadow)} shadow passes, expected 3")
+    ref_checks = [check_k1(torch, cr, a, f"refmode PCF shadow, light slot {i}", card)
+                  for i, a in enumerate(shadow)]
+    k1["refmode shadow"] = dict(ref_checks[0], max_abs_err=max(c["max_abs_err"] for c in ref_checks))
+    culled = tuned_cfg._replace(raster="classic", shadow_cull=True)
+    k2_in = capture(rt, "fine_raster", lambda a, kw: kw["tile"], lambda: render(culled, 0, ftpl))
+    if set(k2_in) != {16, 64}:
+        fail(f"culled classic render: fine passes at tiles {sorted(k2_in)}")
+    for tile, (args, kw) in sorted(k2_in.items()):
+        k2[tile], _ = check_k2(torch, fr, args, kw, f"classic, both culls, tile {tile}", card)
+    # the culled classic render of phase 4's 8 settled poses: K2's launches
+    cr.reset_launch_counts()
+    fr.reset_launch_counts()
+    frames, plain = count_calls(fr, plain_k2, lambda: [render(culled, b, ftpl) for b in range(BATCH)])
+    culled_k2 = dict(fr.fine_raster.launches_by_shape)
+    for b, f in enumerate(frames):
+        check_full_frames(torch, type(f)(*(x[None] for x in f)), f"culled classic scene {b}")
+    phase("rungs", f"classic with both culls, {BATCH} renders: K2 launches {culled_k2}, plain calls "
+                   f"{plain}")
+    if any(plain.values()) or culled_k2.get((16, 1), 0) != BATCH:
+        fail(f"culled classic: K2 launches {culled_k2}, plain calls {plain}")
+    del frames
+
+    # one render each of the other modes (scene 0 of phase 4)
+    base = render(fcfg, 0, ftpl)
+    for what, c in (("shadow off, no SSAO", fcfg._replace(shadow_mode="off", ssao=False)),
+                    ("flat", fcfg._replace(shading="flat")),
+                    ("phong", fcfg._replace(shading="phong"))):
+        f = render(c, 0, ftpl)
+        check_frames(torch, type(f)(*(x[None] for x in f)), what)
+        if what == "phong":
+            same = all(torch.equal(getattr(f, n), getattr(base, n)) for n in f._fields)
+            phase("rungs", f"phong: every field equal to the pbr frame: {same}")
+            if not same:
+                fail("the phong frame differs from the pbr frame")
+            continue
+        d = float((f.hdr[..., :3] - base.hdr[..., :3]).abs().mean())
+        phase("rungs", f"{what}: finite; mean |hdr rgb difference| to bench-full {d:.6f}")
+        if d <= 0:
+            fail(f"{what} changed nothing")
+    del base, f
+
+    def entry(name, source, replaces, launches, res):
+        return dict(name=name, route="cuda", source=f"stillleben_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, library_ms=None, **res)
+
+    k1_src, k1_at = "cell_raster.cu", "stillleben_tpu/ops/cell_raster.py:43"
+    k2_src, k2_at = "fine_raster.cu", "stillleben_tpu/ops/fine_raster.py:98"
+    return dict(kernels=[
+        entry("cell_raster[tuned camera, back faces culled, tile 16]", k1_src, k1_at,
+              out["tuned"]["k1"][16], k1["tuned camera"]),
+        entry("cell_raster[refmode PCF shadow, 3 light slots, tile 32]", k1_src, k1_at,
+              out["refmode"]["k1"][32], k1["refmode shadow"]),
+        entry("fine_raster[classic with both culls, camera, tile 16]", k2_src, k2_at,
+              culled_k2[(16, 1)], k2[16]),
+        entry("fine_raster[classic with both culls, shadow, tile 64]", k2_src, k2_at,
+              culled_k2[(64, 1)], k2[64]),
+    ])
 
 
 def main() -> None:
@@ -732,13 +1005,14 @@ def main() -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frames, plain_calls = count_calls(
-            mod, attrs, lambda: generate_batch(gen, BATCH, tpl, c, solver_cfg))
+            mod, attrs, lambda: generate_batch(gen, SLICE_BATCH, tpl, c, solver_cfg, SLICE_ITERATIONS))
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         results[label] = (dict(cr.cell_raster.launches_by_tile),
                           dict(fr.fine_raster.launches_by_shape))
-        phase("main", f"bench-slice, {label}: generate_batch B={BATCH} {WIDTH}x{HEIGHT}: {s:.3f} s, "
-                      f"{BATCH / s:.4f} scenes/s ({card}); K1 launches by tile "
+        phase("main", f"bench-slice, {label}: generate_batch B={SLICE_BATCH} {WIDTH}x{HEIGHT}, "
+                      f"{SLICE_ITERATIONS} settle frames: {s:.3f} s, "
+                      f"{SLICE_BATCH / s:.4f} scenes/s ({card}); K1 launches by tile "
                       f"{results[label][0]}, K2 launches by (tile, tiles per block) "
                       f"{results[label][1]}; calls of the plain pieces {plain_calls}")
         phase("main", f"bench-slice, {label}: content: {check_frames(torch, frames, label)}")
@@ -939,19 +1213,27 @@ def main() -> None:
         fail("the background image does not show behind the objects")
     del base, no_sticker, peeled, f, gbufs, calls
 
-    # 10. the card against the port's own CPU run: the small full scene at
-    # 160x120, the device passed explicitly to both
+    # 10. the rungs of bench.py on the bench-full template: tuned
+    # (TUNED.json) and reference quality (BENCH_REFMODE=1)
+    rung = run_rungs(torch, cr, fr, rt, ftpl, fcfg, light_map, render, card)
+
+    # 11. the card against the port's own CPU run: the small full scene at
+    # 160x120 in the bench-full, tuned and refmode frame configurations, the
+    # device passed explicitly to both
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_gpu import compare_full_frames
+    from test_torch_gpu import compare_full_frames, full_config
 
     small_lm = LightMap.from_equirect(sky_equirect(), lights=[SUN_LIGHT], device="cpu")
     small_cpu = template_from_scene(small_full_scene(small_lm), "cpu")
     small_gpu = template_from_scene(small_full_scene(small_lm), "cuda")
     sp, sc, sl = settle_scene(torch.Generator().manual_seed(SEED + 4), 1, small_cpu, solver_cfg, 10)
-    summary = compare_full_frames(small_cpu, small_gpu, sp[0], sc[0], sl[0], (160, 120))
-    phase("card vs cpu", f"small full scene 160x120, cuda against cpu: {summary} ({card})")
+    for config in (None, "tuned", "refmode"):
+        summary = compare_full_frames(small_cpu, small_gpu, sp[0], sc[0], sl[0], (160, 120),
+                                      full_config((160, 120), config))
+        phase("card vs cpu", f"small full scene 160x120, {config or 'bench-full'} configuration, "
+                             f"cuda against cpu: {summary} ({card})")
 
-    # 11. both rasters against the brute-force oracle on a small input
+    # 12. both rasters against the brute-force oracle on a small input
     small = small_scene()
     stpl = template_from_scene(small)
     scfg = cfg._replace(width=160, height=120, shadow_size=512)
@@ -1002,6 +1284,7 @@ def main() -> None:
             replaces="stillleben_tpu/ops/fine_raster.py:130",
             launches=k3_launches.get((tile, tpg), 0), library_ms=None, **entry,
         ))
+    kernels.extend(rung["kernels"])
     if any(k["launches"] <= 0 for k in kernels):
         fail(f"a kernel was not launched on its path: {[k['name'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)

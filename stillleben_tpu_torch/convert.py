@@ -14,7 +14,7 @@ from .core.tree import tensors_from_numpy
 from .parallel.batch import SceneTemplate
 from .physics.contacts import Floor
 from .physics.tabletop import TabletopGeom
-from .physics.types import BodyParams, BodyState, HullAtlas
+from .physics.types import BodyParams, BodyState, HullAtlas, SolverConfig
 from .render.atlas import RenderInputs, SceneAtlas
 from .render.light_map import LightMapData
 
@@ -55,3 +55,19 @@ def state_from_numpy(state, device="cuda") -> BodyState:
     if st.pos.dim() == 2:
         st = BodyState(*(x[None] for x in st))
     return st
+
+
+def accumulators_from_numpy(acc, device="cuda") -> tuple[torch.Tensor, ...]:
+    """The solver's warm-start accumulators (normal, tangent 1, tangent 2),
+    numpy arrays of one scene (NC,) or a batch (B, NC) -> the port's
+    (B, NC) tensors; one scene gets a batch axis of 1."""
+    out = tuple(torch.from_numpy(np.array(a, np.float32)).to(device) for a in acc)
+    return tuple(a[None] if a.dim() == 1 else a for a in out)
+
+
+def solver_config_from_jax(cfg) -> SolverConfig:
+    """The values of a JAX ``SolverConfig`` (any NamedTuple with its field
+    names) as the port's; fields the port does not have
+    (``max_contacts_per_hull_pair``, a constant of its narrowphase) are
+    dropped."""
+    return SolverConfig(**{k: getattr(cfg, k) for k in SolverConfig._fields if hasattr(cfg, k)})

@@ -46,6 +46,10 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion(s) -> 3x3 rotation matrix (..., 3, 3)."""
     w, x, y, z = q.unbind(-1)

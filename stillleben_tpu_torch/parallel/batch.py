@@ -2,18 +2,21 @@
 
 Counterpart of ``stillleben_tpu/parallel/batch.py`` (``SceneTemplate``,
 ``template_from_scene``, ``settle_scene``, ``render_with_poses``,
-``generate_batch``). Per scene: stack objects -> settle (100 frames x 4
-substeps, redrop) -> random camera fit -> random light -> render -> full GT.
+``generate_batch``, ``generate_stream``). Per scene: stack objects -> settle
+(100 frames x 4 substeps, redrop) -> random camera fit -> random light ->
+render -> full GT.
 
 The settle runs the whole batch at once (the state carries a batch axis);
 the render runs one scene after the other, because each scene's cell list
 is data-dependent. The template carries the scene's background plane (one
 more slot of the render atlas) and its image-based light map, which every
-scene of the batch shares. Sharding and ``generate_stream`` are not ported yet.
+scene of the batch shares. Sharding is not ported.
 """
 
 from __future__ import annotations
 
+from collections import deque
+from itertools import count
 from typing import NamedTuple
 
 import numpy as np
@@ -143,3 +146,82 @@ def generate_batch(
     poses, cams, lights = settle_scene(generator, batch, tpl, solver_cfg, settle_iterations)
     frames = [render_with_poses(tpl, poses[b], cams[b], cfg, lights[b]) for b in range(batch)]
     return RenderedFrame(*(torch.stack(fs) for fs in zip(*frames)))
+
+
+def _to_host(out: dict, stream) -> tuple[dict, object]:
+    """Queue the copy of each tensor of ``out`` to host memory: on CUDA
+    into pinned buffers on ``stream``, after the work queued so far on the
+    current stream; returns (host tensors, the copy's end event or None)."""
+    first = next(iter(out.values()))
+    if first.device.type != "cuda":
+        return {k: v.clone() for k, v in out.items()}, None
+    stream.wait_stream(torch.cuda.current_stream(first.device))
+    with torch.cuda.stream(stream):
+        host = {}
+        for k, v in out.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return host, done
+
+
+def generate_stream(
+    tpl: SceneTemplate,
+    cfg: FrameConfig,
+    solver_cfg: SolverConfig,
+    *,
+    batch: int,
+    n_batches: int | None = None,
+    seed: int = 0,
+    prefetch: int = 2,
+    gt_fields: tuple[str, ...] | None = None,
+    settle_iterations: int = tt.MAX_ITERATIONS,
+):
+    """Yields ``n_batches`` (None: without end) batches of ``batch`` scenes
+    as numpy arrays (batch.py:324-409, without the mesh): batch k is
+    ``generate_batch`` on one ``torch.Generator`` seeded with ``seed``,
+    after batches 0..k-1.
+
+    ``gt_fields``: the ``RenderedFrame`` fields to read back (None: all,
+    yielded as a ``RenderedFrame``). With it each batch is a dict of numpy
+    arrays, and float32 fields are narrowed to float16 on the device before
+    the copy (uint8, uint16, int32 and bool fields pass unchanged); an
+    unknown field raises ``ValueError``.
+
+    Batch k + ``prefetch`` is issued before batch k is read back. Issuing a
+    batch runs its settle and render on the host's side too (the settle
+    loop and the compactions read sizes from the device), so what overlaps
+    the next batches' device work is batch k's narrowing and its copy to
+    pinned host memory on a copy stream of its own."""
+    if gt_fields is not None:
+        bad = set(gt_fields) - set(RenderedFrame._fields)
+        if bad:
+            raise ValueError(f"unknown gt_fields {sorted(bad)}")
+    generator = torch.Generator().manual_seed(seed)
+    dev = tpl.base_z.device
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    pending: deque = deque()
+
+    def fetch(entry):
+        host, done, _ = entry  # the device tensors stay referenced until here
+        if done is not None:
+            done.synchronize()
+        arrays = {k: v.numpy() for k, v in host.items()}
+        return arrays if gt_fields is not None else RenderedFrame(**arrays)
+
+    for _ in range(n_batches) if n_batches is not None else count():
+        frames = generate_batch(generator, batch, tpl, cfg, solver_cfg, settle_iterations)
+        if gt_fields is None:
+            out = frames._asdict()
+        else:
+            out = {}
+            for f in gt_fields:
+                x = getattr(frames, f)
+                out[f] = x.to(torch.float16) if x.dtype == torch.float32 else x
+        host, done = _to_host(out, stream)
+        pending.append((host, done, out))
+        if len(pending) > prefetch:
+            yield fetch(pending.popleft())
+    while pending:
+        yield fetch(pending.popleft())

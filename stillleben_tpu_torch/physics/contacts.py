@@ -148,10 +148,14 @@ def pair_contacts(
     params: BodyParams,
     pairs: torch.Tensor,  # (NP, 2) static candidate list
     max_narrow_pairs: int,
+    overlap_margin: torch.Tensor | float = OVERLAP_MARGIN,
 ) -> Contacts:
     """SAT face-normal (plus centroid-axis) contacts for hull pairs
     (contacts.py:168-353). A candidate list longer than ``max_narrow_pairs``
-    is first cut to the pairs of largest bounding-sphere overlap."""
+    is first cut to the pairs of largest bounding-sphere overlap.
+    ``overlap_margin`` is the speculative margin: a float, or a (B,) tensor
+    of one margin per scene (the frame cadence scales it with each scene's
+    fastest body)."""
     B = state.pos.shape[0]
     hb = atlas.hull_body.long()
     wv = world_hull_verts(atlas, state)  # (B, NH, VH, 3)
@@ -172,7 +176,7 @@ def pair_contacts(
 
     wc_a, wc_b = _bgather(wc, ia), _bgather(wc, ib)
     dist = torch.linalg.vector_norm(wc_a - wc_b, dim=-1)
-    margin = OVERLAP_MARGIN
+    margin = overlap_margin[:, None] if torch.is_tensor(overlap_margin) else overlap_margin
     near = dist < atlas.radius[ia] + atlas.radius[ib] + margin
     ba, bb = hb[ia], hb[ib]
     pair_active = (

@@ -1,8 +1,10 @@
 """The physics substep: integrate -> collide -> solve -> integrate pose.
 
-Counterpart of the ``substep`` cadence of ``stillleben_tpu/physics/engine.py``
-(``step_fn`` :102-140 and its helpers). The ``frame``/``every2`` cadences
-(``frame_fn``) are not ported yet.
+Counterpart of ``stillleben_tpu/physics/engine.py``: ``step_fn`` (:102-140),
+one substep of the ``substep`` cadence, and ``frame_fn`` (:158-240), one
+frame of the ``frame`` cadence (or one two-substep block of ``every2``),
+with their helpers. Everything carries the batch axis (B, ...); the
+per-scene reductions of the JAX package's vmapped lanes stay per scene.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core import math as m
-from .contacts import Contacts, Floor, concat_contacts, floor_contacts, pair_contacts
+from .contacts import Contacts, Floor, _bgather, concat_contacts, floor_contacts, pair_contacts
 from .solver import _pull, contact_matrices, position_correction, solve_contacts
 from .types import BodyParams, BodyState, ContactReport, HullAtlas, SolverConfig
 
@@ -119,3 +121,55 @@ def step_fn(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floor
     state = position_correction(contacts._replace(depth=contacts.depth - vn * dt), params, state, cfg)
     state = _stabilize_resting(state, report, _body_radius(atlas, params))
     return state, report, acc
+
+
+def frame_fn(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floor,
+             pairs: torch.Tensor, frame_dt: float, substeps: int, cfg: SolverConfig, warm=None):
+    """One frame, TGS-style (engine.py:158-240): the contacts are generated
+    once, with a speculative margin covering the frame's travel of each
+    scene's fastest body, then reused across ``substeps`` warm-started
+    velocity solves, their depths updated from each body's translation plus
+    the swing of the contact offsets under its rotation since generation."""
+    B, nb = state.pos.shape[:2]
+    sub_dt = frame_dt / substeps
+    g = torch.tensor(cfg.gravity, dtype=torch.float32, device=state.pos.device)
+    speed = torch.where(params.valid, torch.linalg.vector_norm(state.lin_vel, dim=-1), 0.0)
+    vmax = speed.amax(dim=1)  # (B,): one margin per scene, as one vmap lane each
+    margin = 0.01 + (vmax + g[2] * -frame_dt) * frame_dt
+    fc = floor_contacts(atlas, state, params, floor)
+    pc = pair_contacts(atlas, state, params, pairs, cfg.max_narrow_pairs, overlap_margin=margin)
+    contacts = concat_contacts(fc, pc)
+
+    pos0, quat0 = state.pos, state.quat
+    n = contacts.normal
+    sa = torch.clamp(contacts.body_a, min=0)
+    sb = torch.clamp(contacts.body_b, min=0)
+    ma = (contacts.body_a >= 0)[..., None]
+    mb = (contacts.body_b >= 0)[..., None]
+    radius = _body_radius(atlas, params)
+    # contact offsets at generation, anchored at the body origins
+    r_a0 = torch.where(ma, contacts.point - _bgather(pos0, sa), 0.0)
+    r_b0 = torch.where(mb, contacts.point - _bgather(pos0, sb), 0.0)
+
+    st = state
+    min_sep = torch.full((B, nb), torch.inf, device=state.pos.device)
+    acc = (torch.zeros_like(contacts.depth),) * 3 if warm is None else warm
+    for _ in range(substeps):
+        dR = m.quat_to_matrix(m.quat_normalize(m.quat_multiply(st.quat, m.quat_conjugate(quat0))))
+        swing_a = torch.einsum("bcij,bcj->bci", _bgather(dR, sa), r_a0) - r_a0
+        swing_b = torch.einsum("bcij,bcj->bci", _bgather(dR, sb), r_b0) - r_b0
+        disp = st.pos - pos0
+        move_a = torch.where(ma, _bgather(disp, sa) + swing_a, 0.0)
+        move_b = torch.where(mb, _bgather(disp, sb) + swing_b, 0.0)
+        ck = contacts._replace(depth=contacts.depth - ((move_b - move_a) * n).sum(dim=-1))
+        st = integrate_velocities(params, st, sub_dt, cfg)
+        st, rep, acc = solve_contacts(ck, params, st, sub_dt, cfg, warm=acc)
+        st = _clamp_velocities(st, cfg)
+        st = integrate_poses(params, st, sub_dt)
+        v_b = _point_velocity(st, params, ck, which="b")
+        v_a = _point_velocity(st, params, ck, which="a")
+        vn = ((v_b - v_a) * n).sum(dim=-1)
+        st = position_correction(ck._replace(depth=ck.depth - vn * sub_dt), params, st, cfg)
+        st = _stabilize_resting(st, rep, radius)
+        min_sep = torch.minimum(min_sep, rep.min_separation)
+    return st, ContactReport(min_separation=min_sep), acc

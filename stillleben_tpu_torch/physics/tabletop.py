@@ -3,9 +3,10 @@
 Counterpart of ``stillleben_tpu/physics/tabletop.py`` (reference
 Scene::simulateTableTopScene, src/scene.cpp:612-759): objects are stacked
 at increasing z with random orientations, then settled for 100 frames of
-4 substeps with redrop of fallen or stuck objects. The frame loop is a
-Python loop over a batch of scenes; JAX ran it as a ``lax.scan`` under
-``vmap``.
+4 substeps with redrop of fallen or stuck objects, in one of three contact
+cadences, optionally ending each scene at rest early (the sleep exit). The
+frame loop is a Python loop over a batch of scenes; JAX ran it as a
+``lax.scan`` or ``lax.while_loop`` under ``vmap``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..core import math as m
 from .contacts import Floor
-from .engine import gather_contacts, step_fn
+from .engine import frame_fn, gather_contacts, step_fn
 from .types import BodyParams, BodyState, HullAtlas, SolverConfig
 
 FLOOR_TOP_Z = 0.04  # reference BOX_HALF_EXTENTS.z (src/scene.cpp:650)
@@ -88,25 +89,92 @@ def settle(
     geom: TabletopGeom,
     cfg: SolverConfig,
     iterations: int = MAX_ITERATIONS,
+    substeps: int = SUBSTEPS,
 ) -> BodyState:
-    """The fixed-length settle loop with redrop (tabletop.py:102-209,
-    ``substep`` cadence, ``sleep_frames=0``)."""
-    sub_dt = FRAME_TIME / SUBSTEPS
+    """The settle loop with redrop (tabletop.py:102-237); see
+    ``settle_with_stop``."""
+    return settle_with_stop(atlas, params, state, floor, pairs, geom, cfg, iterations, substeps)[0]
+
+
+def settle_with_stop(
+    atlas: HullAtlas,
+    params: BodyParams,
+    state: BodyState,
+    floor: Floor,
+    pairs: torch.Tensor,
+    geom: TabletopGeom,
+    cfg: SolverConfig,
+    iterations: int = MAX_ITERATIONS,
+    substeps: int = SUBSTEPS,
+) -> tuple[BodyState, torch.Tensor]:
+    """The settle loop with redrop, in ``cfg.contact_gen``'s cadence
+    (tabletop.py:127-196). Returns the state and each scene's stop frame
+    (B,): the frames it ran.
+
+    With ``cfg.sleep_frames`` > 0 a scene stops once every valid dynamic
+    body has stayed below the sleep velocities for that many consecutive
+    frames without a redrop (tabletop.py:199-237). The JAX package's
+    ``while_loop`` under ``vmap`` masks finished lanes; here every carried
+    field of a finished scene is held by a per-scene mask, so each scene
+    keeps the carry of its own stop frame while the others go on. The loop
+    reads one flag from the device per frame, to end when every scene
+    has stopped."""
+    cfg.check()
+    if cfg.contact_gen == "every2" and substeps > 1 and substeps % 2 != 0:
+        raise ValueError(
+            "contact_gen='every2' needs an even substep count "
+            f"(got {substeps}): odd counts would silently run substeps//2*2 coarser substeps"
+        )
+    dev = state.pos.device
+    sub_dt = FRAME_TIME / substeps
     B, nb = state.pos.shape[:2]
     c0 = gather_contacts(atlas, params, state, floor, pairs, cfg.max_narrow_pairs)
     acc = (torch.zeros_like(c0.depth),) * 3
-    stuck = torch.zeros((B, nb), dtype=torch.int32, device=state.pos.device)
-    for _ in range(iterations):
-        min_sep = torch.full((B, nb), torch.inf, device=state.pos.device)
-        for _ in range(SUBSTEPS):
-            state, rep, acc = step_fn(atlas, params, state, floor, pairs, sub_dt, cfg, warm=acc)
-            min_sep = torch.minimum(min_sep, rep.min_separation)
-        fallen = state.pos[..., 2] < REDROP_Z
+    stuck = torch.zeros((B, nb), dtype=torch.int32, device=dev)
+
+    def frame(st, stuck, acc):
+        min_sep = torch.full((B, nb), torch.inf, device=dev)
+        if cfg.contact_gen == "substep":
+            for _ in range(substeps):
+                st, rep, acc = step_fn(atlas, params, st, floor, pairs, sub_dt, cfg, warm=acc)
+                min_sep = torch.minimum(min_sep, rep.min_separation)
+        else:  # "frame": one generation per frame; "every2": one per two substeps
+            n_blocks = 1 if cfg.contact_gen == "frame" else max(substeps // 2, 1)
+            for _ in range(n_blocks):
+                st, rep, acc = frame_fn(atlas, params, st, floor, pairs, FRAME_TIME / n_blocks,
+                                        substeps // n_blocks, cfg, warm=acc)
+                min_sep = torch.minimum(min_sep, rep.min_separation)
+        fallen = st.pos[..., 2] < REDROP_Z
         stuck = torch.where(min_sep < STUCK_SEPARATION, stuck + 1, torch.clamp(stuck - 1, min=0))
         redrop = (fallen | (stuck > STUCK_FRAMES)) & geom.dynamic & params.valid
-        state = _redrop(state, geom, redrop)
+        st = _redrop(st, geom, redrop)
         # a teleported body's cached impulses are stale: drop the scene's
-        any_redrop = redrop.any(dim=1, keepdim=True)
-        acc = tuple(torch.where(any_redrop, 0.0, a) for a in acc)
+        any_redrop = redrop.any(dim=1)
+        acc = tuple(torch.where(any_redrop[:, None], 0.0, a) for a in acc)
         stuck = torch.where(redrop, 0, stuck)
-    return state
+        return st, stuck, acc, any_redrop
+
+    if cfg.sleep_frames <= 0:  # the reference's fixed schedule
+        for _ in range(iterations):
+            state, stuck, acc, _ = frame(state, stuck, acc)
+        return state, torch.full((B,), iterations, dtype=torch.int32, device=dev)
+
+    watched = geom.dynamic & params.valid
+    quiet = torch.zeros(B, dtype=torch.int32, device=dev)
+    stop = torch.zeros(B, dtype=torch.int32, device=dev)
+    running = torch.ones(B, dtype=torch.bool, device=dev)
+    for i in range(iterations):
+        st, stuck_n, acc_n, any_redrop = frame(state, stuck, acc)
+        moving = ((torch.linalg.vector_norm(st.lin_vel, dim=-1) > cfg.sleep_lin_vel)
+                  | (torch.linalg.vector_norm(st.ang_vel, dim=-1) > cfg.sleep_ang_vel))
+        asleep = ~(moving & watched).any(dim=1) & ~any_redrop
+        run3 = running[:, None, None]
+        state = BodyState(*(torch.where(run3, a, b) for a, b in zip(st, state)))
+        stuck = torch.where(running[:, None], stuck_n, stuck)
+        acc = tuple(torch.where(running[:, None], a, b) for a, b in zip(acc_n, acc))
+        quiet = torch.where(running, torch.where(asleep, quiet + 1, 0), quiet)
+        stop = torch.where(running, i + 1, stop)
+        running = running & (quiet < cfg.sleep_frames)
+        if not bool(running.any()):
+            break
+    return state, stop

@@ -56,10 +56,19 @@ class ContactReport(NamedTuple):
     min_separation: torch.Tensor  # (B, NB), +inf without contact
 
 
+CONTACT_GENS = ("substep", "frame", "every2")
+
+
 class SolverConfig(NamedTuple):
-    """The JAX package's solver defaults (types.py:85-145) for the
-    ``substep`` contact cadence without the sleep exit (``sleep_frames=0``),
-    the only cadence ported."""
+    """The JAX package's solver configuration and defaults (types.py:85-152).
+
+    ``contact_gen`` is the contact-generation cadence: "substep" generates
+    contacts every substep (the reference's cadence), "frame" once per 25 FPS
+    frame with a speculative margin and depth updates across its substeps,
+    "every2" once per block of two substeps. ``sleep_frames`` > 0 ends a
+    scene's settle once every valid dynamic body has stayed below
+    ``sleep_lin_vel`` (m/s) and ``sleep_ang_vel`` (rad/s) for that many
+    consecutive frames; 0 runs the fixed schedule."""
 
     gravity: tuple = (0.0, 0.0, -9.81)
     velocity_iterations: int = 12
@@ -77,6 +86,16 @@ class SolverConfig(NamedTuple):
     warm_start: float = 1.0
     stick_velocity: float = 0.05
     max_narrow_pairs: int = 256
+    contact_gen: str = "substep"
+    sleep_frames: int = 0
+    sleep_lin_vel: float = 1e-3
+    sleep_ang_vel: float = 1e-2
+
+    def check(self) -> None:
+        if self.contact_gen not in CONTACT_GENS:
+            raise ValueError(f"SolverConfig: contact_gen {self.contact_gen!r} not in {CONTACT_GENS}")
+        if self.sleep_frames < 0:
+            raise ValueError("SolverConfig: sleep_frames must be >= 0")
 
 
 def default_config(gravity=(0.0, 0.0, -9.81)) -> SolverConfig:

@@ -2,13 +2,18 @@
 alpha-peel rounds) -> SSAO -> background -> tone map.
 
 Counterpart of ``stillleben_tpu/render/frame.py::render_frame_core``
-(:74-199). ``FrameConfig`` keeps the JAX field names and defaults of the
-options the port implements; ``check()`` rejects the values it does not
-(``shading`` other than "pbr", ``shadow_mode`` other than "vsm"; ROADMAP.md
-lists them), so a config never silently means something else. Fields of the
-JAX config that only choose a TPU layout or precision (``use_pallas``,
-``shading_dtype``) have no counterpart; ``raster`` and
-``fine_tiles_per_cell`` stand for its environment variables.
+(:74-199). ``FrameConfig`` keeps the JAX field names and defaults; ``check()``
+rejects values it does not know, so a config never silently means something
+else. With ``shading="flat"`` or ``shadow_mode="off"`` there are no shadow
+maps; ``"flat"`` also skips SSAO and clips the colour instead of tone
+mapping it (:88-93, :152, :180-183). Fields of the JAX config that only
+choose a TPU layout or precision (``use_pallas``, ``shading_dtype``) have no
+counterpart. Where the JAX package reads an environment variable, the port
+has a field with the same default: ``raster`` (``SL_RASTER``),
+``fine_tiles_per_cell`` (``SL_FINE_TPG``), ``backface_cull``
+(``SL_BACKFACE_CULL``), ``shadow_cull`` (``SL_SHADOW_CULL``), ``vsm_taps``
+(``SL_VSM_TAPS``), ``ibl_prefilter`` (``SL_IBL_PREFILTER``), ``ibl_sh``
+(``SL_IBL_SH``).
 """
 
 from __future__ import annotations
@@ -24,19 +29,22 @@ from .rasterize import geometry_stage, rasterize
 from ..ops.fine_raster import MAX_CHUNK, TILES_PER_CELL
 from .rasterize_tiled import RASTERS, rasterize_tiled
 from .shading import FrameOutputs, shade
-from .shadow import render_shadow_maps
+from .shadow import SHADOW_MODES, render_shadow_maps
 from .ssao import ssao_apply
 from .stages import mark
 from .tonemap import tone_map
 
 TEXTURE_FILTERS = ("trilinear", "bilinear", "aniso")
 SSAO_MODES = ("fast", "reference")
+SHADINGS = ("pbr", "phong", "flat")  # "phong" is the PBR shader (the reference's own)
+VSM_TAPS = (4, 1)
+IBL_PREFILTERS = ("trilinear", "nearest")
 
 
 class FrameConfig(NamedTuple):
     width: int
     height: int
-    shading: str = "pbr"  # only "pbr" is ported
+    shading: str = "pbr"  # | "phong" (the same shader) | "flat" (base colour, unlit)
     ssao: bool = True
     ssao_mode: str = "fast"  # static ring taps | "reference": the exact
     # 64-sample hemisphere (ssao_shader.frag:13-57), one gather per sample
@@ -45,7 +53,8 @@ class FrameConfig(NamedTuple):
     max_lights: int = 3
     sample_textures: bool = True  # False skips the texture fetches
     sample_stickers: bool = True
-    shadow_mode: str = "vsm"  # only "vsm" is ported
+    shadow_mode: str = "vsm"  # prefiltered moments | "pcf": the reference's 4x4
+    # compare (render_shader.frag:321-338) | "off": no shadow maps
     texture_filter: str = "trilinear"  # mip-mapped, the reference's GL filter
     # (context.cpp:617-649) | "bilinear": one mip tap | "aniso": 4
     # trilinear taps along the footprint's major axis (context.cpp:635)
@@ -61,12 +70,24 @@ class FrameConfig(NamedTuple):
     fine_chunk: int = 128  # triangles per fine-kernel chunk
     pixel_stage: bool | None = None  # exact sub-4-px stage; None = F > 20,000
     fine_tiles_per_cell: int = 1  # tiles per kernel block (SL_FINE_TPG)
+    backface_cull: bool = False  # drop camera-back faces of closed meshes (SL_BACKFACE_CULL)
+    shadow_cull: bool = False  # the shadow pass's front-face cull (SL_SHADOW_CULL)
+    vsm_taps: int = 4  # bilinear VSM tap | 1: the nearest texel (SL_VSM_TAPS)
+    ibl_prefilter: str = "trilinear"  # | "nearest": one level (SL_IBL_PREFILTER)
+    ibl_sh: bool = True  # SH irradiance | False: the irradiance cubemap (SL_IBL_SH)
 
     def check(self) -> None:
-        unported = dict(shading=self.shading != "pbr", shadow_mode=self.shadow_mode != "vsm")
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"FrameConfig: not ported yet: {bad}")
+        for field, value, allowed in (
+            ("shading", self.shading, SHADINGS),
+            ("shadow_mode", self.shadow_mode, SHADOW_MODES),
+            ("vsm_taps", self.vsm_taps, VSM_TAPS),
+            ("ibl_prefilter", self.ibl_prefilter, IBL_PREFILTERS),
+            ("backface_cull", self.backface_cull, (False, True)),
+            ("shadow_cull", self.shadow_cull, (False, True)),
+            ("ibl_sh", self.ibl_sh, (False, True)),
+        ):
+            if value not in allowed or type(value) is not type(allowed[0]):
+                raise ValueError(f"FrameConfig: {field} {value!r} not in {allowed}")
         if self.raster not in RASTERS:
             raise ValueError(f"FrameConfig: raster {self.raster!r} not in {RASTERS}")
         if self.texture_filter not in TEXTURE_FILTERS:
@@ -125,9 +146,13 @@ def render_frame_core(
     dev = inputs.cam_pose.device
     geom = geometry_stage(atlas, inputs, W, H)
     mark("geometry")
-    shadow_maps, shadow_matrices = render_shadow_maps(
-        atlas, inputs, cfg.shadow_size, cfg.max_lights, cfg.raster, cfg.fine_tiles_per_cell
-    )
+    flat = cfg.shading == "flat"
+    shadow_maps = shadow_matrices = None
+    if not flat and cfg.shadow_mode != "off":
+        shadow_maps, shadow_matrices = render_shadow_maps(
+            atlas, inputs, cfg.shadow_size, cfg.max_lights, cfg.raster, cfg.fine_tiles_per_cell,
+            cfg.shadow_mode, cfg.shadow_cull,
+        )
     mark("shadow pass")
 
     def raster_and_shade(min_depth) -> FrameOutputs:
@@ -136,7 +161,7 @@ def render_frame_core(
                 geom, atlas, inputs, W, H, raster=cfg.raster, tile_capacity=cfg.tile_capacity,
                 big_capacity=cfg.big_capacity, fine_chunk=cfg.fine_chunk,
                 pixel_stage=cfg.pixel_stage, tiles_per_cell=cfg.fine_tiles_per_cell,
-                min_depth=min_depth,
+                min_depth=min_depth, backface_cull=cfg.backface_cull,
             )
         else:
             gbuf = rasterize(geom, atlas, inputs, W, H, min_depth=min_depth)
@@ -145,6 +170,8 @@ def render_frame_core(
             atlas, inputs, geom, gbuf, shadow_maps, shadow_matrices, cfg.max_lights,
             light_map=light_map, sample_textures=cfg.sample_textures,
             sample_stickers=cfg.sample_stickers, texture_filter=cfg.texture_filter,
+            shading=cfg.shading, shadow_mode=cfg.shadow_mode, vsm_taps=cfg.vsm_taps,
+            ibl_prefilter=cfg.ibl_prefilter, ibl_sh=cfg.ibl_sh,
         )
 
     out = raster_and_shade(depth_peel_depth)
@@ -160,7 +187,7 @@ def render_frame_core(
 
     # SSAO multiplies the objects' RGB (reference render_pass.cpp:662-694)
     hdr_obj = out.hdr
-    if cfg.ssao:
+    if cfg.ssao and not flat:
         hdr_obj = ssao_apply(hdr_obj, out.cam_coordinates, out.normals, out.valid,
                              inputs.projection, mode=cfg.ssao_mode)
     mark("SSAO")
@@ -174,7 +201,10 @@ def render_frame_core(
     else:
         bg = torch.cat([inputs.background_color[:3], torch.zeros(1, device=dev)]).expand(H, W, 4)
     composed = torch.where(out.valid[..., None], hdr_obj, bg)
-    mapped = tone_map(composed, hdr_obj * out.valid[..., None], inputs.manual_exposure)
+    if flat:
+        mapped = torch.clamp(composed, 0.0, 1.0)
+    else:
+        mapped = tone_map(composed, hdr_obj * out.valid[..., None], inputs.manual_exposure)
     rgb_u8 = torch.round(torch.clamp(mapped, 0.0, 1.0) * 255.0).to(torch.uint8)
     mark("background + tone map")
     return RenderedFrame(

@@ -1,12 +1,12 @@
 """The image-based light's shading term and the skybox.
 
 Counterpart of ``stillleben_tpu/render/ibl.py`` (reference
-render_shader.frag:375-394 and background_cube_shader), the defaults only:
-the specular radiance is a trilinear sample of the prefiltered chain (two
-bilinear taps of adjacent levels and a lerp) and the irradiance is the
-order-2 spherical-harmonic reconstruction. The nearest-level prefilter
-(``SL_IBL_PREFILTER=nearest``) and the irradiance cubemap lookup
-(``SL_IBL_SH=0``) are modes the port does not have yet (ROADMAP).
+render_shader.frag:375-394 and background_cube_shader): the specular
+radiance is a trilinear sample of the prefiltered chain (two bilinear taps
+of adjacent levels and a lerp) or, with ``prefilter="nearest"``
+(``SL_IBL_PREFILTER=nearest``), one bilinear tap of the nearest level; the
+irradiance is the order-2 spherical-harmonic reconstruction or, with
+``sh=False`` (``SL_IBL_SH=0``), a bilinear sample of the irradiance cubemap.
 """
 
 from __future__ import annotations
@@ -20,8 +20,11 @@ from .light_map import (
 )
 
 
-def _sample_prefilter(lm: LightMapData, dirs: torch.Tensor, lod: torch.Tensor) -> torch.Tensor:
-    """Trilinear between the 5 prefiltered levels (lod in [0, 4])."""
+def _sample_prefilter(lm: LightMapData, dirs: torch.Tensor, lod: torch.Tensor,
+                      prefilter: str = "trilinear") -> torch.Tensor:
+    """Trilinear between the 5 prefiltered levels (lod in [0, 4]), or the
+    nearest level's bilinear tap (``prefilter="nearest"``; torch.round, as
+    jnp.round, rounds half to even)."""
     mips = [lm.prefilter_mip(i) for i in range(PREFILTER_MIPS)]
     dev = dirs.device
     counts = [6 * p.shape[1] * p.shape[1] for p in mips]
@@ -30,6 +33,8 @@ def _sample_prefilter(lm: LightMapData, dirs: torch.Tensor, lod: torch.Tensor) -
                            dtype=torch.int32, device=dev)
     flat = torch.cat([p.reshape(-1, 3) for p in mips], dim=0)
     lod = torch.clamp(lod, 0.0, PREFILTER_MIPS - 1.0)
+    if prefilter == "nearest":
+        return sample_cubemap_packed(flat, offsets, sizes, dirs, torch.round(lod).to(torch.int32))
     l0 = torch.floor(lod).to(torch.int32)
     l1 = torch.clamp(l0 + 1, max=PREFILTER_MIPS - 1)
     frac = (lod - l0.to(torch.float32))[..., None]
@@ -45,16 +50,21 @@ def _sample_lut(lut: torch.Tensor, NoV: torch.Tensor, roughness: torch.Tensor) -
     return lut[v.long(), u.long()]
 
 
-def ibl_term(lm: LightMapData, normal, V, NoV, roughness, F0, k_S, c_diff):
+def ibl_term(lm: LightMapData, normal, V, NoV, roughness, F0, k_S, c_diff,
+             prefilter: str = "trilinear", sh: bool = True):
     """The ambient light of the environment with multiple scattering
     (reference render_shader.frag:375-394). normal, V, F0, k_S, c_diff are
-    (H, W, 3); NoV and roughness (H, W). Returns (H, W, 3)."""
+    (H, W, 3); NoV and roughness (H, W). Returns (H, W, 3). ``prefilter``
+    and ``sh`` pick the radiance and irradiance lookups (module doc)."""
     f_ab = _sample_lut(get_brdf_lut(normal.device), NoV, roughness)
     lod = roughness * 4.0
     light_dir = 2.0 * (normal * V).sum(-1, keepdim=True) * normal - V  # reflect(-V, n)
-    radiance = _sample_prefilter(lm, light_dir, lod)
-    # the SH reconstruction can ring slightly below zero: clamp
-    irradiance = torch.clamp(eval_irradiance_sh(lm.irradiance_sh, normal), min=0.0)
+    radiance = _sample_prefilter(lm, light_dir, lod, prefilter)
+    if sh and lm.irradiance_sh is not None:
+        # the SH reconstruction can ring slightly below zero: clamp
+        irradiance = torch.clamp(eval_irradiance_sh(lm.irradiance_sh, normal), min=0.0)
+    else:
+        irradiance = sample_cubemap(lm.irradiance, normal)
 
     FssEss = k_S * f_ab[..., 0:1] + f_ab[..., 1:2]
     Ems = 1.0 - (f_ab[..., 0:1] + f_ab[..., 1:2])

@@ -19,11 +19,21 @@ Counterpart of ``stillleben_tpu/render/rasterize_tiled.py``, both paths:
 Both kernels take the packed line table ``LT`` and the triangle ids and
 gather the rows themselves.
 
+Both classifications take the facing cull (``cull_sign``, ``cull_mask``;
+rasterize_tiled.py:124-131 and :458-465): with ``cull_sign`` -1 the camera
+pass drops faces turned away from the camera (``FrameConfig.backface_cull``,
+the JAX package's ``SL_BACKFACE_CULL``), with +1 the shadow pass drops faces
+turned towards the light (``shadow_cull``, ``SL_SHADOW_CULL``); only faces
+of ``cull_mask`` (the atlas's closed meshes) are culled, and faces with a
+vertex behind the camera never are. The cull acts on the classification,
+before the kernels.
+
 Class windows, capacities and sorts are the same as in JAX, so the kernels'
-inputs have the same layout in both packages. Not ported: the facing cull
-(``cull_sign``, ``SL_BACKFACE_CULL``) and the classic path's XLA scan
-fallback (``use_pallas=False``), which breaks equal-depth ties by slot, not
-by id.
+inputs have the same layout in both packages; under a cull the cell path's
+windows and cell budget shrink by the count of cullable faces, as the JAX
+package's do when its mask is a constant (rasterize_tiled.py:187-200, :302).
+Not ported: the classic path's XLA scan fallback (``use_pallas=False``),
+which breaks equal-depth ties by slot, not by id.
 """
 
 from __future__ import annotations
@@ -73,11 +83,14 @@ def tile_img(img: torch.Tensor, tw: int, th: int, tile: int) -> torch.Tensor:
     return md.reshape(th, tile, tw, tile).permute(0, 2, 1, 3).reshape(tw * th, tile * tile)
 
 
-def _bounds(v, depth_attr, tri_active, width: int, height: int, near: float, far: float):
-    """Classify (rasterize_tiled.py:434-456): returns (all_front, the
+def _bounds(v, depth_attr, tri_active, width: int, height: int, near: float, far: float,
+            cull_sign: int = 0, cull_mask: torch.Tensor | None = None):
+    """Classify (rasterize_tiled.py:434-465): returns (all_front, the
     clipped pixel bbox x0, x1, y0, y1, zmin, active), where active drops
-    triangles behind the near plane and front triangles off screen or out
-    of the depth range."""
+    triangles behind the near plane, front triangles off screen or out of
+    the depth range and, with ``cull_sign``, front triangles of
+    ``cull_mask`` (None: all) whose projected winding ``det`` has
+    ``det * cull_sign <= 0``."""
     w = v[..., 2]
     all_front = (w > 1e-6).all(dim=-1)
     safe_w = torch.where(w.abs() < 1e-9, torch.full_like(w, 1e-9), w)
@@ -95,6 +108,12 @@ def _bounds(v, depth_attr, tri_active, width: int, height: int, near: float, far
     in_range = (zmax > near) & (zmin <= far)
     active = tri_active & (zmax > near)
     active = active & ~(all_front & (~on_screen | ~in_range))
+    if cull_sign:
+        det = (v[..., 0, :] * m.cross(v[..., 1, :], v[..., 2, :])).sum(dim=-1)
+        keep = ~all_front | (det * float(cull_sign) > 0)
+        if cull_mask is not None:
+            keep = keep | ~cull_mask
+        active = active & keep
     return all_front, x0, x1, y0, y1, zmin, active
 
 
@@ -119,6 +138,8 @@ def build_cells(
     far: float,
     big_capacity: int,
     tile: int = TILE,
+    cull_sign: int = 0,
+    cull_mask: torch.Tensor | None = None,
 ):
     """Everything before the kernel (rasterize_tiled.py:94-333): returns
     (LT, ids, cell_tile, tw, th, n_tiles) with LT (F, FIELDS) the packed
@@ -131,7 +152,7 @@ def build_cells(
     i32 = dict(dtype=torch.int32, device=dev)
 
     all_front, x0, x1, y0, y1, zmin, active = _bounds(
-        v, depth_attr, tri_active, width, height, near, far
+        v, depth_attr, tri_active, width, height, near, far, cull_sign, cull_mask
     )
     tx0 = (x0 / tile).to(torch.int32)
     tx1 = (x1 / tile).to(torch.int32)
@@ -155,6 +176,16 @@ def build_cells(
     cap1 = F
     cap2 = int(min(F, max(32768, F // 3)))
     cap4 = int(min(F, max(2048, F // 64)))
+    per_face = F * 2  # pair entries per face that the cell budget covers
+    if cull_sign:
+        # a cull leaves about the uncullable faces and 55-60% of the
+        # cullable ones: the windows shrink to match (:187-200), and so
+        # does the cell budget (:302). One read of the mask's count.
+        n_cullable = F if cull_mask is None else int(cull_mask.sum())
+        cap1 = int(min(F, F - n_cullable + int(n_cullable * 0.62) + 1024))
+        cap2 = int(min(cap2, max(16384, cap2 * 2 // 3)))
+        cap4 = int(min(cap4, max(2048, cap4 * 2 // 3)))
+        per_face = (F * 5) // 4
     class_key = torch.full((F,), 4, **i32)
     class_key = torch.where(class4, 3, class_key)
     class_key = torch.where(class2, 2, class_key)
@@ -227,7 +258,7 @@ def build_cells(
     total = cum[-1]
     # the static cell budget of rasterize_tiled.py:297-305, so the cells are
     # laid out as in the JAX package
-    max_cells = int(min(n_pairs // C + n_tiles, n_tiles + max(512, (F * 2) // C)))
+    max_cells = int(min(n_pairs // C + n_tiles, n_tiles + max(512, per_face // C)))
     j = torch.arange(max_cells, device=dev)
     t_of = torch.searchsorted(cum, j, right=True)
     t_cl = torch.clamp(t_of, max=n_tiles - 1)
@@ -259,14 +290,18 @@ def rasterize_vertices_cells(
     big_capacity: int,
     tile: int = TILE,
     min_depth: torch.Tensor | None = None,
+    cull_sign: int = 0,
+    cull_mask: torch.Tensor | None = None,
 ):
     """Compact-cell binned z-buffer (rasterize_tiled.py:54-383). Returns
     (depth image, triangle-id image), both (H, W). ``min_depth`` (H, W) is
     the depth-peel floor: only depths above it by 1e-5 count (None = 0
     everywhere). The kernel reads it tiled, with one more row of zeros
-    that invalid cells index (rasterize_tiled.py:336-348)."""
+    that invalid cells index (rasterize_tiled.py:336-348). ``cull_sign`` /
+    ``cull_mask``: the facing cull (see ``_bounds``)."""
     LT, ids, cell_tile, tw, th, n_tiles = build_cells(
-        v, depth_attr, tri_active, width, height, near, far, big_capacity, tile=tile
+        v, depth_attr, tri_active, width, height, near, far, big_capacity, tile=tile,
+        cull_sign=cull_sign, cull_mask=cull_mask,
     )
     md_tiles = None
     if min_depth is not None:
@@ -308,6 +343,8 @@ def build_tile_lists(
     fine_chunk: int,
     pixel_stage: bool,
     tile: int = TILE,
+    cull_sign: int = 0,
+    cull_mask: torch.Tensor | None = None,
 ):
     """Everything of the classic path before the fine kernel
     (rasterize_tiled.py:428-609). Returns a dict: ``ids`` (n_tiles,
@@ -322,7 +359,7 @@ def build_tile_lists(
     th = -(-height // tile)
     n_tiles = tw * th
     all_front, x0, x1, y0, y1, zmin, active = _bounds(
-        v, depth_attr, tri_active, width, height, near, far
+        v, depth_attr, tri_active, width, height, near, far, cull_sign, cull_mask
     )
     px_span_x = (x1.to(torch.int32) - x0.to(torch.int32)) + 1
     px_span_y = (y1.to(torch.int32) - y0.to(torch.int32)) + 1
@@ -425,14 +462,17 @@ def rasterize_vertices(
     tile: int = TILE,
     tiles_per_cell: int = 1,
     min_depth: torch.Tensor | None = None,
+    cull_sign: int = 0,
+    cull_mask: torch.Tensor | None = None,
 ):
     """Classic span-class binned z-buffer (rasterize_tiled.py:386-668, the
     kernel path). Returns (depth image, triangle-id image), both (H, W).
     ``min_depth`` (H, W) is the depth-peel floor (None = 0 everywhere); the
-    pixel stage applies it too."""
+    pixel stage applies it too. ``cull_sign`` / ``cull_mask``: the facing
+    cull (see ``_bounds``); the classic windows do not shrink under it."""
     lists = build_tile_lists(
         v, depth_attr, tri_active, width, height, near, far, tile_capacity, big_capacity,
-        fine_chunk, pixel_stage, tile=tile,
+        fine_chunk, pixel_stage, tile=tile, cull_sign=cull_sign, cull_mask=cull_mask,
     )
     tw, th, n_tiles = lists["tw"], lists["th"], lists["n_tiles"]
     if min_depth is None:
@@ -549,19 +589,24 @@ def rasterize_tiled(
     pixel_stage: bool | None = None,
     tiles_per_cell: int = 1,
     min_depth: torch.Tensor | None = None,
+    backface_cull: bool = False,
 ) -> GBuffer:
-    """Camera raster (rasterize_tiled.py:890-934, two-sided), through the
-    cell path or, with ``raster="classic"``, the span-class path (the JAX
-    package's ``SL_RASTER``). ``pixel_stage`` None means on for more than
-    20,000 faces. ``min_depth`` (H, W) is the depth-peel floor of an
-    alpha-peel pass. Barycentrics and facing are recomputed in shading."""
+    """Camera raster (rasterize_tiled.py:890-934), through the cell path
+    or, with ``raster="classic"``, the span-class path (the JAX package's
+    ``SL_RASTER``). ``pixel_stage`` None means on for more than 20,000
+    faces. ``min_depth`` (H, W) is the depth-peel floor of an alpha-peel
+    pass. Two-sided unless ``backface_cull`` (``SL_BACKFACE_CULL``), which
+    drops the faces of closed meshes (``atlas.face_cullable``) turned away
+    from the camera. Barycentrics and facing are recomputed in shading."""
     faces = atlas.faces.long()
     v = geom.pix_hom[faces]  # (F, 3, 3)
     visible = inputs.obj_visible[atlas.face_obj.long()]
+    cull = dict(cull_sign=-1 if backface_cull else 0,
+                cull_mask=atlas.face_cullable if backface_cull else None)
     if raster == "cells":
         depth_img, tri_img = rasterize_vertices_cells(
             v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, big_capacity,
-            min_depth=min_depth,
+            min_depth=min_depth, **cull,
         )
     elif raster == "classic":
         if pixel_stage is None:
@@ -569,7 +614,7 @@ def rasterize_tiled(
         depth_img, tri_img = rasterize_vertices(
             v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, tile_capacity,
             big_capacity, fine_chunk, pixel_stage, tiles_per_cell=tiles_per_cell,
-            min_depth=min_depth,
+            min_depth=min_depth, **cull,
         )
     else:
         raise ValueError(f"rasterize_tiled: raster {raster!r} not in {RASTERS}")

@@ -1,10 +1,11 @@
 """Deferred shading: G-buffer -> PBR colour + all ground-truth buffers.
 
 Counterpart of ``stillleben_tpu/render/shading.py`` (reference
-render_shader.frag): ``shading="pbr"`` in float32 with mip-mapped material
-textures (trilinear, bilinear or anisotropic), stickers, normal mapping,
-directional lights with VSM shadows, the ambient term, the image-based
-light and emissive. Per-pixel data lives in (C, H, W) channel planes; all
+render_shader.frag): ``shading="pbr"`` (and ``"phong"``, the same shader
+in the reference) in float32 with mip-mapped material textures (trilinear,
+bilinear or anisotropic), stickers, normal mapping, directional lights with
+VSM or PCF shadows (or none), the ambient term, the image-based light and
+emissive; ``shading="flat"`` shows the base colour unlit. Per-pixel data lives in (C, H, W) channel planes; all
 per-face data (the three corners' attributes plus the material and object
 constants) is baked into one (F, ROW) table so shading gathers one row per
 pixel. Of the JAX package's three texture-sampler evaluation orders only
@@ -25,7 +26,7 @@ from .atlas import MIP_OFFSETS, MIP_SIZES, MIP_TOTAL, N_MIPS, TEXTURE_SIZE, Rend
 from .ibl import ibl_term
 from .light_map import LightMapData
 from .rasterize import GBuffer, GeometryBuffers
-from .shadow import shadow_factor_vsm_planar
+from .shadow import shadow_factor_planar, shadow_factor_vsm_planar
 from .stages import mark
 
 DIELECTRIC_SPECULAR = 0.04
@@ -252,19 +253,28 @@ def shade(
     inputs: RenderInputs,
     geom: GeometryBuffers,
     gbuf: GBuffer,
-    shadow_maps: torch.Tensor,  # (L, S, S, 2) VSM moments
-    shadow_matrices: torch.Tensor,  # (L, 4, 4)
+    shadow_maps: torch.Tensor | None,  # (L, S, S, 2) VSM moments | (L, S, S) depth | None
+    shadow_matrices: torch.Tensor | None,  # (L, 4, 4)
     max_lights: int = 3,
     light_map: LightMapData | None = None,
     sample_textures: bool = True,
     sample_stickers: bool = True,
     texture_filter: str = "trilinear",  # | "bilinear" (one mip tap) | "aniso"
     aniso_taps: int = 4,
+    shading: str = "pbr",  # | "phong" (the same shader) | "flat"
+    shadow_mode: str = "vsm",  # the maps' kind: "vsm" | "pcf"
+    vsm_taps: int = 4,
+    ibl_prefilter: str = "trilinear",
+    ibl_sh: bool = True,
 ) -> FrameOutputs:
-    """PBR shading in float32 (shading.py:454-806 with shading="pbr",
-    shadow_mode="vsm"). ``texture_filter="aniso"`` takes the LOD from the
-    minor axis of the pixel's uv footprint and averages ``aniso_taps``
-    trilinear taps along the major axis (reference context.cpp:635)."""
+    """Shading in float32 (shading.py:454-806). ``texture_filter="aniso"``
+    takes the LOD from the minor axis of the pixel's uv footprint and
+    averages ``aniso_taps`` trilinear taps along the major axis (reference
+    context.cpp:635). Without shadow maps no light is shadowed;
+    ``shading="flat"`` outputs the (textured, stickered) base colour with
+    no light at all (shading.py:744-746). ``vsm_taps``, ``ibl_prefilter``
+    and ``ibl_sh`` pick the lookups of ``shadow.shadow_factor_vsm_planar``
+    and ``ibl.ibl_term``."""
     H, W = gbuf.tri_id.shape
     dev = gbuf.tri_id.device
     valid = gbuf.tri_id >= 0
@@ -390,45 +400,55 @@ def shade(
 
     cam_position = inputs.cam_pose[:3, 3]
     V = _normalize3(cam_position[:, None, None] - world)
-    NoV = torch.clamp(_dot3(normal, V), 1e-5, 1.0)
-    base_l = base_color[:3]
-    F0 = DIELECTRIC_SPECULAR * (1.0 - metallic) + base_l * metallic
-    Fr = torch.maximum(1.0 - roughness, F0) - F0
-    k_S = F0 + Fr * (1.0 - NoV) ** 5
+    if shading == "flat":
+        color = base_color[:3]
+    else:
+        NoV = torch.clamp(_dot3(normal, V), 1e-5, 1.0)
+        base_l = base_color[:3]
+        F0 = DIELECTRIC_SPECULAR * (1.0 - metallic) + base_l * metallic
+        Fr = torch.maximum(1.0 - roughness, F0) - F0
+        k_S = F0 + Fr * (1.0 - NoV) ** 5
 
-    color = torch.zeros((3, H, W), device=dev)
-    for i in range(min(inputs.light_directions.shape[0], max_lights)):
-        light_color = inputs.light_colors[i]
-        light_dir = inputs.light_directions[i]
-        light_on = (light_color != 0).any() & (light_dir != 0).any()
-        Ld = -light_dir / torch.clamp(torch.linalg.vector_norm(light_dir), min=1e-12)
-        Hv = _normalize3(V + Ld[:, None, None])
-        NdotL = torch.clamp(_dot3(normal, Ld[:, None, None]), min=0.0)
-        NdotH = torch.clamp(_dot3(normal, Hv), min=0.0)
-        NDF = _ggx_distribution(NdotH, roughness)
-        G = _geometry_smith(NoV, NdotL, roughness)
-        spec = (NDF * G) * k_S / torch.clamp(4.0 * NoV * NdotL, min=1e-3)
-        kD = (1.0 - k_S) * (1.0 - metallic)
-        inv_shadow = shadow_factor_vsm_planar(shadow_maps, shadow_matrices, i, world)
-        contrib = (
-            inv_shadow * (kD * base_l * (1.0 / math.pi) + spec)
-            * light_color[:, None, None] * NdotL
-        )
-        color = color + contrib * light_on.float()
-    color = color + inputs.ambient_light[:, None, None] * base_l
-    mark("direct light")
+        color = torch.zeros((3, H, W), device=dev)
+        for i in range(min(inputs.light_directions.shape[0], max_lights)):
+            light_color = inputs.light_colors[i]
+            light_dir = inputs.light_directions[i]
+            light_on = (light_color != 0).any() & (light_dir != 0).any()
+            Ld = -light_dir / torch.clamp(torch.linalg.vector_norm(light_dir), min=1e-12)
+            Hv = _normalize3(V + Ld[:, None, None])
+            NdotL = torch.clamp(_dot3(normal, Ld[:, None, None]), min=0.0)
+            NdotH = torch.clamp(_dot3(normal, Hv), min=0.0)
+            NDF = _ggx_distribution(NdotH, roughness)
+            G = _geometry_smith(NoV, NdotL, roughness)
+            spec = (NDF * G) * k_S / torch.clamp(4.0 * NoV * NdotL, min=1e-3)
+            kD = (1.0 - k_S) * (1.0 - metallic)
+            if shadow_maps is None:
+                inv_shadow = 1.0
+            elif shadow_mode == "vsm":
+                inv_shadow = shadow_factor_vsm_planar(
+                    shadow_maps, shadow_matrices, i, world, vsm_taps
+                )
+            else:
+                inv_shadow = shadow_factor_planar(shadow_maps, shadow_matrices, i, world)
+            contrib = (
+                inv_shadow * (kD * base_l * (1.0 / math.pi) + spec)
+                * light_color[:, None, None] * NdotL
+            )
+            color = color + contrib * light_on.float()
+        color = color + inputs.ambient_light[:, None, None] * base_l
+        mark("direct light")
 
-    if light_map is not None:
-        # the IBL term is channels-last (cubemap gathers); convert at its edge
-        def tohwc(p):
-            return p.permute(1, 2, 0)
+        if light_map is not None:
+            # the IBL term is channels-last (cubemap gathers); convert at its edge
+            def tohwc(p):
+                return p.permute(1, 2, 0)
 
-        c_diff = base_color[:3] * (1.0 - DIELECTRIC_SPECULAR) * (1.0 - metallic)
-        ibl = ibl_term(light_map, tohwc(normal), tohwc(V), NoV, roughness, tohwc(F0),
-                       tohwc(k_S), tohwc(c_diff))
-        color = color + ibl.permute(2, 0, 1)
-        mark("IBL term")
-    color = color + emissive
+            c_diff = base_color[:3] * (1.0 - DIELECTRIC_SPECULAR) * (1.0 - metallic)
+            ibl = ibl_term(light_map, tohwc(normal), tohwc(V), NoV, roughness, tohwc(F0),
+                           tohwc(k_S), tohwc(c_diff), ibl_prefilter, ibl_sh)
+            color = color + ibl.permute(2, 0, 1)
+            mark("IBL term")
+        color = color + emissive
 
     shown = valid & alpha_ok
     zero = torch.zeros((H, W), device=dev)

@@ -1,12 +1,15 @@
-"""Shadow maps: per-light ortho depth raster, VSM moments, VSM lookup.
+"""Shadow maps: per-light ortho depth raster, VSM moments or raw depth,
+and their lookups.
 
-Counterpart of the default path of ``stillleben_tpu/render/shadow.py``:
-``render_shadow_maps`` (:207-301), both branches of
-``_ortho_rasterize_depth`` (:85-204) with ``_splat_tiny_depth`` (:24-82),
-``build_vsm`` (:304-324) and ``shadow_factor_vsm_planar`` with 4 taps
-(:331-380). The depth pass runs the same raster as the camera (cells or
-classic), on the decimated caster proxy. Not ported yet: PCF, the
-shadow-pass face cull (``SL_SHADOW_CULL``).
+Counterpart of ``stillleben_tpu/render/shadow.py``: ``render_shadow_maps``
+(:207-301) in both modes (VSM moments, or the raw depth of PCF),
+both branches of ``_ortho_rasterize_depth`` (:85-204) with
+``_splat_tiny_depth`` (:24-82) and the shadow pass's front-face cull
+(``SL_SHADOW_CULL``), ``build_vsm`` (:304-324),
+``shadow_factor_vsm_planar`` with 4 bilinear taps or 1 point tap
+(``SL_VSM_TAPS``, :331-380) and the 4x4 PCF compare
+``shadow_factor_planar`` (:383-404). The depth pass runs the same raster as
+the camera (cells or classic), on the decimated caster proxy.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from .rasterize_tiled import _edge_lines, _compact, rasterize_vertices, rasteriz
 SHADOW_BIAS = 3e-5  # reference render_shader.frag:335
 VSM_MIN_VARIANCE = 1e-6
 VSM_BLEED = 0.3
+SHADOW_MODES = ("vsm", "pcf", "off")
 
 
 def _splat_tiny_depth(
@@ -67,6 +71,7 @@ def _ortho_rasterize_depth(
     size: int,
     raster: str = "cells",
     tiles_per_cell: int = 1,
+    tri_cullable: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Depth-only ortho raster -> (size, size) min-depth map (1 = far).
 
@@ -75,16 +80,26 @@ def _ortho_rasterize_depth(
     Classic (shadow.py:162-204): sub-2-px triangles and the compacted
     2-4-px class are splatted exactly; the rest goes through the span-class
     raster with 64-px tiles for maps >= 1024^2 (else 16); the map is the
-    minimum of the three."""
+    minimum of the three. ``tri_cullable`` (F,) turns on the reference's
+    shadow-pass front-face cull (render_pass.cpp:428-429): only the faces
+    of closed meshes turned away from the light write depth. The cell path
+    culls in its classification (``cull_sign`` +1); the classic path's
+    splat classes bypass that, so it drops the culled faces from ``tri_on``
+    up front (shadow.py:152-160)."""
     faces = faces.long()
     p = torch.cat([xy, torch.ones_like(xy[:, :1])], -1)[faces]  # (F, 3, 3), w == 1
     zf = z[faces]
     if raster == "cells":
         tile = 32 if size >= 1024 else 16
         depth_img, _ = rasterize_vertices_cells(
-            p, zf, tri_on, size, size, near=-1e-3, far=1.0, big_capacity=16, tile=tile
+            p, zf, tri_on, size, size, near=-1e-3, far=1.0, big_capacity=16, tile=tile,
+            cull_sign=1 if tri_cullable is not None else 0, cull_mask=tri_cullable,
         )
         return torch.clamp(depth_img, max=1.0)
+
+    if tri_cullable is not None:  # ortho: det is twice the signed area
+        det = (p[:, 0, :] * m.cross(p[:, 1, :], p[:, 2, :])).sum(dim=-1)
+        tri_on = tri_on & (~tri_cullable | (det > 0))
 
     xmin, xmax = p[..., 0].amin(-1), p[..., 0].amax(-1)
     ymin, ymax = p[..., 1].amin(-1), p[..., 1].amax(-1)
@@ -130,11 +145,17 @@ def build_vsm(depth_map: torch.Tensor, taps: int = 4) -> torch.Tensor:
 
 def render_shadow_maps(
     atlas: SceneAtlas, inputs: RenderInputs, size: int, max_lights: int,
-    raster: str = "cells", tiles_per_cell: int = 1,
+    raster: str = "cells", tiles_per_cell: int = 1, mode: str = "vsm",
+    shadow_cull: bool = False,
 ):
-    """Returns (VSM maps (L, S, S, 2), matrices (L, 4, 4) world -> (u, v, z)).
-    The light axis is a loop (one depth raster per light); ``raster``
-    picks the depth pass's raster, as the camera's."""
+    """Returns (maps, matrices (L, 4, 4) world -> (u, v, z)): the maps are
+    (L, S, S, 2) VSM moments with ``mode="vsm"``, the (L, S, S) raw depth
+    with ``"pcf"``. The light axis is a loop (one depth raster per light,
+    an inactive light's map is all far); ``raster`` picks the depth pass's
+    raster, as the camera's; ``shadow_cull`` the front-face cull
+    (``SL_SHADOW_CULL``) on the closed meshes' faces."""
+    if mode not in ("vsm", "pcf"):
+        raise ValueError(f"render_shadow_maps: mode {mode!r} not in ('vsm', 'pcf')")
     n_lights = min(inputs.light_directions.shape[0], max_lights)
     dev = atlas.shadow_positions.device
     caster = inputs.obj_casts_shadows & inputs.obj_visible
@@ -176,10 +197,11 @@ def render_shadow_maps(
         v = (wl[:, 1] / ext * 0.5 + 0.5) * size
         z = torch.clamp(wl[:, 2] / zmax, 0.0, 1.0)
         d = _ortho_rasterize_depth(
-            torch.stack([u, v], -1), z, atlas.shadow_faces, tri_on, size, raster, tiles_per_cell
+            torch.stack([u, v], -1), z, atlas.shadow_faces, tri_on, size, raster, tiles_per_cell,
+            atlas.shadow_face_cullable if shadow_cull else None,
         )
-        vsm = build_vsm(d)
-        maps.append(torch.where(light_on, vsm, torch.ones_like(vsm)))
+        m_on = build_vsm(d) if mode == "vsm" else d
+        maps.append(torch.where(light_on, m_on, torch.ones_like(m_on)))
 
         A = torch.zeros((4, 4), device=dev)
         A[0, :3] = world_to_light[0, :3] / ext * 0.5 * size
@@ -198,8 +220,12 @@ def shadow_factor_vsm_planar(
     shadow_matrices: torch.Tensor,  # (L, 4, 4)
     light: int,
     world: torch.Tensor,  # (3, H, W) channel planes
+    taps: int = 4,
 ) -> torch.Tensor:
-    """Chebyshev upper-bound soft shadow from one bilinear VSM tap."""
+    """Chebyshev upper-bound soft shadow from one bilinear tap of the VSM
+    moments (``taps=4``) or from the nearest texel (``taps=1``,
+    ``SL_VSM_TAPS=1``: the moments are box-filtered already, so the point
+    tap only loses the sub-texel lerp)."""
     S = vsm_maps.shape[1]
     A = shadow_matrices[light]
     u = A[0, 0] * world[0] + A[0, 1] * world[1] + A[0, 2] * world[2] + A[0, 3]
@@ -208,24 +234,56 @@ def shadow_factor_vsm_planar(
     flat = vsm_maps[light].reshape(S * S, 2)
     tu = u - 0.5
     tv = v - 0.5
-    u0 = torch.floor(tu)
-    v0 = torch.floor(tv)
-    fu = (tu - u0)[..., None]
-    fv = (tv - v0)[..., None]
-    u0i = torch.clamp(u0.to(torch.int64), 0, S - 1)
-    u1i = torch.clamp(u0i + 1, 0, S - 1)
-    v0i = torch.clamp(v0.to(torch.int64), 0, S - 1)
-    v1i = torch.clamp(v0i + 1, 0, S - 1)
+    if taps == 1:
+        # round half to even, as jnp.round
+        ui = torch.clamp(torch.round(tu).to(torch.int64), 0, S - 1)
+        vi = torch.clamp(torch.round(tv).to(torch.int64), 0, S - 1)
+        mom = flat[vi * S + ui]
+    else:
+        u0 = torch.floor(tu)
+        v0 = torch.floor(tv)
+        fu = (tu - u0)[..., None]
+        fv = (tv - v0)[..., None]
+        u0i = torch.clamp(u0.to(torch.int64), 0, S - 1)
+        u1i = torch.clamp(u0i + 1, 0, S - 1)
+        v0i = torch.clamp(v0.to(torch.int64), 0, S - 1)
+        v1i = torch.clamp(v0i + 1, 0, S - 1)
 
-    def fetch(vi, ui):
-        return flat[vi * S + ui]  # (H, W, 2)
+        def fetch(vi, ui):
+            return flat[vi * S + ui]  # (H, W, 2)
 
-    mom = (fetch(v0i, u0i) * (1 - fu) + fetch(v0i, u1i) * fu) * (1 - fv) + (
-        fetch(v1i, u0i) * (1 - fu) + fetch(v1i, u1i) * fu
-    ) * fv
+        mom = (fetch(v0i, u0i) * (1 - fu) + fetch(v0i, u1i) * fu) * (1 - fv) + (
+            fetch(v1i, u0i) * (1 - fu) + fetch(v1i, u1i) * fu
+        ) * fv
     mu = mom[..., 0]
     sigma2 = torch.clamp(mom[..., 1] - mu * mu, min=VSM_MIN_VARIANCE)
     dz = torch.clamp(z - SHADOW_BIAS - mu, min=0.0)
     p_max = sigma2 / (sigma2 + dz * dz)
     p = torch.clamp((p_max - VSM_BLEED) / (1.0 - VSM_BLEED), 0.0, 1.0)
     return torch.where(dz <= 0.0, torch.ones_like(p), p)
+
+
+def shadow_factor_planar(
+    shadow_maps: torch.Tensor,  # (L, S, S) raw depth
+    shadow_matrices: torch.Tensor,  # (L, 4, 4)
+    light: int,
+    world: torch.Tensor,  # (3, H, W) channel planes
+) -> torch.Tensor:
+    """4x4 PCF (reference render_shader.frag:321-338, shadow.py:383-404):
+    the mean of 16 depth compares ``z - bias <= stored`` at texel offsets
+    of +-0.5 and +-1.5, each coordinate truncated toward zero and clamped
+    to the map, as the JAX package's cast does. (H, W), 1 = lit."""
+    S = shadow_maps.shape[1]
+    A = shadow_matrices[light]
+    u = A[0, 0] * world[0] + A[0, 1] * world[1] + A[0, 2] * world[2] + A[0, 3]
+    v = A[1, 0] * world[0] + A[1, 1] * world[1] + A[1, 2] * world[2] + A[1, 3]
+    z = A[2, 0] * world[0] + A[2, 1] * world[1] + A[2, 2] * world[2] + A[2, 3]
+    flat = shadow_maps[light].reshape(-1)
+    zb = z - SHADOW_BIAS
+    acc = torch.zeros_like(z)
+    for dy in (-1.5, -0.5, 0.5, 1.5):
+        vi = torch.clamp((v + dy).to(torch.int64), 0, S - 1)
+        for dx in (-1.5, -0.5, 0.5, 1.5):
+            ui = torch.clamp((u + dx).to(torch.int64), 0, S - 1)
+            acc = acc + (zb <= flat[vi * S + ui]).to(torch.float32)
+    return acc / 16.0

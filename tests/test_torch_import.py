@@ -4,7 +4,8 @@ a fresh interpreter that refuses every ``jax``, ``jaxlib``,
 ``stillleben_tpu_torch``, is another top-level name) imports the whole
 port, loads meshes and their PNG texture from files through the port's own
 ``Mesh`` and codec, builds a template with a background plane and a light
-map, and renders a full frame through each raster on the CPU."""
+map, renders a full frame through each raster on the CPU, and streams a
+batch in the modes of the tuned and reference-quality configurations."""
 
 import subprocess
 import sys
@@ -59,6 +60,18 @@ SCRIPT = textwrap.dedent(
         frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, cfg, default_config(),
                                 settle_iterations=1)
         assert frames.valid.any() and (frames.hdr[..., 3] > 0.9999).all(), raster
+    # the modes of the tuned and reference-quality configurations, and the stream
+    from stillleben_tpu_torch.parallel.batch import generate_stream
+    tuned = FrameConfig(width=32, height=32, max_lights=1, shadow_size=32, backface_cull=True,
+                        shadow_cull=True, vsm_taps=1, ibl_prefilter="nearest", ibl_sh=False)
+    solver = default_config()._replace(contact_gen="frame", sleep_frames=2)
+    for b in generate_stream(tpl, tuned, solver, batch=1, n_batches=1, seed=2,
+                             gt_fields=("rgb", "depth"), settle_iterations=3):
+        assert b["depth"].dtype.name == "float16" and b["rgb"].shape == (1, 32, 32, 4)
+    ref = tuned._replace(shadow_mode="pcf", shading="phong", ssao_mode="reference", max_lights=3)
+    frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, ref,
+                            default_config()._replace(contact_gen="every2"), settle_iterations=1)
+    assert frames.valid.any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")

@@ -138,10 +138,15 @@ def test_frame_config_accepts_the_full_options(tmp_path_factory, sky_light_map):
                 dict(alpha_peel_rounds=-1)):
         with pytest.raises(ValueError):
             cfg._replace(**bad).check()
-    for unported in (dict(shading="phong"), dict(shading="flat"), dict(shadow_mode="pcf"),
-                     dict(shadow_mode="off")):
-        with pytest.raises(NotImplementedError):
-            cfg._replace(**unported).check()
+    for ported in (dict(shading="phong"), dict(shading="flat"), dict(shadow_mode="pcf"),
+                   dict(shadow_mode="off"), dict(backface_cull=True, shadow_cull=True, vsm_taps=1,
+                                                 ibl_prefilter="nearest", ibl_sh=False)):
+        cfg._replace(**ported).check()
+    for bad in (dict(shading="toon"), dict(shadow_mode="esm"), dict(vsm_taps=2),
+                dict(ibl_prefilter="linear"), dict(backface_cull=1), dict(shadow_cull="yes"),
+                dict(ibl_sh=None)):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            cfg._replace(**bad).check()
 
 
 def test_frame_config_rejects_unknown_choices():

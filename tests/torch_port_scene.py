@@ -255,3 +255,116 @@ def port_full_template(meshes, light_map, device="cpu", stickers=False, override
     scene = fill_full_scene(Scene(size), meshes, Object, Texture, Texture2D, light_map,
                             stickers, overrides)
     return template_from_scene(scene, device)
+
+
+# --- one scene rendered by both packages, and the frame rules ---------------
+
+
+def settled_scene(tpl, key: int = 3, iterations: int = 10):
+    """JAX-settled (poses, camera, light direction) of the template."""
+    import jax
+
+    from stillleben_tpu.parallel.batch import settle_scene
+    from stillleben_tpu.physics.types import default_config
+
+    return settle_scene(jax.random.PRNGKey(key), tpl, default_config(),
+                        settle_iterations=iterations)
+
+
+def frame_inputs(tpl, poses, cam, light):
+    """The JAX template's RenderInputs of one settled scene."""
+    n = min(tpl.base_inputs.obj_to_world.shape[0], poses.shape[0])  # a plane's slot stays
+    return tpl.base_inputs._replace(
+        obj_to_world=tpl.base_inputs.obj_to_world.at[:n].set(poses[:n]), cam_pose=cam,
+        light_directions=tpl.base_inputs.light_directions.at[0].set(light),
+    )
+
+
+def render_pair(tpl, ptpl, poses, cam, light, jax_cfg, cfg):
+    """Both packages' frames of one scene (numpy, uint16 maps as int32), and
+    what the frame rules need: both triangle-id images of the camera raster
+    and the projected vertices (F, 3, 3). The JAX package runs eagerly, so
+    the environment variables the caller set are read now; its raster
+    follows ``jax_cfg.use_pallas`` and ``SL_RASTER``, the port's ``cfg``."""
+    from stillleben_tpu.parallel.batch import render_with_poses as jax_render
+    from stillleben_tpu.render.rasterize import geometry_stage as jax_geometry_stage
+    from stillleben_tpu.render.rasterize_tiled import rasterize_tiled as jax_rasterize_tiled
+    from stillleben_tpu_torch.parallel.batch import render_with_poses
+    from stillleben_tpu_torch.render.rasterize import geometry_stage
+    from stillleben_tpu_torch.render.rasterize_tiled import rasterize_tiled
+
+    w, h = cfg.width, cfg.height
+    fj = to_numpy(jax_render(tpl, poses, cam, jax_cfg, light))
+    pposes, pcam, plight = (torch.from_numpy(np.array(x)) for x in (poses, cam, light))
+    fp = render_with_poses(ptpl, pposes, pcam, cfg, plight)
+    fp = type(fp)(*(x.to(torch.int32).numpy() if x.dtype == torch.uint16 else x.numpy() for x in fp))
+    jin = frame_inputs(tpl, poses, cam, light)
+    jgeom = jax_geometry_stage(tpl.render_atlas, jin, w, h)
+    tri_j = np.asarray(jax_rasterize_tiled(
+        jgeom, tpl.render_atlas, jin, w, h, use_pallas=jax_cfg.use_pallas).tri_id)
+    pin = ptpl.base_inputs._replace(
+        obj_to_world=torch.from_numpy(np.asarray(jin.obj_to_world)), cam_pose=pcam,
+        light_directions=torch.from_numpy(np.asarray(jin.light_directions)),
+    )
+    pgeom = geometry_stage(ptpl.render_atlas, pin, w, h)
+    tri_p = rasterize_tiled(pgeom, ptpl.render_atlas, pin, w, h, raster=cfg.raster,
+                            backface_cull=cfg.backface_cull).tri_id.numpy()
+    v = np.asarray(jgeom.pix_hom)[np.asarray(tpl.render_atlas.faces)]
+    return fj, fp, tri_j, tri_p, v
+
+
+def check_frame_pair(fj, fp, tri_j, tri_p, v, calm=None, min_quiet=0.3):
+    """The rules of ``tests/test_torch_frame.py``: triangle ids by the
+    tie/edge rule and the index maps equal where they agree; valid equal;
+    depth 1e-5 by ``check_depth``; where the ids agree, coordinates and
+    normals 1e-5 (where the barycentrics are ill-conditioned, 1e-4 and
+    1e-3);
+    hdr 1e-4 relative at well-conditioned pixels (and within ``calm``, an
+    (H, W) mask, when given), which must be ``min_quiet`` of the hit
+    pixels at least; rgb within 1 LSB where the ids agree."""
+    assert (fj.instance_index > 0).sum() > 100, "scene unexpectedly empty"
+    agree = check_id_agreement(tri_p, tri_j, v, v[..., 2])
+    h, w = agree.shape
+    for name in ("instance_index", "class_index", "vertex_indices"):
+        diff = (getattr(fp, name) != getattr(fj, name)).reshape(h, w, -1).any(-1)
+        assert not (diff & agree).any(), f"{name} differs where the triangle ids agree"
+    hit = agree & (tri_j >= 0)
+    well = well_conditioned(fj.barycentric_coeffs, fp.barycentric_coeffs, tri_j, v)
+    np.testing.assert_array_equal(fp.valid, fj.valid)
+    check_depth(fp.depth, fj.depth, depth_f64(v, v[..., 2], tri_j), hit)
+    # where the barycentrics are ill-conditioned they differ by up to ~1e-3:
+    # coordinates (a few mm across a triangle) move by < 1e-4, unit
+    # normals (which turn across it) by < 1e-3, as in tests/test_torch_gpu.py
+    for name, ill_tol in (("object_coordinates", 1e-4), ("cam_coordinates", 1e-4),
+                          ("normals", 1e-3)):
+        a, b = getattr(fp, name), getattr(fj, name)
+        np.testing.assert_allclose(a[agree & (well | ~hit)], b[agree & (well | ~hit)],
+                                   rtol=0, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(a[hit & ~well], b[hit & ~well], rtol=0, atol=ill_tol,
+                                   err_msg=name)
+    quiet = agree & (well | (tri_j < 0))
+    if calm is not None:
+        quiet &= calm | (tri_j < 0)
+    assert (hit & quiet).sum() >= min_quiet * hit.sum(), "too few well-conditioned pixels"
+    np.testing.assert_allclose(fp.hdr[quiet], fj.hdr[quiet], rtol=1e-4, atol=1e-6)
+    d = np.abs(fp.rgb.astype(np.int32) - fj.rgb.astype(np.int32))
+    assert d[agree].max() <= 1
+    return agree
+
+
+def vsm_penumbra(fj, tpl, poses, cam, light, jax_cfg):
+    """Pixels of the JAX frame in the VSM penumbra (shadow factor strictly
+    between 0 and 1), where the Chebyshev bound turns 1e-7 differences of
+    the world position into relative colour changes of 1e-3."""
+    from stillleben_tpu.render.rasterize import geometry_stage as jax_geometry_stage
+    from stillleben_tpu.render.shadow import render_shadow_maps, shadow_factor_vsm_planar
+
+    jin = frame_inputs(tpl, poses, cam, light)
+    h, w = fj.valid.shape
+    maps, mats = render_shadow_maps(tpl.render_atlas, jin,
+                                    jax_geometry_stage(tpl.render_atlas, jin, w, h), jax_cfg)
+    cam_pose = np.asarray(cam)
+    cc = fj.cam_coordinates[..., :3].reshape(-1, 3).T.astype(np.float64)
+    world = (cam_pose[:3, :3] @ cc + cam_pose[:3, 3:4]).reshape(3, h, w)
+    sf = np.asarray(shadow_factor_vsm_planar(maps, mats, 0, world.astype(np.float32)))
+    return (sf > 1e-3) & (sf < 1 - 1e-3)
