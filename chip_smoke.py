@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the datagen main path at
 the benchmark's size, in every configuration that the JAX package's
-``bench.py`` runs, through every hand-written kernel, on both rasters.
+``bench.py`` runs, through every hand-written kernel, on both rasters, and
+the public host API (``Scene`` -> ``simulate_tabletop_scene`` ->
+``RenderPass().render``).
 
     python3 chip_smoke.py
 
@@ -73,6 +75,18 @@ Phases (one line each or more; any failure exits non-zero):
 12. reference: on the CPU tests' small scene at 160x120, the instance map
     of each raster against the brute-force oracle's (cells >= 99.9%,
     classic >= 97%, the JAX package's own bound for its classic path).
+13. api: the public host API on the card (``sl.init()``), bench-full's
+    objects, sky and plane built through ``sl.Mesh``/``sl.Object``/
+    ``sl.Scene`` at 640x480 on two seeds: ``simulate_tabletop_scene()``
+    (the reference's 100 x 4 substeps, one scene), ``RenderPass().render``
+    (first and warm), a ``depth_peel`` pass and a ``supersample=2`` render;
+    the seconds per settle and ms per render, K1's launches per render
+    (camera, shadow, peel; the light map's sun takes the free slot 1, so
+    two shadow passes, slot 0 dark) and no call of its plain pieces; every
+    accessor's shape and dtype, every field finite, objects and plane in
+    view, the peel deeper, each object covering pixels when drawn alone
+    (``predicate``); K1 ``torch.equal`` to its plain version on this path's
+    camera, both shadow slots and the peel pass.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -166,12 +180,12 @@ def build_scene(order, width: int, height: int, light_map=None, plane: float = 0
     rng = np.random.default_rng(7)
     scene = Scene((width, height))
     for mesh in order:
-        scene.add_object(
-            Object(mesh, metallic=float(rng.random()), roughness=float(rng.random()))
-        )
+        o = Object(mesh)
+        o.metallic, o.roughness = float(rng.random()), float(rng.random())
+        scene.add_object(o)
     scene.light_map = light_map
     if plane:
-        scene.background_plane_size[:] = plane
+        scene.background_plane_size = np.array([plane, plane], np.float32)
         scene.background_plane_texture = Texture2D(checker_texture())
     return scene
 
@@ -774,6 +788,238 @@ def run_rungs(torch, cr, fr, rt, ftpl, fcfg, light_map, render, card) -> dict:
     ])
 
 
+API_SEEDS = (0, 1)
+API_FIELDS = {  # accessor: (trailing shape, dtype name)
+    "rgb": ((4,), "uint8"), "class_index": ((), "uint16"), "instance_index": ((), "uint16"),
+    "coordinates": ((3,), "float32"), "depth": ((), "float32"), "coordDepth": ((4,), "float32"),
+    "normals": ((4,), "float32"), "vertex_indices": ((3,), "int32"),
+    "barycentric_coeffs": ((3,), "float32"), "cam_coordinates": ((4,), "float32"),
+}
+
+
+def check_api_result(torch, result, scene, what: str, plane: bool = True) -> str:
+    """A ``RenderPassResult`` at the viewport: every accessor's shape and
+    dtype, every float field finite, objects (and with ``plane`` the plane)
+    in view."""
+    W, H = scene.viewport
+    for name, (shape, dtype) in API_FIELDS.items():
+        x = getattr(result, name)()
+        if tuple(x.shape) != (H, W) + shape or str(x.dtype) != f"torch.{dtype}":
+            fail(f"{what}: {name} is {tuple(x.shape)} {x.dtype}, not {(H, W) + shape} {dtype}")
+        if x.device.type != "cuda":
+            fail(f"{what}: {name} on {x.device}")
+        if x.is_floating_point() and not torch.isfinite(x).all():
+            fail(f"{what}: non-finite values in {name}")
+    inst = result.instance_index().to(torch.int32)
+    valid = result.frame.valid
+    obj_px, plane_px = int((inst > 0).sum()), int((valid & (inst == 0)).sum())
+    if obj_px == 0 or (plane and plane_px == 0):
+        fail(f"{what}: {obj_px} object pixels, {plane_px} plane pixels")
+    if (result.depth()[~valid] != 3000).any() or (result.vertex_indices()[~valid] != 0).any():
+        fail(f"{what}: background pixels without depth 3000 and vertex id 0")
+    return (f"{obj_px} object px, {plane_px} plane px, "
+            f"{len(torch.unique(inst).tolist()) - 1} instances, rgb std "
+            f"{float(result.rgb().float().std()):.2f}")
+
+
+def run_api(torch, cr, rt, light_map, card) -> list:
+    """Phase 13: the public host API at 640x480 (see the module docstring).
+    Returns the kernels' entries of K1 on this path's inputs."""
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets.procedural import checker_texture
+
+    ctx = sl.init()
+    if ctx.device.type != "cuda":
+        fail(f"sl.init() chose {ctx.device}")
+    dense, cube, sphere = load_meshes(subdiv=6, textured=True)
+    if not all(type(x) is sl.Mesh for x in (dense, cube, sphere)):
+        fail("the API meshes are not sl.Mesh")
+    dense.scale_to_bbox_diagonal(0.25)
+    cube.scale_to_bbox_diagonal(0.2)
+    sphere.scale_to_bbox_diagonal(0.15)
+    checker = sl.Texture2D(checker_texture())
+
+    def api_scene(seed):
+        """bench-full through the API: the same 10 objects, sky and plane."""
+        rng = np.random.default_rng(7)
+        scene = sl.Scene((WIDTH, HEIGHT))
+        scene.seed(seed)
+        for mesh in [dense, cube, sphere] * 3 + [cube]:
+            o = sl.Object(mesh)
+            o.metallic, o.roughness = float(rng.random()), float(rng.random())
+            scene.add_object(o)
+        scene.light_map = light_map
+        scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+        scene.background_plane_texture = checker
+        return scene
+
+    from stillleben_tpu_torch.render import frame as frame_mod
+    from stillleben_tpu_torch.render import shadow as shadow_mod
+
+    # (pass, md_tiles given, light slot or None) of every K1 call, in order
+    calls = []
+    captured = []  # seed 0's first render and peel: (pass, slot, every argument)
+    capturing = [False]
+    # the light slot whose depth raster is running (None outside one), the
+    # next slot of the running shadow pass, and each pass's light count
+    in_shadow = [None]
+    next_slot = [0]
+    pass_lights = []
+    orig, orig_shadow = rt.cell_raster, shadow_mod._ortho_rasterize_depth
+    orig_maps = frame_mod.render_shadow_maps
+
+    def rec(*a):
+        slot = in_shadow[0]
+        calls.append(("camera" if slot is None else "shadow", a[3] is not None, slot))
+        if capturing[0]:
+            captured.append((calls[-1][0], slot, tuple(t.clone() if hasattr(t, "clone") else t
+                                                        for t in a)))
+        return orig(*a)
+
+    def rec_shadow(*a, **kw):
+        # the shadow pass rasterizes its light slots in order, one call each
+        in_shadow[0] = next_slot[0]
+        next_slot[0] += 1
+        try:
+            return orig_shadow(*a, **kw)
+        finally:
+            in_shadow[0] = None
+
+    def rec_maps(atlas, inputs, size, max_lights, *a, **kw):
+        next_slot[0] = 0
+        out = orig_maps(atlas, inputs, size, max_lights, *a, **kw)
+        pass_lights.append((min(inputs.light_directions.shape[0], max_lights), next_slot[0]))
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        n = len(calls)
+        return out, time.perf_counter() - t0, n
+
+    per_seed = []
+    scenes = []
+
+    def drive():
+        for seed in API_SEEDS:
+            scene = api_scene(seed)
+            _, settle_s, _ = timed(scene.simulate_tabletop_scene)
+            rp = sl.RenderPass()
+            n0 = len(calls)
+            capturing[0] = seed == API_SEEDS[0]
+            first, first_s, n1 = timed(lambda: rp.render(scene))
+            capturing[0] = False
+            warm, warm_s, n2 = timed(lambda: rp.render(scene))
+            capturing[0] = seed == API_SEEDS[0]
+            peel, peel_s, n3 = timed(lambda: rp.render(scene, depth_peel=warm))
+            capturing[0] = False
+            ss, ss_s, n4 = timed(lambda: sl.RenderPass(supersample=2).render(scene))
+            per_seed.append(dict(seed=seed, settle_s=settle_s, first_ms=1e3 * first_s,
+                                 warm_ms=1e3 * warm_s, peel_ms=1e3 * peel_s, ss_ms=1e3 * ss_s,
+                                 renders=[calls[n0:n1], calls[n1:n2], calls[n2:n3], calls[n3:n4]],
+                                 results=(warm, peel, ss)))
+            scenes.append(scene)
+
+    cr.reset_launch_counts()
+    rt.cell_raster, shadow_mod._ortho_rasterize_depth = rec, rec_shadow
+    frame_mod.render_shadow_maps = rec_maps
+    try:
+        _, plain_calls = count_calls(
+            cr, ("cell_raster_plain", "merge_cells", "cell_raster_reference"), drive)
+    finally:
+        rt.cell_raster, shadow_mod._ortho_rasterize_depth = orig, orig_shadow
+        frame_mod.render_shadow_maps = orig_maps
+    torch.cuda.synchronize()
+    launches = dict(cr.cell_raster.launches_by_tile)
+    for run, scene in zip(per_seed, scenes):
+        kinds = []
+        for what, rcalls in zip(("render", "warm render", "peel render", "supersample=2 render"),
+                                run["renders"]):
+            cam = sum(1 for k, md, _ in rcalls if k == "camera" and not md)
+            peel_cam = sum(1 for k, md, _ in rcalls if k == "camera" and md)
+            shadow = sorted(sl for k, _, sl in rcalls if k == "shadow")
+            kinds.append(f"{what}: camera {cam}, shadow {len(shadow)} (light slots {shadow}), "
+                         f"peel {peel_cam}")
+        warm, peel, ss = run["results"]
+        contents = [check_api_result(torch, r, scene, f"api seed {run['seed']} {what}", what != "peel")
+                    for r, what in ((warm, "render"), (peel, "peel"), (ss, "supersample=2"))]
+        shown = peel.frame.valid & (warm.depth() < 2999.0)
+        deeper = float((peel.depth()[shown] > warm.depth()[shown] + 1e-3).float().mean())
+        phase("api", f"seed {run['seed']}: {len(scene.objects)} objects + plane, "
+                     f"simulate_tabletop_scene {run['settle_s']:.3f} s; RenderPass().render "
+                     f"{run['first_ms']:.1f} ms first (atlas build), {run['warm_ms']:.1f} ms warm; "
+                     f"depth_peel pass {run['peel_ms']:.1f} ms; supersample=2 "
+                     f"{run['ss_ms']:.1f} ms ({card})")
+        phase("api", f"seed {run['seed']}: K1 launches per render: {'; '.join(kinds)}")
+        phase("api", f"seed {run['seed']}: content: render {contents[0]}; peel {contents[1]}, "
+                     f"{int(shown.sum())} px behind the first surface, {deeper:.4f} of them "
+                     f"deeper by > 1 mm; supersample=2 {contents[2]}")
+        if deeper < 0.5 or shown.sum() == 0:
+            fail(f"api seed {run['seed']}: the depth peel did not show the surfaces behind")
+        # every object covers pixels when it is the only one drawn
+        rp = sl.RenderPass()
+        alone = []
+        for o in scene.objects:
+            r = rp.render(scene, predicate=lambda ob, o=o: ob is o)
+            alone.append(int((r.instance_index().to(torch.int32) == o.instance_index).sum()))
+        phase("api", f"seed {run['seed']}: pixels of each object drawn alone {alone}; of each "
+                     f"in the render {[int((warm.instance_index().to(torch.int32) == o.instance_index).sum()) for o in scene.objects]}")
+        if min(alone) == 0:
+            fail(f"api seed {run['seed']}: an object covers no pixels: {alone}")
+        z = [float(o.pose()[2, 3]) for o in scene.objects]
+        if min(z) < 0.0 or max(z) > 2.0:
+            fail(f"api seed {run['seed']}: the settle left objects off the table: {z}")
+    phase("api", f"K1 launches by tile over the API path {launches}; calls of K1's plain pieces "
+                 f"{plain_calls}")
+    if any(plain_calls.values()):
+        fail(f"the API path on the card called K1's plain pieces: {plain_calls}")
+    if not any(k == "camera" for k, _, _ in calls) or not any(k == "shadow" for k, _, _ in calls):
+        fail(f"the API path did not launch K1 for camera and shadow: {launches}")
+
+    # K1 against its plain version on the path's own inputs: seed 0's
+    # render (camera, the dark light slot 0, the sun in slot 1) and the
+    # peel pass's camera raster (md_tiles given)
+    cam = [a for k, _, a in captured if k == "camera" and a[3] is None]
+    shadow = {}  # each light slot's first call
+    for k, sl, a in captured:
+        if k == "shadow":
+            shadow.setdefault(sl, a)
+    peel_cam = [a for k, _, a in captured if k == "camera" and a[3] is not None]
+    if len(cam) != 1 or sorted(shadow) != [0, 1] or len(peel_cam) != 1:
+        fail(f"api: captured {len(cam)} camera, shadow slots {sorted(shadow)}, "
+             f"{len(peel_cam)} peel calls")
+    # launches of the API run: the kernel's own counts by tile, split by pass
+    # and light slot with the calls recorded above
+    n_cam = sum(1 for k, md, _ in calls if k == "camera" and not md)
+    n_peel = sum(1 for k, md, _ in calls if k == "camera" and md)
+    n_slot = {sl: sum(1 for k, _, s in calls if k == "shadow" and s == sl) for sl in (0, 1)}
+    n_shadow = sum(1 for k, _, _ in calls if k == "shadow")
+    if (sum(launches.values()) != len(calls) or n_shadow != sum(n_slot.values())
+            or any(n != done for n, done in pass_lights)):
+        fail(f"api: {launches} launches against {len(calls)} calls, {n_shadow} shadow calls "
+             f"({n_slot} by slot), light slots per shadow pass (lights, rasterized) "
+             f"{pass_lights}")
+    phase("api", f"K1 shadow launches by light slot {n_slot} over {len(pass_lights)} shadow "
+                 f"passes")
+    entries = []
+    for name, args, n in (
+        (f"api camera, tile {cam[0][7]}", cam[0], n_cam),
+        (f"api shadow, dark light slot 0, tile {shadow[0][7]}", shadow[0], n_slot[0]),
+        (f"api shadow, the sky's sun in slot 1, tile {shadow[1][7]}", shadow[1], n_slot[1]),
+        (f"api peel pass, camera, tile {peel_cam[0][7]}, md_tiles given", peel_cam[0], n_peel),
+    ):
+        k = check_k1(torch, cr, args, name, card)
+        entries.append(dict(name=f"cell_raster[{name}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
+                            library_ms=None, **k))
+    return entries
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
@@ -1250,6 +1496,10 @@ def main() -> None:
                            f"max depth difference {depth_err:.3g}")
         if same < need or n_obj == 0:
             fail(f"the {raster} raster disagrees with the brute-force oracle")
+
+    # 13. the public host API: Scene -> simulate_tabletop_scene ->
+    # RenderPass().render, a depth-peel pass and supersample=2, two seeds
+    kernels.extend(run_api(torch, cr, rt, light_map, card))
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

@@ -1,15 +1,85 @@
-"""stillleben_tpu_torch: the datagen path of ``stillleben_tpu`` in PyTorch,
-for NVIDIA Hopper GPUs.
+"""stillleben_tpu_torch: ``stillleben_tpu`` in PyTorch, for NVIDIA Hopper GPUs.
 
 The package imports torch and numpy, never jax and nothing of
 ``stillleben_tpu``. It has its own host asset layer (``assets/``: OBJ and
 PLY import, consolidation, convex cooking, decimation; ``physics/bodies``:
-mass properties), copied from the JAX package's and trimmed to what the
-port uses. Every TPU kernel of the JAX package is a CUDA kernel here
+mass properties). Every TPU kernel of the JAX package is a CUDA kernel here
 (``csrc/``, wrapped by ``ops/``): the compact-cell z-buffer of the default
 raster, the fine z-buffer of the classic raster
 (``FrameConfig(raster="classic")``) and the toolchain check.
 
-Entry point: ``parallel.batch.generate_batch``; templates go to ``cuda``
-unless the caller asks for the CPU.
+The public API is the JAX package's (reference python/stillleben/__init__.py):
+
+    import stillleben_tpu_torch as sl
+    sl.init()                      # cuda:0; init(device="cpu") for the CPU
+    mesh = sl.Mesh("cube.obj")
+    scene = sl.Scene((640, 480))
+    scene.add_object(sl.Object(mesh))
+    scene.simulate_tabletop_scene()
+    result = sl.RenderPass().render(scene)
+    rgb = result.rgb()             # (480, 640, 4) uint8 tensor on the card
+
+The batched datagen entry point is ``parallel.batch.generate_batch``.
+Names of the JAX package's table that are not ported yet raise an
+``AttributeError`` that says so.
 """
+
+from __future__ import annotations
+
+import importlib
+
+__version__ = "0.1.0"
+
+# name -> (module, attribute), resolved on first use
+_LAZY = {
+    "init": (".context", "init"),
+    "init_cuda": (".context", "init_cuda"),
+    "context": (".context", "context"),
+    "Context": (".context", "Context"),
+    "Mesh": (".assets.mesh", "Mesh"),
+    "MeshCache": (".assets.mesh", "MeshCache"),
+    "Object": (".scene.object", "Object"),
+    "Scene": (".scene.scene", "Scene"),
+    "RenderPass": (".render.render_pass", "RenderPass"),
+    "RenderPassResult": (".render.render_pass", "RenderPassResult"),
+    "LightMap": (".render.light_map", "LightMap"),
+    "Texture": (".assets.texture", "Texture"),
+    "Texture2D": (".assets.texture", "Texture2D"),
+    "Range3D": (".core.range3d", "Range3D"),
+    "quat_to_matrix": (".core.quat", "quat_to_matrix"),
+    "matrix_to_quat": (".core.quat", "matrix_to_quat"),
+    "generate_stream": (".parallel.batch", "generate_stream"),
+}
+
+# the rest of the JAX package's table (stillleben_tpu/__init__.py:31-64)
+NOT_PORTED = (
+    "ImageLoader", "ImageSaver", "Animator", "JobQueue", "ManipulationSim", "view", "Viewer",
+    "render_debug_image", "object_annotations", "camera_model", "diff", "losses", "profiling",
+    "extension",
+)
+
+__all__ = sorted(_LAZY)
+
+# Importing the submodule ``context`` binds that name on the package to the
+# module; the public name is the function, as in the reference. Bind it
+# now, before any other module imports the submodule.
+from . import context as _context_module  # noqa: E402
+
+context = _context_module.context
+
+
+def __getattr__(name: str):
+    if name in NOT_PORTED:
+        raise AttributeError(
+            f"stillleben_tpu_torch.{name} is not ported yet (ROADMAP.md, queue A)"
+        )
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    mod_name, attr = _LAZY[name]
+    value = getattr(importlib.import_module(mod_name, __name__), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return __all__

@@ -53,6 +53,10 @@ class ConvexHullData:
 class PhysicsMeshData:
     hulls: list[ConvexHullData] = field(default_factory=list)
 
+    @property
+    def total_volume(self) -> float:
+        return float(sum(h.volume for h in self.hulls))
+
 
 # ---------------------------------------------------------------------------
 # Convex hull + mass properties

@@ -10,18 +10,24 @@ port uses (reference src/mesh.cpp, python/src/py_mesh.cpp):
   rejected (src/mesh.cpp:1050-1073); ``center_bbox`` and
   ``scale_to_bbox_diagonal`` (src/mesh.cpp:1020-1043);
 - physics cooking: convex decomposition with the single-hull shortcut and
-  a disk cache (src/mesh.cpp:340-511), see ``convex.py``.
+  a disk cache (src/mesh.cpp:340-511), see ``convex.py``;
+- vertex edits by 1-based vertex index (src/mesh.cpp:823-855) with the
+  area-weighted ``recompute_normals`` (src/mesh.cpp:763-816); each edit
+  bumps ``_dirty``, which scene and render caches watch;
+- serialization, plain and in the Corrade form (src/mesh.cpp:1091-1115),
+  and ``MeshCache`` (src/mesh_cache.cpp:21-44).
 """
 
 from __future__ import annotations
 
 import enum
 import os
+import threading
 
 import numpy as np
 
 from ..core.range3d import Range3D
-from .consolidate import ConsolidatedMesh, consolidate
+from .consolidate import ConsolidatedMesh, compute_smooth_normals, consolidate
 from .convex import PhysicsMeshData, decompose, load_cached_physics, store_cached_physics
 from .objfile import load_obj, load_ply
 
@@ -52,6 +58,7 @@ class Mesh:
         self._pretransform = np.eye(4, dtype=np.float32)
         self._class_index = 0
         self._physics: PhysicsMeshData | None = None
+        self._dirty = 0  # bumped by every edit of the vertices or the pretransform
 
         self.open_file()
         if physics:
@@ -71,8 +78,11 @@ class Mesh:
                 f"Unsupported mesh format '{ext}' (ported: {' '.join(sorted(LOADERS))})"
             )
         self._consolidated = consolidate(LOADERS[ext](fn), name=fn)
-        self._raw_bbox = Range3D.from_points(self._consolidated.positions)
+        self._update_raw_bbox()
         self._load_pretransform_sidecar()
+
+    def _update_raw_bbox(self) -> None:
+        self._raw_bbox = Range3D.from_points(self._consolidated.positions)
 
     def _load_pretransform_sidecar(self) -> None:
         """Optional <file>.pretransform 4x4 text sidecar
@@ -106,6 +116,11 @@ class Mesh:
         )
         store_cached_physics(self._filename, c.positions, c.faces, int(self._flags), self._physics)
 
+    def load_visual(self) -> None:
+        """The reference uploads to GL here (src/mesh.cpp:624-745); the port
+        uploads when a scene atlas is built."""
+        self.open_file()
+
     # -- geometry ------------------------------------------------------------
 
     @property
@@ -116,6 +131,52 @@ class Mesh:
     def consolidated(self) -> ConsolidatedMesh:
         self.open_file()
         return self._consolidated
+
+    # -- vertex edits ----------------------------------------------------------
+
+    def update_positions(self, indices, positions) -> None:
+        """Move vertices by 1-BASED global vertex index (the ground-truth
+        vertex-index buffer is 1-based, 0 = background)."""
+        c = self.consolidated
+        idx = np.asarray(indices).reshape(-1).astype(np.int64) - 1
+        if idx.size and (idx.min() < 0 or idx.max() >= c.positions.shape[0]):
+            raise IndexError("vertex indices out of range (remember: 1-based)")
+        c.positions[idx] = np.asarray(positions, np.float32).reshape(-1, 3)
+        self._after_vertex_edit()
+
+    def update_colors(self, indices, colors) -> None:
+        c = self.consolidated
+        idx = np.asarray(indices).reshape(-1).astype(np.int64) - 1
+        c.colors[idx] = _rgba(colors).reshape(-1, 4)
+        self._dirty += 1
+
+    def update_positions_and_colors(self, indices, positions, colors) -> None:
+        self.update_positions(indices, positions)
+        self.update_colors(indices, colors)
+
+    def set_new_positions(self, positions) -> None:
+        c = self.consolidated
+        positions = np.asarray(positions, np.float32).reshape(-1, 3)
+        if positions.shape != c.positions.shape:
+            raise ValueError(f"shape mismatch: {positions.shape} vs {c.positions.shape}")
+        c.positions[:] = positions
+        self._after_vertex_edit()
+
+    def set_new_colors(self, colors) -> None:
+        c = self.consolidated
+        c.colors[:] = _rgba(colors).reshape(c.colors.shape)
+        self._dirty += 1
+
+    def recompute_normals(self) -> None:
+        """Area-weighted smooth normals (reference src/mesh.cpp:763-816)."""
+        c = self.consolidated
+        c.normals[:] = compute_smooth_normals(c.positions, c.faces)
+        self._dirty += 1
+
+    def _after_vertex_edit(self) -> None:
+        self.recompute_normals()
+        self._update_raw_bbox()
+        self._dirty += 1
 
     # -- pretransform --------------------------------------------------------
 
@@ -152,6 +213,7 @@ class Mesh:
         S = np.eye(4, dtype=np.float32) * self._scale
         S[3, 3] = 1.0
         self._pretransform = (S @ self._pretransform_rigid).astype(np.float32)
+        self._dirty += 1
 
     @property
     def pretransform(self) -> np.ndarray:
@@ -177,6 +239,14 @@ class Mesh:
         self._pretransform_rigid = rigid
         self._update_pretransform()
 
+    @property
+    def pretransform_rigid(self) -> np.ndarray:
+        return self._pretransform_rigid.copy()
+
+    @property
+    def pretransform_scale(self) -> float:
+        return self._scale
+
     # -- misc ---------------------------------------------------------------
 
     @property
@@ -189,6 +259,94 @@ class Mesh:
             raise ValueError("Mesh.class_index: out of uint16 range")
         self._class_index = int(index)
 
+    def serialize_config(self, group) -> None:
+        """Corrade ConfigurationGroup form (reference src/mesh.cpp:1091-1097)."""
+        group.set_value("filename", self._filename)
+        group.set_value("classIndex", int(self._class_index))
+        group.set_value("scale", float(self._scale))
+        group.set_value("rigidPretransform", self._pretransform_rigid)
+
+    @staticmethod
+    def deserialize_config(group, cache: "MeshCache | None" = None) -> "Mesh":
+        """(reference src/mesh.cpp:1099-1115, mesh_cache.cpp:21-36): a mesh
+        the cache already holds is returned as it is."""
+        from ..utils.corrade_config import parse_matrix
+
+        fn = group.value("filename")
+        if cache is not None:
+            mesh = cache.get(fn)
+            if mesh is not None:
+                return mesh
+            mesh = Mesh(fn)
+            cache.add([mesh])
+        else:
+            mesh = Mesh(fn)
+        if group.has_value("classIndex"):
+            mesh.class_index = int(group.value("classIndex"))
+        if group.has_value("scale"):
+            mesh._scale = float(group.value("scale"))
+        if group.has_value("rigidPretransform"):
+            mesh._pretransform_rigid = parse_matrix(group.value("rigidPretransform"))
+        mesh._update_pretransform()
+        return mesh
+
+    def serialize(self) -> dict:
+        return {
+            "filename": self._filename,
+            "classIndex": self._class_index,
+            "scale": self._scale,
+            "rigidPretransform": self._pretransform_rigid.reshape(-1).tolist(),
+        }
+
+    @staticmethod
+    def deserialize(group: dict, cache: "MeshCache | None" = None) -> "Mesh":
+        fn = group["filename"]
+        mesh = cache.get(fn) if cache is not None else None
+        if mesh is None:
+            mesh = Mesh(fn)
+            if cache is not None:
+                cache.add([mesh])
+        if "classIndex" in group:
+            mesh.class_index = int(group["classIndex"])
+        if "scale" in group:
+            mesh._scale = float(group["scale"])
+        if "rigidPretransform" in group:
+            mesh._pretransform_rigid = np.array(group["rigidPretransform"], np.float32).reshape(4, 4)
+        mesh._update_pretransform()
+        return mesh
+
     def __repr__(self):
         n = self._consolidated.num_vertices if self._consolidated else 0
         return f"Mesh({self._filename!r}, vertices={n})"
+
+
+def _rgba(colors) -> np.ndarray:
+    colors = np.asarray(colors, np.float32)
+    if colors.shape[-1] == 3:
+        colors = np.concatenate([colors, np.ones_like(colors[..., :1])], axis=-1)
+    return colors
+
+
+class MeshCache:
+    """filename -> Mesh, so a deserialized scene loads each file once
+    (reference src/mesh_cache.cpp:21-44)."""
+
+    def __init__(self):
+        self._meshes: dict[str, Mesh] = {}
+        self._lock = threading.Lock()
+
+    def add(self, meshes: list[Mesh]) -> None:
+        with self._lock:
+            for mesh in meshes:
+                self._meshes[mesh.filename] = mesh
+
+    def get(self, filename: str) -> Mesh | None:
+        with self._lock:
+            return self._meshes.get(filename)
+
+    def load(self, group: dict) -> Mesh:
+        if self.get(group["filename"]) is None:
+            mesh = Mesh.deserialize(group)
+            self.add([mesh])
+            return mesh
+        return Mesh.deserialize(group, cache=self)

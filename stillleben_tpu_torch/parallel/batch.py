@@ -24,9 +24,8 @@ import torch
 
 from ..core import math as m
 from ..physics import tabletop as tt
-from ..physics.contacts import Floor, hull_pairs_host
-from ..physics.types import BodyParams, HullAtlas, SolverConfig, build_hull_atlas_numpy
-from ..core.tree import tensors_from_numpy
+from ..physics.contacts import Floor
+from ..physics.types import BodyParams, HullAtlas, SolverConfig
 from ..render.atlas import RenderInputs, SceneAtlas, build_scene_atlas, render_inputs_from_scene
 from ..render.light_map import LightMapData
 from ..render.frame import FrameConfig, RenderedFrame, render_frame_core
@@ -52,9 +51,8 @@ def template_from_scene(scene, device="cuda") -> SceneTemplate:
     """Build the template from a host ``scene.scene.Scene`` (batch.py:47-82):
     the background plane and the light map are carried along. The light
     map's own analytic lights are not read, as in the JAX template."""
-    phys = scene.compile_physics()
-    hulls = build_hull_atlas_numpy(phys["hull_lists"])
-    atlas = tensors_from_numpy(HullAtlas, hulls, device)
+    atlas, params, pairs, geom = scene._compile(device)
+    all_dynamic = all(not o.static for o in scene.objects)
     bg_plane = None
     if np.any(scene.background_plane_size):
         tex = scene.background_plane_texture
@@ -67,13 +65,13 @@ def template_from_scene(scene, device="cuda") -> SceneTemplate:
     corners = np.zeros((max(len(scene.objects), 1), 8, 3), np.float32)
     for i, o in enumerate(scene.objects):
         corners[i] = o.mesh.bbox.corners()
-    base_z = tt.FLOOR_TOP_Z if scene.all_dynamic() else tt.STACK_BASE_STATIC
+    base_z = tt.FLOOR_TOP_Z if all_dynamic else tt.STACK_BASE_STATIC
     return SceneTemplate(
         hull_atlas=atlas,
-        body_params=tensors_from_numpy(BodyParams, phys["body_params"], device),
-        pairs=torch.from_numpy(hull_pairs_host(hulls["hull_body"], hulls["hull_valid"])).to(device),
-        tabletop_geom=tensors_from_numpy(tt.TabletopGeom, phys["tabletop_geom"], device),
-        floor=scene.default_floor(device),
+        body_params=params,
+        pairs=pairs,
+        tabletop_geom=geom,
+        floor=scene._default_floor(all_dynamic, device),
         render_atlas=render_atlas,
         base_inputs=render_inputs_from_scene(scene, render_atlas, device),
         bbox_corners=torch.from_numpy(corners).to(device),

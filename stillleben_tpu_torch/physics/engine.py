@@ -3,7 +3,9 @@
 Counterpart of ``stillleben_tpu/physics/engine.py``: ``step_fn`` (:102-140),
 one substep of the ``substep`` cadence, and ``frame_fn`` (:158-240), one
 frame of the ``frame`` cadence (or one two-substep block of ``every2``),
-with their helpers. Everything carries the batch axis (B, ...); the
+with their helpers; ``step``, ``run_substeps`` and ``simulate_steps``
+(:88, :293, :328), loops of ``step_fn`` for the host API, and
+``check_overlaps`` (:348). Everything carries the batch axis (B, ...); the
 per-scene reductions of the JAX package's vmapped lanes stay per scene.
 """
 
@@ -13,6 +15,10 @@ import torch
 
 from ..core import math as m
 from .contacts import Contacts, Floor, _bgather, concat_contacts, floor_contacts, pair_contacts
+
+# the narrowphase budget of the host API's overlap query (the JAX default
+# of pair_contacts, contacts.py:173)
+OVERLAP_NARROW_PAIRS = 1024
 from .solver import _pull, contact_matrices, position_correction, solve_contacts
 from .types import BodyParams, BodyState, ContactReport, HullAtlas, SolverConfig
 
@@ -173,3 +179,59 @@ def frame_fn(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floo
         st = _stabilize_resting(st, rep, radius)
         min_sep = torch.minimum(min_sep, rep.min_separation)
     return st, ContactReport(min_separation=min_sep), acc
+
+
+def step(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floor,
+         pairs: torch.Tensor, dt: float, cfg: SolverConfig) -> tuple[BodyState, ContactReport]:
+    """One cold substep (engine.py:88-99)."""
+    st, rep, _ = step_fn(atlas, params, state, floor, pairs, dt, cfg)
+    return st, rep
+
+
+def run_substeps(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floor,
+                 pairs: torch.Tensor, dt: float, n_substeps: int,
+                 cfg: SolverConfig) -> tuple[BodyState, ContactReport]:
+    """``n_substeps`` substeps of ``dt / n_substeps``, the first cold and
+    the rest warm-started; the report holds the least separation of them
+    all (engine.py:293-325)."""
+    sub_dt = dt / n_substeps
+    state, rep, acc = step_fn(atlas, params, state, floor, pairs, sub_dt, cfg)
+    min_sep = rep.min_separation
+    for _ in range(n_substeps - 1):
+        state, rep, acc = step_fn(atlas, params, state, floor, pairs, sub_dt, cfg, warm=acc)
+        min_sep = torch.minimum(min_sep, rep.min_separation)
+    return state, ContactReport(min_separation=min_sep)
+
+
+def simulate_steps(atlas: HullAtlas, params: BodyParams, state: BodyState, floor: Floor,
+                   pairs: torch.Tensor, dt: float, n_steps: int,
+                   cfg: SolverConfig) -> tuple[BodyState, ContactReport]:
+    """``n_steps`` cold substeps of ``dt`` (engine.py:328-345)."""
+    min_sep = None
+    for _ in range(n_steps):
+        state, rep, _ = step_fn(atlas, params, state, floor, pairs, dt, cfg)
+        sep = rep.min_separation
+        min_sep = sep if min_sep is None else torch.minimum(min_sep, sep)
+    return state, ContactReport(min_separation=min_sep)
+
+
+def check_overlaps(atlas: HullAtlas, params: BodyParams, state: BodyState, pairs: torch.Tensor,
+                   floor: Floor | None = None, margin: float = 0.0) -> torch.Tensor:
+    """(B, NB) bool: does the body overlap anything by more than
+    ``margin``? (engine.py:348-369; reference Scene::isObjectColliding and
+    checkCollisions, src/scene.cpp:355-385, :914-925)."""
+    B, nb = state.pos.shape[:2]
+    out = torch.zeros((B, nb), device=state.pos.device)
+
+    def mark(body, hit):
+        out.scatter_reduce_(1, torch.clamp(body, min=0).long(),
+                            (hit & (body >= 0)).to(out.dtype), "amax")
+
+    c = pair_contacts(atlas, state, params, pairs, OVERLAP_NARROW_PAIRS)
+    hit = c.valid & (c.depth > margin)
+    mark(c.body_a.expand_as(hit), hit)
+    mark(c.body_b.expand_as(hit), hit)
+    if floor is not None:
+        fc = floor_contacts(atlas, state, params, floor)
+        mark(fc.body_b.expand_as(fc.valid), fc.valid & (fc.depth > margin))
+    return (out > 0) & params.valid

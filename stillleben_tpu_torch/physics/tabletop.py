@@ -178,3 +178,24 @@ def settle_with_stop(
         if not bool(running.any()):
             break
     return state, stop
+
+
+def simulate_tabletop(
+    atlas: HullAtlas,
+    params: BodyParams,
+    floor: Floor,
+    pairs: torch.Tensor,
+    geom: TabletopGeom,
+    cfg: SolverConfig,
+    base_z: torch.Tensor,
+    quats: torch.Tensor,
+    iterations: int = MAX_ITERATIONS,
+    substeps: int = SUBSTEPS,
+) -> BodyState:
+    """Stack and settle one scene (tabletop.py:240-257). The stack's
+    orientations ``quats`` (1, NB, 4) are the caller's, where the JAX
+    function draws them from its key (``Scene`` draws them from its
+    ``torch.Generator``). ``base_z`` is FLOOR_TOP_Z with the floor,
+    STACK_BASE_STATIC without."""
+    state = stack_objects(geom, base_z, quats.to(base_z.device))
+    return settle(atlas, params, state, floor, pairs, geom, cfg, iterations, substeps)

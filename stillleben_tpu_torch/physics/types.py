@@ -150,3 +150,16 @@ def build_hull_atlas_numpy(hull_lists: list[list[dict]]) -> dict:
         verts=verts, vert_valid=vvalid, planes=planes, plane_valid=pvalid,
         hull_body=hull_body, hull_valid=hvalid, center=center, radius=radius,
     )
+
+
+def make_empty_state(num_bodies: int, batch: int = 1, device="cuda") -> BodyState:
+    """(B, NB) bodies at the origin, identity orientation, at rest
+    (types.py:155-161, with the port's batch axis)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    quat = torch.zeros((batch, num_bodies, 4), **f32)
+    quat[..., 0] = 1.0
+    return BodyState(
+        pos=torch.zeros((batch, num_bodies, 3), **f32), quat=quat,
+        lin_vel=torch.zeros((batch, num_bodies, 3), **f32),
+        ang_vel=torch.zeros((batch, num_bodies, 3), **f32),
+    )

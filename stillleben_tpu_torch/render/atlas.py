@@ -139,21 +139,23 @@ def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (((t >> 8) + t) >> 8).astype(np.uint8)
 
 
-def resize_bilinear_u8(img: np.ndarray, size: int) -> np.ndarray:
-    """uint8 (H, W, 4) -> (size, size, 4), the numpy equal of
-    ``PIL.Image.fromarray(img, "RGBA").resize((size, size), BILINEAR)``:
-    the identity at the same size; otherwise colour premultiplied by alpha,
-    a horizontal then a vertical pass each rounded to uint8, colour divided
+def resize_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
+    """uint8 (H, W, 4) -> (h, w, 4) for ``size`` (w, h), or (size, size)
+    for an int: the numpy equal of
+    ``PIL.Image.fromarray(img, "RGBA").resize((w, h), BILINEAR)``. The
+    identity at the same size; otherwise colour premultiplied by alpha, a
+    horizontal then a vertical pass each rounded to uint8, colour divided
     by alpha again."""
+    out_w, out_h = (size, size) if isinstance(size, int) else (int(size[0]), int(size[1]))
     h, w = img.shape[:2]
-    if (h, w) == (size, size):
+    if (h, w) == (out_h, out_w):
         return img.copy()
     alpha = img[..., 3:4]
     work = np.concatenate([_muldiv255(img[..., :3], alpha), alpha], axis=-1)
-    if w != size:
-        work = _resize_pass(work, _resize_coeffs(w, size), axis=1)
-    if h != size:
-        work = _resize_pass(work, _resize_coeffs(h, size), axis=0)
+    if w != out_w:
+        work = _resize_pass(work, _resize_coeffs(w, out_w), axis=1)
+    if h != out_h:
+        work = _resize_pass(work, _resize_coeffs(h, out_h), axis=0)
     a = work[..., 3:4].astype(np.int32)
     rgb = work[..., :3].astype(np.int32)
     unmul = np.clip(255 * rgb // np.maximum(a, 1), 0, 255)
@@ -479,7 +481,7 @@ def render_inputs_from_scene(scene, atlas: SceneAtlas, device) -> RenderInputs:
     sticker_vp = np.tile(np.eye(4, dtype=f32), (nb, 1, 1))
     sticker_range = np.zeros((nb, 4), f32)
     for i, o in enumerate(objs):
-        obj_to_world[i] = o.pose
+        obj_to_world[i] = o.pose()
         mesh_to_obj[i] = o.mesh.pretransform
         instance[i] = o.instance_index
         metallic[i] = o.metallic
@@ -498,10 +500,10 @@ def render_inputs_from_scene(scene, atlas: SceneAtlas, device) -> RenderInputs:
         obj_roughness=roughness,
         obj_visible=np.ones(nb, bool),
         obj_casts_shadows=shadows,
-        cam_pose=np.asarray(scene.camera_pose, f32),
-        projection=np.asarray(scene.projection, f32),
-        light_directions=np.asarray(scene.light_directions, f32),
-        light_colors=np.asarray(scene.light_colors, f32),
+        cam_pose=scene.camera_pose(),
+        projection=scene.projection_matrix(),
+        light_directions=scene.light_directions.copy(),
+        light_colors=scene.light_colors.copy(),
         ambient_light=np.asarray(scene.ambient_light, f32),
         background_color=np.asarray(scene.background_color, f32),
         manual_exposure=np.asarray(scene.manual_exposure, f32),

@@ -2,7 +2,7 @@
 alpha-peel rounds) -> SSAO -> background -> tone map.
 
 Counterpart of ``stillleben_tpu/render/frame.py::render_frame_core``
-(:74-199). ``FrameConfig`` keeps the JAX field names and defaults; ``check()``
+(:74-199) and of its caller ``render_frame`` (:212-230). ``FrameConfig`` keeps the JAX field names and defaults; ``check()``
 rejects values it does not know, so a config never silently means something
 else. With ``shading="flat"`` or ``shadow_mode="off"`` there are no shadow
 maps; ``"flat"`` also skips SSAO and clips the colour instead of tone
@@ -214,3 +214,10 @@ def render_frame_core(
         vertex_indices=out.vertex_indices, barycentric_coeffs=out.barycentric_coeffs,
         depth=out.depth, valid=out.valid,
     )
+
+
+# The JAX ``render_frame`` supplies an empty background image, light map and
+# a peel floor of zeros so its compiled program keeps one signature; here
+# ``None`` means none of them (a floor of zeros removes nothing: every depth
+# is beyond the near plane, 0.1), so the name is the eager function itself.
+render_frame = render_frame_core

@@ -23,6 +23,7 @@ SCRIPT = textwrap.dedent(
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, Refuse())
+    import numpy as np
     import torch
     import stillleben_tpu_torch
     names = set()
@@ -30,7 +31,8 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(mod.name)
         names.add(mod.name.removeprefix("stillleben_tpu_torch."))
     new = {"assets.image", "assets.texture", "render.light_map", "render.ibl", "render.ssao",
-           "render.stages"}
+           "render.stages", "context", "core.quat", "scene.object", "scene.pose",
+           "render.render_pass", "utils.corrade_config", "utils.sanitize"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -50,7 +52,7 @@ SCRIPT = textwrap.dedent(
         mesh.center_bbox()
         mesh.scale_to_bbox_diagonal(diag)
         scene.add_object(Object(mesh))
-    scene.background_plane_size[:] = 3.0
+    scene.background_plane_size = np.array([3.0, 3.0], np.float32)
     scene.background_plane_texture = Texture2D(checker_texture(64))
     scene.light_map = LightMap.from_equirect(sky_equirect(8, 16), device="cpu")
     tpl = template_from_scene(scene, "cpu")
