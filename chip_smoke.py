@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the datagen main path at
 the benchmark's size, in every configuration that the JAX package's
-``bench.py`` runs, through every hand-written kernel, on both rasters, and
-the public host API (``Scene`` -> ``simulate_tabletop_scene`` ->
-``RenderPass().render``).
+``bench.py`` runs, through every hand-written kernel, on both rasters, the
+public host API (``Scene`` -> ``simulate_tabletop_scene`` ->
+``RenderPass().render``) and render-and-compare pose refinement (autograd
+through ``render_with_poses``, and ``sl.diff``).
 
     python3 chip_smoke.py
 
@@ -87,6 +88,32 @@ Phases (one line each or more; any failure exits non-zero):
     view, the peel deeper, each object covering pixels when drawn alone
     (``predicate``); K1 ``torch.equal`` to its plain version on this path's
     camera, both shadow slots and the peel pass.
+14. refine: render-and-compare pose refinement, no new settle. The
+    trainer: ``render_with_poses`` of bench-full's template under autograd
+    at phase 4's settled scene 0 (640x480, 2048^2 VSM, fast SSAO,
+    textures, light map, plane), the target its frame at the settled
+    poses; from delta = 0.02 on every pose parameter, 10 steps of
+    ``make_train_step``'s loss and update (mean((hdr - target)^2) + 1e-6
+    |delta|^2, delta -= 0.1 grad): ms per step (forward, backward; the
+    first apart), the loss per step, the peak of
+    ``torch.cuda.max_memory_allocated``, K1's launches per step (one camera
+    and one shadow pass per forward, none in the backward) and no call of
+    its plain pieces, and one more backward under ``torch.profiler`` (its
+    kernels' device time and busy share, the kernels and ops with the most
+    device time); it fails on a gradient that is not finite, on an
+    object in view with an all-zero gradient, or when a step of 1e-3 along
+    -grad (unit norm) does not lower the loss of step 0. The card against
+    the CPU: d loss / d delta on phase 11's small full scene within 2e-2
+    of each object's largest component (``tests/test_torch_gpu.py::
+    compare_gradients``). The reference route: ``sl.diff`` on phase 13's
+    first API scene with ambient light only and exposure 1 (as
+    tests/test_diff.py): the 6-direction test on its textured dense mesh
+    with the most pixels (every component must be positive; the JAX
+    package gets all six on the CPU tests' fixture),
+    ``bp_to_vertices_and_colors``, ``soft_forward`` over a 2-layer depth
+    peel with ``neg_iou_loss``, ms per call. K1 ``torch.equal`` to its
+    plain version on the trainer's camera and shadow inputs and on the
+    peel pass.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1017,7 +1044,266 @@ def run_api(torch, cr, rt, light_map, card) -> list:
                             source="stillleben_tpu_torch/csrc/cell_raster.cu",
                             replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
                             library_ms=None, **k))
-    return entries
+    return entries, scenes[0]
+
+
+REFINE_STEPS = 10
+REFINE_DELTA = 0.02  # the start: every pose parameter of every object
+REFINE_LR = 0.1  # make_train_step's update (__graft_entry__.py:135)
+DESCENT_EPS = 1e-3  # the descent check's step along -grad, unit norm
+PLAIN_K1 = ("cell_raster_plain", "merge_cells", "cell_raster_reference")
+
+
+def run_refine_trainer(torch, cr, rt, tpl, cfg, poses, cam, light, card) -> tuple[list, dict]:
+    """Phase 14, the trainer: ``render_with_poses`` under autograd at
+    bench-full's settled scene 0 (see the module docstring). Returns the
+    K1 inputs of one refinement forward by tile and the run's record."""
+    from stillleben_tpu_torch.parallel.batch import render_with_poses
+    from test_torch_gpu import refine_loss
+
+    with torch.no_grad():
+        target = render_with_poses(tpl, poses, cam, cfg, light).hdr
+    nb = poses.shape[0]
+    delta0 = torch.full((nb, 6), REFINE_DELTA, device=poses.device)
+    # one forward under autograd, its K1 inputs kept (the wrapper refuses
+    # inputs that carry a gradient, so these are detached from the graph)
+    k1_in = capture(rt, "cell_raster", lambda a, kw: a[7],
+                    lambda: refine_loss(tpl, poses, cam, light, cfg, target,
+                                        delta0.clone().requires_grad_(True)))
+    if set(k1_in) != {16, 32}:
+        fail(f"refine: expected a tile-16 camera and a tile-32 shadow K1 call, got {sorted(k1_in)}")
+    steps = []
+
+    def loop():
+        delta = delta0.clone().requires_grad_(True)
+        for _ in range(REFINE_STEPS):
+            n0 = dict(cr.cell_raster.launches_by_tile)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, f = refine_loss(tpl, poses, cam, light, cfg, target, delta)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n1 = dict(cr.cell_raster.launches_by_tile)
+            (g,) = torch.autograd.grad(loss, delta)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n2 = dict(cr.cell_raster.launches_by_tile)
+            steps.append(dict(
+                loss=float(loss.detach()), fwd_ms=1e3 * (t1 - t0), bwd_ms=1e3 * (t2 - t1),
+                grad=g.detach(), delta=delta.detach().clone(),
+                inst=f.instance_index.to(torch.int32) if not steps else None,
+                fwd_k1={t: n1.get(t, 0) - n0.get(t, 0) for t in n1},
+                bwd_k1=sum(n2.values()) - sum(n1.values())))
+            delta = (delta - REFINE_LR * g).detach().requires_grad_(True)
+
+    cr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _, plain_calls = count_calls(cr, PLAIN_K1, loop)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cr.cell_raster.launches_by_tile)
+    for i, st in enumerate(steps):
+        if not torch.isfinite(st["grad"]).all():
+            fail(f"refine step {i}: a gradient is not finite: {st['grad']}")
+    g0, inst = steps[0]["grad"], steps[0]["inst"]
+    px = [int((inst == i + 1).sum()) for i in range(nb)]
+    zero = [i for i in range(nb) if px[i] > 0 and float(g0[i].abs().max()) == 0.0]
+    with torch.no_grad():
+        lower, _ = refine_loss(tpl, poses, cam, light, cfg, target,
+                               steps[0]["delta"] - DESCENT_EPS * g0 / g0.norm())
+    fwd = [st["fwd_ms"] for st in steps[1:]]
+    bwd = [st["bwd_ms"] for st in steps[1:]]
+    per_k1 = [st["fwd_k1"] for st in steps]
+    rec = dict(first_fwd_ms=steps[0]["fwd_ms"], first_bwd_ms=steps[0]["bwd_ms"],
+               fwd_ms=sum(fwd) / len(fwd), bwd_ms=sum(bwd) / len(bwd), peak=peak,
+               launches=launches)
+    phase("refine", f"trainer: bench-full scene 0 at {WIDTH}x{HEIGHT}, "
+                    f"{tpl.render_atlas.faces.shape[0]} faces, {cfg.shadow_size}^2 VSM, "
+                    f"{nb} objects, delta {REFINE_DELTA} on all 6 parameters, {REFINE_STEPS} steps "
+                    f"of loss = mean((hdr - target)^2) + 1e-6 |delta|^2, delta -= {REFINE_LR} grad")
+    phase("refine", f"trainer: first step forward {rec['first_fwd_ms']:.2f} ms, backward "
+                    f"{rec['first_bwd_ms']:.2f} ms; steps 2-{REFINE_STEPS} forward "
+                    f"{rec['fwd_ms']:.2f} ms, backward {rec['bwd_ms']:.2f} ms, "
+                    f"{rec['fwd_ms'] + rec['bwd_ms']:.2f} ms per iteration, "
+                    f"{1e3 / (rec['fwd_ms'] + rec['bwd_ms']):.3f} iterations/s (each ms "
+                    f"per step {[round(a + b, 2) for a, b in zip(fwd, bwd)]}) ({card})")
+    phase("refine", f"trainer: loss per step {[round(st['loss'], 6) for st in steps]}")
+    phase("refine", f"trainer: peak memory {peak / 2**20:.1f} MiB "
+                    f"(torch.cuda.max_memory_allocated; {base_mem / 2**20:.1f} MiB allocated "
+                    f"before the loop) ({card})")
+    phase("refine", f"trainer: K1 launches per step, forward by tile {per_k1}, backward "
+                    f"{[st['bwd_k1'] for st in steps]}; over the loop by tile {launches}; calls of "
+                    f"K1's plain pieces {plain_calls}")
+    g_obj = [round(float(x), 6) for x in g0.abs().amax(1)]
+    phase("refine", f"trainer: step 0 |grad| per object {g_obj}, "
+                    f"object pixels {px}; a step of {DESCENT_EPS} along -grad (unit norm): loss "
+                    f"{steps[0]['loss']:.6f} -> {float(lower):.6f}")
+    rec["profile"] = profile_backward(torch, lambda d: refine_loss(tpl, poses, cam, light, cfg,
+                                                                   target, d)[0],
+                                      steps[-1]["delta"], card)
+    if any(plain_calls.values()):
+        fail(f"refine: the trainer called K1's plain pieces on the card: {plain_calls}")
+    if any(st["bwd_k1"] for st in steps) or any(k.get(16, 0) != 1 or k.get(32, 0) != 1
+                                                 for k in per_k1):
+        fail(f"refine: expected one camera and one shadow K1 launch per forward and none in the "
+             f"backward: {per_k1}")
+    if zero:
+        fail(f"refine: objects {zero} cover pixels and get an all-zero gradient")
+    if not float(lower) < steps[0]["loss"]:
+        fail("refine: a step along -grad does not lower the loss")
+    return k1_in, rec
+
+
+def profile_backward(torch, loss_of, delta, card) -> dict:
+    """One more refinement step with its backward under ``torch.profiler``:
+    the backward's wall time, the device time of its kernels (their sum
+    over the wall time is the device's busy share; the rest it idles while
+    the host issues ops), its counts of backward functions and kernels, and
+    the kernels with the most device time. The forward runs outside the
+    profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    delta = delta.clone().requires_grad_(True)
+    loss = loss_of(delta)
+    acts = [ProfilerActivity.CPU]
+    if delta.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    torch.cuda.synchronize()
+    with profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(loss, delta)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # the kernels' own events (device type CUDA), grouped by name
+    by_name = {}
+    n_kernels = 0
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    n_grad_fns = sum(1 for e in prof.events()
+                     if e.name.startswith("autograd::engine::evaluate_function"))
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+
+    def op_ms(e):
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+    # the ops behind the device time, with their input shapes (an op's time
+    # includes the ops it calls, so a nested op can follow its caller)
+    heavy = sorted((e for e in prof.events() if e.name.startswith("aten::") and op_ms(e) > 0),
+                   key=op_ms, reverse=True)[:5]
+    busy = f"busy {dev_ms / wall_ms:.3f} of the wall time" if n_kernels else "not measured"
+    phase("refine", f"trainer: one backward under torch.profiler: {wall_ms:.2f} ms wall, "
+                    f"{n_grad_fns} backward functions, {n_kernels} kernels with {dev_ms:.2f} ms "
+                    f"of device time ({busy}); most device time: "
+                    + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top) + f" ({card})")
+    phase("refine", "trainer: the backward's ops with the most device time (inputs' shapes): "
+                    + "; ".join(f"{e.name} {op_ms(e):.3f} ms {e.input_shapes}" for e in heavy))
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, kernels=n_kernels, grad_fns=n_grad_fns)
+
+
+def run_refine_reference(torch, cr, rt, scene, card) -> tuple:
+    """Phase 14, the reference route: ``sl.diff`` on phase 13's settled API
+    scene with ambient light only (see the module docstring). Returns the
+    K1 inputs of the peel pass and its launches."""
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from torch_port_scene import image_loss_grad
+
+    # the diff module's chain takes an object's pose as its camera-frame
+    # pose, as the reference's does (its tests put the camera at the
+    # origin): the scene is expressed in the camera frame, the image unchanged
+    w2c = np.linalg.inv(scene.camera_pose())
+    for o in scene.objects:
+        o.set_pose(w2c @ o.pose())
+    scene.background_plane_pose = w2c @ scene.background_plane_pose
+    scene.set_camera_pose(np.eye(4, dtype=np.float32))
+    scene.light_map = None
+    scene.light_colors = np.zeros((1, 3), np.float32)
+    scene.ambient_light = [1.0, 1.0, 1.0]
+    scene.manual_exposure = 1.0
+    rp = sl.RenderPass(ssao=False)
+    gt_r = rp.render(scene)
+    gt = gt_r.rgb()[..., :3].float() / 255.0
+    inst = gt_r.instance_index().to(torch.int32)
+    # the textured dense mesh with the most pixels: texture makes every
+    # rotation visible, as the reference test's object
+    dense = [i for i, o in enumerate(scene.objects) if o.mesh.class_index == 1]
+    idx = max(dense, key=lambda i: int((inst == scene.objects[i].instance_index).sum()))
+    obj = scene.objects[idx]
+    n_px = int((inst == obj.instance_index).sum())
+    T = obj.pose()
+    dev = gt.device
+    comps, bp_ms = [], []
+    for k in range(6):
+        delta = torch.zeros(6, device=dev)
+        delta[k] = 0.01
+        obj.set_pose(sl.diff.apply_pose_delta(torch.from_numpy(T).to(dev), delta).cpu().numpy())
+        r = rp.render(scene)
+        dl = image_loss_grad(r.rgb()[..., :3].float() / 255.0, gt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = sl.diff.backpropagate_gradient_to_poses(scene, r, dl)
+        torch.cuda.synchronize()
+        bp_ms.append(1e3 * (time.perf_counter() - t0))
+        if g.device != dev or g.shape != (len(scene.objects), 6):
+            fail(f"reference: backpropagate_gradient_to_poses gave {g.shape} on {g.device}")
+        comps.append(float(g[idx, k]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vi, gv, gc = sl.diff.bp_to_vertices_and_colors(scene, r, dl)
+    torch.cuda.synchronize()
+    bv_ms = 1e3 * (time.perf_counter() - t0)
+    obj.set_pose(T)
+    # soft_forward over a 2-layer depth peel: K1's second camera pass
+    # takes the floor of the first
+    cr.reset_launch_counts()
+    peel_calls = []
+    orig = rt.cell_raster
+
+    def rec(*a):
+        if a[3] is not None:
+            peel_calls.append(tuple(t.clone() if hasattr(t, "clone") else t for t in a))
+        return orig(*a)
+
+    rt.cell_raster = rec
+    try:
+        (r0, r1), plain_calls = count_calls(
+            cr, PLAIN_K1, lambda: (lambda a: (a, rp.render(scene, depth_peel=a)))(rp.render(scene)))
+    finally:
+        rt.cell_raster = orig
+    peel_launches = len(peel_calls)
+    obs = gt.permute(2, 0, 1).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    soft, rgbs, loss_img, loss, svi, sgv, sgc = sl.diff.soft_forward(
+        scene, [r0, r1], obs, sl.losses.neg_iou_loss)
+    torch.cuda.synchronize()
+    sf_ms = 1e3 * (time.perf_counter() - t0)
+    signs = ["+" if c > 0 else "-" if c < 0 else "0" for c in comps]
+    phase("refine", f"reference: API scene seed {API_SEEDS[0]} at {scene.viewport[0]}x"
+                    f"{scene.viewport[1]} in the camera frame, ambient light only, manual "
+                    f"exposure 1; object {idx} "
+                    f"(textured dense mesh, {n_px} px); the 6-direction test: components "
+                    f"{[round(c, 6) for c in comps]}, signs {''.join(signs)}")
+    phase("refine", f"reference: backpropagate_gradient_to_poses {sum(bp_ms) / 6:.2f} ms per call "
+                    f"({[round(t, 2) for t in bp_ms]}); bp_to_vertices_and_colors {bv_ms:.2f} ms "
+                    f"({len(vi)} objects in view, {sum(int(v.numel()) for v in vi)} vertex ids); "
+                    f"soft_forward (2 layers, neg_iou_loss) {sf_ms:.2f} ms, loss {loss:.6f} ({card})")
+    phase("refine", f"reference: the depth-peel pass launched K1 with the floor {peel_launches} "
+                    f"time(s); calls of K1's plain pieces {plain_calls}")
+    for what, ts in (("soft", [soft]), ("gradients", sgv + sgc + gv + gc)):
+        if not all(bool(torch.isfinite(t).all()) and t.device == dev for t in ts):
+            fail(f"reference: non-finite {what} or off the card")
+    if any(c <= 0 for c in comps):
+        fail(f"reference: wrong descent direction for parameters "
+             f"{[k for k, c in enumerate(comps) if c <= 0]}")
+    if any(plain_calls.values()) or peel_launches != 1 or len(svi) == 0:
+        fail(f"reference: peel launches {peel_launches}, plain calls {plain_calls}, "
+             f"{len(svi)} objects in soft_forward")
+    return peel_calls[0], peel_launches
 
 
 def main() -> None:
@@ -1473,8 +1759,9 @@ def main() -> None:
     small_cpu = template_from_scene(small_full_scene(small_lm), "cpu")
     small_gpu = template_from_scene(small_full_scene(small_lm), "cuda")
     sp, sc, sl = settle_scene(torch.Generator().manual_seed(SEED + 4), 1, small_cpu, solver_cfg, 10)
+    small_state = (sp[0], sc[0], sl[0])
     for config in (None, "tuned", "refmode"):
-        summary = compare_full_frames(small_cpu, small_gpu, sp[0], sc[0], sl[0], (160, 120),
+        summary = compare_full_frames(small_cpu, small_gpu, *small_state, (160, 120),
                                       full_config((160, 120), config))
         phase("card vs cpu", f"small full scene 160x120, {config or 'bench-full'} configuration, "
                              f"cuda against cpu: {summary} ({card})")
@@ -1499,7 +1786,32 @@ def main() -> None:
 
     # 13. the public host API: Scene -> simulate_tabletop_scene ->
     # RenderPass().render, a depth-peel pass and supersample=2, two seeds
-    kernels.extend(run_api(torch, cr, rt, light_map, card))
+    api_entries, api_scene = run_api(torch, cr, rt, light_map, card)
+    kernels.extend(api_entries)
+
+    # 14. render-and-compare pose refinement: the trainer on phase 4's
+    # settled bench-full scene 0, the card against the CPU on phase 11's
+    # small full scene, the reference route on phase 13's API scene
+    from test_torch_gpu import compare_gradients
+
+    refine_k1, refine = run_refine_trainer(torch, cr, rt, ftpl, fcfg, poses8[0], cams8[0],
+                                           lights8[0], card)
+    summary = compare_gradients(small_cpu, small_gpu, *small_state, (160, 120))
+    phase("refine", f"card vs cpu: small full scene 160x120, bench-full configuration, "
+                    f"d loss / d delta at delta {REFINE_DELTA}: {summary} (tolerance 2e-2 of each "
+                    f"object's largest component) ({card})")
+    peel_args, peel_launches = run_refine_reference(torch, cr, rt, api_scene, card)
+    for label, args, n in (
+        ("refine trainer camera, tile 16", refine_k1[16][0], refine["launches"].get(16, 0)),
+        ("refine trainer shadow, tile 32", refine_k1[32][0], refine["launches"].get(32, 0)),
+        ("refine soft_forward peel pass, camera, tile 16, md_tiles given", peel_args,
+         peel_launches),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        kernels.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
+                            library_ms=None, **k))
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its
@@ -1540,7 +1852,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi[0] if smi else "nvidia-smi gave nothing", flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ The public API is the JAX package's (reference python/stillleben/__init__.py):
     rgb = result.rgb()             # (480, 640, 4) uint8 tensor on the card
 
 The batched datagen entry point is ``parallel.batch.generate_batch``.
+Render-and-compare pose refinement differentiates
+``parallel.batch.render_with_poses`` with autograd, or chains image
+gradients to poses with ``sl.diff`` (the reference's approximate module).
 Names of the JAX package's table that are not ported yet raise an
 ``AttributeError`` that says so.
 """
@@ -49,13 +52,18 @@ _LAZY = {
     "quat_to_matrix": (".core.quat", "quat_to_matrix"),
     "matrix_to_quat": (".core.quat", "matrix_to_quat"),
     "generate_stream": (".parallel.batch", "generate_stream"),
+    "render_debug_image": (".debug", "render_debug_image"),
+    "object_annotations": (".annotate", "object_annotations"),
+    # submodules exposed as attributes
+    "camera_model": (".camera_model", None),
+    "diff": (".diff", None),
+    "losses": (".losses", None),
 }
 
 # the rest of the JAX package's table (stillleben_tpu/__init__.py:31-64)
 NOT_PORTED = (
     "ImageLoader", "ImageSaver", "Animator", "JobQueue", "ManipulationSim", "view", "Viewer",
-    "render_debug_image", "object_annotations", "camera_model", "diff", "losses", "profiling",
-    "extension",
+    "profiling", "extension",
 )
 
 __all__ = sorted(_LAZY)
@@ -76,7 +84,8 @@ def __getattr__(name: str):
     if name not in _LAZY:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     mod_name, attr = _LAZY[name]
-    value = getattr(importlib.import_module(mod_name, __name__), attr)
+    module = importlib.import_module(mod_name, __name__)
+    value = module if attr is None else getattr(module, attr)
     globals()[name] = value
     return value
 

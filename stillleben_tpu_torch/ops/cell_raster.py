@@ -20,7 +20,9 @@ cells of a tile. An invalid cell (``cell_tile >= n_tiles``) adds nothing.
   tensors. The kernel gathers the rows itself and folds the merge into a
   64-bit ``atomicMin`` of ``(orderable(w) << 32) | id`` per tile pixel;
   ``depth_keys`` is that packing in PyTorch. A failed build or launch
-  raises.
+  raises, and so does an input that requires grad, on every device: the
+  z-buffer has no gradient (the JAX package stops it before the kernel,
+  rasterize_tiled.py:333), so the caller detaches.
 
 What bounds it on the card: operations at the camera shape, bytes at the
 shadow shape, with the operations counted from what the data needs; see
@@ -190,6 +192,9 @@ def _check(LT, ids, cell_tile, md_tiles, tile, n_tiles):
     if md_tiles is not None:
         want.append((md_tiles, torch.float32, (n_tiles + 1, tile * tile)))
     for t, dt, shape in want:
+        if t.requires_grad:
+            raise ValueError("cell_raster: an input requires grad; the raster has no gradient, "
+                             "detach it first (rasterize_tiled.py:333, :348)")
         if t.device != dev:
             raise ValueError(f"cell_raster: tensors on {t.device} and {dev}")
         if t.dtype != dt:

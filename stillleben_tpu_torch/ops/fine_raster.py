@@ -24,7 +24,9 @@ function: it would give such a tie to the lower id.
   on the CPU, the CUDA kernels (``csrc/fine_raster.cu``) for CUDA tensors,
   which gather the live rows themselves. ``tiles_per_cell`` 1 is K2, 4 or 8
   is K3; the result does not depend on it. A failed build or launch
-  raises.
+  raises, and so does an input that requires grad, on every device (the
+  JAX package stops the gradient before the kernel,
+  rasterize_tiled.py:615-616).
 
 What bounds it on the card: the bytes of ``md`` and the outputs, for most
 tiles are empty. See the note at the top of the CUDA source.
@@ -154,6 +156,9 @@ def _check(LT, ids, md, chunk, tile, tiles_per_cell):
         (md, torch.float32, (n_tiles, tile * tile)),
     )
     for t, dt, shape in want:
+        if t.requires_grad:
+            raise ValueError("fine_raster: an input requires grad; the raster has no gradient, "
+                             "detach it first (rasterize_tiled.py:615-616)")
         if t.device != dev:
             raise ValueError(f"fine_raster: tensors on {t.device} and {dev}")
         if t.dtype != dt:

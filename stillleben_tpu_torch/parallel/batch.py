@@ -2,9 +2,9 @@
 
 Counterpart of ``stillleben_tpu/parallel/batch.py`` (``SceneTemplate``,
 ``template_from_scene``, ``settle_scene``, ``render_with_poses``,
-``generate_batch``, ``generate_stream``). Per scene: stack objects -> settle
-(100 frames x 4 substeps, redrop) -> random camera fit -> random light ->
-render -> full GT.
+``apply_pose_delta_matrix``, ``generate_batch``, ``generate_stream``). Per
+scene: stack objects -> settle (100 frames x 4 substeps, redrop) -> random
+camera fit -> random light -> render -> full GT.
 
 The settle runs the whole batch at once (the state carries a batch axis);
 the render runs one scene after the other, because each scene's cell list
@@ -114,12 +114,15 @@ def settle_scene(
 
 def render_with_poses(
     tpl: SceneTemplate,
-    poses: torch.Tensor,  # (NB_phys, 4, 4)
+    poses: torch.Tensor,  # (NB_phys, 4, 4), may carry a gradient
     cam_pose: torch.Tensor,  # (4, 4)
     cfg: FrameConfig,
     light_dir: torch.Tensor | None = None,
 ) -> RenderedFrame:
-    """Render one scene of the template at the given poses (batch.py:205-223)."""
+    """Render one scene of the template at the given poses (batch.py:205-223):
+    the differentiable hook of render-and-compare pose refinement. Under
+    autograd the gradient reaches ``poses`` through the depth and
+    barycentrics that shading recomputes; the z-buffers have none."""
     obj_to_world = tpl.base_inputs.obj_to_world.clone()
     n = min(poses.shape[0], obj_to_world.shape[0])
     obj_to_world[:n] = poses[:n]
@@ -129,6 +132,22 @@ def render_with_poses(
         dirs[0] = light_dir
         inputs = inputs._replace(light_directions=dirs)
     return render_frame_core(tpl.render_atlas, inputs, cfg, light_map=tpl.light_map)
+
+
+def apply_pose_delta_matrix(pose: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``pose @ (I + [delta])`` with the so(3) + translation generators,
+    ``delta`` = (alpha, beta, gamma, x, y, z), batched over any leading
+    axes (batch.py:226-241): the local linearization of the reference's
+    diff module (python/stillleben/diff.py:525-590)."""
+    a, b, g, x, y, z = delta.unbind(-1)
+    zeros = torch.zeros_like(a)
+    D = torch.stack([
+        torch.stack([zeros, -g, b, x], -1),
+        torch.stack([g, zeros, -a, y], -1),
+        torch.stack([-b, a, zeros, z], -1),
+        torch.stack([zeros, zeros, zeros, zeros], -1),
+    ], -2)
+    return pose @ (torch.eye(4, dtype=pose.dtype, device=pose.device) + D)
 
 
 def generate_batch(

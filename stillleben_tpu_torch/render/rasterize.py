@@ -108,7 +108,9 @@ def rasterize(
     depth-peel floor: fragments at or below it by 1e-5 are discarded."""
     faces = atlas.faces.long()
     dev = geom.pix_hom.device
-    v_all = geom.pix_hom[faces]  # (F, 3, 3)
+    # hard visibility has no gradient (rasterize.py:229-236): the oracle's
+    # G-buffer leaves the graph as the JAX package's does
+    v_all = geom.pix_hom.detach()[faces]  # (F, 3, 3)
     vis_all = inputs.obj_visible[atlas.face_obj.long()]
     F = v_all.shape[0]
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5

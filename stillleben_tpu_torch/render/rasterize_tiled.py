@@ -34,6 +34,12 @@ windows and cell budget shrink by the count of cullable faces, as the JAX
 package's do when its mask is a constant (rasterize_tiled.py:187-200, :302).
 Not ported: the classic path's XLA scan fallback (``use_pallas=False``),
 which breaks equal-depth ties by slot, not by id.
+
+The z-buffers have no gradient, in both packages: the line tables and the
+depth-peel floors leave the autograd graph before the kernels (JAX:
+``stop_gradient`` at rasterize_tiled.py:333, :348, :615-616) and the
+camera G-buffer does too (:927). Gradients reach the poses through the
+depth and barycentrics that shading recomputes from the winning triangle.
 """
 
 from __future__ import annotations
@@ -275,7 +281,9 @@ def build_cells(
         -1,
     ).to(torch.int32)  # (MAXC, C)
 
-    _, LT = _line_table(v, depth_attr)
+    # the raster has no gradient: its line table leaves the graph here, as
+    # in the JAX package (rasterize_tiled.py:333)
+    _, LT = _line_table(v.detach(), depth_attr.detach())
     return LT, ids, cell_tile, tw, th, n_tiles
 
 
@@ -305,8 +313,9 @@ def rasterize_vertices_cells(
     )
     md_tiles = None
     if min_depth is not None:
-        md_tiles = torch.cat(
-            [tile_img(min_depth, tw, th, tile), torch.zeros((1, tile * tile), device=v.device)]
+        md_tiles = torch.cat(  # the floor leaves the graph too (:348)
+            [tile_img(min_depth.detach(), tw, th, tile),
+             torch.zeros((1, tile * tile), device=v.device)]
         )
     depth_t, tri_t = cell_raster(
         LT, ids, cell_tile, md_tiles, float(near), float(far), tw, tile, n_tiles
@@ -422,7 +431,9 @@ def build_tile_lists(
     n_chunks = -(-K // fine_chunk)
     ids = torch.full((n_tiles, n_chunks * fine_chunk), -1, dtype=torch.int32, device=dev)
     ids[:, :K] = torch.where(tile_ok, tile_tris, -1)
-    Lf, LT = _line_table(v, depth_attr)
+    # the raster has no gradient: the fine kernel's and the pixel stage's
+    # line tables leave the graph here (rasterize_tiled.py:615, :927)
+    Lf, LT = _line_table(v.detach(), depth_attr.detach())
     return dict(
         ids=ids.reshape(n_tiles, n_chunks, fine_chunk), LT=LT, Lf=Lf, tw=tw, th=th,
         n_tiles=n_tiles, tiny=tiny, px_span_x=px_span_x, px_span_y=px_span_y, x0=x0, y0=y0,
@@ -478,7 +489,7 @@ def rasterize_vertices(
     if min_depth is None:
         md_tiles = torch.zeros((n_tiles, tile * tile), device=v.device)
     else:
-        md_tiles = tile_img(min_depth, tw, th, tile)
+        md_tiles = tile_img(min_depth.detach(), tw, th, tile)  # (:616)
     depth_t, tri_t = fine_stage(
         lists["ids"], lists["LT"], md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell
     )
@@ -487,7 +498,7 @@ def rasterize_vertices(
     tri_img = untile_img(tri_t, tw, th, pad_h, pad_w, height, width, tile)
     if pixel_stage:
         depth_img, tri_img = _run_pixel_stages(
-            lists["Lf"], depth_attr, lists["tiny"], lists["px_span_x"], lists["px_span_y"],
+            lists["Lf"], depth_attr.detach(), lists["tiny"], lists["px_span_x"], lists["px_span_y"],
             lists["x0"], lists["y0"], width, height, near, far, min_depth, depth_img, tri_img,
         )
     return depth_img, tri_img
@@ -618,9 +629,11 @@ def rasterize_tiled(
         )
     else:
         raise ValueError(f"rasterize_tiled: raster {raster!r} not in {RASTERS}")
+    # hard visibility has no gradient (rasterize_tiled.py:927): shading
+    # recomputes depth and barycentrics differentiably from the winner
     return GBuffer(
         tri_id=tri_img,
-        depth=depth_img,
+        depth=depth_img.detach(),
         bary=torch.zeros((height, width, 3), device=v.device),
         front_facing=torch.zeros((height, width), dtype=torch.bool, device=v.device),
     )

@@ -10,6 +10,11 @@ both branches of ``_ortho_rasterize_depth`` (:85-204) with
 (``SL_VSM_TAPS``, :331-380) and the 4x4 PCF compare
 ``shadow_factor_planar`` (:383-404). The depth pass runs the same raster as
 the camera (cells or classic), on the decimated caster proxy.
+
+Gradients follow the JAX package path by path: the raster's depth has none
+(its line table leaves the graph before the kernel), the classic path's
+tiny-triangle splats keep theirs (a differentiable scatter-min, as the JAX
+``.at[].min``), and the moments and lookups are differentiable.
 """
 
 from __future__ import annotations

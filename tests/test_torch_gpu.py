@@ -7,7 +7,12 @@ files; these tests close the chain on the card with the same rules: the
 cell lists identical, triangle ids by the tie/edge rule, coordinates and
 normals within 1e-5 where the ids agree and the barycentrics are
 well-conditioned (where they are not: coordinates 1e-4, normals 1e-3),
-rgb within 1 LSB, one physics substep within 1e-5. The full frame
+rgb within 1 LSB, one physics substep within 1e-5. The pose gradient of the
+refinement loss (``__graft_entry__.py::make_train_step``'s, with the pixels
+where the two devices' instance maps disagree masked out) within 2e-2 of
+each object's largest component, the tolerance of the CPU parity tests
+with VSM on (``test_torch_grad.py``), and one refinement step that
+descends. The full frame
 (textures, plane, light map, SSAO) adds: hdr within 2e-4 relative on >= 99%
 of the well-conditioned pixels outside the plane (which lies in the VSM
 penumbra: 1e-2 on >= 99.9% of its pixels, 5e-2 on all), rgb within 1 LSB on
@@ -23,7 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-from stillleben_tpu_torch.parallel.batch import render_with_poses, settle_scene
+from stillleben_tpu_torch.parallel.batch import (
+    apply_pose_delta_matrix, render_with_poses, settle_scene,
+)
 from stillleben_tpu_torch.physics.engine import step_fn
 from stillleben_tpu_torch.physics.tabletop import FRAME_TIME, SUBSTEPS, settle, stack_objects
 from stillleben_tpu_torch.physics.types import default_config
@@ -289,3 +296,97 @@ def compare_full_frames(cpu, gpu, poses, cam, light, size, cfg=None):
     assert (d[held] <= 1).mean() >= 0.995 and d[held].max() <= rgb_max, d[held].max()
     return dict(ids_agree=float(agree.mean()), object_px=int(hit.sum()),
                 hdr_far_share=float(far[objs].mean()), rgb_max=int(d[held].max()))
+
+
+def refine_loss(tpl, poses, cam, light, cfg, target, delta, mask=None):
+    """The loss of the pose-refinement train step
+    (``__graft_entry__.py::make_train_step``): mean((hdr - target)^2) over
+    the rgb channels, ``mask`` (H, W) zeroing pixels, plus 1e-6 |delta|^2.
+    Returns (loss, frame)."""
+    f = render_with_poses(tpl, apply_pose_delta_matrix(poses, delta), cam, cfg, light)
+    d = f.hdr[..., :3] - target[..., :3]
+    if mask is not None:
+        d = d * mask[..., None]
+    return (d * d).mean() + 1e-6 * (delta * delta).sum(), f
+
+
+def compare_gradients(cpu, gpu, poses, cam, light, size, cfg=None, tol=2e-2):
+    """d loss / d delta of ``refine_loss`` at delta = 0.02 on the card
+    against the CPU, the target being the CPU frame at ``poses``; the
+    pixels where the two perturbed instance maps differ are masked out of
+    both losses. Every object the CPU frame shows gets a gradient, and on
+    the card each is within ``tol`` of that object's largest CPU
+    component. Returns a summary."""
+    cfg = full_config(size) if cfg is None else cfg
+    gdev = gpu.base_z.device
+    with torch.no_grad():
+        target = render_with_poses(cpu, poses, cam, cfg, light).hdr
+    delta0 = torch.full((poses.shape[0], 6), 0.02)
+    grads, insts = [], []
+    for tpl, dev in ((cpu, "cpu"), (gpu, gdev)):
+        with torch.no_grad():
+            _, f = refine_loss(tpl, poses.to(dev), cam.to(dev), light.to(dev), cfg,
+                               target.to(dev), delta0.to(dev))
+        insts.append(f.instance_index.to(torch.int32).cpu())
+    mask = (insts[0] == insts[1]).to(torch.float32)
+    for tpl, dev in ((cpu, "cpu"), (gpu, gdev)):
+        delta = delta0.to(dev).requires_grad_(True)
+        loss, _ = refine_loss(tpl, poses.to(dev), cam.to(dev), light.to(dev), cfg,
+                              target.to(dev), delta, mask.to(dev))
+        (g,) = torch.autograd.grad(loss, delta)
+        grads.append(g.cpu())
+    gc, gg = grads
+    assert torch.isfinite(gg).all(), gg
+    shown = [i for i in range(poses.shape[0]) if (insts[0] == i + 1).any()]
+    assert shown, "no object in view"
+    scale = gc.abs().amax(1)
+    assert (scale[shown] > 0).all(), f"an object in view without a gradient: {scale}"
+    err = (gg - gc).abs().amax(1) / torch.clamp(scale, min=1e-30)
+    assert (err[shown] <= tol).all(), f"per-object relative errors {err.tolist()} > {tol}"
+    return dict(masked_share=float(1.0 - mask.mean()), objects_in_view=len(shown),
+                max_rel_err=float(err[shown].max()), rel_err=[float(e) for e in err[shown]])
+
+
+def small_full_templates(tmp_path_factory):
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    size = (160, 120)
+    lm = LightMap.from_equirect(sky_equirect(), lights=[SUN], device="cpu")
+    cpu = port_full_template((blob, cube, sphere), lm, "cpu", size=size)
+    gpu = port_full_template((blob, cube, sphere), lm, "cuda", size=size)
+    poses, cams, lights = settle_scene(torch.Generator().manual_seed(4), 1, cpu, default_config(), 10)
+    return cpu, gpu, poses[0], cams[0], lights[0], size
+
+
+def test_pose_gradient_on_cuda_matches_cpu(tmp_path_factory):
+    """The refinement loss's pose gradient, the card (K1 in the forward)
+    against the CPU (the plain z-buffer), the small bench-full scene."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    cpu, gpu, poses, cam, light, size = small_full_templates(tmp_path_factory)
+    print(compare_gradients(cpu, gpu, poses, cam, light, size))
+
+
+def test_refine_step_on_cuda(tmp_path_factory):
+    """One step of the train step on the card from delta = 0.02: finite, a
+    gradient for every object in view, and a step of 1e-3 along -grad (unit
+    norm) lowers the loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    _, gpu, poses, cam, light, size = small_full_templates(tmp_path_factory)
+    cfg = full_config(size)
+    poses, cam, light = poses.cuda(), cam.cuda(), light.cuda()
+    with torch.no_grad():
+        target = render_with_poses(gpu, poses, cam, cfg, light).hdr
+    delta = torch.full((poses.shape[0], 6), 0.02, device="cuda", requires_grad=True)
+    loss, f = refine_loss(gpu, poses, cam, light, cfg, target, delta)
+    loss.backward()
+    g = delta.grad
+    assert torch.isfinite(g).all()
+    inst = f.instance_index.to(torch.int32)
+    for i in range(poses.shape[0]):
+        if (inst == i + 1).any():
+            assert g[i].abs().max() > 0, f"object {i} is in view and has no gradient"
+    with torch.no_grad():
+        step = delta - 1e-3 * g / g.norm()
+        lower, _ = refine_loss(gpu, poses, cam, light, cfg, target, step)
+    assert float(lower) < float(loss), (float(lower), float(loss))

@@ -32,7 +32,8 @@ SCRIPT = textwrap.dedent(
         names.add(mod.name.removeprefix("stillleben_tpu_torch."))
     new = {"assets.image", "assets.texture", "render.light_map", "render.ibl", "render.ssao",
            "render.stages", "context", "core.quat", "scene.object", "scene.pose",
-           "render.render_pass", "utils.corrade_config", "utils.sanitize"}
+           "render.render_pass", "utils.corrade_config", "utils.sanitize", "diff", "losses",
+           "camera_model", "annotate", "debug"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -74,6 +75,20 @@ SCRIPT = textwrap.dedent(
     frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, ref,
                             default_config()._replace(contact_gen="every2"), settle_iterations=1)
     assert frames.valid.any()
+    # one refinement step through render_with_poses under autograd, then the
+    # reference's approximate route on the same frame
+    from stillleben_tpu_torch import camera_model, diff, losses
+    from stillleben_tpu_torch.parallel.batch import (
+        apply_pose_delta_matrix, render_with_poses, settle_scene)
+    poses, cams, lights = settle_scene(torch.Generator().manual_seed(1), 1, tpl, default_config(),
+                                       settle_iterations=1)
+    delta = torch.full((poses.shape[1], 6), 0.01, requires_grad=True)
+    f = render_with_poses(tpl, apply_pose_delta_matrix(poses[0], delta), cams[0], cfg, lights[0])
+    f.hdr[..., :3].square().mean().backward()
+    assert torch.isfinite(delta.grad).all() and delta.grad.abs().max() > 0
+    loss, img = losses.neg_iou_loss(f.hdr[None, ..., :3].permute(0, 3, 1, 2).detach(),
+                                    torch.ones(1, 3, 32, 32))
+    assert torch.isfinite(loss) and camera_model.blur(img[0], 1.0).shape == (3, 32, 32)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")

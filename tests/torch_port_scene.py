@@ -79,6 +79,25 @@ def port_template(meshes, device="cpu", metallic_roughness=None):
     return template_from_scene(scene, device)
 
 
+def image_loss_grad(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """dL/dI (3, H, W) of 0.5 |blur(I) - blur(T)|^2 with the 5x5 Gaussian of
+    sigma 1 (the loss of tests/test_diff.py::_image_loss_grad), by
+    autograd; ``img`` and ``target`` (H, W, 3). convolve2d's "same" mode
+    is the correlation with the flipped kernel, padded by 2."""
+    import torch.nn.functional as F
+
+    from stillleben_tpu_torch import diff
+
+    kernel = torch.flip(diff.gaussian_kernel(5, 1.0, img.device), (0, 1))[None, None]
+
+    def blur(x):
+        return F.conv2d(x.permute(2, 0, 1)[:, None], kernel, padding=2)[:, 0]
+
+    img = img.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(0.5 * ((blur(img) - blur(target)) ** 2).sum(), img)
+    return g.permute(2, 0, 1)
+
+
 def to_numpy(tree):
     import jax
 
