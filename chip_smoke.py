@@ -34,11 +34,13 @@ Phases (one line each or more; any failure exits non-zero):
    kernel (K1, cells to tiles, the merge included) at the camera (tile 16)
    and 2048^2 shadow (tile 32) shapes, the classic fine kernel (K2) at the
    camera (tile 16) and shadow (tile 64) shapes, and K3 (4 and 8 tiles per
-   block) against K2; all ``torch.equal``; each timed warm with CUDA
+   occupancy block) on K2's inputs of both configurations, against the
+   plain version and K2; all ``torch.equal``; each timed warm with CUDA
    events beside its bound (bytes, or the operations this input needs:
    ``needed_ops``), on inputs that leave only its fixed costs and with
-   only its heaviest cell or tile. Then the torch stages that the kernels'
-   row gathers and merge replace.
+   only its heaviest cell or tile (K3 in turns with K2: K2, K3, K3, K2).
+   Then the torch stages that the kernels' row gathers and merge
+   replace.
 6. main path: ``generate_batch`` B = 8 of bench-full through the cell
    raster, first and warm call; content checks (finite, object pixels, the
    plane's pixels valid with class and instance 0, the skybox behind);
@@ -52,7 +54,8 @@ Phases (one line each or more; any failure exits non-zero):
    must stay under 3%); bench-full against bench-slice and against itself
    with textures, light map or SSAO off (each must change the image); the
    device time of one bench-full render by stage (CUDA events at the
-   render's stage marks); K3's frames bitwise equal to K2's.
+   render's stage marks); K3's frames (4 and 8 tiles) bitwise equal to
+   K2's in both configurations.
 9. extras, one scene at 640x480: stickers on two objects (pixels change
    inside the stickers' range and nowhere else), the anisotropic and
    bilinear filters, the reference SSAO, the alpha peel on the cutout
@@ -495,12 +498,14 @@ def check_k1(torch, cr, args, label: str, card: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def check_k2(torch, fr, args, kw, label: str, card: str) -> tuple[dict, tuple]:
-    """K2 on one captured call, as ``check_k1``; also returns its output."""
+def check_k2(torch, fr, args, kw, label: str, card: str) -> tuple[dict, tuple, tuple]:
+    """K2 on one captured call, as ``check_k1``; also returns its output
+    and the plain version's."""
     LT, ids, md = args[:3]
     tw, tile_offset, tile = args[6], kw.get("tile_offset", 0), kw["tile"]
     out_k = fr.fine_raster(*args, **kw)
-    bitwise, err = compare(torch, out_k, fr.fine_raster_plain(*args, **kw))
+    out_p = fr.fine_raster_plain(*args, **kw)
+    bitwise, err = compare(torch, out_k, out_p)
     ms = cuda_time(torch, lambda: fr.fine_raster(*args, **kw), 50)
     plain_ms = cuda_time(torch, lambda: fr.fine_raster_plain(*args, **kw), 3)
     # what empty tiles alone cost (every slot masked), against a fill of
@@ -509,9 +514,7 @@ def check_k2(torch, fr, args, kw, label: str, card: str) -> tuple[dict, tuple]:
     empty_ms = cuda_time(torch, lambda: fr.fine_raster(LT, no_slots, *args[2:], **kw), 50)
     fill_ms = cuda_time(torch, lambda: (torch.full_like(out_k[0], float("inf")),
                                         torch.full_like(out_k[1], -1)), 50)
-    heavy = no_slots.clone()
-    top = int((ids >= 0).flatten(1).sum(1).argmax())
-    heavy[top] = ids[top]
+    heavy = heaviest_alone(torch, ids)
     heavy_ms = cuda_time(torch, lambda: fr.fine_raster(LT, heavy, *args[2:], **kw), 50)
     live = ids >= 0
     slots = int(live.sum())
@@ -533,7 +536,68 @@ def check_k2(torch, fr, args, kw, label: str, card: str) -> tuple[dict, tuple]:
                     f"pairs inside) ({card})")
     if not bitwise:
         fail(f"K2 {label} tile {tile}: kernel and plain version differ")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by), out_k
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by),
+            out_k, out_p)
+
+
+def heaviest_alone(torch, ids):
+    """``ids`` with every tile but the one with the most live slots masked."""
+    heavy = torch.full_like(ids, -1)
+    top = int((ids >= 0).flatten(1).sum(1).argmax())
+    heavy[top] = ids[top]
+    return heavy
+
+
+def k3_groups(torch, ids, tpg: int) -> tuple[int, int]:
+    """K3's groups of ``tpg`` consecutive tiles on these ids: (groups,
+    groups with an occupied tile)."""
+    occupied = (ids >= 0).flatten(1).any(1)
+    n_groups = -(-ids.shape[0] // tpg)
+    occupied = torch.nn.functional.pad(occupied, (0, n_groups * tpg - occupied.numel()))
+    return n_groups, int(occupied.reshape(n_groups, tpg).any(1).sum())
+
+
+def check_k3(torch, fr, args, kw, label: str, card: str, k2: dict, out_k, out_p,
+             tpg: int) -> dict:
+    """K3 (``tpg`` tiles per block) on K2's captured call: equal to the
+    plain version and to K2; timed beside K2 in turns (K2, K3, K3, K2) on
+    the call's ids, with every slot masked and with only the heaviest tile.
+    Its bound is K2's: the work is the same."""
+    LT, ids = args[:2]
+    tile = kw["tile"]
+    kw3 = dict(kw, tiles_per_cell=tpg)
+    out3 = fr.fine_raster(*args, **kw3)
+    eq_plain, err = compare(torch, out3, out_p)
+    eq_k2, _ = compare(torch, out3, out_k)
+    times = {}
+    for what, inp in (("call", ids), ("masked", torch.full_like(ids, -1)),
+                      ("heaviest", heaviest_alone(torch, ids))):
+        def run_k2(inp=inp):
+            return fr.fine_raster(LT, inp, *args[2:], **kw)
+
+        def run_k3(inp=inp):
+            return fr.fine_raster(LT, inp, *args[2:], **kw3)
+
+        a, b, c, d = (cuda_time(torch, f, 50) for f in (run_k2, run_k3, run_k3, run_k2))
+        times[what] = ((b + c) / 2, (a + d) / 2)
+    ms, k2_ms = times["call"]
+    per_tile = (ids >= 0).flatten(1).sum(1)
+    n_groups, occupied = k3_groups(torch, ids, tpg)
+    b_ms = k2["bound_ms"]
+    phase("kernel", f"K3 {label}: tile {tile}, {tpg} tiles per block, {ids.shape[0]} tiles, "
+                    f"{int((per_tile > 0).sum())} occupied tiles in {occupied} of {n_groups} "
+                    f"groups ({n_groups} occupancy blocks, K2 {ids.shape[0]}); equal to the "
+                    f"plain version: {eq_plain}, to K2: {eq_k2}; "
+                    f"max_abs_err {err}; kernel {ms:.4f} ms, K2 {k2_ms:.4f} ms in turns (every "
+                    f"slot masked {times['masked'][0]:.4f} ms, K2 {times['masked'][1]:.4f} ms; the "
+                    f"heaviest tile ({int(per_tile.max())} live slots) alone "
+                    f"{times['heaviest'][0]:.4f} ms, K2 {times['heaviest'][1]:.4f} ms); bound "
+                    f"{b_ms:.4f} ms ({k2['bound_by']}), K3 / bound {ms / b_ms:.1f}, K3 / K2 "
+                    f"{ms / k2_ms:.2f} ({card})")
+    if not (eq_plain and eq_k2):
+        fail(f"K3 {label} tile {tile} tpg {tpg}: differs from the plain version or from K2")
+    return dict(max_abs_err=err, ms=ms, plain_ms=k2["plain_ms"], bound_ms=b_ms,
+                bound_by=k2["bound_by"], k2_ms=k2_ms)
 
 
 def stage_times(torch, run) -> list[tuple[str, float]]:
@@ -764,7 +828,7 @@ def run_rungs(torch, cr, fr, rt, ftpl, fcfg, light_map, render, card) -> dict:
     if set(k2_in) != {16, 64}:
         fail(f"culled classic render: fine passes at tiles {sorted(k2_in)}")
     for tile, (args, kw) in sorted(k2_in.items()):
-        k2[tile], _ = check_k2(torch, fr, args, kw, f"classic, both culls, tile {tile}", card)
+        k2[tile], _, _ = check_k2(torch, fr, args, kw, f"classic, both culls, tile {tile}", card)
     # the culled classic render of phase 4's 8 settled poses: K2's launches
     cr.reset_launch_counts()
     fr.reset_launch_counts()
@@ -1446,20 +1510,12 @@ def main() -> None:
         for tile, (args, _) in sorted(k1_in.items()):
             k1[(conf, tile)] = check_k1(torch, cr, args, f"{conf} {uses[tile]}", card)
         for tile, (args, kw) in sorted(k2_in.items()):
-            k2[(conf, tile)], out_k = check_k2(torch, fr, args, kw, f"{conf} {uses[tile]}", card)
-            if conf != "bench-slice":
-                continue
+            label = f"{conf} {uses[tile]}"
+            k2[(conf, tile)], out_k, out_p = check_k2(torch, fr, args, kw, label, card)
             for tpg in (4, 8):
-                kw3 = dict(kw, tiles_per_cell=tpg)
-                bitwise3, err3 = compare(torch, fr.fine_raster(*args, **kw3), out_k)
-                ms3 = cuda_time(torch, lambda: fr.fine_raster(*args, **kw3), 50)
-                phase("kernel", f"K3 {conf} {uses[tile]}: tile {tile}, {tpg} tiles per block; "
-                                f"equal to K2: {bitwise3}; kernel {ms3:.4f} ms ({card})")
-                if not bitwise3:
-                    fail(f"K3 tile {tile} tpg {tpg}: differs from K2")
-                e = k2[(conf, tile)]
-                k3[(tile, tpg)] = dict(max_abs_err=err3, ms=ms3, plain_ms=e["plain_ms"],
-                                       bound_ms=e["bound_ms"], bound_by=e["bound_by"])
+                k3[(conf, tile, tpg)] = check_k3(torch, fr, args, kw, label, card,
+                                                 k2[(conf, tile)], out_k, out_p, tpg)
+            del out_k, out_p
 
     # the torch stages of the earlier design that the kernels now do: the
     # row gather G = LT[ids] and the per-cell floor before K1 and the
@@ -1633,7 +1689,25 @@ def main() -> None:
                        f"bench-slice's on {rgb_differs:.4f} of the pixels")
     if min(diffs.values()) <= 0 or rgb_differs <= 0:
         fail(f"a stage of bench-full changes nothing: {diffs}")
-    del cells_frames, full_cells, full_classic
+    k3_launches = {}
+    for conf, c, t, k2_frames in (("bench-slice", ccfg, tpl, classic_frames),
+                                  ("bench-full", fccfg, ftpl, full_classic)):
+        for tpg in (4, 8):
+            cr.reset_launch_counts()
+            fr.reset_launch_counts()
+            tpg_frames, tpg_ms = render_all(c._replace(fine_tiles_per_cell=tpg), t)
+            for (tile, n), launched in fr.fine_raster.launches_by_shape.items():
+                k3_launches[(conf, tile, n)] = launched
+            same = all(
+                torch.equal(getattr(a, f), getattr(b, f))
+                for a, b in zip(tpg_frames, k2_frames) for f in a._fields
+            )
+            phase("breakdown", f"{conf} classic with {tpg} tiles per block (K3): {tpg_ms:.2f} ms "
+                               f"per scene; launches {dict(fr.fine_raster.launches_by_shape)}; "
+                               f"frames bitwise equal to K2's: {same}")
+            if not same:
+                fail(f"{conf}: K3 ({tpg} tiles per block) frames differ from K2's")
+    del cells_frames, full_cells, full_classic, classic_frames, tpg_frames, k2_frames
     for conf, c, t in (("bench-full cells", fcfg, ftpl), ("bench-full classic", fccfg, ftpl)):
         times = stage_times(torch, lambda: render(c, 0, t))
         total = sum(ms for _, ms in times)
@@ -1641,23 +1715,6 @@ def main() -> None:
                         f"marks; the host issues the ops, so a stage is at least its launches): "
                         + ", ".join(f"{n} {ms:.3f}" for n, ms in times)
                         + f"; total {total:.3f} ms ({card})")
-    k3_launches = {}
-    for tpg in (4, 8):
-        cr.reset_launch_counts()
-        fr.reset_launch_counts()
-        tcfg = ccfg._replace(fine_tiles_per_cell=tpg)
-        tpg_frames, tpg_ms = render_all(tcfg)
-        k3_launches.update(fr.fine_raster.launches_by_shape)
-        same = all(
-            torch.equal(getattr(a, f), getattr(b, f))
-            for a, b in zip(tpg_frames, classic_frames) for f in a._fields
-        )
-        phase("breakdown", f"classic with {tpg} tiles per block (K3): {tpg_ms:.2f} ms per scene; "
-                           f"launches {dict(fr.fine_raster.launches_by_shape)}; frames bitwise "
-                           f"equal to K2's: {same}")
-        if not same:
-            fail(f"K3 ({tpg} tiles per block) frames differ from K2's")
-    del classic_frames, tpg_frames
 
     # 9. the rest of the slice, one scene at 640x480: stickers, the other
     # texture filters, the reference SSAO, the alpha peel, a background image
@@ -1839,12 +1896,12 @@ def main() -> None:
         replaces="stillleben_tpu/ops/cell_raster.py:43", launches=len(with_md),
         library_ms=None, **k1[("peel", 16)],
     ))
-    for (tile, tpg), entry in sorted(k3.items()):
+    for (conf, tile, tpg), entry in sorted(k3.items()):
         kernels.append(dict(
-            name=f"fine_raster_grouped[bench-slice {uses[tile]}, tile {tile}, {tpg} tiles per block]",
+            name=f"fine_raster_grouped[{conf} {uses[tile]}, tile {tile}, {tpg} tiles per block]",
             route="cuda", source="stillleben_tpu_torch/csrc/fine_raster.cu",
             replaces="stillleben_tpu/ops/fine_raster.py:130",
-            launches=k3_launches.get((tile, tpg), 0), library_ms=None, **entry,
+            launches=k3_launches.get((conf, tile, tpg), 0), library_ms=None, **entry,
         ))
     kernels.extend(rung["kernels"])
     if any(k["launches"] <= 0 for k in kernels):

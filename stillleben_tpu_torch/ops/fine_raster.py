@@ -23,7 +23,9 @@ function: it would give such a tie to the lower id.
 - ``fine_raster`` takes ``LT`` and ``ids``: the plain version for tensors
   on the CPU, the CUDA kernels (``csrc/fine_raster.cu``) for CUDA tensors,
   which gather the live rows themselves. ``tiles_per_cell`` 1 is K2, 4 or 8
-  is K3; the result does not depend on it. A failed build or launch
+  is K3 (one occupancy block per group of that many tiles, then K2's
+  items from a list each block builds); the result does not depend on it.
+  A failed build or launch
   raises, and so does an input that requires grad, on every device (the
   JAX package stops the gradient before the kernel,
   rasterize_tiled.py:615-616).
@@ -208,8 +210,11 @@ def fine_raster(
     n_tiles, n_chunks, C = ids.shape
     w = torch.empty((n_tiles, tile * tile), dtype=torch.float32, device=LT.device)
     t = torch.empty((n_tiles, tile * tile), dtype=torch.int32, device=LT.device)
-    words = -(-n_chunks // 32)  # occupancy mask words per tile
-    work = torch.empty(1 + n_tiles * (1 + words), dtype=torch.int32, device=LT.device)
+    # K2's count, listed tiles and occupancy masks, and for K3 a word of
+    # occupied tiles per group (csrc/fine_raster.cu)
+    words = -(-n_chunks // 32)
+    groups = 0 if tiles_per_cell == 1 else -(-n_tiles // tiles_per_cell)
+    work = torch.empty(1 + n_tiles * (1 + words) + groups, dtype=torch.int32, device=LT.device)
     err = lib.sl_fine_raster(
         LT.data_ptr(), ids.data_ptr(), md.data_ptr(), w.data_ptr(), t.data_ptr(),
         work.data_ptr(), n_tiles, n_chunks, C, tile, tw, int(tile_offset), tiles_per_cell,

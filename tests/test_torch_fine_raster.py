@@ -15,8 +15,10 @@ held within 1e-6 relative and ``t`` equal off near-ties, at pixels whose
 float32 depth is well conditioned (XLA on the CPU contracts ``a*x + b*y +
 c`` into fused multiply-adds, PyTorch does not; at the few ill-conditioned
 pixels the port is held within 1e-4 of float64).
-On the card the kernel must match the plain version bit for bit, and K3
-(4 or 8 tiles per block) must match K2.
+The JAX package's grouped kernel (``tiles_per_cell`` 4 or 8) is held to
+the port's plain version with the same argument, bit for bit on the exact
+grid. On the card the kernel must match the plain version bit for bit, and
+K3 (4 or 8 tiles per block) must match the plain version and K2.
 """
 
 import numpy as np
@@ -102,7 +104,16 @@ def make_tiles(seed, tile, tw, n_tiles, n_chunks, tile_offset, C=128, grid=True)
     return G, LT, ids, md
 
 
-def run_jax(G, ids, md, tw, tile_offset, tile, chunk):
+def grouped_tiles(seed, tile, tw, n_tiles, n_chunks, tile_offset, tpg, C=128, grid=True):
+    """``make_tiles`` cut to ``n_tiles`` (fewer than 4 allowed), with the
+    second group of ``tpg`` tiles fully masked where there is one."""
+    G, LT, ids, md = make_tiles(seed, tile, tw, max(n_tiles, 4), n_chunks, tile_offset, C, grid)
+    G, ids, md = (np.ascontiguousarray(a[:n_tiles]) for a in (G, ids, md))
+    ids[tpg : 2 * tpg] = -1
+    return G, LT, ids, md
+
+
+def run_jax(G, ids, md, tw, tile_offset, tile, chunk, tiles_per_cell=1):
     # jax is imported here, not at the top: the card's machine has no jax
     # and runs this file's GPU test alone (README.md)
     import jax.numpy as jnp
@@ -112,14 +123,15 @@ def run_jax(G, ids, md, tw, tile_offset, tile, chunk):
     w, t = fine_raster_pallas(
         jnp.asarray(G), jnp.asarray(ids), jnp.asarray(md), NEAR, FAR, chunk, tw,
         interpret=True, tile_offset=jnp.array([tile_offset], jnp.int32), tile=tile,
+        tiles_per_cell=tiles_per_cell,
     )
     return np.asarray(w), np.asarray(t)
 
 
-def run_port(LT, ids, md, tw, tile_offset, tile, chunk):
+def run_port(LT, ids, md, tw, tile_offset, tile, chunk, tiles_per_cell=1):
     w, t = fine_raster_plain(
         torch.from_numpy(LT), torch.from_numpy(ids), torch.from_numpy(md), NEAR, FAR, chunk, tw,
-        tile_offset=tile_offset, tile=tile,
+        tile_offset=tile_offset, tile=tile, tiles_per_cell=tiles_per_cell,
     )
     return w.numpy(), t.numpy()
 
@@ -166,6 +178,40 @@ def test_plain_matches_pallas_interpret_exact_grid(tile, tw, n_tiles, n_chunks, 
                 chunk_of[(i, int(ids[i, j, s]))] = min(chunk_of.get((i, int(ids[i, j, s])), j), j)
     for i, p in zip(*np.nonzero(differ)):
         assert ts[i, p] < tp[i, p] and chunk_of[(i, int(tp[i, p]))] < chunk_of[(i, int(ts[i, p]))]
+
+
+@pytest.mark.parametrize(
+    "tile,tw,n_tiles,n_chunks,tile_offset,tpg",
+    [
+        (16, 7, 19, 3, 5, 4),  # ragged last group of 3, group 1 masked
+        (16, 7, 19, 3, 5, 8),
+        (16, 5, 3, 2, 2, 4),  # fewer tiles than a group
+        (64, 4, 10, 2, 9, 4),  # ragged last group of 2, group 1 masked
+        (64, 4, 3, 2, 9, 8),  # fewer tiles than a group
+    ],
+)
+def test_grouped_plain_matches_pallas_interpret_exact_grid(tile, tw, n_tiles, n_chunks,
+                                                           tile_offset, tpg):
+    """K3's function: the JAX package's grouped kernel (tiles_per_cell =
+    tpg) against the port's plain version with the same tiles_per_cell, bit
+    for bit on the exact grid; a masked tile, chunk and group, a ragged
+    last group and a tile offset."""
+    C = 128
+    G, LT, ids, md = grouped_tiles(17, tile, tw, n_tiles, n_chunks, tile_offset, tpg, C)
+    wj, tj = run_jax(G, ids, md, tw, tile_offset, tile, C, tiles_per_cell=tpg)
+    wp, tp = run_port(LT, ids, md, tw, tile_offset, tile, C, tiles_per_cell=tpg)
+    assert wj.shape == (n_tiles, tile * tile)
+    assert np.isfinite(wj).sum() > 200, "test tiles hit too few pixels"
+    np.testing.assert_array_equal(wp, wj)
+    np.testing.assert_array_equal(tp, tj)
+    # the masked tile and group give the empty result; the last group is
+    # ragged and occupied
+    empty = [1] + list(range(tpg, min(2 * tpg, n_tiles)))
+    assert np.isinf(wp[empty]).all() and (tp[empty] == -1).all()
+    last = (n_tiles - 1) // tpg * tpg
+    assert n_tiles % tpg and np.isfinite(wp[last:]).any()
+    if n_tiles > 3:  # the masked chunk of tile 3 changes nothing
+        assert (ids[3, 0] == -1).all() and np.isfinite(wp[3]).any()
 
 
 @pytest.mark.parametrize("tile,tw,n_tiles,n_chunks,tile_offset", [(16, 6, 9, 2, 0)])
@@ -308,6 +354,56 @@ def test_kernel_bitwise_equals_plain_on_cuda(tile, tw, n_tiles, n_chunks, tile_o
     assert torch.equal(wk, wp)
     assert torch.equal(tk, tp)
     for tpg in (4, 8):  # K3: the same outputs with tpg tiles per block
+        launched = fine_raster.launches_by_shape.get((tile, tpg), 0)
         wg, tg = fine_raster(*args, NEAR, FAR, C, tw, tiles_per_cell=tpg, **kw)
         torch.cuda.synchronize()
+        assert fine_raster.launches_by_shape[(tile, tpg)] == launched + 1
         assert torch.equal(wg, wk) and torch.equal(tg, tk), tpg
+        assert torch.equal(wg, wp) and torch.equal(tg, tp), tpg
+
+
+def heavy_among_empty(seed, tile, tw, tile_offset):
+    """21 tiles (ragged for 4 and 8 a group) of 3 chunks of 128: tile 2
+    heavy (every live slot, ~300) beside a light tile 3 and empty mates,
+    tiles 4-15 empty (a whole group at either size), tile 17 heavy and
+    tile 20 light in the ragged last group."""
+    _, LT, ids, md = make_tiles(seed, tile, tw, 21, 3, tile_offset, 128, grid=False)
+    keep = np.zeros(21, bool)
+    keep[[2, 3, 17, 20]] = True
+    ids[~keep] = -1
+    ids[3, :, 10:] = -1
+    ids[20, 1:] = -1
+    return LT, ids, md
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("case", ["heavy", "few", "slab"])
+def test_grouped_kernel_bitwise_equals_plain_on_cuda(tile, case):
+    """K3 at 4 and 8 tiles per block, and K2, against the plain version:
+    one heavy tile among empty group mates, a whole empty group and a
+    ragged last group (``heavy``); fewer tiles than a group (``few``);
+    calls of a slab at tile offsets 4096 and 8192 (``slab``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the fine-raster kernel runs only on the card")
+    calls = {
+        "heavy": [(9, 0) + heavy_among_empty(21, tile, 9, 0)],
+        "few": [(5, 2) + make_tiles(22, tile, 5, 4, 2, 2, 128, grid=False)[1:]],
+        "slab": [(80, off) + make_tiles(23, tile, 80, 30, 3, off, 128, grid=False)[1:]
+                 for off in (4096, 8192)],
+    }[case]
+    for tw, tile_offset, LT, ids, md in calls:
+        if case == "few":
+            ids, md = ids[:3].copy(), md[:3].copy()
+        args = [torch.from_numpy(a).cuda() for a in (LT, ids, md)]
+        kw = dict(tile_offset=tile_offset, tile=tile)
+        wp, tp = fine_raster_plain(*args, NEAR, FAR, 128, tw, **kw)
+        assert torch.isfinite(wp).any()
+        outs = {}
+        for tpg in (1, 4, 8):
+            launched = fine_raster.launches_by_shape.get((tile, tpg), 0)
+            outs[tpg] = fine_raster(*args, NEAR, FAR, 128, tw, tiles_per_cell=tpg, **kw)
+            torch.cuda.synchronize()
+            assert fine_raster.launches_by_shape[(tile, tpg)] == launched + 1
+            assert torch.equal(outs[tpg][0], wp) and torch.equal(outs[tpg][1], tp), tpg
+            assert torch.equal(outs[tpg][0], outs[1][0]) and torch.equal(outs[tpg][1], outs[1][1])
