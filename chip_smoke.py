@@ -3,8 +3,10 @@
 the benchmark's size, in every configuration that the JAX package's
 ``bench.py`` runs, through every hand-written kernel, on both rasters, the
 public host API (``Scene`` -> ``simulate_tabletop_scene`` ->
-``RenderPass().render``) and render-and-compare pose refinement (autograd
-through ``render_with_poses``, and ``sl.diff``).
+``RenderPass().render``), render-and-compare pose refinement (autograd
+through ``render_with_poses``, and ``sl.diff``) and the reference's asset
+and light-map loaders (every mesh format, the native hull cooker,
+``sl.LightMap`` from an sIBL descriptor, ``ImageSaver`` / ``ImageLoader``).
 
     python3 chip_smoke.py
 
@@ -117,6 +119,24 @@ Phases (one line each or more; any failure exits non-zero):
     peel with ``neg_iou_loss``, ms per call. K1 ``torch.equal`` to its
     plain version on the trainer's camera and shadow inputs and on the
     peel pass.
+15. loaders: ``write_loader_fixtures`` (the textured 81,920-face blob as
+    GLB and ``.gltf``, the cube as FBX, 3DS and ``.x``, the sphere as DAE,
+    STL and OFF, the sky as a run-length ``.hdr`` with an sIBL ``.ibl``);
+    the g++ build of the native cooker; ``sl.Mesh.load_threaded`` of every
+    format and ``primitive://cube|sphere`` with native cooking (the parse
+    and the cooking timed apart first), each mesh's hulls and volume, each
+    format's triangles equal to its procedural OBJ's (STL within its 6-
+    decimal weld); ``sl.LightMap(sky.ibl)`` on the card, its data
+    ``torch.equal`` to ``from_equirect`` of the decoded panorama with the
+    same sun; bench-full's composition from the loaded meshes (3 GLB blobs,
+    3 primitive spheres, FBX and primitive cubes, the ``.ibl`` light map,
+    the plane) settled by ``simulate_tabletop_scene()`` and rendered once at
+    640x480: phase 13's content checks, K1's launches by tile (one camera,
+    two shadow passes) and no plain piece called, K1 ``torch.equal`` to its
+    plain version on the camera and both shadow inputs; ``sl.ImageSaver``
+    writes the RGB (RGBA PNG), the depth (16-bit PNG, millimetres) and the
+    instance and class maps, which the port's decoder reads back bitwise,
+    and ``sl.ImageLoader(dir, seed=0)`` yields 4 textures from them.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -176,22 +196,28 @@ def phase(name: str, msg: str) -> None:
 SUN_LIGHT = ((0.3 / 0.98994949, 0.5 / 0.98994949, -0.8 / 0.98994949), (3.0, 2.8, 2.5))
 
 
-def load_meshes(subdiv: int, textured: bool = False, cutout: bool = False):
+def load_meshes(subdiv: int, textured: bool = False, cutout: bool = False,
+                native_decomp: bool = True):
     """(dense, cube, sphere) from the procedural OBJ files, classes 1..3;
     ``textured``: the dense mesh with its uv map and base-colour PNG;
-    ``cutout``: a fourth mesh, the cube with the cutout texture (class 4)."""
+    ``cutout``: a fourth mesh, the cube with the cutout texture (class 4);
+    ``native_decomp=False``: hulls cooked by the Python decomposition."""
     from stillleben_tpu_torch.assets.mesh import Mesh
     from stillleben_tpu_torch.assets.procedural import write_meshes
 
     build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
     os.environ["STILLLEBEN_TPU_MESH_CACHE"] = os.path.join(build, "mesh_cache")
     paths = write_meshes(os.path.join(build, "meshes"), subdiv=subdiv, seed=0)
-    dense = Mesh(paths["blob_textured" if textured else "blob"],
-                 flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
+    os.environ["STILLLEBEN_TPU_NATIVE_DECOMP"] = "1" if native_decomp else "0"
+    try:
+        dense = Mesh(paths["blob_textured" if textured else "blob"],
+                     flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
+        meshes = [dense, Mesh(paths["cube"]), Mesh(paths["sphere"])]
+        if cutout:
+            meshes.append(Mesh(paths["cube_cutout"]))
+    finally:
+        del os.environ["STILLLEBEN_TPU_NATIVE_DECOMP"]
     dense.center_bbox()
-    meshes = [dense, Mesh(paths["cube"]), Mesh(paths["sphere"])]
-    if cutout:
-        meshes.append(Mesh(paths["cube_cutout"]))
     for i, mesh in enumerate(meshes):
         mesh.class_index = i + 1
     return meshes
@@ -267,8 +293,14 @@ def extras_scene(light_map):
 
 
 def small_full_scene(light_map):
-    """The small scene with the textured dense mesh, sky and plane, 160x120."""
-    dense, cube, sphere = load_meshes(subdiv=3, textured=True)
+    """The small scene with the textured dense mesh, sky and plane, 160x120:
+    the scene of ``tests/test_torch_gpu.py::small_full_templates``, whose
+    hulls the Python decomposition cooks. Its card-against-CPU bound (1% of
+    the object pixels beyond 2e-4) holds where no object lies in a wide VSM
+    penumbra: with native hulls this scene settles otherwise, and a 3e-7
+    change of the poses moves 5.8-6.2% of its object pixels beyond 2e-4 on
+    the CPU alone (ROADMAP.md, C-14)."""
+    dense, cube, sphere = load_meshes(subdiv=3, textured=True, native_decomp=False)
     dense.scale_to_bbox_diagonal(0.25)
     cube.scale_to_bbox_diagonal(0.25)
     sphere.scale_to_bbox_diagonal(0.3)
@@ -1370,6 +1402,220 @@ def run_refine_reference(torch, cr, rt, scene, card) -> tuple:
     return peel_calls[0], peel_launches
 
 
+LOADER_FORMATS = ("glb", "gltf", "fbx", "dae", "stl", "off", "3ds", "x")
+# the procedural OBJ each format was written from (write_loader_fixtures)
+LOADER_SOURCES = {"glb": "blob_textured", "gltf": "blob_textured", "fbx": "cube", "dae": "sphere",
+                  "stl": "sphere", "off": "sphere", "3ds": "cube", "x": "cube"}
+
+
+def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
+    """Phase 15: the reference's asset and light-map loading path (see the
+    module docstring). Returns the kernels' entries of K1 on this path's
+    inputs and the phase's seconds."""
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import native_decompose
+    from stillleben_tpu_torch.assets.image import read_png_samples
+    from stillleben_tpu_torch.assets.procedural import (
+        checker_texture, write_loader_fixtures, write_meshes,
+    )
+    from stillleben_tpu_torch.render import light_map as lm_mod
+
+    build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
+    fixtures = os.path.join(build, "loaders")
+    t0 = time.perf_counter()
+    fx = write_loader_fixtures(fixtures, subdiv=6, seed=0)
+    objs = write_meshes(fixtures, subdiv=6, seed=0)
+    secs = {"fixtures": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    native_decompose.build()
+    secs["native build"] = time.perf_counter() - t0
+    # hull caches of this run's own, so that every mesh is cooked: the
+    # parse and the cooking timed apart (one mesh after another), then the
+    # main path's load_threaded with physics
+    names = [fx[k] for k in LOADER_FORMATS] + ["primitive://cube", "primitive://sphere"]
+    os.environ["STILLLEBEN_TPU_MESH_CACHE"] = os.path.join(build, f"hulls_{os.getpid()}_a")
+    t0 = time.perf_counter()
+    parsed = sl.Mesh.load_threaded(names, physics=False)
+    secs["parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mesh in parsed:
+        mesh.load_physics()
+    secs["cooking"] = time.perf_counter() - t0
+    os.environ["STILLLEBEN_TPU_MESH_CACHE"] = os.path.join(build, f"hulls_{os.getpid()}_b")
+    t0 = time.perf_counter()
+    meshes = sl.Mesh.load_threaded(names, physics=True)
+    secs["load_threaded"] = time.perf_counter() - t0
+    phase("loaders", f"{len(names)} meshes: write_loader_fixtures {secs['fixtures']:.3f} s, "
+                     f"the native cooker's g++ build {secs['native build']:.3f} s; "
+                     f"load_threaded without physics {secs['parse']:.3f} s, then native cooking "
+                     f"one mesh after another {secs['cooking']:.3f} s; load_threaded with "
+                     f"physics {secs['load_threaded']:.3f} s ({card})")
+    for name, mesh in zip(LOADER_FORMATS + ("primitive://cube", "primitive://sphere"), meshes):
+        hulls = mesh._physics.hulls
+        phase("loaders", f"{name}: {mesh.consolidated.faces.shape[0]} faces, {len(hulls)} hulls, "
+                         f"volume {sum(h.volume for h in hulls):.6f}")
+        if not hulls or not all(h.volume > 0 for h in hulls):
+            fail(f"loaders: {name} cooked no hull of positive volume")
+    for name, mesh in zip(LOADER_FORMATS, meshes):
+        ref = sl.Mesh(objs[LOADER_SOURCES[name]], physics=False).consolidated
+        got = mesh.consolidated
+        a = got.positions[got.faces.astype(np.int64)]
+        b = ref.positions[ref.faces.astype(np.int64)]
+        # the STL loader welds vertices rounded to 6 decimals
+        tol = 5e-7 if name == "stl" else 0.0
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+        ok = a.shape == b.shape and err <= tol
+        phase("loaders", f"{name} against {os.path.basename(objs[LOADER_SOURCES[name]])}: "
+                         f"{a.shape[0]} / {b.shape[0]} triangles, max |corner difference| "
+                         f"{err} (tolerance {tol}): {'equal' if ok else 'DIFFERENT'}")
+        if not ok:
+            fail(f"loaders: {name} does not hold the geometry of its OBJ")
+
+    # the light map from its sIBL descriptor, on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    panorama, lights = lm_mod._load_source(fx["ibl"])
+    secs["ibl read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    light_map = sl.LightMap(fx["ibl"])
+    torch.cuda.synchronize()
+    secs["ibl load + precompute"] = time.perf_counter() - t0
+    ref = lm_mod.LightMap.from_equirect(
+        panorama, lights=list(zip(light_map.light_directions, light_map.light_colors)))
+    same = [name for name in lm_mod.LightMapData._fields
+            if torch.equal(getattr(light_map.data, name), getattr(ref.data, name))]
+    phase("loaders", f"sl.LightMap(sky.ibl) on {light_map.data.cubemap.device}: descriptor and "
+                     f"panorama read {secs['ibl read']:.3f} s, load + precompute "
+                     f"{secs['ibl load + precompute']:.3f} s; {len(light_map.light_directions)} "
+                     f"analytic light(s) {light_map.light_directions.tolist()} colour "
+                     f"{light_map.light_colors.tolist()}; LightMapData fields equal to "
+                     f"from_equirect of the decoded panorama: {len(same)} of "
+                     f"{len(lm_mod.LightMapData._fields)} ({card})")
+    if (light_map.data.cubemap.device.type != "cuda" or len(lights) != 1
+            or len(same) != len(lm_mod.LightMapData._fields)):
+        fail(f"loaders: the .ibl light map is wrong (equal fields {same})")
+
+    # bench-full's composition from the loaded meshes: 3 GLB blobs, 3
+    # primitive spheres, 4 cubes (FBX and primitive, alternating)
+    by_name = dict(zip(LOADER_FORMATS + ("prim_cube", "prim_sphere"), meshes))
+    blob, fbx_cube, cube, sphere = (by_name[k] for k in ("glb", "fbx", "prim_cube", "prim_sphere"))
+    blob.center_bbox()
+    for i, (mesh, diag) in enumerate(((blob, 0.25), (fbx_cube, 0.2), (cube, 0.2), (sphere, 0.15))):
+        mesh.scale_to_bbox_diagonal(diag)
+        mesh.class_index = i + 1
+    rng = np.random.default_rng(7)
+    scene = sl.Scene((WIDTH, HEIGHT))
+    scene.seed(SEED)
+    for mesh in [blob, fbx_cube, sphere, blob, cube, sphere, blob, fbx_cube, sphere, cube]:
+        o = sl.Object(mesh)
+        o.metallic, o.roughness = float(rng.random()), float(rng.random())
+        scene.add_object(o)
+    scene.light_map = light_map
+    scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+    scene.background_plane_texture = sl.Texture2D(checker_texture())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene.simulate_tabletop_scene()
+    torch.cuda.synchronize()
+    secs["settle"] = time.perf_counter() - t0
+
+    # one render, every K1 call kept; K1's launches by tile
+    calls = []
+    cr.reset_launch_counts()
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        secs["render"] = time.perf_counter() - t0
+        return out
+
+    from stillleben_tpu_torch.render import shadow as shadow_mod
+
+    original, orig_shadow = rt.cell_raster, shadow_mod._ortho_rasterize_depth
+    in_shadow = [False]
+
+    def record(*args):
+        calls.append(("shadow" if in_shadow[0] else "camera",
+                      tuple(a.clone() if hasattr(a, "clone") else a for a in args)))
+        return original(*args)
+
+    def record_shadow(*args, **kwargs):  # one call per light slot, in order
+        in_shadow[0] = True
+        try:
+            return orig_shadow(*args, **kwargs)
+        finally:
+            in_shadow[0] = False
+
+    rt.cell_raster, shadow_mod._ortho_rasterize_depth = record, record_shadow
+    try:
+        result, plain_calls = count_calls(cr, PLAIN_K1, render)
+    finally:
+        rt.cell_raster, shadow_mod._ortho_rasterize_depth = original, orig_shadow
+    torch.cuda.synchronize()
+    launches = dict(cr.cell_raster.launches_by_tile)
+    content = check_api_result(torch, result, scene, "loaders render")
+    phase("loaders", f"scene of {len(scene.objects)} loaded objects + plane, {WIDTH}x{HEIGHT}: "
+                     f"simulate_tabletop_scene {secs['settle']:.3f} s, RenderPass().render "
+                     f"{1e3 * secs['render']:.1f} ms (first: atlas build); K1 launches by tile "
+                     f"{launches}; calls of K1's plain pieces {plain_calls}; content: {content} "
+                     f"({card})")
+    z = [float(o.pose()[2, 3]) for o in scene.objects]
+    if min(z) < 0.0 or max(z) > 2.0:
+        fail(f"loaders: the settle left objects off the table: {z}")
+    cam = [a for k, a in calls if k == "camera"]
+    shadow = [a for k, a in calls if k == "shadow"]
+    # the light map's sun takes the free light slot 1: two shadow passes
+    if (any(plain_calls.values()) or len(cam) != 1 or len(shadow) != 2
+            or sum(launches.values()) != len(calls)):
+        fail(f"loaders: K1 calls {len(calls)} (camera {len(cam)}, shadow {len(shadow)}), "
+             f"launches {launches}, plain calls {plain_calls}")
+    entries = []
+    for label, args, n in ((f"loaders camera, tile {cam[0][7]}", cam[0], 1),
+                           (f"loaders shadow, dark light slot 0, tile {shadow[0][7]}",
+                            shadow[0], 1),
+                           (f"loaders shadow, the .ibl sun in slot 1, tile {shadow[1][7]}",
+                            shadow[1], 1)):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
+                            library_ms=None, **k))
+
+    # save with sl.ImageSaver, read back with the port's decoder
+    out_dir = os.path.join(build, f"saved_{os.getpid()}")
+    os.makedirs(out_dir, exist_ok=True)
+    rgb = result.rgb().cpu().numpy()
+    depth_mm = np.clip(np.round(result.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    arrays = {"rgb.png": rgb, "depth.png": depth_mm,
+              "instance.png": result.instance_index().cpu().numpy().astype(np.uint8),
+              "class.png": result.class_index().cpu().numpy().astype(np.uint8)}
+    t0 = time.perf_counter()
+    with sl.ImageSaver() as saver:
+        for name, arr in arrays.items():
+            saver.save(arr, os.path.join(out_dir, name))
+    secs["save"] = time.perf_counter() - t0
+    back = {name: read_png_samples(os.path.join(out_dir, name)).samples.reshape(arr.shape)
+            for name, arr in arrays.items()}
+    same = {name: bool(np.array_equal(back[name], arr) and back[name].dtype == arr.dtype)
+            for name, arr in arrays.items()}
+    loader = sl.ImageLoader(out_dir, seed=0)
+    try:
+        textures = [loader.next_texture() for _ in range(4)]
+    finally:
+        loader.close()
+    shapes = sorted({t.pixels.shape for t in textures})
+    phase("loaders", f"ImageSaver {len(arrays)} PNGs (RGBA, 16-bit depth in mm, 8-bit instance "
+                     f"and class) in {secs['save']:.3f} s; read back bitwise equal: {same}; "
+                     f"ImageLoader(seed=0) gave {len(textures)} textures of {shapes}")
+    if not all(same.values()) or shapes != [(HEIGHT, WIDTH, 4)]:
+        fail("loaders: what ImageSaver wrote does not read back")
+    return entries, secs
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
@@ -1869,6 +2115,13 @@ def main() -> None:
                             source="stillleben_tpu_torch/csrc/cell_raster.cu",
                             replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
                             library_ms=None, **k))
+
+    # 15. the reference's asset and light-map loading path: every mesh
+    # format and primitive://, the native cooker, LightMap(.ibl), one
+    # settled and rendered scene of loaded meshes, ImageSaver / ImageLoader
+    loader_k1, loader_secs = run_loaders(torch, cr, rt, card)
+    kernels.extend(loader_k1)
+    phase("loaders", "seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in loader_secs.items()))
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

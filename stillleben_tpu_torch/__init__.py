@@ -1,9 +1,11 @@
 """stillleben_tpu_torch: ``stillleben_tpu`` in PyTorch, for NVIDIA Hopper GPUs.
 
 The package imports torch and numpy, never jax and nothing of
-``stillleben_tpu``. It has its own host asset layer (``assets/``: OBJ and
-PLY import, consolidation, convex cooking, decimation; ``physics/bodies``:
-mass properties). Every TPU kernel of the JAX package is a CUDA kernel here
+``stillleben_tpu``. It has its own host asset layer (``assets/``: glTF/GLB,
+OBJ, PLY, STL, OFF, DAE, FBX, 3DS and .x import, ``primitive://``
+meshes, consolidation, native and Python convex cooking, decimation, its
+own PNG / PPM / Radiance HDR codec, ``ImageLoader`` and ``ImageSaver``;
+``physics/bodies``: mass properties). Every TPU kernel of the JAX package is a CUDA kernel here
 (``csrc/``, wrapped by ``ops/``): the compact-cell z-buffer of the default
 raster, the fine z-buffer of the classic raster
 (``FrameConfig(raster="classic")``) and the toolchain check.
@@ -48,6 +50,8 @@ _LAZY = {
     "LightMap": (".render.light_map", "LightMap"),
     "Texture": (".assets.texture", "Texture"),
     "Texture2D": (".assets.texture", "Texture2D"),
+    "ImageLoader": (".assets.image_loader", "ImageLoader"),
+    "ImageSaver": (".assets.image_saver", "ImageSaver"),
     "Range3D": (".core.range3d", "Range3D"),
     "quat_to_matrix": (".core.quat", "quat_to_matrix"),
     "matrix_to_quat": (".core.quat", "matrix_to_quat"),
@@ -62,8 +66,7 @@ _LAZY = {
 
 # the rest of the JAX package's table (stillleben_tpu/__init__.py:31-64)
 NOT_PORTED = (
-    "ImageLoader", "ImageSaver", "Animator", "JobQueue", "ManipulationSim", "view", "Viewer",
-    "profiling", "extension",
+    "Animator", "JobQueue", "ManipulationSim", "view", "Viewer", "profiling", "extension",
 )
 
 __all__ = sorted(_LAZY)

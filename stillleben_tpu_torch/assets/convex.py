@@ -16,10 +16,13 @@ Functionally replaces the reference's physics-cooking stack:
 
 All host-side numpy; runs once per asset and is cached.
 
-Copied from ``stillleben_tpu/assets/convex.py`` with two changes: only the
-Python decomposition runs (the native ``sl_decompose`` path is not ported),
-and cache entries carry the tag ``CACHE_TAG`` in their file name and
-content hash, so a hull that one package cooked is never read by the other.
+Copied from ``stillleben_tpu/assets/convex.py``. ``decompose`` takes the
+native cooker (``native_decompose.py``, the port's build of the same C++
+source) unless ``STILLLEBEN_TPU_NATIVE_DECOMP=0`` selects the Python
+decomposition below, the JAX package's switch and default; a native build
+that fails raises. Cache entries carry the tag ``CACHE_TAG`` and the cooker
+in their file name and content hash, so a hull that the other package or
+the other cooker made is never read.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ MAX_HULL_VERTICES = 64  # padding budget per hull (PhysX allows 255)
 DEFAULT_CONCAVITY = 0.002  # reference src/mesh.cpp:398 (normalized units)
 CONVEXITY_SINGLE_HULL_THRESHOLD = 0.75  # reference src/mesh.cpp:424-429
 CACHE_TAG = "torch"  # keeps this package's cache entries apart
+
+
+def cooker() -> str:
+    """``"native"`` (the default) or ``"python"``
+    (``STILLLEBEN_TPU_NATIVE_DECOMP=0``), read as the JAX package reads it."""
+    return "python" if os.environ.get("STILLLEBEN_TPU_NATIVE_DECOMP", "1") == "0" else "native"
 
 
 @dataclass
@@ -293,6 +302,23 @@ def decompose(
     vertices = np.asarray(vertices, np.float64).reshape(-1, 3)
     faces = np.asarray(faces, np.int64).reshape(-1, 3)
 
+    if cooker() == "native":
+        from .native_decompose import decompose_native
+
+        native = decompose_native(
+            vertices.astype(np.float32),
+            faces.astype(np.int32),
+            concavity,
+            max_hulls=max_hulls,
+            resolution=resolution,
+            force_single_hull=force_single_hull,
+        )
+        if native is not None:
+            return PhysicsMeshData(hulls=[ConvexHullData(**h) for h in native])
+        # the native cooker makes no hull of a flat mesh or one of fewer
+        # than 4 vertices; the JAX package's decompose cooks those with the
+        # Python path below, and so does this one
+
     single = convex_hull(vertices)
     if force_single_hull:
         return PhysicsMeshData(hulls=[single])
@@ -364,7 +390,7 @@ def _content_hash(vertices: np.ndarray, faces: np.ndarray, flags: int) -> str:
     h.update(np.ascontiguousarray(faces, np.uint32).tobytes())
     h.update(str(flags).encode())
     h.update(str(CACHE_VERSION).encode())
-    h.update(CACHE_TAG.encode())
+    h.update(f"{CACHE_TAG}-{cooker()}".encode())
     return h.hexdigest()
 
 
@@ -378,8 +404,9 @@ def _cache_paths(filename: str) -> list[str]:
         os.path.join(os.path.expanduser("~"), ".cache", "stillleben_tpu", "mesh_cache"),
     )
     key = hashlib.blake2b(os.path.abspath(filename).encode(), digest_size=12).hexdigest()
-    cached = os.path.join(cache_dir, f"{key}.{CACHE_TAG}.sl_mesh.npz")
-    sidecar = f"{filename}.{CACHE_TAG}.sl_mesh.npz"
+    tag = f"{CACHE_TAG}-{cooker()}"
+    cached = os.path.join(cache_dir, f"{key}.{tag}.sl_mesh.npz")
+    sidecar = f"{filename}.{tag}.sl_mesh.npz"
     if os.environ.get("STILLLEBEN_TPU_SIDECAR_CACHE"):
         return [sidecar, cached]
     # still READ a pre-existing sidecar (e.g. shipped with a dataset)

@@ -1,78 +1,160 @@
-"""The port's own image codec: what its fixtures write, and nothing else.
+"""The port's own image codec: PNG, binary PPM and Radiance HDR.
 
-``read_image`` decodes 8-bit non-interlaced RGB or RGBA PNG (zlib from the
-standard library, the five scanline filters) and binary PPM (``P6``, maxval
-255) into an (H, W, 4) uint8 array; ``write_png`` encodes one. Any other
-format, bit depth, colour type or interlacing raises with its name: there
-is no substitute image. numpy and the standard library only.
+numpy and the standard library only (zlib for PNG's deflate). Two readings
+of a file, each the one a part of the JAX package gets from a library:
+
+- ``read_image`` / ``decode_png``: (H, W, 4) uint8, what
+  ``PIL.Image.open(path).convert("RGBA")`` gives (mesh textures, glTF
+  images, ``ImageLoader``). PNG of every colour type (grey, grey + alpha,
+  truecolour, truecolour + alpha, palette), every bit depth (1, 2, 4, 8,
+  16), ``tRNS`` transparency and Adam7 interlacing, with Pillow's
+  conversions: 16-bit samples keep their high byte, 16-bit grey clips at
+  255, a transparent colour is matched against the samples as Pillow
+  holds them (``_pil_rgba``).
+- ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
+  IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
+  channel, colour becomes three in BGR order with any alpha dropped,
+  16-bit samples stay 16-bit, and an ``.hdr`` file decodes to float32.
+
+Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
+modes the JAX ``ImageSaver`` writes through Pillow); ``encode_png_samples``
+writes any colour type, depth, palette, ``tRNS`` and interlacing (the
+codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
+
+JPEG, BMP, GIF, TGA, TIFF and WebP are not decoded: each raises
+``NotImplementedError`` with its name. There is no substitute image.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_COLOR_CHANNELS = {2: 3, 6: 4}  # PNG colour types: truecolour, with alpha
-_COLOR_NAMES = {0: "greyscale", 3: "palette", 4: "greyscale with alpha"}
+# PNG colour type -> (samples per pixel, allowed bit depths)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+# formats the port refuses, by magic bytes and by extension
+_REFUSED_MAGIC = ((b"\xff\xd8", "JPEG"), (b"BM", "BMP"), (b"GIF8", "GIF"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_REFUSED_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".gif": "GIF",
+                ".tga": "TGA", ".tif": "TIFF", ".tiff": "TIFF", ".webp": "WebP"}
 
 
-def _rgba(arr: np.ndarray) -> np.ndarray:
-    if arr.shape[2] == 4:
-        return np.ascontiguousarray(arr)
-    return np.concatenate([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)], axis=2)
+class PngImage(NamedTuple):
+    """A PNG as stored: (H, W, C) samples (uint8, or uint16 at depth 16;
+    at depths 1-4 the raw values 0 .. 2^depth - 1) and what interprets them."""
+
+    samples: np.ndarray
+    color_type: int
+    bit_depth: int
+    palette: np.ndarray | None  # (N, 3) uint8
+    trns: bytes | None  # the raw tRNS chunk
+
+
+# ---------------------------------------------------------------------------
+# PNG decode
+# ---------------------------------------------------------------------------
+
+
+def _paeth(a, b, c):
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo PNG's per-scanline filters (None, Sub, Up, Average, Paeth)."""
+    """Undo PNG's per-scanline filters (None, Sub, Up, Average, Paeth).
+    Rows of the first three are vectorized along the row; runs of Average
+    and Paeth rows go along anti-diagonals (a byte needs its left and upper
+    neighbours only), vectorized over the run's rows."""
     rows = raw.reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(height):
-        ftype = int(rows[y, 0])
-        line = rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 2:
-            cur = (line + prev) & 255
-        elif ftype == 1:
-            # Sub is a running sum per channel, modulo 256
-            cur = line.reshape(-1, bpp).cumsum(axis=0).reshape(-1) & 255
-        elif ftype in (3, 4):
-            cur = np.zeros(stride, np.int32)
-            for i in range(stride):
-                a = int(cur[i - bpp]) if i >= bpp else 0
-                b = int(prev[i])
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = int(prev[i - bpp]) if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                cur[i] = (int(line[i]) + pred) & 255
-        else:
-            raise ValueError(f"PNG: unknown scanline filter {ftype}")
-        out[y] = cur
-        prev = cur
-    return out
+    ftypes = rows[:, 0].astype(np.int64)
+    if (ftypes > 4).any():
+        raise ValueError(f"PNG: unknown scanline filter {int(ftypes.max())}")
+    groups = stride // bpp
+    data = rows[:, 1:].astype(np.int32).reshape(height, groups, bpp)
+    out = np.zeros((height, groups, bpp), np.int32)
+    zero = np.zeros((groups, bpp), np.int32)
+    y = 0
+    while y < height:
+        f = ftypes[y]
+        prev = out[y - 1] if y else zero
+        if f == 0:
+            out[y] = data[y]
+        elif f == 1:
+            out[y] = data[y].cumsum(axis=0) & 255
+        elif f == 2:
+            out[y] = (data[y] + prev) & 255
+        if f <= 2:
+            y += 1
+            continue
+        end = y
+        while end < height and ftypes[end] >= 3:
+            end += 1
+        n = end - y
+        ks = np.arange(n)
+        for t in range(n + groups - 1):
+            k = ks[max(0, t - groups + 1): min(n, t + 1)]
+            r, x = y + k, t - k
+            a = np.where((x > 0)[:, None], out[r, np.maximum(x - 1, 0)], 0)
+            up_ok = (r > 0)[:, None]
+            b = np.where(up_ok, out[np.maximum(r - 1, 0), x], 0)
+            c = np.where(up_ok & (x > 0)[:, None], out[np.maximum(r - 1, 0), np.maximum(x - 1, 0)], 0)
+            pred = np.where((ftypes[r] == 3)[:, None], (a + b) >> 1, _paeth(a, b, c))
+            out[r, x] = (data[r, x] + pred) & 255
+        y = end
+    return out.reshape(height, stride).astype(np.uint8)
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def _unpack(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """(h, stride) bytes -> (h, width, channels) samples."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, channels)
+    per = 8 // depth
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :width].reshape(h, width, 1).astype(np.uint8)
+
+
+def _decode_pass(raw: np.ndarray, pos: int, w: int, h: int, channels: int, depth: int):
+    stride = (w * channels * depth + 7) // 8
+    size = h * (stride + 1)
+    if pos + size > raw.size:
+        raise ValueError(f"PNG data has {raw.size} bytes, too few for the image")
+    bpp = max(1, channels * depth // 8)
+    rows = _unfilter(raw[pos: pos + size], h, stride, bpp)
+    return _unpack(rows, w, channels, depth), pos + size
+
+
+def decode_png_samples(data: bytes, name: str = "<bytes>") -> PngImage:
+    """The stored samples of a PNG (any colour type, depth and interlacing)."""
     if data[:8] != PNG_MAGIC:
         raise ValueError(f"{name}: not a PNG file")
-    pos = 8
-    header = None
-    idat = []
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        kind = data[pos + 4 : pos + 8]
-        body = data[pos + 8 : pos + 8 + length]
+    pos, header, palette, trns, idat = 8, None, None, None, []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        kind = data[pos + 4: pos + 8]
+        body = data[pos + 8: pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length: pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{name}: PNG chunk {kind!r} fails its CRC")
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -80,32 +162,95 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if header is None:
         raise ValueError(f"{name}: PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if depth != 8:
-        raise NotImplementedError(f"{name}: PNG with {depth}-bit samples is not supported")
-    if ctype not in _COLOR_CHANNELS:
-        raise NotImplementedError(
-            f"{name}: {_COLOR_NAMES.get(ctype, f'colour type {ctype}')} PNG is not supported"
-        )
-    if interlace:
-        raise NotImplementedError(f"{name}: interlaced (Adam7) PNG is not supported")
-    ch = _COLOR_CHANNELS[ctype]
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
+        raise ValueError(f"{name}: PNG colour type {ctype} at depth {depth} is not valid")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    channels = _PNG_TYPES[ctype][0]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width * ch + 1):
-        raise ValueError(f"{name}: PNG data has {raw.size} bytes, expected {height * (width * ch + 1)}")
-    return _rgba(_unfilter(raw, height, width * ch, ch).reshape(height, width, ch))
+    if not interlace:
+        samples, _ = _decode_pass(raw, 0, width, height, channels, depth)
+    else:
+        samples = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            w, h = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+            if w <= 0 or h <= 0:
+                continue
+            sub, at = _decode_pass(raw, at, w, h, channels, depth)
+            samples[y0::dy, x0::dx] = sub
+    return PngImage(samples, ctype, depth, palette, trns)
+
+
+def _pil_rgba(png: PngImage) -> np.ndarray:
+    """(H, W, 4) uint8 as ``Image.open(...).convert("RGBA")`` (Pillow 12).
+
+    Pillow first holds the samples in a mode of its own, then converts:
+    grey 1-bit as "1" (0/255), 2- and 4-bit as "L" scaled by 85 / 17, 8-bit
+    as "L", 16-bit as "I;16" (clipped at 255 on the way to RGBA); colour and
+    alpha at 16 bits keep the high byte of each sample; palette indices
+    look up PLTE (entries past its end are black). A grey or truecolour
+    ``tRNS`` key is the raw sample value; Pillow keeps its low byte and
+    compares it with the held 8-bit values (at depth 1 any key but 0 is
+    the white pixels), so a key at depth 16, or at depths 2 and 4 once
+    scaled, matches only where the two coincide."""
+    s, ctype, depth = png.samples, png.color_type, png.bit_depth
+    h, w = s.shape[:2]
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., 3] = 255
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[: len(png.palette)] = png.palette[:256]
+        idx = s[..., 0].astype(np.int64)
+        out[..., :3] = pal[idx]
+        if png.trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            t = np.frombuffer(png.trns, np.uint8)[:256]
+            alpha[: len(t)] = t
+            out[..., 3] = alpha[idx]
+        return out
+    if ctype in (0, 4):
+        g = s[..., 0]
+        if depth == 16:  # "I;16" clipped (grey), "LA" from the high bytes
+            grey = np.minimum(g, 255) if ctype == 0 else g >> 8
+        else:
+            grey = g.astype(np.int64) * (255 // ((1 << depth) - 1))
+        out[..., :3] = grey.astype(np.uint8)[..., None]
+        if ctype == 4:
+            a = s[..., 1]
+            out[..., 3] = (a >> 8) if depth == 16 else a
+        elif png.trns is not None and len(png.trns) >= 2:
+            (key,) = struct.unpack(">H", png.trns[:2])
+            key = (255 if key else 0) if depth == 1 else key & 255
+            out[..., 3] = np.where(grey == key, 0, 255)
+        return out
+    rgb = (s[..., :3] >> 8).astype(np.uint8) if depth == 16 else s[..., :3]
+    out[..., :3] = rgb
+    if ctype == 6:
+        out[..., 3] = (s[..., 3] >> 8) if depth == 16 else s[..., 3]
+    elif png.trns is not None and len(png.trns) >= 6:
+        key = np.array(struct.unpack(">HHH", png.trns[:6])) & 255
+        out[..., 3] = np.where((rgb.astype(np.int64) == key).all(-1), 0, 255)
+    return out
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``."""
+    return _pil_rgba(decode_png_samples(data, name))
 
 
 def decode_ppm(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Binary PPM (``P6``), comments allowed in the header."""
+    """Binary PPM (``P6``, maxval 255) -> (H, W, 3) uint8; comments allowed
+    in the header."""
     tokens, pos = [], 0
     while len(tokens) < 4:
-        while data[pos : pos + 1].isspace():
+        while data[pos: pos + 1].isspace():
             pos += 1
-        if data[pos : pos + 1] == b"#":
+        if data[pos: pos + 1] == b"#":
             pos = data.index(b"\n", pos) + 1
             continue
         end = pos
-        while not data[end : end + 1].isspace():
+        while not data[end: end + 1].isspace():
             end += 1
         tokens.append(data[pos:end])
         pos = end
@@ -115,38 +260,290 @@ def decode_ppm(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if maxval != 255:
         raise NotImplementedError(f"{name}: PPM with maxval {maxval} is not supported")
     pix = np.frombuffer(data, np.uint8, count=width * height * 3, offset=pos + 1)
-    return _rgba(pix.reshape(height, width, 3))
+    return pix.reshape(height, width, 3)
+
+
+def _rgba(arr: np.ndarray) -> np.ndarray:
+    if arr.shape[2] == 4:
+        return np.ascontiguousarray(arr)
+    return np.concatenate([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)], axis=2)
+
+
+def _refuse(path: str, data: bytes):
+    fmt = next((f for magic, f in _REFUSED_MAGIC if data.startswith(magic)), None)
+    if fmt is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        fmt = "WebP"
+    if fmt is None and data[:2] == b"#?":
+        fmt = "Radiance HDR"
+    if fmt is None:
+        fmt = _REFUSED_EXT.get(os.path.splitext(path)[1].lower(), "unknown")
+    raise NotImplementedError(
+        f"{path}: {fmt} images are not supported (the port decodes PNG, binary PPM "
+        "and Radiance HDR)"
+    )
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) uint8 from PNG or binary PPM bytes, as Pillow's
+    ``convert("RGBA")``; other formats raise by name."""
+    if data[:8] == PNG_MAGIC:
+        return decode_png(data, name)
+    if data[:1] == b"P" and data[1:2].isdigit():
+        return _rgba(decode_ppm(data, name))
+    _refuse(name, data)
 
 
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 4) uint8 from a PNG or binary PPM file."""
+    """``decode_image`` of a file."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
+def read_png_samples(path: str) -> PngImage:
+    with open(path, "rb") as f:
+        return decode_png_samples(f.read(), path)
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR (RGBE)
+# ---------------------------------------------------------------------------
+
+
+def decode_hdr(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Radiance ``.hdr`` -> (H, W, 3) float32 RGB, as OpenCV reads it: the
+    header's ``EXPOSURE`` is not applied, a pixel is mantissa * 2^(e - 136)
+    (no half-step added; e = 0 is black), scanlines flat or new-style
+    run-length, the ``-Y H +X W`` orientation only."""
+    if data[:2] != b"#?":
+        raise ValueError(f"{name}: not a Radiance HDR file")
+    pos = 0
+    fmt = None
+    while True:
+        end = data.index(b"\n", pos)
+        line = data[pos:end].strip()
+        pos = end + 1
+        if not line:
+            break
+        if line.startswith(b"FORMAT="):
+            fmt = line[7:].decode()
+    if fmt not in (None, "32-bit_rle_rgbe"):
+        raise NotImplementedError(f"{name}: Radiance format {fmt} is not supported")
+    end = data.index(b"\n", pos)
+    line = data[pos:end]
+    res = line.split()
+    pos = end + 1
+    if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+        raise NotImplementedError(
+            f"{name}: Radiance orientation {line.decode(errors='replace')!r} is not supported "
+            "(-Y H +X W only)"
+        )
+    height, width = int(res[1]), int(res[3])
+    buf = np.frombuffer(data, np.uint8)
+    rgbe = np.zeros((height, width, 4), np.uint8)
+    for y in range(height):
+        if (width < 8 or width > 0x7FFF or pos + 4 > len(data) or data[pos] != 2
+                or data[pos + 1] != 2 or data[pos + 2] & 0x80):
+            # flat from here on (OpenCV reads the rest of a file flat once a
+            # scanline does not start as a run-length one)
+            n = (height - y) * width * 4
+            rgbe[y:] = buf[pos: pos + n].reshape(height - y, width, 4)
+            break
+        if (data[pos + 2] << 8 | data[pos + 3]) != width:
+            raise ValueError(f"{name}: wrong scanline width")
+        pos += 4
+        for c in range(4):
+            x = 0
+            line = rgbe[y, :, c]
+            while x < width:
+                count = data[pos]
+                pos += 1
+                if count > 128:
+                    count -= 128
+                    if count == 0 or x + count > width:
+                        raise ValueError(f"{name}: bad scanline data")
+                    line[x: x + count] = data[pos]
+                    pos += 1
+                else:
+                    if count == 0 or x + count > width:
+                        raise ValueError(f"{name}: bad scanline data")
+                    line[x: x + count] = buf[pos: pos + count]
+                    pos += count
+                x += count
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e > 0, np.ldexp(np.float32(1.0), e - 136), 0).astype(np.float32)
+    return rgbe[..., :3].astype(np.float32) * scale[..., None]
+
+
+def _float_to_rgbe(rgb: np.ndarray) -> np.ndarray:
+    rgb = np.asarray(rgb, np.float64)
+    v = rgb.max(axis=-1)
+    mant, exp = np.frexp(v)
+    scale = np.where(v > 1e-32, mant * 256.0 / np.where(v > 1e-32, v, 1.0), 0.0)
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    out[..., 3] = np.where(v > 1e-32, exp + 128, 0).astype(np.uint8)
+    return out
+
+
+def _rle_component(vals: np.ndarray) -> bytes:
+    """One scanline component in new-style RLE: runs of >= 4 equal bytes
+    as runs, the rest as literals of at most 128."""
+    out = bytearray()
+    n, x = len(vals), 0
+    while x < n:
+        run = 1
+        while x + run < n and run < 127 and vals[x + run] == vals[x]:
+            run += 1
+        if run >= 4:
+            out += bytes([128 + run, int(vals[x])])
+            x += run
+            continue
+        start = x
+        while x < n and x - start < 128:
+            r = 1
+            while x + r < n and r < 4 and vals[x + r] == vals[x]:
+                r += 1
+            if r >= 4:
+                break
+            x += 1
+        out += bytes([x - start]) + vals[start:x].tobytes()
+    return bytes(out)
+
+
+def encode_hdr(rgb: np.ndarray, rle: bool = True, exposure: float | None = None) -> bytes:
+    """(H, W, 3) float RGB -> Radiance ``.hdr`` bytes; ``rle`` writes
+    new-style run-length scanlines (width 8 .. 32767), else flat ones;
+    ``exposure`` adds an ``EXPOSURE=`` header line (readers do not apply it)."""
+    rgb = np.asarray(rgb)
+    height, width = rgb.shape[:2]
+    head = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n"
+    if exposure is not None:
+        head += f"EXPOSURE={exposure}\n".encode()
+    head += f"\n-Y {height} +X {width}\n".encode()
+    rgbe = _float_to_rgbe(rgb)
+    if not rle or not 8 <= width <= 0x7FFF:
+        return head + rgbe.tobytes()
+    body = bytearray()
+    for y in range(height):
+        body += bytes([2, 2, width >> 8, width & 255])
+        for c in range(4):
+            body += _rle_component(rgbe[y, :, c])
+    return head + bytes(body)
+
+
+def read_hdr(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_hdr(f.read(), path)
+
+
+def read_image_cv2(path: str) -> np.ndarray:
+    """The array ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``
+    gives for a PNG, binary PPM or Radiance HDR file: grey PNG (H, W),
+    colour (H, W, 3) in BGR order with alpha dropped and palettes expanded;
+    uint8, uint16 at depth 16 (grey at depths 1-4 scaled to 8 bits), float32
+    for HDR. Other formats raise by name."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == PNG_MAGIC:
-        return decode_png(data, path)
+    if data[:2] == b"#?":
+        return np.ascontiguousarray(decode_hdr(data, path)[..., ::-1])
     if data[:1] == b"P" and data[1:2].isdigit():
-        return decode_ppm(data, path)
-    known = {b"\xff\xd8": "JPEG", b"BM": "BMP", b"GI": "GIF", b"II": "TIFF", b"MM": "TIFF",
-             b"#?": "Radiance HDR"}
-    fmt = known.get(data[:2], "unknown")
-    raise NotImplementedError(f"{path}: {fmt} images are not supported (PNG and binary PPM only)")
+        return np.ascontiguousarray(decode_ppm(data, path)[..., ::-1])
+    if data[:8] != PNG_MAGIC:
+        _refuse(path, data)
+    png = decode_png_samples(data, path)
+    s, ctype, depth = png.samples, png.color_type, png.bit_depth
+    if ctype == 0:
+        g = s[..., 0]
+        return g if depth >= 8 else (g * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[: len(png.palette)] = png.palette[:256]
+        rgb = pal[s[..., 0].astype(np.int64)]
+    elif ctype == 4:
+        rgb = np.repeat(s[..., :1], 3, axis=2)
+    else:
+        rgb = s[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+# ---------------------------------------------------------------------------
+# PNG encode
+# ---------------------------------------------------------------------------
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _pack_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, C) samples -> (h, stride) bytes."""
+    h = samples.shape[0]
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    vals = samples.reshape(h, -1).astype(np.uint8)
+    pad = (-vals.shape[1]) % per
+    vals = np.concatenate([vals, np.zeros((h, pad), np.uint8)], axis=1).reshape(h, -1, per)
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    return (vals << shifts).sum(axis=2).astype(np.uint8)
+
+
+def _filtered(rows: np.ndarray, bpp: int, ftype: int) -> np.ndarray:
+    """Filter every row with ``ftype`` (0-4); (h, stride + 1) bytes."""
+    cur = rows.astype(np.int32)
+    prev = np.concatenate([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.concatenate([np.zeros_like(cur[:, :bpp]), cur[:, :-bpp]], axis=1)
+    upleft = np.concatenate([np.zeros_like(prev[:, :bpp]), prev[:, :-bpp]], axis=1)
+    pred = [np.zeros_like(cur), left, prev, (left + prev) >> 1, _paeth(left, prev, upleft)][ftype]
+    body = ((cur - pred) & 255).astype(np.uint8)
+    return np.concatenate([np.full((rows.shape[0], 1), ftype, np.uint8), body], axis=1)
+
+
+def encode_png_samples(samples: np.ndarray, color_type: int, bit_depth: int,
+                       palette: np.ndarray | None = None, trns: bytes | None = None,
+                       interlace: bool = False, filter_type: int = 0) -> bytes:
+    """Any PNG: (H, W, C) samples of ``color_type`` at ``bit_depth``, an
+    optional PLTE and raw ``tRNS`` body, Adam7 with ``interlace``, every
+    scanline filtered with ``filter_type``."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    channels, depths = _PNG_TYPES[color_type]
+    if bit_depth not in depths or samples.shape[2] != channels:
+        raise ValueError(f"PNG colour type {color_type} takes {channels} samples at "
+                         f"depths {depths}")
+    height, width = samples.shape[:2]
+    bpp = max(1, channels * bit_depth // 8)
+    if interlace:
+        parts = [samples[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7]
+        parts = [p for p in parts if p.shape[0] and p.shape[1]]
+    else:
+        parts = [samples]
+    raw = b"".join(_filtered(_pack_rows(p, bit_depth), bpp, filter_type).tobytes() for p in parts)
+    ihdr = struct.pack(">IIBBBBB", width, height, bit_depth, color_type, 0, 0, int(interlace))
+    out = PNG_MAGIC + _chunk(b"IHDR", ihdr)
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    return out + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
 
 
 def encode_png(pixels: np.ndarray) -> bytes:
-    """(H, W, 3|4) uint8 -> an 8-bit non-interlaced PNG, filter None."""
+    """uint8 (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA, or uint16 (H, W)
+    16-bit grey -> a non-interlaced PNG, filter None."""
     pixels = np.asarray(pixels)
-    if pixels.dtype != np.uint8 or pixels.ndim != 3 or pixels.shape[2] not in (3, 4):
-        raise ValueError("encode_png expects (H, W, 3|4) uint8")
-    height, width, ch = pixels.shape
-    rows = np.concatenate([np.zeros((height, 1), np.uint8), pixels.reshape(height, -1)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2 if ch == 3 else 6, 0, 0, 0)
-    return (PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
+    if pixels.dtype == np.uint16 and pixels.ndim == 2:
+        return encode_png_samples(pixels, 0, 16)
+    if pixels.dtype == np.uint8 and pixels.ndim == 2:
+        return encode_png_samples(pixels, 0, 8)
+    if pixels.dtype == np.uint8 and pixels.ndim == 3 and pixels.shape[2] in (3, 4):
+        return encode_png_samples(pixels, 2 if pixels.shape[2] == 3 else 6, 8)
+    raise ValueError("encode_png expects uint8 (H, W), (H, W, 3|4) or uint16 (H, W), not "
+                     f"{pixels.dtype} {pixels.shape}")
 
 
 def write_png(path: str, pixels: np.ndarray) -> None:

@@ -1,16 +1,23 @@
 """The Mesh asset: import, consolidation, pretransform, physics cooking.
 
-Copied from ``stillleben_tpu/assets/mesh.py:44-400``, trimmed to what the
-port uses (reference src/mesh.cpp, python/src/py_mesh.cpp):
+Copied from ``stillleben_tpu/assets/mesh.py`` (reference src/mesh.cpp,
+python/src/py_mesh.cpp):
 
-- ``Mesh(filename, visual=True, physics=True, flags=0)`` for ``.obj`` and
-  ``.ply`` files; any other extension raises and names what is ported;
+- ``Mesh(filename, visual=True, physics=True, flags=0)``: the importer is
+  chosen by the extension (``LOADERS``: .gltf/.glb, .obj, .ply, .stl,
+  .off, .dae, .fbx, .3ds, .x) or the ``primitive://`` scheme
+  (src/mesh.cpp:203-240); any other extension raises with the JAX
+  package's text;
+- ``Mesh.load_threaded(filenames)``: import and cooking over a thread pool
+  (src/mesh.cpp:923-999);
 - the ``.pretransform`` text sidecar (src/mesh.cpp:888-921);
 - pretransform: uniform scale x rigid, SVD-decomposed, non-uniform scale
   rejected (src/mesh.cpp:1050-1073); ``center_bbox`` and
   ``scale_to_bbox_diagonal`` (src/mesh.cpp:1020-1043);
 - physics cooking: convex decomposition with the single-hull shortcut and
-  a disk cache (src/mesh.cpp:340-511), see ``convex.py``;
+  a disk cache (src/mesh.cpp:340-511; a primitive is not cached), see
+  ``convex.py``; ``physics_mesh_data`` and ``dump_physics_meshes``
+  (py_mesh.cpp:248-302);
 - vertex edits by 1-based vertex index (src/mesh.cpp:823-855) with the
   area-weighted ``recompute_normals`` (src/mesh.cpp:763-816); each edit
   bumps ``_dirty``, which scene and render caches watch;
@@ -23,15 +30,24 @@ from __future__ import annotations
 import enum
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ..core.range3d import Range3D
 from .consolidate import ConsolidatedMesh, compute_smooth_normals, consolidate
 from .convex import PhysicsMeshData, decompose, load_cached_physics, store_cached_physics
-from .objfile import load_obj, load_ply
+from .fbxfile import load_fbx
+from .gltf import load_gltf
+from .legacy_formats import load_3ds, load_x
+from .objfile import load_dae, load_obj, load_off, load_ply, load_stl
+from .primitive import is_primitive_path, load_primitive
 
-LOADERS = {".obj": load_obj, ".ply": load_ply}
+LOADERS = {
+    ".gltf": load_gltf, ".glb": load_gltf, ".obj": load_obj, ".ply": load_ply,
+    ".stl": load_stl, ".off": load_off, ".dae": load_dae, ".fbx": load_fbx,
+    ".3ds": load_3ds, ".x": load_x,
+}
 
 
 class MeshFlag(enum.IntFlag):
@@ -48,6 +64,7 @@ class Mesh:
         visual: bool = True,
         physics: bool = True,
         flags: MeshFlag = MeshFlag.NONE,
+        _defer_open: bool = False,
     ):
         self._filename = str(filename)  # pathlib.Path accepted
         self._flags = MeshFlag(flags)
@@ -60,9 +77,10 @@ class Mesh:
         self._physics: PhysicsMeshData | None = None
         self._dirty = 0  # bumped by every edit of the vertices or the pretransform
 
-        self.open_file()
-        if physics:
-            self.load_physics()
+        if not _defer_open:
+            self.open_file()
+            if physics:
+                self.load_physics()
 
     # -- import ------------------------------------------------------------
 
@@ -72,12 +90,17 @@ class Mesh:
         if self._consolidated is not None:
             return
         fn = self._filename
-        ext = os.path.splitext(fn)[1].lower()
-        if ext not in LOADERS:
-            raise ValueError(
-                f"Unsupported mesh format '{ext}' (ported: {' '.join(sorted(LOADERS))})"
-            )
-        self._consolidated = consolidate(LOADERS[ext](fn), name=fn)
+        if is_primitive_path(fn):
+            doc = load_primitive(fn)
+        else:
+            ext = os.path.splitext(fn)[1].lower()
+            if ext not in LOADERS:
+                raise ValueError(
+                    f"Unsupported mesh format '{ext}' (supported: .gltf .glb "
+                    f".obj .ply .stl .off .dae .fbx .3ds .x, primitive://)"
+                )
+            doc = LOADERS[ext](fn)
+        self._consolidated = consolidate(doc, name=fn)
         self._update_raw_bbox()
         self._load_pretransform_sidecar()
 
@@ -87,6 +110,8 @@ class Mesh:
     def _load_pretransform_sidecar(self) -> None:
         """Optional <file>.pretransform 4x4 text sidecar
         (reference src/mesh.cpp:888-921)."""
+        if is_primitive_path(self._filename):
+            return
         path = self._filename + ".pretransform"
         if not os.path.exists(path):
             return
@@ -98,23 +123,83 @@ class Mesh:
             raise ValueError(f"{path}: expected 16 values, got {len(vals)}")
         self.pretransform = np.array(vals, dtype=np.float32).reshape(4, 4)
 
+    @staticmethod
+    def load_threaded(
+        filenames: list[str],
+        visual: bool = True,
+        physics: bool = True,
+        flags: MeshFlag = MeshFlag.NONE,
+        max_workers: int | None = None,
+    ) -> list["Mesh"]:
+        """Import (and cook) every file over a thread pool, in the order
+        given (reference src/mesh.cpp:923-999)."""
+        meshes = [Mesh(str(f), visual, physics, flags, _defer_open=True) for f in filenames]
+
+        def _load(m: Mesh):
+            m.open_file()
+            if physics:
+                m.load_physics()
+            return m
+
+        workers = max_workers or min(32, (os.cpu_count() or 4))
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            list(ex.map(_load, meshes))
+        return meshes
+
     # -- physics -----------------------------------------------------------
 
     def load_physics(self) -> None:
-        """Cook convex hulls (with disk cache; reference src/mesh.cpp:303-511)."""
+        """Cook convex hulls (with disk cache, none for a primitive;
+        reference src/mesh.cpp:303-511)."""
         if self._physics is not None:
             return
-        c = self.consolidated
-        cached = load_cached_physics(self._filename, c.positions, c.faces, int(self._flags))
-        if cached is not None:
-            self._physics = cached
-            return
+        c = self._consolidated
+        if c is None:
+            raise RuntimeError("No mesh found")
+        cache = not is_primitive_path(self._filename)
+        if cache:
+            cached = load_cached_physics(self._filename, c.positions, c.faces, int(self._flags))
+            if cached is not None:
+                self._physics = cached
+                return
         self._physics = decompose(
             c.positions,
             c.faces,
             force_single_hull=bool(self._flags & MeshFlag.PHYSICS_FORCE_CONVEX_HULL),
         )
-        store_cached_physics(self._filename, c.positions, c.faces, int(self._flags), self._physics)
+        if cache:
+            store_cached_physics(
+                self._filename, c.positions, c.faces, int(self._flags), self._physics
+            )
+
+    @property
+    def physics_mesh_data(self) -> dict:
+        """Hull data as arrays (reference py_mesh.cpp:248-302)."""
+        self.load_physics()
+        return {
+            "vertices": [h.vertices.copy() for h in self._physics.hulls],
+            "planes": [h.planes.copy() for h in self._physics.hulls],
+            "volumes": np.array([h.volume for h in self._physics.hulls], np.float32),
+            "centers_of_mass": np.stack([h.center_of_mass for h in self._physics.hulls]),
+        }
+
+    def dump_physics_meshes(self, prefix: str) -> None:
+        """Write each collision hull as an OBJ file ``<prefix>NNN.obj``, its
+        triangles wound outward (reference py_mesh.cpp dump_physics_meshes)."""
+        from scipy.spatial import ConvexHull as SciHull
+
+        self.load_physics()
+        for i, h in enumerate(self._physics.hulls):
+            hull = SciHull(h.vertices.astype(np.float64), qhull_options="QJ")
+            with open(f"{prefix}{i:03d}.obj", "w") as f:
+                for v in h.vertices:
+                    f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+                for s in hull.simplices:
+                    a, b, c = h.vertices[s[0]], h.vertices[s[1]], h.vertices[s[2]]
+                    n = np.cross(b - a, c - a)
+                    if np.dot(n, a - h.vertices.mean(0)) < 0:
+                        s = [s[0], s[2], s[1]]
+                    f.write(f"f {s[0]+1} {s[1]+1} {s[2]+1}\n")
 
     def load_visual(self) -> None:
         """The reference uploads to GL here (src/mesh.cpp:624-745); the port
@@ -131,6 +216,32 @@ class Mesh:
     def consolidated(self) -> ConsolidatedMesh:
         self.open_file()
         return self._consolidated
+
+    def points(self, sub_mesh: int = -1) -> np.ndarray:
+        return self._slice_attr(self.consolidated.positions, sub_mesh).copy()
+
+    def normals(self, sub_mesh: int = -1) -> np.ndarray:
+        return self._slice_attr(self.consolidated.normals, sub_mesh).copy()
+
+    def colors(self, sub_mesh: int = -1) -> np.ndarray:
+        return self._slice_attr(self.consolidated.colors, sub_mesh).copy()
+
+    def faces(self, sub_mesh: int = -1) -> np.ndarray:
+        c = self.consolidated
+        if sub_mesh < 0:
+            return c.faces.copy()
+        sm = c.sub_meshes[sub_mesh]
+        return c.faces[sm.face_offset: sm.face_offset + sm.face_count].copy()
+
+    def _slice_attr(self, arr: np.ndarray, sub_mesh: int) -> np.ndarray:
+        if sub_mesh < 0:
+            return arr
+        sm = self.consolidated.sub_meshes[sub_mesh]
+        return arr[sm.vertex_offset: sm.vertex_offset + sm.vertex_count]
+
+    @property
+    def num_sub_meshes(self) -> int:
+        return len(self.consolidated.sub_meshes)
 
     # -- vertex edits ----------------------------------------------------------
 

@@ -1,9 +1,10 @@
-"""Wavefront OBJ (+MTL) and PLY loaders -> GltfDocument.
+"""Wavefront OBJ (+MTL), PLY, STL, OFF and COLLADA loaders -> GltfDocument.
 
-Copied from ``stillleben_tpu/assets/objfile.py:18-269`` (``_load_mtl``,
-``load_obj``, ``load_ply``). The STL, OFF and DAE loaders of that file are
-not ported yet. A ``map_Kd`` image is decoded by the port's own codec
-(``assets/image.py``: PNG and binary PPM; any other format raises).
+Copied from ``stillleben_tpu/assets/objfile.py`` (``_load_mtl``,
+``load_obj``, ``load_ply``, ``load_stl``, ``load_off``, ``load_dae``). A
+``map_Kd`` or COLLADA image is decoded by the port's own codec
+(``assets/image.py``: PNG and binary PPM; any other format raises by name)
+instead of Pillow.
 
 Covers the practical subset the reference reaches through Assimp
 (src/mesh.cpp:219-239): triangulated (we fan-triangulate polygons), per-face
@@ -13,6 +14,8 @@ materials, Kd/map_Kd diffuse, vertex colors (PLY), ascii + binary PLY.
 from __future__ import annotations
 
 import os
+import struct
+import xml.etree.ElementTree as ET
 
 import numpy as np
 
@@ -269,3 +272,283 @@ def load_ply(path: str) -> GltfDocument:
     doc.roots = [0]
     return doc
 
+
+def load_stl(path: str) -> GltfDocument:
+    """STL (binary or ascii) -> GltfDocument. Part of the Assimp-fallback
+    format breadth the reference reaches via src/mesh.cpp:203-240. STL stores
+    independent triangles; coincident vertices are welded so physics hulls
+    and smooth normals behave."""
+    with open(path, "rb") as f:
+        head = f.read(5)
+        f.seek(0)
+        data = f.read()
+    if head == b"solid" and b"facet" in data[:1000]:
+        # ascii
+        verts = []
+        for line in data.decode("ascii", "replace").splitlines():
+            parts = line.split()
+            if parts and parts[0] == "vertex":
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+        tri_pts = np.array(verts, np.float32).reshape(-1, 3, 3)
+    else:
+        n = struct.unpack_from("<I", data, 80)[0]
+        rec = np.frombuffer(data, np.uint8, count=n * 50, offset=84).reshape(n, 50)
+        tri = rec[:, 12:48].copy().view(np.float32).reshape(n, 3, 3)
+        tri_pts = np.ascontiguousarray(tri)
+
+    flat = tri_pts.reshape(-1, 3)
+    uniq, inv = np.unique(flat.round(decimals=6), axis=0, return_inverse=True)
+    prim = GltfPrimitive(
+        positions=uniq.astype(np.float32),
+        indices=inv.reshape(-1, 3).astype(np.uint32),
+    )
+    doc = GltfDocument()
+    doc.meshes.append([prim])
+    doc.nodes.append(GltfNode(name=os.path.basename(path), mesh=0))
+    doc.roots = [0]
+    return doc
+
+
+def load_off(path: str) -> GltfDocument:
+    """OFF (Object File Format) -> GltfDocument (fan-triangulated)."""
+    with open(path, "r", errors="replace") as f:
+        tokens: list[str] = []
+        for line in f:
+            hash_at = line.find("#")
+            if hash_at >= 0:
+                line = line[:hash_at]
+            tokens.extend(line.split())
+    if not tokens or tokens[0] not in ("OFF", "COFF", "NOFF"):
+        raise ValueError(f"{path}: not an OFF file")
+    has_color = tokens[0] == "COFF"
+    has_normal = tokens[0] == "NOFF"
+    i = 1
+    nv, nf = int(tokens[i]), int(tokens[i + 1])
+    i += 3  # skip edge count
+    stride = 3 + (4 if has_color else 0) + (3 if has_normal else 0)
+    vdata = np.array(tokens[i : i + nv * stride], np.float32).reshape(nv, stride)
+    i += nv * stride
+    positions = vdata[:, :3].copy()
+    prim = GltfPrimitive(positions=positions, indices=np.zeros((0, 3), np.uint32))
+    col = 3
+    if has_normal:
+        prim.normals = vdata[:, col : col + 3].copy()
+        col += 3
+    if has_color:
+        c = vdata[:, col : col + 4]
+        prim.colors = (c / 255.0 if c.max() > 1.0 else c).astype(np.float32)
+    tris = []
+    while i < len(tokens) and len(tris) >= 0 and nf > 0:
+        k = int(tokens[i])
+        face = [int(t) for t in tokens[i + 1 : i + 1 + k]]
+        i += 1 + k
+        # COFF may append per-face colors; skip any trailing floats
+        while i < len(tokens) and "." in tokens[i]:
+            i += 1
+        for j in range(1, k - 1):
+            tris.append([face[0], face[j], face[j + 1]])
+        nf -= 1
+    prim.indices = np.array(tris, np.uint32) if tris else np.zeros((0, 3), np.uint32)
+    doc = GltfDocument()
+    doc.meshes.append([prim])
+    doc.nodes.append(GltfNode(name=os.path.basename(path), mesh=0))
+    doc.roots = [0]
+    return doc
+
+
+def load_dae(path: str) -> GltfDocument:
+    """COLLADA .dae (practical subset: <triangles>/<polylist> geometry,
+    node transforms, effect diffuse color/texture) -> GltfDocument."""
+    tree = ET.parse(path)
+    root = tree.getroot()
+    ns = {"c": root.tag.split("}")[0].strip("{")} if "}" in root.tag else {"c": ""}
+
+    def q(tag):
+        return f"{{{ns['c']}}}{tag}" if ns["c"] else tag
+
+    def findall(el, *tags):
+        cur = [el]
+        for t in tags:
+            nxt = []
+            for e in cur:
+                nxt.extend(e.findall(q(t)))
+            cur = nxt
+        return cur
+
+    base = os.path.dirname(os.path.abspath(path))
+    doc = GltfDocument()
+
+    # images
+    image_ids: dict[str, int] = {}
+    for img in findall(root, "library_images", "image"):
+        init = img.find(q("init_from"))
+        if init is None or not init.text:
+            continue
+        p = os.path.join(base, init.text.strip())
+        if os.path.exists(p):
+            image_ids[img.get("id", "")] = len(doc.images)
+            doc.images.append(read_image(p))
+
+    # effects -> materials
+    effect_mat: dict[str, int] = {}
+    for eff in findall(root, "library_effects", "effect"):
+        gm = GltfMaterial(name=eff.get("id", ""))
+        gm.metallic = 0.0
+        gm.roughness = 0.5
+        gm.has_metallic_factor = True
+        gm.has_roughness_factor = True
+        # surface init_from -> image (COLLADA indirects sampler->surface->image)
+        surf_img: dict[str, str] = {}
+        for np_ in eff.iter(q("newparam")):
+            s = np_.find(q("surface"))
+            if s is not None:
+                init = s.find(q("init_from"))
+                if init is not None and init.text:
+                    surf_img[np_.get("sid", "")] = init.text.strip()
+        sampler_src = {
+            np_.get("sid", ""): (np_.find(q("sampler2D")).find(q("source")).text or "").strip()
+            for np_ in eff.iter(q("newparam"))
+            if np_.find(q("sampler2D")) is not None
+            and np_.find(q("sampler2D")).find(q("source")) is not None
+        }
+        diffuse = next(iter(eff.iter(q("diffuse"))), None)
+        if diffuse is not None:
+            color = diffuse.find(q("color"))
+            texture = diffuse.find(q("texture"))
+            if color is not None and color.text:
+                gm.base_color = np.array(color.text.split(), np.float32)[:4]
+            if texture is not None:
+                tex_ref = texture.get("texture", "")
+                img_id = surf_img.get(sampler_src.get(tex_ref, ""), tex_ref)
+                if img_id in image_ids:
+                    gm.base_color_texture = image_ids[img_id]
+        effect_mat[eff.get("id", "")] = len(doc.materials)
+        doc.materials.append(gm)
+    # material id -> effect
+    mat_by_id: dict[str, int] = {}
+    for mat in findall(root, "library_materials", "material"):
+        inst = mat.find(q("instance_effect"))
+        if inst is not None:
+            url = (inst.get("url") or "").lstrip("#")
+            if url in effect_mat:
+                mat_by_id[mat.get("id", "")] = effect_mat[url]
+
+    def read_source(mesh_el, source_id):
+        for src in mesh_el.findall(q("source")):
+            if src.get("id") == source_id.lstrip("#"):
+                arr = src.find(q("float_array"))
+                if arr is not None and arr.text:
+                    vals = np.array(arr.text.split(), np.float32)
+                    acc = src.find(q("technique_common"))
+                    stride = 3
+                    if acc is not None:
+                        a = acc.find(q("accessor"))
+                        if a is not None:
+                            stride = int(a.get("stride", 3))
+                    return vals.reshape(-1, stride)
+        return None
+
+    geom_mesh: dict[str, int] = {}
+    for geom in findall(root, "library_geometries", "geometry"):
+        mesh_el = geom.find(q("mesh"))
+        if mesh_el is None:
+            continue
+        # vertices id -> position source
+        vert_src = {}
+        for v in mesh_el.findall(q("vertices")):
+            for inp in v.findall(q("input")):
+                if inp.get("semantic") == "POSITION":
+                    vert_src[v.get("id", "")] = inp.get("source", "")
+        prims = []
+        for tri_el in list(mesh_el.findall(q("triangles"))) + list(
+            mesh_el.findall(q("polylist"))
+        ):
+            inputs = []
+            for inp in tri_el.findall(q("input")):
+                inputs.append(
+                    (
+                        inp.get("semantic"),
+                        inp.get("source", ""),
+                        int(inp.get("offset", 0)),
+                    )
+                )
+            stride = max(o for _, _, o in inputs) + 1 if inputs else 1
+            p_el = tri_el.find(q("p"))
+            if p_el is None or not p_el.text:
+                continue
+            idx = np.array(p_el.text.split(), np.int64).reshape(-1, stride)
+            vcount_el = tri_el.find(q("vcount"))
+            if vcount_el is not None and vcount_el.text:
+                # polylist: fan-triangulate
+                counts = np.array(vcount_el.text.split(), np.int64)
+                tri_rows = []
+                at = 0
+                for c in counts:
+                    for j in range(1, int(c) - 1):
+                        tri_rows.extend([idx[at], idx[at + j], idx[at + j + 1]])
+                    at += int(c)
+                idx = np.stack(tri_rows)
+            corners = idx.reshape(-1, stride)
+            # unique corner tuples -> glTF-style single-index vertices
+            uniq, inv = np.unique(corners, axis=0, return_inverse=True)
+            pos = nrm = uv = None
+            for sem, src, off in inputs:
+                if sem == "VERTEX":
+                    data = read_source(mesh_el, vert_src.get(src.lstrip("#"), src))
+                    if data is not None:
+                        pos = data[uniq[:, off]][:, :3]
+                elif sem == "NORMAL":
+                    data = read_source(mesh_el, src)
+                    if data is not None:
+                        nrm = data[uniq[:, off]][:, :3]
+                elif sem == "TEXCOORD":
+                    data = read_source(mesh_el, src)
+                    if data is not None and uv is None:
+                        t = data[uniq[:, off]][:, :2]
+                        uv = np.stack([t[:, 0], 1.0 - t[:, 1]], axis=1)
+            if pos is None:
+                continue
+            mat_sym = tri_el.get("material", "")
+            mat_idx = mat_by_id.get(mat_sym, -1)
+            prims.append(
+                GltfPrimitive(
+                    positions=np.ascontiguousarray(pos, np.float32),
+                    indices=inv.reshape(-1, 3).astype(np.uint32),
+                    normals=None if nrm is None else np.ascontiguousarray(nrm, np.float32),
+                    texcoords=None if uv is None else np.ascontiguousarray(uv, np.float32),
+                    material=mat_idx,
+                )
+            )
+        geom_mesh[geom.get("id", "")] = len(doc.meshes)
+        doc.meshes.append(prims)
+
+    # scene nodes (visual_scene); instance_geometry materials may rebind via
+    # instance_material but the practical subset maps by geometry material
+    def walk(node_el, parent_idx):
+        T = np.eye(4, dtype=np.float32)
+        mx = node_el.find(q("matrix"))
+        if mx is not None and mx.text:
+            T = np.array(mx.text.split(), np.float32).reshape(4, 4)
+        n = GltfNode(name=node_el.get("name", ""), transform=T)
+        idx = len(doc.nodes)
+        doc.nodes.append(n)
+        if parent_idx is None:
+            doc.roots.append(idx)
+        else:
+            doc.nodes[parent_idx].children.append(idx)
+        for ig in node_el.findall(q("instance_geometry")):
+            url = (ig.get("url") or "").lstrip("#")
+            if url in geom_mesh and n.mesh < 0:
+                n.mesh = geom_mesh[url]
+        for child in node_el.findall(q("node")):
+            walk(child, idx)
+
+    scenes = findall(root, "library_visual_scenes", "visual_scene")
+    for vs in scenes:
+        for node_el in vs.findall(q("node")):
+            walk(node_el, None)
+    if not doc.roots and doc.meshes:
+        for mi in range(len(doc.meshes)):
+            doc.nodes.append(GltfNode(name=f"geom{mi}", mesh=mi))
+            doc.roots.append(len(doc.nodes) - 1)
+    return doc

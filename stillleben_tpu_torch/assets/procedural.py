@@ -4,9 +4,9 @@ numpy only. The port reads the files with its own ``assets.mesh.Mesh`` and
 the JAX package with ``stillleben_tpu.assets.mesh.Mesh``, so both packages
 load the very same geometry and nothing needs a download:
 
-- ``cube``: the 24-vertex cube of ``stillleben_tpu/assets/primitive.py:18``
-  (corners at +-1, per-face normals and uvs);
-- ``sphere``: the 16 x 32 UV sphere of ``primitive.py:48``;
+- ``cube``: the 24-vertex cube of ``primitive://cube`` (``primitive.py``:
+  corners at +-1, per-face normals and uvs);
+- ``sphere``: the 16 x 32 UV sphere of ``primitive://sphere``;
 - ``blob``: a dense non-convex mesh, an icosphere subdivided ``subdiv``
   times (20 * 4^subdiv faces; 81,920 at 6) and displaced radially by
   seeded smooth noise. Load it with ``Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL``
@@ -20,52 +20,23 @@ load the very same geometry and nothing needs a download:
 
 ``checker_texture`` and ``sky_equirect`` are the benchmark's background
 plane texture and sky panorama (copies of ``bench.py:57-84``).
+
+``write_loader_fixtures`` writes every other format the loaders read (glTF,
+GLB, FBX, 3DS, .x, DAE, STL, OFF, a Radiance sky with an sIBL descriptor,
+PNG variants) from these meshes, through ``writers.py``.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 
 import numpy as np
 
 from .image import write_png
-
-
-def _cube():
-    positions, normals, uvs, faces = [], [], [], []
-    for axis in range(3):
-        for sign in (1.0, -1.0):
-            n = np.zeros(3, np.float32)
-            n[axis] = sign
-            u_axis, v_axis = (axis + 1) % 3, (axis + 2) % 3
-            base = len(positions)
-            for du, dv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
-                p = n.copy()
-                p[u_axis] = du * sign
-                p[v_axis] = dv
-                positions.append(p)
-                normals.append(n)
-                uvs.append([(du + 1) / 2, (dv + 1) / 2])
-            faces += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
-    return (np.array(positions, np.float32), np.array(normals, np.float32),
-            np.array(uvs, np.float32), np.array(faces, np.int64))
-
-
-def _uv_sphere(rings: int = 16, segments: int = 32):
-    ring_t = np.linspace(0.0, np.pi, rings + 1)
-    seg_t = np.linspace(0.0, 2 * np.pi, segments + 1)
-    tt, pp = np.meshgrid(ring_t, seg_t, indexing="ij")
-    positions = np.stack(
-        [np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp), np.cos(tt)], axis=-1
-    ).reshape(-1, 3).astype(np.float32)
-    uv = np.stack([pp / (2 * np.pi), tt / np.pi], axis=-1).reshape(-1, 2).astype(np.float32)
-    faces = []
-    for r in range(rings):
-        for s in range(segments):
-            a = r * (segments + 1) + s
-            b = a + segments + 1
-            faces += [[a, b, a + 1], [a + 1, b, b + 1]]
-    return positions, positions.copy(), uv, np.array(faces, np.int64)
+from .primitive import cube_arrays as _cube
+from .primitive import uv_sphere_arrays as _uv_sphere
 
 
 def _icosphere(subdiv: int):
@@ -253,4 +224,190 @@ def write_meshes(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, st
         _write_mtl(os.path.join(directory, stem + ".mtl"), "cutout", f"cutout_seed{seed}.png")
         p, n, uv, f = _cube()
         _write_obj(paths["cube_cutout"], p, f, n, uv, mtl=(stem + ".mtl", "cutout"))
+    return paths
+
+
+# the sky's sun (bench.py:122-124) as an sIBL light: direction
+# -(cos(v pi) sin t, sin(v pi) sin t, cos t), t = (u + 0.5) 2 pi
+SKY_SUN_DIRECTION = np.array([0.3, 0.5, -0.8]) / np.linalg.norm([0.3, 0.5, -0.8])
+SKY_SUN_MULTI, SKY_SUN_COLOR = 3.0, (255.0, 238.0, 212.5)
+
+
+def _sun_uv(direction: np.ndarray) -> tuple[float, float]:
+    pos = -np.asarray(direction, np.float64)
+    theta = np.arccos(np.clip(pos[2], -1.0, 1.0))
+    phi = np.arctan2(pos[1] / np.sin(theta), pos[0] / np.sin(theta))
+    return float(theta / (2 * np.pi) - 0.5), float(phi / np.pi)
+
+
+def _write_features_gltf(path: str) -> None:
+    """A small glTF that reaches every parser path the blob does not: one
+    ``data:`` URI buffer, an interleaved (strided) position/normal view, a
+    sparse accessor moving one vertex, normalized u8 colours, a root node
+    with translation / rotation / scale and a child with a matrix (no
+    ``scenes``: the root is the node no other lists), a material with
+    emissive, alpha mask, double sides and no metallic factor, and a
+    palette PNG with tRNS as a ``data:`` URI image."""
+    from .image import encode_png_samples
+    from .writers import atomic_write, data_uri
+
+    pos = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
+    nrm = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    inter = np.concatenate([pos, nrm], axis=1).astype(np.float32).tobytes()  # stride 24
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16).tobytes()
+    col = np.array([[255, 0, 0, 255], [0, 255, 0, 128], [0, 0, 255, 255], [255, 255, 255, 0]],
+                   np.uint8).tobytes()
+    sp_idx = np.array([2], np.uint16).tobytes() + b"\0\0"
+    sp_val = np.array([[1.5, 1.25, 0.5]], np.float32).tobytes()
+    blob = inter + idx + b"\0\0" + col + sp_idx + sp_val
+    offs = np.cumsum([0, len(inter), len(idx) + 2, len(col), len(sp_idx)]).tolist()
+    rng = np.random.default_rng(3)
+    palette = rng.integers(0, 256, (4, 3), dtype=np.uint8)
+    png = encode_png_samples(rng.integers(0, 4, (8, 8)).astype(np.uint8), 3, 2, palette,
+                             trns=bytes([255, 0, 128]), filter_type=4)
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(blob), "uri": data_uri(blob)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": offs[0], "byteLength": len(inter), "byteStride": 24},
+            {"buffer": 0, "byteOffset": offs[1], "byteLength": len(idx)},
+            {"buffer": 0, "byteOffset": offs[2], "byteLength": len(col)},
+            {"buffer": 0, "byteOffset": offs[3], "byteLength": len(sp_idx)},
+            {"buffer": 0, "byteOffset": offs[4], "byteLength": len(sp_val)},
+        ],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4, "type": "VEC3",
+             "sparse": {"count": 1, "indices": {"bufferView": 3, "componentType": 5123},
+                        "values": {"bufferView": 4}}},
+            {"bufferView": 0, "byteOffset": 12, "componentType": 5126, "count": 4, "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5123, "count": 6, "type": "SCALAR"},
+            {"bufferView": 2, "componentType": 5121, "normalized": True, "count": 4,
+             "type": "VEC4"},
+        ],
+        "meshes": [{"primitives": [
+            {"attributes": {"POSITION": 0, "NORMAL": 1, "COLOR_0": 3}, "indices": 2,
+             "material": 0},
+            {"attributes": {"POSITION": 0}, "indices": 2, "mode": 1},  # lines: skipped
+        ]}],
+        "materials": [{"name": "features", "emissiveFactor": [0.1, 0.2, 0.3],
+                       "alphaMode": "MASK", "alphaCutoff": 0.3, "doubleSided": True,
+                       "pbrMetallicRoughness": {"baseColorFactor": [0.9, 0.8, 0.7, 1.0],
+                                                "roughnessFactor": 0.25,
+                                                "baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}],
+        "images": [{"uri": data_uri(png, "image/png")}],
+        "nodes": [
+            {"name": "root", "translation": [0.5, -0.25, 1.0],
+             "rotation": [0.0, 0.0, 0.38268343, 0.92387953], "scale": [2.0, 2.0, 2.0],
+             "children": [1]},
+            {"name": "child", "mesh": 0,
+             "matrix": [1, 0, 0, 0, 0, 0, 1, 0, 0, -1, 0, 0, 0.1, 0.2, 0.3, 1]},
+        ],
+    }
+    atomic_write(path, json.dumps(doc))
+
+
+def _png_variants(rng) -> dict[str, bytes]:
+    """PNGs of every colour type and depth, with tRNS where the type takes
+    one, plain and Adam7-interlaced, each filter in turn."""
+    from .image import _PNG_TYPES, encode_png_samples
+
+    out = {}
+    k = 0
+    for ctype, (channels, depths) in _PNG_TYPES.items():
+        for depth in depths:
+            for trns in (False, True):
+                if trns and ctype in (4, 6):
+                    continue
+                for interlace in (False, True):
+                    hi = (1 << depth) - 1
+                    n = min(hi + 1, 256)
+                    s = rng.integers(0, n if ctype == 3 else hi + 1, (19, 23, channels))
+                    s = s.astype(np.uint16 if depth == 16 else np.uint8)
+                    palette = rng.integers(0, 256, (n, 3), dtype=np.uint8) if ctype == 3 else None
+                    t = None
+                    if trns and ctype == 3:
+                        t = bytes(rng.integers(0, 256, max(1, n // 2), dtype=np.uint8))
+                    elif trns:
+                        key = s[5, 7, :channels]
+                        t = struct.pack(">" + "H" * channels, *(int(v) for v in key))
+                    name = f"png_c{ctype}_d{depth}{'_trns' if trns else ''}{'_adam7' if interlace else ''}"
+                    out[name] = encode_png_samples(s, ctype, depth, palette, t, interlace, k % 5)
+                    k += 1
+    return out
+
+
+def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
+    """Write every format the loaders read into ``directory`` (files kept
+    if already there) and return their paths by name. Each mesh is the
+    procedural OBJ's document as the port's ``load_obj`` reads it, so the
+    other formats hold the same positions and faces:
+
+    - ``glb``: the textured blob (20 * 4^subdiv faces) with its PNG
+      embedded; ``gltf``: the same as ``.gltf`` with an external ``.bin``
+      (a name with a space, ``%``-escaped in the URI) and the PNG beside it;
+      ``features_gltf``: the small glTF of ``_write_features_gltf``;
+    - ``fbx`` (binary 7.4), ``fbx_7500`` (binary 7.5, 64-bit offsets,
+      deflated arrays), ``fbx_ascii``, ``3ds`` and ``x``: the cube;
+    - ``dae`` (textured), ``stl``, ``stl_ascii`` and ``off``: the sphere;
+    - ``hdr``: the sky panorama, run-length Radiance; ``ibl``: an sIBL
+      descriptor of it with the bench's sun as ``[Sun]``;
+    - ``png_c<type>_d<depth>[_trns][_adam7]``: the codec's PNG variants.
+    """
+    from .image import encode_hdr
+    from .objfile import load_obj
+    from .writers import (
+        atomic_write, write_3ds, write_dae, write_fbx_ascii, write_fbx_binary, write_glb,
+        write_gltf, write_off, write_stl, write_x,
+    )
+
+    objs = write_meshes(directory, subdiv=subdiv, seed=seed)
+    stem = f"blob_s{subdiv}_seed{seed}"
+    tex = f"blob_basecolor_seed{seed}.png"
+    paths = {
+        "glb": f"{stem}.glb", "gltf": f"{stem}.gltf", "features_gltf": "features.gltf",
+        "fbx": "cube.fbx", "fbx_7500": "cube_7500.fbx", "fbx_ascii": "cube_ascii.fbx",
+        "3ds": "cube.3ds", "x": "cube.x", "dae": "sphere.dae", "stl": "sphere.stl",
+        "stl_ascii": "sphere_ascii.stl", "off": "sphere.off", "hdr": "sky.hdr", "ibl": "sky.ibl",
+    }
+    paths = {k: os.path.join(directory, v) for k, v in paths.items()}
+    missing = {k for k, v in paths.items() if not os.path.exists(v)}
+    if missing & {"glb", "gltf"}:
+        blob = load_obj(objs["blob_textured"]).meshes[0][0]
+        with open(os.path.join(directory, tex), "rb") as f:
+            png = f.read()
+        write_glb(paths["glb"], blob, png)
+        write_gltf(paths["gltf"], blob, f"{stem} buffer.bin", image_uri=tex)
+    if "features_gltf" in missing:
+        _write_features_gltf(paths["features_gltf"])
+    if missing & {"fbx", "fbx_7500", "fbx_ascii", "3ds", "x"}:
+        cube = load_obj(objs["cube"]).meshes[0][0]
+        write_fbx_binary(paths["fbx"], cube, version=7400)
+        write_fbx_binary(paths["fbx_7500"], cube, version=7500, compress=True)
+        write_fbx_ascii(paths["fbx_ascii"], cube)
+        write_3ds(paths["3ds"], cube, "cube")
+        write_x(paths["x"], cube, "cube")
+    if missing & {"dae", "stl", "stl_ascii", "off"}:
+        sphere = load_obj(objs["sphere"]).meshes[0][0]
+        write_dae(paths["dae"], sphere, image_file=tex)
+        write_stl(paths["stl"], sphere)
+        write_stl(paths["stl_ascii"], sphere, ascii=True)
+        write_off(paths["off"], sphere)
+    if missing & {"hdr", "ibl"}:
+        atomic_write(paths["hdr"], encode_hdr(sky_equirect(), rle=True))
+        u, v = _sun_uv(SKY_SUN_DIRECTION)
+        ibl = (
+            "[Header]\nICOfile =\nPREVIEWfile =\nName = \"procedural sky\"\n\n"
+            "[Background]\nBGfile = \"sky.hdr\"\n\n"
+            "[Reflection]\nREFfile = \"sky.hdr\"\nREFmap = 1\nREFu = 0\nREFv = 0\n"
+            "REFheight = 64\nREFwidth = 128\n\n"
+            f"[Sun]\nSUNcolor = {','.join(f'{c:g}' for c in SKY_SUN_COLOR)}\n"
+            f"SUNmulti = {SKY_SUN_MULTI:g}\nSUNu = {u:.9g}\nSUNv = {v:.9g}\n"
+        )
+        atomic_write(paths["ibl"], ibl)
+    rng = np.random.default_rng(seed + 17)
+    for name, data in _png_variants(rng).items():
+        p = paths[name] = os.path.join(directory, name + ".png")
+        if not os.path.exists(p):
+            atomic_write(p, data)
     return paths

@@ -11,19 +11,25 @@ the JAX package's scans.
 Cube faces follow the GL convention (+X, -X, +Y, -Y, +Z, -Z); the
 equirect mapping is uv = (atan2(y, x) * 0.1591 + 0.5, asin(z) * 0.3183 + 0.5).
 
-Not ported: loading an sIBL ``.ibl`` descriptor or a Radiance ``.hdr`` file
-(``LightMap(path)`` raises; ROADMAP.md queue A, Next: loaders), and the
-quad-packed cubemap rows (``SL_IBL_QUAD``), a TPU layout.
+``LightMap(path)`` loads an sIBL ``.ibl`` descriptor or a bare image
+(``_load_source``, a copy of JAX ``light_map.py:462-584``): the panorama
+is read as the JAX package reads it through OpenCV, by the port's own
+codec (``assets/image.py::read_image_cv2``: Radiance ``.hdr``, PNG, binary
+PPM; other formats raise by name). Not ported: the quad-packed cubemap rows
+(``SL_IBL_QUAD``), a TPU layout.
 """
 
 from __future__ import annotations
 
+import configparser
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..assets.image import read_image_cv2
 from ..core import math as m
 
 CUBE_SIZE = 512
@@ -328,28 +334,105 @@ def precompute(equirect: torch.Tensor) -> LightMapData:
     return LightMapData(cube, irr, *mips, irradiance_sh=project_irradiance_sh(irr))
 
 
-class LightMap:
-    """Host object: the panorama's analytic lights and the precomputed data."""
+def _load_hdr_image(path: str) -> np.ndarray:
+    """(H, W, 3) float32 linear, as JAX ``light_map.py::_load_hdr_image``:
+    the image as OpenCV reads it (BGR flipped to RGB, grey stacked to three
+    channels), and ``(x / 255) ** 2.2`` only where its maximum exceeds 10
+    and the name ends in .png / .jpg / .jpeg (so a dark 8-bit PNG stays
+    unscaled, and a 16-bit one is divided by 255). The JAX package's
+    Pillow fallback for what OpenCV cannot read has no counterpart: every
+    file the port decodes is one OpenCV reads."""
+    img = read_image_cv2(path).astype(np.float32)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    img = img[..., ::-1]  # BGR -> RGB
+    if img.max() > 10.0 and path.lower().endswith((".png", ".jpg", ".jpeg")):
+        img = (img / 255.0) ** 2.2
+    return np.ascontiguousarray(img)
 
-    def __init__(self, path: str | None = None):
-        if path:
-            raise NotImplementedError(
-                "LightMap(path): the .ibl and .hdr loaders are not ported (ROADMAP.md queue A, "
-                "Next: loaders); use LightMap.from_equirect"
+
+def _load_source(path: str):
+    """(equirect, lights) from an sIBL ``.ibl`` descriptor or a bare image.
+    Real descriptors are hand-written ini files with quirks (a UTF-8 BOM,
+    ``%`` in values, duplicate keys, CRLF, mixed-case keys): parsed
+    leniently. The panorama is ``REFmulti * img ** REFgamma``; each of
+    ``[Sun]``, ``[Light1]``, ``[Light2]`` is an analytic light from the
+    direction theta = (u + 0.5) 2 pi, phi = v pi (reference
+    light_map.cpp:314-326)."""
+    lights = []
+    if path.endswith(".ibl"):
+        cp = configparser.ConfigParser(interpolation=None, strict=False)
+        with open(path, "r", errors="replace") as f:
+            text = f.read().lstrip("\ufeff")
+        cp.read_string(text)
+        if "Reflection" not in cp:
+            raise ValueError(f"{path}: no [Reflection] section — not an sIBL descriptor")
+        base = os.path.dirname(os.path.abspath(path))
+        sec = cp["Reflection"]
+        file = sec.get("REFfile", "").strip('"')
+        gamma = float(sec.get("REFgamma", 1.0))
+        multi = float(sec.get("REFmulti", 1.0))
+        img = _load_hdr_image(os.path.join(base, file))
+        img = multi * (img**gamma)
+
+        def parse_light(section, prefix):
+            if section not in cp:
+                return None
+            g = cp[section]
+            multi = float(g.get(prefix + "multi", 1.0))
+            color = np.ones(3, np.float32)
+            if prefix + "color" in g:
+                parts = g.get(prefix + "color").split(",")
+                color = np.array([float(p) for p in parts], np.float32) / 255.0
+            theta = (float(g.get(prefix + "u", 0.0)) + 0.5) * 2 * np.pi
+            phi = float(g.get(prefix + "v", 0.0)) * np.pi
+            pos = np.array(
+                [np.cos(phi) * np.sin(theta), np.sin(phi) * np.sin(theta), np.cos(theta)],
+                np.float32,
             )
+            return -pos, multi * color
+
+        for section, prefix in [("Sun", "SUN"), ("Light1", "LIGHT"), ("Light2", "LIGHT")]:
+            res = parse_light(section, prefix)
+            if res is not None:
+                lights.append(res)
+    else:
+        img = _load_hdr_image(path)
+    return img.astype(np.float32), lights
+
+
+class LightMap:
+    """Host object: the panorama's analytic lights and the precomputed data.
+    ``LightMap(path)`` loads a descriptor or image and precomputes on
+    ``device``."""
+
+    def __init__(self, path: str | None = None, device="cuda"):
         self.path = ""
+        self.device = torch.device(device)
         self.light_directions = np.zeros((0, 3), np.float32)
         self.light_colors = np.zeros((0, 3), np.float32)
         self.data: LightMapData | None = None
+        if path:
+            self.load(path)
 
     @classmethod
     def from_equirect(cls, equirect, lights=(), device="cuda") -> "LightMap":
         """From an in-memory (H, W, 3) float panorama. ``lights``: (direction,
         colour) pairs, the analytic lights an .ibl descriptor would carry."""
-        lm = cls()
+        lm = cls(device=device)
         lm.path = "<equirect>"
-        for d, c in lights:
-            lm.light_directions = np.concatenate([lm.light_directions, np.asarray(d)[None]])
-            lm.light_colors = np.concatenate([lm.light_colors, np.asarray(c)[None]])
-        lm.data = precompute(torch.from_numpy(np.asarray(equirect, np.float32)).to(device))
+        lm._precompute(np.asarray(equirect, np.float32), lights)
         return lm
+
+    def load(self, path: str) -> bool:
+        """Load ``path`` (.ibl or an image) and precompute on this map's device."""
+        equirect, lights = _load_source(path)
+        self.path = path
+        self._precompute(equirect, lights)
+        return True
+
+    def _precompute(self, equirect: np.ndarray, lights) -> None:
+        for d, c in lights:
+            self.light_directions = np.concatenate([self.light_directions, np.asarray(d)[None]])
+            self.light_colors = np.concatenate([self.light_colors, np.asarray(c)[None]])
+        self.data = precompute(torch.from_numpy(equirect).to(self.device))

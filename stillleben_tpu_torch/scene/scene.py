@@ -587,7 +587,7 @@ class Scene:
         if g.has_value("lightMap"):
             from ..render.light_map import LightMap
 
-            self._light_map = LightMap(g.value("lightMap"))
+            self._light_map = LightMap(g.value("lightMap"), device=self.device)
         if g.has_value("backgroundPlanePose"):
             self._background_plane_pose = parse_matrix(g.value("backgroundPlanePose"))
         if g.has_value("backgroundPlaneSize"):
@@ -622,7 +622,7 @@ class Scene:
         if "lightMap" in d:
             from ..render.light_map import LightMap
 
-            self._light_map = LightMap(d["lightMap"])
+            self._light_map = LightMap(d["lightMap"], device=self.device)
         self._objects = [Object.deserialize(og, cache) for og in d.get("objects", [])]
         self._invalidate()
 

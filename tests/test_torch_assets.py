@@ -2,11 +2,11 @@
 files: the procedural OBJ meshes and a PLY written here.
 
 Consolidated arrays, bounding boxes and pretransforms are exact. Hulls
-equal within 1e-6 when the JAX package cooks with its Python
-decomposition (``STILLLEBEN_TPU_NATIVE_DECOMP=0``), the one algorithm the
-port has; against its default (native, where built) cooking the hull count
-is the same and volume, centre of mass and inertia agree within 1e-4
-relative. The shadow proxy and the aggregate mass properties are equal, and
+equal within 1e-6 when both packages cook with their Python decomposition
+(``STILLLEBEN_TPU_NATIVE_DECOMP=0``); the port's Python cooking against
+the JAX package's default (native) cooking has the same hull count, and
+volume, centre of mass and inertia agree within 1e-4 relative (ROADMAP
+C-9). The shadow proxy and the aggregate mass properties are equal, and
 a cache entry cooked by one package is never read by the other.
 """
 
@@ -58,10 +58,15 @@ def files(tmp_path_factory):
     return paths
 
 
-def load_both(monkeypatch, tmp_path, path, native_decomp=False, flags=0):
+def load_both(monkeypatch, tmp_path, path, native_decomp=False, flags=0, port_native=None):
+    """The port's and the JAX package's mesh of ``path``; ``native_decomp``
+    picks the cooker of both, ``port_native`` (if given) the port's alone."""
     monkeypatch.setenv("STILLLEBEN_TPU_MESH_CACHE", str(tmp_path / "cache"))
+    port_native = native_decomp if port_native is None else port_native
+    monkeypatch.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "1" if port_native else "0")
+    port = Mesh(path, flags=flags)
     monkeypatch.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "1" if native_decomp else "0")
-    return Mesh(path, flags=flags), JaxMesh(path, flags=flags)
+    return port, JaxMesh(path, flags=flags)
 
 
 def hull_arrays(h):
@@ -110,9 +115,12 @@ def test_hulls_against_native_cooking(files, monkeypatch, tmp_path, name):
     than ``MAX_HULL_VERTICES`` points is reduced, and the two JAX cooking
     paths reduce differently (up to 7% of the volume on these meshes): there
     the port follows the Python path (``test_mesh_matches_jax``) and is only
-    held to 10% of the native one."""
+    held to 10% of the native one. The port cooks with its Python path here
+    (``STILLLEBEN_TPU_NATIVE_DECOMP=0``); its native path is held exactly to
+    the JAX package's in ``test_torch_native_decompose.py``."""
     flags = Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL if name == "blob" else 0
-    port, ref = load_both(monkeypatch, tmp_path, files[name], native_decomp=True, flags=flags)
+    port, ref = load_both(monkeypatch, tmp_path, files[name], native_decomp=True, flags=flags,
+                          port_native=False)
     hp, hj = port._physics.hulls, ref._physics.hulls
     assert len(hp) == len(hj)
     reduced = len(np.unique(port.consolidated.positions, axis=0)) > convex.MAX_HULL_VERTICES
@@ -125,9 +133,12 @@ def test_hulls_against_native_cooking(files, monkeypatch, tmp_path, name):
 
 
 def test_other_formats_refused(tmp_path):
-    path = tmp_path / "mesh.stl"
-    path.write_text("solid x\nendsolid x\n")
-    with pytest.raises(ValueError, match=r"\.obj \.ply"):
+    """An extension no loader reads raises, naming every format the port
+    reads (the JAX package's text)."""
+    path = tmp_path / "mesh.blend"
+    path.write_text("not a mesh\n")
+    with pytest.raises(ValueError, match=r"'\.blend' \(supported: \.gltf \.glb \.obj \.ply "
+                                         r"\.stl \.off \.dae \.fbx \.3ds \.x, primitive://\)"):
         Mesh(str(path))
 
 

@@ -39,7 +39,7 @@ NEAR, FAR = 0.1, 10.0
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     tpl = jax_template(meshes)
     poses, cam, light = settled_scene(tpl, key=5)
     jin = frame_inputs(tpl, poses, cam, light)

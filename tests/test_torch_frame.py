@@ -58,7 +58,7 @@ def make_frames(tmp_path_factory, raster):
     in interpret mode, whose tie rule the port follows."""
     jax_cfg = JAX_CFG if raster == "cells" else JAX_CFG._replace(use_pallas=True)
     cfg = CFG._replace(raster=raster)
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     rng = np.random.default_rng(7)
     mr = [(float(rng.random()), float(rng.random())) for _ in meshes]
     tpl = jax_template(meshes, metallic_roughness=mr)

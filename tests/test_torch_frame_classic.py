@@ -46,7 +46,7 @@ def test_classic_frame_against_oracle(tmp_path_factory):
     """At 160x120, where the tile lists hold the small scene (at 48x48 the
     dense mesh crowds a few tiles past their 256 slots, and the farthest
     triangles drop by design)."""
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
     scene = Scene((160, 120))
     for mesh in meshes:
         scene.add_object(Object(mesh))

@@ -78,7 +78,8 @@ def make_full_frames(tmp_path_factory, light_map, case, raster="cells"):
     jax_cfg = JaxFrameConfig(shading_dtype="f32", use_pallas=True if raster == "classic" else None,
                              **kw)
     cfg = FrameConfig(raster=raster, **kw)
-    cube, sphere, blob, cutout = build_full_meshes(str(tmp_path_factory.mktemp("meshes")))
+    cube, sphere, blob, cutout = build_full_meshes(str(tmp_path_factory.mktemp("meshes")),
+                                                   native_decomp=False)
     extras = case == "extras"
     meshes = (cutout, sphere, blob) if extras else (cube, sphere, blob)
     tpl = jax_full_template(meshes, light_map, stickers=extras, overrides=not extras)

@@ -42,7 +42,7 @@ def test_peel_through_every_raster(tmp_path_factory):
     peeled frames agree on >= 97% of the pixels (the classic raster's own
     bound against the oracle), and every raster peels."""
     cube, sphere, blob, cutout = build_full_meshes(
-        str(tmp_path_factory.mktemp("meshes")), port=True)
+        str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
     tpl = port_full_template((cutout, sphere, blob), None, size=(160, 120))  # no light map
     poses, cams, lights = settle_scene(torch.Generator().manual_seed(4), 1, tpl,
                                        default_config(), 10)

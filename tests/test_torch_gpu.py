@@ -54,7 +54,7 @@ pytestmark = pytest.mark.gpu
 def scene(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: these tests compare the port on the card with the CPU")
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
     cpu, gpu = port_template(meshes, "cpu"), port_template(meshes, "cuda")
     poses, cams, lights = settle_scene(torch.Generator().manual_seed(4), 1, cpu, default_config(), 10)
     return cpu, gpu, poses[0], cams[0], lights[0]
@@ -133,7 +133,8 @@ def test_full_frame_on_cuda_matches_cpu(tmp_path_factory):
     explicitly to both templates: a comparison, not a fallback."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                              native_decomp=False)
     size = (160, 120)
     lm = LightMap.from_equirect(sky_equirect(), lights=[SUN], device="cpu")
     cpu = port_full_template((blob, cube, sphere), lm, "cpu", size=size)
@@ -162,7 +163,8 @@ def test_rung_frame_on_cuda_matches_cpu(tmp_path_factory, rung):
     """The small full scene in the frame configuration of each rung."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                              native_decomp=False)
     size = (160, 120)
     lm = LightMap.from_equirect(sky_equirect(), lights=[SUN], device="cpu")
     cpu = port_full_template((blob, cube, sphere), lm, "cpu", size=size)
@@ -348,7 +350,8 @@ def compare_gradients(cpu, gpu, poses, cam, light, size, cfg=None, tol=2e-2):
 
 
 def small_full_templates(tmp_path_factory):
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                              native_decomp=False)
     size = (160, 120)
     lm = LightMap.from_equirect(sky_equirect(), lights=[SUN], device="cpu")
     cpu = port_full_template((blob, cube, sphere), lm, "cpu", size=size)
@@ -390,3 +393,66 @@ def test_refine_step_on_cuda(tmp_path_factory):
         step = delta - 1e-3 * g / g.norm()
         lower, _ = refine_loss(gpu, poses, cam, light, cfg, target, step)
     assert float(lower) < float(loss), (float(lower), float(loss))
+
+
+def test_ibl_light_map_on_cuda_matches_cpu(tmp_path_factory):
+    """``LightMap("sky.ibl")`` (the loaders' fixture: the run-length sky
+    ``.hdr`` and the bench's sun) precomputed on the card and on the CPU:
+    the same lights, and the data within the CPU parity tolerance of
+    ``test_torch_light_map.py`` (1e-4 relative, 1e-4 of the cubemap's peak)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from stillleben_tpu_torch.assets.procedural import write_loader_fixtures
+
+    ibl = write_loader_fixtures(str(tmp_path_factory.mktemp("fixtures")), subdiv=1)["ibl"]
+    cpu, gpu = LightMap(ibl, device="cpu"), LightMap(ibl, device="cuda")
+    np.testing.assert_array_equal(gpu.light_directions, cpu.light_directions)
+    np.testing.assert_array_equal(gpu.light_colors, cpu.light_colors)
+    peak = float(cpu.data.cubemap.abs().max())
+    for name in type(cpu.data)._fields:
+        g, c = getattr(gpu.data, name), getattr(cpu.data, name)
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4, atol=1e-4 * peak,
+                                   err_msg=name)
+
+
+def test_loaded_glb_scene_renders_with_k1(tmp_path_factory, monkeypatch):
+    """A scene of loaded meshes (the textured blob from its GLB, the cube
+    from FBX, ``primitive://sphere``) through the public API on the card:
+    every K1 call of the render (camera and shadow) equals its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets.procedural import write_loader_fixtures
+    from stillleben_tpu_torch.ops import cell_raster as cr
+    from stillleben_tpu_torch.render import rasterize_tiled as rt
+
+    d = tmp_path_factory.mktemp("fixtures")
+    fx = write_loader_fixtures(str(d), subdiv=3)
+    monkeypatch.setenv("STILLLEBEN_TPU_MESH_CACHE", str(d / "mesh_cache"))
+    sl.init()
+    blob, cube, sphere = sl.Mesh.load_threaded([fx["glb"], fx["fbx"], "primitive://sphere"])
+    blob.center_bbox()
+    for i, (mesh, diag) in enumerate(((blob, 0.25), (cube, 0.2), (sphere, 0.15))):
+        mesh.scale_to_bbox_diagonal(diag)
+        mesh.class_index = i + 1
+    scene = sl.Scene((160, 120))
+    scene.seed(2)
+    for mesh in (blob, cube, sphere, blob):
+        scene.add_object(sl.Object(mesh))
+    scene.simulate_tabletop_scene()
+    calls = []
+    original = rt.cell_raster
+
+    def record(*args):
+        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return original(*args)
+
+    monkeypatch.setattr(rt, "cell_raster", record)
+    result = sl.RenderPass().render(scene)
+    assert (result.instance_index().to(torch.int32) > 0).any()
+    assert sorted({a[7] for a in calls}) == [16, 32], "no camera or shadow raster"
+    for args in calls:
+        kernel, plain = cr.cell_raster(*args), cr.cell_raster_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(kernel, plain)), f"tile {args[7]}"

@@ -71,7 +71,7 @@ def settled(tpl):
 def plain(tmp_path_factory):
     """The plain scene: cube, sphere and blob with metallic/roughness."""
     rng = np.random.default_rng(7)
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     mr = [(float(rng.random()), float(rng.random())) for _ in meshes]
     return settled(jax_template(meshes, metallic_roughness=mr))
 

@@ -15,7 +15,7 @@ from torch_port_scene import build_full_meshes, jax_full_template, jax_light_map
 @pytest.fixture(scope="module")
 def full(tmp_path_factory):
     """The textured blob, cube and sphere with the plane and the light map."""
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("full")))
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("full")), native_decomp=False)
     return settled(jax_full_template((cube, sphere, blob), jax_light_map()))
 
 

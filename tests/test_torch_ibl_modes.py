@@ -84,7 +84,8 @@ def test_ibl_term_mode_matches_jax(light_map, monkeypatch, mode):
 
 def test_frame_ibl_modes_match_jax(tmp_path_factory, light_map, monkeypatch):
     kw, env = MODES["both"]
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")))
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")),
+                                              native_decomp=False)
     tpl = jax_full_template((blob, cube, sphere), light_map)
     poses, cam, light = settled_scene(tpl)
     ptpl = template_from_numpy(to_numpy(tpl), "cpu")

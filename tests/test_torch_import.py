@@ -3,9 +3,11 @@ a fresh interpreter that refuses every ``jax``, ``jaxlib``,
 ``stillleben_tpu``, ``PIL`` and ``cv2`` module (the port,
 ``stillleben_tpu_torch``, is another top-level name) imports the whole
 port, loads meshes and their PNG texture from files through the port's own
-``Mesh`` and codec, builds a template with a background plane and a light
-map, renders a full frame through each raster on the CPU, and streams a
-batch in the modes of the tuned and reference-quality configurations."""
+``Mesh`` and codec (every mesh format, cooked by the port's native build),
+reads a light map's descriptor and panorama, saves and loads images,
+builds a template with a background plane and a light map, renders a full
+frame through each raster on the CPU, and streams a batch in the modes of
+the tuned and reference-quality configurations."""
 
 import subprocess
 import sys
@@ -33,7 +35,9 @@ SCRIPT = textwrap.dedent(
     new = {"assets.image", "assets.texture", "render.light_map", "render.ibl", "render.ssao",
            "render.stages", "context", "core.quat", "scene.object", "scene.pose",
            "render.render_pass", "utils.corrade_config", "utils.sanitize", "diff", "losses",
-           "camera_model", "annotate", "debug"}
+           "camera_model", "annotate", "debug", "assets.gltf", "assets.primitive",
+           "assets.fbxfile", "assets.legacy_formats", "assets.native_decompose",
+           "assets.image_loader", "assets.image_saver", "assets.writers"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -46,6 +50,22 @@ SCRIPT = textwrap.dedent(
     from stillleben_tpu_torch.scene.scene import Object, Scene
 
     paths = write_meshes(sys.argv[1], subdiv=2)
+    # every loader, the native cooker, the light map's files and the image
+    # loader and saver, through the port's own codec
+    from stillleben_tpu_torch.assets.procedural import write_loader_fixtures
+    from stillleben_tpu_torch.render import light_map
+    import stillleben_tpu_torch as sl
+    fx = write_loader_fixtures(sys.argv[1] + "/fixtures", subdiv=2)
+    loaded = Mesh.load_threaded([fx[k] for k in ("glb", "gltf", "fbx", "fbx_ascii", "3ds", "x",
+                                                 "dae", "stl", "off")] + ["primitive://cube"])
+    assert all(m.physics_mesh_data["volumes"].sum() > 0 for m in loaded)
+    sky, lights = light_map._load_source(fx["ibl"])
+    assert sky.shape == (64, 128, 3) and len(lights) == 1
+    with sl.ImageSaver(num_threads=1) as saver:
+        saver.save(np.zeros((4, 4, 4), np.uint8), sys.argv[1] + "/fixtures/saved.png")
+    loader = sl.ImageLoader(sys.argv[1] + "/fixtures", seed=0, num_threads=1)
+    assert loader.next_texture().pixels.dtype == np.uint8
+    loader.close()
     scene = Scene((32, 32))
     for name, diag in (("cube", 0.25), ("sphere", 0.3), ("blob_textured", 0.25)):
         flags = Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL if name == "blob_textured" else 0

@@ -139,8 +139,8 @@ def test_from_equirect_matches_jax(jax_data):
         got, ref = getattr(lm.data, name).numpy(), getattr(jax_data, name)
         assert got.shape == ref.shape, name
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * peak, err_msg=name)
-    with pytest.raises(NotImplementedError, match="loaders"):
-        plm.LightMap("sky.ibl")
+    with pytest.raises(FileNotFoundError):  # LightMap(path) loads since the loaders' port
+        plm.LightMap("no_such_sky.ibl", device="cpu")
 
 
 def test_ibl_term_matches_jax(jax_data):

@@ -32,7 +32,7 @@ JCFG = jax_default_config()
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     tpl = jax_template(meshes)
     ptpl = template_from_numpy(to_numpy(tpl), "cpu")
     q = np.random.default_rng(11).normal(size=(len(meshes), 4)).astype(np.float32)

@@ -36,7 +36,7 @@ NEAR, FAR = 0.1, 10.0
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     tpl = jax_template(meshes)
     poses, cam, _ = jax_settle_scene(
         jax.random.PRNGKey(5), tpl, jax_default_config(), settle_iterations=10

@@ -87,8 +87,8 @@ def scenes(tmp_path_factory):
     """The same scene in both packages, with one light map's data."""
     sl.init(device="cpu")
     d = str(tmp_path_factory.mktemp("meshes"))
-    jmeshes = build_full_meshes(d)[:3]
-    pmeshes = build_full_meshes(d, port=True)[:3]
+    jmeshes = build_full_meshes(d, native_decomp=False)[:3]
+    pmeshes = build_full_meshes(d, port=True, native_decomp=False)[:3]
     jlm = jax_light_map()
     plm = LightMap()
     plm.path, plm.light_directions, plm.light_colors = jlm.path, jlm.light_directions, jlm.light_colors

@@ -45,7 +45,7 @@ _jsettle = jax.jit(jtt.settle, static_argnames=("cfg", "iterations", "substeps")
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     tpl = jax_template(meshes)
     ptpl = template_from_numpy(to_numpy(tpl), "cpu")
     n = len(meshes)

@@ -45,7 +45,7 @@ SECOND_LIGHT = (np.array([-0.5, -0.3, -0.9], np.float32) / np.linalg.norm([-0.5,
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
-    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")))
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), native_decomp=True)
     rng = np.random.default_rng(7)
     mr = [(float(rng.random()), float(rng.random())) for _ in meshes]
     tpl = jax_template(meshes, metallic_roughness=mr)

@@ -29,7 +29,7 @@ PLAIN_CFG = FrameConfig(width=W, height=H, max_lights=1, shadow_size=SHADOW_SIZE
 @pytest.fixture(scope="module")
 def meshes(tmp_path_factory):
     """The port's own meshes."""
-    return build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    return build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +91,8 @@ def test_generate_batch_full_configuration_on_cpu(tmp_path_factory, sky_light_ma
     """B = 2 through the small version of the bench-full configuration: the
     port's own template with the textured blob, the checker plane and the
     sky light map; SSAO, trilinear textures, no stickers."""
-    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    cube, sphere, blob, _ = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                              native_decomp=False)
     tpl = port_full_template((blob, cube, sphere), sky_light_map)
     assert tpl.light_map is not None and tpl.render_atlas.num_objects == 4
     assert tpl.base_inputs.obj_instance.shape == (4,) and tpl.bbox_corners.shape[0] == 3
@@ -126,7 +127,8 @@ def test_frame_config_accepts_the_full_options(tmp_path_factory, sky_light_map):
                       max_lights=1, shadow_size=SHADOW_SIZE)
     cfg.check()
     # and it renders: the cutout cube and stickered objects, plane and sky
-    _, sphere, blob, cutout = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True)
+    _, sphere, blob, cutout = build_full_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                                native_decomp=False)
     tpl = port_full_template((cutout, sphere, blob), sky_light_map, stickers=True)
     frames = generate_batch(torch.Generator().manual_seed(1), 1, tpl, cfg, default_config(),
                             settle_iterations=2)

@@ -25,7 +25,8 @@ KW = dict(batch=2, seed=9, settle_iterations=2)
 
 @pytest.fixture(scope="module")
 def tpl(tmp_path_factory):
-    return port_template(build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True))
+    return port_template(build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True,
+                                      native_decomp=False))
 
 
 @pytest.fixture(scope="module")

@@ -43,8 +43,8 @@ def test_png_round_trip(tmp_path, channels):
 
 def test_png_filters_and_ppm_decode(tmp_path):
     """Scanlines written with each of the five PNG filters decode to the
-    image; a binary PPM with a comment decodes; other formats raise with
-    their name."""
+    image; a binary PPM with a comment decodes; a greyscale PNG decodes;
+    other formats raise with their name."""
     import struct
     import zlib
 
@@ -79,9 +79,12 @@ def test_png_filters_and_ppm_decode(tmp_path):
     jpg.write_bytes(b"\xff\xd8\xff\xe0 not really")
     with pytest.raises(NotImplementedError, match="JPEG"):
         image.read_image(str(jpg))
-    grey = image.PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 10, 8, 0, 0, 0, 0))
-    with pytest.raises(NotImplementedError, match="greyscale"):
-        image.decode_png(grey)
+    # a greyscale PNG (once refused) decodes as Pillow's convert("RGBA")
+    grey = (image.PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 10, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(b"\0" + r.tobytes() for r in img[..., 0])))
+            + chunk(b"IEND", b""))
+    np.testing.assert_array_equal(image.decode_png(grey)[..., 0], img[..., 0])
+    assert (image.decode_png(grey)[..., 3] == 255).all()
 
 
 def test_port_png_decodes_like_pillow(tmp_path):
@@ -137,8 +140,8 @@ def _layered(meshes):
 @pytest.fixture(scope="module")
 def atlases(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("meshes"))
-    jm = _layered(build_full_meshes(d))
-    pm = _layered(build_full_meshes(d, port=True))
+    jm = _layered(build_full_meshes(d, native_decomp=False))
+    pm = _layered(build_full_meshes(d, port=True, native_decomp=False))
     js = fill_full_scene(sl.Scene((48, 48)), jm, sl.Object, sl.Texture, sl.Texture2D, None,
                          stickers=True)
     js._objects[1]._color = np.array([0.2, 0.4, 0.6], np.float32)

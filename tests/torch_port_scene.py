@@ -22,13 +22,15 @@ W = H = 48
 SHADOW_SIZE = 64
 
 
-def build_meshes(directory: str, subdiv: int = 3, port: bool = False, native_decomp: bool = True):
+def build_meshes(directory: str, subdiv: int = 3, port: bool = False, *, native_decomp: bool):
     """cube (0.25 bbox diagonal, class 1), sphere (0.3, class 2) and a
     dense blob (0.25, class 3) loaded from the procedural OBJ files, by the
     port's own ``Mesh`` (``port=True``) or by the JAX package's. The convex
-    cooking cache goes to ``directory`` too. ``native_decomp=False`` makes
-    the JAX package cook hulls with its Python decomposition, the one
-    algorithm the port has, so templates of both packages can be compared."""
+    cooking cache goes to ``directory`` too. Both packages read the same
+    switch, ``STILLLEBEN_TPU_NATIVE_DECOMP``, so every caller states the
+    cooker: ``native_decomp`` True cooks with the native decomposer, False
+    with the Python one; templates of the two packages compare only when
+    their meshes were cooked alike."""
     if port:
         from stillleben_tpu_torch.assets.mesh import Mesh
     else:
@@ -38,8 +40,7 @@ def build_meshes(directory: str, subdiv: int = 3, port: bool = False, native_dec
     paths = write_meshes(directory, subdiv=subdiv)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STILLLEBEN_TPU_MESH_CACHE", os.path.join(directory, "mesh_cache"))
-        if not native_decomp:
-            mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "0")
+        mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "1" if native_decomp else "0")
         cube = Mesh(paths["cube"])
         sphere = Mesh(paths["sphere"])
         blob = Mesh(paths["blob"], flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
@@ -188,9 +189,11 @@ SUN = (np.array([0.3, 0.5, -0.8], np.float32) / np.linalg.norm([0.3, 0.5, -0.8])
        np.array([3.0, 2.8, 2.5], np.float32))
 
 
-def build_full_meshes(directory: str, subdiv: int = 3, port: bool = False):
+def build_full_meshes(directory: str, subdiv: int = 3, port: bool = False, *,
+                      native_decomp: bool):
     """cube (class 1), sphere (2), the textured blob (3) and the cube with
-    the cutout texture (4), by the port's ``Mesh`` or the JAX package's."""
+    the cutout texture (4), by the port's ``Mesh`` or the JAX package's,
+    cooked as ``build_meshes`` says."""
     if port:
         from stillleben_tpu_torch.assets.mesh import Mesh
     else:
@@ -200,7 +203,7 @@ def build_full_meshes(directory: str, subdiv: int = 3, port: bool = False):
     paths = write_meshes(directory, subdiv=subdiv)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STILLLEBEN_TPU_MESH_CACHE", os.path.join(directory, "mesh_cache"))
-        mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "0")
+        mp.setenv("STILLLEBEN_TPU_NATIVE_DECOMP", "1" if native_decomp else "0")
         cube = Mesh(paths["cube"])
         sphere = Mesh(paths["sphere"])
         blob = Mesh(paths["blob_textured"], flags=Mesh.Flag.PHYSICS_FORCE_CONVEX_HULL)
