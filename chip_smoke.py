@@ -6,7 +6,10 @@ public host API (``Scene`` -> ``simulate_tabletop_scene`` ->
 ``RenderPass().render``), render-and-compare pose refinement (autograd
 through ``render_with_poses``, and ``sl.diff``) and the reference's asset
 and light-map loaders (every mesh format, the native hull cooker,
-``sl.LightMap`` from an sIBL descriptor, ``ImageSaver`` / ``ImageLoader``).
+``sl.LightMap`` from an sIBL descriptor, ``ImageSaver`` / ``ImageLoader``)
+and the rest of the public table (``Viewer`` and its web front-end,
+``JobQueue``, ``ManipulationSim`` with telemetry, ``profiling``,
+``extension``, the sanitizers).
 
     python3 chip_smoke.py
 
@@ -137,6 +140,32 @@ Phases (one line each or more; any failure exits non-zero):
     writes the RGB (RGBA PNG), the depth (16-bit PNG, millimetres) and the
     instance and class maps, which the port's decoder reads back bitwise,
     and ``sl.ImageLoader(dir, seed=0)`` yields 4 textures from them.
+16. public table (runs right after phase 13, on its settled scene of seed
+    0, which it leaves as it found it): ``sl.Viewer(scene).dashboard()``
+    (960, 1280, 3) uint8, first and warm ms; K1's launches per dashboard
+    by tile (one camera, two shadow passes: the dark slot 0, the sun in
+    slot 1) and no plain piece called; K1 ``torch.equal`` to its plain
+    version on the dashboard's camera and both shadow inputs;
+    ``play_script`` (a drag, which moves the camera rigidly, a scroll, the
+    keys o, m, i, a space and 5 frames of ``Scene.simulate`` with 10
+    objects: ``sim_iteration`` 5, ms per frame; each frame differs from the
+    one before, but the space's, which only starts the physics);
+    ``run(path)`` takes the headless branch and its PNG reads back bitwise
+    equal to its dashboard. The web viewer on 127.0.0.1 (``serve(port=0,
+    block=False)``): the page, ``/frame.png`` equal to the dashboard it
+    rendered, a drag that moves the camera, a key, a 404, ``close()``.
+    ``sanitize.debug_nans()`` around a dashboard (raises nothing; its ms
+    under the mode) and with object 0's pose NaN (raises naming the aten
+    op); ``checked`` on an integer division by zero and out-of-range
+    indices on the card, the context alive after. ``profiling.Timer`` with
+    ``sync=`` against CUDA events around the same render. ``extension.load``
+    of a source against ``sl_decompose.h``. ``ManipulationSim``
+    (``tests/test_tools.py::test_manipulation_torque_transfer``'s setup:
+    the target pushed and spun, the pusher's rotation locked; ms per step)
+    with ``PhysicsTelemetry`` recording each step (summary, JSONL round
+    trip, replay). ``JobQueue(num_threads=2)`` settling two scenes of phase
+    13's composition (seeds 2 and 3): finite, above the floor, centres in
+    view; the pair's wall seconds beside phase 13's serial settle.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -945,9 +974,11 @@ def check_api_result(torch, result, scene, what: str, plane: bool = True) -> str
             f"{float(result.rgb().float().std()):.2f}")
 
 
-def run_api(torch, cr, rt, light_map, card) -> list:
+def run_api(torch, cr, rt, light_map, card) -> tuple:
     """Phase 13: the public host API at 640x480 (see the module docstring).
-    Returns the kernels' entries of K1 on this path's inputs."""
+    Returns the kernels' entries of K1 on this path's inputs, the settled
+    scene of seed 0, the seconds of each seed's settle and the function
+    that builds a scene of this composition for a seed."""
     import numpy as np
 
     import stillleben_tpu_torch as sl
@@ -1108,9 +1139,9 @@ def run_api(torch, cr, rt, light_map, card) -> list:
     # peel pass's camera raster (md_tiles given)
     cam = [a for k, _, a in captured if k == "camera" and a[3] is None]
     shadow = {}  # each light slot's first call
-    for k, sl, a in captured:
+    for k, slot, a in captured:
         if k == "shadow":
-            shadow.setdefault(sl, a)
+            shadow.setdefault(slot, a)
     peel_cam = [a for k, _, a in captured if k == "camera" and a[3] is not None]
     if len(cam) != 1 or sorted(shadow) != [0, 1] or len(peel_cam) != 1:
         fail(f"api: captured {len(cam)} camera, shadow slots {sorted(shadow)}, "
@@ -1140,7 +1171,7 @@ def run_api(torch, cr, rt, light_map, card) -> list:
                             source="stillleben_tpu_torch/csrc/cell_raster.cu",
                             replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
                             library_ms=None, **k))
-    return entries, scenes[0]
+    return entries, scenes[0], [run["settle_s"] for run in per_seed], api_scene
 
 
 REFINE_STEPS = 10
@@ -1522,9 +1553,6 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     secs["settle"] = time.perf_counter() - t0
 
     # one render, every K1 call kept; K1's launches by tile
-    calls = []
-    cr.reset_launch_counts()
-
     def render():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1533,30 +1561,7 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
         secs["render"] = time.perf_counter() - t0
         return out
 
-    from stillleben_tpu_torch.render import shadow as shadow_mod
-
-    original, orig_shadow = rt.cell_raster, shadow_mod._ortho_rasterize_depth
-    in_shadow = [False]
-
-    def record(*args):
-        calls.append(("shadow" if in_shadow[0] else "camera",
-                      tuple(a.clone() if hasattr(a, "clone") else a for a in args)))
-        return original(*args)
-
-    def record_shadow(*args, **kwargs):  # one call per light slot, in order
-        in_shadow[0] = True
-        try:
-            return orig_shadow(*args, **kwargs)
-        finally:
-            in_shadow[0] = False
-
-    rt.cell_raster, shadow_mod._ortho_rasterize_depth = record, record_shadow
-    try:
-        result, plain_calls = count_calls(cr, PLAIN_K1, render)
-    finally:
-        rt.cell_raster, shadow_mod._ortho_rasterize_depth = original, orig_shadow
-    torch.cuda.synchronize()
-    launches = dict(cr.cell_raster.launches_by_tile)
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
     content = check_api_result(torch, result, scene, "loaders render")
     phase("loaders", f"scene of {len(scene.objects)} loaded objects + plane, {WIDTH}x{HEIGHT}: "
                      f"simulate_tabletop_scene {secs['settle']:.3f} s, RenderPass().render "
@@ -1566,8 +1571,8 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     z = [float(o.pose()[2, 3]) for o in scene.objects]
     if min(z) < 0.0 or max(z) > 2.0:
         fail(f"loaders: the settle left objects off the table: {z}")
-    cam = [a for k, a in calls if k == "camera"]
-    shadow = [a for k, a in calls if k == "shadow"]
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = [a for k, _, a in calls if k == "shadow"]
     # the light map's sun takes the free light slot 1: two shadow passes
     if (any(plain_calls.values()) or len(cam) != 1 or len(shadow) != 2
             or sum(launches.values()) != len(calls)):
@@ -1614,6 +1619,396 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     if not all(same.values()) or shapes != [(HEIGHT, WIDTH, 4)]:
         fail("loaders: what ImageSaver wrote does not read back")
     return entries, secs
+
+
+JOB_SEEDS = (2, 3)
+MANIP_STEPS, MANIP_DT = 120, 0.01
+
+
+def record_k1(torch, cr, rt, run):
+    """Run ``run()`` with every K1 call kept (pass, light slot, cloned
+    arguments) and K1's plain pieces counted; returns (run's result, the
+    calls, the launches by tile, the plain calls)."""
+    from stillleben_tpu_torch.render import shadow as shadow_mod
+
+    calls = []
+    original, orig_shadow = rt.cell_raster, shadow_mod._ortho_rasterize_depth
+    slot = [None, 0]  # the running shadow raster's light slot, the next slot
+
+    def record(*args):
+        calls.append(("camera" if slot[0] is None else "shadow", slot[0],
+                      tuple(a.clone() if hasattr(a, "clone") else a for a in args)))
+        return original(*args)
+
+    def record_shadow(*args, **kwargs):  # one call per light slot, in order
+        slot[0] = slot[1]
+        slot[1] += 1
+        try:
+            return orig_shadow(*args, **kwargs)
+        finally:
+            slot[0] = None
+
+    def run_once():
+        slot[1] = 0
+        return run()
+
+    cr.reset_launch_counts()
+    rt.cell_raster, shadow_mod._ortho_rasterize_depth = record, record_shadow
+    try:
+        out, plain_calls = count_calls(cr, PLAIN_K1, run_once)
+    finally:
+        rt.cell_raster, shadow_mod._ortho_rasterize_depth = original, orig_shadow
+    torch.cuda.synchronize()
+    return out, calls, dict(cr.cell_raster.launches_by_tile), plain_calls
+
+
+def sync_timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) -> list:
+    """Phase 16: the rest of the public table on phase 13's settled scene
+    of seed 0 (see the module docstring), which it leaves as it found it.
+    Returns the kernels' entries of K1 on the dashboard's inputs."""
+    import json as json_mod
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets.image import decode_png_samples, read_png_samples
+    from stillleben_tpu_torch.physics.telemetry import PhysicsTelemetry
+    from stillleben_tpu_torch.utils import sanitize
+
+    dev = sl.context().device
+    build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
+    W, H = scene.viewport
+    saved = ([(o.pose(), o.linear_velocity, o.angular_velocity) for o in scene.objects],
+             scene.camera_pose(), scene.manual_exposure)
+
+    # -- the viewer: the dashboard, K1 on its inputs, the scripted session
+    viewer = sl.Viewer(scene)
+    first, first_s = sync_timed(torch, viewer.dashboard)
+    (warm, warm_s), calls, launches, plain_calls = record_k1(
+        torch, cr, rt, lambda: sync_timed(torch, viewer.dashboard))
+    if (first.shape != (2 * H, 2 * W, 3) or first.dtype != np.uint8
+            or not np.array_equal(first, warm)):
+        fail(f"viewer: dashboard {first.shape} {first.dtype}, first == warm "
+             f"{np.array_equal(first, warm)}")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    phase("public table", f"Viewer.dashboard() {first.shape} {first.dtype}: {1e3 * first_s:.1f} ms "
+                          f"first (render pass and atlas built), {1e3 * warm_s:.1f} ms warm; K1 "
+                          f"launches per dashboard by tile {launches} (camera {len(cam)}, shadow "
+                          f"light slots {sorted(shadow)}); calls of K1's plain pieces "
+                          f"{plain_calls} ({card})")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or sum(launches.values()) != len(calls)):
+        fail(f"viewer: K1 calls {len(calls)}, launches {launches}, plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"dashboard camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"dashboard shadow, dark light slot 0, tile {shadow[0][7]}", shadow[0], ("shadow", 0)),
+        (f"dashboard shadow, the sky's sun in slot 1, tile {shadow[1][7]}", shadow[1],
+         ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=sum(1 for kind, slot, _ in calls if (kind, slot) == key),
+                            library_ms=None, **k))
+
+    step_s = []
+    original_step = viewer.step
+
+    def timed_step():
+        _, secs = sync_timed(torch, original_step)
+        step_s.append(secs)
+
+    viewer.step = timed_step
+    ball_center = viewer._make_arcball().center
+    # every event but the space (which only starts the physics) changes the frame
+    events = [("drag", (W, H), (int(W * 1.6), H), 5), ("scroll", 2), ("key", "o"), ("key", "m"),
+              ("key", "i"), ("key", " "), ("frames", 5)]
+    seen, cams = [], []
+    frames, script_s = sync_timed(torch, lambda: viewer.play_script(
+        events, frame_cb=lambda ev, img: (seen.append(ev[0]), cams.append(scene.camera_pose()))))
+    viewer.step = original_step
+    R = cams[0][:3, :3]
+    rigid = (np.abs(R @ R.T - np.eye(3)).max() < 1e-5 and abs(np.linalg.det(R) - 1) < 1e-5)
+    radius = [float(np.linalg.norm(c[:3, 3] - ball_center)) for c in (saved[1], cams[0])]
+    differ = [bool((frames[i] != frames[i + 1]).any()) for i in range(len(frames) - 1)]
+    z = [float(o.pose()[2, 3]) for o in scene.objects]
+    phase("public table", f"play_script {[e[0] for e in events]}: frames after {seen}, "
+                          f"{1e3 * script_s:.1f} ms; the drag moved the camera rigidly "
+                          f"{rigid} (distance to the arcball's centre {radius[0]:.6f} -> "
+                          f"{radius[1]:.6f}); shading {viewer.shading}, ssao "
+                          f"{viewer.ssao_enabled}, instances {viewer.show_instances}; "
+                          f"sim_iteration {viewer.sim_iteration}: Scene.simulate on {dev} with "
+                          f"{len(scene.objects)} objects + plane, "
+                          f"{1e3 * sum(step_s) / max(len(step_s), 1):.2f} ms per frame (4 "
+                          f"substeps); consecutive frames differ {differ} (the space changes "
+                          f"nothing on screen) ({card})")
+    if (seen != ["drag", "scroll", "key", "key", "key", "key", "frames"] or not rigid
+            or abs(radius[0] - radius[1]) > 1e-4 or np.allclose(cams[0], saved[1], atol=1e-6)
+            or viewer.sim_iteration != 5 or len(step_s) != 5 or differ[4] or not all(differ[:4])
+            or not differ[5]
+            or not all(np.isfinite(z))):
+        fail("viewer: the scripted session is wrong")
+    os.environ.pop("DISPLAY", None)
+    written = []
+    original_dashboard = viewer.dashboard
+    viewer.dashboard = lambda: written.append(original_dashboard()) or written[-1]
+    out_png = os.path.join(build, f"viewer_{os.getpid()}.png")
+    viewer.run(out_png)
+    viewer.dashboard = original_dashboard
+    back = read_png_samples(out_png).samples.reshape(2 * H, 2 * W, 3)
+    same_run = len(written) == 1 and np.array_equal(back, written[0])
+    again = np.array_equal(viewer.dashboard(), written[0])
+    phase("public table", f"Viewer.run({os.path.basename(out_png)}) took the headless branch; the "
+                          f"PNG reads back bitwise equal to its dashboard {same_run}; a second "
+                          f"dashboard() of the same state equal {again}")
+    if not same_run:
+        fail("viewer: the PNG of run() does not hold the dashboard")
+
+    # -- the web viewer on 127.0.0.1
+    srv = viewer.serve(host="127.0.0.1", port=0, block=False)
+    served = []
+    viewer.dashboard = lambda: served.append(original_dashboard()) or served[-1]
+    try:
+        def get(path):
+            with urllib.request.urlopen(srv.url.rstrip("/") + path, timeout=120) as r:
+                return r.status, r.headers.get("Content-Type", ""), r.read()
+
+        def post(ev):
+            req = urllib.request.Request(srv.url + "event", data=json_mod.dumps(ev).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json_mod.loads(r.read())
+
+        page = get("/")
+        (_, ctype, png), png_s = sync_timed(torch, lambda: get("/frame.png"))
+        frame = decode_png_samples(png).samples.reshape(2 * H, 2 * W, 3)
+        frame_ok = len(served) == 1 and np.array_equal(frame, served[0])
+        cam0 = scene.camera_pose()
+        seq0 = post({"type": "tick"})["seq"]
+        post({"type": "drag_start", "x": float(W), "y": float(H)})
+        moved = post({"type": "drag", "x": W * 1.3, "y": H * 0.8})
+        post({"type": "drag_end"})
+        cam_moved = not np.allclose(scene.camera_pose(), cam0)
+        ssao0 = viewer.ssao_enabled
+        keyed = post({"type": "key", "key": "o"})
+        try:
+            get("/nope")
+            bad = None
+        except urllib.error.HTTPError as e:
+            bad = e.code
+    finally:
+        srv.close()
+        viewer.dashboard = original_dashboard
+    phase("public table", f"web viewer on {srv.url}: GET / {page[0]} {page[1]}; GET /frame.png "
+                          f"{ctype}, {len(png)} bytes in {1e3 * png_s:.1f} ms, decodes equal to the "
+                          f"dashboard it rendered {frame_ok}; drag POST /event seq {seq0} -> "
+                          f"{moved['seq']}, camera moved {cam_moved}; key 'o' ssao {ssao0} -> "
+                          f"{viewer.ssao_enabled} (seq {keyed['seq']}); GET /nope {bad}; closed")
+    if (page[0] != 200 or b"/frame.png" not in page[2] or ctype != "image/png" or not frame_ok
+            or not cam_moved or moved["seq"] <= seq0 or viewer.ssao_enabled == ssao0
+            or bad != 404):
+        fail("web viewer: a route is wrong")
+    # the scene as phase 13 left it
+    for o, (pose, lin, ang) in zip(scene.objects, saved[0]):
+        o.set_pose(pose)
+        o.linear_velocity, o.angular_velocity = lin, ang
+    scene.set_camera_pose(saved[1])
+    scene.manual_exposure = saved[2]
+
+    # -- sanitize: debug_nans around a dashboard, at a NaN pose; checked
+    viewer = sl.Viewer(scene)
+    viewer.dashboard()
+    with sanitize.debug_nans():
+        clean, nan_s = sync_timed(torch, viewer.dashboard)
+    o0 = scene.objects[0]
+    pose0 = o0.pose()
+    bad_pose = pose0.copy()
+    bad_pose[0, 3] = np.nan
+    o0.set_pose(bad_pose)
+    try:
+        with sanitize.debug_nans():
+            viewer.dashboard()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        o0.set_pose(pose0)
+    x = torch.arange(64, device=dev)
+    checks = {}
+    for what, fn in (("int division by zero", lambda: sanitize.checked(lambda a: a // (a % 2))(x)),
+                     ("out-of-range gather", lambda: sanitize.checked(
+                         lambda a: torch.gather(a, 0, torch.tensor([3, 64], device=dev)),
+                         oob=True)(x)),
+                     ("out-of-range index", lambda: sanitize.checked(
+                         lambda a: a[torch.tensor([-65], device=dev)], oob=True)(x))):
+        try:
+            fn()
+            checks[what] = "not caught"
+        except sanitize.CheckError as e:
+            checks[what] = str(e)
+    torch.cuda.synchronize()
+    alive = int(x.sum()) == 2016
+    phase("public table", f"sanitize.debug_nans() around one dashboard: raised nothing, "
+                          f"{1e3 * nan_s:.1f} ms under the mode; with object 0's pose NaN: "
+                          f"{raised!r}; checked: {checks}; the context works after: {alive} "
+                          f"({card})")
+    if (clean.shape != (2 * H, 2 * W, 3) or raised is None or "aten." not in raised
+            or any(v == "not caught" for v in checks.values()) or not alive):
+        fail("sanitize: a check is wrong")
+
+    # -- profiling: Timer(sync=) against CUDA events around the same render
+    from stillleben_tpu_torch import profiling
+
+    rp = sl.RenderPass()
+    rp.render(scene)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    profiling.Timer.enabled = True
+    try:
+        out = []
+        with profiling.Timer("phase 16 profile"):
+            with profiling.Timer("render", sync=out):
+                start.record()
+                out.append(rp.render(scene).rgb())
+                end.record()
+            timer_ms = 1e3 * profiling._records[-1][2]
+            with profiling.Timer("render, no sync"):
+                rp.render(scene)
+            nosync_ms = 1e3 * profiling._records[-1][2]
+    finally:
+        profiling.Timer.enabled = False
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    phase("public table", f"profiling.Timer('render', sync=[rgb]) {timer_ms:.3f} ms, CUDA events "
+                          f"around the same render {event_ms:.3f} ms; without sync "
+                          f"{nosync_ms:.3f} ms (the enqueue)")
+    if timer_ms < event_ms:
+        fail("profiling: the synchronized Timer read less than the render's device time")
+
+    # -- extension: a small source against the port's sl_decompose.h
+    import ctypes
+
+    from stillleben_tpu_torch import extension
+
+    src = os.path.join(build, "ext_probe.cpp")
+    with open(src, "w") as f:
+        f.write('#include "sl_decompose.h"\n'
+                'extern "C" float sl_probe_volume(const float* pts, int n) {\n'
+                "  float v[64 * 3], p[64 * 4], vol = 0.f, com[3], inertia[9];\n"
+                "  int nv = 0, np_ = 0;\n"
+                "  if (sl_convex_hull(pts, n, 64, 64, v, &nv, p, &np_, &vol, com, inertia) != 1)"
+                " return -1.f;\n  return vol;\n}\n")
+    t0 = time.perf_counter()
+    lib = extension.load("sl_probe", [src, os.path.join(extension.include_paths()[0],
+                                                        "sl_decompose.cpp")])
+    ext_s = time.perf_counter() - t0
+    fn = lib.sl_probe_volume
+    fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+    fn.restype = ctypes.c_float
+    corners = np.array([[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)], np.float32)
+    vol = fn(corners.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), 8)
+    phase("public table", f"extension.load: a source including sl_decompose.h from "
+                          f"{os.path.relpath(extension.include_paths()[0], ROOT)} and the cooker "
+                          f"built by g++ in {ext_s:.3f} s; sl_convex_hull of a unit cube's corners "
+                          f"gives volume {vol:.6f}")
+    if abs(vol - 1.0) > 1e-5:
+        fail("extension: the built function is wrong")
+
+    # -- ManipulationSim with telemetry: test_manipulation_torque_transfer
+    mesh = sl.Mesh("primitive://cube")
+    mesh.scale_to_bbox_diagonal(0.2)
+    mscene = sl.Scene((WIDTH, HEIGHT))
+    mscene.gravity = [0.0, 0.0, 0.0]
+    pusher, target = sl.Object(mesh), sl.Object(mesh)
+    mscene.add_object(pusher)
+    tpose = np.eye(4, dtype=np.float32)
+    tpose[:3, 3] = [0.18, 0.07, 0.0]
+    target.set_pose(tpose)
+    mscene.add_object(target)
+    sim = sl.ManipulationSim(mscene, pusher, np.eye(4, dtype=np.float32))
+    goal = np.eye(4, dtype=np.float32)
+    goal[:3, 3] = [0.35, 0.0, 0.0]
+    tele = PhysicsTelemetry()
+    tele.record(mscene)
+    step_s = []
+    for _ in range(MANIP_STEPS):
+        _, secs = sync_timed(torch, lambda: sim.step(goal, MANIP_DT))
+        step_s.append(secs)
+        tele.record(mscene)
+    spin = float(np.abs(target.angular_velocity).max())
+    Rt = target.pose()[:3, :3]
+    angle = float(np.arccos(np.clip((np.trace(Rt) - 1) / 2, -1, 1)))
+    lock = float(np.abs(pusher.pose()[:3, :3] - np.eye(3)).max())
+    summary = tele.summary()
+    path = tele.save(os.path.join(build, f"telemetry_{os.getpid()}.jsonl"))
+    loaded, loaded_summary = PhysicsTelemetry.load(path)
+    end_poses = [o.pose() for o in mscene.objects]
+    tele.replay(mscene, 0)
+    replay_0 = float(np.abs(target.pose() - tpose).max())
+    tele.replay(mscene, len(tele.frames) - 1)
+    replay_last = max(float(np.abs(o.pose() - p).max()) for o, p in zip(mscene.objects, end_poses))
+    phase("public table", f"ManipulationSim on {mscene.device}: two 0.2 m cubes, gravity 0, goal "
+                          f"0.35 m, {MANIP_STEPS} steps of {MANIP_DT} s: target x "
+                          f"{target.pose()[0, 3]:.4f} m, spin {spin:.5f} rad/s, angle "
+                          f"{angle:.5f} rad; the pusher's rotation off identity by {lock:.2e}; "
+                          f"{1e3 * np.mean(step_s[1:]):.2f} ms per step (the first "
+                          f"{1e3 * step_s[0]:.1f}) ({card})")
+    phase("public table", f"telemetry: summary {summary}; JSONL save/load of {len(loaded)} frames "
+                          f"equal {loaded == tele.frames and loaded_summary == summary}; replay of "
+                          f"frame 0 puts the target back within {replay_0:.2e}, of the last frame "
+                          f"within {replay_last:.2e}")
+    if (target.pose()[0, 3] <= 0.20 or not (spin > 1e-3 or angle > 5e-3) or lock > 1e-5
+            or loaded != tele.frames or loaded_summary != summary or summary["frames"] != MANIP_STEPS + 1
+            or replay_0 > 1e-5 or replay_last > 1e-5):
+        fail("manipulation: a property does not hold")
+
+    # -- JobQueue: two scenes of phase 13's composition on two threads
+    scenes = [make_scene(seed) for seed in JOB_SEEDS]
+    queue = sl.JobQueue(num_threads=2)
+    try:
+        def pair():
+            for s in scenes:
+                queue.add_scene(s)
+            return [queue.retrieve_scene() for _ in scenes]
+
+        done, pair_s = sync_timed(torch, pair)
+    finally:
+        queue.close()
+    report = []
+    for s in scenes:
+        P = s.projection_matrix() @ np.linalg.inv(s.camera_pose())
+        centers = np.array([o.pose()[:3, 3] for o in s.objects])
+        clip = np.c_[centers, np.ones(len(centers))] @ P.T
+        ndc = clip[:, :2] / clip[:, 3:]
+        z = centers[:, 2]
+        finite = all(np.isfinite(o.pose()).all() for o in s.objects)
+        in_view = bool((clip[:, 3] > 0).all() and (np.abs(ndc) <= 1).all())
+        report.append((finite, float(z.min()), in_view))
+        if not finite or z.min() <= 0.0 or z.max() > 2.0 or not in_view:
+            fail(f"job queue: scene {JOB_SEEDS[len(report) - 1]}: finite {finite}, z {z.tolist()}, "
+                 f"in view {in_view}")
+    serial = sum(serial_settle_s) / len(serial_settle_s)
+    phase("public table", f"JobQueue(num_threads=2), seeds {JOB_SEEDS}, {len(scenes[0].objects)} "
+                          f"objects + plane each: the pair in {pair_s:.3f} s wall against "
+                          f"{serial:.3f} s per serial settle in phase 13 (two serial settles "
+                          f"over the pair: {2 * serial / pair_s:.2f}x); (finite, lowest z, "
+                          f"centres in view) {report} ({card})")
+    if {id(s) for s in done} != {id(s) for s in scenes}:
+        fail("job queue: the scenes that came back are not the scenes sent")
+    return entries
 
 
 def main() -> None:
@@ -2089,8 +2484,16 @@ def main() -> None:
 
     # 13. the public host API: Scene -> simulate_tabletop_scene ->
     # RenderPass().render, a depth-peel pass and supersample=2, two seeds
-    api_entries, api_scene = run_api(torch, cr, rt, light_map, card)
+    api_entries, api_scene, api_settle_s, make_api_scene = run_api(torch, cr, rt, light_map, card)
     kernels.extend(api_entries)
+
+    # 16. the rest of the public table on phase 13's scene of seed 0, before
+    # phase 14 moves that scene into the camera frame: the viewer and its
+    # web front-end, sanitize, profiling, extension, ManipulationSim with
+    # telemetry, JobQueue
+    t0 = time.perf_counter()
+    kernels.extend(run_public_table(torch, cr, rt, api_scene, api_settle_s, make_api_scene, card))
+    phase("public table", f"phase 16 in {time.perf_counter() - t0:.1f} s")
 
     # 14. render-and-compare pose refinement: the trainer on phase 4's
     # settled bench-full scene 0, the card against the CPU on phase 11's

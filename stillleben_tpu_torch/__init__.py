@@ -25,8 +25,9 @@ The batched datagen entry point is ``parallel.batch.generate_batch``.
 Render-and-compare pose refinement differentiates
 ``parallel.batch.render_with_poses`` with autograd, or chains image
 gradients to poses with ``sl.diff`` (the reference's approximate module).
-Names of the JAX package's table that are not ported yet raise an
-``AttributeError`` that says so.
+The rest of the reference's table is here too: ``Viewer`` / ``view`` (and
+the web viewer), ``JobQueue``, ``ManipulationSim``, ``Animator``,
+``profiling`` and ``extension``; the name table equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -52,9 +53,14 @@ _LAZY = {
     "Texture2D": (".assets.texture", "Texture2D"),
     "ImageLoader": (".assets.image_loader", "ImageLoader"),
     "ImageSaver": (".assets.image_saver", "ImageSaver"),
+    "Animator": (".scene.animator", "Animator"),
+    "JobQueue": (".scene.job_queue", "JobQueue"),
+    "ManipulationSim": (".scene.manipulation_sim", "ManipulationSim"),
     "Range3D": (".core.range3d", "Range3D"),
     "quat_to_matrix": (".core.quat", "quat_to_matrix"),
     "matrix_to_quat": (".core.quat", "matrix_to_quat"),
+    "view": (".viewer", "view"),
+    "Viewer": (".viewer", "Viewer"),
     "generate_stream": (".parallel.batch", "generate_stream"),
     "render_debug_image": (".debug", "render_debug_image"),
     "object_annotations": (".annotate", "object_annotations"),
@@ -62,12 +68,13 @@ _LAZY = {
     "camera_model": (".camera_model", None),
     "diff": (".diff", None),
     "losses": (".losses", None),
+    "profiling": (".profiling", None),
+    "extension": (".extension", None),
 }
 
-# the rest of the JAX package's table (stillleben_tpu/__init__.py:31-64)
-NOT_PORTED = (
-    "Animator", "JobQueue", "ManipulationSim", "view", "Viewer", "profiling", "extension",
-)
+# names of the JAX package's table (stillleben_tpu/__init__.py:31-64) that
+# are not ported yet: none
+NOT_PORTED = ()
 
 __all__ = sorted(_LAZY)
 
@@ -80,10 +87,6 @@ context = _context_module.context
 
 
 def __getattr__(name: str):
-    if name in NOT_PORTED:
-        raise AttributeError(
-            f"stillleben_tpu_torch.{name} is not ported yet (ROADMAP.md, queue A)"
-        )
     if name not in _LAZY:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     mod_name, attr = _LAZY[name]

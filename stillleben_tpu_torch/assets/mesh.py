@@ -76,6 +76,9 @@ class Mesh:
         self._class_index = 0
         self._physics: PhysicsMeshData | None = None
         self._dirty = 0  # bumped by every edit of the vertices or the pretransform
+        # import and cooking happen once, also when threads share the mesh
+        # (JobQueue's scenes)
+        self._load_lock = threading.Lock()
 
         if not _defer_open:
             self.open_file()
@@ -87,8 +90,11 @@ class Mesh:
     def open_file(self) -> None:
         """Parse + consolidate the asset (reference Mesh::openFile,
         src/mesh.cpp:186-301)."""
-        if self._consolidated is not None:
-            return
+        with self._load_lock:
+            if self._consolidated is None:
+                self._open_file()
+
+    def _open_file(self) -> None:
         fn = self._filename
         if is_primitive_path(fn):
             doc = load_primitive(fn)
@@ -151,8 +157,11 @@ class Mesh:
     def load_physics(self) -> None:
         """Cook convex hulls (with disk cache, none for a primitive;
         reference src/mesh.cpp:303-511)."""
-        if self._physics is not None:
-            return
+        with self._load_lock:
+            if self._physics is None:
+                self._load_physics()
+
+    def _load_physics(self) -> None:
         c = self._consolidated
         if c is None:
             raise RuntimeError("No mesh found")

@@ -5,7 +5,10 @@ shared library under the gitignored ``_build/`` at first use and loaded
 with ctypes. The library name carries a hash of the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt;
 the compile writes a temporary file and renames it into place.
-``build_all`` starts one nvcc per source at once.
+``build_all`` starts one nvcc per source at once. Within a process, a lock
+per source makes one thread build and load a library while the others that
+reach it at the same time wait for it (``JobQueue``'s workers and the web
+viewer's request threads launch kernels).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -30,6 +34,13 @@ NVCC_FLAGS = (
 SOURCES = ("smoke.cu", "cell_raster.cu", "fine_raster.cu")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.Lock] = {}  # one per source, made under _locks_lock
+_locks_lock = threading.Lock()
+
+
+def _lock(source: str) -> threading.Lock:
+    with _locks_lock:
+        return _locks.setdefault(source, threading.Lock())
 
 
 def _find_nvcc() -> str:
@@ -45,6 +56,11 @@ def _find_nvcc() -> str:
 
 def build(source: str) -> tuple[str, str]:
     """Compile ``csrc/<source>``; returns (library path, compiler output)."""
+    with _lock(source):
+        return _build(source)
+
+
+def _build(source: str) -> tuple[str, str]:
     path = os.path.join(CSRC, source)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in [source] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
@@ -79,13 +95,17 @@ def build_all(sources=SOURCES) -> dict[str, tuple[str, str]]:
 def load(source: str, symbol: str, argtypes) -> ctypes.CDLL:
     """Build (if needed) and load ``source``, typing its entry point
     ``symbol`` (returns a cudaError_t as int); cached per process."""
-    if source not in _loaded:
-        lib = ctypes.CDLL(build(source)[0])
-        fn = getattr(lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _loaded[source] = lib
-    return _loaded[source]
+    lib = _loaded.get(source)
+    if lib is not None:
+        return lib
+    with _lock(source):
+        if source not in _loaded:
+            lib = ctypes.CDLL(_build(source)[0])
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _loaded[source] = lib
+        return _loaded[source]
 
 
 def stream_of(t) -> int:

@@ -114,13 +114,17 @@ def compute_ssao_fast(
     world: a stated deviation, which ``ssao_mode="reference"`` avoids."""
     H, W = valid.shape
     dev = valid.device
-    d = torch.where(valid, cam_coords[..., 2], float("inf"))
+    d = torch.where(valid, cam_coords[..., 2], float("inf"))  # what the taps read
+    # the centre's depth: 0 where nothing is drawn, so that no intermediate
+    # is NaN (inf * 0 in the JAX package's; its ao there is replaced by 1
+    # below, and every value at a drawn pixel is the same)
+    dc = torch.where(valid, cam_coords[..., 2], 0.0)
     N = normals_cam[..., :3].permute(2, 0, 1)
     fx, fy, _, _ = _pixel_scale(projection, W, H)
     # tangent-plane depth slopes per pixel step (clamped at grazing angles)
     nz = torch.where(N[2].abs() < 0.1, torch.sign(N[2]) * 0.1 + 1e-9, N[2])
-    dz_du = torch.clamp(-N[0] / nz * d / fx, -0.05, 0.05)
-    dz_dv = torch.clamp(-N[1] / nz * d / fy, -0.05, 0.05)
+    dz_du = torch.clamp(-N[0] / nz * dc / fx, -0.05, 0.05)
+    dz_dv = torch.clamp(-N[1] / nz * dc / fy, -0.05, 0.05)
     Xi = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
     Yi = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
 
@@ -136,9 +140,9 @@ def compute_ssao_fast(
                 continue
             ds = torch.roll(d, (-dy, -dx), dims=(0, 1))
             in_img = (Xi + dx >= 0) & (Xi + dx < W) & (Yi + dy >= 0) & (Yi + dy < H)
-            d_exp = d + dz_du * dx + dz_dv * dy
+            d_exp = dc + dz_du * dx + dz_dv * dy
             occluded = in_img & (d_exp - ds > BIAS) & torch.isfinite(ds)
-            rng = torch.clamp(RADIUS / torch.clamp((d - ds).abs(), min=1e-6), 0.0, 1.0)
+            rng = torch.clamp(RADIUS / torch.clamp((dc - ds).abs(), min=1e-6), 0.0, 1.0)
             w = 1.0 / (1.0 + 0.08 * r)  # biased toward the centre like the reference kernel
             occ = occ + occluded.to(torch.float32) * rng * w
             wsum += w

@@ -7,6 +7,7 @@ cache against the JAX package's (1e-6), and a fresh interpreter that
 refuses jax and the JAX package and runs every new module of the API."""
 
 import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -63,15 +64,28 @@ def test_lazy_table_resolves(name):
     assert getattr(sl, name) is not None and name in dir(sl)
 
 
-@pytest.mark.parametrize("name", sorted(sl.NOT_PORTED))
-def test_lazy_table_names_what_is_not_ported(name):
-    with pytest.raises(AttributeError, match="not ported yet"):
-        getattr(sl, name)
+def _kind(value) -> str:
+    if inspect.ismodule(value):
+        return "module"
+    if inspect.isclass(value):
+        return "class"
+    return "function" if callable(value) else type(value).__name__
+
+
+@pytest.mark.parametrize("name", sorted(jsl._LAZY))
+def test_name_is_the_jax_kind(name):
+    """Each name of the JAX package's table is the same kind of object in
+    the port: a class, a function or a module. The JAX side is read from
+    its table's target (importing its submodule ``context`` rebinds the
+    package's attribute ``context`` to that module)."""
+    mod_name, attr = jsl._LAZY[name]
+    module = importlib.import_module(mod_name, "stillleben_tpu")
+    target = module if attr is None else getattr(module, attr)
+    assert _kind(getattr(sl, name)) == _kind(target)
 
 
 def test_lazy_table_is_the_jax_table():
-    assert set(PORTED) | set(sl.NOT_PORTED) == set(jsl._LAZY)
-    assert not set(PORTED) & set(sl.NOT_PORTED)
+    assert set(sl._LAZY) == set(jsl._LAZY) and sl.NOT_PORTED == ()
     with pytest.raises(AttributeError, match="no attribute"):
         sl.no_such_name  # noqa: B018
 

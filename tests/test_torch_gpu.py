@@ -456,3 +456,64 @@ def test_loaded_glb_scene_renders_with_k1(tmp_path_factory, monkeypatch):
     for args in calls:
         kernel, plain = cr.cell_raster(*args), cr.cell_raster_plain(*args)
         assert all(torch.equal(a, b) for a, b in zip(kernel, plain)), f"tile {args[7]}"
+
+
+def compare_dashboards(cpu, gpu, H, W) -> dict:
+    """A viewer dashboard (2H, 2W, 3) rendered on the card against the same
+    on the CPU, by the frame rules above: the instance quadrant equal on
+    >= 99.9% of its pixels (ids by the tie/edge rule), the RGB, normal and
+    coordinate quadrants within 1 LSB on >= 99% of theirs. Returns the
+    shares."""
+    out = {"instances": float((gpu[H:, :W] == cpu[H:, :W]).all(-1).mean())}
+    for name, q in (("rgb", np.s_[:H, :W]), ("normals", np.s_[:H, W:]), ("coords", np.s_[H:, W:])):
+        d = np.abs(gpu[q].astype(np.int32) - cpu[q].astype(np.int32)).max(-1)
+        out[name] = float((d <= 1).mean())
+    assert out["instances"] >= 0.999 and min(out[k] for k in ("rgb", "normals", "coords")) >= 0.99, out
+    return out
+
+
+def test_dashboard_on_cuda_matches_cpu(tmp_path_factory):
+    """``Viewer.dashboard`` of one scene (the small scene's three meshes,
+    placed by hand, at 160x120) on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import stillleben_tpu_torch as sl
+
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
+    sl.init(device="cpu")
+    scene = sl.Scene((160, 120))
+    for i, mesh in enumerate(meshes):
+        o = sl.Object(mesh)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = (0.25 * (i - 1), 0.05 * i, 0.1)
+        o.set_pose(T)
+        scene.add_object(o)
+    scene.set_camera_look_at([0.6, -0.5, 0.5], [0.0, 0.0, 0.1])
+    try:
+        cpu = sl.Viewer(scene).dashboard()
+        sl.init(device="cuda")
+        gpu = sl.Viewer(scene).dashboard()
+    finally:
+        sl.init(device="cpu")
+    compare_dashboards(cpu, gpu, 120, 160)
+
+
+def test_checked_on_cuda():
+    """``checked`` refuses an out-of-range gather and an integer division by
+    zero on the card before the op runs (no device assert: the context
+    works after), and passes clean calls through."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from stillleben_tpu_torch.utils import sanitize
+
+    x = torch.arange(6, device="cuda")
+    gather = sanitize.checked(lambda a, i: a[i], oob=True)
+    with pytest.raises(sanitize.CheckError, match="out-of-bounds"):
+        gather(x, torch.tensor([1, 6], device="cuda"))
+    with pytest.raises(sanitize.CheckError, match="out-of-bounds"):
+        sanitize.checked(lambda a: torch.gather(a, 0, torch.tensor([9], device="cuda")), oob=True)(x)
+    with pytest.raises(sanitize.CheckError, match="division by zero"):
+        sanitize.checked(lambda a: a // torch.zeros_like(a))(x)
+    torch.cuda.synchronize()
+    assert gather(x, torch.tensor([5, -6], device="cuda")).tolist() == [5, 0]
+    assert int(x.sum()) == 15

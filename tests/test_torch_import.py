@@ -1,13 +1,15 @@
-"""The port imports neither jax nor the JAX package, nor an image library:
-a fresh interpreter that refuses every ``jax``, ``jaxlib``,
-``stillleben_tpu``, ``PIL`` and ``cv2`` module (the port,
-``stillleben_tpu_torch``, is another top-level name) imports the whole
-port, loads meshes and their PNG texture from files through the port's own
+"""The port imports neither jax nor the JAX package, nor an image or plot
+library: a fresh interpreter that refuses every ``jax``, ``jaxlib``,
+``stillleben_tpu``, ``PIL``, ``cv2``, ``imageio`` and ``matplotlib`` module
+(the port, ``stillleben_tpu_torch``, is another top-level name) imports the
+whole port, loads meshes and their PNG texture from files through the port's own
 ``Mesh`` and codec (every mesh format, cooked by the port's native build),
 reads a light map's descriptor and panorama, saves and loads images,
 builds a template with a background plane and a light map, renders a full
 frame through each raster on the CPU, and streams a batch in the modes of
-the tuned and reference-quality configurations."""
+the tuned and reference-quality configurations, resolves every name of the
+public table and draws the viewer's dashboard, also through its headless
+``run``."""
 
 import subprocess
 import sys
@@ -17,7 +19,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "stillleben_tpu", "PIL", "cv2")
+    BLOCKED = ("jax", "jaxlib", "stillleben_tpu", "PIL", "cv2", "imageio", "matplotlib")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -37,7 +39,9 @@ SCRIPT = textwrap.dedent(
            "render.render_pass", "utils.corrade_config", "utils.sanitize", "diff", "losses",
            "camera_model", "annotate", "debug", "assets.gltf", "assets.primitive",
            "assets.fbxfile", "assets.legacy_formats", "assets.native_decompose",
-           "assets.image_loader", "assets.image_saver", "assets.writers"}
+           "assets.image_loader", "assets.image_saver", "assets.writers", "viewer",
+           "viewer_web", "utils.arcball", "scene.animator", "scene.job_queue",
+           "scene.manipulation_sim", "physics.telemetry", "profiling", "extension"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -109,6 +113,19 @@ SCRIPT = textwrap.dedent(
     loss, img = losses.neg_iou_loss(f.hdr[None, ..., :3].permute(0, 3, 1, 2).detach(),
                                     torch.ones(1, 3, 32, 32))
     assert torch.isfinite(loss) and camera_model.blur(img[0], 1.0).shape == (3, 32, 32)
+    # the whole public table, and the viewer's dashboard and headless run
+    for name in ("Viewer", "view", "JobQueue", "ManipulationSim", "Animator", "profiling",
+                 "extension"):
+        getattr(sl, name)
+    sl.init(device="cpu")
+    viewer = sl.Viewer(scene)
+    img = viewer.dashboard()
+    assert img.shape == (64, 64, 3) and img.dtype == np.uint8 and img.any()
+    import os
+    os.environ.pop("DISPLAY", None)
+    viewer.run(sys.argv[1] + "/dashboard.png")
+    from stillleben_tpu_torch.assets.image import read_png_samples
+    assert (read_png_samples(sys.argv[1] + "/dashboard.png").samples.reshape(img.shape) == img).all()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("OK")
