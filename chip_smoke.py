@@ -9,7 +9,9 @@ and light-map loaders (every mesh format, the native hull cooker,
 ``sl.LightMap`` from an sIBL descriptor, ``ImageSaver`` / ``ImageLoader``)
 and the rest of the public table (``Viewer`` and its web front-end,
 ``JobQueue``, ``ManipulationSim`` with telemetry, ``profiling``,
-``extension``, the sanitizers).
+``extension``, the sanitizers), and the scale-out layer (a sharded batch
+on a one-card mesh, two processes of one ``gloo`` group on the card, the
+atlas modes, the classic raster's scan rule).
 
     python3 chip_smoke.py
 
@@ -166,6 +168,32 @@ Phases (one line each or more; any failure exits non-zero):
     trip, replay). ``JobQueue(num_threads=2)`` settling two scenes of phase
     13's composition (seeds 2 and 3): finite, above the floor, centres in
     view; the pair's wall seconds beside phase 13's serial settle.
+
+17. scale-out (``parallel/distributed.py``, ``generate_batch_sharded``):
+    ``generate_batch_sharded`` over ``make_device_mesh()`` (one entry on
+    this host) of phase 6's seed, B = 8, full width and depth,
+    ``render_sub_batch=3``: every field ``torch.equal`` to phase 6's first
+    call, K1's launches equal to phase 6's and no plain piece called,
+    seconds and scenes/s beside phase 6's. Two processes spawned on the one
+    card (``tests/torch_port_dist.py``), each ``initialize``d into one
+    ``gloo`` group of 2 with the mesh row ``[cuda:0]``: B = 4 of bench-full
+    with 25 settle frames (cut from 100 to keep the phase near 150 s), each
+    process's ``local_batch_slice`` (0:2, 2:4) and frames ``torch.equal`` to
+    the parent's ``generate_from_draws`` of its rows at B = 2, whether they
+    also equal those rows of the parent's 4-scene batch (a scene's settle
+    depends on its batch's size, ROADMAP C-17; reported with the largest
+    difference), no ``torch.distributed`` collective (each raises in the
+    children), the wall seconds. The atlas modes on phase 4's settled scene
+    0: ``shadow_proxy_target=0`` (the full geometry casts: K1 ``torch.equal``
+    to its plain version on that shadow input, its launches, the shadow map
+    and the frame differ from the default's, ms per render);
+    ``cull_closedness=1.0`` with the back-face cull (the bench meshes keep
+    their flags: the frame equals the 0.98 threshold's). The scan rule:
+    the same scene through the classic raster with ``classic_fine``
+    "kernel" and "scan": where the triangle ids differ, (a) ties and edges
+    and (b) the rest, which must stay under 0.01% of the pixels and is
+    listed; depth within 1e-5 where the ids agree; ms per render and peak
+    memory of each.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2011,6 +2039,212 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
     return entries
 
 
+def _as_f64(torch, x):
+    return (x.to(torch.int32) if x.dtype == torch.uint16 else x).to(torch.float64)
+
+
+SCALE_SUB_BATCH = 3  # phase 17's render groups: 3, 3, 2
+TWO_PROC_BATCH, TWO_PROC_ITERATIONS = 4, 25  # phase 17's two processes, depth cut from 100
+
+
+def run_scale_out(torch, cr, fr, rt, full, ftpl, fcfg, fccfg, solver_cfg, phase6, phase6_k1,
+                  phase6_s, state, k1, k2, card) -> list:
+    """Phase 17: the scale-out layer on the card. Returns the kernels'
+    entries of its paths."""
+    import numpy as np
+
+    from stillleben_tpu_torch.parallel.batch import (
+        SceneDraws, draw_scenes, generate_batch_sharded, generate_from_draws, make_device_mesh,
+        render_with_poses, template_from_scene, template_on,
+    )
+    from stillleben_tpu_torch.render.rasterize import geometry_stage
+    from stillleben_tpu_torch.render.shadow import render_shadow_maps
+    from test_torch_gpu import scan_rule_split
+    import torch_port_dist
+
+    poses, cam, light = state
+    entries = []
+    plain_k1 = ("cell_raster_plain", "merge_cells", "cell_raster_reference")
+    t_phase = time.perf_counter()
+
+    # one-card mesh, phase 6's batch at full width and depth
+    mesh = make_device_mesh()
+    if mesh.size != 1 or mesh.devices[0] != torch.device("cuda", 0):
+        fail(f"make_device_mesh() on this host: {mesh.devices.tolist()}, expected [cuda:0]")
+    cr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards, plain_calls = count_calls(cr, plain_k1, lambda: generate_batch_sharded(
+        torch.Generator().manual_seed(SEED), BATCH, ftpl, fcfg, solver_cfg, mesh,
+        render_sub_batch=SCALE_SUB_BATCH))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cr.cell_raster.launches_by_tile)
+    (shard,) = shards
+    same = {f: torch.equal(getattr(shard.frames, f).cpu(), getattr(phase6, f))
+            for f in phase6._fields}
+    phase("scale-out", f"generate_batch_sharded over make_device_mesh() ({mesh.devices.tolist()}), "
+                       f"B={BATCH} {WIDTH}x{HEIGHT}, render_sub_batch {SCALE_SUB_BATCH}: rows "
+                       f"{shard.rows.start}:{shard.rows.stop} on {shard.device}, {secs:.3f} s, "
+                       f"{BATCH / secs:.4f} scenes/s (phase 6, first call: {phase6_s:.3f} s, "
+                       f"{BATCH / phase6_s:.4f} scenes/s) ({card}); every field equal to phase "
+                       f"6's: {all(same.values())}; K1 launches by tile {launches} (phase 6: "
+                       f"{phase6_k1}); calls of K1's plain pieces {plain_calls}")
+    if not all(same.values()) or launches != phase6_k1 or any(plain_calls.values()):
+        fail(f"the one-card sharded batch differs from phase 6's: {same}, {launches}")
+    sharded_launches = launches
+    del shards, shard
+
+    # two processes on the one card, one gloo group, a (2, 1) mesh
+    directory = os.path.join(ROOT, "stillleben_tpu_torch", "_build", "scale_out")
+    job = dict(template=template_on(ftpl, torch.device("cpu")), cfg=fcfg, solver=solver_cfg,
+               seed=SEED + 5, batch=TWO_PROC_BATCH, iterations=TWO_PROC_ITERATIONS,
+               render_sub_batch=8, device="cuda:0")
+    t0 = time.perf_counter()
+    out = torch_port_dist.run_processes(job, 2, directory)  # each process refuses collectives
+    wall = time.perf_counter() - t0
+    nb = ftpl.tabletop_geom.diameter.shape[0]
+    draws = draw_scenes(torch.Generator().manual_seed(SEED + 5), TWO_PROC_BATCH, nb)
+    whole = generate_from_draws(draws, ftpl, fcfg, solver_cfg, TWO_PROC_ITERATIONS)
+    for rank, got in enumerate(out):
+        ((rows, device, frames),) = got["shards"]
+        sl = slice(*rows)
+        ref = generate_from_draws(SceneDraws(*(x[sl] for x in draws)), ftpl, fcfg, solver_cfg,
+                                  TWO_PROC_ITERATIONS)
+        equal = {f: torch.equal(getattr(frames, f), getattr(ref, f).cpu()) for f in ref._fields}
+        in_whole = {f: torch.equal(getattr(frames, f), getattr(whole, f)[sl].cpu())
+                    for f in ref._fields}
+        worst = max(((float((_as_f64(torch, getattr(frames, f))
+                             - _as_f64(torch, getattr(whole, f)[sl].cpu())).abs().max()), f)
+                     for f in ref._fields if not in_whole[f]), default=(0.0, None))
+        phase("scale-out", f"process {rank} of 2 (gloo, mesh {got['mesh_shape']}, {device}): "
+                           f"local_batch_slice {got['rows'][0]}:{got['rows'][1]}, "
+                           f"{got['seconds']:.3f} s for its batch; every field equal to the "
+                           f"parent's generate_from_draws of rows {rows[0]}:{rows[1]} at B=2: "
+                           f"{all(equal.values())}; equal to those rows of the parent's "
+                           f"4-scene batch: {all(in_whole.values())} (largest difference "
+                           f"{worst[0]:.3g} in {worst[1]}) ({card})")
+        if got["rows"] != (2 * rank, 2 * rank + 2) or not all(equal.values()):
+            fail(f"process {rank}: rows {got['rows']}, fields equal {equal}")
+    phase("scale-out", f"two processes on one card, B={TWO_PROC_BATCH}, {TWO_PROC_ITERATIONS} "
+                       f"settle frames: {wall:.3f} s wall from the spawn to both results, no "
+                       f"collective called ({card})")
+    del whole, out
+
+    # the atlas modes on phase 4's settled scene 0
+    def timed_render(t, c):
+        render_with_poses(t, poses, cam, c, light)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = render_with_poses(t, poses, cam, c, light)
+        torch.cuda.synchronize()
+        return f, (time.perf_counter() - t0) * 1e3
+
+    def inputs_of(t):
+        otw = t.base_inputs.obj_to_world.clone()
+        otw[: poses.shape[0]] = poses
+        dirs = t.base_inputs.light_directions.clone()
+        dirs[0] = light
+        return t.base_inputs._replace(obj_to_world=otw, cam_pose=cam, light_directions=dirs)
+
+    base, base_ms = timed_render(ftpl, fcfg)
+    p0 = template_from_scene(full, shadow_proxy_target=0)
+    cr.reset_launch_counts()
+    calls = capture_all(rt, "cell_raster", lambda: render_with_poses(p0, poses, cam, fcfg, light))
+    p0_launches = dict(cr.cell_raster.launches_by_tile)
+    off, off_ms = timed_render(p0, fcfg)
+    shadow_in = [a for a, _ in calls if a[7] == 32]
+    if len(shadow_in) != 1 or p0_launches != {16: 1, 32: 1}:
+        fail(f"the proxy-off render launched K1 {p0_launches}")
+    n_casters = int(p0.render_atlas.shadow_faces.shape[0])
+    entry = check_k1(torch, cr, shadow_in[0], f"proxy-off shadow ({n_casters} casters), tile 32",
+                     card)
+    maps = [render_shadow_maps(t.render_atlas, inputs_of(t), SHADOW_SIZE, 1)[0]
+            for t in (ftpl, p0)]
+    map_diff = float((maps[0] - maps[1]).abs().max())
+    frame_diff = float((off.hdr - base.hdr).abs().max())
+    phase("scale-out", f"shadow_proxy_target=0: {n_casters} shadow casters (default "
+                       f"{int(ftpl.render_atlas.shadow_faces.shape[0])}); K1 launches by tile "
+                       f"{p0_launches}; shadow map max |difference| to the default's "
+                       f"{map_diff:.4g}, hdr {frame_diff:.4g}; {off_ms:.1f} ms per render "
+                       f"(default {base_ms:.1f} ms) ({card})")
+    if map_diff <= 0 or frame_diff <= 0:
+        fail("the full-geometry shadow changed neither the map nor the frame")
+    entries.append(dict(
+        name=f"cell_raster[scale-out proxy-off shadow, {n_casters} casters, tile 32]",
+        route="cuda", source="stillleben_tpu_torch/csrc/cell_raster.cu",
+        replaces="stillleben_tpu/ops/cell_raster.py:43", launches=p0_launches[32],
+        library_ms=None, **entry))
+    del p0, maps, off, calls, shadow_in
+    c1 = template_from_scene(full, cull_closedness=1.0)
+    culled = fcfg._replace(backface_cull=True)
+    f_c1, c1_ms = timed_render(c1, culled)
+    f_def, _ = timed_render(ftpl, culled)
+    flags = [int(t.render_atlas.face_cullable.sum()) for t in (c1, ftpl)]
+    same = all(torch.equal(getattr(f_c1, f), getattr(f_def, f)) for f in f_c1._fields)
+    phase("scale-out", f"cull_closedness=1.0 with backface_cull: {flags[0]} cullable faces "
+                       f"(0.98: {flags[1]}; the blob's and the cube's closedness is 1.0, the "
+                       f"sphere's 0); frame equal to the 0.98 threshold's: {same}; "
+                       f"{c1_ms:.1f} ms per render ({card})")
+    if flags[0] != flags[1] or not same:
+        fail("cull_closedness=1.0 changed the bench scene's cullable faces")
+    del c1, f_c1, f_def
+
+    # the scan rule against the fine kernel's, the classic raster
+    results = {}
+    for rule in ("kernel", "scan"):
+        c = fccfg._replace(classic_fine=rule)
+        fr.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        frame = render_with_poses(ftpl, poses, cam, c, light)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        launched = dict(fr.fine_raster.launches_by_shape)
+        _, ms = timed_render(ftpl, c)
+        inputs = inputs_of(ftpl)
+        geom = geometry_stage(ftpl.render_atlas, inputs, WIDTH, HEIGHT)
+        g = rt.rasterize_tiled(geom, ftpl.render_atlas, inputs, WIDTH, HEIGHT, raster="classic",
+                               tile_capacity=c.tile_capacity, big_capacity=c.big_capacity,
+                               fine_chunk=c.fine_chunk, pixel_stage=c.pixel_stage,
+                               classic_fine=rule)
+        results[rule] = (frame, ms, peak, g, launched)
+    v = geom.pix_hom[ftpl.render_atlas.faces.long()].cpu().numpy()
+    (fk, ms_k, peak_k, gk, k2_launches), (fs, ms_s, peak_s, gs, scan_k2) = results.values()
+    tk, ts = gk.tri_id.cpu().numpy(), gs.tri_id.cpu().numpy()
+    a, b = scan_rule_split(tk, ts, v, v[..., 2])
+    agree = torch.from_numpy(tk == ts).to(gk.depth.device) & (gk.tri_id >= 0)
+    depth_err = float((gk.depth - gs.depth)[agree].abs().max()) if agree.any() else 0.0
+    inst = int((fk.instance_index != fs.instance_index).sum())
+    listed = [tuple(int(i) for i in yx) for yx in np.argwhere(b)]
+    phase("scale-out", f"classic_fine scan against kernel, bench-full scene 0 at {WIDTH}x"
+                       f"{HEIGHT}: instance maps differ on {inst} px; triangle ids on "
+                       f"{int((tk != ts).sum())} px: (a) ties and edges {int(a.sum())}, (b) "
+                       f"other {int(b.sum())} {listed}; depth max |difference| where the ids "
+                       f"agree {depth_err:.3g}; ms per render scan {ms_s:.1f} / kernel "
+                       f"{ms_k:.1f}; peak memory above the start scan {peak_s / 2**20:.1f} / "
+                       f"kernel {peak_k / 2**20:.1f} MiB; K2 launches per render {k2_launches} "
+                       f"(scan: {scan_k2}) ({card})")
+    if b.sum() > 1e-4 * tk.size or depth_err > 1e-5 or scan_k2:
+        fail("the scan rule disagrees with the fine kernel beyond ties and edges")
+    for tile in (16, 64):
+        entries.append(dict(
+            name=f"fine_raster[scale-out classic_fine kernel frame {'camera' if tile == 16 else 'shadow'}, tile {tile}]",
+            route="cuda", source="stillleben_tpu_torch/csrc/fine_raster.cu",
+            replaces="stillleben_tpu/ops/fine_raster.py:98",
+            launches=k2_launches.get((tile, 1), 0), library_ms=None,
+            **k2[("bench-full", tile)]))
+    for tile in (16, 32):
+        entries.append(dict(
+            name=f"cell_raster[scale-out one-card sharded batch {'camera' if tile == 16 else 'shadow'}, tile {tile}]",
+            route="cuda", source="stillleben_tpu_torch/csrc/cell_raster.cu",
+            replaces="stillleben_tpu/ops/cell_raster.py:43",
+            launches=sharded_launches.get(tile, 0), library_ms=None, **k1[("bench-full", tile)]))
+    phase("scale-out", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
@@ -2213,6 +2447,7 @@ def main() -> None:
         fail(f"the cells path did not launch K1 for both passes: {full_k1_launches}")
     if any(plain_calls.values()):
         fail(f"the cells path on the card called K1's plain pieces: {plain_calls}")
+    phase6 = type(frames)(*(x.cpu() for x in frames))  # phase 17 holds its shards to these
     del frames
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2525,6 +2760,13 @@ def main() -> None:
     loader_k1, loader_secs = run_loaders(torch, cr, rt, card)
     kernels.extend(loader_k1)
     phase("loaders", "seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in loader_secs.items()))
+
+    # 17. scale-out: generate_batch_sharded on a one-card mesh against phase
+    # 6, two gloo processes on the card, the atlas modes, the scan rule
+    kernels.extend(run_scale_out(torch, cr, fr, rt, full, ftpl, fcfg, fccfg, solver_cfg, phase6,
+                                 full_k1_launches, cold_s, (poses8[0], cams8[0], lights8[0]),
+                                 k1, k2, card))
+    del phase6
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

@@ -71,6 +71,8 @@
 // Numerics: raster_common.cuh; the kernels match
 // ops/fine_raster.py::fine_raster_plain bit for bit.
 
+#include <mutex>
+
 #include "raster_common.cuh"
 
 namespace {
@@ -354,31 +356,48 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The current device's SM count and the shared memory a block may opt in
-// to, read once per device (the port drives one device per process).
+// The SM count and the shared memory a block may opt in to of the device
+// being launched on (the wrappers in ops/ make it current),
+// read once per device id. A process may drive several cards, from several
+// threads, so each id has its own entry, filled once under std::call_once.
+constexpr int kMaxDevices = 64;
+
 struct Device {
   int id = -1;
   int sms = 0;
   int smem_optin = 0;
+  cudaError_t err = cudaSuccess;
 };
 
+Device g_devices[kMaxDevices];
+std::once_flag g_device_once[kMaxDevices];
+
 cudaError_t current_device(Device* out) {
-  static Device cached;
   int id = 0;
   cudaError_t err = cudaGetDevice(&id);
   if (err != cudaSuccess) return err;
-  if (cached.id != id) {
-    Device d;
+  if (id < 0 || id >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(g_device_once[id], [id] {
+    Device& d = g_devices[id];
+    d.err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, id);
+    if (d.err == cudaSuccess)
+      d.err = cudaDeviceGetAttribute(&d.smem_optin,
+                                     cudaDevAttrMaxSharedMemoryPerBlockOptin, id);
     d.id = id;
-    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, id);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&d.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, id);
-    if (err != cudaSuccess) return err;
-    cached = d;
-  }
-  *out = cached;
-  return cudaSuccess;
+  });
+  *out = g_devices[id];
+  return out->err;
 }
+
+// A kernel's launch shape on one device: its dynamic shared memory
+// attribute and its persistent grid. The attribute is state of the device
+// being launched on, so each instantiation keeps one entry per device id,
+// read and updated under the instantiation's lock.
+struct LaunchShape {
+  size_t smem = 0;     // the shared memory the grid was sized for
+  int blocks = 0;      // the persistent grid at that size
+  size_t allowed = 0;  // the kernel's dynamic shared memory attribute
+};
 
 template <int TPG, int TILE>
 cudaError_t launch(const float* LT, const int* ids, const float* md, float* w,
@@ -402,27 +421,26 @@ cudaError_t launch(const float* LT, const int* ids, const float* md, float* w,
   size_t smem = stages * per_stage + fold;
   // a persistent grid: as many blocks as the card holds at once, at most
   // one per work item; the attribute and the occupancy are set and read
-  // again only when the device or the shared memory changes
-  static int cached_device = -1;
-  static size_t cached_smem = 0;
-  static int cached_blocks = 0;
-  static size_t allowed = 0;  // the kernel's dynamic shared memory attribute
-  if (cached_device != dev.id || cached_smem != smem) {
+  // again only when the shared memory changes on that device
+  static std::mutex mu;
+  static LaunchShape shapes[kMaxDevices];
+  std::lock_guard<std::mutex> lock(mu);
+  LaunchShape& shape = shapes[dev.id];
+  if (shape.smem != smem) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    allowed = smem;
+    shape.allowed = smem;
     int per_sm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         256 * S, smem);
     if (err != cudaSuccess) return err;
-    cached_device = dev.id;
-    cached_smem = smem;
-    cached_blocks = dev.sms * (per_sm > 0 ? per_sm : 1);
+    shape.smem = smem;
+    shape.blocks = dev.sms * (per_sm > 0 ? per_sm : 1);
   }
   const int items = n_tiles * squares;
-  const int blocks = cached_blocks < items ? cached_blocks : items;
+  const int blocks = shape.blocks < items ? shape.blocks : items;
   if (TPG == 1) {
     err = cudaMemsetAsync(work, 0, sizeof(int), stream);
     if (err != cudaSuccess) return err;
@@ -430,12 +448,12 @@ cudaError_t launch(const float* LT, const int* ids, const float* md, float* w,
                                                   n_chunks, C, TILE * TILE);
   } else {
     smem += static_cast<size_t>((items + blocks - 1) / blocks) * sizeof(int);  // its items
-    if (smem > allowed) {
+    if (smem > shape.allowed) {
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      allowed = smem;
+      shape.allowed = smem;
     }
     group_occupancy_kernel<TPG><<<(n_tiles + TPG - 1) / TPG, 256, 0, stream>>>(
         ids, w, t, work, n_tiles, n_chunks, C, TILE * TILE);

@@ -231,19 +231,20 @@ def cell_raster(
         raise ValueError(f"cell_raster: unsupported device {LT.device}")
     if LT.data_ptr() % 16:
         raise ValueError("cell_raster: LT must be 16-byte aligned (cp.async rows)")
-    lib = nvcc.load(SOURCE, "sl_cell_raster", _ARGTYPES)
-    n_cells, C = ids.shape
-    pix = tile * tile
-    dev = LT.device
-    keys = torch.empty((n_tiles, pix), dtype=torch.int64, device=dev)
-    w = torch.empty((n_tiles, pix), dtype=torch.float32, device=dev)
-    t = torch.empty((n_tiles, pix), dtype=torch.int32, device=dev)
-    err = lib.sl_cell_raster(
-        LT.data_ptr(), ids.data_ptr(), cell_tile.data_ptr(),
-        0 if md_tiles is None else md_tiles.data_ptr(), keys.data_ptr(), w.data_ptr(),
-        t.data_ptr(), n_cells, C, tile, tw, n_tiles, float(near), float(far),
-        nvcc.stream_of(LT),
-    )
+    with torch.cuda.device(LT.device):  # the entry point launches on the current device
+        lib = nvcc.load(SOURCE, "sl_cell_raster", _ARGTYPES)
+        n_cells, C = ids.shape
+        pix = tile * tile
+        dev = LT.device
+        keys = torch.empty((n_tiles, pix), dtype=torch.int64, device=dev)
+        w = torch.empty((n_tiles, pix), dtype=torch.float32, device=dev)
+        t = torch.empty((n_tiles, pix), dtype=torch.int32, device=dev)
+        err = lib.sl_cell_raster(
+            LT.data_ptr(), ids.data_ptr(), cell_tile.data_ptr(),
+            0 if md_tiles is None else md_tiles.data_ptr(), keys.data_ptr(), w.data_ptr(),
+            t.data_ptr(), n_cells, C, tile, tw, n_tiles, float(near), float(far),
+            nvcc.stream_of(LT),
+        )
     nvcc.check(err, "cell_raster")
     cell_raster.launches += 1
     cell_raster.launches_by_tile[tile] = cell_raster.launches_by_tile.get(tile, 0) + 1

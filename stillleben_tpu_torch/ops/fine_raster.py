@@ -206,20 +206,22 @@ def fine_raster(
         raise ValueError(f"fine_raster: unsupported device {LT.device}")
     if LT.data_ptr() % 16:
         raise ValueError("fine_raster: LT must be 16-byte aligned (cp.async rows)")
-    lib = nvcc.load(SOURCE, "sl_fine_raster", _ARGTYPES)
-    n_tiles, n_chunks, C = ids.shape
-    w = torch.empty((n_tiles, tile * tile), dtype=torch.float32, device=LT.device)
-    t = torch.empty((n_tiles, tile * tile), dtype=torch.int32, device=LT.device)
-    # K2's count, listed tiles and occupancy masks, and for K3 a word of
-    # occupied tiles per group (csrc/fine_raster.cu)
-    words = -(-n_chunks // 32)
-    groups = 0 if tiles_per_cell == 1 else -(-n_tiles // tiles_per_cell)
-    work = torch.empty(1 + n_tiles * (1 + words) + groups, dtype=torch.int32, device=LT.device)
-    err = lib.sl_fine_raster(
-        LT.data_ptr(), ids.data_ptr(), md.data_ptr(), w.data_ptr(), t.data_ptr(),
-        work.data_ptr(), n_tiles, n_chunks, C, tile, tw, int(tile_offset), tiles_per_cell,
-        float(near), float(far), nvcc.stream_of(LT),
-    )
+    with torch.cuda.device(LT.device):  # the entry point launches on the current device
+        lib = nvcc.load(SOURCE, "sl_fine_raster", _ARGTYPES)
+        n_tiles, n_chunks, C = ids.shape
+        w = torch.empty((n_tiles, tile * tile), dtype=torch.float32, device=LT.device)
+        t = torch.empty((n_tiles, tile * tile), dtype=torch.int32, device=LT.device)
+        # K2's count, listed tiles and occupancy masks, and for K3 a word of
+        # occupied tiles per group (csrc/fine_raster.cu)
+        words = -(-n_chunks // 32)
+        groups = 0 if tiles_per_cell == 1 else -(-n_tiles // tiles_per_cell)
+        work = torch.empty(1 + n_tiles * (1 + words) + groups, dtype=torch.int32,
+                           device=LT.device)
+        err = lib.sl_fine_raster(
+            LT.data_ptr(), ids.data_ptr(), md.data_ptr(), w.data_ptr(), t.data_ptr(),
+            work.data_ptr(), n_tiles, n_chunks, C, tile, tw, int(tile_offset), tiles_per_cell,
+            float(near), float(far), nvcc.stream_of(LT),
+        )
     nvcc.check(err, "fine_raster")
     key = (tile, tiles_per_cell)
     fine_raster.launches += 1

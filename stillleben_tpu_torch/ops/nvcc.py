@@ -9,6 +9,12 @@ the compile writes a temporary file and renames it into place.
 per source makes one thread build and load a library while the others that
 reach it at the same time wait for it (``JobQueue``'s workers and the web
 viewer's request threads launch kernels).
+
+The entry points launch on the calling thread's current CUDA device, so
+every wrapper builds, loads and launches inside
+``torch.cuda.device(t.device)``, ``t`` the tensor whose stream it passes,
+whatever device the thread had current (a process may drive several
+cards).
 """
 
 from __future__ import annotations

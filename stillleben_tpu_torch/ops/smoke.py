@@ -32,9 +32,11 @@ def double(x: torch.Tensor) -> torch.Tensor:
         return double_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"double: unsupported device {x.device}")
-    lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
-    o = torch.empty_like(x)
-    nvcc.check(lib.sl_smoke(x.data_ptr(), o.data_ptr(), x.numel(), nvcc.stream_of(x)), "smoke")
+    with torch.cuda.device(x.device):  # the entry point launches on the current device
+        lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
+        o = torch.empty_like(x)
+        err = lib.sl_smoke(x.data_ptr(), o.data_ptr(), x.numel(), nvcc.stream_of(x))
+    nvcc.check(err, "smoke")
     double.launches += 1
     return o
 
@@ -44,8 +46,11 @@ double.launches = 0
 
 def empty_launch(device="cuda") -> None:
     """Launch the empty kernel on ``device``'s current stream."""
-    lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
-    fn = lib.sl_empty
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    nvcc.check(fn(torch.cuda.current_stream(device).cuda_stream), "empty")
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        lib = nvcc.load(SOURCE, "sl_smoke", _ARGTYPES)
+        fn = lib.sl_empty
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+    nvcc.check(err, "empty")

@@ -1,20 +1,34 @@
-"""Batched datagen: B scenes from one template.
+"""Batched datagen: B scenes from one template, on one device or sharded
+over a device mesh.
 
 Counterpart of ``stillleben_tpu/parallel/batch.py`` (``SceneTemplate``,
 ``template_from_scene``, ``settle_scene``, ``render_with_poses``,
-``apply_pose_delta_matrix``, ``generate_batch``, ``generate_stream``). Per
-scene: stack objects -> settle (100 frames x 4 substeps, redrop) -> random
-camera fit -> random light -> render -> full GT.
+``apply_pose_delta_matrix``, ``generate_batch``, ``make_device_mesh``,
+``generate_batch_sharded``, ``generate_stream``). Per scene: stack objects
+-> settle (100 frames x 4 substeps, redrop) -> random camera fit -> random
+light -> render -> full GT.
 
-The settle runs the whole batch at once (the state carries a batch axis);
-the render runs one scene after the other, because each scene's cell list
-is data-dependent. The template carries the scene's background plane (one
-more slot of the render atlas) and its image-based light map, which every
-scene of the batch shares. Sharding is not ported.
+A batch's random numbers are drawn first and apart (``draw_scenes``), in
+the order the pipeline used to draw them; ``generate_from_draws`` does the
+rest. The settle runs the whole batch at once (the state carries a batch
+axis); the render runs one scene after the other, because each scene's
+cell list is data-dependent, in groups of ``render_sub_batch`` scenes
+written into outputs allocated once. The template carries the scene's
+background plane (one more slot of the render atlas) and its image-based
+light map, which every scene of the batch shares.
+
+Scale-out (``generate_batch_sharded``): every process draws the whole
+batch, and each of its mesh devices runs the whole pipeline on its rows
+(``distributed.shard_keys``); no collective is issued and nothing is
+gathered. A scene's settle depends on the size of the batch it settles in
+(the products' rounding follows the shapes), so a shard equals
+``generate_from_draws`` of its rows at its own size, not its rows of the
+unsharded batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from itertools import count
 from typing import NamedTuple
@@ -29,7 +43,11 @@ from ..physics.types import BodyParams, HullAtlas, SolverConfig
 from ..render.atlas import RenderInputs, SceneAtlas, build_scene_atlas, render_inputs_from_scene
 from ..render.light_map import LightMapData
 from ..render.frame import FrameConfig, RenderedFrame, render_frame_core
-from ..scene.camera_fit import choose_random_camera_pose, choose_random_light_direction
+from ..scene.camera_fit import (
+    camera_uniforms, choose_random_camera_pose, choose_random_light_direction, light_normals,
+)
+from . import distributed
+from .distributed import Mesh, make_hybrid_mesh, shard_keys
 
 
 class SceneTemplate(NamedTuple):
@@ -47,10 +65,14 @@ class SceneTemplate(NamedTuple):
     light_map: LightMapData | None = None  # the image-based light of every scene
 
 
-def template_from_scene(scene, device="cuda") -> SceneTemplate:
+def template_from_scene(scene, device="cuda", shadow_proxy_target: int = 8192,
+                        cull_closedness: float = 0.98) -> SceneTemplate:
     """Build the template from a host ``scene.scene.Scene`` (batch.py:47-82):
     the background plane and the light map are carried along. The light
-    map's own analytic lights are not read, as in the JAX template."""
+    map's own analytic lights are not read, as in the JAX template.
+    ``shadow_proxy_target`` and ``cull_closedness`` go to
+    ``build_scene_atlas`` (the JAX package's ``SL_SHADOW_PROXY`` and
+    ``SL_CULL_CLOSEDNESS``)."""
     atlas, params, pairs, geom = scene._compile(device)
     all_dynamic = all(not o.static for o in scene.objects)
     bg_plane = None
@@ -58,7 +80,9 @@ def template_from_scene(scene, device="cuda") -> SceneTemplate:
         tex = scene.background_plane_texture
         bg_plane = dict(size=scene.background_plane_size,
                         texture=tex.pixels if tex is not None else None)
-    render_atlas = build_scene_atlas(scene.objects, device, background_plane=bg_plane)
+    render_atlas = build_scene_atlas(scene.objects, device, background_plane=bg_plane,
+                                     shadow_proxy_target=shadow_proxy_target,
+                                     cull_closedness=cull_closedness)
     light_map = None
     if scene.light_map is not None:
         light_map = LightMapData(*(x.to(device) for x in scene.light_map.data))
@@ -80,21 +104,30 @@ def template_from_scene(scene, device="cuda") -> SceneTemplate:
     )
 
 
-def settle_scene(
-    generator: torch.Generator,
-    batch: int,
-    tpl: SceneTemplate,
-    solver_cfg: SolverConfig,
-    settle_iterations: int = tt.MAX_ITERATIONS,
-    quats: torch.Tensor | None = None,
-):
-    """Settle B scenes: returns (poses (B, NB, 4, 4), cam_pose (B, 4, 4),
-    light_dir (B, 3)). ``quats`` (B, NB, 4) replaces the random initial
-    orientations (batch.py:178-202)."""
+class SceneDraws(NamedTuple):
+    """A batch's random numbers, drawn before the work: the stack's
+    orientations, the camera's uniforms and the light's normals."""
+
+    quats: torch.Tensor  # (B, NB, 4)
+    cam_u: torch.Tensor  # (B, 2)
+    light_r: torch.Tensor  # (B, 3)
+
+
+def draw_scenes(generator: torch.Generator, batch: int, nb: int) -> SceneDraws:
+    """The numbers of ``batch`` scenes of ``nb`` bodies, on the CPU, in the
+    order the pipeline consumes them: the orientations, then the camera's
+    uniforms, then the light's normals."""
+    quats = m.random_quaternion((batch, nb), generator)
+    return SceneDraws(quats, camera_uniforms(batch, generator), light_normals(batch, generator))
+
+
+def settle_draws(draws: SceneDraws, tpl: SceneTemplate, solver_cfg: SolverConfig,
+                 settle_iterations: int = tt.MAX_ITERATIONS):
+    """Settle the scenes of ``draws``: (poses (B, NB, 4, 4), cam_pose (B, 4,
+    4), light_dir (B, 3)) on the template's device (batch.py:178-202)."""
     dev = tpl.base_z.device
-    nb = tpl.tabletop_geom.diameter.shape[0]
-    if quats is None:
-        quats = m.random_quaternion((batch, nb), generator).to(dev)
+    quats = draws.quats.to(dev)
+    batch = quats.shape[0]
     state = tt.stack_objects(tpl.tabletop_geom, tpl.base_z, quats)
     state = tt.settle(
         tpl.hull_atlas, tpl.body_params, state, tpl.floor, tpl.pairs,
@@ -107,9 +140,29 @@ def settle_scene(
         + poses[:, :n_phys, None, :3, 3]
     ).reshape(batch, -1, 3)
     valid = torch.ones(world_corners.shape[:2], dtype=torch.bool, device=dev)
-    cam_pose = choose_random_camera_pose(generator, tpl.base_inputs.projection, world_corners, valid)
-    light_dir = choose_random_light_direction(generator, cam_pose)
+    cam_pose = choose_random_camera_pose(draws.cam_u, tpl.base_inputs.projection, world_corners,
+                                         valid)
+    light_dir = choose_random_light_direction(draws.light_r, cam_pose)
     return poses, cam_pose, light_dir
+
+
+def settle_scene(
+    generator: torch.Generator,
+    batch: int,
+    tpl: SceneTemplate,
+    solver_cfg: SolverConfig,
+    settle_iterations: int = tt.MAX_ITERATIONS,
+    quats: torch.Tensor | None = None,
+):
+    """Settle B scenes drawn from ``generator``: returns (poses (B, NB, 4,
+    4), cam_pose (B, 4, 4), light_dir (B, 3)). ``quats`` (B, NB, 4) replaces
+    the random initial orientations (batch.py:178-202)."""
+    if quats is None:
+        draws = draw_scenes(generator, batch, tpl.tabletop_geom.diameter.shape[0])
+    else:
+        draws = SceneDraws(quats, camera_uniforms(batch, generator),
+                           light_normals(batch, generator))
+    return settle_draws(draws, tpl, solver_cfg, settle_iterations)
 
 
 def render_with_poses(
@@ -150,6 +203,50 @@ def apply_pose_delta_matrix(pose: torch.Tensor, delta: torch.Tensor) -> torch.Te
     return pose @ (torch.eye(4, dtype=pose.dtype, device=pose.device) + D)
 
 
+def _check_sub_batch(render_sub_batch: int) -> None:
+    if render_sub_batch < 1:
+        raise ValueError(f"render_sub_batch {render_sub_batch} < 1")
+
+
+def render_batch(tpl: SceneTemplate, poses: torch.Tensor, cams: torch.Tensor,
+                 lights: torch.Tensor, cfg: FrameConfig, render_sub_batch: int = 8) -> RenderedFrame:
+    """Render B settled scenes in groups of ``min(render_sub_batch, B)``
+    (batch.py:136-171) into outputs of shape (B, ...) allocated once; each
+    group's frames are released before the next group renders, so the
+    render holds the outputs and one group. The frames do not depend on
+    the group size."""
+    _check_sub_batch(render_sub_batch)
+    B = poses.shape[0]
+    sub = min(render_sub_batch, B)
+    out = None
+    for g0 in range(0, B, sub):
+        group = [render_with_poses(tpl, poses[b], cams[b], cfg, lights[b])
+                 for b in range(g0, min(g0 + sub, B))]
+        if out is None:
+            out = RenderedFrame(*(torch.empty((B,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                                  for x in group[0]))
+        for i, frame in enumerate(group):
+            for o, x in zip(out, frame):
+                o[g0 + i].copy_(x)
+        del group
+    return out
+
+
+def generate_from_draws(
+    draws: SceneDraws,
+    tpl: SceneTemplate,
+    cfg: FrameConfig,
+    solver_cfg: SolverConfig,
+    settle_iterations: int = tt.MAX_ITERATIONS,
+    render_sub_batch: int = 8,
+) -> RenderedFrame:
+    """The scenes of ``draws`` settled together and rendered in groups of
+    ``render_sub_batch``; every output field gets a leading batch axis."""
+    _check_sub_batch(render_sub_batch)
+    poses, cams, lights = settle_draws(draws, tpl, solver_cfg, settle_iterations)
+    return render_batch(tpl, poses, cams, lights, cfg, render_sub_batch)
+
+
 def generate_batch(
     generator: torch.Generator,
     batch: int,
@@ -157,29 +254,125 @@ def generate_batch(
     cfg: FrameConfig,
     solver_cfg: SolverConfig,
     settle_iterations: int = tt.MAX_ITERATIONS,
+    render_sub_batch: int = 8,
 ) -> RenderedFrame:
-    """B complete scenes (batch.py:130-175); every output field gets a
-    leading batch axis."""
-    poses, cams, lights = settle_scene(generator, batch, tpl, solver_cfg, settle_iterations)
-    frames = [render_with_poses(tpl, poses[b], cams[b], cfg, lights[b]) for b in range(batch)]
-    return RenderedFrame(*(torch.stack(fs) for fs in zip(*frames)))
+    """B complete scenes (batch.py:130-175): ``draw_scenes``, then
+    ``generate_from_draws``; every output field gets a leading batch axis."""
+    _check_sub_batch(render_sub_batch)
+    draws = draw_scenes(generator, batch, tpl.tabletop_geom.diameter.shape[0])
+    return generate_from_draws(draws, tpl, cfg, solver_cfg, settle_iterations, render_sub_batch)
+
+
+class Shard(NamedTuple):
+    """One device's part of a sharded batch: rows ``rows`` of the global
+    batch, rendered on ``device``."""
+
+    rows: slice
+    device: torch.device
+    frames: RenderedFrame
+
+
+def make_device_mesh(axis: str = "scenes") -> Mesh:
+    """1-D mesh over the devices of every process (batch.py:244-249): this
+    process's cards (``distributed.make_hybrid_mesh``'s default), as many
+    per process."""
+    hybrid = make_hybrid_mesh()
+    return Mesh(hybrid.devices.reshape(-1), hybrid.process_index.reshape(-1), (axis,))
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _check_device(device: torch.device) -> None:
+    if device.type == "cuda":
+        index = 0 if device.index is None else device.index
+        if not torch.cuda.is_available() or index >= torch.cuda.device_count():
+            raise ValueError(f"generate_batch_sharded: the mesh names {device}, which this "
+                             "process does not have")
+    elif device.type != "cpu":
+        raise ValueError(f"generate_batch_sharded: unsupported device {device}")
+
+
+def _to_device(x, device):
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to_device(v, device) for v in x))
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+_TEMPLATE_COPIES: dict = {}  # (id(template), device) -> (template, its copy)
+_MAX_TEMPLATE_COPIES = 8
+
+
+def template_on(tpl: SceneTemplate, device: torch.device) -> SceneTemplate:
+    """``tpl`` on ``device``: itself when it lives there, else a copy made
+    once per (template, device) and kept while the template is among the
+    last few copied."""
+    if tpl.base_z.device == device:
+        return tpl
+    key = (id(tpl), str(device))
+    hit = _TEMPLATE_COPIES.get(key)
+    if hit is None or hit[0] is not tpl:
+        while len(_TEMPLATE_COPIES) >= _MAX_TEMPLATE_COPIES:
+            _TEMPLATE_COPIES.pop(next(iter(_TEMPLATE_COPIES)))
+        hit = _TEMPLATE_COPIES[key] = (tpl, _to_device(tpl, device))
+    return hit[1]
+
+
+def generate_batch_sharded(
+    generator: torch.Generator,
+    batch: int,
+    tpl: SceneTemplate,
+    cfg: FrameConfig,
+    solver_cfg: SolverConfig,
+    mesh: Mesh | None = None,
+    settle_iterations: int = tt.MAX_ITERATIONS,
+    render_sub_batch: int = 8,
+) -> list[Shard]:
+    """The scale-out entry (batch.py:252-321): ``batch`` scenes sharded over
+    every axis of ``mesh`` (default ``make_device_mesh()``). Every process
+    draws the whole batch; each of this process's devices takes its rows
+    (``ceil(B / n)`` per device in mesh order, the last ones short or
+    empty, no padding) and runs ``generate_from_draws`` on them with the
+    template copied to it. Returns this process's shards in mesh order,
+    each on its own device; a device with no rows has none. No collective
+    is issued and nothing is gathered. The devices of one process run one
+    after another from the calling thread: for throughput run one process
+    per card (``distributed.initialize``)."""
+    _check_sub_batch(render_sub_batch)
+    mesh = make_device_mesh() if mesh is None else mesh
+    for d, p in zip(mesh.devices.reshape(-1), mesh.process_index.reshape(-1)):
+        if p == distributed.process_index():
+            _check_device(d)
+    draws = draw_scenes(generator, batch, tpl.tabletop_geom.diameter.shape[0])
+    shards = []
+    for rows, device, part in shard_keys(draws, mesh):
+        if rows.stop <= rows.start:
+            continue
+        with _on(device):
+            frames = generate_from_draws(part, template_on(tpl, device), cfg, solver_cfg,
+                                         settle_iterations, render_sub_batch)
+        shards.append(Shard(rows, device, frames))
+    return shards
 
 
 def _to_host(out: dict, stream) -> tuple[dict, object]:
     """Queue the copy of each tensor of ``out`` to host memory: on CUDA
     into pinned buffers on ``stream``, after the work queued so far on the
-    current stream; returns (host tensors, the copy's end event or None)."""
+    current stream of the tensors' device; returns (host tensors, the
+    copy's end event or None)."""
     first = next(iter(out.values()))
     if first.device.type != "cuda":
         return {k: v.clone() for k, v in out.items()}, None
-    stream.wait_stream(torch.cuda.current_stream(first.device))
-    with torch.cuda.stream(stream):
-        host = {}
-        for k, v in out.items():
-            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            host[k].copy_(v, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+    with torch.cuda.device(first.device):
+        stream.wait_stream(torch.cuda.current_stream(first.device))
+        with torch.cuda.stream(stream):
+            host = {}
+            for k, v in out.items():
+                host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
     return host, done
 
 
@@ -191,14 +384,18 @@ def generate_stream(
     batch: int,
     n_batches: int | None = None,
     seed: int = 0,
+    mesh: Mesh | None = None,
+    render_sub_batch: int = 8,
     prefetch: int = 2,
     gt_fields: tuple[str, ...] | None = None,
     settle_iterations: int = tt.MAX_ITERATIONS,
 ):
     """Yields ``n_batches`` (None: without end) batches of ``batch`` scenes
-    as numpy arrays (batch.py:324-409, without the mesh): batch k is
-    ``generate_batch`` on one ``torch.Generator`` seeded with ``seed``,
-    after batches 0..k-1.
+    as numpy arrays (batch.py:324-409): batch k is ``generate_batch`` on one
+    ``torch.Generator`` seeded with ``seed``, after batches 0..k-1. With
+    ``mesh`` it is ``generate_batch_sharded`` instead, and the batch holds
+    this process's rows (``distributed.local_batch_slice``), its shards
+    copied to the host and concatenated in row order.
 
     ``gt_fields``: the ``RenderedFrame`` fields to read back (None: all,
     yielded as a ``RenderedFrame``). With it each batch is a dict of numpy
@@ -210,25 +407,18 @@ def generate_stream(
     batch runs its settle and render on the host's side too (the settle
     loop and the compactions read sizes from the device), so what overlaps
     the next batches' device work is batch k's narrowing and its copy to
-    pinned host memory on a copy stream of its own."""
+    pinned host memory on a copy stream of each device."""
     if gt_fields is not None:
         bad = set(gt_fields) - set(RenderedFrame._fields)
         if bad:
             raise ValueError(f"unknown gt_fields {sorted(bad)}")
     generator = torch.Generator().manual_seed(seed)
-    dev = tpl.base_z.device
-    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    streams: dict = {}  # device -> its copy stream
     pending: deque = deque()
 
-    def fetch(entry):
-        host, done, _ = entry  # the device tensors stay referenced until here
-        if done is not None:
-            done.synchronize()
-        arrays = {k: v.numpy() for k, v in host.items()}
-        return arrays if gt_fields is not None else RenderedFrame(**arrays)
-
-    for _ in range(n_batches) if n_batches is not None else count():
-        frames = generate_batch(generator, batch, tpl, cfg, solver_cfg, settle_iterations)
+    def issue(frames: RenderedFrame):
+        """Narrow and queue one device's frames for the host: (host
+        tensors, the copy's end event, the device tensors)."""
         if gt_fields is None:
             out = frames._asdict()
         else:
@@ -236,8 +426,30 @@ def generate_stream(
             for f in gt_fields:
                 x = getattr(frames, f)
                 out[f] = x.to(torch.float16) if x.dtype == torch.float32 else x
-        host, done = _to_host(out, stream)
-        pending.append((host, done, out))
+        dev = frames.rgb.device
+        if dev.type == "cuda" and dev not in streams:
+            streams[dev] = torch.cuda.Stream(dev)
+        return (*_to_host(out, streams.get(dev)), out)
+
+    def fetch(parts):
+        for _, done, _ in parts:  # the device tensors stay referenced until here
+            if done is not None:
+                done.synchronize()
+        arrays = {k: np.concatenate([host[k].numpy() for host, _, _ in parts])
+                  if len(parts) > 1 else parts[0][0][k].numpy() for k in parts[0][0]}
+        return arrays if gt_fields is not None else RenderedFrame(**arrays)
+
+    for _ in range(n_batches) if n_batches is not None else count():
+        if mesh is None:
+            parts = [issue(generate_batch(generator, batch, tpl, cfg, solver_cfg,
+                                          settle_iterations, render_sub_batch))]
+        else:
+            shards = generate_batch_sharded(generator, batch, tpl, cfg, solver_cfg, mesh,
+                                            settle_iterations, render_sub_batch)
+            if not shards:
+                raise ValueError(f"generate_stream: a batch of {batch} leaves this process no rows")
+            parts = [issue(sh.frames) for sh in shards]
+        pending.append(parts)
         if len(pending) > prefetch:
             yield fetch(pending.popleft())
     while pending:

@@ -46,9 +46,11 @@ DEFAULT_MATERIAL_COLOR = np.array(
     [0x3B / 255.0, 0xD2 / 255.0, 0x67 / 255.0, 1.0], dtype=np.float32
 )
 
-# near-watertight threshold for cull eligibility (atlas.py:257)
+# defaults of build_scene_atlas's two modes: the near-watertight threshold
+# for cull eligibility (atlas.py:257, SL_CULL_CLOSEDNESS) and the
+# shadow-caster proxy target in faces (atlas.py:287, SL_SHADOW_PROXY; 0 =
+# the full geometry casts the shadow)
 CULL_CLOSEDNESS = 0.98
-# shadow-caster proxy target in faces (atlas.py:287, SL_SHADOW_PROXY default)
 SHADOW_PROXY_TARGET = 8192
 
 
@@ -292,13 +294,19 @@ _PLANE_MATERIAL = dict(
 )
 
 
-def build_scene_atlas_numpy(objects, background_plane=None) -> dict:
+def build_scene_atlas_numpy(objects, background_plane=None,
+                            shadow_proxy_target: int = SHADOW_PROXY_TARGET,
+                            cull_closedness: float = CULL_CLOSEDNESS) -> dict:
     """numpy port of ``build_scene_atlas`` (atlas.py:275-578). ``objects``
     are host objects with ``.mesh`` (an ``assets.mesh.Mesh``), optionally a
     ``sticker_texture`` and a forced ``color``. ``background_plane``:
     optional dict(size (2,), texture (H, W, 4) u8 or None); it becomes one
     more object slot with class, instance and vertex id 0, never cullable,
     also in the shadow proxy (reference render_pass.cpp:545-582).
+    ``shadow_proxy_target``: faces of each mesh's decimated shadow caster
+    (0: the full geometry casts); ``cull_closedness``: the share of
+    matched edges from which a mesh's faces may be culled (the JAX
+    package's ``SL_SHADOW_PROXY`` and ``SL_CULL_CLOSEDNESS``).
     Returns a dict of numpy arrays keyed by SceneAtlas field name."""
     pos_l, nrm_l, uv_l, col_l, tan_l, vid_l, vobj_l = [], [], [], [], [], [], []
     face_l, fobj_l, fmat_l, fcull_l = [], [], [], []
@@ -310,8 +318,8 @@ def build_scene_atlas_numpy(objects, background_plane=None) -> dict:
     sticker_cache: dict[int, int] = {}
     sticker_tex_ids = []
     obj_class = []
-    closed_cache: dict[int, bool] = {}
-    proxy_cache: dict[int, tuple] = {}
+    closed_cache: dict[tuple, bool] = {}
+    proxy_cache: dict[tuple, tuple] = {}
     v_off = sv_off = 0
 
     def add_texture(img: np.ndarray) -> int:
@@ -344,9 +352,10 @@ def build_scene_atlas_numpy(objects, background_plane=None) -> dict:
         vid_l.append(c.vertex_indices.astype(np.int32))
         vobj_l.append(np.full(nv, oi, np.int32))
 
-        if id(c) not in closed_cache:
-            closed_cache[id(c)] = _mesh_closedness(c.positions, c.faces) >= CULL_CLOSEDNESS
-        cullable = closed_cache[id(c)]
+        key = (id(c), cull_closedness)
+        if key not in closed_cache:
+            closed_cache[key] = _mesh_closedness(c.positions, c.faces) >= cull_closedness
+        cullable = closed_cache[key]
 
         mat_ids: dict[int, int] = {}
         for sm in c.sub_meshes:
@@ -364,9 +373,13 @@ def build_scene_atlas_numpy(objects, background_plane=None) -> dict:
         obj_class.append(obj.mesh.class_index)
         v_off += nv
 
-        if id(c) not in proxy_cache:
-            proxy_cache[id(c)] = decimate_faces(c.positions, c.faces, SHADOW_PROXY_TARGET)
-        sp, sf = proxy_cache[id(c)]
+        key = (id(c), shadow_proxy_target)
+        if key not in proxy_cache:
+            proxy_cache[key] = (
+                decimate_faces(c.positions, c.faces, shadow_proxy_target)
+                if shadow_proxy_target > 0 else (c.positions, np.asarray(c.faces, np.int64))
+            )
+        sp, sf = proxy_cache[key]
         spos_l.append(np.asarray(sp, np.float32))
         svobj_l.append(np.full(sp.shape[0], oi, np.int32))
         sface_l.append(np.asarray(sf, np.int64) + sv_off)
@@ -458,9 +471,13 @@ def build_scene_atlas_numpy(objects, background_plane=None) -> dict:
     )
 
 
-def build_scene_atlas(objects, device, background_plane=None) -> SceneAtlas:
+def build_scene_atlas(objects, device, background_plane=None,
+                      shadow_proxy_target: int = SHADOW_PROXY_TARGET,
+                      cull_closedness: float = CULL_CLOSEDNESS) -> SceneAtlas:
     return tensors_from_numpy(
-        SceneAtlas, build_scene_atlas_numpy(objects, background_plane), device
+        SceneAtlas,
+        build_scene_atlas_numpy(objects, background_plane, shadow_proxy_target, cull_closedness),
+        device,
     )
 
 

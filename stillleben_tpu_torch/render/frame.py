@@ -13,7 +13,9 @@ has a field with the same default: ``raster`` (``SL_RASTER``),
 ``fine_tiles_per_cell`` (``SL_FINE_TPG``), ``backface_cull``
 (``SL_BACKFACE_CULL``), ``shadow_cull`` (``SL_SHADOW_CULL``), ``vsm_taps``
 (``SL_VSM_TAPS``), ``ibl_prefilter`` (``SL_IBL_PREFILTER``), ``ibl_sh``
-(``SL_IBL_SH``).
+(``SL_IBL_SH``). JAX's ``use_pallas=False`` is ``raster="classic"`` with
+``classic_fine="scan"``: the classic raster's XLA fine stage, which breaks
+an equal-depth tie within a chunk by slot, not by id (C-7).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from .ibl import sample_skybox
 from .light_map import LightMapData
 from .rasterize import geometry_stage, rasterize
 from ..ops.fine_raster import MAX_CHUNK, TILES_PER_CELL
-from .rasterize_tiled import RASTERS, rasterize_tiled
+from .rasterize_tiled import CLASSIC_FINES, RASTERS, rasterize_tiled
 from .shading import FrameOutputs, shade
 from .shadow import SHADOW_MODES, render_shadow_maps
 from .ssao import ssao_apply
@@ -75,6 +77,8 @@ class FrameConfig(NamedTuple):
     vsm_taps: int = 4  # bilinear VSM tap | 1: the nearest texel (SL_VSM_TAPS)
     ibl_prefilter: str = "trilinear"  # | "nearest": one level (SL_IBL_PREFILTER)
     ibl_sh: bool = True  # SH irradiance | False: the irradiance cubemap (SL_IBL_SH)
+    classic_fine: str = "kernel"  # the classic fine kernel | "scan": the JAX
+    # package's XLA fine stage (use_pallas=False); classic raster only
 
     def check(self) -> None:
         for field, value, allowed in (
@@ -90,6 +94,12 @@ class FrameConfig(NamedTuple):
                 raise ValueError(f"FrameConfig: {field} {value!r} not in {allowed}")
         if self.raster not in RASTERS:
             raise ValueError(f"FrameConfig: raster {self.raster!r} not in {RASTERS}")
+        if self.classic_fine not in CLASSIC_FINES:
+            raise ValueError(
+                f"FrameConfig: classic_fine {self.classic_fine!r} not in {CLASSIC_FINES}"
+            )
+        if self.classic_fine == "scan" and self.raster != "classic":
+            raise ValueError('FrameConfig: classic_fine "scan" needs raster="classic"')
         if self.texture_filter not in TEXTURE_FILTERS:
             raise ValueError(
                 f"FrameConfig: texture_filter {self.texture_filter!r} not in {TEXTURE_FILTERS}"
@@ -151,7 +161,7 @@ def render_frame_core(
     if not flat and cfg.shadow_mode != "off":
         shadow_maps, shadow_matrices = render_shadow_maps(
             atlas, inputs, cfg.shadow_size, cfg.max_lights, cfg.raster, cfg.fine_tiles_per_cell,
-            cfg.shadow_mode, cfg.shadow_cull,
+            cfg.shadow_mode, cfg.shadow_cull, cfg.classic_fine,
         )
     mark("shadow pass")
 
@@ -162,6 +172,7 @@ def render_frame_core(
                 big_capacity=cfg.big_capacity, fine_chunk=cfg.fine_chunk,
                 pixel_stage=cfg.pixel_stage, tiles_per_cell=cfg.fine_tiles_per_cell,
                 min_depth=min_depth, backface_cull=cfg.backface_cull,
+                classic_fine=cfg.classic_fine,
             )
         else:
             gbuf = rasterize(geom, atlas, inputs, W, H, min_depth=min_depth)

@@ -32,8 +32,12 @@ Class windows, capacities and sorts are the same as in JAX, so the kernels'
 inputs have the same layout in both packages; under a cull the cell path's
 windows and cell budget shrink by the count of cullable faces, as the JAX
 package's do when its mask is a constant (rasterize_tiled.py:187-200, :302).
-Not ported: the classic path's XLA scan fallback (``use_pallas=False``),
-which breaks equal-depth ties by slot, not by id.
+The classic path's fine stage has two rules (C-7): the fine kernel's
+(``classic_fine="kernel"``, the default; the lowest id within a chunk) and
+the JAX package's XLA scan (``"scan"``, ``scan_fine_stage``: its fine
+stage with ``use_pallas=False``, which JAX takes on every backend but the
+TPU; the first slot within a chunk, slots in depth-key order). Across
+chunks both keep the earlier chunk at an equal depth.
 
 The z-buffers have no gradient, in both packages: the line tables and the
 depth-peel floors leave the autograd graph before the kernels (JAX:
@@ -62,6 +66,8 @@ PIXEL_WINDOW = 4  # classic path: tiny-class bbox limit in pixels
 MAX_TILES_PER_PASS = 4096  # classic path: tiles per fine-kernel launch (caps
 # the plain version's gathered line table at high tile counts)
 RASTERS = ("cells", "classic")
+CLASSIC_FINES = ("kernel", "scan")  # the classic fine stage's two rules (C-7)
+SCAN_STEP_ELEMENTS = 2**28  # the scan's (tiles, 5C, pixels) product per step: 1 GiB
 
 
 def _edge_lines(v: torch.Tensor) -> torch.Tensor:
@@ -458,6 +464,59 @@ def fine_stage(ids, LT, md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cel
     return torch.cat(w_parts), torch.cat(t_parts)
 
 
+def scan_fine_stage(ids, LT, md_tiles, near, far, tw, tile):
+    """The JAX package's XLA fine stage (rasterize_tiled.py:670-744) in
+    plain torch ops, not a kernel: per tile, the chunks in order; per chunk
+    one gather of the packed line table, the product of the (5C, 3) lines
+    with the tile's (3, tile^2) pixel matrix, the inside, near/far and
+    floor tests; within a chunk the first slot at the minimum depth wins
+    (``argmin`` returns the first index), across chunks a strictly smaller
+    depth. Tiles are independent, so they go in groups that keep one
+    product near ``SCAN_STEP_ELEMENTS``. Returns per-tile (w, t)."""
+    n_tiles, n_chunks, C = ids.shape
+    pix = tile * tile
+    dev = LT.device
+    Lcat = LT[:, :15]
+    txy = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    tile_ox = (txy % tw * tile).to(torch.float32)
+    tile_oy = (txy // tw * tile).to(torch.float32)
+    lin = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
+    pxx = tile_ox[:, None] + lin.repeat(tile)[None, :]  # (n_tiles, pix)
+    pyy = tile_oy[:, None] + lin.repeat_interleave(tile)[None, :]
+    Pmat = torch.stack([pxx, pyy, torch.ones_like(pxx)], dim=1)  # (n_tiles, 3, pix)
+    inf = float("inf")
+    best_w = torch.full((n_tiles, pix), inf, device=dev)
+    best_t = torch.full((n_tiles, pix), -1, dtype=torch.int32, device=dev)
+    group = max(1, SCAN_STEP_ELEMENTS // (5 * C * pix))
+    for t0 in range(0, n_tiles, group):
+        t1 = min(t0 + group, n_tiles)
+        n = t1 - t0
+        P, md = Pmat[t0:t1], md_tiles[t0:t1, None]
+        bw, bt = best_w[t0:t1], best_t[t0:t1]
+        for c in range(n_chunks):
+            tri = ids[t0:t1, c]  # (n, C), -1 = masked
+            Lc = Lcat[torch.clamp(tri, min=0).long()]  # (n, C, 15)
+            A = torch.cat([Lc[..., :9].reshape(n, C * 3, 3), Lc[..., 9:12], Lc[..., 12:15]], 1)
+            R = torch.bmm(A, P)  # (n, 5C, pix)
+            E = R[:, : C * 3].reshape(n, C, 3, pix)
+            Esum, Ez = R[:, C * 3 : C * 4], R[:, C * 4 :]
+            inside = (E >= 0).all(dim=2) | (E <= 0).all(dim=2)
+            del R, E
+            wp = Ez / torch.where(Esum.abs() < 1e-20, 1.0, Esum)
+            ok = (inside & (tri >= 0)[..., None] & (Esum.abs() > 1e-20) & (wp > near)
+                  & (wp <= far) & (wp > md + 1e-5))
+            score = torch.where(ok, wp, inf)
+            del inside, wp, ok, Esum, Ez
+            ci = torch.argmin(score, dim=1)  # (n, pix): the first slot at the minimum
+            cw = torch.gather(score, 1, ci[:, None])[:, 0]
+            ctri = torch.gather(tri, 1, ci)
+            better = cw < bw
+            bt.copy_(torch.where(better, ctri, bt))
+            bw.copy_(torch.where(better, cw, bw))
+            del score
+    return best_w, best_t
+
+
 def rasterize_vertices(
     v: torch.Tensor,
     depth_attr: torch.Tensor,
@@ -475,12 +534,17 @@ def rasterize_vertices(
     min_depth: torch.Tensor | None = None,
     cull_sign: int = 0,
     cull_mask: torch.Tensor | None = None,
+    fine: str = "kernel",
 ):
-    """Classic span-class binned z-buffer (rasterize_tiled.py:386-668, the
-    kernel path). Returns (depth image, triangle-id image), both (H, W).
-    ``min_depth`` (H, W) is the depth-peel floor (None = 0 everywhere); the
-    pixel stage applies it too. ``cull_sign`` / ``cull_mask``: the facing
-    cull (see ``_bounds``); the classic windows do not shrink under it."""
+    """Classic span-class binned z-buffer (rasterize_tiled.py:386-752).
+    Returns (depth image, triangle-id image), both (H, W). ``min_depth``
+    (H, W) is the depth-peel floor (None = 0 everywhere); the pixel stage
+    applies it too. ``cull_sign`` / ``cull_mask``: the facing cull (see
+    ``_bounds``); the classic windows do not shrink under it. ``fine``:
+    the fine kernel (``"kernel"``, the JAX Pallas path) or the JAX
+    package's XLA scan (``"scan"``, ``use_pallas=False``)."""
+    if fine not in CLASSIC_FINES:
+        raise ValueError(f"rasterize_vertices: fine {fine!r} not in {CLASSIC_FINES}")
     lists = build_tile_lists(
         v, depth_attr, tri_active, width, height, near, far, tile_capacity, big_capacity,
         fine_chunk, pixel_stage, tile=tile, cull_sign=cull_sign, cull_mask=cull_mask,
@@ -490,9 +554,12 @@ def rasterize_vertices(
         md_tiles = torch.zeros((n_tiles, tile * tile), device=v.device)
     else:
         md_tiles = tile_img(min_depth.detach(), tw, th, tile)  # (:616)
-    depth_t, tri_t = fine_stage(
-        lists["ids"], lists["LT"], md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell
-    )
+    if fine == "scan":
+        depth_t, tri_t = scan_fine_stage(lists["ids"], lists["LT"], md_tiles, near, far, tw, tile)
+    else:
+        depth_t, tri_t = fine_stage(
+            lists["ids"], lists["LT"], md_tiles, near, far, fine_chunk, tw, tile, tiles_per_cell
+        )
     pad_w, pad_h = tw * tile, th * tile
     depth_img = untile_img(depth_t, tw, th, pad_h, pad_w, height, width, tile)
     tri_img = untile_img(tri_t, tw, th, pad_h, pad_w, height, width, tile)
@@ -601,6 +668,7 @@ def rasterize_tiled(
     tiles_per_cell: int = 1,
     min_depth: torch.Tensor | None = None,
     backface_cull: bool = False,
+    classic_fine: str = "kernel",
 ) -> GBuffer:
     """Camera raster (rasterize_tiled.py:890-934), through the cell path
     or, with ``raster="classic"``, the span-class path (the JAX package's
@@ -608,7 +676,9 @@ def rasterize_tiled(
     faces. ``min_depth`` (H, W) is the depth-peel floor of an alpha-peel
     pass. Two-sided unless ``backface_cull`` (``SL_BACKFACE_CULL``), which
     drops the faces of closed meshes (``atlas.face_cullable``) turned away
-    from the camera. Barycentrics and facing are recomputed in shading."""
+    from the camera. ``classic_fine``: the classic path's fine stage
+    (``rasterize_vertices``' ``fine``). Barycentrics and facing are
+    recomputed in shading."""
     faces = atlas.faces.long()
     v = geom.pix_hom[faces]  # (F, 3, 3)
     visible = inputs.obj_visible[atlas.face_obj.long()]
@@ -625,7 +695,7 @@ def rasterize_tiled(
         depth_img, tri_img = rasterize_vertices(
             v, v[..., 2], visible, width, height, DEFAULT_NEAR, DEFAULT_FAR, tile_capacity,
             big_capacity, fine_chunk, pixel_stage, tiles_per_cell=tiles_per_cell,
-            min_depth=min_depth, **cull,
+            min_depth=min_depth, fine=classic_fine, **cull,
         )
     else:
         raise ValueError(f"rasterize_tiled: raster {raster!r} not in {RASTERS}")

@@ -81,7 +81,8 @@ class RenderPassResult:
 class RenderPass:
     def __init__(self, shading: str = "pbr", ssao: bool = True,
                  shadow_mode: str = "vsm", ssao_mode: str = "fast",
-                 supersample: int = 1, texture_filter: str = "trilinear"):
+                 supersample: int = 1, texture_filter: str = "trilinear",
+                 shadow_proxy_target: int = 8192, cull_closedness: float = 0.98):
         if shading not in ("pbr", "phong", "flat"):
             raise ValueError(f"unknown shading type {shading!r}")
         if shadow_mode not in ("vsm", "pcf"):
@@ -99,6 +100,10 @@ class RenderPass:
         # pixels; rgb and hdr are box-filtered down, every ground-truth
         # buffer takes the centre sample (indices cannot average)
         self.supersample = int(supersample)
+        # the atlas's two modes (build_scene_atlas; SL_SHADOW_PROXY and
+        # SL_CULL_CLOSEDNESS in the JAX package)
+        self.shadow_proxy_target = int(shadow_proxy_target)
+        self.cull_closedness = float(cull_closedness)
         self._atlas = None  # cached on the scene's object-set stamp
         self._atlas_key = None
 
@@ -114,9 +119,13 @@ class RenderPass:
             tuple(np.asarray(scene.background_plane_size).tolist()),
             id(scene.background_plane_texture),
             device,
+            self.shadow_proxy_target,
+            self.cull_closedness,
         )
         if self._atlas is None or self._atlas_key != key:
-            self._atlas = build_scene_atlas(scene.objects, device, background_plane=bg_plane)
+            self._atlas = build_scene_atlas(scene.objects, device, background_plane=bg_plane,
+                                            shadow_proxy_target=self.shadow_proxy_target,
+                                            cull_closedness=self.cull_closedness)
             self._atlas_key = key
         return self._atlas
 

@@ -77,6 +77,7 @@ def _ortho_rasterize_depth(
     raster: str = "cells",
     tiles_per_cell: int = 1,
     tri_cullable: torch.Tensor | None = None,
+    classic_fine: str = "kernel",
 ) -> torch.Tensor:
     """Depth-only ortho raster -> (size, size) min-depth map (1 = far).
 
@@ -90,7 +91,8 @@ def _ortho_rasterize_depth(
     of closed meshes turned away from the light write depth. The cell path
     culls in its classification (``cull_sign`` +1); the classic path's
     splat classes bypass that, so it drops the culled faces from ``tri_on``
-    up front (shadow.py:152-160)."""
+    up front (shadow.py:152-160). ``classic_fine`` picks the binned rest's
+    fine stage (``rasterize_vertices``' ``fine``; JAX: ``use_pallas``)."""
     faces = faces.long()
     p = torch.cat([xy, torch.ones_like(xy[:, :1])], -1)[faces]  # (F, 3, 3), w == 1
     zf = z[faces]
@@ -125,7 +127,7 @@ def _ortho_rasterize_depth(
     depth_img, _ = rasterize_vertices(
         p, zf, tri_on & ~tiny2 & ~in_splat4, size, size, near=-1e-3, far=1.0,
         tile_capacity=128, big_capacity=16, fine_chunk=128, pixel_stage=False, tile=tile,
-        tiles_per_cell=tiles_per_cell,
+        tiles_per_cell=tiles_per_cell, fine=classic_fine,
     )
     depth_img = torch.minimum(depth_img, _splat_tiny_depth(p, zf, tiny2, size))
     depth_img = torch.minimum(depth_img, _splat_tiny_depth(p[il], zf[il], ok4, size, window=4))
@@ -151,14 +153,15 @@ def build_vsm(depth_map: torch.Tensor, taps: int = 4) -> torch.Tensor:
 def render_shadow_maps(
     atlas: SceneAtlas, inputs: RenderInputs, size: int, max_lights: int,
     raster: str = "cells", tiles_per_cell: int = 1, mode: str = "vsm",
-    shadow_cull: bool = False,
+    shadow_cull: bool = False, classic_fine: str = "kernel",
 ):
     """Returns (maps, matrices (L, 4, 4) world -> (u, v, z)): the maps are
     (L, S, S, 2) VSM moments with ``mode="vsm"``, the (L, S, S) raw depth
     with ``"pcf"``. The light axis is a loop (one depth raster per light,
     an inactive light's map is all far); ``raster`` picks the depth pass's
-    raster, as the camera's; ``shadow_cull`` the front-face cull
-    (``SL_SHADOW_CULL``) on the closed meshes' faces."""
+    raster, as the camera's, and ``classic_fine`` its classic fine stage;
+    ``shadow_cull`` the front-face cull (``SL_SHADOW_CULL``) on the closed
+    meshes' faces."""
     if mode not in ("vsm", "pcf"):
         raise ValueError(f"render_shadow_maps: mode {mode!r} not in ('vsm', 'pcf')")
     n_lights = min(inputs.light_directions.shape[0], max_lights)
@@ -203,7 +206,7 @@ def render_shadow_maps(
         z = torch.clamp(wl[:, 2] / zmax, 0.0, 1.0)
         d = _ortho_rasterize_depth(
             torch.stack([u, v], -1), z, atlas.shadow_faces, tri_on, size, raster, tiles_per_cell,
-            atlas.shadow_face_cullable if shadow_cull else None,
+            atlas.shadow_face_cullable if shadow_cull else None, classic_fine,
         )
         m_on = build_vsm(d) if mode == "vsm" else d
         maps.append(torch.where(light_on, m_on, torch.ones_like(m_on)))

@@ -5,7 +5,9 @@ Counterpart of ``stillleben_tpu/scene/camera_fit.py`` (reference
 Scene::chooseRandomCameraPose, src/scene.cpp:472-610, and
 chooseRandomLightDirection, :453-470). Functions take a batch axis: B
 scenes at once. Random numbers come from a CPU ``torch.Generator`` so a
-seed gives the same scenes on every device.
+seed gives the same scenes on every device; they are drawn apart from the
+work (``camera_uniforms``, ``light_normals``), so a batch can be drawn
+whole and its rows sent to several devices.
 """
 
 from __future__ import annotations
@@ -26,12 +28,23 @@ def _base_cam_rot(device) -> torch.Tensor:
     )
 
 
-def random_camera_rotation(batch: int, generator: torch.Generator, device) -> torch.Tensor:
-    """(B, 3, 3): azimuth in [-pi, pi), elevation in [30, 60] degrees."""
-    u = torch.rand((batch, 2), generator=generator, dtype=torch.float32).to(device)
+def camera_uniforms(batch: int, generator: torch.Generator) -> torch.Tensor:
+    """(B, 2) uniforms of ``camera_rotation``, on the CPU."""
+    return torch.rand((batch, 2), generator=generator, dtype=torch.float32)
+
+
+def camera_rotation(u: torch.Tensor, device) -> torch.Tensor:
+    """(B, 3, 3) from ``camera_uniforms``: azimuth in [-pi, pi), elevation
+    in [30, 60] degrees."""
+    u = u.to(device)
     azimuth = -math.pi + u[:, 0] * (2 * math.pi)
     elevation = ELEVATION_LIMIT + u[:, 1] * (math.pi / 2 - 2 * ELEVATION_LIMIT)
     return m.rotation_z(azimuth) @ m.rotation_y(elevation) @ _base_cam_rot(device)
+
+
+def random_camera_rotation(batch: int, generator: torch.Generator, device) -> torch.Tensor:
+    """(B, 3, 3): ``camera_rotation`` of fresh uniforms."""
+    return camera_rotation(camera_uniforms(batch, generator), device)
 
 
 def _intersect_2d(l0: torch.Tensor, l1: torch.Tensor):
@@ -68,10 +81,10 @@ def fit_camera_position(
 
 
 def choose_random_camera_pose(
-    generator: torch.Generator, P: torch.Tensor, points: torch.Tensor, point_valid: torch.Tensor
+    u: torch.Tensor, P: torch.Tensor, points: torch.Tensor, point_valid: torch.Tensor
 ) -> torch.Tensor:
-    """(B, 4, 4) camera-to-world poses."""
-    R = random_camera_rotation(points.shape[0], generator, points.device)
+    """(B, 4, 4) camera-to-world poses; ``u`` (B, 2) from ``camera_uniforms``."""
+    R = camera_rotation(u, points.device)
     fallback = torch.einsum("bij,j->bi", R, torch.tensor([0.0, 0.0, -1.0], device=R.device))
     pos = torch.where(
         point_valid.any(dim=1, keepdim=True), fit_camera_position(R, P, points, point_valid), fallback
@@ -79,8 +92,14 @@ def choose_random_camera_pose(
     return m.make_transform(R, pos)
 
 
-def choose_random_light_direction(generator: torch.Generator, cam_pose: torch.Tensor) -> torch.Tensor:
-    """(B, 3) world light directions: from above, on the camera side."""
-    r = torch.randn((cam_pose.shape[0], 3), generator=generator, dtype=torch.float32).to(cam_pose.device)
+def light_normals(batch: int, generator: torch.Generator) -> torch.Tensor:
+    """(B, 3) standard normals of ``choose_random_light_direction``, on the CPU."""
+    return torch.randn((batch, 3), generator=generator, dtype=torch.float32)
+
+
+def choose_random_light_direction(r: torch.Tensor, cam_pose: torch.Tensor) -> torch.Tensor:
+    """(B, 3) world light directions: from above, on the camera side; ``r``
+    (B, 3) from ``light_normals``."""
+    r = r.to(cam_pose.device)
     random_direction = m.normalize(torch.stack([r[:, 0], -r[:, 1].abs(), -r[:, 2].abs()], dim=-1))
     return torch.einsum("bij,bj->bi", cam_pose[:, :3, :3], -random_direction)

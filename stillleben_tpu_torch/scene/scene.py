@@ -41,7 +41,9 @@ from ..physics.types import BodyParams, BodyState, HullAtlas, build_hull_atlas_n
 from ..render import camera as cam
 from ..utils import sanitize
 from . import pose as pose_samplers
-from .camera_fit import choose_random_light_direction, fit_camera_position, random_camera_rotation
+from .camera_fit import (
+    choose_random_light_direction, fit_camera_position, light_normals, random_camera_rotation,
+)
 from .object import Object
 
 NUM_LIGHTS = 3  # reference include/stillleben/common.h:17
@@ -185,7 +187,8 @@ class Scene:
 
     def choose_random_light_direction(self) -> None:
         """(reference src/scene.cpp:453-470)"""
-        d = choose_random_light_direction(self._generator, torch.from_numpy(self._camera_pose)[None])
+        d = choose_random_light_direction(light_normals(1, self._generator),
+                                          torch.from_numpy(self._camera_pose)[None])
         self.light_directions = d.numpy()
 
     # deprecated alias used by the reference's examples/ycb.py

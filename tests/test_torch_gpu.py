@@ -517,3 +517,120 @@ def test_checked_on_cuda():
     torch.cuda.synchronize()
     assert gather(x, torch.tensor([5, -6], device="cuda")).tolist() == [5, 0]
     assert int(x.sum()) == 15
+
+
+def edge_rounding(v, tri, ys, xs, slack=4.0):
+    """(E (n, 3), err (n, 3)) in float64: the edge functions of triangles
+    ``tri`` at the pixel centres (xs + .5, ys + .5), and how far float32
+    may leave them there. Each line coefficient is a difference of two
+    products of the float32 vertices, known to ``eps`` of the products'
+    magnitudes; E sums three such terms, so it is known to ``slack`` *
+    eps * the sum of its terms' magnitudes."""
+    eps = float(np.finfo(np.float32).eps)
+    t = v[tri].astype(np.float64)
+    nxt, prv = t[:, [1, 2, 0]], t[:, [2, 0, 1]]  # edge k is opposite vertex k
+    L = np.cross(nxt, prv)
+    mag = np.stack([np.abs(nxt[..., 1] * prv[..., 2]) + np.abs(nxt[..., 2] * prv[..., 1]),
+                    np.abs(nxt[..., 2] * prv[..., 0]) + np.abs(nxt[..., 0] * prv[..., 2]),
+                    np.abs(nxt[..., 0] * prv[..., 1]) + np.abs(nxt[..., 1] * prv[..., 0])], -1)
+    X, Y = (xs + 0.5)[:, None], (ys + 0.5)[:, None]
+    E = L[..., 0] * X + L[..., 1] * Y + L[..., 2]
+    err = slack * eps * (mag[..., 0] * X + mag[..., 1] * Y + mag[..., 2])
+    return E, err
+
+
+def scan_rule_split(tri_kernel, tri_scan, v, depth_attr, rel=1e-6):
+    """The pixels where the classic raster's two fine rules (the kernel's
+    and the JAX package's XLA scan, C-7) pick different triangles, split
+    in two: (a) where the two winners' depths (float64, from the float32
+    vertices) lie within ``rel`` of each other, or where an edge function
+    of either winner is within float32's rounding of 0 at the pixel centre
+    (``edge_rounding``): the tie rules and C-5's rounding; (b) every other
+    disagreement. Returns the (H, W) masks (a, b)."""
+    ys, xs = np.nonzero(tri_kernel != tri_scan)
+    tie = np.zeros(len(ys), bool)
+    edge = np.zeros(len(ys), bool)
+    depth = []
+    for tri in (tri_kernel, tri_scan):
+        t = tri[ys, xs]
+        E, err = edge_rounding(v, np.maximum(t, 0), ys, xs)
+        edge |= (t >= 0) & (np.abs(E) <= err).any(1)
+        Es = E.sum(1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            depth.append(np.where(t >= 0, (E * depth_attr[np.maximum(t, 0)]).sum(1) / Es, np.nan))
+    both = np.isfinite(depth[0]) & np.isfinite(depth[1])
+    tie[both] = (np.abs(depth[0] - depth[1])[both]
+                 <= rel * np.maximum(np.abs(depth[0]), np.abs(depth[1]))[both])
+    a = np.zeros(tri_kernel.shape, bool)
+    b = np.zeros(tri_kernel.shape, bool)
+    a[ys[tie | edge], xs[tie | edge]] = True
+    b[ys[~(tie | edge)], xs[~(tie | edge)]] = True
+    return a, b
+
+
+def test_kernels_launch_on_the_tensors_device():
+    """K1-K4 on ``cuda:1`` while ``cuda:0`` is current (the launch guard,
+    C-16): each equal to its plain version. Needs two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from stillleben_tpu_torch.ops import cell_raster as cr
+    from stillleben_tpu_torch.ops import fine_raster as fr
+    from stillleben_tpu_torch.ops import smoke
+
+    rng = np.random.default_rng(0)
+    n, size = 300, 64
+    p = rng.uniform(0, size, (n, 3, 2)).astype(np.float32)
+    v = torch.from_numpy(np.concatenate([p, np.ones((n, 3, 1), np.float32)], -1))
+    z = torch.from_numpy(rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32))
+    act = torch.ones(n, dtype=torch.bool)
+    from stillleben_tpu_torch.render import rasterize_tiled as rt
+
+    k1_in, k2_in = [], []
+    orig1, orig2 = rt.cell_raster, rt.fine_raster
+    rt.cell_raster = lambda *a: k1_in.append(a) or orig1(*a)
+    rt.fine_raster = lambda *a, **kw: k2_in.append((a, kw)) or orig2(*a, **kw)
+    try:
+        rt.rasterize_vertices_cells(v, z, act, size, size, -1e-3, 1.0, 16)
+        rt.rasterize_vertices(v, z, act, size, size, -1e-3, 1.0, 128, 16, 128, False)
+    finally:
+        rt.cell_raster, rt.fine_raster = orig1, orig2
+    dev1 = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        for args in k1_in:
+            a1 = [x.to(dev1) if isinstance(x, torch.Tensor) else x for x in args]
+            got = cr.cell_raster(*a1)
+            want = cr.cell_raster_plain(*args)
+            assert got[0].device == dev1
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        for args, kw in k2_in:
+            a1 = [x.to(dev1) if isinstance(x, torch.Tensor) else x for x in args]
+            for tpg in (1, 4):
+                got = fr.fine_raster(*a1, **dict(kw, tiles_per_cell=tpg))
+                want = fr.fine_raster_plain(*args, **dict(kw, tiles_per_cell=tpg))
+                assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        x = torch.randn(8, 128, device=dev1)
+        assert torch.equal(smoke.double(x), smoke.double_reference(x))
+        smoke.empty_launch(dev1)
+        torch.cuda.synchronize(dev1)
+        assert torch.cuda.current_device() == 0
+
+
+def test_one_card_sharded_batch_equals_generate_batch(tmp_path_factory):
+    """``generate_batch_sharded`` over a one-card mesh: every field equal to
+    ``generate_batch`` of the same seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from stillleben_tpu_torch.parallel.batch import generate_batch, generate_batch_sharded
+    from stillleben_tpu_torch.parallel.distributed import make_hybrid_mesh
+
+    meshes = build_meshes(str(tmp_path_factory.mktemp("meshes")), port=True, native_decomp=False)
+    tpl = port_template(meshes, "cuda")
+    cfg = FrameConfig(width=W, height=H, max_lights=1, shadow_size=64, ssao=False,
+                      sample_textures=False, sample_stickers=False)
+    want = generate_batch(torch.Generator().manual_seed(2), 3, tpl, cfg, default_config(), 5)
+    mesh = make_hybrid_mesh(devices=["cuda:0"])
+    shards = generate_batch_sharded(torch.Generator().manual_seed(2), 3, tpl, cfg,
+                                    default_config(), mesh, 5, render_sub_batch=2)
+    assert len(shards) == 1 and shards[0].rows == slice(0, 3)
+    for name in want._fields:
+        assert torch.equal(getattr(shards[0].frames, name), getattr(want, name)), name

@@ -41,7 +41,8 @@ SCRIPT = textwrap.dedent(
            "assets.fbxfile", "assets.legacy_formats", "assets.native_decompose",
            "assets.image_loader", "assets.image_saver", "assets.writers", "viewer",
            "viewer_web", "utils.arcball", "scene.animator", "scene.job_queue",
-           "scene.manipulation_sim", "physics.telemetry", "profiling", "extension"}
+           "scene.manipulation_sim", "physics.telemetry", "profiling", "extension",
+           "parallel.distributed"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
