@@ -9,9 +9,10 @@ and light-map loaders (every mesh format, the native hull cooker,
 ``sl.LightMap`` from an sIBL descriptor, ``ImageSaver`` / ``ImageLoader``)
 and the rest of the public table (``Viewer`` and its web front-end,
 ``JobQueue``, ``ManipulationSim`` with telemetry, ``profiling``,
-``extension``, the sanitizers), and the scale-out layer (a sharded batch
+``extension``, the sanitizers), the scale-out layer (a sharded batch
 on a one-card mesh, two processes of one ``gloo`` group on the card, the
-atlas modes, the classic raster's scan rule).
+atlas modes, the classic raster's scan rule), and the image formats (JPEG,
+BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example).
 
     python3 chip_smoke.py
 
@@ -194,6 +195,34 @@ Phases (one line each or more; any failure exits non-zero):
     and (b) the rest, which must stay under 0.01% of the pixels and is
     listed; depth within 1e-5 where the ids agree; ms per render and peak
     memory of each.
+
+18. image formats (``assets/jpeg.py``, ``bmp.py``, ``tga.py``, ``gif.py``,
+    ``tiff.py`` over the native codec ``csrc/sl_image.cpp``): the codec's
+    g++ build on the card's host (seconds); the JPEG (q75, 4:2:0) encodes
+    of ``image_fixtures.seeded_images()`` (bench-full's 256^2 blob texture
+    and a seeded 640x480 image) and their decodes, and the decodes of the
+    committed fixtures (progressive JPEG, interlaced GIF, LZW and Deflate
+    TIFF, RLE8 BMP, RLE TGA), each held to the SHA-256 that Pillow 12.1.0
+    gave on the CPU host; bench-full's composition at 640x480 from
+    ``write_image_fixtures`` (the blob textured from a JPEG through its
+    ``.mtl``, a GLB with an embedded JPEG, the plane from a TGA,
+    ``sl.LightMap`` of an ``.ibl`` whose ``REFfile`` is a JPEG), settled by
+    ``simulate_tabletop_scene()`` (B = 1) and rendered: phase 13's content
+    checks, K1's launches (one camera, two shadow passes) and no plain
+    piece, K1 ``torch.equal`` to its plain version on each pass, and the
+    frame's fields ``torch.equal`` to those of the same scene whose images
+    are their decoded pixels (PNG twins, the plane's array); BMP, TGA and
+    TIFF round trips of L, RGB and RGBA of the texture and of this render,
+    and its depth in mm as 16-bit TIFF, bitwise; the codec's median ms per
+    encode and decode of the 640x480 frame (JPEG, PNG, BMP, TGA, TIFF), and
+    per decode of its run-length files (RLE TGA, PackBits TIFF, RLE8 and
+    RLE4 BMP of its class index; written by ``tests/torch_image_fixtures.py``
+    and read back bitwise); ``ImageLoader(num_threads=4)``'s images/s over
+    16 JPEG frames, 600 textures timed from its construction;
+    ``examples.ycb.run_stream``: 2 batches of 8 at 320x240 with 25 settle
+    frames (cut from 100 for time), RGB as PNG and JPEG and the instance
+    mask as 16-bit PNG through ``ImageSaver``, every file read back by the
+    port's codec.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2245,6 +2274,295 @@ def run_scale_out(torch, cr, fr, rt, full, ftpl, fcfg, fccfg, solver_cfg, phase6
     return entries
 
 
+IMAGE_FORMATS = ("jpeg", "png", "bmp", "tga", "tiff")
+STREAM_SIZE, STREAM_SETTLE = (320, 240), 25  # phase 18's ycb stream (settle cut from 100)
+LOADER_TEXTURES = 600  # phase 18's ImageLoader count: ~50x its queue and workers' 12
+
+
+def _median_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def run_image_formats(torch, cr, rt, card) -> tuple[list, dict]:
+    """Phase 18: the image formats of the asset layer (see the module
+    docstring). Returns the kernels' entries of K1 on this path's inputs and
+    the phase's seconds and milliseconds."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import bmp, image, jpeg, native_image, tga, tiff
+    from stillleben_tpu_torch.assets.image_fixtures import FILES, digests, seeded_images
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.native_build import build_library
+    from stillleben_tpu_torch.assets.procedural import write_image_fixtures
+    from stillleben_tpu_torch.examples import ycb
+
+    build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
+    fx_dir = os.path.join(build, f"images_{os.getpid()}")
+    secs = {}
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+
+    # the codec's g++ build on this host, timed into a directory of its own
+    # (the package's _build may hold a library already), then the package's
+    t0 = time.perf_counter()
+    build_library("sl_image", native_image.SOURCE, native_image.HEADER,
+                  os.path.join(fx_dir, "codec"), "the native image codec")
+    secs["codec build"] = time.perf_counter() - t0
+    lib = native_image.build()
+    phase("images", f"the native codec's g++ build: {secs['codec build']:.3f} s; the package "
+                    f"loads {os.path.relpath(lib, ROOT)}")
+
+    # JPEG held to Pillow's digests; the committed fixtures decoded
+    seeded = seeded_images()
+    bad = []
+    for name, img in seeded.items():
+        enc = jpeg.encode_jpeg(img)
+        if sha(enc) != digests.JPEG_ENCODE[name]:
+            bad.append(f"JPEG encode of {name}")
+        if sha(jpeg.decode_jpeg(enc).tobytes()) != digests.JPEG_ENCODE_DECODE[name]:
+            bad.append(f"decode of the JPEG of {name}")
+    for name in FILES:
+        with open(fixture(name), "rb") as f:
+            if sha(image.decode_image(f.read(), name).tobytes()) != digests.DECODE[name]:
+                bad.append(f"decode of {name}")
+    phase("images", f"JPEG (q75, 4:2:0) encodes of the 256x256 texture and the 640x480 seeded "
+                    f"image and their decodes, and the decodes of {len(FILES)} fixtures "
+                    f"({', '.join(FILES)}), against Pillow 12.1.0's SHA-256 digests: "
+                    f"{2 * len(seeded) + len(FILES) - len(bad)} of {2 * len(seeded) + len(FILES)} "
+                    f"equal")
+    if bad:
+        fail(f"images: not Pillow's digests: {bad}")
+
+    # the textured scene's images as JPEG and TGA, each beside its PNG twin
+    t0 = time.perf_counter()
+    fx = write_image_fixtures(fx_dir, subdiv=6, seed=0)
+    secs["fixtures"] = time.perf_counter() - t0
+    os.environ["STILLLEBEN_TPU_MESH_CACHE"] = os.path.join(fx_dir, "hulls")
+    t0 = time.perf_counter()
+    obj_jpg, glb_jpeg, cube, sphere = sl.Mesh.load_threaded(
+        [fx["obj_jpg"], fx["glb_jpeg"], "primitive://cube", "primitive://sphere"])
+    secs["load"] = time.perf_counter() - t0
+    obj_png, glb_png, cube2, sphere2 = sl.Mesh.load_threaded(
+        [fx["obj_png"], fx["glb_png"], "primitive://cube", "primitive://sphere"], physics=False)
+    t0 = time.perf_counter()
+    light_jpg = sl.LightMap(fx["ibl_jpg"])
+    torch.cuda.synchronize()
+    secs["LightMap(.ibl, JPEG)"] = time.perf_counter() - t0
+    light_png = sl.LightMap(fx["ibl_png"])
+    with open(fx["plane_tga"], "rb") as f:
+        plane = tga.decode_tga(f.read())
+
+    def compose(meshes, light_map, plane_texture):
+        blob, glb, cb, sp = meshes
+        for i, (mesh, diag) in enumerate(((blob, 0.25), (glb, 0.25), (cb, 0.2), (sp, 0.15))):
+            if i < 2:
+                mesh.center_bbox()
+            mesh.scale_to_bbox_diagonal(diag)
+            mesh.class_index = i + 1
+        rng = np.random.default_rng(7)
+        scene = sl.Scene((WIDTH, HEIGHT))
+        scene.seed(SEED)
+        for mesh in [blob, glb, sp, blob, cb, sp, glb, cb, sp, blob]:
+            o = sl.Object(mesh)
+            o.metallic, o.roughness = float(rng.random()), float(rng.random())
+            scene.add_object(o)
+        scene.light_map = light_map
+        scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+        scene.background_plane_texture = plane_texture
+        return scene
+
+    scene = compose((obj_jpg, glb_jpeg, cube, sphere), light_jpg, sl.Texture2D(fx["plane_tga"]))
+    twin = compose((obj_png, glb_png, cube2, sphere2), light_png, sl.Texture2D(plane))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene.simulate_tabletop_scene()
+    torch.cuda.synchronize()
+    secs["settle"] = time.perf_counter() - t0
+    for a, b in zip(scene.objects, twin.objects):
+        b.set_pose(a.pose())
+    twin.set_camera_pose(scene.camera_pose())
+    twin.background_plane_pose = scene.background_plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        secs["render"] = time.perf_counter() - t0
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "images render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("images", f"scene of {len(scene.objects)} objects at {WIDTH}x{HEIGHT}: the blob's "
+                    f"texture from a JPEG (.mtl), a GLB with an embedded JPEG, the plane from a "
+                    f"TGA, LightMap(.ibl) whose REFfile is a JPEG; load_threaded "
+                    f"{secs['load']:.3f} s, LightMap {secs['LightMap(.ibl, JPEG)']:.3f} s, "
+                    f"simulate_tabletop_scene {secs['settle']:.3f} s, RenderPass().render "
+                    f"{1e3 * secs['render']:.1f} ms; K1 launches by tile {launches}; calls of "
+                    f"K1's plain pieces {plain_calls}; content: {content}; fields torch.equal "
+                    f"to the same scene with the decoded arrays (PNG twins, the plane's array): "
+                    f"{len(same)} of {len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields):
+        fail(f"images: the decoded-texture frame differs from the array-texture frame in "
+             f"{sorted(set(fields) - set(same))}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"images: K1 calls by (pass, light slot) {per_key}, launches {launches}, plain "
+             f"calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"images camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"images shadow, dark light slot 0, tile {shadow[0][7]}", shadow[0], ("shadow", 0)),
+        (f"images shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1],
+         ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+
+    # the lossless formats round-trip the texture and this phase's frame
+    frame = result.rgb().cpu().numpy()
+    depth_mm = np.clip(np.round(result.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    texture = seeded["texture"]
+    arrays = {"texture RGB": texture, "texture RGBA": np.dstack([texture, texture[..., :1]]),
+              "texture L": texture[..., 1].copy(), "frame RGB": frame[..., :3].copy(),
+              "frame RGBA": frame, "frame L": result.class_index().cpu().numpy().astype(np.uint8)}
+    checked, wrong = 0, []
+    for name, a in arrays.items():
+        rgba = a[..., None].repeat(3, -1) if a.ndim == 2 else a
+        if rgba.shape[2] == 3:
+            rgba = np.dstack([rgba, np.full(rgba.shape[:2], 255, np.uint8)])
+        for fmt, enc in (("BMP", bmp.encode_bmp), ("TGA", tga.encode_tga),
+                         ("TIFF", tiff.encode_tiff)):
+            back = image.decode_image(enc(a), f"x.{fmt.lower()}")
+            want = rgba.copy()
+            if fmt == "BMP" and a.ndim == 3 and a.shape[2] == 4:
+                want[..., 3] = 255  # Pillow reads a 32-bit BMP back as RGB
+            checked += 1
+            if not np.array_equal(back, want):
+                wrong.append(f"{name} as {fmt}")
+    depth_back = tiff.decode_tiff_cv2(tiff.encode_tiff(depth_mm))
+    checked += 1
+    if not (depth_back.dtype == np.uint16 and np.array_equal(depth_back, depth_mm)):
+        wrong.append("the 16-bit depth as TIFF")
+    jpg_err = float(np.abs(jpeg.decode_jpeg(jpeg.encode_jpeg(frame[..., :3]))[..., :3].astype(
+        np.int64) - frame[..., :3]).mean())
+    phase("images", f"round trips through the port's encoders and decoders (BMP, TGA, TIFF of "
+                    f"L, RGB and RGBA of the texture and this phase's frame; the depth in mm as "
+                    f"16-bit TIFF): {checked - len(wrong)} of {checked} bitwise; the frame's "
+                    f"JPEG (q75) mean |error| {jpg_err:.3f}")
+    if wrong or not jpg_err < 4:
+        fail(f"images: round trips not bitwise: {wrong}, JPEG error {jpg_err}")
+
+    # the codec's times on this host, the 640x480 frame
+    rgb_frame = frame[..., :3].copy()
+    encoders = {"jpeg": jpeg.encode_jpeg, "png": image.encode_png, "bmp": bmp.encode_bmp,
+                "tga": tga.encode_tga, "tiff": tiff.encode_tiff}
+    ms = {}
+    for fmt in IMAGE_FORMATS:
+        data = encoders[fmt](rgb_frame)
+        ms[f"{fmt} encode"] = _median_ms(lambda: encoders[fmt](rgb_frame), 9)
+        ms[f"{fmt} decode"] = _median_ms(lambda: image.decode_image(data, f"x.{fmt}"), 9)
+    phase("images", "codec on the 640x480 frame, median ms of 9 on the card's host: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+
+    # the run-length decoders (native) on files of this frame that the tests'
+    # writers make (the port writes no run-length file), each read back bitwise
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_image_fixtures as writers
+
+    index = result.class_index().cpu().numpy().astype(np.uint8)
+    pal = np.random.default_rng(SEED).integers(0, 256, (256, 3)).astype(np.uint8)
+    rle = {"tga rle": (writers.tga(writers.tga_rle(rgb_frame[::-1, :, ::-1].reshape(-1, 3), WIDTH),
+                                   WIDTH, HEIGHT, 10, 24), "tga", rgb_frame),
+           "tiff packbits": (writers.tiff(rgb_frame, 2, compression=32773), "tif", rgb_frame),
+           "bmp rle8": (writers.rle8_bmp(index, pal), "bmp", pal[index]),
+           "bmp rle4": (writers.rle8_bmp(index, pal[:16], rle4=True), "bmp", pal[index])}
+    wrong = []
+    for key, (data, ext, want) in rle.items():
+        back = image.decode_image(data, f"x.{ext}")
+        if not (np.array_equal(back[..., :3], want) and (back[..., 3] == 255).all()):
+            wrong.append(key)
+        ms[f"{key} decode"] = _median_ms(lambda: image.decode_image(data, f"x.{ext}"), 9)
+    phase("images", "run-length decodes of the 640x480 frame (RGB as RLE TGA and PackBits TIFF, "
+                    "the class index as RLE8 and RLE4 BMP), median ms of 9 on the card's host: "
+                    + ", ".join(f"{k} {ms[k + ' decode']:.3f} ({len(rle[k][0])} bytes)"
+                                for k in rle)
+                    + f"; {len(rle) - len(wrong)} of {len(rle)} read back bitwise ({card})")
+    if wrong:
+        fail(f"images: run-length decodes not bitwise: {wrong}")
+
+    # ImageLoader: timed from its construction over every texture taken, far
+    # more than its queue (8) and its workers (4) can hold ahead
+    loader_dir = os.path.join(fx_dir, "jpegs")
+    os.makedirs(loader_dir, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    for i in range(16):
+        noisy = np.clip(rgb_frame.astype(np.int16) + rng.integers(-8, 9, rgb_frame.shape), 0, 255)
+        with open(os.path.join(loader_dir, f"{i:02d}.jpg"), "wb") as f:
+            f.write(jpeg.encode_jpeg(noisy.astype(np.uint8)))
+    t0 = time.perf_counter()
+    loader = sl.ImageLoader(loader_dir, seed=0, num_threads=4)
+    try:
+        shapes = {loader.next_texture().pixels.shape for _ in range(LOADER_TEXTURES)}
+        secs["ImageLoader"] = time.perf_counter() - t0
+    finally:
+        loader.close()
+    ms["ImageLoader images/s"] = LOADER_TEXTURES / secs["ImageLoader"]
+    phase("images", f"ImageLoader(num_threads=4) over 16 JPEG 640x480 frames: "
+                    f"{ms['ImageLoader images/s']:.1f} images/s ({LOADER_TEXTURES} textures of "
+                    f"{sorted(shapes)} in {secs['ImageLoader']:.3f} s from its construction) "
+                    f"({card})")
+
+    # the ycb example's stream on the card: PNG and JPEG through ImageSaver
+    out_dir = os.path.join(fx_dir, "ycb_stream")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sw, sh = STREAM_SIZE
+    written = ycb.run_stream(n_batches=2, batch=8, out_dir=out_dir, width=sw, height=sh,
+                             settle_iterations=STREAM_SETTLE)
+    secs["ycb stream"] = time.perf_counter() - t0
+    unread = []
+    for p in written:
+        try:
+            if p.endswith("_mask.png"):
+                ok = image.read_png_samples(p).samples.shape == (sh, sw, 1)
+            else:
+                ok = image.read_image(p).shape == (sh, sw, 4)
+        except Exception as e:  # noqa: BLE001  (listed, then the phase fails)
+            ok = str(e)
+        if ok is not True:
+            unread.append((os.path.basename(p), ok))
+    phase("images", f"examples.ycb.run_stream: 2 batches of 8 at {sw}x{sh} ({STREAM_SETTLE} settle "
+                    f"frames) in {secs['ycb stream']:.3f} s, {len(written)} files (RGB PNG and "
+                    f"JPEG, 16-bit mask PNG), {len(written) - len(unread)} read back by the "
+                    f"port's codec ({card})")
+    if len(written) != 48 or unread:
+        fail(f"images: the ycb stream's files do not read back: {unread}")
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, {**secs, **ms}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
@@ -2767,6 +3085,13 @@ def main() -> None:
                                  full_k1_launches, cold_s, (poses8[0], cams8[0], lights8[0]),
                                  k1, k2, card))
     del phase6
+
+    # 18. the image formats: the codec's build, Pillow's digests, the
+    # decoded-texture scene through K1, the codec's times, the ycb example
+    t0 = time.perf_counter()
+    image_k1, _ = run_image_formats(torch, cr, rt, card)
+    kernels.extend(image_k1)
+    phase("images", f"phase 18 in {time.perf_counter() - t0:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

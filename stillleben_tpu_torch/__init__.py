@@ -4,7 +4,8 @@ The package imports torch and numpy, never jax and nothing of
 ``stillleben_tpu``. It has its own host asset layer (``assets/``: glTF/GLB,
 OBJ, PLY, STL, OFF, DAE, FBX, 3DS and .x import, ``primitive://``
 meshes, consolidation, native and Python convex cooking, decimation, its
-own PNG / PPM / Radiance HDR codec, ``ImageLoader`` and ``ImageSaver``;
+own image codec (PNG, PPM, Radiance HDR, and JPEG, BMP, TGA, GIF and TIFF
+over the native ``csrc/sl_image.cpp``), ``ImageLoader`` and ``ImageSaver``;
 ``physics/bodies``: mass properties). Every TPU kernel of the JAX package is a CUDA kernel here
 (``csrc/``, wrapped by ``ops/``): the compact-cell z-buffer of the default
 raster, the fine z-buffer of the classic raster

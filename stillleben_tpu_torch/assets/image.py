@@ -1,28 +1,39 @@
-"""The port's own image codec: PNG, binary PPM and Radiance HDR.
+"""The port's own image codec: every format the JAX package opens through
+Pillow or OpenCV, but WebP.
 
-numpy and the standard library only (zlib for PNG's deflate). Two readings
-of a file, each the one a part of the JAX package gets from a library:
+numpy and the standard library here (zlib for PNG's deflate); the JPEG,
+GIF and TIFF modules reach the native codec core (``native_image``,
+``csrc/sl_image.cpp``, built with g++ at first use) for their bit loops.
+Two readings of a file, each the one a part of the JAX package gets from a
+library:
 
-- ``read_image`` / ``decode_png``: (H, W, 4) uint8, what
+- ``read_image`` / ``decode_image``: (H, W, 4) uint8, what
   ``PIL.Image.open(path).convert("RGBA")`` gives (mesh textures, glTF
-  images, ``ImageLoader``). PNG of every colour type (grey, grey + alpha,
-  truecolour, truecolour + alpha, palette), every bit depth (1, 2, 4, 8,
-  16), ``tRNS`` transparency and Adam7 interlacing, with Pillow's
-  conversions: 16-bit samples keep their high byte, 16-bit grey clips at
-  255, a transparent colour is matched against the samples as Pillow
-  holds them (``_pil_rgba``).
+  images, ``Texture``, ``ImageLoader``). PNG of every colour type (grey,
+  grey + alpha, truecolour, truecolour + alpha, palette), every bit depth
+  (1, 2, 4, 8, 16), ``tRNS`` transparency and Adam7 interlacing, with
+  Pillow's conversions: 16-bit samples keep their high byte, 16-bit grey
+  clips at 255, a transparent colour is matched against the samples as
+  Pillow holds them (``_pil_rgba``). Binary PPM. JPEG (``jpeg.py``), BMP
+  (``bmp.py``), TGA (``tga.py``), GIF frame 0 (``gif.py``) and TIFF page 0
+  (``tiff.py``).
 - ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
-  16-bit samples stay 16-bit, and an ``.hdr`` file decodes to float32.
+  16-bit samples stay 16-bit, an ``.hdr`` file decodes to float32, a JPEG
+  is turned by its EXIF orientation; None for a TGA, which OpenCV does not
+  read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
 modes the JAX ``ImageSaver`` writes through Pillow); ``encode_png_samples``
 writes any colour type, depth, palette, ``tRNS`` and interlacing (the
 codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
+JPEG, BMP, TGA and TIFF have their own encoders in their modules.
 
-JPEG, BMP, GIF, TGA, TIFF and WebP are not decoded: each raises
-``NotImplementedError`` with its name. There is no substitute image.
+WebP raises ``NotImplementedError`` with its name, as do the JPEG variants
+``jpeg.py`` lists. There is no substitute image. Every decoder checks the
+size its header claims against Pillow's limit (or OpenCV's, for
+``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +45,15 @@ from typing import NamedTuple
 
 import numpy as np
 
+from .bmp import decode_bmp, decode_bmp_cv2
+from .gif import decode_gif, decode_gif_cv2
+from .image_limits import check_size
+from .jpeg import MAGIC as JPEG_MAGIC
+from .jpeg import decode_jpeg, decode_jpeg_cv2
+from .tga import FOOTER as TGA_FOOTER
+from .tga import decode_tga
+from .tiff import decode_tiff, decode_tiff_cv2
+
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> (samples per pixel, allowed bit depths)
 _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -41,11 +61,10 @@ _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-# formats the port refuses, by magic bytes and by extension
-_REFUSED_MAGIC = ((b"\xff\xd8", "JPEG"), (b"BM", "BMP"), (b"GIF8", "GIF"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-_REFUSED_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".bmp": "BMP", ".gif": "GIF",
-                ".tga": "TGA", ".tif": "TIFF", ".tiff": "TIFF", ".webp": "WebP"}
+# the decoders by magic bytes: (Pillow's reading, OpenCV's reading)
+_DECODERS = ((JPEG_MAGIC, decode_jpeg, decode_jpeg_cv2), (b"BM", decode_bmp, decode_bmp_cv2),
+             (b"GIF87a", decode_gif, decode_gif_cv2), (b"GIF89a", decode_gif, decode_gif_cv2),
+             (b"II*\x00", decode_tiff, decode_tiff_cv2), (b"MM\x00*", decode_tiff, decode_tiff_cv2))
 
 
 class PngImage(NamedTuple):
@@ -136,8 +155,9 @@ def _decode_pass(raw: np.ndarray, pos: int, w: int, h: int, channels: int, depth
     return _unpack(rows, w, channels, depth), pos + size
 
 
-def decode_png_samples(data: bytes, name: str = "<bytes>") -> PngImage:
-    """The stored samples of a PNG (any colour type, depth and interlacing)."""
+def decode_png_samples(data: bytes, name: str = "<bytes>", cv2: bool = False) -> PngImage:
+    """The stored samples of a PNG (any colour type, depth and interlacing);
+    the size limit is Pillow's, or with ``cv2`` OpenCV's."""
     if data[:8] != PNG_MAGIC:
         raise ValueError(f"{name}: not a PNG file")
     pos, header, palette, trns, idat = 8, None, None, None, []
@@ -166,6 +186,7 @@ def decode_png_samples(data: bytes, name: str = "<bytes>") -> PngImage:
         raise ValueError(f"{name}: PNG colour type {ctype} at depth {depth} is not valid")
     if ctype == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
+    check_size(width, height, name, "PNG", cv2)
     channels = _PNG_TYPES[ctype][0]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if not interlace:
@@ -239,9 +260,9 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _pil_rgba(decode_png_samples(data, name))
 
 
-def decode_ppm(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def decode_ppm(data: bytes, name: str = "<bytes>", cv2: bool = False) -> np.ndarray:
     """Binary PPM (``P6``, maxval 255) -> (H, W, 3) uint8; comments allowed
-    in the header."""
+    in the header; the size limit is Pillow's, or with ``cv2`` OpenCV's."""
     tokens, pos = [], 0
     while len(tokens) < 4:
         while data[pos: pos + 1].isspace():
@@ -259,6 +280,7 @@ def decode_ppm(data: bytes, name: str = "<bytes>") -> np.ndarray:
     width, height, maxval = (int(t) for t in tokens[1:])
     if maxval != 255:
         raise NotImplementedError(f"{name}: PPM with maxval {maxval} is not supported")
+    check_size(width, height, name, "PPM", cv2)
     pix = np.frombuffer(data, np.uint8, count=width * height * 3, offset=pos + 1)
     return pix.reshape(height, width, 3)
 
@@ -270,26 +292,35 @@ def _rgba(arr: np.ndarray) -> np.ndarray:
 
 
 def _refuse(path: str, data: bytes):
-    fmt = next((f for magic, f in _REFUSED_MAGIC if data.startswith(magic)), None)
-    if fmt is None and data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+    fmt = "unknown"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" or path.lower().endswith(".webp"):
         fmt = "WebP"
-    if fmt is None and data[:2] == b"#?":
+    elif data[:2] == b"#?":
         fmt = "Radiance HDR"
-    if fmt is None:
-        fmt = _REFUSED_EXT.get(os.path.splitext(path)[1].lower(), "unknown")
     raise NotImplementedError(
-        f"{path}: {fmt} images are not supported (the port decodes PNG, binary PPM "
-        "and Radiance HDR)"
+        f"{path}: {fmt} images are not supported (the port decodes PNG, PPM, JPEG, BMP, TGA, "
+        "GIF and TIFF, and Radiance HDR through read_image_cv2)"
     )
 
 
+def _is_tga(data: bytes, name: str) -> bool:
+    """TGA has no magic bytes: Pillow tries it last; here its extension or
+    its 2.0 footer names it."""
+    return name.lower().endswith(".tga") or data.endswith(TGA_FOOTER)
+
+
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 4) uint8 from PNG or binary PPM bytes, as Pillow's
-    ``convert("RGBA")``; other formats raise by name."""
+    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``; WebP and formats
+    no module reads raise by name."""
     if data[:8] == PNG_MAGIC:
         return decode_png(data, name)
     if data[:1] == b"P" and data[1:2].isdigit():
         return _rgba(decode_ppm(data, name))
+    for magic, pil, _ in _DECODERS:
+        if data.startswith(magic):
+            return pil(data, name)
+    if _is_tga(data, name):
+        return decode_tga(data, name)
     _refuse(name, data)
 
 
@@ -338,6 +369,7 @@ def decode_hdr(data: bytes, name: str = "<bytes>") -> np.ndarray:
             "(-Y H +X W only)"
         )
     height, width = int(res[1]), int(res[3])
+    check_size(width, height, name, "Radiance HDR", cv2=True)
     buf = np.frombuffer(data, np.uint8)
     rgbe = np.zeros((height, width, 4), np.uint8)
     for y in range(height):
@@ -436,21 +468,26 @@ def read_hdr(path: str) -> np.ndarray:
         return decode_hdr(f.read(), path)
 
 
-def read_image_cv2(path: str) -> np.ndarray:
+def read_image_cv2(path: str) -> np.ndarray | None:
     """The array ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``
-    gives for a PNG, binary PPM or Radiance HDR file: grey PNG (H, W),
-    colour (H, W, 3) in BGR order with alpha dropped and palettes expanded;
-    uint8, uint16 at depth 16 (grey at depths 1-4 scaled to 8 bits), float32
-    for HDR. Other formats raise by name."""
+    gives: grey (H, W), colour (H, W, 3) in BGR order with alpha dropped
+    and palettes expanded; uint8, uint16 at depth 16 (grey PNG at depths
+    1-4 scaled to 8 bits), float32 for HDR; None for a TGA, as OpenCV reads
+    none. WebP raises by name."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"#?":
         return np.ascontiguousarray(decode_hdr(data, path)[..., ::-1])
     if data[:1] == b"P" and data[1:2].isdigit():
-        return np.ascontiguousarray(decode_ppm(data, path)[..., ::-1])
+        return np.ascontiguousarray(decode_ppm(data, path, cv2=True)[..., ::-1])
+    for magic, _, cv2_reading in _DECODERS:
+        if data.startswith(magic):
+            return cv2_reading(data, path)
     if data[:8] != PNG_MAGIC:
+        if _is_tga(data, path):
+            return None
         _refuse(path, data)
-    png = decode_png_samples(data, path)
+    png = decode_png_samples(data, path, cv2=True)
     s, ctype, depth = png.samples, png.color_type, png.bit_depth
     if ctype == 0:
         g = s[..., 0]

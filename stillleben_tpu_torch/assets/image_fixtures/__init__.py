@@ -1,0 +1,35 @@
+"""Image files the port's encoders cannot write, and what Pillow reads from them.
+
+Pillow 12.1.0 wrote the files from seeded numpy images
+(``tests/torch_image_fixtures.py``; the RLE8 BMP is that module's own
+writer, which Pillow reads): a progressive JPEG, an interlaced GIF with a
+transparent index, LZW and Deflate TIFF, an RLE8 BMP and a run-length TGA.
+``digests.py`` holds the SHA-256 of Pillow's ``convert("RGBA")`` of each,
+and of Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a
+host that decodes and encodes these to the same digests computes what
+Pillow computes here.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+DIR = os.path.dirname(os.path.abspath(__file__))
+FILES = ("progressive.jpg", "interlaced.gif", "lzw.tif", "deflate.tif", "rle8.bmp", "rle.tga")
+
+
+def path(name: str) -> str:
+    return os.path.join(DIR, name)
+
+
+def seeded_images(seed: int = 0) -> dict[str, np.ndarray]:
+    """uint8 RGB: ``texture``, the bench's 256x256 blob base colour, and
+    ``frame``, a 640x480 image (the 8-bit sky with seeded noise)."""
+    from ..procedural import base_color_texture, sky_ldr
+
+    rng = np.random.default_rng(seed)
+    frame = sky_ldr(480, 640).astype(np.int16) + rng.integers(-24, 25, (480, 640, 3))
+    return {"texture": base_color_texture(seed)[..., :3].copy(),
+            "frame": np.clip(frame, 0, 255).astype(np.uint8)}

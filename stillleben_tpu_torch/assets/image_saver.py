@@ -8,10 +8,16 @@ top-row-first (CV convention), so no vertical flip is needed — the reference
 flips only because GL readback is bottom-up.
 
 Copied from ``stillleben_tpu/assets/image_saver.py``; images are encoded
-by the port's own PNG encoder (``image.py::encode_png``: 8-bit L, RGB,
-RGBA and 16-bit grey, the modes the JAX package hands Pillow). A path
-whose extension the port cannot encode raises in ``save()`` itself, before
-anything is queued.
+by the port's own encoders, picked by extension as Pillow picks its
+writer: ``.png`` (``image.encode_png``), ``.jpg``/``.jpeg``
+(``jpeg.encode_jpeg``), ``.bmp``, ``.tga``, ``.tif``/``.tiff``. Each
+writes the bytes of Pillow's ``save`` for the mode the JAX package hands
+Pillow (8-bit L, RGB, RGBA; ``I;16`` for uint16). A mode Pillow refuses for
+a format (RGBA or 16-bit as JPEG, 16-bit as BMP or TGA) fails in the
+worker as it does in the JAX package: printed, nothing written. A path
+whose extension the port cannot encode (``.gif``, ``.webp``, any other)
+raises ``NotImplementedError`` in ``save()`` itself, before anything is
+queued.
 """
 
 from __future__ import annotations
@@ -22,7 +28,14 @@ import threading
 
 import numpy as np
 
+from .bmp import encode_bmp
 from .image import encode_png
+from .jpeg import encode_jpeg
+from .tga import encode_tga
+from .tiff import encode_tiff
+
+ENCODERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
+            ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff}
 
 
 def _to_numpy(img):
@@ -49,21 +62,21 @@ class ImageSaver:
                 return
             arr, path = job
             try:
-                data = encode_png(arr)
+                data = ENCODERS[os.path.splitext(path)[1].lower()](arr)
                 with open(path, "wb") as f:
                     f.write(data)
-            except Exception as e:  # pragma: no cover
+            except Exception as e:
                 print(f"ImageSaver: failed to write {path}: {e}")
             finally:
                 self._queue.task_done()
 
     def save(self, image, path: str):
-        """Queue an image for asynchronous writing (PNG)."""
+        """Queue an image for asynchronous writing."""
         ext = os.path.splitext(path)[1].lower()
-        if ext != ".png":
+        if ext not in ENCODERS:
             raise NotImplementedError(
                 f"ImageSaver: cannot write {ext or 'extensionless'} files {path!r} "
-                "(the port encodes PNG only)"
+                f"(the port encodes {' '.join(ENCODERS)})"
             )
         arr = _to_numpy(image)
         if arr.dtype not in (np.uint8, np.uint16):

@@ -1,35 +1,28 @@
 """ctypes binding of the port's native convex decomposer (``csrc/sl_decompose.cpp``).
 
 Counterpart of ``stillleben_tpu/assets/native_decompose.py`` over the
-port's own copy of the source. At first use the source is compiled with the
-JAX binding's command, ``g++ -O3 -shared -fPIC -std=c++17``, into the
-gitignored ``_build/``; the library's name carries a hash of the source,
-the header and the flags, and the compile writes a temporary file that is
-renamed into place, so concurrent processes can build at once. A compile or
-load that fails raises with the compiler's message: there is no fallback.
+port's own copy of the source, built at first use with the JAX binding's
+command by ``native_build.build_library`` (into the gitignored ``_build/``,
+named by a hash of the source; a compile or load that fails raises with
+the compiler's message: there is no fallback).
 ``decompose_native`` returns the same hull dicts as the JAX binding.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
+from .native_build import BUILD_DIR, PKG_DIR, build_library
+
 MAX_HULL_VERTS = 64
 MAX_HULL_PLANES = 64
-CXX = "g++"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "sl_decompose.cpp")
-HEADER = os.path.join(_PKG_DIR, "csrc", "sl_decompose.h")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = os.path.join(PKG_DIR, "csrc", "sl_decompose.cpp")
+HEADER = os.path.join(PKG_DIR, "csrc", "sl_decompose.h")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -38,32 +31,7 @@ _lib: ctypes.CDLL | None = None
 def build() -> str:
     """Compile the source if this version is not built yet; returns the
     library's path. Raises ``RuntimeError`` with the compiler's output."""
-    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    for path in (SOURCE, HEADER):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    lib_path = os.path.join(BUILD_DIR, f"libsl_decompose_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [CXX, *CXX_FLAGS, SOURCE, "-o", tmp]
-    try:
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"cannot build the native convex decomposer: {' '.join(cmd)}: {e}")
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"cannot build the native convex decomposer ({CXX} exited {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
+    return build_library("sl_decompose", SOURCE, HEADER, BUILD_DIR, "the native convex decomposer")
 
 
 def load_library() -> ctypes.CDLL:

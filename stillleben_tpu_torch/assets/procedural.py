@@ -23,7 +23,9 @@ plane texture and sky panorama (copies of ``bench.py:57-84``).
 
 ``write_loader_fixtures`` writes every other format the loaders read (glTF,
 GLB, FBX, 3DS, .x, DAE, STL, OFF, a Radiance sky with an sIBL descriptor,
-PNG variants) from these meshes, through ``writers.py``.
+PNG variants) from these meshes, through ``writers.py``;
+``write_image_fixtures`` the textured scene's images as JPEG and TGA, each
+beside a PNG twin of its decoded pixels.
 """
 
 from __future__ import annotations
@@ -337,6 +339,77 @@ def _png_variants(rng) -> dict[str, bytes]:
     return out
 
 
+def _ibl_text(ref_file: str, height: int, width: int) -> str:
+    """An sIBL descriptor of ``ref_file`` with the bench's sun as ``[Sun]``."""
+    u, v = _sun_uv(SKY_SUN_DIRECTION)
+    return (
+        "[Header]\nICOfile =\nPREVIEWfile =\nName = \"procedural sky\"\n\n"
+        f"[Background]\nBGfile = \"{ref_file}\"\n\n"
+        f"[Reflection]\nREFfile = \"{ref_file}\"\nREFmap = 1\nREFu = 0\nREFv = 0\n"
+        f"REFheight = {height}\nREFwidth = {width}\n\n"
+        f"[Sun]\nSUNcolor = {','.join(f'{c:g}' for c in SKY_SUN_COLOR)}\n"
+        f"SUNmulti = {SKY_SUN_MULTI:g}\nSUNu = {u:.9g}\nSUNv = {v:.9g}\n"
+    )
+
+
+def sky_ldr(h: int = 128, w: int = 256) -> np.ndarray:
+    """``sky_equirect`` as an 8-bit (h, w, 3) panorama: gamma 1/2.2, clipped."""
+    return np.clip(sky_equirect(h, w) ** (1 / 2.2) * 255 + 0.5, 0, 255).astype(np.uint8)
+
+
+def write_image_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
+    """The textured scene's images in the formats other than PNG, written by
+    the port's encoders into ``directory`` (files kept if already there),
+    each beside a twin that holds its decoded pixels as PNG. Paths by name:
+
+    - ``obj_jpg``: the textured blob whose MTL names a JPEG of its base
+      colour (quality 75, 4:2:0); ``obj_png``: the same blob whose MTL
+      names the PNG of that JPEG's decode;
+    - ``glb_jpeg``: the textured blob as GLB with the JPEG embedded
+      (``image/jpeg``); ``glb_png``: with the PNG twin embedded;
+    - ``plane_tga``: ``checker_texture`` as an RGB TGA;
+    - ``sky_jpg``: ``sky_ldr`` as JPEG and ``ibl_jpg`` an sIBL descriptor
+      naming it (with the bench's sun); ``ibl_png``: the descriptor of the
+      PNG of its decode.
+    """
+    from .image import decode_image, encode_png
+    from .jpeg import encode_jpeg
+    from .objfile import load_obj
+    from .tga import encode_tga
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed{seed}"
+    names = {"obj_jpg": f"{stem}_jpg.obj", "obj_png": f"{stem}_jpgtwin.obj",
+             "glb_jpeg": f"{stem}_jpeg.glb", "glb_png": f"{stem}_jpegtwin.glb",
+             "plane_tga": "checker.tga", "sky_jpg": "sky.jpg", "ibl_jpg": "sky_jpg.ibl",
+             "ibl_png": "sky_jpgtwin.ibl"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    jpg = encode_jpeg(base_color_texture(seed)[..., :3])
+    twin = encode_png(decode_image(jpg)[..., :3])
+    tex = {"jpg": f"blob_basecolor_seed{seed}.jpg", "png": f"blob_basecolor_seed{seed}_jpg.png"}
+    atomic_write(os.path.join(directory, tex["jpg"]), jpg)
+    atomic_write(os.path.join(directory, tex["png"]), twin)
+    p, f = _blob(subdiv, seed)
+    for key, kind in (("obj_jpg", "jpg"), ("obj_png", "png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex[kind])
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_jpeg"], blob, jpg, mime="image/jpeg")
+    write_glb(paths["glb_png"], blob, twin)
+    atomic_write(paths["plane_tga"], encode_tga(checker_texture()[..., :3]))
+    sky = encode_jpeg(sky_ldr())
+    atomic_write(paths["sky_jpg"], sky)
+    atomic_write(os.path.join(directory, "sky_jpg.png"), encode_png(decode_image(sky)[..., :3]))
+    h, w = sky_ldr().shape[:2]
+    atomic_write(paths["ibl_jpg"], _ibl_text("sky.jpg", h, w))
+    atomic_write(paths["ibl_png"], _ibl_text("sky_jpg.png", h, w))
+    return paths
+
+
 def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
     """Write every format the loaders read into ``directory`` (files kept
     if already there) and return their paths by name. Each mesh is the
@@ -395,16 +468,7 @@ def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dic
         write_off(paths["off"], sphere)
     if missing & {"hdr", "ibl"}:
         atomic_write(paths["hdr"], encode_hdr(sky_equirect(), rle=True))
-        u, v = _sun_uv(SKY_SUN_DIRECTION)
-        ibl = (
-            "[Header]\nICOfile =\nPREVIEWfile =\nName = \"procedural sky\"\n\n"
-            "[Background]\nBGfile = \"sky.hdr\"\n\n"
-            "[Reflection]\nREFfile = \"sky.hdr\"\nREFmap = 1\nREFu = 0\nREFv = 0\n"
-            "REFheight = 64\nREFwidth = 128\n\n"
-            f"[Sun]\nSUNcolor = {','.join(f'{c:g}' for c in SKY_SUN_COLOR)}\n"
-            f"SUNmulti = {SKY_SUN_MULTI:g}\nSUNu = {u:.9g}\nSUNv = {v:.9g}\n"
-        )
-        atomic_write(paths["ibl"], ibl)
+        atomic_write(paths["ibl"], _ibl_text("sky.hdr", 64, 128))
     rng = np.random.default_rng(seed + 17)
     for name, data in _png_variants(rng).items():
         p = paths[name] = os.path.join(directory, name + ".png")

@@ -4,7 +4,8 @@ Counterpart of ``stillleben_tpu/assets/texture.py:15-54``: ``Texture`` (not
 mip-mapped: background images and stickers) and ``Texture2D`` (mip-mapped
 where consumed: the background plane). Both take a file name or an
 (H, W, 3|4) uint8 array; files are decoded by the port's own codec
-(``assets/image.py``: PNG and binary PPM).
+(``assets/image.py``: PNG, PPM, JPEG, BMP, TGA, GIF, TIFF), as Pillow's
+``convert("RGBA")`` gives them.
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ def _floats(a) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _gltf_parts(prim: GltfPrimitive, image_png: bytes | None, embed_image: bool):
+def _gltf_parts(prim: GltfPrimitive, image: bytes | None, embed_image: bool,
+                mime: str = "image/png"):
     """(json dict without buffers, binary blob); the image, if embedded,
     is a bufferView of the blob."""
     arrays = [("POSITION", prim.positions.astype(np.float32), "VEC3", 5126, 34962)]
@@ -73,21 +74,23 @@ def _gltf_parts(prim: GltfPrimitive, image_png: bytes | None, embed_image: bool)
             "roughnessFactor": 0.5}}],
         "accessors": accessors, "bufferViews": views,
     }
-    if image_png is not None:
+    if image is not None:
         pbr = doc["materials"][0]["pbrMetallicRoughness"]
         pbr["baseColorTexture"] = {"index": 0}
         doc["textures"] = [{"source": 0}]
         if embed_image:
-            views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(image_png)})
-            doc["images"] = [{"bufferView": len(views) - 1, "mimeType": "image/png"}]
-            blob += image_png
+            views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(image)})
+            doc["images"] = [{"bufferView": len(views) - 1, "mimeType": mime}]
+            blob += image
             blob += b"\0" * (-len(blob) % 4)
     return doc, bytes(blob)
 
 
-def write_glb(path: str, prim: GltfPrimitive, image_png: bytes | None = None) -> None:
-    """One mesh node; the PNG (if given) embedded as the base-colour texture."""
-    doc, blob = _gltf_parts(prim, image_png, embed_image=True)
+def write_glb(path: str, prim: GltfPrimitive, image: bytes | None = None,
+              mime: str = "image/png") -> None:
+    """One mesh node; the image (if given, of type ``mime``) embedded as the
+    base-colour texture."""
+    doc, blob = _gltf_parts(prim, image, embed_image=True, mime=mime)
     doc["buffers"] = [{"byteLength": len(blob)}]
     js = json.dumps(doc).encode()
     js += b" " * (-len(js) % 4)

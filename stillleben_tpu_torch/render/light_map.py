@@ -14,8 +14,9 @@ equirect mapping is uv = (atan2(y, x) * 0.1591 + 0.5, asin(z) * 0.3183 + 0.5).
 ``LightMap(path)`` loads an sIBL ``.ibl`` descriptor or a bare image
 (``_load_source``, a copy of JAX ``light_map.py:462-584``): the panorama
 is read as the JAX package reads it through OpenCV, by the port's own
-codec (``assets/image.py::read_image_cv2``: Radiance ``.hdr``, PNG, binary
-PPM; other formats raise by name). Not ported: the quad-packed cubemap rows
+codec (``assets/image.py::read_image_cv2``: Radiance ``.hdr``, PNG, PPM,
+JPEG, BMP, GIF, TIFF; a TGA through the JAX package's Pillow fallback;
+WebP raises by name). Not ported: the quad-packed cubemap rows
 (``SL_IBL_QUAD``), a TPU layout.
 """
 
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..assets.image import read_image_cv2
+from ..assets.image import read_image, read_image_cv2
 from ..core import math as m
 
 CUBE_SIZE = 512
@@ -339,10 +340,13 @@ def _load_hdr_image(path: str) -> np.ndarray:
     the image as OpenCV reads it (BGR flipped to RGB, grey stacked to three
     channels), and ``(x / 255) ** 2.2`` only where its maximum exceeds 10
     and the name ends in .png / .jpg / .jpeg (so a dark 8-bit PNG stays
-    unscaled, and a 16-bit one is divided by 255). The JAX package's
-    Pillow fallback for what OpenCV cannot read has no counterpart: every
-    file the port decodes is one OpenCV reads."""
-    img = read_image_cv2(path).astype(np.float32)
+    unscaled, a 16-bit one is divided by 255, and a BMP or TIFF keeps its
+    0-255 values). What OpenCV does not read (a TGA) takes the JAX
+    package's Pillow fallback: ``convert("RGB") / 255`` to the power 2.2."""
+    img = read_image_cv2(path)
+    if img is None:
+        return np.ascontiguousarray((read_image(path)[..., :3].astype(np.float32) / 255.0) ** 2.2)
+    img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)
     img = img[..., ::-1]  # BGR -> RGB

@@ -4,7 +4,8 @@ library: a fresh interpreter that refuses every ``jax``, ``jaxlib``,
 (the port, ``stillleben_tpu_torch``, is another top-level name) imports the
 whole port, loads meshes and their PNG texture from files through the port's own
 ``Mesh`` and codec (every mesh format, cooked by the port's native build),
-reads a light map's descriptor and panorama, saves and loads images,
+reads a light map's descriptor and panorama, saves and loads images (PNG,
+JPEG, BMP, TGA, TIFF; the GIF and other fixtures decoded),
 builds a template with a background plane and a light map, renders a full
 frame through each raster on the CPU, and streams a batch in the modes of
 the tuned and reference-quality configurations, resolves every name of the
@@ -42,7 +43,10 @@ SCRIPT = textwrap.dedent(
            "assets.image_loader", "assets.image_saver", "assets.writers", "viewer",
            "viewer_web", "utils.arcball", "scene.animator", "scene.job_queue",
            "scene.manipulation_sim", "physics.telemetry", "profiling", "extension",
-           "parallel.distributed"}
+           "parallel.distributed", "assets.jpeg", "assets.bmp", "assets.tga", "assets.gif",
+           "assets.tiff", "assets.native_image", "assets.native_build", "assets.image_fixtures",
+           "assets.image_limits",
+           "assets.image_fixtures.digests", "examples.pbr", "examples.viewer", "examples.ycb"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -68,6 +72,12 @@ SCRIPT = textwrap.dedent(
     assert sky.shape == (64, 128, 3) and len(lights) == 1
     with sl.ImageSaver(num_threads=1) as saver:
         saver.save(np.zeros((4, 4, 4), np.uint8), sys.argv[1] + "/fixtures/saved.png")
+        for ext in (".jpg", ".bmp", ".tga", ".tif"):
+            saver.save(np.full((4, 4, 3), 9, np.uint8), sys.argv[1] + "/fixtures/saved" + ext)
+    # the other image formats, through the port's native codec
+    from stillleben_tpu_torch.assets import image, image_fixtures
+    for name in image_fixtures.FILES:
+        assert image.read_image(image_fixtures.path(name)).shape == (67, 91, 4), name
     loader = sl.ImageLoader(sys.argv[1] + "/fixtures", seed=0, num_threads=1)
     assert loader.next_texture().pixels.dtype == np.uint8
     loader.close()

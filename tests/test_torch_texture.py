@@ -75,10 +75,10 @@ def test_png_filters_and_ppm_decode(tmp_path):
     ppm = tmp_path / "t.ppm"
     ppm.write_bytes(b"P6\n# a comment\n7 10\n255\n" + img[..., :3].tobytes())
     np.testing.assert_array_equal(image.read_image(str(ppm))[..., :3], img[..., :3])
-    jpg = tmp_path / "t.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xe0 not really")
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        image.read_image(str(jpg))
+    webp = tmp_path / "t.webp"
+    webp.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 not really")
+    with pytest.raises(NotImplementedError, match="WebP"):
+        image.read_image(str(webp))
     # a greyscale PNG (once refused) decodes as Pillow's convert("RGBA")
     grey = (image.PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 10, 8, 0, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(b"".join(b"\0" + r.tobytes() for r in img[..., 0])))

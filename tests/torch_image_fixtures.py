@@ -1,0 +1,437 @@
+"""Writers of image files for the port's codec tests, and the generator of
+the committed fixtures in ``stillleben_tpu_torch/assets/image_fixtures/``.
+
+The writers make the variants that Pillow and OpenCV do not write (RLE
+BMP, 16-bit and BITFIELDS BMP, top-down and OS/2 BMP, 16-bit and
+colour-mapped TGA, the TGA origin bits, GIF with a local table or a frame
+smaller than its screen, tiled, big-endian and predicted TIFF); each file
+is decoded by Pillow or OpenCV as the reference.
+
+``make_fixtures()`` writes, from seeded numpy images, the files the port
+cannot write (progressive JPEG, GIF, LZW and Deflate TIFF, RLE TGA with
+Pillow; RLE8 BMP with ``rle8_bmp`` here, which Pillow decodes) and
+``digests()`` the SHA-256 of Pillow's decodes and of Pillow's JPEG
+encodes of ``image_fixtures.seeded_images()``. Regenerate with
+
+    python tests/torch_image_fixtures.py --write
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "stillleben_tpu_torch", "assets", "image_fixtures")
+
+
+def smooth(h: int, w: int, c: int, seed: int) -> np.ndarray:
+    """Seeded uint8 (h, w, c): low-frequency waves and a little noise, the
+    content JPEG is made for."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    out = np.zeros((h, w, c))
+    for k in range(c):
+        fx, fy = rng.uniform(0.5, 4, 2)
+        out[..., k] = 128 + 90 * np.sin(2 * np.pi * (fx * xx / w + fy * yy / h) + rng.uniform(0, 6))
+    out += rng.normal(0, 12, out.shape)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+
+def bmp(body_rows: list[bytes] | bytes, width: int, height: int, bits: int, *,
+        compression: int = 0, palette: np.ndarray | None = None, masks=(), header: int = 40,
+        top_down: bool = False) -> bytes:
+    """A BMP around ready pixel data (rows already in file order, padded)."""
+    body = body_rows if isinstance(body_rows, bytes) else b"".join(body_rows)
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+        pal = b"" if palette is None else np.asarray(palette, np.uint8)[:, ::-1].tobytes()
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width, -height if top_down else height, 1,
+                           bits, compression, len(body), 2835, 2835,
+                           0 if palette is None else len(palette), 0)
+        if header > 40:
+            info += b"".join(struct.pack("<I", m) for m in masks)
+            info += b"\0" * (header - 40 - 4 * len(masks))
+            masks = ()
+        pal = b""
+        if palette is not None:
+            p = np.zeros((len(palette), 4), np.uint8)
+            p[:, :3] = np.asarray(palette, np.uint8)[:, ::-1]
+            pal = p.tobytes()
+    extra = b"".join(struct.pack("<I", m) for m in masks)
+    offset = 14 + len(info) + len(extra) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+    return head + info + extra + pal + body
+
+
+def raw_rows(pix: np.ndarray, bits: int, top_down: bool = False) -> bytes:
+    """(h, w) indices at 1/4/8 bits or (h, w, k) bytes per pixel as padded rows."""
+    rows = pix if top_down else pix[::-1]
+    if pix.ndim == 2 and bits < 8:
+        per = 8 // bits
+        w = rows.shape[1]
+        pad = np.zeros((rows.shape[0], (-w) % per), np.uint8)
+        v = np.concatenate([rows, pad], 1).reshape(rows.shape[0], -1, per).astype(np.int64)
+        rows = (v << (bits * np.arange(per - 1, -1, -1))).sum(-1).astype(np.uint8)
+    rows = rows.reshape(rows.shape[0], -1)
+    stride = (rows.shape[1] + 3) & ~3
+    out = np.zeros((rows.shape[0], stride), np.uint8)
+    out[:, : rows.shape[1]] = rows
+    return out.tobytes()
+
+
+def rle8_bmp(index: np.ndarray, palette: np.ndarray, rle4: bool = False) -> bytes:
+    """RLE8 (or RLE4) BMP: runs of two or more as encoded runs, stretches of
+    three or more distinct values as absolute runs (padded to words), end of
+    line after every row and end of bitmap."""
+    h, w = index.shape
+    out = bytearray()
+    for row in index[::-1]:
+        x = 0
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 2 or x + 1 == w:
+                out += bytes([run, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += run
+                continue
+            end = x
+            while end < w and end - x < 255 and (end + 1 >= w or row[end + 1] != row[end]):
+                end += 1
+            n = end - x
+            if n < 3:
+                out += bytes([1, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += 1
+                continue
+            vals = row[x:end].astype(np.uint8)
+            if rle4:
+                v = np.concatenate([vals, np.zeros(n % 2, np.uint8)]).reshape(-1, 2)
+                data = ((v[:, 0] << 4) | v[:, 1]).astype(np.uint8).tobytes()
+            else:
+                data = vals.tobytes()
+            out += bytes([0, n]) + data + b"\0" * (len(data) % 2)
+            x = end
+        out += b"\x00\x00"
+    out += b"\x00\x01"
+    return bmp(bytes(out), w, h, 4 if rle4 else 8, compression=2 if rle4 else 1, palette=palette)
+
+
+# ---------------------------------------------------------------------------
+# TGA
+# ---------------------------------------------------------------------------
+
+
+def tga(pix_bytes: bytes, width: int, height: int, itype: int, depth: int, *, flags: int = 0,
+        cmap: bytes = b"", cmap_start: int = 0, cmap_len: int = 0, cmap_depth: int = 0,
+        ident: bytes = b"") -> bytes:
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), 1 if cmap_len else 0, itype, cmap_start,
+                       cmap_len, cmap_depth, 0, 0, width, height, depth, flags)
+    return head + ident + cmap + pix_bytes
+
+
+def tga_rle(pix: np.ndarray, width: int = 0) -> bytes:
+    """(n, bpp) pixels as run-length packets: literal packets across rows,
+    repeat packets within a row of ``width`` (across rows with 0)."""
+    out = bytearray()
+    i, n = 0, len(pix)
+    while i < n:
+        run, end = 1, n if not width else (i // width + 1) * width
+        while i + run < end and run < 128 and (pix[i + run] == pix[i]).all():
+            run += 1
+        if run > 1:
+            out += bytes([0x80 | (run - 1)]) + pix[i].tobytes()
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and (pix[j + 1] == pix[j]).all()):
+            j += 1
+        out += bytes([j - i - 1]) + pix[i:j].tobytes()
+        i = j
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+
+
+def lzw_gif(index: np.ndarray, min_code: int) -> bytes:
+    """GIF's LZW of the indices with a clear code at the start and a table
+    reset when it fills: plain, valid codes."""
+    clear, eoi = 1 << min_code, (1 << min_code) + 1
+    size = min_code + 1
+    out_bits = []
+    table = {bytes([i]): i for i in range(clear)}
+    nxt = eoi + 1
+
+    def emit(c, s):
+        out_bits.append((c, s))
+
+    emit(clear, size)
+    cur = b""
+    for v in index.reshape(-1).tolist():
+        nb = cur + bytes([v])
+        if nb in table:
+            cur = nb
+            continue
+        emit(table[cur], size)
+        if nxt < 4096:
+            table[nb] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        else:
+            emit(clear, size)
+            table = {bytes([i]): i for i in range(clear)}
+            nxt, size = eoi + 1, min_code + 1
+        cur = bytes([v])
+    if cur:
+        emit(table[cur], size)
+    emit(eoi, size)
+    acc, nbits, data = 0, 0, bytearray()
+    for c, s in out_bits:
+        acc |= c << nbits
+        nbits += s
+        while nbits >= 8:
+            data.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        data.append(acc & 255)
+    return bytes(data)
+
+
+def gif(index: np.ndarray, *, screen=None, offset=(0, 0), global_pal=None, local_pal=None,
+        transparency=None, interlace=False, background=0) -> bytes:
+    h, w = index.shape
+    sw, sh = screen or (w, h)
+
+    def table_bits(p):
+        return max(1, int(np.ceil(np.log2(max(len(p), 2)))))
+
+    def table(p):
+        t = np.zeros((1 << table_bits(p), 3), np.uint8)
+        t[: len(p)] = p
+        return t.tobytes()
+
+    flags = 0 if global_pal is None else 0x80 | (table_bits(global_pal) - 1)
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, flags, background, 0)
+    if global_pal is not None:
+        out += table(global_pal)
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\x00"
+    iflags = 0x40 if interlace else 0
+    if local_pal is not None:
+        iflags |= 0x80 | (table_bits(local_pal) - 1)
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, iflags)
+    if local_pal is not None:
+        out += table(local_pal)
+    if interlace:
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                np.arange(1, h, 2)])
+        index = index[order]
+    min_code = max(2, table_bits(local_pal if local_pal is not None else global_pal))
+    data = lzw_gif(index, min_code)
+    out += bytes([min_code])
+    for i in range(0, len(data), 255):
+        chunk = data[i: i + 255]
+        out += bytes([len(chunk)]) + chunk
+    return out + b"\x00;"
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+
+def packbits(raw: bytes, row: int) -> bytes:
+    """PackBits, row by row of ``row`` bytes: runs of three or more equal
+    bytes as repeat packets, the rest as literal packets (at most 128 bytes
+    a packet)."""
+    out = bytearray()
+    a = np.frombuffer(raw, np.uint8)
+    for r in range(0, len(a), row):
+        v = a[r: r + row]
+        starts = np.flatnonzero(np.concatenate([[True], v[1:] != v[:-1]]))
+        lens = np.diff(np.append(starts, len(v)))
+        lit = bytearray()
+        for s, n in zip(starts.tolist() + [len(v)], lens.tolist() + [3]):
+            if n < 3 and s < len(v):
+                lit += v[s: s + n].tobytes()
+                continue
+            for i in range(0, len(lit), 128):
+                chunk = lit[i: i + 128]
+                out += bytes([len(chunk) - 1]) + chunk
+            lit.clear()
+            while s < len(v) and n:
+                k = min(n, 128)
+                out += bytes([257 - k if k > 1 else 0, v[s]])
+                n -= k
+    return bytes(out)
+
+
+def tiff(samples: np.ndarray, photometric: int, *, endian: str = "<", tile=None, rows: int = 0,
+         compression: int = 1, predictor: int = 1, extra=(), colormap=None, bits: int = 0) -> bytes:
+    """A TIFF of (h, w, spp) uint8/uint16 samples (or sub-byte grey with
+    ``bits``): strips of ``rows`` rows or tiles of ``tile`` = (w, h),
+    uncompressed, Deflate (8) or PackBits (32773), with the horizontal
+    predictor."""
+    h, w, spp = samples.shape
+    bits = bits or samples.dtype.itemsize * 8
+    dt = np.dtype(endian + ("u2" if bits == 16 else "u1"))
+    cw, ch = tile or (w, rows or h)
+    chunks = []
+    for ty in range(0, h, ch):
+        for tx in range(0, w if tile else 1, cw if tile else 1):
+            part = np.zeros((ch, cw, spp), np.int64)
+            src = samples[ty: ty + ch, tx: tx + cw].astype(np.int64)
+            part[: src.shape[0], : src.shape[1]] = src
+            if not tile:
+                part = part[: src.shape[0]]
+            if predictor == 2:
+                part[:, 1:] = (part[:, 1:] - part[:, :-1]) & ((1 << bits) - 1)
+            if bits < 8:
+                per = 8 // bits
+                v = part[..., 0]
+                v = np.concatenate([v, np.zeros((v.shape[0], (-v.shape[1]) % per), np.int64)], 1)
+                v = v.reshape(v.shape[0], -1, per)
+                raw = (v << (bits * np.arange(per - 1, -1, -1))).sum(-1).astype(np.uint8).tobytes()
+            else:
+                raw = part.astype(dt).tobytes()
+            if compression == 8:
+                raw = zlib.compress(raw)
+            elif compression == 32773:
+                raw = packbits(raw, len(raw) // part.shape[0])
+            chunks.append(raw)
+    e = endian
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
+               (262, 3, [photometric]), (277, 3, [spp])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap, np.uint16).reshape(-1))))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if tile:
+        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, None),
+                    (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, 4, None), (278, 4, [ch]), (279, 4, [len(c) for c in chunks])]
+    entries.sort(key=lambda t: t[0])
+    n = len(entries)
+    head = (b"II*\x00" if e == "<" else b"MM\x00*") + struct.pack(e + "I", 8)
+    at = 8 + 2 + 12 * n + 4
+    blobs, offsets_tag = bytearray(), None
+    fmt = {3: "H", 4: "I"}
+    ifd = struct.pack(e + "H", n)
+    # lay out: IFD, the out-of-line values, then the chunks
+    values = []
+    for tag, typ, vals in entries:
+        if vals is None:
+            vals = [0] * len(chunks)
+            offsets_tag = len(values)
+        values.append((tag, typ, vals))
+    sizes = [len(v) * (2 if t == 3 else 4) for _, t, v in values]
+    out_of_line = sum(s for s in sizes if s > 4)
+    data_at = at + out_of_line
+    pos, offs = data_at, []
+    for c in chunks:
+        offs.append(pos)
+        pos += len(c)
+    values[offsets_tag] = (values[offsets_tag][0], 4, offs)
+    for (tag, typ, vals), size in zip(values, sizes):
+        packed = struct.pack(f"{e}{len(vals)}{fmt[typ]}", *vals)
+        if size > 4:
+            ifd += struct.pack(e + "HHII", tag, typ, len(vals), at + len(blobs))
+            blobs += packed
+        else:
+            ifd += struct.pack(e + "HHI", tag, typ, len(vals)) + packed.ljust(4, b"\0")
+    ifd += b"\0\0\0\0"
+    return head + ifd + bytes(blobs) + b"".join(chunks)
+
+
+# ---------------------------------------------------------------------------
+# the committed fixtures
+# ---------------------------------------------------------------------------
+
+
+def make_fixtures() -> dict[str, bytes]:
+    from PIL import Image
+
+    def save(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    rgb = smooth(67, 91, 3, 1)
+    rgba = np.concatenate([rgb, smooth(67, 91, 1, 2)], -1)
+    pal = Image.fromarray(rgb).quantize(32, method=Image.Quantize.MEDIANCUT)
+    idx = np.asarray(pal)
+    palette = np.asarray(pal.getpalette()[: 3 * 32], np.uint8).reshape(-1, 3)
+    return {
+        "progressive.jpg": save(Image.fromarray(rgb), "JPEG", progressive=True),
+        "interlaced.gif": save(pal, "GIF", interlace=True, transparency=5),
+        "lzw.tif": save(Image.fromarray(rgb), "TIFF", compression="tiff_lzw"),
+        "deflate.tif": save(Image.fromarray(rgba), "TIFF", compression="tiff_adobe_deflate"),
+        "rle8.bmp": rle8_bmp(idx, palette),
+        "rle.tga": save(Image.fromarray(rgba), "TGA", compression="tga_rle"),
+    }
+
+
+def pillow_rgba_sha(data: bytes) -> str:
+    from PIL import Image
+
+    rgba = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    return hashlib.sha256(rgba.tobytes()).hexdigest()
+
+
+def digests(files: dict[str, bytes]) -> dict:
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import seeded_images
+
+    decode = {name: pillow_rgba_sha(data) for name, data in sorted(files.items())}
+    encode, encode_decode = {}, {}
+    for name, img in seeded_images().items():
+        b = io.BytesIO()
+        Image.fromarray(img).save(b, "JPEG")
+        encode[name] = hashlib.sha256(b.getvalue()).hexdigest()
+        encode_decode[name] = pillow_rgba_sha(b.getvalue())
+    return {"DECODE": decode, "JPEG_ENCODE": encode, "JPEG_ENCODE_DECODE": encode_decode}
+
+
+def digest_module(d: dict) -> str:
+    lines = ['"""SHA-256 digests of Pillow 12.1.0\'s readings of the fixtures beside this',
+             "module and of its JPEG encodes (``save``, quality 75, 4:2:0) of",
+             "``seeded_images()``; each decode is ``convert(\"RGBA\")``'s bytes. Written by",
+             '``tests/torch_image_fixtures.py --write``."""', ""]
+    for key, table in d.items():
+        lines.append(f"{key} = {{")
+        lines += [f'    "{k}": "{v}",' for k, v in table.items()]
+        lines.append("}")
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    files = make_fixtures()
+    if "--write" in sys.argv:
+        for name, data in files.items():
+            with open(os.path.join(FIXTURES, name), "wb") as f:
+                f.write(data)
+        with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+            f.write(digest_module(digests(files)))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
