@@ -11,8 +11,9 @@ and the rest of the public table (``Viewer`` and its web front-end,
 ``JobQueue``, ``ManipulationSim`` with telemetry, ``profiling``,
 ``extension``, the sanitizers), the scale-out layer (a sharded batch
 on a one-card mesh, two processes of one ``gloo`` group on the card, the
-atlas modes, the classic raster's scan rule), and the image formats (JPEG,
-BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example).
+atlas modes, the classic raster's scan rule), the image formats (JPEG,
+BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
+(the native decoder) and the repository's tools that are not TPU-only.
 
     python3 chip_smoke.py
 
@@ -223,6 +224,31 @@ Phases (one line each or more; any failure exits non-zero):
     frames (cut from 100 for time), RGB as PNG and JPEG and the instance
     mask as 16-bit PNG through ``ImageSaver``, every file read back by the
     port's codec.
+19. WebP and the tools (``assets/webp.py`` over the native decoder
+    ``csrc/sl_webp.cpp``; ``stillleben_tpu_torch/tools/``): the decoder's
+    g++ build (seconds); the committed WebP fixtures (lossy, lossy with
+    ALPH, lossless, 16 colours, odd-sized, a two-frame animation whose frame
+    0 is smaller than its canvas, the 640x480 frame lossy and lossless, the
+    scene's images) read both ways, held to the SHA-256 that Pillow 12.1.0
+    and OpenCV 5.0.0 gave on the CPU host; phase 18's composition from
+    ``write_webp_fixtures`` (the blob's ``.mtl`` texture and a GLB's image
+    lossy WebP, the plane a lossless WebP, the ``.ibl``'s panorama a WebP)
+    at phase 18's settled poses (no second settle), rendered at 640x480:
+    phase 13's content checks, K1's launches (one camera, two shadow passes)
+    and no plain piece, K1 ``torch.equal`` to its plain version on the
+    camera and the sun's shadow pass, every field ``torch.equal`` to the
+    same scene from the decoded arrays (PNG twins of the textures, a BMP
+    twin of the panorama: ROADMAP C-18); the median ms of 9 decodes of the
+    640x480 frame, lossy and lossless, both readings;
+    ``ImageLoader(num_threads=4)``'s images/s over 16 WebP frames, 600
+    textures from its construction; ``tools.settle_fidelity`` with ``ref``
+    and ``tuned`` at its 24 seeds x 100 frames (its lines, its seconds, and
+    the null of ref's two halves of the seeds); ``tools.display_mesh`` (4
+    views at 256 of the textured blob), ``tools.viewer_demo`` (12 frames at
+    256; its scene's settle cut to 10 frames for time), ``tools.align_mesh``
+    (a batch alignment written and read back, an ``AlignSession``'s keys
+    and render): K1's launches per tool, no plain piece, K1 ``torch.equal``
+    to its plain version on each tool's camera pass.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2289,10 +2315,38 @@ def _median_ms(fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def run_image_formats(torch, cr, rt, card) -> tuple[list, dict]:
+def image_scene(meshes, light_map, plane_texture):
+    """Phases 18 and 19's composition of (blob, GLB blob, cube, sphere):
+    the objects scaled, classes 1-4, ten of them with the bench's seeded
+    metallic and roughness, the light map and the 3 x 3 m plane."""
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+
+    blob, glb, cb, sp = meshes
+    for i, (mesh, diag) in enumerate(((blob, 0.25), (glb, 0.25), (cb, 0.2), (sp, 0.15))):
+        if i < 2:
+            mesh.center_bbox()
+        mesh.scale_to_bbox_diagonal(diag)
+        mesh.class_index = i + 1
+    rng = np.random.default_rng(7)
+    scene = sl.Scene((WIDTH, HEIGHT))
+    scene.seed(SEED)
+    for mesh in [blob, glb, sp, blob, cb, sp, glb, cb, sp, blob]:
+        o = sl.Object(mesh)
+        o.metallic, o.roughness = float(rng.random()), float(rng.random())
+        scene.add_object(o)
+    scene.light_map = light_map
+    scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+    scene.background_plane_texture = plane_texture
+    return scene
+
+
+def run_image_formats(torch, cr, rt, card) -> tuple[list, dict, tuple]:
     """Phase 18: the image formats of the asset layer (see the module
-    docstring). Returns the kernels' entries of K1 on this path's inputs and
-    the phase's seconds and milliseconds."""
+    docstring). Returns the kernels' entries of K1 on this path's inputs,
+    the phase's seconds and milliseconds, and its settled scene's state
+    (object poses, camera pose, plane pose) for phase 19."""
     import hashlib
     import shutil
 
@@ -2361,27 +2415,8 @@ def run_image_formats(torch, cr, rt, card) -> tuple[list, dict]:
     with open(fx["plane_tga"], "rb") as f:
         plane = tga.decode_tga(f.read())
 
-    def compose(meshes, light_map, plane_texture):
-        blob, glb, cb, sp = meshes
-        for i, (mesh, diag) in enumerate(((blob, 0.25), (glb, 0.25), (cb, 0.2), (sp, 0.15))):
-            if i < 2:
-                mesh.center_bbox()
-            mesh.scale_to_bbox_diagonal(diag)
-            mesh.class_index = i + 1
-        rng = np.random.default_rng(7)
-        scene = sl.Scene((WIDTH, HEIGHT))
-        scene.seed(SEED)
-        for mesh in [blob, glb, sp, blob, cb, sp, glb, cb, sp, blob]:
-            o = sl.Object(mesh)
-            o.metallic, o.roughness = float(rng.random()), float(rng.random())
-            scene.add_object(o)
-        scene.light_map = light_map
-        scene.background_plane_size = np.array([3.0, 3.0], np.float32)
-        scene.background_plane_texture = plane_texture
-        return scene
-
-    scene = compose((obj_jpg, glb_jpeg, cube, sphere), light_jpg, sl.Texture2D(fx["plane_tga"]))
-    twin = compose((obj_png, glb_png, cube2, sphere2), light_png, sl.Texture2D(plane))
+    scene = image_scene((obj_jpg, glb_jpeg, cube, sphere), light_jpg, sl.Texture2D(fx["plane_tga"]))
+    twin = image_scene((obj_png, glb_png, cube2, sphere2), light_png, sl.Texture2D(plane))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scene.simulate_tabletop_scene()
@@ -2559,6 +2594,262 @@ def run_image_formats(torch, cr, rt, card) -> tuple[list, dict]:
                     f"port's codec ({card})")
     if len(written) != 48 or unread:
         fail(f"images: the ycb stream's files do not read back: {unread}")
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    settled = ([o.pose() for o in scene.objects], scene.camera_pose(),
+               scene.background_plane_pose)
+    return entries, {**secs, **ms}, settled
+
+
+WEBP_LOADER_FRAMES = 16  # phase 19's ImageLoader directory: 8 lossy and 8 lossless copies
+TOOL_SEEDS = 24  # settle_fidelity's default (tools/settle_fidelity.py)
+VIEWER_SETTLE = 10  # phase 19's viewer_demo settle frames (cut from 100 for time)
+
+
+def run_webp_tools(torch, cr, rt, card, settled) -> tuple[list, dict]:
+    """Phase 19: WebP decoding and the tools (see the module docstring).
+    ``settled`` is phase 18's settled state. Returns the kernels' entries of
+    K1 on this phase's inputs and its seconds and milliseconds."""
+    import functools
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import image, native_image, webp
+    from stillleben_tpu_torch.assets.image_fixtures import WEBP_FILES, digests
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.native_build import build_library
+    from stillleben_tpu_torch.assets.procedural import write_meshes, write_webp_fixtures
+    from stillleben_tpu_torch.physics import tabletop
+    from stillleben_tpu_torch.tools import align_mesh, display_mesh, settle_fidelity, viewer_demo
+
+    build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
+    fx_dir = os.path.join(build, f"webp_{os.getpid()}")
+    secs, ms = {}, {}
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+
+    # the decoder's g++ build, timed into a directory of its own
+    t0 = time.perf_counter()
+    build_library("sl_webp", native_image.WEBP_SOURCE, native_image.WEBP_HEADER,
+                  os.path.join(fx_dir, "codec"), "the native WebP decoder")
+    secs["webp build"] = time.perf_counter() - t0
+    lib = native_image.build_webp()
+    phase("webp", f"the WebP decoder's g++ build: {secs['webp build']:.3f} s; the package loads "
+                  f"{os.path.relpath(lib, ROOT)}")
+
+    # every committed WebP, both readings, against Pillow's and OpenCV's digests
+    bad = []
+    for name in WEBP_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(webp.decode_webp(data, name).tobytes()) != digests.WEBP_DECODE[name]:
+            bad.append(f"Pillow's reading of {name}")
+        got = webp.decode_webp_cv2(data, name)
+        if got is None or sha(np.ascontiguousarray(got).tobytes()) != digests.WEBP_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+    phase("webp", f"{len(WEBP_FILES)} committed WebP files ({', '.join(WEBP_FILES)}), read as "
+                  f"Pillow 12.1.0 and OpenCV 5.0.0 read them, against their SHA-256 digests: "
+                  f"{2 * len(WEBP_FILES) - len(bad)} of {2 * len(WEBP_FILES)} equal")
+    if bad:
+        fail(f"webp: not the libraries' digests: {bad}")
+
+    # phase 18's scene with WebP images, at phase 18's settled poses
+    t0 = time.perf_counter()
+    fx = write_webp_fixtures(fx_dir, subdiv=6)
+    secs["fixtures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meshes = sl.Mesh.load_threaded([fx["obj_webp"], fx["glb_webp"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    secs["load"] = time.perf_counter() - t0
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    t0 = time.perf_counter()
+    light_webp = sl.LightMap(fx["ibl_webp"])
+    torch.cuda.synchronize()
+    secs["LightMap(.ibl, WebP)"] = time.perf_counter() - t0
+    light_bmp = sl.LightMap(fx["ibl_bmp"])
+    with open(fx["plane_webp"], "rb") as f:
+        plane = webp.decode_webp(f.read())
+    scene = image_scene(meshes, light_webp, sl.Texture2D(fx["plane_webp"]))
+    twin = image_scene(twins, light_bmp, sl.Texture2D(plane))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        secs["render"] = time.perf_counter() - t0
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "webp render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("webp", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT}: the blob's texture "
+                  f"from a lossy WebP (.mtl), a GLB with an embedded WebP, the plane from a "
+                  f"lossless WebP, LightMap(.ibl) whose REFfile is a WebP (OpenCV's reading); "
+                  f"load_threaded {secs['load']:.3f} s, LightMap {secs['LightMap(.ibl, WebP)']:.3f} "
+                  f"s, RenderPass().render {1e3 * secs['render']:.1f} ms; K1 launches by tile "
+                  f"{launches}; calls of K1's plain pieces {plain_calls}; content: {content}; "
+                  f"fields torch.equal to the same scene with the decoded arrays (PNG twins of the "
+                  f"textures, a BMP twin of the panorama, the plane's array): {len(same)} of "
+                  f"{len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields):
+        fail(f"webp: the decoded-texture frame differs from the array-texture frame in "
+             f"{sorted(set(fields) - set(same))}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"webp: K1 calls by (pass, light slot) {per_key}, launches {launches}, plain "
+             f"calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"webp camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"webp shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+
+    # the decoder's times on this host: the 640x480 frame, lossy and lossless
+    for name in ("frame.webp", "frame_lossless.webp"):
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        ms[f"{name} decode"] = _median_ms(lambda: webp.decode_webp(data, name), 9)
+        ms[f"{name} cv2 decode"] = _median_ms(lambda: webp.decode_webp_cv2(data, name), 9)
+        ms[f"{name} bytes"] = len(data)
+    phase("webp", "decode of the 640x480 frame, median ms of 9 on the card's host: "
+                  + ", ".join(f"{n} {ms[n + ' decode']:.3f} (OpenCV's reading "
+                              f"{ms[n + ' cv2 decode']:.3f}; {ms[n + ' bytes']} bytes)"
+                              for n in ("frame.webp", "frame_lossless.webp")) + f" ({card})")
+    loader_dir = os.path.join(fx_dir, "frames")
+    os.makedirs(loader_dir, exist_ok=True)
+    for i in range(WEBP_LOADER_FRAMES):
+        shutil.copyfile(fixture("frame.webp" if i % 2 else "frame_lossless.webp"),
+                        os.path.join(loader_dir, f"{i:02d}.webp"))
+    t0 = time.perf_counter()
+    loader = sl.ImageLoader(loader_dir, seed=0, num_threads=4)
+    try:
+        shapes = {loader.next_texture().pixels.shape for _ in range(LOADER_TEXTURES)}
+        secs["ImageLoader"] = time.perf_counter() - t0
+    finally:
+        loader.close()
+    ms["ImageLoader images/s"] = LOADER_TEXTURES / secs["ImageLoader"]
+    phase("webp", f"ImageLoader(num_threads=4) over {WEBP_LOADER_FRAMES} WebP 640x480 frames (8 "
+                  f"lossy, 8 lossless): {ms['ImageLoader images/s']:.1f} images/s "
+                  f"({LOADER_TEXTURES} textures of {sorted(shapes)} in {secs['ImageLoader']:.3f} s "
+                  f"from its construction) ({card})")
+    if shapes != {(480, 640, 4)}:
+        fail(f"webp: ImageLoader gave textures of {shapes}")
+
+    # settle_fidelity: ref and tuned at the script's 24 seeds x 100 frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lines = []
+    results = settle_fidelity.run(["ref", "tuned"], TOOL_SEEDS, "cuda",
+                                  out=lambda line: (lines.append(line),
+                                                    phase("tools", f"settle_fidelity: {line}")))
+    torch.cuda.synchronize()
+    secs["settle_fidelity"] = time.perf_counter() - t0
+    phase("tools", f"settle_fidelity ref and tuned, {TOOL_SEEDS} seeds x {settle_fidelity.FRAMES} frames "
+                   f"(one batch each) in {secs['settle_fidelity']:.3f} s ({card})")
+    if len(lines) != 3 or set(results) != {"ref", "tuned"}:
+        fail(f"tools: settle_fidelity printed {lines}")
+    # the tool's null: ref's two halves of the seeds against each other (no
+    # configuration differs, so a FAIL here is the thresholds' sampling noise)
+    z, pd = results["ref"]
+    half = TOOL_SEEDS // 2
+    pd_rows = pd.reshape(TOOL_SEEDS, -1)
+    null = settle_fidelity.config_line("ref split", z[half:], pd_rows[half:].ravel(), z[:half],
+                                       pd_rows[:half].ravel())
+    phase("tools", f"settle_fidelity's null, ref's seeds {half}-{TOOL_SEEDS - 1} against "
+                   f"0-{half - 1}: {null}")
+
+    tool_k1 = {}  # tool -> (its K1 calls, launches by tile, plain calls)
+
+    # display_mesh: 4 views at 256 of the textured blob
+    blob_path = write_meshes(os.path.join(build, "meshes"), subdiv=6, seed=0)["blob_textured"]
+    sheet_path = os.path.join(fx_dir, "display_mesh.png")
+    t0 = time.perf_counter()
+    sheet, *tool_k1["display_mesh"] = record_k1(
+        torch, cr, rt, lambda: display_mesh.main([blob_path, "--views", "4", "--size", "256",
+                                                  "--out", sheet_path]))
+    secs["display_mesh"] = time.perf_counter() - t0
+    back = image.read_png_samples(sheet_path).samples
+    phase("tools", f"display_mesh: 4 views at 256 of the 81,920-face blob in "
+                   f"{secs['display_mesh']:.3f} s, sheet {tuple(back.shape)} read back equal: "
+                   f"{np.array_equal(back, sheet)}; K1 launches by tile "
+                   f"{tool_k1['display_mesh'][1]} ({card})")
+    if back.shape != (256, 1024, 3) or not np.array_equal(back, sheet) or not sheet.any():
+        fail("tools: display_mesh's sheet")
+
+    # viewer_demo at 256, the settle of its scene cut to VIEWER_SETTLE frames
+    demo_dir = os.path.join(fx_dir, "viewer_demo")
+    full_settle = tabletop.simulate_tabletop
+    tabletop.simulate_tabletop = functools.partial(full_settle, iterations=VIEWER_SETTLE)
+    t0 = time.perf_counter()
+    try:
+        frames, *tool_k1["viewer_demo"] = record_k1(
+            torch, cr, rt, lambda: viewer_demo.main([demo_dir, "--size", "256"]))
+    finally:
+        tabletop.simulate_tabletop = full_settle
+    secs["viewer_demo"] = time.perf_counter() - t0
+    written = sorted(os.listdir(demo_dir))
+    phase("tools", f"viewer_demo at 256 ({VIEWER_SETTLE} settle frames, cut from 100 for time): "
+                   f"{len(frames)} frames, {len(written)} files in {secs['viewer_demo']:.3f} s; "
+                   f"K1 launches by tile {tool_k1['viewer_demo'][1]} ({card})")
+    if len(frames) != 12 or len(written) != 13:
+        fail(f"tools: viewer_demo wrote {written}")
+
+    # align_mesh: batch (the sidecar written and read back) and one session render
+    align_dir = os.path.join(fx_dir, "align")
+    os.makedirs(align_dir, exist_ok=True)
+    mesh_path = os.path.join(align_dir, "blob.obj")
+    shutil.copyfile(write_meshes(os.path.join(build, "meshes"), subdiv=6, seed=0)["blob"],
+                    mesh_path)
+    t0 = time.perf_counter()
+    aligned = align_mesh.main([mesh_path, "--rot-x", "90", "--rot-z", "30", "--scale", "0.5",
+                               "--diagonal", "0.3", "--center", "--write"])
+    again = sl.Mesh(mesh_path, physics=False)
+    sidecar_ok = bool(np.allclose(again.pretransform, aligned.pretransform, atol=1e-6)
+                      and abs(again.bbox.diagonal - 0.3) < 1e-4)
+    session = align_mesh.AlignSession(again)
+    for key in ("x", "shift+right", "up", "+", "c"):
+        session.handle_key(key)
+    img, *tool_k1["align_mesh"] = record_k1(torch, cr, rt, session.render)
+    secs["align_mesh"] = time.perf_counter() - t0
+    phase("tools", f"align_mesh: batch (rot-x 90, rot-z 30, scale 0.5, diagonal 0.3, center, "
+                   f"write; the sidecar read back by sl.Mesh: {sidecar_ok}) and an AlignSession's "
+                   f"keys and render {tuple(img.shape)} in {secs['align_mesh']:.3f} s; K1 "
+                   f"launches by tile {tool_k1['align_mesh'][1]} ({card})")
+    if not sidecar_ok or img.shape != (480, 480, 3) or not img.any():
+        fail("tools: align_mesh")
+
+    for tool, (calls, launches, plain_calls) in tool_k1.items():
+        cams = [a for k, _, a in calls if k == "camera"]
+        if not cams or any(plain_calls.values()) or sum(launches.values()) != len(calls):
+            fail(f"tools: {tool}'s K1 calls {len(calls)}, launches {launches}, plain "
+                 f"{plain_calls}")
+        label = f"tools {tool} camera, tile {cams[0][7]}"
+        k = check_k1(torch, cr, cams[0], label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=launches.get(cams[0][7], 0), library_ms=None, **k))
     shutil.rmtree(fx_dir, ignore_errors=True)
     return entries, {**secs, **ms}
 
@@ -3089,9 +3380,17 @@ def main() -> None:
     # 18. the image formats: the codec's build, Pillow's digests, the
     # decoded-texture scene through K1, the codec's times, the ycb example
     t0 = time.perf_counter()
-    image_k1, _ = run_image_formats(torch, cr, rt, card)
+    image_k1, _, image_settled = run_image_formats(torch, cr, rt, card)
     kernels.extend(image_k1)
     phase("images", f"phase 18 in {time.perf_counter() - t0:.1f} s")
+
+    # 19. WebP and the tools: the decoder's build and digests, phase 18's
+    # scene from WebP files at its settled poses, the decode's times, and
+    # settle_fidelity, display_mesh, viewer_demo and align_mesh on the card
+    t0 = time.perf_counter()
+    webp_k1, _ = run_webp_tools(torch, cr, rt, card, image_settled)
+    kernels.extend(webp_k1)
+    phase("webp+tools", f"phase 19 in {time.perf_counter() - t0:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

@@ -1,9 +1,10 @@
 """The port's own image codec: every format the JAX package opens through
-Pillow or OpenCV, but WebP.
+Pillow or OpenCV.
 
 numpy and the standard library here (zlib for PNG's deflate); the JPEG,
-GIF and TIFF modules reach the native codec core (``native_image``,
-``csrc/sl_image.cpp``, built with g++ at first use) for their bit loops.
+GIF, TIFF and WebP modules reach the native codec (``native_image``,
+``csrc/sl_image.cpp`` and ``csrc/sl_webp.cpp``, built with g++ at first
+use) for their bit loops.
 Two readings of a file, each the one a part of the JAX package gets from a
 library:
 
@@ -15,23 +16,25 @@ library:
   Pillow's conversions: 16-bit samples keep their high byte, 16-bit grey
   clips at 255, a transparent colour is matched against the samples as
   Pillow holds them (``_pil_rgba``). Binary PPM. JPEG (``jpeg.py``), BMP
-  (``bmp.py``), TGA (``tga.py``), GIF frame 0 (``gif.py``) and TIFF page 0
-  (``tiff.py``).
+  (``bmp.py``), TGA (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0
+  (``tiff.py``) and WebP frame 0 (``webp.py``: lossy, lossless, alpha,
+  animation).
 - ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` file decodes to float32, a JPEG
-  is turned by its EXIF orientation; None for a TGA, which OpenCV does not
-  read.
+  is turned by its EXIF orientation, a WebP gives frame 0; None for a TGA,
+  which OpenCV does not read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
 modes the JAX ``ImageSaver`` writes through Pillow); ``encode_png_samples``
 writes any colour type, depth, palette, ``tRNS`` and interlacing (the
 codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
-JPEG, BMP, TGA and TIFF have their own encoders in their modules.
+JPEG, BMP, TGA and TIFF have their own encoders in their modules; WebP and
+GIF have none.
 
-WebP raises ``NotImplementedError`` with its name, as do the JPEG variants
-``jpeg.py`` lists. There is no substitute image. Every decoder checks the
+The JPEG variants ``jpeg.py`` lists raise ``NotImplementedError`` with
+their names. There is no substitute image. Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
 """
@@ -53,6 +56,8 @@ from .jpeg import decode_jpeg, decode_jpeg_cv2
 from .tga import FOOTER as TGA_FOOTER
 from .tga import decode_tga
 from .tiff import decode_tiff, decode_tiff_cv2
+from .webp import MAGIC as WEBP_MAGIC
+from .webp import decode_webp, decode_webp_cv2
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> (samples per pixel, allowed bit depths)
@@ -61,10 +66,13 @@ _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-# the decoders by magic bytes: (Pillow's reading, OpenCV's reading)
+# the decoders by magic bytes: (Pillow's reading, OpenCV's reading); every
+# RIFF file goes to the WebP decoder, which raises (or gives None) for one
+# that is not WebP
 _DECODERS = ((JPEG_MAGIC, decode_jpeg, decode_jpeg_cv2), (b"BM", decode_bmp, decode_bmp_cv2),
              (b"GIF87a", decode_gif, decode_gif_cv2), (b"GIF89a", decode_gif, decode_gif_cv2),
-             (b"II*\x00", decode_tiff, decode_tiff_cv2), (b"MM\x00*", decode_tiff, decode_tiff_cv2))
+             (b"II*\x00", decode_tiff, decode_tiff_cv2), (b"MM\x00*", decode_tiff, decode_tiff_cv2),
+             (WEBP_MAGIC, decode_webp, decode_webp_cv2))
 
 
 class PngImage(NamedTuple):
@@ -292,14 +300,10 @@ def _rgba(arr: np.ndarray) -> np.ndarray:
 
 
 def _refuse(path: str, data: bytes):
-    fmt = "unknown"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" or path.lower().endswith(".webp"):
-        fmt = "WebP"
-    elif data[:2] == b"#?":
-        fmt = "Radiance HDR"
+    fmt = "Radiance HDR" if data[:2] == b"#?" else "unknown"
     raise NotImplementedError(
         f"{path}: {fmt} images are not supported (the port decodes PNG, PPM, JPEG, BMP, TGA, "
-        "GIF and TIFF, and Radiance HDR through read_image_cv2)"
+        "GIF, TIFF and WebP, and Radiance HDR through read_image_cv2)"
     )
 
 
@@ -310,8 +314,8 @@ def _is_tga(data: bytes, name: str) -> bool:
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``; WebP and formats
-    no module reads raise by name."""
+    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``; formats no module
+    reads raise by name."""
     if data[:8] == PNG_MAGIC:
         return decode_png(data, name)
     if data[:1] == b"P" and data[1:2].isdigit():
@@ -472,8 +476,8 @@ def read_image_cv2(path: str) -> np.ndarray | None:
     """The array ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``
     gives: grey (H, W), colour (H, W, 3) in BGR order with alpha dropped
     and palettes expanded; uint8, uint16 at depth 16 (grey PNG at depths
-    1-4 scaled to 8 bits), float32 for HDR; None for a TGA, as OpenCV reads
-    none. WebP raises by name."""
+    1-4 scaled to 8 bits), float32 for HDR; frame 0 of a WebP; None for a
+    TGA, as OpenCV reads none."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"#?":

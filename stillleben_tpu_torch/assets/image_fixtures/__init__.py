@@ -3,11 +3,18 @@
 Pillow 12.1.0 wrote the files from seeded numpy images
 (``tests/torch_image_fixtures.py``; the RLE8 BMP is that module's own
 writer, which Pillow reads): a progressive JPEG, an interlaced GIF with a
-transparent index, LZW and Deflate TIFF, an RLE8 BMP and a run-length TGA.
-``digests.py`` holds the SHA-256 of Pillow's ``convert("RGBA")`` of each,
-and of Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a
-host that decodes and encodes these to the same digests computes what
-Pillow computes here.
+transparent index, LZW and Deflate TIFF, an RLE8 BMP and a run-length TGA;
+and WebP (``WEBP_FILES``): lossy RGB at quality 80, lossy RGBA (ALPH
+compressed and filtered), lossless RGBA, lossless with 16 colours (pixel
+bundling), an odd-sized lossy image, a two-frame animation whose frame 0
+is smaller than its canvas (the container by the tests' ``webp_anim``),
+the 640x480 frame the decode is timed on (lossy and lossless), and the
+textured scene's images (the blob's base colour, the checker plane, the
+8-bit sky). ``digests.py`` holds the SHA-256 of Pillow's
+``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP, and of
+Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a host
+that decodes and encodes these to the same digests computes what Pillow
+and OpenCV compute here.
 """
 
 from __future__ import annotations
@@ -18,6 +25,9 @@ import numpy as np
 
 DIR = os.path.dirname(os.path.abspath(__file__))
 FILES = ("progressive.jpg", "interlaced.gif", "lzw.tif", "deflate.tif", "rle8.bmp", "rle.tga")
+WEBP_FILES = ("q80.webp", "alpha.webp", "lossless.webp", "palette16.webp", "odd.webp",
+              "anim.webp", "frame.webp", "frame_lossless.webp", "blob_basecolor.webp",
+              "checker.webp", "sky.webp")
 
 
 def path(name: str) -> str:

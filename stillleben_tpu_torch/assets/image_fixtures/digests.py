@@ -1,6 +1,8 @@
 """SHA-256 digests of Pillow 12.1.0's readings of the fixtures beside this
 module and of its JPEG encodes (``save``, quality 75, 4:2:0) of
-``seeded_images()``; each decode is ``convert("RGBA")``'s bytes. Written by
+``seeded_images()``; each decode is ``convert("RGBA")``'s bytes. The WebP
+files' also as OpenCV 5.0.0 reads them (``WEBP_DECODE_CV2``: the bytes of
+``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). Written by
 ``tests/torch_image_fixtures.py --write``."""
 
 DECODE = {
@@ -18,4 +20,30 @@ JPEG_ENCODE = {
 JPEG_ENCODE_DECODE = {
     "texture": "ff0a2bc4caf33892731f16ea682e430d2401fabeae7aa5cdfa023c12eaebc36d",
     "frame": "69af47efc777edc0449a743b916f2045ad90c608bce8ee5966c8100c81bf1ab3",
+}
+WEBP_DECODE = {
+    "alpha.webp": "fe89578e53dbec75d17e5fc09eaadbe87b4d9c8aecc7a8c86b225647c3082078",
+    "anim.webp": "a728be0de4d2750149a7dc64fc23015f745e66c28dea0f4bbf2e9038d456dbb2",
+    "blob_basecolor.webp": "8f0370cfff0b870f216c7915cc218522e3b0d7313f86715968ae94d87565cd37",
+    "checker.webp": "762cf7a520d32fe2634a4e80afd0c8630d2ada43487b8cdee4a41aa3b9c3eaf0",
+    "frame.webp": "a6da0ca9565dbc6083e99950e99467171fa4ba36c34822ef0426ca73eeaef7be",
+    "frame_lossless.webp": "2810884bdba1a90a5f57be973a313a2c4d03ea283a50cd238414d0c1fab721d1",
+    "lossless.webp": "d8be627f3d878d1f5012c11ff9da4d39319ef71a7f8bb5443dee24cd3386a137",
+    "odd.webp": "399786a5940605860b4e0e4a8fd870dbc47fda07fdc96283cdbce08ca669c536",
+    "palette16.webp": "dcdc30b04e9b468a6661d308be288b9c8ec5806171bce2194381960e4377d846",
+    "q80.webp": "9a1e66fad6191c99865f7609c7e9ff75d68cdb7dc1e4a5c85bc421050c1d079a",
+    "sky.webp": "5a908dc7642affe827b555be33419f12703ad71f304487ace33ea59a58eafccc",
+}
+WEBP_DECODE_CV2 = {
+    "alpha.webp": "e99de1fa375b3fe4c2515ee07663c19d0fe76275dccc0d59b229eca4b818adcd",
+    "anim.webp": "4c6590772800d126b050a06af726104cedbb7cd629670b6396b6f14ee7edeeb7",
+    "blob_basecolor.webp": "82e6e774d6db36d4dc635c045ab25203e38cfcd1a0d0d7f6fe28e03b905f4473",
+    "checker.webp": "96263cb4d455c8a26fa11d44b53e89b7bc652283f6b0db8b5c9d1832e19bc02d",
+    "frame.webp": "030bf0af77f7bdecab40e5e268ddc67b5192424bf2e6dc63b608205bed831c64",
+    "frame_lossless.webp": "7e877f16a869e16871aaeff8bc49fc07d744b82245800fa50878ed9d3897abb1",
+    "lossless.webp": "4288035006c860fdca22bcc7bd996cad369c7c3627f9d44fcecdd61d9e1db878",
+    "odd.webp": "6cf4f2fab0fb3e502cb01e1a9ba3eca7909aacf7189675879f07750fe2a8d9a4",
+    "palette16.webp": "72940b0286163409fa80dba5780ed3c348a1c9b75bea02ecf52775f635902b10",
+    "q80.webp": "d82ddf6b55fdfeaece74d9cde73b555399146994e73b7d5315435e0f0cfd0ec2",
+    "sky.webp": "095b5e558bdf5a98aa3829fc0efaadd765d8cada588f8ace8f9b10f52e4964d4",
 }

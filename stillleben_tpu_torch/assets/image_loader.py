@@ -7,9 +7,9 @@ image_loader.cpp:94-99,165-201), seeded RNG, and returns Texture objects.
 
 Copied from ``stillleben_tpu/assets/image_loader.py``; images are decoded
 by the port's own codec (``image.py::read_image``, Pillow's
-``convert("RGBA")``, of every format ``IMAGE_EXTENSIONS`` lists but WebP). A
-file the port cannot decode (a WebP, say) counts as a failed load, as a
-file Pillow cannot open does in the JAX package.
+``convert("RGBA")``, of every format ``IMAGE_EXTENSIONS`` lists, WebP
+frame 0 included). A file the codec cannot decode counts as a failed load,
+as a file Pillow cannot open does in the JAX package.
 """
 
 from __future__ import annotations

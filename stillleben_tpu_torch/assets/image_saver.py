@@ -17,7 +17,11 @@ a format (RGBA or 16-bit as JPEG, 16-bit as BMP or TGA) fails in the
 worker as it does in the JAX package: printed, nothing written. A path
 whose extension the port cannot encode (``.gif``, ``.webp``, any other)
 raises ``NotImplementedError`` in ``save()`` itself, before anything is
-queued.
+queued: the port decodes WebP and GIF but writes neither. Pillow's WebP
+``save`` is libwebp's lossy encoder (quality 80, method 4), whose bytes
+come from that encoder's own search (segments, mode decisions, filter
+strength, token probabilities), and its GIF ``save`` quantises RGB to an
+adaptive palette; each is a port of its own, not done yet.
 """
 
 from __future__ import annotations

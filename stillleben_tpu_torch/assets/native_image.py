@@ -1,8 +1,10 @@
-"""ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``).
+"""ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``)
+and of its WebP decoder (``csrc/sl_webp.cpp``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
-and the run-length decoders of BMP, TGA and TIFF (PackBits). The source is built at first use by ``native_build.build_library``
+the run-length decoders of BMP, TGA and TIFF (PackBits), and the whole of
+WebP's decode (VP8, VP8L, ALPH, the container and frame 0). Each source is built at first use by ``native_build.build_library``
 (``g++ -O3 -shared -fPIC -std=c++17`` into the gitignored ``_build/``,
 named by a hash of the source); a compile or load that fails raises with
 the compiler's message. There is no decoder in Python beside it.
@@ -26,18 +28,43 @@ from .native_build import BUILD_DIR, PKG_DIR, build_library
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "sl_image.cpp")
 HEADER = os.path.join(PKG_DIR, "csrc", "sl_image.h")
+WEBP_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp.cpp")
+WEBP_HEADER = os.path.join(PKG_DIR, "csrc", "sl_webp.h")
 
 _OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED = 0, 1, 2, 3, 4
 _ERRLEN = 512
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_webp_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
     """Compile the source if this version is not built yet; returns the
     library's path. Raises ``RuntimeError`` with the compiler's output."""
     return build_library("sl_image", SOURCE, HEADER, BUILD_DIR, "the native image codec")
+
+
+def build_webp() -> str:
+    """``build`` of the WebP decoder."""
+    return build_library("sl_webp", WEBP_SOURCE, WEBP_HEADER, BUILD_DIR, "the native WebP decoder")
+
+
+def load_webp_library() -> ctypes.CDLL:
+    """Build (if needed) and load the WebP decoder, once per process."""
+    global _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            lib = ctypes.CDLL(build_webp())
+            for fn in ("sl_webp_info", "sl_webp_decode"):
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int)
+            lib.sl_webp_header_cv2.restype = ctypes.c_int
+            lib.sl_webp_header_cv2.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                               ctypes.c_char_p, ctypes.c_int)
+            _webp_lib = lib
+        return _webp_lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -164,3 +191,39 @@ def packbits(data: bytes, size: int, name: str = "<bytes>") -> bytes:
                                       ctypes.c_size_t(size), ctypes.byref(n), err, _ERRLEN),
            err, name)
     return out[: n.value].tobytes()
+
+
+def webp_info(data: bytes, name: str = "<bytes>", cv2: bool = False) -> dict:
+    """The container of a WebP file as Pillow's reading (or, with ``cv2``,
+    OpenCV's) parses it: the canvas, Pillow's alpha (mode RGBA), frame 0's
+    rectangle, whether it is lossless, and the number of frames."""
+    info = np.zeros(9, np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_webp_library().sl_webp_info(data, ctypes.c_size_t(len(data)), int(cv2),
+                                            _ptr(info), err, _ERRLEN), err, name)
+    keys = ("width", "height", "alpha", "x", "y", "frame_width", "frame_height", "lossless",
+            "frames")
+    return dict(zip(keys, (int(v) for v in info)))
+
+
+def webp_header_cv2(data: bytes, name: str = "<bytes>") -> tuple[int, int]:
+    """(width, height) as OpenCV's ``imread`` reads them before it checks
+    its size limits: the features of the first 32 bytes (an animation
+    must also pass the demuxer)."""
+    size = np.zeros(2, np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_webp_library().sl_webp_header_cv2(data, ctypes.c_size_t(len(data)), _ptr(size),
+                                                  err, _ERRLEN), err, name)
+    return int(size[0]), int(size[1])
+
+
+def webp_decode(data: bytes, width: int, height: int, name: str = "<bytes>",
+                cv2: bool = False) -> np.ndarray:
+    """Frame 0 on its ``width`` x ``height`` canvas, (H, W, 4) RGBA uint8,
+    transparent black outside the frame. The caller has checked the
+    canvas's size (``webp_info``, ``check_size``)."""
+    out = np.zeros((height, width, 4), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_webp_library().sl_webp_decode(data, ctypes.c_size_t(len(data)), int(cv2),
+                                              _ptr(out), err, _ERRLEN), err, name)
+    return out

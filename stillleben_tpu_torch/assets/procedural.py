@@ -410,6 +410,66 @@ def write_image_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict
     return paths
 
 
+def write_webp_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+    """``write_image_fixtures``'s scene with WebP in place of JPEG and TGA,
+    from the committed WebP files that Pillow wrote (``image_fixtures``;
+    the base colour of seed 0), each beside a twin that holds its decoded
+    pixels as PNG. Paths by name:
+
+    - ``obj_webp``: the textured blob whose MTL names the lossy WebP of its
+      base colour; ``obj_png``: the same blob whose MTL names the PNG of
+      that WebP's decode;
+    - ``glb_webp``: the textured blob as GLB with the WebP embedded
+      (``image/webp``); ``glb_png``: with the PNG twin embedded;
+    - ``plane_webp``: ``checker_texture`` as a lossless WebP;
+    - ``ibl_webp``: an sIBL descriptor whose panorama is ``sky_ldr`` as a
+      lossy WebP (read through ``read_image_cv2``, as OpenCV reads it);
+      ``ibl_bmp``: the descriptor of a BMP of its decode. The twin is a BMP,
+      not a PNG: the light map's loader (the JAX package's
+      ``_load_hdr_image``) linearises an 8-bit panorama only when its name
+      ends in .png, .jpg or .jpeg, so a WebP's (or a BMP's) 0-255 values
+      are taken as they are.
+    """
+    import shutil
+
+    from . import image_fixtures
+    from .bmp import encode_bmp
+    from .image import decode_image, encode_png, read_image_cv2
+    from .objfile import load_obj
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed0"
+    names = {"obj_webp": f"{stem}_webp.obj", "obj_png": f"{stem}_webptwin.obj",
+             "glb_webp": f"{stem}_webp.glb", "glb_png": f"{stem}_webptwin.glb",
+             "plane_webp": "checker.webp", "ibl_webp": "sky_webp.ibl",
+             "ibl_bmp": "sky_webptwin.ibl"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    for name in ("blob_basecolor.webp", "checker.webp", "sky.webp"):
+        shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
+    with open(image_fixtures.path("blob_basecolor.webp"), "rb") as f:
+        webp = f.read()
+    twin = encode_png(decode_image(webp, "blob_basecolor.webp")[..., :3])
+    tex = {"webp": "blob_basecolor.webp", "png": "blob_basecolor_webp.png"}
+    atomic_write(os.path.join(directory, tex["png"]), twin)
+    p, f = _blob(subdiv, 0)
+    for key, kind in (("obj_webp", "webp"), ("obj_png", "png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex[kind])
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_webp"], blob, webp, mime="image/webp")
+    write_glb(paths["glb_png"], blob, twin)
+    sky = read_image_cv2(os.path.join(directory, "sky.webp"))
+    atomic_write(os.path.join(directory, "sky_webp.bmp"), encode_bmp(sky[..., ::-1].copy()))
+    h, w = sky.shape[:2]
+    atomic_write(paths["ibl_webp"], _ibl_text("sky.webp", h, w))
+    atomic_write(paths["ibl_bmp"], _ibl_text("sky_webp.bmp", h, w))
+    return paths
+
+
 def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
     """Write every format the loaders read into ``directory`` (files kept
     if already there) and return their paths by name. Each mesh is the

@@ -15,8 +15,8 @@ equirect mapping is uv = (atan2(y, x) * 0.1591 + 0.5, asin(z) * 0.3183 + 0.5).
 (``_load_source``, a copy of JAX ``light_map.py:462-584``): the panorama
 is read as the JAX package reads it through OpenCV, by the port's own
 codec (``assets/image.py::read_image_cv2``: Radiance ``.hdr``, PNG, PPM,
-JPEG, BMP, GIF, TIFF; a TGA through the JAX package's Pillow fallback;
-WebP raises by name). Not ported: the quad-packed cubemap rows
+JPEG, BMP, GIF, TIFF, WebP frame 0; a TGA through the JAX package's
+Pillow fallback). Not ported: the quad-packed cubemap rows
 (``SL_IBL_QUAD``), a TPU layout.
 """
 

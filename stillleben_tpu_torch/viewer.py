@@ -263,11 +263,7 @@ class Viewer:
         print(f"Viewer (headless): dashboard written to {out_path}")
 
     def _run_window(self):
-        import matplotlib
-
-        matplotlib.use("TkAgg")
-        import matplotlib.pyplot as plt
-
+        plt = _window_backend()
         ball = self._make_arcball()
 
         fig, ax = plt.subplots(figsize=(12, 9))
@@ -332,6 +328,17 @@ class Viewer:
             f" | coords — {self.shading}, ssao={'on' if self.ssao_enabled else 'off'},"
             f" physics {run}  [space/r/t/m/o/i/+/-]"
         )
+
+
+def _window_backend():
+    """matplotlib's pyplot on the Tk backend: the window path of ``Viewer``
+    and of the alignment tool (``tools/align_mesh.py``)."""
+    import matplotlib
+
+    matplotlib.use("TkAgg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def view(scene, web: bool = False, port: int = 8645):

@@ -523,6 +523,71 @@ def test_decoded_texture_scene_on_cuda(tmp_path_factory, monkeypatch):
         assert torch.equal(getattr(result, field)(), getattr(ref, field)()), field
 
 
+def test_webp_texture_scene_on_cuda(tmp_path_factory, monkeypatch):
+    """Phase 19's scene check, small: the blob textured from a lossy WebP
+    (.mtl), a GLB with an embedded WebP, the plane from a lossless WebP and
+    ``LightMap(.ibl)`` whose ``REFfile`` is a WebP, settled and rendered on
+    the card; every K1 call equals its plain version, and the frame equals
+    that of the same scene whose images are their decoded pixels (PNG twins
+    of the textures, a BMP twin of the panorama, the plane's array)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets.procedural import write_webp_fixtures
+    from stillleben_tpu_torch.assets.webp import decode_webp
+    from stillleben_tpu_torch.ops import cell_raster as cr
+    from stillleben_tpu_torch.render import rasterize_tiled as rt
+
+    d = tmp_path_factory.mktemp("webp")
+    fx = write_webp_fixtures(str(d), subdiv=3)
+    monkeypatch.setenv("STILLLEBEN_TPU_MESH_CACHE", str(d / "mesh_cache"))
+    sl.init()
+
+    def compose(names, light, plane, physics):
+        blob, glb, cube = sl.Mesh.load_threaded([fx[names[0]], fx[names[1]], "primitive://cube"],
+                                                physics=physics)
+        for i, (mesh, diag) in enumerate(((blob, 0.25), (glb, 0.25), (cube, 0.2))):
+            mesh.center_bbox()
+            mesh.scale_to_bbox_diagonal(diag)
+            mesh.class_index = i + 1
+        scene = sl.Scene((160, 120))
+        scene.seed(3)
+        for mesh in (blob, glb, cube, blob):
+            scene.add_object(sl.Object(mesh))
+        scene.light_map = sl.LightMap(fx[light])
+        scene.background_plane_size = np.array([3.0, 3.0], np.float32)
+        scene.background_plane_texture = plane
+        return scene
+
+    scene = compose(("obj_webp", "glb_webp"), "ibl_webp", sl.Texture2D(fx["plane_webp"]), True)
+    with open(fx["plane_webp"], "rb") as f:
+        twin = compose(("obj_png", "glb_png"), "ibl_bmp", sl.Texture2D(decode_webp(f.read())),
+                       False)
+    scene.simulate_tabletop_scene()
+    for a, b in zip(scene.objects, twin.objects):
+        b.set_pose(a.pose())
+    twin.set_camera_pose(scene.camera_pose())
+    twin.background_plane_pose = scene.background_plane_pose
+    calls = []
+    original = rt.cell_raster
+
+    def record(*args):
+        calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return original(*args)
+
+    monkeypatch.setattr(rt, "cell_raster", record)
+    result = sl.RenderPass().render(scene)
+    monkeypatch.setattr(rt, "cell_raster", original)
+    ref = sl.RenderPass().render(twin)
+    assert (result.instance_index().to(torch.int32) > 0).any()
+    assert sorted({a[7] for a in calls}) == [16, 32], "no camera or shadow raster"
+    for args in calls:
+        kernel, plain = cr.cell_raster(*args), cr.cell_raster_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(kernel, plain)), f"tile {args[7]}"
+    for field in ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates"):
+        assert torch.equal(getattr(result, field)(), getattr(ref, field)()), field
+
+
 def compare_dashboards(cpu, gpu, H, W) -> dict:
     """A viewer dashboard (2H, 2W, 3) rendered on the card against the same
     on the CPU, by the frame rules above: the instance quadrant equal on

@@ -1,11 +1,12 @@
 """The port imports neither jax nor the JAX package, nor an image or plot
-library: a fresh interpreter that refuses every ``jax``, ``jaxlib``,
-``stillleben_tpu``, ``PIL``, ``cv2``, ``imageio`` and ``matplotlib`` module
+library, nor the repository's ``bench.py`` or ``tools/``: a fresh
+interpreter that refuses every ``jax``, ``jaxlib``, ``stillleben_tpu``,
+``bench``, ``tools``, ``PIL``, ``cv2``, ``imageio`` and ``matplotlib`` module
 (the port, ``stillleben_tpu_torch``, is another top-level name) imports the
 whole port, loads meshes and their PNG texture from files through the port's own
 ``Mesh`` and codec (every mesh format, cooked by the port's native build),
 reads a light map's descriptor and panorama, saves and loads images (PNG,
-JPEG, BMP, TGA, TIFF; the GIF and other fixtures decoded),
+JPEG, BMP, TGA, TIFF; the GIF, WebP and other fixtures decoded),
 builds a template with a background plane and a light map, renders a full
 frame through each raster on the CPU, and streams a batch in the modes of
 the tuned and reference-quality configurations, resolves every name of the
@@ -20,7 +21,8 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "stillleben_tpu", "PIL", "cv2", "imageio", "matplotlib")
+    BLOCKED = ("jax", "jaxlib", "stillleben_tpu", "bench", "tools", "PIL", "cv2", "imageio",
+               "matplotlib")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -46,7 +48,9 @@ SCRIPT = textwrap.dedent(
            "parallel.distributed", "assets.jpeg", "assets.bmp", "assets.tga", "assets.gif",
            "assets.tiff", "assets.native_image", "assets.native_build", "assets.image_fixtures",
            "assets.image_limits",
-           "assets.image_fixtures.digests", "examples.pbr", "examples.viewer", "examples.ycb"}
+           "assets.image_fixtures.digests", "examples.pbr", "examples.viewer", "examples.ycb",
+           "assets.webp", "tools", "tools.templates", "tools.settle_fidelity",
+           "tools.display_mesh", "tools.viewer_demo", "tools.align_mesh"}
     assert new <= names, new - names
 
     from stillleben_tpu_torch.assets.mesh import Mesh
@@ -78,6 +82,9 @@ SCRIPT = textwrap.dedent(
     from stillleben_tpu_torch.assets import image, image_fixtures
     for name in image_fixtures.FILES:
         assert image.read_image(image_fixtures.path(name)).shape == (67, 91, 4), name
+    for name in image_fixtures.WEBP_FILES:
+        assert image.read_image(image_fixtures.path(name)).dtype == np.uint8, name
+        assert image.read_image_cv2(image_fixtures.path(name)).shape[2] == 3, name
     loader = sl.ImageLoader(sys.argv[1] + "/fixtures", seed=0, num_threads=1)
     assert loader.next_texture().pixels.dtype == np.uint8
     loader.close()

@@ -44,7 +44,7 @@ def test_png_round_trip(tmp_path, channels):
 def test_png_filters_and_ppm_decode(tmp_path):
     """Scanlines written with each of the five PNG filters decode to the
     image; a binary PPM with a comment decodes; a greyscale PNG decodes;
-    other formats raise with their name."""
+    a file that names WebP over no valid container raises."""
     import struct
     import zlib
 
@@ -77,7 +77,7 @@ def test_png_filters_and_ppm_decode(tmp_path):
     np.testing.assert_array_equal(image.read_image(str(ppm))[..., :3], img[..., :3])
     webp = tmp_path / "t.webp"
     webp.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 not really")
-    with pytest.raises(NotImplementedError, match="WebP"):
+    with pytest.raises(ValueError, match="WebP"):
         image.read_image(str(webp))
     # a greyscale PNG (once refused) decodes as Pillow's convert("RGBA")
     grey = (image.PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 10, 8, 0, 0, 0, 0))

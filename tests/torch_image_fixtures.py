@@ -4,14 +4,17 @@ the committed fixtures in ``stillleben_tpu_torch/assets/image_fixtures/``.
 The writers make the variants that Pillow and OpenCV do not write (RLE
 BMP, 16-bit and BITFIELDS BMP, top-down and OS/2 BMP, 16-bit and
 colour-mapped TGA, the TGA origin bits, GIF with a local table or a frame
-smaller than its screen, tiled, big-endian and predicted TIFF); each file
-is decoded by Pillow or OpenCV as the reference.
+smaller than its screen, tiled, big-endian and predicted TIFF, an
+animated WebP whose frame 0 is smaller than its canvas); each file is
+decoded by Pillow or OpenCV as the reference.
 
 ``make_fixtures()`` writes, from seeded numpy images, the files the port
 cannot write (progressive JPEG, GIF, LZW and Deflate TIFF, RLE TGA with
 Pillow; RLE8 BMP with ``rle8_bmp`` here, which Pillow decodes) and
 ``digests()`` the SHA-256 of Pillow's decodes and of Pillow's JPEG
-encodes of ``image_fixtures.seeded_images()``. Regenerate with
+encodes of ``image_fixtures.seeded_images()``; ``make_webp_fixtures()``
+the WebP files (Pillow's encodes) and ``webp_digests()`` Pillow's and
+OpenCV's readings of them. Regenerate with
 
     python tests/torch_image_fixtures.py --write
 """
@@ -364,6 +367,207 @@ def tiff(samples: np.ndarray, photometric: int, *, endian: str = "<", tile=None,
 
 
 # ---------------------------------------------------------------------------
+# WebP
+# ---------------------------------------------------------------------------
+
+
+def webp_save(pixels: np.ndarray, **kw) -> bytes:
+    """Pillow's WebP ``save`` of uint8 (H, W, 3|4) with its options."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(pixels)).save(b, "WEBP", **kw)
+    return b.getvalue()
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return kind + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
+
+
+def webp_chunks(data: bytes) -> list[tuple[bytes, bytes]]:
+    """The top-level chunks of a RIFF/WEBP file: (fourcc, payload)."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        kind, size = data[pos: pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((kind, data[pos + 8: pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_anim(canvas: tuple[int, int], frames: list[tuple[int, int, bytes]], *,
+              alpha: bool = True, background: int = 0) -> bytes:
+    """An animated WebP (VP8X, ANIM, one ANMF per frame) of ``canvas`` (W, H):
+    each frame is (x, y, a still WebP file), its ALPH / VP8 / VP8L chunks
+    placed at the even offset (x, y); Pillow's encoder always writes frame 0
+    at the canvas's size, this writer need not."""
+    body = b""
+    for x, y, still in frames:
+        chunks = webp_chunks(still)
+        kinds = [k for k, _ in chunks]
+        if b"VP8X" in kinds:
+            p = dict(chunks)[b"VP8X"]
+            fw, fh = (struct.unpack("<I", p[4:7] + b"\0")[0] + 1,
+                      struct.unpack("<I", p[7:10] + b"\0")[0] + 1)
+        elif b"VP8 " in kinds:
+            p = dict(chunks)[b"VP8 "]
+            fw, fh = struct.unpack_from("<HH", p, 6)
+            fw, fh = fw & 0x3FFF, fh & 0x3FFF
+        else:
+            v = struct.unpack_from("<I", dict(chunks)[b"VP8L"], 1)[0]
+            fw, fh = (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+        payload = b"".join(_chunk(k, p) for k, p in chunks if k in (b"ALPH", b"VP8 ", b"VP8L"))
+        head = b"".join(struct.pack("<I", v)[:3] for v in (x // 2, y // 2, fw - 1, fh - 1, 100))
+        body += _chunk(b"ANMF", head + bytes([0]) + payload)
+    flags = 0x02 | (0x10 if alpha else 0)
+    vp8x = _chunk(b"VP8X", bytes([flags, 0, 0, 0]) + struct.pack("<I", canvas[0] - 1)[:3]
+                  + struct.pack("<I", canvas[1] - 1)[:3])
+    data = b"WEBP" + vp8x + _chunk(b"ANIM", struct.pack("<IH", background, 0)) + body
+    return b"RIFF" + struct.pack("<I", len(data)) + data
+
+
+def webp_frame() -> np.ndarray:
+    """The 640x480 frame the WebP decode is timed on: the 8-bit sky over the
+    bench's blob texture, tiled (content a lossless file stays small on)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, sky_ldr
+
+    frame = sky_ldr(480, 640).copy()
+    frame[240:] = np.tile(base_color_texture(0)[..., :3], (1, 3, 1))[:240, :640]
+    return frame
+
+
+def _libwebp():
+    """libwebp as Pillow ships it (its ``_webp`` extension loads it and the
+    libraries it needs first), with the encoder's structures: the options
+    ``Image.save`` does not pass (the simple loop filter, sharpness, token
+    partitions, segments, raw or unfiltered alpha) reach the decoder's
+    paths that Pillow's files never take."""
+    import ctypes
+    import glob
+
+    import PIL
+    from PIL import _webp  # noqa: F401
+
+    c_int, c_float, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+    class Config(ctypes.Structure):  # WebPConfig (encode.h), room to spare after it
+        _fields_ = [("lossless", c_int), ("quality", c_float), ("method", c_int),
+                    ("image_hint", c_int), ("target_size", c_int), ("target_PSNR", c_float)] + [
+            (n, c_int) for n in (
+                "segments", "sns_strength", "filter_strength", "filter_sharpness",
+                "filter_type", "autofilter", "alpha_compression", "alpha_filtering",
+                "alpha_quality", "pass", "show_compressed", "preprocessing", "partitions",
+                "partition_limit", "emulate_jpeg_size", "thread_level", "low_memory",
+                "near_lossless", "exact", "use_delta_palette", "use_sharp_yuv", "qmin",
+                "qmax")] + [("_spare", c_int * 16)]
+
+    class Picture(ctypes.Structure):  # WebPPicture (encode.h)
+        _fields_ = [("use_argb", c_int), ("colorspace", c_int), ("width", c_int),
+                    ("height", c_int), ("y", ptr), ("u", ptr), ("v", ptr), ("y_stride", c_int),
+                    ("uv_stride", c_int), ("a", ptr), ("a_stride", c_int),
+                    ("pad1", ctypes.c_uint32 * 2), ("argb", ptr), ("argb_stride", c_int),
+                    ("pad2", ctypes.c_uint32 * 3), ("writer", ptr), ("custom_ptr", ptr),
+                    ("extra_info_type", c_int), ("extra_info", ptr), ("stats", ptr),
+                    ("error_code", c_int), ("progress_hook", ptr), ("user_data", ptr),
+                    ("pad3", ctypes.c_uint32 * 3), ("pad4", ptr), ("pad5", ptr),
+                    ("pad6", ctypes.c_uint32 * 8), ("memory_", ptr), ("memory_argb_", ptr),
+                    ("pad7", ptr * 2), ("_spare", ctypes.c_uint8 * 256)]
+
+    class Writer(ctypes.Structure):  # WebPMemoryWriter
+        _fields_ = [("mem", ptr), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32 * 4)]
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    return ctypes.CDLL(glob.glob(os.path.join(libs, "libwebp-*.so*"))[0]), Config, Picture, Writer
+
+
+def libwebp_encode(pixels: np.ndarray, quality: float = 75.0, **config) -> bytes:
+    """libwebp's ``WebPEncode`` of uint8 (H, W, 3|4) with the default preset,
+    ``quality`` and the given ``WebPConfig`` fields (e.g. ``filter_type=0``
+    for the simple loop filter, ``partitions=3`` for 8 token partitions,
+    ``alpha_compression=0`` for raw alpha)."""
+    import ctypes
+
+    lib, Config, Picture, Writer = _libwebp()
+    abi = 0x0209  # the encoder's ABI major version 2
+    cfg = Config()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, ctypes.c_float(quality), abi):
+        raise RuntimeError("WebPConfigInit")
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the configuration {config}")
+    pic = Picture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), abi):
+        raise RuntimeError("WebPPictureInit")
+    pix = np.ascontiguousarray(pixels, np.uint8)
+    h, w, c = pix.shape
+    pic.width, pic.height, pic.use_argb = w, h, int(cfg.lossless)
+    imp = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    writer = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        if not imp(ctypes.byref(pic), pix.ctypes.data_as(ctypes.c_void_p), w * c):
+            raise RuntimeError("WebPPictureImport")
+        pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value
+        pic.custom_ptr = ctypes.addressof(writer)
+        if not lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)):
+            raise RuntimeError(f"WebPEncode: error {pic.error_code}")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def make_webp_fixtures() -> dict[str, bytes]:
+    """The WebP fixtures, each written by Pillow's encoder (the animation's
+    container by ``webp_anim`` around Pillow's frames)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, checker_texture, sky_ldr
+
+    rgb = smooth(67, 91, 3, 1)
+    rgba = np.concatenate([rgb, smooth(67, 91, 1, 2)], -1)
+    rng = np.random.default_rng(16)
+    pal = rng.integers(0, 256, (16, 4)).astype(np.uint8)
+    yy, xx = np.mgrid[0:40, 0:52]
+    pal16 = pal[(xx // 5 + 3 * (yy // 4)) % 16]
+    frame0 = webp_save(smooth(22, 30, 3, 3), quality=80)
+    frame1 = webp_save(smooth(40, 48, 3, 4), quality=80)
+    return {
+        "q80.webp": webp_save(rgb, quality=80),
+        "alpha.webp": webp_save(rgba, quality=80),
+        "lossless.webp": webp_save(rgba, lossless=True),
+        "palette16.webp": webp_save(pal16, lossless=True),
+        "odd.webp": webp_save(smooth(33, 45, 3, 5), quality=50),
+        "anim.webp": webp_anim((48, 40), [(6, 8, frame0), (0, 0, frame1)]),
+        "frame.webp": webp_save(webp_frame(), quality=80),
+        "frame_lossless.webp": webp_save(webp_frame(), lossless=True),
+        "blob_basecolor.webp": webp_save(base_color_texture(0)[..., :3], quality=80),
+        "checker.webp": webp_save(checker_texture()[..., :3], lossless=True),
+        "sky.webp": webp_save(sky_ldr(), quality=80),
+    }
+
+
+def cv2_bgr_sha(data: bytes) -> str:
+    """SHA-256 of ``cv2.imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``'s bytes."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "x.webp")
+        with open(p, "wb") as f:
+            f.write(data)
+        img = cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def webp_digests(files: dict[str, bytes]) -> dict:
+    return {"WEBP_DECODE": {n: pillow_rgba_sha(d) for n, d in sorted(files.items())},
+            "WEBP_DECODE_CV2": {n: cv2_bgr_sha(d) for n, d in sorted(files.items())}}
+
+
+# ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -417,7 +621,9 @@ def digests(files: dict[str, bytes]) -> dict:
 def digest_module(d: dict) -> str:
     lines = ['"""SHA-256 digests of Pillow 12.1.0\'s readings of the fixtures beside this',
              "module and of its JPEG encodes (``save``, quality 75, 4:2:0) of",
-             "``seeded_images()``; each decode is ``convert(\"RGBA\")``'s bytes. Written by",
+             "``seeded_images()``; each decode is ``convert(\"RGBA\")``'s bytes. The WebP",
+             "files' also as OpenCV 5.0.0 reads them (``WEBP_DECODE_CV2``: the bytes of",
+             "``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -428,10 +634,12 @@ def digest_module(d: dict) -> str:
 
 if __name__ == "__main__":
     files = make_fixtures()
+    webp_files = make_webp_fixtures()
     if "--write" in sys.argv:
-        for name, data in files.items():
+        for name, data in {**files, **webp_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
-            f.write(digest_module(digests(files)))
-    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
+            f.write(digest_module({**digests(files), **webp_digests(webp_files)}))
+    for group in (files, webp_files):
+        print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
