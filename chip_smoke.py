@@ -13,7 +13,8 @@ and the rest of the public table (``Viewer`` and its web front-end,
 on a one-card mesh, two processes of one ``gloo`` group on the card, the
 atlas modes, the classic raster's scan rule), the image formats (JPEG,
 BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
-(the native decoder) and the repository's tools that are not TPU-only.
+(the native decoder and encoder) and the repository's tools that are not
+TPU-only.
 
     python3 chip_smoke.py
 
@@ -249,6 +250,20 @@ Phases (one line each or more; any failure exits non-zero):
     (a batch alignment written and read back, an ``AlignSession``'s keys
     and render): K1's launches per tool, no plain piece, K1 ``torch.equal``
     to its plain version on each tool's camera pass.
+20. WebP encoding (``assets/webp.py::encode_webp`` over the native encoder
+    ``csrc/sl_webp_enc.cpp``): the encoder's g++ build (seconds); the
+    committed q80 fixtures re-encoded from their sources (the numpy calls of
+    ``tests/torch_image_fixtures.py::make_webp_fixtures``): q80, frame,
+    blob_basecolor and sky byte-equal to the files Pillow 12.1.0 wrote, and
+    anim around the port's two frames; alpha.webp's VP8X and VP8 chunks
+    equal, its alpha exact, its ALPH size against libwebp's (ratio) and its
+    header byte; phase 19's render written by ``sl.ImageSaver`` as RGB and
+    as RGBA (alpha 255 on the objects, 0 elsewhere), read back by the
+    port's decoder (alpha exact, RGB PSNR against the render, bytes); the
+    median ms of 9 encodes of 640x480 (the frame and the render, RGB and
+    RGBA); ``ImageSaver(num_threads=4)``'s images/s over 16 frames, each
+    file equal to the serial encode. No kernel: K1's entries of phase 19
+    cover the render. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -293,6 +308,8 @@ INSIDE_OPS = 3 * 4 + 6
 DEPTH_OPS = 2 * 4 + 1 + 2 + 3 + 2
 ROW_BYTES = 16 * 4  # one packed line row LT[id]
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
+WEBP_SAVER_FRAMES = 16  # phase 20's ImageSaver(num_threads=4) run
+T_START = 0.0  # main()'s start, for the total wall time
 
 
 def fail(msg: str) -> None:
@@ -2605,10 +2622,11 @@ TOOL_SEEDS = 24  # settle_fidelity's default (tools/settle_fidelity.py)
 VIEWER_SETTLE = 10  # phase 19's viewer_demo settle frames (cut from 100 for time)
 
 
-def run_webp_tools(torch, cr, rt, card, settled) -> tuple[list, dict]:
+def run_webp_tools(torch, cr, rt, card, settled) -> tuple[list, dict, object]:
     """Phase 19: WebP decoding and the tools (see the module docstring).
     ``settled`` is phase 18's settled state. Returns the kernels' entries of
-    K1 on this phase's inputs and its seconds and milliseconds."""
+    K1 on this phase's inputs, its seconds and milliseconds, and the render
+    of its WebP scene (phase 20 saves it)."""
     import functools
     import hashlib
     import shutil
@@ -2851,10 +2869,129 @@ def run_webp_tools(torch, cr, rt, card, settled) -> tuple[list, dict]:
                             replaces="stillleben_tpu/ops/cell_raster.py:43",
                             launches=launches.get(cams[0][7], 0), library_ms=None, **k))
     shutil.rmtree(fx_dir, ignore_errors=True)
-    return entries, {**secs, **ms}
+    return entries, {**secs, **ms}, result
+
+
+def run_webp_encode(card, rendered) -> dict:
+    """Phase 20: WebP encoding (see the module docstring). ``rendered`` is
+    phase 19's render of its WebP scene. Returns the phase's seconds and
+    milliseconds."""
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import native_image, webp
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, sky_ldr
+
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_image_fixtures as writers
+
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"webp_enc_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    secs, ms = {}, {}
+
+    # the encoder's g++ build (the package's own, into _build; instant on a
+    # host that has built this version already)
+    t0 = time.perf_counter()
+    lib = native_image.build_webp_enc()
+    secs["encoder build"] = time.perf_counter() - t0
+    phase("webp-enc", f"the WebP encoder's g++ build: {secs['encoder build']:.3f} s "
+                      f"({os.path.relpath(lib, ROOT)})")
+
+    def committed(name):
+        with open(fixture(name), "rb") as f:
+            return f.read()
+
+    # the committed q80 fixtures from their sources (the numpy calls of
+    # make_webp_fixtures): Pillow's bytes on the CPU host
+    sources = {"q80.webp": writers.smooth(67, 91, 3, 1), "frame.webp": writers.webp_frame(),
+               "blob_basecolor.webp": base_color_texture(0)[..., :3], "sky.webp": sky_ldr()}
+    equal = [n for n, a in sources.items() if webp.encode_webp(a) == committed(n)]
+    frames = [webp.encode_webp(writers.smooth(22, 30, 3, 3)),
+              webp.encode_webp(writers.smooth(40, 48, 3, 4))]
+    if writers.webp_anim((48, 40), [(6, 8, frames[0]), (0, 0, frames[1])]) == committed("anim.webp"):
+        equal.append("anim.webp (its two frames)")
+    rgba = np.concatenate([writers.smooth(67, 91, 3, 1), writers.smooth(67, 91, 1, 2)], -1)
+    ours, ref = webp.encode_webp(rgba), committed("alpha.webp")
+    co, cr_ = dict(writers.webp_chunks(ours)), dict(writers.webp_chunks(ref))
+    alpha_chunks = co[b"VP8X"] == cr_[b"VP8X"] and co[b"VP8 "] == cr_[b"VP8 "]
+    alpha_exact = bool(np.array_equal(webp.decode_webp(ours)[..., 3], rgba[..., 3]))
+    ms["alpha.webp ALPH ratio"] = len(co[b"ALPH"]) / len(cr_[b"ALPH"])
+    phase("webp-enc", f"the committed q80 fixtures re-encoded on this host, byte-equal to the "
+                      f"files Pillow 12.1.0 wrote: {len(equal)} of {len(sources) + 1} "
+                      f"({', '.join(equal)}); alpha.webp: VP8X and VP8 chunks equal {alpha_chunks}, "
+                      f"ALPH header byte {co[b'ALPH'][0]} (libwebp's {cr_[b'ALPH'][0]}), alpha "
+                      f"exact {alpha_exact}, ALPH {len(co[b'ALPH'])} bytes against libwebp's "
+                      f"{len(cr_[b'ALPH'])} (ratio {ms['alpha.webp ALPH ratio']:.4f}), bitwise "
+                      f"{co[b'ALPH'] == cr_[b'ALPH']}")
+    if len(equal) != len(sources) + 1 or not alpha_chunks or not alpha_exact:
+        fail(f"webp-enc: fixtures not re-encoded to Pillow's bytes: {sorted(set(sources) - set(equal))}, "
+             f"alpha.webp chunks {alpha_chunks}, alpha exact {alpha_exact}")
+
+    # phase 19's render through ImageSaver: RGB, and RGBA with the objects opaque
+    rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
+    mask = np.where(rendered.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    paths = {"rgb": os.path.join(fx_dir, "render.webp"), "rgba": os.path.join(fx_dir, "render_rgba.webp")}
+    with sl.ImageSaver(num_threads=2) as saver:
+        saver.save(rgb, paths["rgb"])
+        saver.save(rgba, paths["rgba"])
+    data = {k: open(p_, "rb").read() for k, p_ in paths.items()}
+    back = {k: webp.decode_webp(d) for k, d in data.items()}
+
+    def psnr(a, where):
+        mse = float(np.mean((a[..., :3].astype(np.float64)[where] - rgb[where]) ** 2))
+        return 10 * np.log10(255.0 ** 2 / mse) if mse > 0 else float("inf")
+
+    ms["render RGB PSNR"] = psnr(back["rgb"], mask >= 0)
+    ms["render RGBA PSNR on the objects"] = psnr(back["rgba"], mask > 0)
+    alpha_back = bool(np.array_equal(back["rgba"][..., 3], mask))
+    header = dict(writers.webp_chunks(data["rgba"])).get(b"ALPH", b"?")[:1]
+    phase("webp-enc", f"phase 19's render {WIDTH}x{HEIGHT} through sl.ImageSaver: RGB "
+                      f"{len(data['rgb'])} bytes, PSNR {ms['render RGB PSNR']:.3f} dB against the "
+                      f"render; RGBA (alpha 255 on the {int((mask > 0).sum())} object pixels, 0 "
+                      f"elsewhere) {len(data['rgba'])} bytes, ALPH header byte {header.hex()}, "
+                      f"alpha read back exact {alpha_back}, PSNR on the objects "
+                      f"{ms['render RGBA PSNR on the objects']:.3f} dB")
+    if not alpha_back or not min(ms["render RGB PSNR"], ms["render RGBA PSNR on the objects"]) > 20:
+        fail(f"webp-enc: the render's round trip (alpha exact {alpha_back}, PSNR "
+             f"{ms['render RGB PSNR']:.3f} / {ms['render RGBA PSNR on the objects']:.3f} dB)")
+
+    # the encoder's times on this host
+    frame = writers.webp_frame()
+    timed = {"frame RGB": frame, "frame RGBA (the render's mask)":
+             np.ascontiguousarray(np.concatenate([frame, mask[..., None]], -1)),
+             "render RGB": rgb, "render RGBA": rgba}
+    for name, a in timed.items():
+        ms[f"{name} encode"] = _median_ms(lambda: webp.encode_webp(a), 9)
+    phase("webp-enc", "encode of 640x480, median ms of 9 on the card's host: "
+                      + ", ".join(f"{n} {ms[n + ' encode']:.3f}" for n in timed) + f" ({card})")
+    saver_dir = os.path.join(fx_dir, "saver")
+    os.makedirs(saver_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    with sl.ImageSaver(num_threads=4) as saver:
+        for i in range(WEBP_SAVER_FRAMES):
+            saver.save(rgba if i % 2 else rgb, os.path.join(saver_dir, f"{i:02d}.webp"))
+    secs["ImageSaver"] = time.perf_counter() - t0
+    ms["ImageSaver images/s"] = WEBP_SAVER_FRAMES / secs["ImageSaver"]
+    written = sorted(os.listdir(saver_dir))
+    phase("webp-enc", f"ImageSaver(num_threads=4) over {WEBP_SAVER_FRAMES} frames of the render "
+                      f"(RGB and RGBA in turn): {ms['ImageSaver images/s']:.1f} images/s "
+                      f"({secs['ImageSaver']:.3f} s from the first save to its close) ({card})")
+    if len(written) != WEBP_SAVER_FRAMES or any(
+            open(os.path.join(saver_dir, n), "rb").read() != data["rgba" if i % 2 else "rgb"]
+            for i, n in enumerate(written)):
+        fail(f"webp-enc: ImageSaver(num_threads=4) wrote {written}, not the serial encodes")
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return {**secs, **ms}
 
 
 def main() -> None:
+    global T_START
+    T_START = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "stillleben_tpu_torch")):
         fail("the stillleben_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, ROOT)
@@ -3388,9 +3525,17 @@ def main() -> None:
     # scene from WebP files at its settled poses, the decode's times, and
     # settle_fidelity, display_mesh, viewer_demo and align_mesh on the card
     t0 = time.perf_counter()
-    webp_k1, _ = run_webp_tools(torch, cr, rt, card, image_settled)
+    webp_k1, _, webp_render = run_webp_tools(torch, cr, rt, card, image_settled)
     kernels.extend(webp_k1)
     phase("webp+tools", f"phase 19 in {time.perf_counter() - t0:.1f} s")
+
+    # 20. WebP encoding: the encoder's build, the committed q80 fixtures
+    # from their sources, phase 19's render through ImageSaver, the times
+    t0 = time.perf_counter()
+    run_webp_encode(card, webp_render)
+    del webp_render
+    phase("webp-enc", f"phase 20 in {time.perf_counter() - t0:.1f} s")
+    phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches
     # are those of that configuration's main path (bench-full classic: its

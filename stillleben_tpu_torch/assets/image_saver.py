@@ -10,18 +10,18 @@ flips only because GL readback is bottom-up.
 Copied from ``stillleben_tpu/assets/image_saver.py``; images are encoded
 by the port's own encoders, picked by extension as Pillow picks its
 writer: ``.png`` (``image.encode_png``), ``.jpg``/``.jpeg``
-(``jpeg.encode_jpeg``), ``.bmp``, ``.tga``, ``.tif``/``.tiff``. Each
-writes the bytes of Pillow's ``save`` for the mode the JAX package hands
-Pillow (8-bit L, RGB, RGBA; ``I;16`` for uint16). A mode Pillow refuses for
-a format (RGBA or 16-bit as JPEG, 16-bit as BMP or TGA) fails in the
-worker as it does in the JAX package: printed, nothing written. A path
-whose extension the port cannot encode (``.gif``, ``.webp``, any other)
-raises ``NotImplementedError`` in ``save()`` itself, before anything is
-queued: the port decodes WebP and GIF but writes neither. Pillow's WebP
-``save`` is libwebp's lossy encoder (quality 80, method 4), whose bytes
-come from that encoder's own search (segments, mode decisions, filter
-strength, token probabilities), and its GIF ``save`` quantises RGB to an
-adaptive palette; each is a port of its own, not done yet.
+(``jpeg.encode_jpeg``), ``.bmp``, ``.tga``, ``.tif``/``.tiff`` and
+``.webp`` (``webp.encode_webp``: libwebp's lossy encoder at quality 80,
+method 4, native). Each writes the bytes of Pillow's ``save`` for the mode
+the JAX package hands Pillow (8-bit L, RGB, RGBA; ``I;16`` for uint16);
+a WebP with transparency has its alpha plane compressed by the port's own
+lossless stream (the alpha is exact, the other chunks are Pillow's bytes).
+A mode or size Pillow refuses for a format (RGBA or 16-bit as JPEG, 16-bit
+as BMP or TGA, a side over 16383 as WebP) fails in the worker as it does
+in the JAX package: printed, nothing written. A path whose extension the
+port cannot encode (``.gif``, any other) raises ``NotImplementedError`` in
+``save()`` itself, before anything is queued: Pillow's GIF ``save``
+quantises RGB to an adaptive palette, a port of its own not done yet.
 """
 
 from __future__ import annotations
@@ -37,9 +37,11 @@ from .image import encode_png
 from .jpeg import encode_jpeg
 from .tga import encode_tga
 from .tiff import encode_tiff
+from .webp import encode_webp
 
 ENCODERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
-            ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff}
+            ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff,
+            ".webp": encode_webp}
 
 
 def _to_numpy(img):

@@ -2,9 +2,9 @@
 
 A library is compiled at first use with ``g++ -O3 -shared -fPIC
 -std=c++17`` into the gitignored ``_build/``. Its name carries a hash of
-the source, the header and the flags, and the compile writes a temporary
-file that is renamed into place, so concurrent processes can build at
-once. A compile that fails raises ``RuntimeError`` with the compiler's
+the source, the headers it includes and the flags, and the compile writes
+a temporary file that is renamed into place, so concurrent processes can
+build at once. A compile that fails raises ``RuntimeError`` with the compiler's
 message: there is no fallback.
 """
 
@@ -22,11 +22,13 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
-def build_library(stem: str, source: str, header: str, build_dir: str, what: str) -> str:
+def build_library(stem: str, source: str, headers: str | tuple[str, ...], build_dir: str,
+                  what: str) -> str:
     """Compile ``source`` into ``build_dir/lib<stem>_<hash>.so`` unless that
-    version is built already; returns the library's path."""
+    version is built already; returns the library's path. ``headers``: the
+    header, or every header, the source includes from the package."""
     h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    for path in (source, header):
+    for path in (source, *((headers,) if isinstance(headers, str) else headers)):
         with open(path, "rb") as f:
             h.update(f.read())
     lib_path = os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:16]}.so")

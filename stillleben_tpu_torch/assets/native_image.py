@@ -1,13 +1,16 @@
-"""ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``)
-and of its WebP decoder (``csrc/sl_webp.cpp``).
+"""ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``),
+of its WebP decoder (``csrc/sl_webp.cpp``) and of its WebP encoder
+(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
 the run-length decoders of BMP, TGA and TIFF (PackBits), and the whole of
-WebP's decode (VP8, VP8L, ALPH, the container and frame 0). Each source is built at first use by ``native_build.build_library``
-(``g++ -O3 -shared -fPIC -std=c++17`` into the gitignored ``_build/``,
-named by a hash of the source); a compile or load that fails raises with
-the compiler's message. There is no decoder in Python beside it.
+WebP's decode (VP8, VP8L, ALPH, the container and frame 0) and encode
+(libwebp's lossy encoder as Pillow's ``save`` drives it). Each source is
+built at first use by ``native_build.build_library`` (``g++ -O3 -shared
+-fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
+source and its headers); a compile or load that fails raises with the
+compiler's message. There is no decoder or encoder in Python beside it.
 
 Each wrapper raises ``NotImplementedError`` for a variant the core does
 not decode, ``ValueError`` for a file that is not valid and ``OSError``
@@ -29,7 +32,10 @@ from .native_build import BUILD_DIR, PKG_DIR, build_library
 SOURCE = os.path.join(PKG_DIR, "csrc", "sl_image.cpp")
 HEADER = os.path.join(PKG_DIR, "csrc", "sl_image.h")
 WEBP_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp.cpp")
-WEBP_HEADER = os.path.join(PKG_DIR, "csrc", "sl_webp.h")
+WEBP_TABLES = os.path.join(PKG_DIR, "csrc", "sl_vp8_tables.h")
+WEBP_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp.h"), WEBP_TABLES)
+WEBP_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp_enc.cpp")
+WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"), WEBP_TABLES)
 
 _OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED = 0, 1, 2, 3, 4
 _ERRLEN = 512
@@ -37,6 +43,7 @@ _ERRLEN = 512
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _webp_lib: ctypes.CDLL | None = None
+_webp_enc_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
@@ -48,6 +55,32 @@ def build() -> str:
 def build_webp() -> str:
     """``build`` of the WebP decoder."""
     return build_library("sl_webp", WEBP_SOURCE, WEBP_HEADER, BUILD_DIR, "the native WebP decoder")
+
+
+def build_webp_enc() -> str:
+    """``build`` of the WebP encoder."""
+    return build_library("sl_webp_enc", WEBP_ENC_SOURCE, WEBP_ENC_HEADER, BUILD_DIR,
+                         "the native WebP encoder")
+
+
+def load_webp_enc_library() -> ctypes.CDLL:
+    """Build (if needed) and load the WebP encoder, once per process."""
+    global _webp_enc_lib
+    with _lock:
+        if _webp_enc_lib is None:
+            lib = ctypes.CDLL(build_webp_enc())
+            lib.sl_webp_encode.restype = ctypes.c_int
+            lib.sl_webp_encode.argtypes = (
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.c_char_p, ctypes.c_int)
+            lib.sl_webp_enc_free.restype = None
+            lib.sl_webp_enc_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            lib.sl_webp_enc_planes.restype = ctypes.c_int
+            lib.sl_webp_enc_planes.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 5
+            _webp_enc_lib = lib
+        return _webp_enc_lib
 
 
 def load_webp_library() -> ctypes.CDLL:
@@ -227,3 +260,48 @@ def webp_decode(data: bytes, width: int, height: int, name: str = "<bytes>",
     _check(load_webp_library().sl_webp_decode(data, ctypes.c_size_t(len(data)), int(cv2),
                                               _ptr(out), err, _ERRLEN), err, name)
     return out
+
+
+def _rgb_or_rgba(pixels: np.ndarray) -> np.ndarray:
+    pix = np.ascontiguousarray(pixels, np.uint8)
+    if pix.ndim != 3 or pix.shape[2] not in (3, 4) or 0 in pix.shape:
+        raise ValueError(f"expected (H, W, 3) or (H, W, 4) pixels, not {pix.shape}")
+    return pix
+
+
+def webp_encode(pixels: np.ndarray) -> bytes:
+    """A WebP file of (H, W, 3) RGB or (H, W, 4) RGBA uint8, as libwebp's
+    lossy encoder writes it at quality 80, method 4. A side over 16383
+    raises ``ValueError`` with libwebp's error."""
+    pix = _rgb_or_rgba(pixels)
+    h, w, c = pix.shape
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    lib = load_webp_enc_library()
+    rc = lib.sl_webp_encode(pix.ctypes.data, w, h, c, ctypes.byref(out), ctypes.byref(n), err,
+                            _ERRLEN)
+    if rc != _OK:
+        raise ValueError(err.value.decode("utf-8", "replace"))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_webp_enc_free(out)
+
+
+def webp_encode_planes(pixels: np.ndarray, cleanup: bool) -> dict:
+    """The encoder's YUV 4:2:0 (and alpha) planes of (H, W, 3|4) uint8:
+    libwebp's RGB(A) import, then with ``cleanup`` its clean-up of the fully
+    transparent area. Keys y, u, v, and a (None without transparency)."""
+    pix = _rgb_or_rgba(pixels)
+    h, w, c = pix.shape
+    uh, uw = (h + 1) // 2, (w + 1) // 2
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((uh, uw), np.uint8)
+    v = np.empty((uh, uw), np.uint8)
+    a = np.empty((h, w), np.uint8)
+    has_alpha = ctypes.c_int(0)
+    load_webp_enc_library().sl_webp_enc_planes(pix.ctypes.data, w, h, c, int(cleanup),
+                                               y.ctypes.data, u.ctypes.data, v.ctypes.data,
+                                               a.ctypes.data, ctypes.byref(has_alpha))
+    return {"y": y, "u": u, "v": v, "a": a if has_alpha.value else None}

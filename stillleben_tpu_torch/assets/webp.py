@@ -1,4 +1,5 @@
-"""WebP, frame 0: decode as Pillow and as OpenCV read it.
+"""WebP: decode frame 0 as Pillow and as OpenCV read it; encode as Pillow's
+``save`` writes it.
 
 The decoder is native (``csrc/sl_webp.cpp`` through ``native_image``):
 the RIFF container with ``VP8X``, ``ALPH``, ``ANIM`` and ``ANMF``, the
@@ -19,8 +20,13 @@ dithering of 0 leaves pre-processed levels as they are).
   and ``ValueError`` where it raises (a canvas over its size limits).
 
 The canvas is checked against Pillow's (or OpenCV's) size limit before a
-pixel is decoded. Encoding WebP (libwebp's lossy encoder, as Pillow's
-``save`` drives it) is not ported.
+pixel is decoded.
+
+- ``encode_webp`` gives Pillow 12's ``Image.fromarray(a).save(p)`` to a
+  ``.webp`` path: libwebp's lossy encoder at quality 80, method 4 (the
+  native ``csrc/sl_webp_enc.cpp``). The file is Pillow's, byte for byte,
+  but for the ALPH chunk's compressed payload: its header byte is
+  libwebp's, its VP8L stream the port's own (the decoded alpha is exact).
 """
 
 from __future__ import annotations
@@ -31,6 +37,20 @@ from . import native_image
 from .image_limits import check_size
 
 MAGIC = b"RIFF"  # then the size and b"WEBP"
+
+
+def encode_webp(pixels: np.ndarray) -> bytes:
+    """The WebP file Pillow writes for ``pixels`` as the JAX ``ImageSaver``
+    hands them over: (H, W) uint8 (mode L, saved as grey RGB), (H, W, 3)
+    uint8 (RGB), (H, W, 4) uint8 (RGBA; an opaque alpha is dropped) or
+    (H, W) uint16 (mode I;16, saved as RGB of the values clipped at 255).
+    A side over 16383 raises ``ValueError`` with Pillow's message."""
+    a = np.asarray(pixels)
+    if a.ndim == 2 and a.dtype in (np.uint8, np.uint16):
+        a = np.repeat(np.minimum(a, 255).astype(np.uint8)[..., None], 3, axis=2)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] not in (3, 4):
+        raise ValueError(f"cannot write mode {a.dtype} {a.shape} as WebP")
+    return native_image.webp_encode(a)
 
 
 def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:

@@ -318,7 +318,8 @@ def test_canvas_over_the_limits_raises_before_decoding(tmp_path):
 
 def test_readers_load_webp(tmp_path):
     """``read_image``, ``Texture2D`` and ``ImageLoader`` load ``.webp`` (none
-    counts as a failed load); ``ImageSaver`` still refuses ``.webp`` by name."""
+    counts as a failed load); a ``.webp`` that ``ImageSaver`` writes reads
+    back through ``Texture2D`` and ``ImageLoader``."""
     from stillleben_tpu_torch.assets.image_loader import ImageLoader
     from stillleben_tpu_torch.assets.image_saver import ImageSaver
     from stillleben_tpu_torch.assets.texture import Texture2D
@@ -335,10 +336,18 @@ def test_readers_load_webp(tmp_path):
     finally:
         loader.close()
     assert got <= {digests.WEBP_DECODE[n] for n in names} and len(got) >= 2
-    saver = ImageSaver(num_threads=1)
+    saved = tmp_path / "saved"
+    saved.mkdir()
+    rgba = np.concatenate([smooth(40, 52, 3, 11), smooth(40, 52, 1, 12)], -1)
+    with ImageSaver(num_threads=1) as saver:
+        saver.save(rgba, str(saved / "out.webp"))
+    data = (saved / "out.webp").read_bytes()
+    want = np.asarray(Image.open(saved / "out.webp").convert("RGBA"))
+    np.testing.assert_array_equal(want[..., 3], rgba[..., 3])
+    assert sha(Texture2D(str(saved / "out.webp")).pixels) == sha(want)
+    assert sha(image.decode_image(data)) == sha(want)
+    loader = ImageLoader(str(saved), seed=0, num_threads=1)
     try:
-        with pytest.raises(NotImplementedError, match=".webp"):
-            saver.save(np.zeros((4, 4, 3), np.uint8), str(tmp_path / "out.webp"))
+        assert sha(loader.next_texture().pixels) == sha(want)
     finally:
-        saver.close()
-    assert not os.path.exists(tmp_path / "out.webp")
+        loader.close()

@@ -17,6 +17,10 @@ the WebP files (Pillow's encodes) and ``webp_digests()`` Pillow's and
 OpenCV's readings of them. Regenerate with
 
     python tests/torch_image_fixtures.py --write
+
+``vp8_divergence`` names the first stage at which two lossy WebP files
+part (the divergence finder of the port's encoder); ``--alph`` prints the
+port's ALPH chunks against libwebp's (ROADMAP C-19).
 """
 
 from __future__ import annotations
@@ -519,6 +523,260 @@ def libwebp_encode(pixels: np.ndarray, quality: float = 75.0, **config) -> bytes
         lib.WebPMemoryWriterClear(ctypes.byref(writer))
 
 
+def libwebp_planes(pixels: np.ndarray, cleanup: bool) -> dict:
+    """libwebp's own YUV 4:2:0 planes of uint8 (H, W, 3|4):
+    ``WebPPictureImportRGB(A)`` into a YUV picture, then with ``cleanup``
+    ``WebPCleanupTransparentArea`` (which ``WebPEncode`` calls when
+    ``exact`` is 0). Keys y, u, v, and a (None without transparency)."""
+    import ctypes
+
+    lib, _, Picture, _ = _libwebp()
+    pic = Picture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), 0x0209):
+        raise RuntimeError("WebPPictureInit")
+    pix = np.ascontiguousarray(pixels, np.uint8)
+    h, w, c = pix.shape
+    pic.width, pic.height, pic.use_argb = w, h, 0
+    imp = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    try:
+        if not imp(ctypes.byref(pic), pix.ctypes.data_as(ctypes.c_void_p), w * c):
+            raise RuntimeError("WebPPictureImport")
+        if cleanup:
+            lib.WebPCleanupTransparentArea(ctypes.byref(pic))
+
+        def plane(ptr, stride, ph, pw):
+            rows = ctypes.string_at(ptr, stride * (ph - 1) + pw)
+            return np.array([np.frombuffer(rows, np.uint8, pw, stride * r) for r in range(ph)])
+
+        uh, uw = (h + 1) // 2, (w + 1) // 2
+        return {"y": plane(pic.y, pic.y_stride, h, w), "u": plane(pic.u, pic.uv_stride, uh, uw),
+                "v": plane(pic.v, pic.uv_stride, uh, uw),
+                "a": plane(pic.a, pic.a_stride, h, w) if pic.a else None}
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+
+
+# The divergence finder: VP8's partition 0 (RFC 6386 9.2-9.11, 19.2-19.3),
+# parsed to name the first stage at which two lossy files part.
+
+def _vp8_tables():
+    import re
+
+    src = open(os.path.join(ROOT, "stillleben_tpu_torch", "csrc", "sl_vp8_tables.h")).read()
+
+    def tab(name, shape):
+        body = re.search(name + r"[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return np.array([int(x) for x in re.findall(r"\d+", body)]).reshape(shape)
+
+    return (tab("kCoeffsUpdateProba", (4, 8, 3, 11)), tab("kCoeffsProba0", (4, 8, 3, 11)),
+            tab("kBModesProba", (10, 10, 9)))
+
+
+class _BoolReader:
+    def __init__(self, buf: bytes):
+        self.buf, self.pos, self.count, self.range = buf, 2, 0, 255
+        self.value = (buf[0] << 8 | buf[1]) if len(buf) > 1 else 0
+
+    def get(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if self.value >= split << 8:
+            bit, self.range, self.value = 1, self.range - split, self.value - (split << 8)
+        else:
+            bit, self.range = 0, split
+        while self.range < 128:
+            self.value, self.range, self.count = self.value << 1, self.range << 1, self.count + 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.buf[self.pos] if self.pos < len(self.buf) else 0
+                self.pos += 1
+        return bit
+
+    def lit(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.get(128)
+        return v
+
+    def signed(self, n: int) -> int:
+        if not self.get(128):
+            return 0
+        v = self.lit(n)
+        return -v if self.get(128) else v
+
+
+def vp8_partition0(data: bytes) -> dict:
+    """The headers and the per-macroblock modes of a lossy WebP's partition 0:
+    the segment header (quantiser and filter level per segment, map
+    probabilities), the filter header, the quantiser indices, the token
+    probability updates, the skip probability, and per macroblock its
+    segment, skip flag, intra-16 mode or sixteen intra-4 modes, and chroma
+    mode (libwebp's numbering: DC 0, TM 1, VE 2, HE 3)."""
+    upd, _, bmodes = _vp8_tables()
+    vp8 = dict(webp_chunks(data))[b"VP8 "]
+    bits = vp8[0] | vp8[1] << 8 | vp8[2] << 16
+    w, h = struct.unpack_from("<HH", vp8, 6)
+    br = _BoolReader(vp8[10: 10 + (bits >> 5)])
+    info = {"profile": (bits >> 1) & 7, "size0": bits >> 5, "w": w & 0x3fff, "h": h & 0x3fff}
+    info["colorspace"], info["clamp"] = br.get(128), br.get(128)
+    seg = {"enabled": br.get(128)}
+    if seg["enabled"]:
+        seg["update_map"] = br.get(128)
+        if br.get(128):
+            seg["absolute"] = br.get(128)
+            seg["quant"] = [br.signed(7) for _ in range(4)]
+            seg["filter"] = [br.signed(6) for _ in range(4)]
+        seg["probs"] = ([br.lit(8) if br.get(128) else 255 for _ in range(3)]
+                        if seg["update_map"] else [255] * 3)
+    info["segments"] = seg
+    info["filter"] = {"simple": br.get(128), "level": br.lit(6), "sharpness": br.lit(3)}
+    if br.get(128) and br.get(128):
+        info["filter"]["deltas"] = [br.signed(6) for _ in range(8)]
+    info["partitions"] = 1 << br.lit(2)
+    info["quant"] = [br.lit(7)] + [br.signed(4) for _ in range(5)]
+    info["refresh"] = br.get(128)
+    info["proba_updates"] = [(t, b, c, p, br.lit(8)) for t in range(4) for b in range(8)
+                             for c in range(3) for p in range(11) if br.get(int(upd[t, b, c, p]))]
+    info["skip_proba"] = br.lit(8) if br.get(128) else None
+    mbw, mbh = (info["w"] + 15) // 16, (info["h"] + 15) // 16
+    top, mbs = [0] * (4 * mbw), []
+    for _ in range(mbh):
+        left = [0] * 4
+        for x in range(mbw):
+            mb = {}
+            if seg["enabled"] and seg["update_map"]:
+                pr = seg["probs"]
+                mb["segment"] = (2 + br.get(pr[2])) if br.get(pr[0]) else br.get(pr[1])
+            if info["skip_proba"] is not None:
+                mb["skip"] = br.get(info["skip_proba"])
+            if br.get(145):
+                m = (1 if br.get(128) else 3) if br.get(156) else (2 if br.get(163) else 0)
+                mb["i16"] = m
+                top[4 * x: 4 * x + 4], left = [m] * 4, [m] * 4
+            else:
+                modes = []
+                for j in range(4):
+                    for i in range(4):
+                        p = bmodes[top[4 * x + i], left[j]]
+                        path = [(0, 0), (1, 1), (2, 2)]
+                        m = None
+                        for k, mode in path:
+                            if not br.get(int(p[k])):
+                                m = mode
+                                break
+                        if m is None:
+                            if not br.get(int(p[3])):
+                                m = 3 if not br.get(int(p[4])) else (4 if not br.get(int(p[5])) else 5)
+                            elif not br.get(int(p[6])):
+                                m = 6
+                            elif not br.get(int(p[7])):
+                                m = 7
+                            else:
+                                m = 8 if not br.get(int(p[8])) else 9
+                        modes.append(m)
+                        top[4 * x + i], left[j] = m, m
+                mb["i4"] = modes
+            if not br.get(142):
+                mb["uv"] = 0
+            elif not br.get(114):
+                mb["uv"] = 2
+            else:
+                mb["uv"] = 3 if not br.get(183) else 1
+            mbs.append(mb)
+    info["macroblocks"] = mbs
+    return info
+
+
+def vp8_divergence(ours: bytes, ref: bytes) -> str | None:
+    """Where two lossy WebP files first part, stage by stage: the container,
+    then partition 0 (headers, segments and quantisers, filter, token
+    probabilities, each macroblock's segment and modes), then the token
+    partition. None if they are equal."""
+    if ours == ref:
+        return None
+    a, b = dict(webp_chunks(ours)), dict(webp_chunks(ref))
+    for kind in (b"VP8X", b"ALPH"):
+        if (kind in a) != (kind in b):
+            return f"chunk {kind!r} in one file only"
+    pa, pb = vp8_partition0(ours), vp8_partition0(ref)
+    for key in ("profile", "w", "h", "segments", "filter", "partitions", "quant",
+                "proba_updates", "skip_proba"):
+        if pa[key] != pb[key]:
+            return f"partition 0, {key}: {pa[key]} vs libwebp's {pb[key]}"
+    mbw = (pa["w"] + 15) // 16
+    for i, (ma, mb) in enumerate(zip(pa["macroblocks"], pb["macroblocks"])):
+        if ma != mb:
+            return f"partition 0, macroblock ({i % mbw}, {i // mbw}): {ma} vs libwebp's {mb}"
+    if a[b"VP8 "] != b[b"VP8 "]:
+        return "the token partition"
+    return "the container (the VP8 chunk is equal)"
+
+
+def vp8l_transforms(stream: bytes) -> list[str]:
+    """The transforms at the head of a VP8L image stream (an ALPH payload
+    after its header byte): 'predictor (bits b)', 'cross-colour (bits b)',
+    'subtract-green', 'palette (n colours)'; reading stops at the first
+    transform with data."""
+    pos, out = 0, []
+
+    def bits(n):
+        nonlocal pos
+        v = 0
+        for i in range(n):
+            byte = stream[pos >> 3] if (pos >> 3) < len(stream) else 0
+            v |= ((byte >> (pos & 7)) & 1) << i
+            pos += 1
+        return v
+
+    while bits(1):
+        kind = bits(2)
+        if kind in (0, 1):
+            out.append(f"{('predictor', 'cross-colour')[kind]} (bits {bits(3) + 2})")
+            break
+        if kind == 3:
+            out.append(f"palette ({bits(8) + 1} colours)")
+            break
+        out.append("subtract-green")
+    return out
+
+
+def alph_report(cases: dict[str, np.ndarray]) -> list[str]:
+    """For each RGBA array: the port's ALPH chunk against the one Pillow's
+    ``save`` writes (libwebp), as one line: header bytes, sizes and their
+    ratio, whether equal, the first byte at which they part, and each
+    stream's transforms."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.webp import encode_webp
+
+    lines = []
+    for name, a in cases.items():
+        ours = dict(webp_chunks(encode_webp(a)))[b"ALPH"]
+        ref = dict(webp_chunks(webp_save(a)))[b"ALPH"]
+        part = next((i for i, (x, y) in enumerate(zip(ours, ref)) if x != y), min(len(ours), len(ref)))
+        tf = [vp8l_transforms(c[1:]) if c[0] & 3 else ["raw"] for c in (ours, ref)]
+        lines.append(f"{name}: header {ours[0]:#04x} / libwebp {ref[0]:#04x}; {len(ours)} / "
+                     f"{len(ref)} bytes (ratio {len(ours) / len(ref):.4f}); "
+                     + ("bitwise equal" if ours == ref else f"part at byte {part}")
+                     + f"; transforms {tf[0]} / libwebp {tf[1]}")
+    return lines
+
+
+def alph_cases() -> dict[str, np.ndarray]:
+    """The RGBA arrays ``--alph`` reports on: alpha.webp's source, the
+    image-parity test's ``rgba``, and the encode tests' three alphas over
+    the 67x91 and 640x480 frames."""
+    rgb = smooth(67, 91, 3, 1)
+    cases = {"alpha.webp": np.concatenate([rgb, smooth(67, 91, 1, 2)], -1),
+             "parity rgba 31x45": smooth(31, 45, 4, 2)}
+    frame = webp_frame()
+    for (h, w), pix in (((67, 91), rgb), ((480, 640), frame)):
+        yy, xx = np.mgrid[0:h, 0:w]
+        disc = (yy - h / 2) ** 2 + (xx - w / 3) ** 2 < (min(h, w) / 2.5) ** 2 + 1
+        for kind, a in (("ramp", smooth(h, w, 1, 5 + h + w)[..., 0]),
+                        ("mask", disc.astype(np.uint8) * 255), ("transparent", np.zeros((h, w), np.uint8))):
+            cases[f"{kind} {h}x{w}"] = np.concatenate([pix, a[..., None]], -1)
+    return cases
+
+
 def make_webp_fixtures() -> dict[str, bytes]:
     """The WebP fixtures, each written by Pillow's encoder (the animation's
     container by ``webp_anim`` around Pillow's frames)."""
@@ -633,6 +891,9 @@ def digest_module(d: dict) -> str:
 
 
 if __name__ == "__main__":
+    if "--alph" in sys.argv:  # the port's ALPH chunks against libwebp's
+        print("\n".join(alph_report(alph_cases())))
+        sys.exit(0)
     files = make_fixtures()
     webp_files = make_webp_fixtures()
     if "--write" in sys.argv:
