@@ -263,7 +263,24 @@ Phases (one line each or more; any failure exits non-zero):
     median ms of 9 encodes of 640x480 (the frame and the render, RGB and
     RGBA); ``ImageSaver(num_threads=4)``'s images/s over 16 frames, each
     file equal to the serial encode. No kernel: K1's entries of phase 19
-    cover the render. Then the smoke's total wall seconds.
+    cover the render.
+21. GIF and Netpbm encoding (``assets/gif.py::encode_gif`` over the
+    native encoder ``csrc/sl_gif_enc.cpp``: Pillow's median cut, fast octree
+    and GIF's LZW; ``assets/netpbm.py``): the encoder's g++ build
+    (seconds); the committed encode fixtures (GIF of an RGB ramp, of RGB
+    noise, of RGBA and of 16-bit depth; a 16-bit PGM; a P6) re-encoded from
+    ``image_fixtures.encode_sources()``, each byte-equal to the file Pillow
+    12.1.0 wrote (and to its SHA-256); phase 19's render written by
+    ``sl.ImageSaver`` as ``.gif`` in RGB and in RGBA (alpha 255 on the
+    objects, 0 elsewhere), read back by the port's decoder and equal to
+    the port's palette at its index image (the colour count, the PSNR
+    against the render, whether the transparent pixels are exactly the
+    background); the render's depth in mm as a 16-bit ``.pgm``, read back
+    bitwise in OpenCV's reading and clipped at 255 in Pillow's; the median
+    ms of 9 encodes (GIF RGB, GIF RGBA, PGM 16-bit);
+    ``ImageSaver(num_threads=4)``'s images/s over 16 GIF frames, each file
+    equal to the serial encode. No kernel: K1's entries of phase 19 cover
+    the render. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -309,6 +326,7 @@ DEPTH_OPS = 2 * 4 + 1 + 2 + 3 + 2
 ROW_BYTES = 16 * 4  # one packed line row LT[id]
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 WEBP_SAVER_FRAMES = 16  # phase 20's ImageSaver(num_threads=4) run
+GIF_SAVER_FRAMES = 16  # phase 21's ImageSaver(num_threads=4) run
 T_START = 0.0  # main()'s start, for the total wall time
 
 
@@ -2989,6 +3007,121 @@ def run_webp_encode(card, rendered) -> dict:
     return {**secs, **ms}
 
 
+def run_gif_netpbm(card, rendered) -> dict:
+    """Phase 21: GIF and Netpbm encoding (see the module docstring).
+    ``rendered`` is phase 19's render of its WebP scene. Returns the
+    phase's seconds and milliseconds."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import gif, image, native_image, netpbm
+    from stillleben_tpu_torch.assets.image_fixtures import ENCODE_FILES, encode_sources
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import ENCODE
+
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"gif_enc_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    secs, ms = {}, {}
+
+    t0 = time.perf_counter()
+    lib = native_image.build_gif_enc()
+    secs["encoder build"] = time.perf_counter() - t0
+    phase("gif+pnm", f"the GIF encoder's g++ build: {secs['encoder build']:.3f} s "
+                     f"({os.path.relpath(lib, ROOT)})")
+
+    # the committed encode fixtures from their sources: Pillow's bytes on the CPU host
+    sources, equal = encode_sources(), []
+    for name in ENCODE_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        enc = gif.encode_gif if name.endswith(".gif") else netpbm.encode_netpbm
+        if hashlib.sha256(data).hexdigest() == ENCODE[name] and enc(sources[name]) == data:
+            equal.append(name)
+    phase("gif+pnm", f"the committed encode fixtures re-encoded on this host, byte-equal to the "
+                     f"files Pillow 12.1.0 wrote: {len(equal)} of {len(ENCODE_FILES)} "
+                     f"({', '.join(equal)})")
+    if len(equal) != len(ENCODE_FILES):
+        fail(f"gif+pnm: fixtures not re-encoded to Pillow's bytes: "
+             f"{sorted(set(ENCODE_FILES) - set(equal))}")
+
+    # phase 19's render through ImageSaver as GIF: RGB, and RGBA with the objects opaque
+    rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
+    mask = np.where(rendered.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    depth_mm = np.clip(np.round(rendered.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    arrays = {"rgb": rgb, "rgba": rgba, "depth": depth_mm}
+    paths = {"rgb": os.path.join(fx_dir, "render.gif"),
+             "rgba": os.path.join(fx_dir, "render_rgba.gif"),
+             "depth": os.path.join(fx_dir, "depth_mm.pgm")}
+    with sl.ImageSaver(num_threads=3) as saver:
+        for k, a in arrays.items():
+            saver.save(a, paths[k])
+    data = {}
+    for k, p_ in paths.items():
+        with open(p_, "rb") as f:
+            data[k] = f.read()
+    ok = True
+    for k in ("rgb", "rgba"):
+        index, palette, transparency = gif.gif_index(arrays[k])
+        back = image.read_image(paths[k])
+        same = bool(np.array_equal(back[..., :3], palette[index]))
+        where = mask > 0 if k == "rgba" else mask >= 0  # RGBA: the objects' pixels
+        mse = float(np.mean((back[..., :3].astype(np.float64)[where] - rgb[where]) ** 2))
+        ms[f"render GIF {k} PSNR"] = 10 * np.log10(255.0 ** 2 / mse) if mse > 0 else float("inf")
+        ms[f"render GIF {k} colours"] = len(palette)
+        line = (f"phase 19's render {WIDTH}x{HEIGHT} through sl.ImageSaver as GIF {k}: "
+                f"{len(data[k])} bytes, {len(palette)} colours, read back equal to the port's "
+                f"palette at its index image {same}, PSNR {ms[f'render GIF {k} PSNR']:.3f} dB "
+                f"against the render{' on the objects' if k == 'rgba' else ''}")
+        if k == "rgba":
+            clear = bool(np.array_equal(back[..., 3] == 0, mask == 0))
+            line += (f"; transparent index {transparency}, the transparent pixels exactly the "
+                     f"{int((mask == 0).sum())} background pixels {clear}")
+            same = same and clear
+        phase("gif+pnm", line)
+        ok = ok and same and ms[f"render GIF {k} PSNR"] > 20
+    cv_back = image.read_image_cv2(paths["depth"])
+    pil_back = image.read_image(paths["depth"])
+    depth_cv = bool(cv_back.dtype == np.uint16 and np.array_equal(cv_back, depth_mm))
+    depth_pil = bool(np.array_equal(pil_back[..., 0], np.minimum(depth_mm, 255))
+                     and (pil_back[..., 3] == 255).all())
+    phase("gif+pnm", f"the render's depth in mm ({int(depth_mm.min())}..{int(depth_mm.max())}) "
+                     f"as a 16-bit PGM through sl.ImageSaver: {len(data['depth'])} bytes, read "
+                     f"back bitwise in OpenCV's reading {depth_cv}, clipped at 255 in Pillow's "
+                     f"{depth_pil}")
+    if not (ok and depth_cv and depth_pil):
+        fail("gif+pnm: the render's round trip through GIF and PGM")
+
+    # the encoders' times on this host
+    timed = {"GIF RGB": lambda: gif.encode_gif(rgb), "GIF RGBA": lambda: gif.encode_gif(rgba),
+             "PGM 16-bit": lambda: netpbm.encode_netpbm(depth_mm)}
+    for name, fn in timed.items():
+        ms[f"{name} encode"] = _median_ms(fn, 9)
+    phase("gif+pnm", f"encode of the {WIDTH}x{HEIGHT} render, median ms of 9 on the card's host: "
+                     + ", ".join(f"{n} {ms[n + ' encode']:.3f}" for n in timed) + f" ({card})")
+    saver_dir = os.path.join(fx_dir, "saver")
+    os.makedirs(saver_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    with sl.ImageSaver(num_threads=4) as saver:
+        for i in range(GIF_SAVER_FRAMES):
+            saver.save(rgba if i % 2 else rgb, os.path.join(saver_dir, f"{i:02d}.gif"))
+    secs["ImageSaver"] = time.perf_counter() - t0
+    ms["ImageSaver images/s"] = GIF_SAVER_FRAMES / secs["ImageSaver"]
+    written = sorted(os.listdir(saver_dir))
+    phase("gif+pnm", f"ImageSaver(num_threads=4) over {GIF_SAVER_FRAMES} GIF frames of the render "
+                     f"(RGB and RGBA in turn): {ms['ImageSaver images/s']:.1f} images/s "
+                     f"({secs['ImageSaver']:.3f} s from the first save to its close) ({card})")
+    if len(written) != GIF_SAVER_FRAMES or any(
+            open(os.path.join(saver_dir, n), "rb").read() != data["rgba" if i % 2 else "rgb"]
+            for i, n in enumerate(written)):
+        fail(f"gif+pnm: ImageSaver(num_threads=4) wrote {written}, not the serial encodes")
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return {**secs, **ms}
+
+
 def main() -> None:
     global T_START
     T_START = time.perf_counter()
@@ -3533,8 +3666,15 @@ def main() -> None:
     # from their sources, phase 19's render through ImageSaver, the times
     t0 = time.perf_counter()
     run_webp_encode(card, webp_render)
-    del webp_render
     phase("webp-enc", f"phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    # 21. GIF and Netpbm encoding: the encoder's build, the committed encode
+    # fixtures from their sources, phase 19's render as GIF and its depth as
+    # a 16-bit PGM through ImageSaver, the times
+    t0 = time.perf_counter()
+    run_gif_netpbm(card, webp_render)
+    del webp_render
+    phase("gif+pnm", f"phase 21 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

@@ -16,6 +16,11 @@ the OS/2 header raises there. ``encode_bmp`` writes Pillow's ``save``
 bytes: L as 8-bit with the grey palette, RGB as 24-bit, RGBA as 32-bit
 (which Pillow then reads back as RGB), at 96 dpi; other modes raise
 ``OSError`` as Pillow does.
+
+A DIB (``.dib``) is a BMP without its 14-byte file header: ``encode_dib``
+writes Pillow's DIB ``save`` (``encode_bmp``'s bytes after that header)
+and ``decode_dib`` reads one as ``Image.open`` does (the pixels right
+after the header, masks and palette); OpenCV reads no DIB.
 """
 
 from __future__ import annotations
@@ -84,6 +89,8 @@ def _parse(data: bytes, name: str, cv2: bool = False) -> _Bmp:
     colors = colors or (1 << bits if bits <= 16 else 0)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
+    elif offset == 0:  # no pixel offset (a DIB): the pixels follow the palette
+        offset = after + (pal_entry * colors if bits <= 8 else 0)
     if bits not in (1, 4, 8, 16, 24, 32):
         raise NotImplementedError(f"{name}: BMP of {bits} bits per pixel is not supported")
     if comp not in (0, 1, 2, 3):
@@ -191,6 +198,21 @@ def decode_bmp_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray:
     f, bits = b.fields, b.bits
     rgb = np.stack([f[..., c] << (8 - bits[c]) for c in range(3)], -1).astype(np.uint8)
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def is_dib(data: bytes) -> bool:
+    """Pillow's DIB signature: the file starts with a BMP info header's size."""
+    return len(data) >= 4 and _u32(data, 0) in _HEADERS
+
+
+def decode_dib(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) uint8 of a headerless DIB as Pillow's ``convert("RGBA")``."""
+    return decode_bmp(b"BM" + struct.pack("<III", 14 + len(data), 0, 0) + data, name)
+
+
+def encode_dib(pixels: np.ndarray) -> bytes:
+    """Pillow's DIB ``save``: ``encode_bmp`` without the file header."""
+    return encode_bmp(pixels)[14:]
 
 
 def encode_bmp(pixels: np.ndarray) -> bytes:

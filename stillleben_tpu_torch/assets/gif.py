@@ -15,11 +15,18 @@ the screen's background colour where it is transparent, None for a frame
 that does not fit its screen. A screen over Pillow's or OpenCV's size
 limit raises, as does (for Pillow's reading) a canvas grown past Pillow's
 limit, which Pillow would allocate.
-Encoding GIF (Pillow quantises RGB to an adaptive palette) is not ported.
+
+``encode_gif`` gives Pillow 12's ``Image.fromarray(a, mode).save(p)`` to a
+``.gif`` path, byte for byte, for the modes the JAX ``ImageSaver`` hands
+Pillow: ``GifImagePlugin``'s Python layer here (``_normalize_mode``,
+``_normalize_palette`` with ``_get_optimize`` and ``remap_palette``, the
+header, the graphic control extension and the image descriptor), the
+quantisers and the LZW in the native encoder (``csrc/sl_gif_enc.cpp``).
 """
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import NamedTuple
 
@@ -155,3 +162,99 @@ def decode_gif_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray | None:
     show = f.drawn if f.transparency is None else f.drawn & (f.index != f.transparency)
     out[show] = f.table[f.index[show]]
     return np.ascontiguousarray(out[..., ::-1])
+
+
+# ---------------------------------------------------------------------------
+# encode
+# ---------------------------------------------------------------------------
+
+def _optimize(index: np.ndarray, n_palette: int) -> np.ndarray | None:
+    """``_get_optimize`` of a P image: the used entries, ascending, where
+    Pillow prunes the palette; None where it keeps it."""
+    h, w = index.shape
+    if w * h >= 512 * 512:
+        return None
+    used = np.flatnonzero(np.bincount(index.ravel(), minlength=256))
+    if used[-1] >= len(used):
+        return used
+    current = 1 << (n_palette - 1).bit_length()
+    if len(used) <= current // 2 and current > 2:
+        return used
+    return None
+
+
+def _remap(index: np.ndarray, palette: np.ndarray, used: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``remap_palette(used)``: the used entries in their order, the
+    indices moved onto them."""
+    positions = np.zeros(256, np.uint8)
+    positions[used] = np.arange(len(used))
+    return positions[index], palette[used]
+
+
+def _table_bits(n: int) -> int:
+    """``_get_color_table_size`` of ``n`` entries (the colour table holds
+    ``2 << bits``)."""
+    return 1 if n < 3 else math.ceil(math.log(n, 2)) - 1
+
+
+def gif_index(pixels: np.ndarray) -> tuple[np.ndarray, np.ndarray, int | None]:
+    """The image GifImagePlugin writes for ``pixels`` as the JAX
+    ``ImageSaver`` hands them over: the (H, W) uint8 indices, the (N, 3)
+    RGB palette and the transparent index (or None).
+
+    - (H, W) uint8 (mode L) and uint16 (mode I;16, which Pillow converts to
+      L clipped at 255): the grey values used, ascending;
+    - (H, W, 3) RGB: the median cut;
+    - (H, W, 4) RGBA: the fast octree; the first entry of alpha 0 is the
+      transparent index.
+
+    Then ``_get_optimize``: an L image always, a P image under 512 x 512
+    pixels whose palette has holes or would halve, keeps only its used
+    entries."""
+    a = np.asarray(pixels)
+    transparency = None
+    if a.ndim == 2 and a.dtype in (np.uint8, np.uint16):
+        grey = np.minimum(a, 255).astype(np.uint8)
+        used = np.flatnonzero(np.bincount(grey.ravel(), minlength=256))
+        ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        return (*_remap(grey, ramp, used), None)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] not in (3, 4):
+        raise ValueError(f"cannot write mode {a.dtype} {a.shape} as GIF")
+    if a.shape[2] == 3:
+        palette, index = native_image.quantize_median(a)
+    else:
+        palette, index = native_image.quantize_octree(a)
+        clear = np.flatnonzero(palette[:, 3] == 0)
+        transparency = int(clear[0]) if len(clear) else None
+        palette = palette[:, :3]
+    used = _optimize(index, len(palette))
+    if used is not None:
+        index, palette = _remap(index, palette, used)
+        if transparency is not None:
+            hit = np.flatnonzero(used == transparency)
+            transparency = int(hit[0]) if len(hit) else None
+    return index, palette, transparency
+
+
+def encode_gif(pixels: np.ndarray) -> bytes:
+    """The GIF file Pillow's ``save`` writes for ``pixels`` (see
+    ``gif_index``): GIF87a, or GIF89a with a graphic control extension
+    when there is a transparent index; the palette padded to a power of
+    two (at least 4 entries); interlaced unless a side is under 16
+    pixels; LZW at minimum code size 8."""
+    h, w = np.shape(pixels)[:2]
+    if not (0 < w <= 0xFFFF and 0 < h <= 0xFFFF):
+        raise ValueError(f"cannot write a {w}x{h} image as GIF")
+    index, palette, transparency = gif_index(pixels)
+    bits = _table_bits(len(palette))
+    table = np.zeros((2 << bits, 3), np.uint8)
+    table[: len(palette)] = palette
+    out = [b"GIF89a" if transparency is not None else b"GIF87a",
+           struct.pack("<HHBBB", w, h, bits + 128, 0, 0), table.tobytes()]
+    if transparency is not None:
+        out.append(struct.pack("<BBBBHBB", 0x21, 0xF9, 4, 1, 0, transparency, 0))
+    interlace = min(w, h) >= 16
+    out.append(struct.pack("<BHHHHBB", 0x2C, 0, 0, w, h, 64 if interlace else 0, 8))
+    out.append(native_image.gif_lzw_encode(index, interlace))
+    out.append(b"\0;")
+    return b"".join(out)

@@ -1,10 +1,11 @@
-"""The port's own image codec: every format the JAX package opens through
-Pillow or OpenCV.
+"""The port's own image codec: the formats the JAX package opens through
+Pillow or OpenCV that the port reads (listed below; ROADMAP.md queues the
+rest).
 
 numpy and the standard library here (zlib for PNG's deflate); the JPEG,
 GIF, TIFF and WebP modules reach the native codec (``native_image``,
-``csrc/sl_image.cpp`` and ``csrc/sl_webp.cpp``, built with g++ at first
-use) for their bit loops.
+``csrc/sl_image.cpp``, ``csrc/sl_webp.cpp``, built with g++ at first use)
+for their bit loops.
 Two readings of a file, each the one a part of the JAX package gets from a
 library:
 
@@ -15,26 +16,28 @@ library:
   (1, 2, 4, 8, 16), ``tRNS`` transparency and Adam7 interlacing, with
   Pillow's conversions: 16-bit samples keep their high byte, 16-bit grey
   clips at 255, a transparent colour is matched against the samples as
-  Pillow holds them (``_pil_rgba``). Binary PPM. JPEG (``jpeg.py``), BMP
-  (``bmp.py``), TGA (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0
-  (``tiff.py``) and WebP frame 0 (``webp.py``: lossy, lossless, alpha,
-  animation).
+  Pillow holds them (``_pil_rgba``). Netpbm ``P1``-``P6`` and ``Pf``
+  (``netpbm.py``), JPEG (``jpeg.py``), BMP and DIB (``bmp.py``), TGA
+  (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0 (``tiff.py``) and
+  WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation).
 - ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
-  16-bit samples stay 16-bit, an ``.hdr`` file decodes to float32, a JPEG
-  is turned by its EXIF orientation, a WebP gives frame 0; None for a TGA,
-  which OpenCV does not read.
+  16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
+  a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
+  includes PAM; None for a TGA or a DIB, which OpenCV does not read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
-modes the JAX ``ImageSaver`` writes through Pillow); ``encode_png_samples``
+modes the JAX ``ImageSaver`` writes through Pillow) as Pillow's ``save``
+writes them; ``encode_png_samples``
 writes any colour type, depth, palette, ``tRNS`` and interlacing (the
 codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
-JPEG, BMP, TGA and TIFF have their own encoders in their modules; WebP and
-GIF have none.
+JPEG, BMP/DIB, TGA, TIFF, WebP, GIF and Netpbm have their own encoders in
+their modules (``image_saver.ENCODERS`` picks them by extension).
 
 The JPEG variants ``jpeg.py`` lists raise ``NotImplementedError`` with
-their names. There is no substitute image. Every decoder checks the
+their names, as do the other formats Pillow or OpenCV open that the port
+does not read. There is no substitute image. Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
 """
@@ -48,11 +51,12 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .bmp import decode_bmp, decode_bmp_cv2
+from .bmp import decode_bmp, decode_bmp_cv2, decode_dib, is_dib
 from .gif import decode_gif, decode_gif_cv2
 from .image_limits import check_size
 from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg, decode_jpeg_cv2
+from .netpbm import decode_netpbm, decode_netpbm_cv2
 from .tga import FOOTER as TGA_FOOTER
 from .tga import decode_tga
 from .tiff import decode_tiff, decode_tiff_cv2
@@ -60,6 +64,9 @@ from .webp import MAGIC as WEBP_MAGIC
 from .webp import decode_webp, decode_webp_cv2
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# the byte after "P" that sends a file to the Netpbm module (Pillow's and
+# OpenCV's signatures, and the Netpbm kinds neither reads, which raise there)
+PNM_KINDS = b"0123456789fFy"
 # PNG colour type -> (samples per pixel, allowed bit depths)
 _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
               4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -268,42 +275,11 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _pil_rgba(decode_png_samples(data, name))
 
 
-def decode_ppm(data: bytes, name: str = "<bytes>", cv2: bool = False) -> np.ndarray:
-    """Binary PPM (``P6``, maxval 255) -> (H, W, 3) uint8; comments allowed
-    in the header; the size limit is Pillow's, or with ``cv2`` OpenCV's."""
-    tokens, pos = [], 0
-    while len(tokens) < 4:
-        while data[pos: pos + 1].isspace():
-            pos += 1
-        if data[pos: pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        end = pos
-        while not data[end: end + 1].isspace():
-            end += 1
-        tokens.append(data[pos:end])
-        pos = end
-    if tokens[0] != b"P6":
-        raise NotImplementedError(f"{name}: PNM type {tokens[0].decode()} is not supported (P6 only)")
-    width, height, maxval = (int(t) for t in tokens[1:])
-    if maxval != 255:
-        raise NotImplementedError(f"{name}: PPM with maxval {maxval} is not supported")
-    check_size(width, height, name, "PPM", cv2)
-    pix = np.frombuffer(data, np.uint8, count=width * height * 3, offset=pos + 1)
-    return pix.reshape(height, width, 3)
-
-
-def _rgba(arr: np.ndarray) -> np.ndarray:
-    if arr.shape[2] == 4:
-        return np.ascontiguousarray(arr)
-    return np.concatenate([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)], axis=2)
-
-
 def _refuse(path: str, data: bytes):
     fmt = "Radiance HDR" if data[:2] == b"#?" else "unknown"
     raise NotImplementedError(
-        f"{path}: {fmt} images are not supported (the port decodes PNG, PPM, JPEG, BMP, TGA, "
-        "GIF, TIFF and WebP, and Radiance HDR through read_image_cv2)"
+        f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, DIB, "
+        "TGA, GIF, TIFF and WebP, and Radiance HDR through read_image_cv2)"
     )
 
 
@@ -318,11 +294,13 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     reads raise by name."""
     if data[:8] == PNG_MAGIC:
         return decode_png(data, name)
-    if data[:1] == b"P" and data[1:2].isdigit():
-        return _rgba(decode_ppm(data, name))
+    if data[:1] == b"P" and data[1:2] and data[1:2] in PNM_KINDS:
+        return decode_netpbm(data, name)
     for magic, pil, _ in _DECODERS:
         if data.startswith(magic):
             return pil(data, name)
+    if is_dib(data):
+        return decode_dib(data, name)
     if _is_tga(data, name):
         return decode_tga(data, name)
     _refuse(name, data)
@@ -482,13 +460,13 @@ def read_image_cv2(path: str) -> np.ndarray | None:
         data = f.read()
     if data[:2] == b"#?":
         return np.ascontiguousarray(decode_hdr(data, path)[..., ::-1])
-    if data[:1] == b"P" and data[1:2].isdigit():
-        return np.ascontiguousarray(decode_ppm(data, path, cv2=True)[..., ::-1])
+    if data[:1] == b"P" and data[1:2] and data[1:2] in PNM_KINDS:
+        return decode_netpbm_cv2(data, path)
     for magic, _, cv2_reading in _DECODERS:
         if data.startswith(magic):
             return cv2_reading(data, path)
     if data[:8] != PNG_MAGIC:
-        if _is_tga(data, path):
+        if is_dib(data) or _is_tga(data, path):
             return None
         _refuse(path, data)
     png = decode_png_samples(data, path, cv2=True)
@@ -573,18 +551,58 @@ def encode_png_samples(samples: np.ndarray, color_type: int, bit_depth: int,
     return out + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
 
 
+PNG_BLOCK = 65536  # ImageFile.MAXBLOCK: Pillow's encoder buffer is max(this, 4 * width)
+
+
+def _adaptive_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Pillow's ZipEncode filter choice: per row, of None, Up, Sub and
+    Paeth tried in that order, the first whose bytes (as signed) have the
+    least sum of magnitudes; (h, stride + 1) bytes."""
+    cur = rows.astype(np.int32)
+    prior = np.concatenate([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.concatenate([np.zeros_like(cur[:, :bpp]), cur[:, :-bpp]], axis=1)
+    upleft = np.concatenate([np.zeros_like(prior[:, :bpp]), prior[:, :-bpp]], axis=1)
+    best = choice = out = None
+    for ftype, pred in ((0, 0), (2, prior), (1, left), (4, _paeth(left, prior, upleft))):
+        body = (cur - pred) & 255
+        cost = np.where(body < 128, body, 256 - body).sum(axis=1)
+        if best is None:
+            best, choice, out = cost, np.zeros(len(cur), np.uint8), body
+            continue
+        better = (best > 0) & (cost < best)
+        best = np.where(better, cost, best)
+        choice[better] = ftype
+        out[better] = body[better]
+    return np.concatenate([choice[:, None], out.astype(np.uint8)], axis=1)
+
+
 def encode_png(pixels: np.ndarray) -> bytes:
     """uint8 (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA, or uint16 (H, W)
-    16-bit grey -> a non-interlaced PNG, filter None."""
-    pixels = np.asarray(pixels)
-    if pixels.dtype == np.uint16 and pixels.ndim == 2:
-        return encode_png_samples(pixels, 0, 16)
-    if pixels.dtype == np.uint8 and pixels.ndim == 2:
-        return encode_png_samples(pixels, 0, 8)
-    if pixels.dtype == np.uint8 and pixels.ndim == 3 and pixels.shape[2] in (3, 4):
-        return encode_png_samples(pixels, 2 if pixels.shape[2] == 3 else 6, 8)
-    raise ValueError("encode_png expects uint8 (H, W), (H, W, 3|4) or uint16 (H, W), not "
-                     f"{pixels.dtype} {pixels.shape}")
+    16-bit grey -> the PNG Pillow 12's ``save`` writes for them: IHDR, the
+    rows filtered as ``_adaptive_rows`` picks, deflated at level 6 with
+    ``Z_FILTERED`` and memLevel 9, in IDAT chunks of at most max(65536,
+    4 x width) bytes, IEND. The bytes are Pillow's where Python's zlib is
+    the one Pillow links (the samples are the same with any zlib)."""
+    a = np.asarray(pixels)
+    if a.dtype == np.uint16 and a.ndim == 2:
+        ctype, depth = 0, 16
+    elif a.dtype == np.uint8 and a.ndim == 2:
+        ctype, depth = 0, 8
+    elif a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] in (3, 4):
+        ctype, depth = (2 if a.shape[2] == 3 else 6), 8
+    else:
+        raise ValueError("encode_png expects uint8 (H, W), (H, W, 3|4) or uint16 (H, W), not "
+                         f"{a.dtype} {a.shape}")
+    height, width = a.shape[:2]
+    channels = 1 if a.ndim == 2 else a.shape[2]
+    rows = _pack_rows(a.reshape(height, width, channels), depth)
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    data = z.compress(_adaptive_rows(rows, channels * depth // 8).tobytes()) + z.flush()
+    block = max(PNG_BLOCK, 4 * width)
+    ihdr = struct.pack(">IIBBBBB", width, height, depth, ctype, 0, 0, 0)
+    return (PNG_MAGIC + _chunk(b"IHDR", ihdr)
+            + b"".join(_chunk(b"IDAT", data[i: i + block]) for i in range(0, len(data), block))
+            + _chunk(b"IEND", b""))
 
 
 def write_png(path: str, pixels: np.ndarray) -> None:

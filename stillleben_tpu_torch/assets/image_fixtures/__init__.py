@@ -10,7 +10,12 @@ bundling), an odd-sized lossy image, a two-frame animation whose frame 0
 is smaller than its canvas (the container by the tests' ``webp_anim``),
 the 640x480 frame the decode is timed on (lossy and lossless), and the
 textured scene's images (the blob's base colour, the checker plane, the
-8-bit sky). ``digests.py`` holds the SHA-256 of Pillow's
+8-bit sky); and the encode fixtures (``ENCODE_FILES``): Pillow's ``save``
+of ``encode_sources()`` in the modes the JAX ``ImageSaver`` hands Pillow
+(GIF of an RGB ramp, of RGB noise with more colours than Pillow's
+median-cut hash holds, of RGBA with a binary mask and of 16-bit depth; a
+16-bit PGM and a P6). ``digests.py`` holds the SHA-256 of each encode
+fixture's bytes and of Pillow's
 ``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP, and of
 Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a host
 that decodes and encodes these to the same digests computes what Pillow
@@ -28,6 +33,7 @@ FILES = ("progressive.jpg", "interlaced.gif", "lzw.tif", "deflate.tif", "rle8.bm
 WEBP_FILES = ("q80.webp", "alpha.webp", "lossless.webp", "palette16.webp", "odd.webp",
               "anim.webp", "frame.webp", "frame_lossless.webp", "blob_basecolor.webp",
               "checker.webp", "sky.webp")
+ENCODE_FILES = ("ramp.gif", "noise.gif", "rgba.gif", "depth16.gif", "depth16.pgm", "frame.ppm")
 
 
 def path(name: str) -> str:
@@ -43,3 +49,26 @@ def seeded_images(seed: int = 0) -> dict[str, np.ndarray]:
     frame = sky_ldr(480, 640).astype(np.int16) + rng.integers(-24, 25, (480, 640, 3))
     return {"texture": base_color_texture(seed)[..., :3].copy(),
             "frame": np.clip(frame, 0, 255).astype(np.uint8)}
+
+
+def encode_sources(seed: int = 15) -> dict[str, np.ndarray]:
+    """The arrays behind ``ENCODE_FILES``, by file name: a 640x480 RGB ramp
+    (R across, G down, B diagonal), 320x240 RGB noise, a 160x120 cut of
+    ``seeded_images()``'s frame with alpha 255 on a disc and 0 elsewhere,
+    160x120 uint16 depth from 0 to about 1000 (as a GIF clipped at 255 by
+    Pillow), the same depth as a PGM, and a 64x48 cut of the frame."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:480, 0:640]
+    ramp = np.stack([xx * 255 // 639, yy * 255 // 479, (xx + yy) % 256], -1).astype(np.uint8)
+    frame = seeded_images()["frame"]
+    y, x = np.mgrid[0:120, 0:160]
+    disc = ((y - 60) ** 2 + (x - 70) ** 2 < 45 ** 2).astype(np.uint8) * 255
+    depth = (y * 6 + x * 2 + rng.integers(0, 40, (120, 160))).astype(np.uint16)
+    return {
+        "ramp.gif": ramp,
+        "noise.gif": rng.integers(0, 256, (240, 320, 3)).astype(np.uint8),
+        "rgba.gif": np.concatenate([frame[:120, :160], disc[..., None]], -1),
+        "depth16.gif": depth,
+        "depth16.pgm": depth,
+        "frame.ppm": np.ascontiguousarray(frame[:48, :64]),
+    }

@@ -2,7 +2,8 @@
 module and of its JPEG encodes (``save``, quality 75, 4:2:0) of
 ``seeded_images()``; each decode is ``convert("RGBA")``'s bytes. The WebP
 files' also as OpenCV 5.0.0 reads them (``WEBP_DECODE_CV2``: the bytes of
-``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). Written by
+``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). ``ENCODE``: the SHA-256
+of each encode fixture's bytes (Pillow's ``save`` of its source). Written by
 ``tests/torch_image_fixtures.py --write``."""
 
 DECODE = {
@@ -46,4 +47,12 @@ WEBP_DECODE_CV2 = {
     "palette16.webp": "72940b0286163409fa80dba5780ed3c348a1c9b75bea02ecf52775f635902b10",
     "q80.webp": "d82ddf6b55fdfeaece74d9cde73b555399146994e73b7d5315435e0f0cfd0ec2",
     "sky.webp": "095b5e558bdf5a98aa3829fc0efaadd765d8cada588f8ace8f9b10f52e4964d4",
+}
+ENCODE = {
+    "depth16.gif": "7debf3969d9f09fda5c83ddcda6e51fb4d55fec53c7b5e024dca77c33dad62a1",
+    "depth16.pgm": "2159a644de80ad23dbcd72513c03dc0241d0298dfd0b3c208b756ece21876a86",
+    "frame.ppm": "ec0335d667ffb160a4308c6681b431869b66749a5efaec8e7cd68d99c8289d4c",
+    "noise.gif": "f5a0c193d92d160c2b5b91111b48c54701cf55e8f7144ba2fd3553a4828aa062",
+    "ramp.gif": "d4c040d3b48eb984bceecd7c638ce1be3663eebfa1ae71d9986775ae6b72770e",
+    "rgba.gif": "c1818e5c256e9aa38e629387b9a598571a9ea6e034d96e4b042e3be15523b433",
 }

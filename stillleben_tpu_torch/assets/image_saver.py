@@ -9,19 +9,24 @@ flips only because GL readback is bottom-up.
 
 Copied from ``stillleben_tpu/assets/image_saver.py``; images are encoded
 by the port's own encoders, picked by extension as Pillow picks its
-writer: ``.png`` (``image.encode_png``), ``.jpg``/``.jpeg``
-(``jpeg.encode_jpeg``), ``.bmp``, ``.tga``, ``.tif``/``.tiff`` and
-``.webp`` (``webp.encode_webp``: libwebp's lossy encoder at quality 80,
-method 4, native). Each writes the bytes of Pillow's ``save`` for the mode
-the JAX package hands Pillow (8-bit L, RGB, RGBA; ``I;16`` for uint16);
-a WebP with transparency has its alpha plane compressed by the port's own
+writer (``ENCODERS``): ``.png``/``.apng`` (``image.encode_png``),
+``.jpg``/``.jpeg``/``.jpe``/``.jfif``/``.mpo`` (``jpeg.encode_jpeg``),
+``.bmp``, ``.dib`` (the BMP without its file header), ``.tga`` and its
+aliases ``.icb``/``.vda``/``.vst``, ``.tif``/``.tiff``, ``.webp``
+(``webp.encode_webp``: libwebp's lossy encoder at quality 80, method 4,
+native), ``.gif`` (``gif.encode_gif``: Pillow's median cut for RGB, its
+fast octree for RGBA, GIF's LZW, native) and ``.ppm``/``.pgm``/``.pbm``/
+``.pnm``/``.pfm`` (``netpbm.encode_netpbm``, by mode whatever the
+extension). Each writes the bytes of Pillow's ``save`` for the mode the
+JAX package hands Pillow (8-bit L, RGB, RGBA; ``I;16`` for uint16); a
+WebP with transparency has its alpha plane compressed by the port's own
 lossless stream (the alpha is exact, the other chunks are Pillow's bytes).
-A mode or size Pillow refuses for a format (RGBA or 16-bit as JPEG, 16-bit
-as BMP or TGA, a side over 16383 as WebP) fails in the worker as it does
-in the JAX package: printed, nothing written. A path whose extension the
-port cannot encode (``.gif``, any other) raises ``NotImplementedError`` in
-``save()`` itself, before anything is queued: Pillow's GIF ``save``
-quantises RGB to an adaptive palette, a port of its own not done yet.
+A mode or size Pillow refuses for a format (RGBA or 16-bit as JPEG and
+its aliases, 16-bit as BMP, DIB or TGA and its aliases, a side over 16383
+as WebP) fails in the worker as it does in the JAX package: printed,
+nothing written. A path whose extension the port cannot encode (``.qoi``,
+``.pcx``, any other Pillow writes or not) raises ``NotImplementedError``
+in ``save()`` itself, before anything is queued.
 """
 
 from __future__ import annotations
@@ -32,16 +37,23 @@ import threading
 
 import numpy as np
 
-from .bmp import encode_bmp
+from .bmp import encode_bmp, encode_dib
+from .gif import encode_gif
 from .image import encode_png
 from .jpeg import encode_jpeg
+from .netpbm import encode_netpbm
 from .tga import encode_tga
 from .tiff import encode_tiff
 from .webp import encode_webp
 
-ENCODERS = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".bmp": encode_bmp,
-            ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff,
-            ".webp": encode_webp}
+ENCODERS = {".png": encode_png, ".apng": encode_png,
+            ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".jpe": encode_jpeg, ".jfif": encode_jpeg,
+            ".mpo": encode_jpeg,
+            ".bmp": encode_bmp, ".dib": encode_dib,
+            ".tga": encode_tga, ".icb": encode_tga, ".vda": encode_tga, ".vst": encode_tga,
+            ".tif": encode_tiff, ".tiff": encode_tiff, ".webp": encode_webp, ".gif": encode_gif,
+            ".ppm": encode_netpbm, ".pgm": encode_netpbm, ".pbm": encode_netpbm,
+            ".pnm": encode_netpbm, ".pfm": encode_netpbm}
 
 
 def _to_numpy(img):

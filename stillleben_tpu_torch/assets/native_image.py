@@ -1,12 +1,15 @@
 """ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``),
-of its WebP decoder (``csrc/sl_webp.cpp``) and of its WebP encoder
-(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``).
+of its WebP decoder (``csrc/sl_webp.cpp``), of its WebP encoder
+(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``)
+and of its GIF encoder (``csrc/sl_gif_enc.cpp``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
 the run-length decoders of BMP, TGA and TIFF (PackBits), and the whole of
 WebP's decode (VP8, VP8L, ALPH, the container and frame 0) and encode
-(libwebp's lossy encoder as Pillow's ``save`` drives it). Each source is
+(libwebp's lossy encoder as Pillow's ``save`` drives it), and what
+Pillow's GIF ``save`` does below its Python layer (the median-cut and
+fast-octree quantisers and GIF's LZW). Each source is
 built at first use by ``native_build.build_library`` (``g++ -O3 -shared
 -fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
 source and its headers); a compile or load that fails raises with the
@@ -36,6 +39,8 @@ WEBP_TABLES = os.path.join(PKG_DIR, "csrc", "sl_vp8_tables.h")
 WEBP_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp.h"), WEBP_TABLES)
 WEBP_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp_enc.cpp")
 WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"), WEBP_TABLES)
+GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
+GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
 
 _OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED = 0, 1, 2, 3, 4
 _ERRLEN = 512
@@ -44,6 +49,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _webp_lib: ctypes.CDLL | None = None
 _webp_enc_lib: ctypes.CDLL | None = None
+_gif_enc_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
@@ -61,6 +67,34 @@ def build_webp_enc() -> str:
     """``build`` of the WebP encoder."""
     return build_library("sl_webp_enc", WEBP_ENC_SOURCE, WEBP_ENC_HEADER, BUILD_DIR,
                          "the native WebP encoder")
+
+
+def build_gif_enc() -> str:
+    """``build`` of the GIF encoder."""
+    return build_library("sl_gif_enc", GIF_ENC_SOURCE, GIF_ENC_HEADER, BUILD_DIR,
+                         "the native GIF encoder")
+
+
+def load_gif_enc_library() -> ctypes.CDLL:
+    """Build (if needed) and load the GIF encoder, once per process."""
+    global _gif_enc_lib
+    with _lock:
+        if _gif_enc_lib is None:
+            lib = ctypes.CDLL(build_gif_enc())
+            for fn in ("sl_quant_median", "sl_quant_octree"):
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = (
+                    ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                    ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int)
+            lib.sl_gif_lzw_encode.restype = ctypes.c_int
+            lib.sl_gif_lzw_encode.argtypes = (
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.c_char_p, ctypes.c_int)
+            lib.sl_gif_enc_free.restype = None
+            lib.sl_gif_enc_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            _gif_enc_lib = lib
+        return _gif_enc_lib
 
 
 def load_webp_enc_library() -> ctypes.CDLL:
@@ -305,3 +339,49 @@ def webp_encode_planes(pixels: np.ndarray, cleanup: bool) -> dict:
                                                y.ctypes.data, u.ctypes.data, v.ctypes.data,
                                                a.ctypes.data, ctypes.byref(has_alpha))
     return {"y": y, "u": u, "v": v, "a": a if has_alpha.value else None}
+
+
+def _quantize(fn: str, pixels: np.ndarray, channels: int, what: str):
+    pix = np.ascontiguousarray(pixels, np.uint8)
+    if pix.ndim != 3 or pix.shape[2] != channels or 0 in pix.shape:
+        raise ValueError(f"expected (H, W, {channels}) pixels, not {pix.shape}")
+    palette = np.zeros((256, channels), np.uint8)
+    index = np.empty(pix.shape[:2], np.uint8)
+    n = ctypes.c_int(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(getattr(load_gif_enc_library(), fn)(
+        pix.ctypes.data, pix.shape[0] * pix.shape[1], palette.ctypes.data, ctypes.byref(n),
+        index.ctypes.data, err, _ERRLEN), err, what)
+    return palette[: n.value], index
+
+
+def quantize_median(pixels: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's median cut to 256 colours (``Image.convert("P",
+    palette=ADAPTIVE)``) of (H, W, 3) RGB uint8: the (N, 3) palette, N <=
+    256, and the (H, W) uint8 indices."""
+    return _quantize("sl_quant_median", pixels, 3, "median cut")
+
+
+def quantize_octree(pixels: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's fast octree to 256 colours (``Image.quantize(256)`` of
+    RGBA, method 2) of (H, W, 4) RGBA uint8: the (256, 4) RGBA palette and
+    the (H, W) uint8 indices."""
+    return _quantize("sl_quant_octree", pixels, 4, "octree")
+
+
+def gif_lzw_encode(index: np.ndarray, interlace: bool) -> bytes:
+    """GIF's LZW (minimum code size 8) of (H, W) uint8 indices as Pillow's
+    encoder writes it: the data sub-blocks, without the code size before
+    them or the terminator."""
+    idx = np.ascontiguousarray(index, np.uint8)
+    h, w = idx.shape
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    lib = load_gif_enc_library()
+    _check(lib.sl_gif_lzw_encode(idx.ctypes.data, w, h, int(interlace), ctypes.byref(out),
+                                 ctypes.byref(n), err, _ERRLEN), err, "GIF LZW")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_gif_enc_free(out)

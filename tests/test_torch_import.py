@@ -6,7 +6,7 @@ interpreter that refuses every ``jax``, ``jaxlib``, ``stillleben_tpu``,
 whole port, loads meshes and their PNG texture from files through the port's own
 ``Mesh`` and codec (every mesh format, cooked by the port's native build),
 reads a light map's descriptor and panorama, saves and loads images (PNG,
-JPEG, BMP, TGA, TIFF; the GIF, WebP and other fixtures decoded),
+JPEG, BMP, TGA, TIFF, GIF, Netpbm; the WebP and other fixtures decoded),
 builds a template with a background plane and a light map, renders a full
 frame through each raster on the CPU, and streams a batch in the modes of
 the tuned and reference-quality configurations, resolves every name of the
@@ -49,7 +49,7 @@ SCRIPT = textwrap.dedent(
            "assets.tiff", "assets.native_image", "assets.native_build", "assets.image_fixtures",
            "assets.image_limits",
            "assets.image_fixtures.digests", "examples.pbr", "examples.viewer", "examples.ycb",
-           "assets.webp", "tools", "tools.templates", "tools.settle_fidelity",
+           "assets.webp", "assets.netpbm", "tools", "tools.templates", "tools.settle_fidelity",
            "tools.display_mesh", "tools.viewer_demo", "tools.align_mesh"}
     assert new <= names, new - names
 
@@ -76,10 +76,13 @@ SCRIPT = textwrap.dedent(
     assert sky.shape == (64, 128, 3) and len(lights) == 1
     with sl.ImageSaver(num_threads=1) as saver:
         saver.save(np.zeros((4, 4, 4), np.uint8), sys.argv[1] + "/fixtures/saved.png")
-        for ext in (".jpg", ".bmp", ".tga", ".tif"):
+        for ext in (".jpg", ".bmp", ".tga", ".tif", ".gif", ".ppm"):
             saver.save(np.full((4, 4, 3), 9, np.uint8), sys.argv[1] + "/fixtures/saved" + ext)
+        saver.save(np.full((4, 4), 300, np.uint16), sys.argv[1] + "/fixtures/saved16.pgm")
     # the other image formats, through the port's native codec
     from stillleben_tpu_torch.assets import image, image_fixtures
+    assert (image.read_image(sys.argv[1] + "/fixtures/saved.gif")[..., :3] == 9).all()
+    assert (image.read_image_cv2(sys.argv[1] + "/fixtures/saved16.pgm") == 300).all()
     for name in image_fixtures.FILES:
         assert image.read_image(image_fixtures.path(name)).shape == (67, 91, 4), name
     for name in image_fixtures.WEBP_FILES:

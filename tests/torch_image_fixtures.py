@@ -18,6 +18,12 @@ OpenCV's readings of them. Regenerate with
 
     python tests/torch_image_fixtures.py --write
 
+``make_encode_fixtures()`` writes Pillow's ``save`` of
+``image_fixtures.encode_sources()`` (GIF, PGM, PPM) in the modes the JAX
+``ImageSaver`` hands Pillow (``pillow_save``), ``encode_digests()`` their
+SHA-256; ``gif_divergence`` names the first stage (header, palette,
+transparency, index image, LZW stream) at which two GIF files part.
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder); ``--alph`` prints the
 port's ALPH chunks against libwebp's (ROADMAP C-19).
@@ -806,6 +812,77 @@ def make_webp_fixtures() -> dict[str, bytes]:
     }
 
 
+def pillow_save(pixels: np.ndarray, ext: str) -> bytes:
+    """The bytes the JAX ``ImageSaver`` writes for ``pixels`` to a path
+    ending in ``ext``: ``Image.fromarray`` (L, RGB, RGBA or I;16) saved in
+    the format Pillow registers for the extension."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(np.asarray(pixels)).save(b, Image.registered_extensions()[ext])
+    return b.getvalue()
+
+
+def make_encode_fixtures() -> dict[str, bytes]:
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import encode_sources
+
+    return {n: pillow_save(a, os.path.splitext(n)[1]) for n, a in encode_sources().items()}
+
+
+def encode_digests(files: dict[str, bytes]) -> dict:
+    return {"ENCODE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())}}
+
+
+def gif_parts(data: bytes) -> dict:
+    """A single-image GIF's parts: header (signature, screen, flags),
+    palette (the global table), transparency (the graphic control
+    extension's index or None), descriptor, code size, lzw (the sub-blocks
+    as stored, without the terminating empty block), index (the decoded
+    indices in row order) and trailer."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import gif, native_image
+
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 128 else 0)
+    parts = {"header": data[:13], "palette": data[13:pos], "transparency": None}
+    while data[pos] == 0x21:
+        body, end = gif._blocks(data, pos + 2)
+        if data[pos + 1] == 0xF9 and body[0] & 1:
+            parts["transparency"] = body[3]
+        pos = end
+    parts["descriptor"] = data[pos: pos + 10]
+    w, h, iflags = struct.unpack_from("<HHB", data, pos + 5)
+    parts["code size"] = data[pos + 10]
+    start = pos + 11
+    lzw, end = gif._blocks(data, start)
+    parts["lzw"] = data[start:end - 1]  # the sub-blocks, without their terminator
+    index = native_image.gif_lzw(lzw, data[pos + 10], w * h).reshape(h, w)
+    if iflags & 64:
+        index = index[np.argsort(gif._interlaced_rows(h), kind="stable")]
+    parts["index"] = index
+    parts["trailer"] = data[end:]
+    return parts
+
+
+def gif_divergence(ours: bytes, ref: bytes) -> str | None:
+    """None when the two GIF files are equal, else the first stage at which
+    they part: the header, the palette, the transparent index, the image
+    descriptor, the index image, the LZW stream, the trailer."""
+    if ours == ref:
+        return None
+    a, b = gif_parts(ours), gif_parts(ref)
+    for key in ("header", "palette", "transparency", "descriptor", "code size", "index", "lzw",
+                "trailer"):
+        x, y = a[key], b[key]
+        same = np.array_equal(x, y) if key == "index" else x == y
+        if not same:
+            if key == "index" and x.shape == y.shape:
+                return f"index image ({int((x != y).sum())} of {x.size} pixels differ)"
+            return key
+    return "bytes outside the parts"
+
+
 def cv2_bgr_sha(data: bytes) -> str:
     """SHA-256 of ``cv2.imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``'s bytes."""
     import tempfile
@@ -881,7 +958,8 @@ def digest_module(d: dict) -> str:
              "module and of its JPEG encodes (``save``, quality 75, 4:2:0) of",
              "``seeded_images()``; each decode is ``convert(\"RGBA\")``'s bytes. The WebP",
              "files' also as OpenCV 5.0.0 reads them (``WEBP_DECODE_CV2``: the bytes of",
-             "``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). Written by",
+             "``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). ``ENCODE``: the SHA-256",
+             "of each encode fixture's bytes (Pillow's ``save`` of its source). Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -896,11 +974,13 @@ if __name__ == "__main__":
         sys.exit(0)
     files = make_fixtures()
     webp_files = make_webp_fixtures()
+    encode_files = make_encode_fixtures()
     if "--write" in sys.argv:
-        for name, data in {**files, **webp_files}.items():
+        for name, data in {**files, **webp_files, **encode_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
-            f.write(digest_module({**digests(files), **webp_digests(webp_files)}))
-    for group in (files, webp_files):
+            f.write(digest_module({**digests(files), **webp_digests(webp_files),
+                                   **encode_digests(encode_files)}))
+    for group in (files, webp_files, encode_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
