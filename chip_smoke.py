@@ -13,8 +13,8 @@ and the rest of the public table (``Viewer`` and its web front-end,
 on a one-card mesh, two processes of one ``gloo`` group on the card, the
 atlas modes, the classic raster's scan rule), the image formats (JPEG,
 BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
-(the native decoder and encoder) and the repository's tools that are not
-TPU-only.
+(the native decoder and encoder), GIF and Netpbm encoding, QOI, SGI, PCX,
+IM and DDS both ways, and the repository's tools that are not TPU-only.
 
     python3 chip_smoke.py
 
@@ -280,7 +280,24 @@ Phases (one line each or more; any failure exits non-zero):
     ms of 9 encodes (GIF RGB, GIF RGBA, PGM 16-bit);
     ``ImageSaver(num_threads=4)``'s images/s over 16 GIF frames, each file
     equal to the serial encode. No kernel: K1's entries of phase 19 cover
-    the render. Then the smoke's total wall seconds.
+    the render.
+22. QOI, SGI, PCX/DCX, IM and DDS (``assets/qoi.py``, ``sgi.py``,
+    ``pcx.py``, ``im.py``, ``dds.py`` over the native core
+    ``csrc/sl_plain_formats.cpp``): the core's g++ build (seconds); the
+    committed encode fixtures re-encoded from
+    ``image_fixtures.plain_sources()``, each byte-equal to the file Pillow
+    12.1.0 wrote (and to its SHA-256), and every read fixture (run-length
+    SGI, 1-bit and 4-plane PCX, a DCX, IM with a palette and of floats,
+    Pillow's DXT1/3/5 and BC5, random BC4/BC5S/BC6H/BC6HS/BC7 blocks, masked
+    and palette DDS) decoded to the SHA-256 of Pillow's reading; phase 19's
+    render through ``sl.ImageSaver`` in RGB and RGBA (alpha 255 on the
+    objects, 0 elsewhere) as ``.qoi .sgi .pcx .im .dds``, each read back
+    bitwise, RGBA as PCX printed as refused and not written, and its depth
+    in mm as a 16-bit ``.im`` read back clipped at 255 as Pillow reads it;
+    the median ms of 9 encodes and decodes of the 640x480 render per format
+    and of a BC7 decode of a 640x480 DDS of random blocks. No kernel: K1's
+    entries of phase 19 cover the render. Then the smoke's total wall
+    seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -327,6 +344,7 @@ ROW_BYTES = 16 * 4  # one packed line row LT[id]
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 WEBP_SAVER_FRAMES = 16  # phase 20's ImageSaver(num_threads=4) run
 GIF_SAVER_FRAMES = 16  # phase 21's ImageSaver(num_threads=4) run
+PLAIN_EXTS = (".qoi", ".sgi", ".pcx", ".im", ".dds")  # phase 22's formats
 T_START = 0.0  # main()'s start, for the total wall time
 
 
@@ -3122,6 +3140,119 @@ def run_gif_netpbm(card, rendered) -> dict:
     return {**secs, **ms}
 
 
+def run_plain_formats(card, rendered) -> dict:
+    """Phase 22: QOI, SGI, PCX/DCX, IM and DDS (see the module docstring).
+    ``rendered`` is phase 19's render of its WebP scene. Returns the
+    phase's seconds and milliseconds."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import dds, image, im, native_image, pcx, qoi, sgi
+    from stillleben_tpu_torch.assets.image_fixtures import (PLAIN_ENCODE_FILES, PLAIN_READ_FILES,
+                                                            plain_sources)
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import PLAIN_DECODE, PLAIN_FILE
+
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_image_fixtures as writers
+
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"plain_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    secs, ms = {}, {}
+
+    t0 = time.perf_counter()
+    lib = native_image.build_plain()
+    secs["core build"] = time.perf_counter() - t0
+    phase("plain", f"the QOI/PCX/SGI/DDS core's g++ build: {secs['core build']:.3f} s "
+                   f"({os.path.relpath(lib, ROOT)})")
+
+    # the committed fixtures: re-encoded from their sources, and decoded to
+    # the digests of Pillow's readings on the CPU host
+    encoders = {".qoi": lambda a, p_: qoi.encode_qoi(a), ".pcx": lambda a, p_: pcx.encode_pcx(a),
+                ".dds": lambda a, p_: dds.encode_dds(a), ".im": im.encode_im,
+                **{e: sgi.encode_sgi for e in (".sgi", ".rgb", ".rgba", ".bw")}}
+    equal, read = [], []
+    for name, a in plain_sources().items():
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if (hashlib.sha256(data).hexdigest() == PLAIN_FILE[name]
+                and encoders[os.path.splitext(name)[1]](a, name) == data):
+            equal.append(name)
+    for name in PLAIN_ENCODE_FILES + PLAIN_READ_FILES:
+        if hashlib.sha256(image.read_image(fixture(name)).tobytes()).hexdigest() == PLAIN_DECODE[name]:
+            read.append(name)
+    phase("plain", f"the committed encode fixtures re-encoded on this host, byte-equal to the "
+                   f"files Pillow 12.1.0 wrote: {len(equal)} of {len(PLAIN_ENCODE_FILES)}; every "
+                   f"fixture decoded to the digest of Pillow's reading: {len(read)} of "
+                   f"{len(PLAIN_ENCODE_FILES) + len(PLAIN_READ_FILES)} (BC1-BC7 among them)")
+    if len(equal) != len(PLAIN_ENCODE_FILES) or len(read) != len(PLAIN_ENCODE_FILES) + len(
+            PLAIN_READ_FILES):
+        fail(f"plain: fixtures not Pillow's: encode {sorted(set(PLAIN_ENCODE_FILES) - set(equal))}, "
+             f"decode {sorted(set(PLAIN_ENCODE_FILES + PLAIN_READ_FILES) - set(read))}")
+
+    # phase 19's render through ImageSaver in the five formats
+    rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
+    mask = np.where(rendered.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    depth_mm = np.clip(np.round(rendered.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    jobs = [(f"render{ext}", rgb) for ext in PLAIN_EXTS]
+    jobs += [(f"render_rgba{ext}", rgba) for ext in PLAIN_EXTS] + [("depth_mm.im", depth_mm)]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed), sl.ImageSaver(num_threads=4) as saver:
+        for name, a in jobs:
+            saver.save(a, os.path.join(fx_dir, name))
+    written = sorted(os.listdir(fx_dir))
+    opaque = np.concatenate([rgb, np.full_like(mask[..., None], 255)], -1)
+    wrong = []
+    for name, a in jobs:
+        p_ = os.path.join(fx_dir, name)
+        if name == "render_rgba.pcx":
+            if os.path.exists(p_) or f"failed to write {p_}" not in printed.getvalue():
+                wrong.append(name)
+            continue
+        back = image.read_image(p_) if os.path.exists(p_) else None
+        want = (np.repeat(np.minimum(a, 255).astype(np.uint8)[..., None], 3, -1) if a is depth_mm
+                else a if a.shape[-1] == 4 else opaque[..., :3])
+        if back is None or not np.array_equal(back[..., : want.shape[-1]], want) or (
+                want.shape[-1] == 3 and not (back[..., 3] == 255).all()):
+            wrong.append(name)
+        elif image.read_image_cv2(p_) is not None:
+            wrong.append(f"{name} (read_image_cv2)")
+    sizes = ", ".join(f"{n} {os.path.getsize(os.path.join(fx_dir, n))}" for n in written)
+    phase("plain", f"phase 19's render {WIDTH}x{HEIGHT} through sl.ImageSaver (RGB, RGBA with "
+                   f"alpha 255 on the {int((mask > 0).sum())} object pixels, depth in mm "
+                   f"{int(depth_mm.min())}..{int(depth_mm.max())} as 16-bit IM): bytes {sizes}; "
+                   f"read back bitwise (depth clipped at 255 as Pillow reads it), OpenCV's None, "
+                   f"RGBA as PCX refused and not written: {not wrong}")
+    if wrong:
+        fail(f"plain: the render's round trips: {wrong}")
+
+    # the codec's times on this host
+    for ext in PLAIN_EXTS:
+        name = os.path.join(fx_dir, f"render{ext}")
+        enc = encoders[ext]
+        ms[f"{ext} encode"] = _median_ms(lambda: enc(rgb, name), 9)
+        with open(name, "rb") as f:
+            data = f.read()
+        ms[f"{ext} decode"] = _median_ms(lambda: image.decode_image(data, name), 9)
+    blocks = writers.bcn_blocks(WIDTH, HEIGHT, 16, 22)
+    bc7 = writers.dds_file(WIDTH, HEIGHT, 0x4, blocks, dxgi=98)
+    ms["BC7 decode"] = _median_ms(lambda: dds.decode_dds(bc7), 9)
+    phase("plain", f"the {WIDTH}x{HEIGHT} render, median ms of 9 on the card's host: "
+                   + ", ".join(f"{e[1:].upper()} encode {ms[e + ' encode']:.3f} decode "
+                               f"{ms[e + ' decode']:.3f}" for e in PLAIN_EXTS)
+                   + f"; BC7 decode of {WIDTH}x{HEIGHT} random blocks {ms['BC7 decode']:.3f} "
+                     f"({card})")
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return {**secs, **ms}
+
+
 def main() -> None:
     global T_START
     T_START = time.perf_counter()
@@ -3673,8 +3804,15 @@ def main() -> None:
     # a 16-bit PGM through ImageSaver, the times
     t0 = time.perf_counter()
     run_gif_netpbm(card, webp_render)
-    del webp_render
     phase("gif+pnm", f"phase 21 in {time.perf_counter() - t0:.1f} s")
+
+    # 22. QOI, SGI, PCX/DCX, IM and DDS: the core's build, the committed
+    # fixtures from their sources and to Pillow's digests, phase 19's render
+    # and depth through ImageSaver, the times
+    t0 = time.perf_counter()
+    run_plain_formats(card, webp_render)
+    del webp_render
+    phase("plain", f"phase 22 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

@@ -61,6 +61,10 @@ class ConsolidatedMesh:
     def num_vertices(self) -> int:
         return self.positions.shape[0]
 
+    @property
+    def num_faces(self) -> int:
+        return self.faces.shape[0]
+
 
 def compute_smooth_normals(positions: np.ndarray, faces: np.ndarray) -> np.ndarray:
     """Area-weighted smooth vertex normals (matches the reference's

@@ -111,6 +111,15 @@ def convex_hull(points: np.ndarray, max_vertices: int = MAX_HULL_VERTICES) -> Co
     )
 
 
+def mesh_volume(vertices: np.ndarray, faces: np.ndarray) -> float:
+    """Volume of a (possibly open) triangle mesh by the divergence theorem:
+    the magnitude of the signed sum."""
+    a = vertices[faces[:, 0]]
+    b = vertices[faces[:, 1]]
+    c = vertices[faces[:, 2]]
+    return float(np.abs(np.einsum("ij,ij->i", a, np.cross(b, c)).sum() / 6.0))
+
+
 def _dedupe(points: np.ndarray) -> np.ndarray:
     return np.unique(np.round(points, decimals=9), axis=0)
 

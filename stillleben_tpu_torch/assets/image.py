@@ -18,22 +18,29 @@ library:
   clips at 255, a transparent colour is matched against the samples as
   Pillow holds them (``_pil_rgba``). Netpbm ``P1``-``P6`` and ``Pf``
   (``netpbm.py``), JPEG (``jpeg.py``), BMP and DIB (``bmp.py``), TGA
-  (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0 (``tiff.py``) and
-  WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation).
+  (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0 (``tiff.py``),
+  WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation), QOI
+  (``qoi.py``), SGI (``sgi.py``), PCX and DCX frame 0 (``pcx.py``), IM
+  (``im.py``) and DDS (``dds.py``: uncompressed and BC1-BC7). The formats
+  are tried in Pillow's order: IM has no magic bytes and is taken where
+  Pillow takes it (after PNG, BMP, DIB, PCX, DCX, DDS and GIF, before the
+  others).
 - ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
   a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
-  includes PAM; None for a TGA or a DIB, which OpenCV does not read.
+  includes PAM; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM
+  or a DDS, which OpenCV does not read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
 modes the JAX ``ImageSaver`` writes through Pillow) as Pillow's ``save``
 writes them; ``encode_png_samples``
 writes any colour type, depth, palette, ``tRNS`` and interlacing (the
 codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
-JPEG, BMP/DIB, TGA, TIFF, WebP, GIF and Netpbm have their own encoders in
-their modules (``image_saver.ENCODERS`` picks them by extension).
+JPEG, BMP/DIB, TGA, TIFF, WebP, GIF, Netpbm, QOI, SGI, PCX, IM and DDS
+have their own encoders in their modules (``image_saver.ENCODERS`` picks
+them by extension).
 
 The JPEG variants ``jpeg.py`` lists raise ``NotImplementedError`` with
 their names, as do the other formats Pillow or OpenCV open that the port
@@ -51,6 +58,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from . import dds, im, pcx, qoi, sgi
 from .bmp import decode_bmp, decode_bmp_cv2, decode_dib, is_dib
 from .gif import decode_gif, decode_gif_cv2
 from .image_limits import check_size
@@ -279,8 +287,28 @@ def _refuse(path: str, data: bytes):
     fmt = "Radiance HDR" if data[:2] == b"#?" else "unknown"
     raise NotImplementedError(
         f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, DIB, "
-        "TGA, GIF, TIFF and WebP, and Radiance HDR through read_image_cv2)"
+        "TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM and DDS, and Radiance HDR through "
+        "read_image_cv2)"
     )
+
+
+def _plain_format(data: bytes):
+    """The decoder of a QOI, SGI, PCX, DCX, IM or DDS file, or None. IM is
+    tested where Pillow tests it: after PCX, DCX and DDS (and PNG, BMP, DIB
+    and GIF), before every other format of the port."""
+    if pcx.is_pcx(data):
+        return pcx.decode_pcx
+    if pcx.is_dcx(data):
+        return pcx.decode_dcx
+    if data.startswith(dds.MAGIC):
+        return dds.decode_dds
+    if data[:6] not in (b"GIF87a", b"GIF89a") and im.parse_header(data) is not None:
+        return im.decode_im
+    if data.startswith(qoi.MAGIC):
+        return qoi.decode_qoi
+    if sgi.is_sgi(data):
+        return sgi.decode_sgi
+    return None
 
 
 def _is_tga(data: bytes, name: str) -> bool:
@@ -294,13 +322,18 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     reads raise by name."""
     if data[:8] == PNG_MAGIC:
         return decode_png(data, name)
+    if data[:2] == b"BM":
+        return decode_bmp(data, name)
+    if is_dib(data):
+        return decode_dib(data, name)
+    plain = _plain_format(data)
+    if plain is not None:
+        return plain(data, name)
     if data[:1] == b"P" and data[1:2] and data[1:2] in PNM_KINDS:
         return decode_netpbm(data, name)
     for magic, pil, _ in _DECODERS:
         if data.startswith(magic):
             return pil(data, name)
-    if is_dib(data):
-        return decode_dib(data, name)
     if _is_tga(data, name):
         return decode_tga(data, name)
     _refuse(name, data)
@@ -455,7 +488,8 @@ def read_image_cv2(path: str) -> np.ndarray | None:
     gives: grey (H, W), colour (H, W, 3) in BGR order with alpha dropped
     and palettes expanded; uint8, uint16 at depth 16 (grey PNG at depths
     1-4 scaled to 8 bits), float32 for HDR; frame 0 of a WebP; None for a
-    TGA, as OpenCV reads none."""
+    TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM or a DDS, as OpenCV reads
+    none."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"#?":
@@ -466,7 +500,7 @@ def read_image_cv2(path: str) -> np.ndarray | None:
         if data.startswith(magic):
             return cv2_reading(data, path)
     if data[:8] != PNG_MAGIC:
-        if is_dib(data) or _is_tga(data, path):
+        if is_dib(data) or _plain_format(data) is not None or _is_tga(data, path):
             return None
         _refuse(path, data)
     png = decode_png_samples(data, path, cv2=True)

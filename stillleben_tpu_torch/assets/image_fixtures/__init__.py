@@ -14,7 +14,17 @@ textured scene's images (the blob's base colour, the checker plane, the
 of ``encode_sources()`` in the modes the JAX ``ImageSaver`` hands Pillow
 (GIF of an RGB ramp, of RGB noise with more colours than Pillow's
 median-cut hash holds, of RGBA with a binary mask and of 16-bit depth; a
-16-bit PGM and a P6). ``digests.py`` holds the SHA-256 of each encode
+16-bit PGM and a P6); the plain formats' encode fixtures
+(``PLAIN_ENCODE_FILES``): Pillow's ``save`` of ``plain_sources()`` as QOI,
+SGI, PCX, IM and DDS in each mode the JAX ``ImageSaver`` hands Pillow
+that Pillow writes; and their read fixtures (``PLAIN_READ_FILES``), which
+Pillow reads but the port does not write: run-length SGI at 1 and 2 bytes
+a sample and uncompressed 16-bit SGI, PCX of 1 bit, of 4 bit planes and
+with a palette, a two-frame DCX, IM with a palette and of floats, DDS as
+Pillow's DXT1/DXT3/DXT5/BC5 and LA writes, and of random BC4, BC5S, BC6H,
+BC6HS and BC7 blocks (a 7x5 BC7 among them), with 565 and 4444 masks,
+with a palette, and DX10 R8G8B8A8 (the files Pillow does not write are
+``tests/torch_image_fixtures.py``'s). ``digests.py`` holds the SHA-256 of each encode
 fixture's bytes and of Pillow's
 ``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP, and of
 Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a host
@@ -34,6 +44,14 @@ WEBP_FILES = ("q80.webp", "alpha.webp", "lossless.webp", "palette16.webp", "odd.
               "anim.webp", "frame.webp", "frame_lossless.webp", "blob_basecolor.webp",
               "checker.webp", "sky.webp")
 ENCODE_FILES = ("ramp.gif", "noise.gif", "rgba.gif", "depth16.gif", "depth16.pgm", "frame.ppm")
+PLAIN_ENCODE_FILES = ("frame.qoi", "frame_rgba.qoi", "frame.sgi", "frame_rgba.rgba", "grey.bw",
+                      "frame.pcx", "grey.pcx", "frame.im", "frame_rgba.im", "grey.im",
+                      "depth16.im", "frame.dds", "frame_rgba.dds", "grey.dds")
+PLAIN_READ_FILES = ("rle8.sgi", "rle16.sgi", "raw16.sgi", "bits1.pcx", "planes4.pcx",
+                    "palette.pcx", "frames.dcx", "palette.im", "float.im", "dxt1.dds", "dxt3.dds",
+                    "dxt5.dds", "bc5.dds", "la.dds", "bc4.dds", "bc5s.dds", "bc6h.dds",
+                    "bc6hs.dds", "bc7.dds", "bc7_odd.dds", "rgb565.dds", "argb4444.dds",
+                    "p8.dds", "rgba8.dds")
 
 
 def path(name: str) -> str:
@@ -72,3 +90,24 @@ def encode_sources(seed: int = 15) -> dict[str, np.ndarray]:
         "depth16.pgm": depth,
         "frame.ppm": np.ascontiguousarray(frame[:48, :64]),
     }
+
+
+def plain_sources(seed: int = 16) -> dict[str, np.ndarray]:
+    """The arrays behind ``PLAIN_ENCODE_FILES``, by file name (SGI and IM
+    write the base name into the file): the 64x48 cut of
+    ``seeded_images()``'s frame, the same with alpha 255 on a disc, 0 around
+    it and a ramp in one corner, a grey ramp with runs of 5 across its
+    whole range, and 64x48 uint16 depth."""
+    rng = np.random.default_rng(seed)
+    frame = np.ascontiguousarray(seeded_images()["frame"][:48, :64])
+    y, x = np.mgrid[0:48, 0:64]
+    alpha = np.where((y - 24) ** 2 + (x - 30) ** 2 < 18 ** 2, 255, 0)
+    alpha = np.where((y < 8) & (x > 48), x * 12 - 500 + y, alpha).clip(0, 255).astype(np.uint8)
+    rgba = np.concatenate([frame, alpha[..., None]], -1)
+    grey = ((x // 5) * 23 + y * 3) % 256
+    depth = (y * 900 + x * 40 + rng.integers(0, 300, (48, 64))).astype(np.uint16)
+    return {"frame.qoi": frame, "frame_rgba.qoi": rgba, "frame.sgi": frame,
+            "frame_rgba.rgba": rgba, "grey.bw": grey.astype(np.uint8), "frame.pcx": frame,
+            "grey.pcx": grey.astype(np.uint8), "frame.im": frame, "frame_rgba.im": rgba,
+            "grey.im": grey.astype(np.uint8), "depth16.im": depth, "frame.dds": frame,
+            "frame_rgba.dds": rgba, "grey.dds": grey.astype(np.uint8)}

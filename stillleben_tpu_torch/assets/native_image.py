@@ -1,7 +1,8 @@
 """ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``),
 of its WebP decoder (``csrc/sl_webp.cpp``), of its WebP encoder
-(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``)
-and of its GIF encoder (``csrc/sl_gif_enc.cpp``).
+(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``),
+of its GIF encoder (``csrc/sl_gif_enc.cpp``) and of its core for the plain
+formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
@@ -9,7 +10,9 @@ the run-length decoders of BMP, TGA and TIFF (PackBits), and the whole of
 WebP's decode (VP8, VP8L, ALPH, the container and frame 0) and encode
 (libwebp's lossy encoder as Pillow's ``save`` drives it), and what
 Pillow's GIF ``save`` does below its Python layer (the median-cut and
-fast-octree quantisers and GIF's LZW). Each source is
+fast-octree quantisers and GIF's LZW), and the loops of the plain formats
+(QOI's encoder and decoder, PCX's run-length coding both ways, SGI's
+run-length rows, the BC1-BC7 blocks of DDS). Each source is
 built at first use by ``native_build.build_library`` (``g++ -O3 -shared
 -fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
 source and its headers); a compile or load that fails raises with the
@@ -41,6 +44,8 @@ WEBP_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp_enc.cpp")
 WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"), WEBP_TABLES)
 GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
 GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
+PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
+PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
 
 _OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED = 0, 1, 2, 3, 4
 _ERRLEN = 512
@@ -50,6 +55,7 @@ _lib: ctypes.CDLL | None = None
 _webp_lib: ctypes.CDLL | None = None
 _webp_enc_lib: ctypes.CDLL | None = None
 _gif_enc_lib: ctypes.CDLL | None = None
+_plain_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
@@ -73,6 +79,43 @@ def build_gif_enc() -> str:
     """``build`` of the GIF encoder."""
     return build_library("sl_gif_enc", GIF_ENC_SOURCE, GIF_ENC_HEADER, BUILD_DIR,
                          "the native GIF encoder")
+
+
+def build_plain() -> str:
+    """``build`` of the plain formats' core."""
+    return build_library("sl_plain", PLAIN_SOURCE, PLAIN_HEADER, BUILD_DIR,
+                         "the native QOI/PCX/SGI/DDS core")
+
+
+def load_plain_library() -> ctypes.CDLL:
+    """Build (if needed) and load the plain formats' core, once per process."""
+    global _plain_lib
+    with _lock:
+        if _plain_lib is None:
+            lib = ctypes.CDLL(build_plain())
+            out = (ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                   ctypes.c_char_p, ctypes.c_int)
+            lib.sl_qoi_encode.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int) + out
+            lib.sl_pcx_encode.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int) + out
+            lib.sl_qoi_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_char_p, ctypes.c_int)
+            lib.sl_pcx_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+                                          ctypes.c_int)
+            lib.sl_sgi_rle_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t) + (ctypes.c_int,) * 4 + (
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int)
+            lib.sl_bcn_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t) + (ctypes.c_int,) * 4 + (
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int)
+            for fn in ("sl_qoi_encode", "sl_pcx_encode", "sl_qoi_decode", "sl_pcx_decode",
+                       "sl_sgi_rle_decode", "sl_bcn_decode"):
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.sl_plain_free.restype = None
+            lib.sl_plain_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            _plain_lib = lib
+        return _plain_lib
 
 
 def load_gif_enc_library() -> ctypes.CDLL:
@@ -385,3 +428,78 @@ def gif_lzw_encode(index: np.ndarray, interlace: bool) -> bytes:
         return ctypes.string_at(out, n.value)
     finally:
         lib.sl_gif_enc_free(out)
+
+
+def _plain_out(fn: str, what: str, *args) -> bytes:
+    """Call an encoder of the plain formats' core that hands back a buffer."""
+    lib = load_plain_library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(getattr(lib, fn)(*args, ctypes.byref(out), ctypes.byref(n), err, _ERRLEN), err, what)
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_plain_free(out)
+
+
+def qoi_encode(pixels: np.ndarray) -> bytes:
+    """QOI's chunks and end marker of (H, W, 3) RGB or (H, W, 4) RGBA uint8
+    as Pillow's encoder writes them (the file without its 14-byte header)."""
+    pix = _rgb_or_rgba(pixels)
+    h, w, c = pix.shape
+    return _plain_out("sl_qoi_encode", "QOI encode", pix.ctypes.data, w, h, c)
+
+
+def qoi_decode(data: bytes, width: int, height: int, channels: int,
+               name: str = "<bytes>") -> np.ndarray:
+    """(height, width, channels) uint8 from QOI chunks, as Pillow reads them."""
+    out = np.empty((height, width, channels), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_plain_library().sl_qoi_decode(data, ctypes.c_size_t(len(data)), width, height,
+                                              channels, _ptr(out), err, _ERRLEN), err, name)
+    return out
+
+
+def pcx_encode(rows: np.ndarray, planes: int) -> bytes:
+    """PCX's run-length data of (H, planes x bytes_per_line) uint8 rows,
+    each plane's line padded to an even stride, as Pillow writes it."""
+    r = np.ascontiguousarray(rows, np.uint8)
+    h, line = r.shape
+    return _plain_out("sl_pcx_encode", "PCX encode", r.ctypes.data, line // planes, planes, h)
+
+
+def pcx_decode(data: bytes, row_bytes: int, height: int, name: str = "<bytes>") -> np.ndarray:
+    """(height, row_bytes) uint8: PCX's run-length rows before unpacking."""
+    out = np.empty((height, row_bytes), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_plain_library().sl_pcx_decode(data, ctypes.c_size_t(len(data)), row_bytes,
+                                              height, _ptr(out), err, _ERRLEN), err, name)
+    return out
+
+
+def sgi_rle_decode(data: bytes, xsize: int, ysize: int, zsize: int, bpc: int,
+                   name: str = "<bytes>") -> np.ndarray:
+    """(ysize, xsize, zsize x bpc) uint8, rows in file order (bottom first),
+    of a run-length SGI file (``data`` is the whole file); rows after the
+    point where Pillow's decoder stops are zero."""
+    out = np.zeros((ysize, xsize, zsize * bpc), np.uint8)
+    rows = ctypes.c_int(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_plain_library().sl_sgi_rle_decode(data, ctypes.c_size_t(len(data)), xsize, ysize,
+                                                  zsize, bpc, _ptr(out), ctypes.byref(rows), err,
+                                                  _ERRLEN), err, name)
+    out[rows.value:] = 0
+    return out
+
+
+def bcn_decode(data: bytes, n: int, sign: bool, width: int, height: int,
+               name: str = "<bytes>") -> np.ndarray:
+    """(height, width, 4) uint8 (BC4: (height, width)) of BCn blocks, cropped
+    from the whole blocks as Pillow's decoder writes them."""
+    bw, bh = (width + 3) // 4, (height + 3) // 4
+    out = np.empty((4 * bh, 4 * bw) if n == 4 else (4 * bh, 4 * bw, 4), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_plain_library().sl_bcn_decode(data, ctypes.c_size_t(len(data)), n, int(sign),
+                                              width, height, _ptr(out), err, _ERRLEN), err, name)
+    return out[:height, :width]

@@ -68,6 +68,9 @@ class Range3D:
             return Range3D()
         return Range3D(points.min(axis=0), points.max(axis=0))
 
+    def union(self, other: "Range3D") -> "Range3D":
+        return Range3D(np.minimum(self._min, other._min), np.maximum(self._max, other._max))
+
     def __repr__(self):
         return f"Range3D(min={self._min.tolist()}, max={self._max.tolist()})"
 

@@ -29,6 +29,10 @@ class HullAtlas(NamedTuple):
     center: torch.Tensor  # (NH, 3) hull centroid
     radius: torch.Tensor  # (NH,) bounding radius about the centroid
 
+    @property
+    def num_hulls(self) -> int:
+        return self.verts.shape[0]
+
 
 class BodyParams(NamedTuple):
     inv_mass: torch.Tensor  # (NB,) 0 = static/kinematic

@@ -295,3 +295,25 @@ def shadow_factor_planar(
             ui = torch.clamp((u + dx).to(torch.int64), 0, S - 1)
             acc = acc + (zb <= flat[vi * S + ui]).to(torch.float32)
     return acc / 16.0
+
+
+def shadow_factor(
+    shadow_maps: torch.Tensor,  # (L, S, S) raw depth
+    shadow_matrices: torch.Tensor,  # (L, 4, 4)
+    light: int,
+    world: torch.Tensor,  # (H, W, 3)
+) -> torch.Tensor:
+    """The 4x4 PCF of ``shadow_factor_planar`` on (H, W, 3) world positions
+    (JAX shadow.py:407-428, the projection as one product). (H, W) in
+    [0, 1], 1 = fully lit."""
+    S = shadow_maps.shape[1]
+    A = shadow_matrices[light]
+    p = torch.einsum("ij,hwj->hwi", A[:3, :3], world) + A[:3, 3]
+    u, v, zb = p[..., 0], p[..., 1], p[..., 2] - SHADOW_BIAS
+    acc = torch.zeros_like(zb)
+    for dy in (-1.5, -0.5, 0.5, 1.5):
+        vi = torch.clamp((v + dy).to(torch.int64), 0, S - 1)
+        for dx in (-1.5, -0.5, 0.5, 1.5):
+            ui = torch.clamp((u + dx).to(torch.int64), 0, S - 1)
+            acc = acc + (zb <= shadow_maps[light, vi, ui]).to(torch.float32)
+    return acc / 16.0

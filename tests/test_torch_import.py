@@ -49,7 +49,8 @@ SCRIPT = textwrap.dedent(
            "assets.tiff", "assets.native_image", "assets.native_build", "assets.image_fixtures",
            "assets.image_limits",
            "assets.image_fixtures.digests", "examples.pbr", "examples.viewer", "examples.ycb",
-           "assets.webp", "assets.netpbm", "tools", "tools.templates", "tools.settle_fidelity",
+           "assets.webp", "assets.netpbm", "assets.qoi", "assets.sgi", "assets.pcx", "assets.im",
+           "assets.dds", "tools", "tools.templates", "tools.settle_fidelity",
            "tools.display_mesh", "tools.viewer_demo", "tools.align_mesh"}
     assert new <= names, new - names
 
@@ -88,6 +89,17 @@ SCRIPT = textwrap.dedent(
     for name in image_fixtures.WEBP_FILES:
         assert image.read_image(image_fixtures.path(name)).dtype == np.uint8, name
         assert image.read_image_cv2(image_fixtures.path(name)).shape[2] == 3, name
+    import os
+    plain = sys.argv[1] + "/plain"
+    os.makedirs(plain)
+    with sl.ImageSaver(num_threads=1) as saver:
+        for ext in (".qoi", ".sgi", ".pcx", ".im", ".dds"):
+            saver.save(np.full((4, 4, 3), 9, np.uint8), plain + "/saved" + ext)
+    for ext in (".qoi", ".sgi", ".pcx", ".im", ".dds"):
+        assert (image.read_image(plain + "/saved" + ext)[..., :3] == 9).all(), ext
+    for name in image_fixtures.PLAIN_ENCODE_FILES + image_fixtures.PLAIN_READ_FILES:
+        assert image.read_image(image_fixtures.path(name)).dtype == np.uint8, name
+        assert image.read_image_cv2(image_fixtures.path(name)) is None, name
     loader = sl.ImageLoader(sys.argv[1] + "/fixtures", seed=0, num_threads=1)
     assert loader.next_texture().pixels.dtype == np.uint8
     loader.close()

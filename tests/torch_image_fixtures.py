@@ -24,6 +24,15 @@ OpenCV's readings of them. Regenerate with
 SHA-256; ``gif_divergence`` names the first stage (header, palette,
 transparency, index image, LZW stream) at which two GIF files part.
 
+The plain formats (QOI, SGI, PCX, DCX, IM, DDS): ``sgi_file`` (planar or
+run-length at 1 or 2 bytes a sample), ``pcx_file`` (any bits and planes,
+every byte as a run of one), ``dcx`` (a table of PCX frames), ``dds_file``
+(any pixel format, FourCC or DX10 header) with ``dds_masked`` (pixels
+packed by masks) and ``bcn_blocks`` (seeded random blocks);
+``make_plain_fixtures()`` writes the committed plain files (Pillow's
+``save`` where Pillow writes the variant) and ``plain_digests()`` their
+SHA-256 and Pillow's readings.
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder); ``--alph`` prints the
 port's ALPH chunks against libwebp's (ROADMAP C-19).
@@ -903,6 +912,193 @@ def webp_digests(files: dict[str, bytes]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# QOI, SGI, PCX, DCX, IM, DDS
+# ---------------------------------------------------------------------------
+
+
+def _sgi_rle_row(vals: np.ndarray, bpc: int) -> bytes:
+    """One channel's row as SGI runs: repeats of 3 or more as runs, the rest
+    as copies, at most 127 samples an opcode, then the terminator."""
+    out, n, x = bytearray(), len(vals), 0
+    op = (lambda c: bytes([0, c])) if bpc == 2 else (lambda c: bytes([c]))
+    sample = (lambda v: int(v).to_bytes(2, "big")) if bpc == 2 else (lambda v: bytes([int(v)]))
+    while x < n:
+        run = 1
+        while x + run < n and run < 127 and vals[x + run] == vals[x]:
+            run += 1
+        if run >= 3:
+            out += op(run) + sample(vals[x])
+            x += run
+            continue
+        start = x
+        while x < n and x - start < 127 and not (x + 2 < n and vals[x] == vals[x + 1] == vals[x + 2]):
+            x += 1
+        out += op(0x80 | (x - start)) + b"".join(sample(v) for v in vals[start:x])
+    return bytes(out + op(0))
+
+
+def sgi_file(planes: np.ndarray, bpc: int = 1, rle: bool = False, dimension: int = 0,
+             name: bytes = b"") -> bytes:
+    """An SGI file of (z, h, w) samples (uint8 at ``bpc`` 1, uint16 at 2),
+    rows given top-down and stored bottom-up, planar or run-length (the
+    offset and length tables, then the rows channel by channel)."""
+    z, h, w = planes.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = (struct.pack(">hBBHHHHll", 474, int(rle), bpc, dimension, w, h, z, 0,
+                        255 if bpc == 1 else 65535) + bytes(4) + struct.pack("79s", name)
+            + bytes(1) + struct.pack(">l", 0) + bytes(404))
+    flipped = planes[:, ::-1]
+    if not rle:
+        return head + flipped.astype(">u2" if bpc == 2 else np.uint8).tobytes()
+    rows = [_sgi_rle_row(flipped[c, y], bpc) for c in range(z) for y in range(h)]
+    starts, pos = [], 512 + 8 * z * h
+    for r in rows:
+        starts.append(pos)
+        pos += len(r)
+    return (head + struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *map(len, rows))
+            + b"".join(rows))
+
+
+def pcx_file(rows: np.ndarray, width: int, bits: int, planes: int, *, version: int = 5,
+             palette16: bytes = bytes(48), trailer: bytes = b"") -> bytes:
+    """A PCX file of (h, planes x stride) bytes per row, each byte written as
+    a run of one (0xC1, byte), and ``trailer`` after the data."""
+    h, line = rows.shape
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, width - 1, h - 1, 72, 72)
+            + palette16.ljust(48, b"\0")[:48] + bytes(1)
+            + struct.pack("<BHHHH", planes, line // planes, 1, width, h) + bytes(54))
+    body = bytes(np.stack([np.full(rows.shape, 0xC1, np.uint8), rows], -1).reshape(-1))
+    return head + body + trailer
+
+
+def pcx_bitplanes(index: np.ndarray, planes: int, palette16: bytes) -> bytes:
+    """A PCX of 1 bit in ``planes`` planes (index bit p in plane p), each
+    plane's line padded to an even number of bytes."""
+    h, w = index.shape
+    stride = (w + 7) // 8
+    stride += stride % 2
+    line = np.zeros((h, planes, stride), np.uint8)
+    for p in range(planes):
+        packed = np.packbits((index >> p) & 1, axis=1)
+        line[:, p, : packed.shape[1]] = packed
+    return pcx_file(line.reshape(h, -1), w, 1, planes, palette16=palette16)
+
+
+def dcx(frames: list[bytes]) -> bytes:
+    """A DCX file: the magic, the frames' offsets, a zero, the frames."""
+    pos, offsets = 4 + 4 * (len(frames) + 1), []
+    for f in frames:
+        offsets.append(pos)
+        pos += len(f)
+    return struct.pack(f"<I{len(frames) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(frames)
+
+
+def dds_file(width: int, height: int, pfflags: int, body: bytes, *, fourcc: bytes = bytes(4),
+             bitcount: int = 0, masks=(0, 0, 0, 0), dxgi: int | None = None) -> bytes:
+    """A DDS file: the 128-byte header (with a DX10 header when ``dxgi`` is
+    given), then ``body``."""
+    head = (b"DDS " + struct.pack("<7I", 124, 0x1007, height, width, 0, 0, 0) + bytes(44)
+            + struct.pack("<I", 32) + struct.pack("<I", pfflags)
+            + (b"DX10" if dxgi is not None else fourcc) + struct.pack("<I", bitcount)
+            + struct.pack("<4I", *masks) + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + body
+
+
+def dds_masked(pix: np.ndarray, masks, bitcount: int) -> bytes:
+    """(h, w, c) uint8 packed little-endian by ``masks``: each channel's top
+    bits in its mask's field."""
+    value = np.zeros(pix.shape[:2], np.uint64)
+    for c, m in enumerate(masks):
+        if not m:
+            continue
+        shift = (m & -m).bit_length() - 1
+        width = (m >> shift).bit_length()
+        field = pix[..., c].astype(np.uint64)
+        field = field >> np.uint64(8 - width) if width <= 8 else field << np.uint64(width - 8)
+        value |= field << np.uint64(shift)
+    return value.astype("<u8").view(np.uint8).reshape(pix.shape[:2] + (8,))[..., : bitcount // 8].tobytes()
+
+
+def bcn_blocks(width: int, height: int, block_bytes: int, seed: int) -> bytes:
+    """Seeded random BCn blocks for a ``width`` x ``height`` image."""
+    n = ((width + 3) // 4) * ((height + 3) // 4)
+    return np.random.default_rng(seed).integers(0, 256, n * block_bytes).astype(np.uint8).tobytes()
+
+
+def make_plain_fixtures() -> dict[str, bytes]:
+    """The plain formats' fixtures: Pillow's ``save`` of
+    ``plain_sources()`` (``PLAIN_ENCODE_FILES``) and the read fixtures
+    (``PLAIN_READ_FILES``)."""
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import plain_sources
+
+    def save(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    files = {}
+    for n, a in plain_sources().items():  # SGI and IM write the base name: save by name
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            Image.fromarray(a).save(os.path.join(d, n))
+            with open(os.path.join(d, n), "rb") as f:
+                files[n] = f.read()
+    rng = np.random.default_rng(17)
+    rgb = smooth(37, 45, 3, 6)
+    rgba = np.concatenate([rgb, smooth(37, 45, 1, 7)], -1)
+    deep = (rgb.astype(np.uint16) * 257 + rng.integers(0, 256, rgb.shape)).astype(np.uint16)
+    pal = Image.fromarray(rgb).quantize(64, method=Image.Quantize.MEDIANCUT)
+    index16 = rng.integers(0, 16, (21, 45))
+    palette16 = rng.integers(0, 256, 48).astype(np.uint8).tobytes()
+    grey_pcx = save(Image.fromarray(rgb[..., 1]), "PCX")
+    y, x = np.mgrid[0:24, 0:32]
+    ramp = np.stack([x * 8, y * 10, (x + y) * 4, 255 - x * 8], -1).astype(np.uint8)
+    floats = (rgb[..., 0].astype(np.float32) * 1.3 - 40.25).astype(np.float32)
+    dx10 = {"bc4.dds": (80, 8, 32, 24), "bc5s.dds": (84, 16, 32, 24), "bc6h.dds": (95, 16, 32, 24),
+            "bc6hs.dds": (96, 16, 32, 24), "bc7.dds": (98, 16, 32, 24), "bc7_odd.dds": (99, 16, 7, 5)}
+    files.update({
+        "rle8.sgi": sgi_file(rgba.transpose(2, 0, 1), 1, rle=True, name=b"rle8"),
+        "rle16.sgi": sgi_file(deep.transpose(2, 0, 1), 2, rle=True),
+        "raw16.sgi": sgi_file(deep[None, ..., 0], 2),
+        "bits1.pcx": save(Image.fromarray(rgb[..., 0]).convert("1"), "PCX"),
+        "planes4.pcx": pcx_bitplanes(index16, 4, palette16),
+        "palette.pcx": save(pal, "PCX"),
+        "frames.dcx": dcx([grey_pcx, save(pal, "PCX")]),
+        "palette.im": save(pal, "IM"),
+        "float.im": save(Image.fromarray(floats, "F"), "IM"),
+        "dxt1.dds": save(Image.fromarray(rgba), "DDS", pixel_format="DXT1"),
+        "dxt3.dds": save(Image.fromarray(rgba), "DDS", pixel_format="DXT3"),
+        "dxt5.dds": save(Image.fromarray(rgba), "DDS", pixel_format="DXT5"),
+        "bc5.dds": save(Image.fromarray(rgb), "DDS", pixel_format="BC5"),
+        "la.dds": save(Image.fromarray(rgba[..., 2:]).convert("LA"), "DDS"),
+        "rgb565.dds": dds_file(32, 24, 0x40, dds_masked(ramp, (0xF800, 0x7E0, 0x1F), 16),
+                               bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0)),
+        "argb4444.dds": dds_file(32, 24, 0x41, dds_masked(ramp, (0xF00, 0xF0, 0xF, 0xF000), 16),
+                                 bitcount=16, masks=(0xF00, 0xF0, 0xF, 0xF000)),
+        "p8.dds": dds_file(32, 24, 0x20, rng.integers(0, 256, 1024).astype(np.uint8).tobytes()
+                           + rng.integers(0, 256, 32 * 24).astype(np.uint8).tobytes(),
+                           bitcount=8),
+        "rgba8.dds": dds_file(32, 24, 0x4, ramp.tobytes(), dxgi=28),
+    })
+    for i, (n, (dxgi, block, w, h)) in enumerate(dx10.items()):
+        files[n] = dds_file(w, h, 0x4, bcn_blocks(w, h, block, 40 + i), dxgi=dxgi)
+    return files
+
+
+def plain_digests(files: dict[str, bytes]) -> dict:
+    """``PLAIN_FILE``: each plain fixture's SHA-256; ``PLAIN_DECODE``: that of
+    Pillow's ``convert("RGBA")`` of it."""
+    return {"PLAIN_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "PLAIN_DECODE": {n: pillow_rgba_sha(d) for n, d in sorted(files.items())}}
+
+
+# ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -959,7 +1155,9 @@ def digest_module(d: dict) -> str:
              "``seeded_images()``; each decode is ``convert(\"RGBA\")``'s bytes. The WebP",
              "files' also as OpenCV 5.0.0 reads them (``WEBP_DECODE_CV2``: the bytes of",
              "``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). ``ENCODE``: the SHA-256",
-             "of each encode fixture's bytes (Pillow's ``save`` of its source). Written by",
+             "of each encode fixture's bytes (Pillow's ``save`` of its source);",
+             "``PLAIN_FILE`` / ``PLAIN_DECODE``: the plain formats' fixtures (QOI, SGI,",
+             "PCX, DCX, IM, DDS) and Pillow's ``convert(\"RGBA\")`` of each. Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -975,12 +1173,14 @@ if __name__ == "__main__":
     files = make_fixtures()
     webp_files = make_webp_fixtures()
     encode_files = make_encode_fixtures()
+    plain_files = make_plain_fixtures()
     if "--write" in sys.argv:
-        for name, data in {**files, **webp_files, **encode_files}.items():
+        for name, data in {**files, **webp_files, **encode_files, **plain_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
             f.write(digest_module({**digests(files), **webp_digests(webp_files),
-                                   **encode_digests(encode_files)}))
-    for group in (files, webp_files, encode_files):
+                                   **encode_digests(encode_files),
+                                   **plain_digests(plain_files)}))
+    for group in (files, webp_files, encode_files, plain_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
