@@ -255,13 +255,16 @@ Phases (one line each or more; any failure exits non-zero):
     committed q80 fixtures re-encoded from their sources (the numpy calls of
     ``tests/torch_image_fixtures.py::make_webp_fixtures``): q80, frame,
     blob_basecolor and sky byte-equal to the files Pillow 12.1.0 wrote, and
-    anim around the port's two frames; alpha.webp's VP8X and VP8 chunks
-    equal, its alpha exact, its ALPH size against libwebp's (ratio) and its
-    header byte; phase 19's render written by ``sl.ImageSaver`` as RGB and
+    anim around the port's two frames; the RGBA ones (alpha.webp and
+    ``image_fixtures.ALPHA_WEBP_FILES``: a palette of 2 colours, 12 levels,
+    a raw plane, the horizontal filter) byte-equal to Pillow's files and to
+    their SHA-256 (``digests.ALPHA_WEBP_FILE``), their alpha exact; phase
+    19's render written by ``sl.ImageSaver`` as RGB and
     as RGBA (alpha 255 on the objects, 0 elsewhere), read back by the
     port's decoder (alpha exact, RGB PSNR against the render, bytes); the
     median ms of 9 encodes of 640x480 (the frame and the render, RGB and
-    RGBA); ``ImageSaver(num_threads=4)``'s images/s over 16 frames, each
+    RGBA, and the frame with a smooth alpha: libwebp's VP8L predictor
+    path); ``ImageSaver(num_threads=4)``'s images/s over 16 frames, each
     file equal to the serial encode. No kernel: K1's entries of phase 19
     cover the render.
 21. GIF and Netpbm encoding (``assets/gif.py::encode_gif`` over the
@@ -2912,6 +2915,7 @@ def run_webp_encode(card, rendered) -> dict:
     """Phase 20: WebP encoding (see the module docstring). ``rendered`` is
     phase 19's render of its WebP scene. Returns the phase's seconds and
     milliseconds."""
+    import hashlib
     import shutil
 
     import numpy as np
@@ -2950,22 +2954,36 @@ def run_webp_encode(card, rendered) -> dict:
               webp.encode_webp(writers.smooth(40, 48, 3, 4))]
     if writers.webp_anim((48, 40), [(6, 8, frames[0]), (0, 0, frames[1])]) == committed("anim.webp"):
         equal.append("anim.webp (its two frames)")
-    rgba = np.concatenate([writers.smooth(67, 91, 3, 1), writers.smooth(67, 91, 1, 2)], -1)
-    ours, ref = webp.encode_webp(rgba), committed("alpha.webp")
-    co, cr_ = dict(writers.webp_chunks(ours)), dict(writers.webp_chunks(ref))
-    alpha_chunks = co[b"VP8X"] == cr_[b"VP8X"] and co[b"VP8 "] == cr_[b"VP8 "]
-    alpha_exact = bool(np.array_equal(webp.decode_webp(ours)[..., 3], rgba[..., 3]))
-    ms["alpha.webp ALPH ratio"] = len(co[b"ALPH"]) / len(cr_[b"ALPH"])
     phase("webp-enc", f"the committed q80 fixtures re-encoded on this host, byte-equal to the "
                       f"files Pillow 12.1.0 wrote: {len(equal)} of {len(sources) + 1} "
-                      f"({', '.join(equal)}); alpha.webp: VP8X and VP8 chunks equal {alpha_chunks}, "
-                      f"ALPH header byte {co[b'ALPH'][0]} (libwebp's {cr_[b'ALPH'][0]}), alpha "
-                      f"exact {alpha_exact}, ALPH {len(co[b'ALPH'])} bytes against libwebp's "
-                      f"{len(cr_[b'ALPH'])} (ratio {ms['alpha.webp ALPH ratio']:.4f}), bitwise "
-                      f"{co[b'ALPH'] == cr_[b'ALPH']}")
-    if len(equal) != len(sources) + 1 or not alpha_chunks or not alpha_exact:
-        fail(f"webp-enc: fixtures not re-encoded to Pillow's bytes: {sorted(set(sources) - set(equal))}, "
-             f"alpha.webp chunks {alpha_chunks}, alpha exact {alpha_exact}")
+                      f"({', '.join(equal)})")
+    if len(equal) != len(sources) + 1:
+        fail(f"webp-enc: fixtures not re-encoded to Pillow's bytes: {sorted(set(sources) - set(equal))}")
+
+    # the RGBA fixtures: each file (its ALPH chunk libwebp's filter trial and
+    # VP8L stream or raw plane) byte-equal to Pillow's and to its SHA-256
+    from stillleben_tpu_torch.assets.image_fixtures import digests
+
+    rgba_sources = {"alpha.webp": np.concatenate([writers.smooth(67, 91, 3, 1),
+                                                  writers.smooth(67, 91, 1, 2)], -1),
+                    **writers.alpha_webp_sources()}
+    lines, unequal = [], []
+    for name, a in rgba_sources.items():
+        ours = webp.encode_webp(a)
+        alph = dict(writers.webp_chunks(ours))[b"ALPH"]
+        same = (ours == committed(name)
+                and hashlib.sha256(ours).hexdigest() == digests.ALPHA_WEBP_FILE[name])
+        exact = bool(np.array_equal(webp.decode_webp(ours)[..., 3], a[..., 3]))
+        lines.append(f"{name} (ALPH header {alph[0]:#04x}, {len(alph)} bytes): equal {same}, "
+                     f"alpha exact {exact}")
+        if not (same and exact):
+            where = (writers.alph_divergence(ours, committed(name))
+                     or writers.vp8_divergence(ours, committed(name)))
+            unequal.append(f"{name}: {where}")
+    phase("webp-enc", "the RGBA fixtures re-encoded on this host against Pillow 12.1.0's files: "
+                      + "; ".join(lines))
+    if unequal:
+        fail(f"webp-enc: RGBA fixtures not re-encoded to Pillow's bytes: {unequal}")
 
     # phase 19's render through ImageSaver: RGB, and RGBA with the objects opaque
     rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
@@ -3000,6 +3018,8 @@ def run_webp_encode(card, rendered) -> dict:
     frame = writers.webp_frame()
     timed = {"frame RGB": frame, "frame RGBA (the render's mask)":
              np.ascontiguousarray(np.concatenate([frame, mask[..., None]], -1)),
+             "frame RGBA (a smooth alpha)":
+             np.ascontiguousarray(np.concatenate([frame, writers.smooth(480, 640, 1, 1125)], -1)),
              "render RGB": rgb, "render RGBA": rgba}
     for name, a in timed.items():
         ms[f"{name} encode"] = _median_ms(lambda: webp.encode_webp(a), 9)

@@ -8,9 +8,11 @@ and WebP (``WEBP_FILES``): lossy RGB at quality 80, lossy RGBA (ALPH
 compressed and filtered), lossless RGBA, lossless with 16 colours (pixel
 bundling), an odd-sized lossy image, a two-frame animation whose frame 0
 is smaller than its canvas (the container by the tests' ``webp_anim``),
-the 640x480 frame the decode is timed on (lossy and lossless), and the
+the 640x480 frame the decode is timed on (lossy and lossless), the
 textured scene's images (the blob's base colour, the checker plane, the
-8-bit sky); and the encode fixtures (``ENCODE_FILES``): Pillow's ``save``
+8-bit sky), and lossy RGBA whose ALPH chunks take libwebp's other paths
+(``ALPHA_WEBP_FILES``: a palette of 2 colours, 12 levels, a raw plane, the
+horizontal filter); and the encode fixtures (``ENCODE_FILES``): Pillow's ``save``
 of ``encode_sources()`` in the modes the JAX ``ImageSaver`` hands Pillow
 (GIF of an RGB ramp, of RGB noise with more colours than Pillow's
 median-cut hash holds, of RGBA with a binary mask and of 16-bit depth; a
@@ -25,7 +27,7 @@ Pillow's DXT1/DXT3/DXT5/BC5 and LA writes, and of random BC4, BC5S, BC6H,
 BC6HS and BC7 blocks (a 7x5 BC7 among them), with 565 and 4444 masks,
 with a palette, and DX10 R8G8B8A8 (the files Pillow does not write are
 ``tests/torch_image_fixtures.py``'s). ``digests.py`` holds the SHA-256 of each encode
-fixture's bytes and of Pillow's
+fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``) and of Pillow's
 ``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP, and of
 Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a host
 that decodes and encodes these to the same digests computes what Pillow
@@ -40,9 +42,11 @@ import numpy as np
 
 DIR = os.path.dirname(os.path.abspath(__file__))
 FILES = ("progressive.jpg", "interlaced.gif", "lzw.tif", "deflate.tif", "rle8.bmp", "rle.tga")
+ALPHA_WEBP_FILES = ("alpha_mask.webp", "alpha_levels.webp", "alpha_noise.webp",
+                    "alpha_hfilter.webp")
 WEBP_FILES = ("q80.webp", "alpha.webp", "lossless.webp", "palette16.webp", "odd.webp",
               "anim.webp", "frame.webp", "frame_lossless.webp", "blob_basecolor.webp",
-              "checker.webp", "sky.webp")
+              "checker.webp", "sky.webp") + ALPHA_WEBP_FILES
 ENCODE_FILES = ("ramp.gif", "noise.gif", "rgba.gif", "depth16.gif", "depth16.pgm", "frame.ppm")
 PLAIN_ENCODE_FILES = ("frame.qoi", "frame_rgba.qoi", "frame.sgi", "frame_rgba.rgba", "grey.bw",
                       "frame.pcx", "grey.pcx", "frame.im", "frame_rgba.im", "grey.im",

@@ -22,13 +22,15 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
-def build_library(stem: str, source: str, headers: str | tuple[str, ...], build_dir: str,
-                  what: str) -> str:
-    """Compile ``source`` into ``build_dir/lib<stem>_<hash>.so`` unless that
-    version is built already; returns the library's path. ``headers``: the
-    header, or every header, the source includes from the package."""
+def build_library(stem: str, source: str | tuple[str, ...], headers: str | tuple[str, ...],
+                  build_dir: str, what: str) -> str:
+    """Compile ``source`` (one file, or every file linked into the library)
+    into ``build_dir/lib<stem>_<hash>.so`` unless that version is built
+    already; returns the library's path. ``headers``: the header, or every
+    header, the sources include from the package."""
+    sources = (source,) if isinstance(source, str) else tuple(source)
     h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    for path in (source, *((headers,) if isinstance(headers, str) else headers)):
+    for path in (*sources, *((headers,) if isinstance(headers, str) else headers)):
         with open(path, "rb") as f:
             h.update(f.read())
     lib_path = os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:16]}.so")
@@ -37,7 +39,7 @@ def build_library(stem: str, source: str, headers: str | tuple[str, ...], build_
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so")
     os.close(fd)
-    cmd = [CXX, *CXX_FLAGS, source, "-o", tmp]
+    cmd = [CXX, *CXX_FLAGS, *sources, "-o", tmp]
     try:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -1,6 +1,8 @@
 """ctypes binding of the port's native image codec core (``csrc/sl_image.cpp``),
 of its WebP decoder (``csrc/sl_webp.cpp``), of its WebP encoder
-(``csrc/sl_webp_enc.cpp``; the two WebP sources share ``sl_vp8_tables.h``),
+(``csrc/sl_webp_enc.cpp`` with libwebp's lossless encoder for the alpha
+plane, ``csrc/sl_vp8l_enc.cpp``; the decoder and the encoder share
+``sl_vp8_tables.h``),
 of its GIF encoder (``csrc/sl_gif_enc.cpp``) and of its core for the plain
 formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS).
 
@@ -40,8 +42,10 @@ HEADER = os.path.join(PKG_DIR, "csrc", "sl_image.h")
 WEBP_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp.cpp")
 WEBP_TABLES = os.path.join(PKG_DIR, "csrc", "sl_vp8_tables.h")
 WEBP_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp.h"), WEBP_TABLES)
-WEBP_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_webp_enc.cpp")
-WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"), WEBP_TABLES)
+WEBP_ENC_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.cpp"),
+                   os.path.join(PKG_DIR, "csrc", "sl_vp8l_enc.cpp"))
+WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"),
+                   os.path.join(PKG_DIR, "csrc", "sl_vp8l_enc.h"), WEBP_TABLES)
 GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
 GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
 PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
@@ -153,6 +157,11 @@ def load_webp_enc_library() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_int)
             lib.sl_webp_enc_free.restype = None
             lib.sl_webp_enc_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            lib.sl_vp8l_encode_plane.restype = ctypes.c_int
+            lib.sl_vp8l_encode_plane.argtypes = (
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.c_char_p, ctypes.c_int)
             lib.sl_webp_enc_planes.restype = ctypes.c_int
             lib.sl_webp_enc_planes.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 5
@@ -358,6 +367,29 @@ def webp_encode(pixels: np.ndarray) -> bytes:
     lib = load_webp_enc_library()
     rc = lib.sl_webp_encode(pix.ctypes.data, w, h, c, ctypes.byref(out), ctypes.byref(n), err,
                             _ERRLEN)
+    if rc != _OK:
+        raise ValueError(err.value.decode("utf-8", "replace"))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_webp_enc_free(out)
+
+
+def vp8l_encode_plane(plane: np.ndarray) -> bytes:
+    """The VP8L stream libwebp's alpha encoder writes for an (H, W) uint8
+    plane (the ALPH chunk's payload after its header byte, before any
+    fallback to the raw plane): the plane in the green byte of ARGB pixels,
+    method 4, quality 32, exact, no header."""
+    p = np.ascontiguousarray(plane, np.uint8)
+    if p.ndim != 2 or 0 in p.shape:
+        raise ValueError(f"expected an (H, W) plane, not {p.shape}")
+    h, w = p.shape
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    lib = load_webp_enc_library()
+    rc = lib.sl_vp8l_encode_plane(p.ctypes.data, w, h, ctypes.byref(out), ctypes.byref(n), err,
+                                  _ERRLEN)
     if rc != _OK:
         raise ValueError(err.value.decode("utf-8", "replace"))
     try:

@@ -12,10 +12,9 @@
 // refresh); token_enc.c, tree_enc.c, syntax_enc.c and bit_writer_utils.c
 // (the bitstream and the container); dsp/enc.c (transforms, predictions,
 // distortions) in its C versions, which its SIMD versions equal.
-// The alpha plane's filter candidate is libwebp's estimate (alpha_enc.c,
-// utils/filters_utils.c); which of its two trials to keep is the port's
-// rule (EncodeAlpha), and the plane is a VP8L stream of the port's own
-// (see "VP8L" below).
+// The alpha plane follows alpha_enc.c and utils/filters_utils.c (the
+// filter estimate, the trials, the raw fallback); its VP8L stream is
+// libwebp's lossless encoder (sl_vp8l_enc.cpp).
 // Build: g++ -O3 -shared -fPIC -std=c++17 (no -ffast-math: the quantiser
 // search computes pow() in double, as libwebp does).
 
@@ -34,6 +33,7 @@
 #include <vector>
 
 #include "sl_vp8_tables.h"
+#include "sl_vp8l_enc.h"
 
 namespace {
 
@@ -2354,19 +2354,6 @@ std::vector<uint8_t> EncodeVP8(const Picture& pic) {
 // The alpha plane (alpha_enc.c, utils/filters_utils.c)
 // ===========================================================================
 
-const int CODE_LENGTH_CODES_ENC = 19;
-const uint8_t kCodeLengthOrder[CODE_LENGTH_CODES_ENC] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6,
-                                                         7, 8, 9, 10, 11, 12, 13, 14, 15};
-const uint8_t kCodeToPlaneEnc[120] = {
-    0x18, 0x07, 0x17, 0x19, 0x28, 0x06, 0x27, 0x29, 0x16, 0x1a, 0x26, 0x2a, 0x38, 0x05, 0x37,
-    0x39, 0x15, 0x1b, 0x36, 0x3a, 0x25, 0x2b, 0x48, 0x04, 0x47, 0x49, 0x14, 0x1c, 0x35, 0x3b,
-    0x46, 0x4a, 0x24, 0x2c, 0x58, 0x45, 0x4b, 0x34, 0x3c, 0x03, 0x57, 0x59, 0x13, 0x1d, 0x56,
-    0x5a, 0x23, 0x2d, 0x44, 0x4c, 0x55, 0x5b, 0x33, 0x3d, 0x68, 0x02, 0x67, 0x69, 0x12, 0x1e,
-    0x66, 0x6a, 0x22, 0x2e, 0x54, 0x5c, 0x43, 0x4d, 0x65, 0x6b, 0x32, 0x3e, 0x78, 0x01, 0x77,
-    0x79, 0x53, 0x5d, 0x11, 0x1f, 0x64, 0x6c, 0x42, 0x4e, 0x76, 0x7a, 0x21, 0x2f, 0x75, 0x7b,
-    0x31, 0x3f, 0x63, 0x6d, 0x52, 0x5e, 0x00, 0x74, 0x7c, 0x41, 0x4f, 0x10, 0x20, 0x62, 0x6e,
-    0x30, 0x73, 0x7d, 0x51, 0x5f, 0x40, 0x72, 0x7e, 0x61, 0x6f, 0x50, 0x71, 0x7f, 0x60, 0x70};
-
 enum { FILTER_NONE = 0, FILTER_HORIZONTAL, FILTER_VERTICAL, FILTER_GRADIENT, FILTER_LAST };
 
 inline int GradientPredictor(int a, int b, int c) {
@@ -2417,8 +2404,8 @@ int NumColors(const uint8_t* data, size_t n) {
   return colors;
 }
 
-// The filter libwebp's fast mode tries beside no filter (at effort 4 it
-// always tries no filter too).
+// The filter libwebp's fast mode tries beside no filter (GetFilterMap: at
+// effort 4 it always tries no filter too).
 int EstimateFilter(const uint8_t* alpha, int width, int height) {
   const int kMinColorsForFilterNone = 16;
   const int num_colors = NumColors(alpha, (size_t)width * height);
@@ -2444,685 +2431,42 @@ void ApplyFilter(const uint8_t* in, int width, int height, int filter, uint8_t* 
   }
 }
 
-// ---------------------------------------------------------------------------
-// VP8L: the alpha plane's own lossless stream (the port's design; libwebp
-// codes the same image format with its own search). The samples go in the
-// green channel (alpha 255, red and blue 0, each a one-symbol code). A
-// plane of at most 16 levels is a palette with 2, 4 or 8 indices bundled
-// in a pixel, as libwebp's always is; any other plane the smaller of the
-// samples as they are and one predictor for the whole plane. Each image is
-// coded with one group of prefix codes, no colour cache, and the least of
-// literals only, greedy copies and a least-cost parse.
-
-struct LBitWriter {
-  std::vector<uint8_t> buf;
-  uint64_t acc = 0;
-  int used = 0;
-  void Put(uint32_t v, int n) {
-    acc |= (uint64_t)v << used;
-    used += n;
-    while (used >= 8) {
-      buf.push_back((uint8_t)acc);
-      acc >>= 8;
-      used -= 8;
-    }
+// The ALPH payload (alpha_enc.c: GetFilterMap, ApplyFiltersAndEncode,
+// EncodeAlphaInternal): its header byte (compression, filter), then the
+// VP8L stream of the filtered plane (libwebp's own, sl_vp8l_enc.cpp), or the
+// plane itself where the stream is larger. At effort 4 libwebp tries no
+// filter and then, where the estimate is another, that filter, and keeps
+// the first of the smallest.
+std::vector<uint8_t> EncodeAlphaTrial(const uint8_t* alpha, int width, int height, int filter,
+                                      uint8_t* filtered) {
+  const size_t data_size = (size_t)width * height;
+  const uint8_t* src = alpha;
+  if (filter != FILTER_NONE) {
+    ApplyFilter(alpha, width, height, filter, filtered);
+    src = filtered;
   }
-  std::vector<uint8_t> Finish() {
-    std::vector<uint8_t> out = buf;
-    if (used > 0) out.push_back((uint8_t)acc);
-    return out;
+  std::vector<uint8_t> stream = SlVp8lEncodePlane(src, width, height);
+  int method = 1;
+  if (stream.size() > data_size) {  // larger than the plane: store it raw
+    method = 0;
+    stream.assign(src, src + data_size);
   }
-};
-
-// Code lengths of at most max_len bits for the counts (0 for unused symbols).
-std::vector<int> HuffmanLengths(const std::vector<uint32_t>& counts, int max_len) {
-  const int n = (int)counts.size();
-  std::vector<int> lengths(n, 0);
-  std::vector<int> used;
-  for (int i = 0; i < n; ++i)
-    if (counts[i]) used.push_back(i);
-  if (used.empty()) return lengths;
-  if (used.size() == 1) {
-    lengths[used[0]] = 1;
-    return lengths;
-  }
-  for (uint32_t floor_count = 1;; floor_count *= 2) {
-    // Huffman's tree over (count, node); leaves first, then internal nodes
-    struct Node {
-      uint64_t count;
-      int left, right;
-    };
-    std::vector<Node> nodes;
-    std::vector<std::pair<uint64_t, int>> heap;
-    for (int s : used) {
-      nodes.push_back({std::max<uint64_t>(counts[s], floor_count), -1, -1});
-      heap.push_back({nodes.back().count, (int)nodes.size() - 1});
-    }
-    auto cmp = [](const std::pair<uint64_t, int>& a, const std::pair<uint64_t, int>& b) {
-      return a.first != b.first ? a.first > b.first : a.second > b.second;
-    };
-    std::make_heap(heap.begin(), heap.end(), cmp);
-    while (heap.size() > 1) {
-      std::pop_heap(heap.begin(), heap.end(), cmp);
-      const auto a = heap.back();
-      heap.pop_back();
-      std::pop_heap(heap.begin(), heap.end(), cmp);
-      const auto b = heap.back();
-      heap.pop_back();
-      nodes.push_back({a.first + b.first, a.second, b.second});
-      heap.push_back({nodes.back().count, (int)nodes.size() - 1});
-      std::push_heap(heap.begin(), heap.end(), cmp);
-    }
-    std::vector<int> depth(nodes.size(), 0);
-    int max_depth = 0;
-    for (int i = (int)nodes.size() - 1; i >= 0; --i) {
-      if (nodes[i].left >= 0) {
-        depth[nodes[i].left] = depth[nodes[i].right] = depth[i] + 1;
-      } else {
-        max_depth = std::max(max_depth, depth[i]);
-      }
-    }
-    if (max_depth <= max_len) {
-      for (size_t k = 0; k < used.size(); ++k) lengths[used[k]] = depth[k];
-      return lengths;
-    }
-  }
-}
-
-// Canonical codes, bit-reversed for the LSB-first stream.
-std::vector<uint32_t> CanonicalCodes(const std::vector<int>& lengths) {
-  const int n = (int)lengths.size();
-  std::vector<uint32_t> codes(n, 0);
-  int bl_count[16] = {0};
-  for (int l : lengths) bl_count[l]++;
-  bl_count[0] = 0;
-  uint32_t next_code[16] = {0};
-  uint32_t code = 0;
-  for (int bits = 1; bits < 16; ++bits) {
-    code = (code + bl_count[bits - 1]) << 1;
-    next_code[bits] = code;
-  }
-  for (int i = 0; i < n; ++i) {
-    const int len = lengths[i];
-    if (len == 0) continue;
-    uint32_t c = next_code[len]++, r = 0;
-    for (int b = 0; b < len; ++b) r |= ((c >> b) & 1) << (len - 1 - b);
-    codes[i] = r;
-  }
-  return codes;
-}
-
-struct HuffmanCode {
-  std::vector<int> lengths;
-  std::vector<uint32_t> codes;
-  int single = -1;  // the one symbol of a code that reads no bits
-  void Put(LBitWriter& bw, int symbol) const {
-    if (single < 0) bw.Put(codes[symbol], lengths[symbol]);
-  }
-};
-
-// Writes a prefix code for the counts and returns it.
-HuffmanCode StoreHuffmanCode(LBitWriter& bw, const std::vector<uint32_t>& counts) {
-  HuffmanCode hc;
-  std::vector<int> used;
-  for (int i = 0; i < (int)counts.size(); ++i)
-    if (counts[i]) used.push_back(i);
-  if (used.size() <= 2 && (used.empty() || used.back() < 256)) {
-    // the simple code: one or two symbols under 256
-    const int s0 = used.empty() ? 0 : used[0];
-    bw.Put(1, 1);
-    bw.Put(used.size() == 2 ? 1 : 0, 1);
-    if (s0 <= 1) {
-      bw.Put(0, 1);
-      bw.Put(s0, 1);
-    } else {
-      bw.Put(1, 1);
-      bw.Put(s0, 8);
-    }
-    hc.lengths.assign(counts.size(), 0);
-    hc.codes.assign(counts.size(), 0);
-    if (used.size() == 2) {
-      bw.Put(used[1], 8);
-      hc.lengths[used[0]] = hc.lengths[used[1]] = 1;
-      hc.codes[used[1]] = 1;
-    } else {
-      hc.single = s0;
-    }
-    return hc;
-  }
-  hc.lengths = HuffmanLengths(counts, 15);
-  if (used.size() == 1) hc.single = used[0];
-  hc.codes = CanonicalCodes(hc.lengths);
-  // the code lengths, run-length coded: 16 repeats the last non-zero
-  // length 3..6 times, 17 writes 3..10 zeros, 18 writes 11..138 zeros
-  struct Token {
-    int code, extra, extra_bits;
-  };
-  std::vector<Token> tokens;
-  const int n = (int)hc.lengths.size();
-  int prev = 8;
-  for (int i = 0; i < n;) {
-    const int v = hc.lengths[i];
-    int run = 1;
-    while (i + run < n && hc.lengths[i + run] == v) ++run;
-    if (v == 0) {
-      int left = run;
-      while (left >= 11) {
-        const int r = std::min(left, 138);
-        tokens.push_back({18, r - 11, 7});
-        left -= r;
-      }
-      if (left >= 3) {
-        tokens.push_back({17, left - 3, 3});
-        left = 0;
-      }
-      while (left-- > 0) tokens.push_back({0, 0, 0});
-    } else {
-      int left = run;
-      if (v != prev) {
-        tokens.push_back({v, 0, 0});
-        --left;
-        prev = v;
-      }
-      while (left >= 3) {
-        const int r = std::min(left, 6);
-        tokens.push_back({16, r - 3, 2});
-        left -= r;
-      }
-      while (left-- > 0) tokens.push_back({v, 0, 0});
-    }
-    i += run;
-  }
-  std::vector<uint32_t> cl_counts(CODE_LENGTH_CODES_ENC, 0);
-  for (const Token& t : tokens) cl_counts[t.code]++;
-  std::vector<int> cl_lengths = HuffmanLengths(cl_counts, 7);
-  int cl_used = 0;
-  for (uint32_t c : cl_counts) cl_used += (c != 0);
-  int num_cl = 0;
-  for (int i = 0; i < CODE_LENGTH_CODES_ENC; ++i)
-    if (cl_lengths[kCodeLengthOrder[i]]) num_cl = i + 1;
-  num_cl = std::max(num_cl, 4);
-  bw.Put(0, 1);
-  bw.Put(num_cl - 4, 4);
-  for (int i = 0; i < num_cl; ++i) bw.Put(cl_lengths[kCodeLengthOrder[i]], 3);
-  // trailing zero lengths need not be written: the count of tokens to read
-  auto token_bits = [&](const Token& t) { return (cl_used > 1 ? cl_lengths[t.code] : 0) + t.extra_bits; };
-  int trimmed = (int)tokens.size(), trailing_bits = 0;
-  while (trimmed > 0 && (tokens[trimmed - 1].code == 0 || tokens[trimmed - 1].code >= 17)) {
-    trailing_bits += token_bits(tokens[trimmed - 1]);
-    --trimmed;
-  }
-  int count_bits = 0, nbitpairs = 1;
-  if (trimmed >= 2) {
-    while ((1 << (2 * nbitpairs)) <= trimmed - 2) ++nbitpairs;
-    count_bits = 3 + 2 * nbitpairs;
-  }
-  const bool write_trimmed = trimmed >= 2 && nbitpairs <= 8 && trailing_bits > count_bits;
-  bw.Put(write_trimmed, 1);
-  if (write_trimmed) {
-    bw.Put(nbitpairs - 1, 3);
-    bw.Put(trimmed - 2, 2 * nbitpairs);
-  } else {
-    trimmed = (int)tokens.size();
-  }
-  const std::vector<uint32_t> cl_codes = CanonicalCodes(cl_lengths);
-  for (int i = 0; i < trimmed; ++i) {
-    const Token& t = tokens[i];
-    if (cl_used > 1) bw.Put(cl_codes[t.code], cl_lengths[t.code]);
-    if (t.extra_bits) bw.Put(t.extra, t.extra_bits);
-  }
-  return hc;
-}
-
-// A length or distance as VP8L's prefix symbol and extra bits.
-inline void PrefixEncode(int value, int* symbol, int* extra_bits, int* extra) {
-  const int n = value - 1;
-  if (n < 4) {
-    *symbol = n;
-    *extra_bits = 0;
-    *extra = 0;
-    return;
-  }
-  const int h = 31 - __builtin_clz(n);
-  const int second = (n >> (h - 1)) & 1;
-  *symbol = 2 * h + second;
-  *extra_bits = h - 1;
-  *extra = n & ((1 << (h - 1)) - 1);
-}
-
-struct Symbol {
-  uint32_t argb;  // a literal (length 0), else unused
-  int length;     // 0: literal
-  int dist_code;  // the distance's code: a plane code (1..120) or distance + 120
-};
-
-const int kMaxLength = 4096;
-
-// The shortest code of each distance: VP8L's plane codes for the short
-// 2-D distances, else the distance plus 120.
-struct DistanceCodes {
-  std::vector<uint8_t> plane;  // code by distance (0: none)
-  explicit DistanceCodes(int xsize) {
-    for (int c = 120; c >= 1; --c) {  // the lowest code of a distance wins
-      const int dc = kCodeToPlaneEnc[c - 1];
-      int dist = (dc >> 4) * xsize + 8 - (dc & 0xf);
-      if (dist < 1) dist = 1;
-      if ((int)plane.size() <= dist) plane.resize(dist + 1, 0);
-      plane[dist] = (uint8_t)c;
-    }
-  }
-  int Code(int dist) const {
-    return (dist < (int)plane.size() && plane[dist]) ? plane[dist] : dist + 120;
-  }
-};
-
-// Per-symbol costs in bits, from the histograms of an earlier parse.
-struct CostModel {
-  double lit[256], len[24], dist[40];
-  double lit_rest;  // red, blue and alpha of a literal
-};
-
-struct Histograms {
-  std::vector<uint32_t> h[5] = {std::vector<uint32_t>(256 + 24, 0), std::vector<uint32_t>(256, 0),
-                                std::vector<uint32_t>(256, 0), std::vector<uint32_t>(256, 0),
-                                std::vector<uint32_t>(40, 0)};
-  explicit Histograms(const std::vector<Symbol>& syms) {
-    for (const Symbol& s : syms) {
-      if (s.length == 0) {
-        h[0][(s.argb >> 8) & 0xff]++;
-        h[1][(s.argb >> 16) & 0xff]++;
-        h[2][s.argb & 0xff]++;
-        h[3][s.argb >> 24]++;
-      } else {
-        int sym, eb, ex;
-        PrefixEncode(s.length, &sym, &eb, &ex);
-        h[0][256 + sym]++;
-        PrefixEncode(s.dist_code, &sym, &eb, &ex);
-        h[4][sym]++;
-      }
-    }
-  }
-};
-
-double SymbolBits(uint32_t count, double total) {
-  if (total <= 0) return 8;
-  return count ? log2(total / count) : log2(total) + 2;
-}
-
-CostModel MakeCostModel(const Histograms& hist) {
-  CostModel m;
-  double total0 = 0, total4 = 0;
-  for (uint32_t c : hist.h[0]) total0 += c;
-  for (uint32_t c : hist.h[4]) total4 += c;
-  for (int i = 0; i < 256; ++i) m.lit[i] = SymbolBits(hist.h[0][i], total0);
-  for (int i = 0; i < 24; ++i) m.len[i] = SymbolBits(hist.h[0][256 + i], total0);
-  for (int i = 0; i < 40; ++i) m.dist[i] = SymbolBits(hist.h[4][i], std::max(total4, 1.));
-  m.lit_rest = 0;
-  for (int k = 1; k <= 3; ++k) {  // the constant channels cost nothing
-    int used = 0;
-    for (uint32_t c : hist.h[k]) used += (c != 0);
-    if (used > 1) m.lit_rest += 4;
-  }
-  return m;
-}
-
-// Backward references, parsed for the least cost under the model (greedy
-// longest matches where there is no model yet). Distances come from the
-// pixel to the left, the one above, and a hash chain of pixel pairs.
-std::vector<Symbol> BackwardRefs(const std::vector<uint32_t>& px, int xsize, const CostModel* model) {
-  const int n = (int)px.size();
-  const DistanceCodes codes(xsize);
-  // the runs that continue at the left and the upper pixel, from each pixel
-  std::vector<int> run_left(n + 1, 0), run_up(n + 1, 0);
-  for (int i = n - 1; i >= 0; --i) {
-    run_left[i] = (i >= 1 && px[i] == px[i - 1]) ? std::min(run_left[i + 1] + 1, kMaxLength) : 0;
-    run_up[i] = (i >= xsize && px[i] == px[i - xsize]) ? std::min(run_up[i + 1] + 1, kMaxLength) : 0;
-  }
-  const int kHashBits = 16, kMaxChain = 8, kWindow = 1 << 20, kMaxScan = 256;
-  std::vector<int> head(1 << kHashBits, -1), prev(n, -1);
-  auto hash = [&px](int i) {
-    const uint32_t k = px[i] * 0x9e3779b1u + px[i + 1] * 0x85ebca6bu;
-    return (int)(k >> (32 - kHashBits));
-  };
-  // the candidates at i: (length, distance), the longest of each distance
-  auto candidates = [&](int i, std::vector<std::pair<int, int>>& out) {
-    out.clear();
-    if (run_left[i] > 0) out.push_back({run_left[i], 1});
-    if (xsize > 1 && run_up[i] > 0) out.push_back({run_up[i], xsize});
-    const int have = out.empty() ? 0 : std::max(out[0].first, out.back().first);
-    if (i + 1 >= n || have >= kMaxScan) return;
-    int cand = head[hash(i)];
-    for (int chain = 0; cand >= 0 && chain < kMaxChain && i - cand <= kWindow;
-         ++chain, cand = prev[cand]) {
-      const int d = i - cand;
-      if (d == 1 || d == xsize) continue;
-      int len = 0;
-      while (i + len < n && len < kMaxScan && px[i + len] == px[cand + len]) ++len;
-      if (len >= 2 && len > have) out.push_back({len, d});
-    }
-  };
-  auto insert = [&](int i) {
-    if (i + 1 >= n) return;
-    const int h = hash(i);
-    prev[i] = head[h];
-    head[h] = i;
-  };
-  std::vector<Symbol> out;
-  std::vector<std::pair<int, int>> cands;
-  if (model == nullptr) {  // greedy: the longest match of at least 3
-    out.reserve(n);
-    for (int i = 0; i < n;) {
-      candidates(i, cands);
-      int best_len = 0, best_dist = 0;
-      for (const auto& c : cands)
-        if (c.first > best_len) best_len = c.first, best_dist = c.second;
-      if (best_len >= 3) {
-        out.push_back({0, best_len, codes.Code(best_dist)});
-        for (int k = 0; k < best_len; ++k) insert(i + k);
-        i += best_len;
-      } else {
-        out.push_back({px[i], 0, 0});
-        insert(i);
-        ++i;
-      }
-    }
-    return out;
-  }
-  // least cost: cost[i] of coding the first i pixels, and the step to i
-  std::vector<double> cost(n + 1, 1e300);
-  std::vector<int> step_len(n + 1, 0), step_code(n + 1, 0);
-  cost[0] = 0;
-  static const int kGroupEnds[] = {1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
-                                   384, 512, 768, 1024, 1536, 2048, 3072, 4096};
-  std::vector<double> len_cost(kMaxLength + 1, 0);
-  for (int len = 1; len <= kMaxLength; ++len) {
-    int sym, eb, ex;
-    PrefixEncode(len, &sym, &eb, &ex);
-    len_cost[len] = model->len[sym] + eb;
-  }
-  for (int i = 0; i < n; ++i) {
-    const double base = cost[i];
-    const uint32_t p = px[i];
-    const double lit = model->lit[(p >> 8) & 0xff] + model->lit_rest;
-    if (base + lit < cost[i + 1]) {
-      cost[i + 1] = base + lit;
-      step_len[i + 1] = 0;
-    }
-    candidates(i, cands);
-    insert(i);
-    for (const auto& c : cands) {
-      const int code = codes.Code(c.second);
-      int dsym, deb, dex;
-      PrefixEncode(code, &dsym, &deb, &dex);
-      const double dcost = base + model->dist[dsym] + deb;
-      auto relax = [&](int len) {
-        const double v = dcost + len_cost[len];
-        if (v < cost[i + len]) {
-          cost[i + len] = v;
-          step_len[i + len] = len;
-          step_code[i + len] = code;
-        }
-      };
-      for (int len : kGroupEnds) {
-        if (len >= c.first) break;
-        relax(len);
-      }
-      relax(c.first);
-    }
-  }
-  std::vector<Symbol> rev;
-  for (int i = n; i > 0;) {
-    if (step_len[i] == 0) {
-      rev.push_back({px[i - 1], 0, 0});
-      --i;
-    } else {
-      rev.push_back({0, step_len[i], step_code[i]});
-      i -= step_len[i];
-    }
-  }
-  out.assign(rev.rbegin(), rev.rend());
+  std::vector<uint8_t> out;
+  out.reserve(1 + stream.size());
+  out.push_back((uint8_t)(method | (filter << 2)));
+  out.insert(out.end(), stream.begin(), stream.end());
   return out;
 }
 
-// Writes the codes and the symbols of one image (one group of codes).
-void StoreImage(LBitWriter& bw, const std::vector<Symbol>& syms) {
-  const Histograms hist(syms);
-  HuffmanCode codes[5];
-  for (int k = 0; k < 5; ++k) codes[k] = StoreHuffmanCode(bw, hist.h[k]);
-  for (const Symbol& s : syms) {
-    if (s.length == 0) {
-      codes[0].Put(bw, (s.argb >> 8) & 0xff);
-      codes[1].Put(bw, (s.argb >> 16) & 0xff);
-      codes[2].Put(bw, s.argb & 0xff);
-      codes[3].Put(bw, s.argb >> 24);
-    } else {
-      int sym, eb, ex;
-      PrefixEncode(s.length, &sym, &eb, &ex);
-      codes[0].Put(bw, 256 + sym);
-      if (eb) bw.Put(ex, eb);
-      PrefixEncode(s.dist_code, &sym, &eb, &ex);
-      codes[4].Put(bw, sym);
-      if (eb) bw.Put(ex, eb);
-    }
-  }
-}
-
-inline size_t BitSize(const LBitWriter& bw) { return bw.buf.size() * 8 + bw.used; }
-
-void Append(LBitWriter& bw, const LBitWriter& part) {
-  for (uint8_t b : part.buf) bw.Put(b, 8);
-  if (part.used) bw.Put((uint32_t)part.acc, part.used);
-}
-
-// An image without colour cache: the least of literals only, greedy
-// matches, and the least-cost parse (a second pass where the first paid).
-// Where greedy copies cover under an eighth of the pixels, the parse is not
-// tried. ``meta``: the main image's "no meta codes" bit.
-void StoreImageBest(LBitWriter& bw, const std::vector<uint32_t>& px, int xsize, bool meta) {
-  LBitWriter best;
-  size_t best_bits = 0;
-  auto trial = [&](const std::vector<Symbol>& syms) {
-    LBitWriter t;
-    t.Put(0, 1);  // no colour cache
-    if (meta) t.Put(0, 1);  // no meta codes
-    StoreImage(t, syms);
-    const size_t bits = BitSize(t);
-    if (best_bits == 0 || bits < best_bits) {
-      best = t;
-      best_bits = bits;
-    }
-    return bits;
-  };
-  std::vector<Symbol> literals;
-  literals.reserve(px.size());
-  for (uint32_t p : px) literals.push_back({p, 0, 0});
-  trial(literals);
-  std::vector<Symbol> syms = BackwardRefs(px, xsize, nullptr);
-  size_t last = trial(syms);
-  size_t copied = 0;
-  for (const Symbol& s : syms) copied += s.length;
-  if (copied * 8 >= px.size()) {
-    for (int pass = 0; pass < 2; ++pass) {
-      const CostModel model = MakeCostModel(Histograms(syms));
-      syms = BackwardRefs(px, xsize, &model);
-      const size_t bits = trial(syms);
-      if (bits * 100 > last * 99) break;  // under 1% better: no second pass
-      last = bits;
-    }
-  }
-  Append(bw, best);
-}
-
-inline uint32_t Green(int v) { return 0xff000000u | ((uint32_t)v << 8); }
-
-// The predictors of VP8L (modes 0..13) on the green channel.
-inline int Average2(int a, int b) { return (a + b) >> 1; }
-inline int Select(int L, int T, int TL) {
-  const int pa = abs(T - TL), pb = abs(L - TL);  // the neighbour across the smaller gradient
-  return (pb < pa) ? T : L;
-}
-inline int ClampedAddSubtractFull(int a, int b, int c) { return clip(a + b - c, 0, 255); }
-inline int ClampedAddSubtractHalf(int a, int b) { return clip(a + (a - b) / 2, 0, 255); }
-
-int Predict(int mode, int L, int T, int TL, int TR) {
-  switch (mode) {
-    case 0: return 0;  // black: green 0
-    case 1: return L;
-    case 2: return T;
-    case 3: return TR;
-    case 4: return TL;
-    case 5: return Average2(Average2(L, TR), T);
-    case 6: return Average2(L, TL);
-    case 7: return Average2(L, T);
-    case 8: return Average2(TL, T);
-    case 9: return Average2(T, TR);
-    case 10: return Average2(Average2(L, TL), Average2(T, TR));
-    case 11: return Select(L, T, TL);
-    case 12: return ClampedAddSubtractFull(L, T, TL);
-    default: return ClampedAddSubtractHalf(Average2(L, T), TL);
-  }
-}
-
-// The residuals of one predictor mode over the whole plane (VP8L's rules:
-// black for the first pixel, the left one along the first row, the upper
-// one down the first column; the top-right of the last column is the first
-// pixel of the row).
-void Residuals(const uint8_t* a, int width, int height, int mode, std::vector<uint8_t>& res) {
-  res.resize((size_t)width * height);
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* row = a + (size_t)y * width;
-    const uint8_t* up = row - width;
-    for (int x = 0; x < width; ++x) {
-      int pred;
-      if (x == 0 && y == 0) pred = 0;
-      else if (y == 0) pred = row[x - 1];
-      else if (x == 0) pred = up[0];
-      else pred = Predict(mode, row[x - 1], up[x], up[x - 1], (x + 1 < width) ? up[x + 1] : row[0]);
-      res[(size_t)y * width + x] = (uint8_t)(row[x] - pred);
-    }
-  }
-}
-
-double Entropy(const std::vector<uint8_t>& v) {
-  uint32_t h[256] = {0};
-  for (uint8_t b : v) h[b]++;
-  double e = 0;
-  const double total = (double)v.size();
-  for (uint32_t c : h)
-    if (c) e += c * log2(total / c);
-  return e;
-}
-
-std::vector<uint8_t> EncodeAlphaPlane(const uint8_t* alpha, int width, int height) {
-  const size_t n = (size_t)width * height;
-  int present[256] = {0};
-  for (size_t i = 0; i < n; ++i) present[alpha[i]] = 1;
-  std::vector<int> palette;
-  for (int v = 0; v < 256; ++v)
-    if (present[v]) palette.push_back(v);
-  const int num_colors = (int)palette.size();
-  std::vector<std::vector<uint8_t>> trials;
-  if (num_colors <= 16) {
-    // a palette, 2, 4 or 8 indices bundled in a pixel
-    int index[256] = {0};
-    for (int i = 0; i < num_colors; ++i) index[palette[i]] = i;
-    const int bits = (num_colors > 4) ? 1 : (num_colors > 2) ? 2 : 3;
-    const int xsub = 1 << bits, bits_per_pixel = 8 >> bits;
-    const int packed_w = (width + xsub - 1) >> bits;
-    std::vector<uint32_t> px((size_t)packed_w * height);
-    for (int y = 0; y < height; ++y)
-      for (int x = 0; x < packed_w; ++x) {
-        int code = 0;
-        for (int k = 0; k < xsub && x * xsub + k < width; ++k)
-          code |= index[alpha[(size_t)y * width + x * xsub + k]] << (bits_per_pixel * k);
-        px[(size_t)y * packed_w + x] = Green(code);
-      }
-    LBitWriter bw;
-    bw.Put(1, 1);
-    bw.Put(3, 2);  // colour indexing
-    bw.Put(num_colors - 1, 8);
-    std::vector<uint32_t> pal(num_colors);
-    for (int i = 0; i < num_colors; ++i)  // each entry minus the one before
-      pal[i] = (i == 0) ? Green(palette[0]) : ((uint32_t)((palette[i] - palette[i - 1]) & 0xff) << 8);
-    StoreImageBest(bw, pal, num_colors, false);
-    bw.Put(0, 1);  // no more transforms
-    StoreImageBest(bw, px, packed_w, true);
-    trials.push_back(bw.Finish());
-  } else {
-    // the samples as they are
-    {
-      LBitWriter bw;
-      std::vector<uint32_t> px(n);
-      for (size_t i = 0; i < n; ++i) px[i] = Green(alpha[i]);
-      bw.Put(0, 1);  // no transform
-      StoreImageBest(bw, px, width, true);
-      trials.push_back(bw.Finish());
-    }
-  }
-  if (num_colors > 16) {
-    // one predictor for the whole plane: the mode of least entropy
-    std::vector<uint8_t> res, best_res;
-    double best_e = -1;
-    int best_mode = 1;
-    for (int mode = 0; mode < 14; ++mode) {
-      Residuals(alpha, width, height, mode, res);
-      const double e = Entropy(res);
-      if (best_e < 0 || e < best_e) best_e = e, best_mode = mode, best_res = res;
-    }
-    const int tbits = 9, tw = (width + 511) >> 9, th = (height + 511) >> 9;
-    LBitWriter bw;
-    bw.Put(1, 1);
-    bw.Put(0, 2);  // predictor
-    bw.Put(tbits - 2, 3);
-    StoreImageBest(bw, std::vector<uint32_t>((size_t)tw * th, Green(best_mode)), tw, false);
-    bw.Put(0, 1);
-    std::vector<uint32_t> px(n);
-    for (size_t i = 0; i < n; ++i) px[i] = Green(best_res[i]);
-    StoreImageBest(bw, px, width, true);
-    trials.push_back(bw.Finish());
-  }
-  size_t best = 0;
-  for (size_t i = 1; i < trials.size(); ++i)
-    if (trials[i].size() < trials[best].size()) best = i;
-  return trials[best];
-}
-
-// The ALPH payload: its header byte (compression, filter), then the VP8L
-// stream of the filtered plane, or the plane itself where that is smaller.
-// libwebp keeps the smaller of its two trials, no filter and the estimated
-// filter. The port's filtered trials come out close to libwebp's, its
-// unfiltered ones smaller (its predictor search beats libwebp's at method
-// 4); so where both are compressed the port keeps the unfiltered plane only
-// where it is more than 5% smaller, which is where libwebp keeps it most
-// often. Where one is stored raw, the smaller wins (no filter on a tie).
 std::vector<uint8_t> EncodeAlpha(const uint8_t* alpha, int width, int height) {
-  const size_t data_size = (size_t)width * height;
   const int estimate = EstimateFilter(alpha, width, height);
-  std::vector<uint8_t> filtered(data_size);
-  auto trial = [&](int filter) {
-    const uint8_t* src = alpha;
-    if (filter != FILTER_NONE) {
-      ApplyFilter(alpha, width, height, filter, filtered.data());
-      src = filtered.data();
-    }
-    std::vector<uint8_t> stream = EncodeAlphaPlane(src, width, height);
-    int method = 1;
-    if (stream.size() > data_size) {  // larger than the plane: store it raw
-      method = 0;
-      stream.assign(src, src + data_size);
-    }
-    std::vector<uint8_t> out;
-    out.reserve(1 + stream.size());
-    out.push_back((uint8_t)(method | (filter << 2)));
-    out.insert(out.end(), stream.begin(), stream.end());
-    return out;
-  };
-  std::vector<uint8_t> none = trial(FILTER_NONE);
-  if (estimate == FILTER_NONE) return none;
-  std::vector<uint8_t> with_filter = trial(estimate);
-  if ((none[0] & 3) == 0 || (with_filter[0] & 3) == 0)
-    return none.size() <= with_filter.size() ? none : with_filter;
-  return (none.size() * 100 < with_filter.size() * 95) ? none : with_filter;
+  std::vector<uint8_t> filtered((size_t)width * height);
+  std::vector<uint8_t> best = EncodeAlphaTrial(alpha, width, height, FILTER_NONE, filtered.data());
+  if (estimate != FILTER_NONE) {
+    std::vector<uint8_t> trial = EncodeAlphaTrial(alpha, width, height, estimate, filtered.data());
+    if (trial.size() < best.size()) best.swap(trial);
+  }
+  return best;
 }
 
 // The whole file: RIFF, then VP8X and ALPH where there is transparency.

@@ -4,9 +4,9 @@
 // WebP (WEBP_PRESET_DEFAULT at quality 80, method 4: sns 50, filter
 // strength 60, sharpness 0, the normal loop filter, 4 segments, 1 token
 // partition, 1 pass, no autofilter, no preprocessing, exact 0; the alpha
-// plane losslessly compressed with the fast filter choice). The VP8 chunk
-// and the container are libwebp's bytes; the alpha plane is a VP8L stream
-// of the port's own (the decoded alpha is exact).
+// plane losslessly compressed with the fast filter choice). The file is
+// libwebp's, byte for byte: the VP8 chunk, the container and the ALPH chunk
+// (its VP8L stream from sl_vp8l_enc.h, linked into the same library).
 //
 // Every function returns SL_OK or an error code with a message in ``err``.
 

@@ -5,16 +5,18 @@ at quality 80, method 4) on the same arrays.
 Stage by stage: the YUV 4:2:0 planes equal ``WebPPictureImportRGB(A)``'s
 and, after the transparent area's clean-up, ``WebPCleanupTransparentArea``'s
 (libwebp through ctypes); the files equal Pillow's byte for byte for grey
-(L), RGB, opaque RGBA and 16-bit grey (I;16) arrays of every size and
-content of the matrix; for RGBA with transparency the VP8X and VP8 chunks
-and the ALPH header byte are Pillow's, the alpha decodes exactly, and the
-ALPH payload is at most 1.25x libwebp's (or libwebp's + 16 bytes). Every
-file reads the same in Pillow, OpenCV and the port's decoders. Where a
-lossy file parts from libwebp's, ``vp8_divergence`` names the first stage.
-The committed q80 fixtures come out of their sources again, and the port's
+(L), RGB, opaque RGBA, RGBA with transparency (the ALPH chunk too: its
+filter trial, its VP8L stream or raw plane) and 16-bit grey (I;16) arrays
+of every size and content of the matrix. Every file reads the same in
+Pillow, OpenCV and the port's decoders. Where a lossy file parts from
+libwebp's, ``vp8_divergence`` names the first stage, and
+``vp8l_divergence`` the first part of the ALPH chunk's stream
+(``tests/test_torch_vp8l_encode.py`` holds that stream on its own). The
+committed q80 fixtures come out of their sources again, and the port's
 ``ImageSaver`` writes what the JAX package's writes.
 """
 
+import hashlib
 import io
 import os
 
@@ -22,12 +24,12 @@ import numpy as np
 import pytest
 
 from stillleben_tpu_torch.assets import native_image, webp
-from stillleben_tpu_torch.assets.image_fixtures import path
+from stillleben_tpu_torch.assets.image_fixtures import digests, path
 from stillleben_tpu_torch.assets.image_saver import ImageSaver
 import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdist)
 from torch_image_fixtures import (
-    libwebp_encode, libwebp_planes, smooth, vp8_divergence, vp8_partition0, webp_anim,
-    webp_chunks, webp_frame, webp_save,
+    alph_divergence, alpha_webp_sources, libwebp_encode, libwebp_planes, smooth, vp8_divergence,
+    vp8_partition0, webp_anim, webp_chunks, webp_frame, webp_save,
 )
 
 Image = pytest.importorskip("PIL.Image")
@@ -95,24 +97,18 @@ def assert_readers_agree(data: bytes):
     return pil
 
 
-def alph_bound(ref_size: int) -> int:
-    return max(int(1.25 * ref_size), ref_size + 16)
-
-
 def check_alpha_file(ours: bytes, ref: bytes, a: np.ndarray) -> None:
     """The port's file of an RGBA array with transparency against Pillow's:
-    VP8X and VP8 chunks equal, the ALPH header byte equal, its payload
-    within the bound, the alpha exact, the readers agreeing."""
+    byte for byte (a failure names the first chunk and stage that part),
+    the alpha exact, the readers agreeing."""
     co, cr = dict(webp_chunks(ours)), dict(webp_chunks(ref))
     assert list(co) == list(cr) == [b"VP8X", b"ALPH", b"VP8 "]
     assert co[b"VP8X"] == cr[b"VP8X"]
     assert co[b"VP8 "] == cr[b"VP8 "], vp8_divergence(ours, ref)
-    assert co[b"ALPH"][0] == cr[b"ALPH"][0], (co[b"ALPH"][0], cr[b"ALPH"][0])
-    assert len(co[b"ALPH"]) <= alph_bound(len(cr[b"ALPH"])), (len(co[b"ALPH"]), len(cr[b"ALPH"]))
+    assert co[b"ALPH"] == cr[b"ALPH"], alph_divergence(ours, ref)
+    assert ours == ref
     pil = assert_readers_agree(ours)
     np.testing.assert_array_equal(pil[..., 3], a[..., 3])
-    ref_pil = np.asarray(Image.open(io.BytesIO(ref)).convert("RGBA"))
-    np.testing.assert_array_equal(pil[..., :3], ref_pil[..., :3])
 
 
 # ---------------------------------------------------------------------------
@@ -162,10 +158,10 @@ def test_encode_matches_pillow(size, kind):
 
 
 def test_committed_q80_fixtures_from_sources():
-    """The q80 fixtures Pillow wrote come out of their sources again: the
-    RGB files byte for byte, alpha.webp's VP8X and VP8 chunks and ALPH
-    header byte, with its alpha exact, and anim.webp around the port's two
-    frames."""
+    """The q80 fixtures Pillow wrote come out of their sources again byte
+    for byte: the RGB files, the RGBA ones (alpha.webp and the ALPH cases:
+    a two-level mask, 12 levels, noise stored raw, a horizontally filtered
+    ramp) at their SHA-256, and anim.webp around the port's two frames."""
     from stillleben_tpu_torch.assets.procedural import base_color_texture, sky_ldr
 
     def committed(name):
@@ -179,6 +175,10 @@ def test_committed_q80_fixtures_from_sources():
         assert ours == committed(name), f"{name}: {vp8_divergence(ours, committed(name))}"
     rgba = np.concatenate([smooth(67, 91, 3, 1), smooth(67, 91, 1, 2)], -1)
     check_alpha_file(webp.encode_webp(rgba), committed("alpha.webp"), rgba)
+    for name, a in alpha_webp_sources().items():
+        check_alpha_file(webp.encode_webp(a), committed(name), a)
+    for name, sha in digests.ALPHA_WEBP_FILE.items():
+        assert hashlib.sha256(committed(name)).hexdigest() == sha, name
     frames = [webp.encode_webp(smooth(22, 30, 3, 3)), webp.encode_webp(smooth(40, 48, 3, 4))]
     assert webp_anim((48, 40), [(6, 8, frames[0]), (0, 0, frames[1])]) == committed("anim.webp")
 
@@ -226,8 +226,8 @@ def test_threads_equal_serial(tmp_path):
 
 def test_image_saver_webp_matches_jax(tmp_path):
     """The JAX ``ImageSaver`` and the port's write the parity test's arrays
-    to ``.webp``: rgb, grey and depth byte for byte; rgba with its VP8X and
-    VP8 chunks and ALPH header byte equal and its alpha exact."""
+    to ``.webp`` byte for byte: rgb, grey, depth and rgba (with its alpha
+    exact)."""
     from stillleben_tpu.assets.image_saver import ImageSaver as JaxImageSaver
     from test_torch_image_parity import ARRAYS
 

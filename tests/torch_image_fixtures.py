@@ -34,8 +34,11 @@ packed by masks) and ``bcn_blocks`` (seeded random blocks);
 SHA-256 and Pillow's readings.
 
 ``vp8_divergence`` names the first stage at which two lossy WebP files
-part (the divergence finder of the port's encoder); ``--alph`` prints the
-port's ALPH chunks against libwebp's (ROADMAP C-19).
+part (the divergence finder of the port's encoder), ``vp8l_divergence``
+(and ``alph_divergence`` for two files' ALPH chunks) the first part of two
+VP8L streams (``vp8l_parse``); ``libwebp_alpha_stream`` is libwebp's own
+stream of an alpha plane, the oracle; ``--alph`` prints the port's ALPH
+chunks against libwebp's.
 """
 
 from __future__ import annotations
@@ -754,24 +757,287 @@ def vp8l_transforms(stream: bytes) -> list[str]:
     return out
 
 
+# The divergence finder of the ALPH chunk's VP8L stream (the WebP lossless
+# format, RFC 9649), parsed to name the first part at which two streams
+# part, and libwebp's own stream of a plane as the oracle.
+
+
+class _LBits:
+    """LSB-first bit reader; past the end it reads zeros."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def read(self, n: int) -> int:
+        if n == 0:
+            return 0
+        p, self.pos = self.pos, self.pos + n
+        window = int.from_bytes(self.data[p >> 3:(p >> 3) + 8], "little")
+        return (window >> (p & 7)) & ((1 << n) - 1)
+
+
+_CL_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _code_to_plane():
+    import re
+
+    with open(os.path.join(ROOT, "stillleben_tpu_torch", "csrc", "sl_webp.cpp")) as f:
+        src = f.read()
+    body = re.search(r"kCodeToPlane\[120\]\s*=\s*\{(.*?)\};", src, re.S).group(1)
+    return [int(x, 16) for x in re.findall(r"0x[0-9a-f]+", body)]
+
+
+class _Prefix:
+    """One prefix code from its lengths: a single used symbol reads no bits."""
+
+    def __init__(self, lengths: list[int]):
+        used = [i for i, n in enumerate(lengths) if n]
+        self.single = used[0] if len(used) == 1 else (0 if not used else None)
+        self.table, code = {}, 0
+        for n in range(1, 16):  # canonical codes, shortest first
+            for sym in (i for i, m in enumerate(lengths) if m == n):
+                self.table[(n, code)] = sym
+                code += 1
+            code <<= 1
+
+    def decode(self, br: _LBits) -> int:
+        if self.single is not None:
+            return self.single
+        code = 0
+        for n in range(1, 16):
+            code = (code << 1) | br.read(1)
+            if (n, code) in self.table:
+                return self.table[(n, code)]
+        raise ValueError("not a prefix code")
+
+
+def _read_prefix_code(br: _LBits, alphabet: int) -> list[int]:
+    lengths = [0] * alphabet
+    if br.read(1):  # the simple code: one or two symbols
+        num = br.read(1) + 1
+        lengths[br.read(1 + 7 * br.read(1))] = 1
+        if num == 2:
+            lengths[br.read(8)] = 1
+        return lengths
+    cl = [0] * 19
+    for i in range(br.read(4) + 4):
+        cl[_CL_ORDER[i]] = br.read(3)
+    max_symbol = 2 + br.read(2 + 2 * br.read(3)) if br.read(1) else alphabet
+    code, prev, i = _Prefix(cl), 8, 0
+    while i < alphabet and max_symbol > 0:
+        max_symbol -= 1
+        c = code.decode(br)
+        if c < 16:
+            lengths[i], i = c, i + 1
+            prev = c or prev
+        else:
+            extra, offset = {16: (2, 3), 17: (3, 3), 18: (7, 11)}[c]
+            for _ in range(br.read(extra) + offset):
+                lengths[i], i = (prev if c == 16 else 0), i + 1
+    return lengths
+
+
+def _prefix_value(code: int, br: _LBits) -> int:
+    if code < 4:
+        return code + 1
+    extra = (code - 2) >> 1
+    return ((2 + (code & 1)) << extra) + br.read(extra) + 1
+
+
+def _vp8l_image(br: _LBits, w: int, h: int, level0: bool, planes: list[int]) -> dict:
+    """One entropy-coded image: its colour-cache bits, meta prefix image
+    (bits and pixels, level 0 only), code lengths per group, tokens
+    (literal ARGB, cache index, or copy of length and distance code) and
+    pixels."""
+    cache_bits = br.read(4) if br.read(1) else 0
+    meta_bits, meta, num_groups = None, None, 1
+    if level0 and br.read(1):
+        meta_bits = br.read(3) + 2
+        sub = _vp8l_image(br, -(-w >> meta_bits), -(-h >> meta_bits), False, planes)["pixels"]
+        meta = [(p >> 8) & 0xffff for p in sub]
+        num_groups = max(meta) + 1
+    alphabets = (256 + 24 + ((1 << cache_bits) if cache_bits else 0), 256, 256, 256, 40)
+    groups = [[_read_prefix_code(br, a) for a in alphabets] for _ in range(num_groups)]
+    codes = [[_Prefix(lengths) for lengths in g] for g in groups]
+    cache = [0] * (1 << cache_bits) if cache_bits else None
+    pixels, tokens, pos, mw = [0] * (w * h), [], 0, -(-w >> meta_bits) if meta_bits else 1
+
+    def put(argb):
+        nonlocal pos
+        pixels[pos] = argb
+        if cache is not None:
+            cache[((argb * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - cache_bits)] = argb
+        pos += 1
+
+    while pos < w * h:
+        g = codes[meta[((pos // w) >> meta_bits) * mw + ((pos % w) >> meta_bits)]] if meta else codes[0]
+        s = g[0].decode(br)
+        if s < 256:
+            r, b, a = g[1].decode(br), g[2].decode(br), g[3].decode(br)
+            argb = (a << 24) | (r << 16) | (s << 8) | b
+            tokens.append(("literal", argb))
+            put(argb)
+        elif s < 280:
+            length = _prefix_value(s - 256, br)
+            dist_code = _prefix_value(g[4].decode(br), br)
+            tokens.append(("copy", length, dist_code))
+            if dist_code > 120:
+                dist = dist_code - 120
+            else:
+                dc = planes[dist_code - 1]
+                dist = max(1, (dc >> 4) * w + 8 - (dc & 0xF))
+            for _ in range(min(length, w * h - pos)):
+                put(pixels[pos - dist] if pos >= dist else 0)
+        else:
+            tokens.append(("cache", s - 280))
+            put(cache[s - 280])
+    return {"cache_bits": cache_bits, "meta": (meta_bits, meta), "code_lengths": groups,
+            "tokens": tokens, "pixels": pixels}
+
+
+def vp8l_parse(stream: bytes, width: int, height: int) -> dict:
+    """A VP8L image stream without its header (an ALPH payload after its
+    header byte) of a ``width`` x ``height`` image: its transforms in order,
+    each with its data as an entropy-coded image (``_vp8l_image``), and
+    the main image."""
+    br, planes, xsize, transforms = _LBits(stream), _code_to_plane(), width, []
+    while br.read(1):
+        kind = br.read(2)
+        if kind in (0, 1):
+            bits = br.read(3) + 2
+            data = _vp8l_image(br, -(-xsize >> bits), -(-height >> bits), False, planes)
+            transforms.append((("predictor", "cross-colour")[kind], bits, data))
+        elif kind == 2:
+            transforms.append(("subtract-green", None, None))
+        else:
+            n = br.read(8) + 1
+            transforms.append(("palette", n, _vp8l_image(br, n, 1, False, planes)))
+            xbits = 3 if n <= 2 else 2 if n <= 4 else 1 if n <= 16 else 0
+            xsize = -(-xsize >> xbits)
+    return {"transforms": transforms, "main": _vp8l_image(br, xsize, height, True, planes)}
+
+
+def _vp8l_parts(stream: bytes, width: int, height: int) -> list[tuple[str, object]]:
+    names = ("green/length/cache", "red", "blue", "alpha", "distance")
+
+    def image(label, img):
+        out = [(f"{label}: colour-cache bits", img["cache_bits"]),
+               (f"{label}: meta prefix image (bits, groups)", img["meta"])]
+        for g, lengths in enumerate(img["code_lengths"]):
+            out += [(f"{label}: code lengths of group {g}, {names[k]}", lengths[k]) for k in range(5)]
+        return out + [(f"{label}: tokens", img["tokens"])]
+
+    parsed, parts = vp8l_parse(stream, width, height), []
+    parts.append(("transforms", [(t[0], t[1]) for t in parsed["transforms"]]))
+    for i, (kind, arg, data) in enumerate(parsed["transforms"]):
+        if data is not None:
+            parts += image(f"transform {i} ({kind}) data", data)
+    return parts + image("the main image", parsed["main"])
+
+
+def vp8l_divergence(ours: bytes, ref: bytes, width: int, height: int) -> str | None:
+    """Where two VP8L streams of a ``width`` x ``height`` image (ALPH
+    payloads after their header byte) first part: the transforms and their
+    data, the colour-cache bits, the meta prefix image, the code lengths
+    group by group, then the index of the first token that differs. None
+    if they are equal."""
+    if ours == ref:
+        return None
+    try:
+        pa, pb = _vp8l_parts(ours, width, height), _vp8l_parts(ref, width, height)
+    except (ValueError, IndexError, KeyError) as e:
+        return f"a stream does not parse ({e!r})"
+    for (la, va), (lb, vb) in zip(pa, pb):
+        if la != lb:
+            return f"the layout: {la} vs libwebp's {lb}"
+        if va == vb:
+            continue
+        if la.endswith("tokens"):
+            i = next((k for k, (x, y) in enumerate(zip(va, vb)) if x != y), min(len(va), len(vb)))
+            return (f"{la}: token {i} of {len(va)} / {len(vb)}: "
+                    f"{va[i] if i < len(va) else None} vs libwebp's {vb[i] if i < len(vb) else None}")
+        return f"{la}: {va} vs libwebp's {vb}"
+    if len(pa) != len(pb):
+        return f"the layout: {len(pa)} parts vs libwebp's {len(pb)}"
+    return "the bits after the last token"
+
+
+def alph_divergence(ours: bytes, ref: bytes) -> str | None:
+    """Where two WebP files' ALPH chunks first part: the header byte
+    (compression, filter), the raw plane, or the VP8L stream
+    (``vp8l_divergence``, the sides from VP8X). None if they are equal."""
+    a, b = dict(webp_chunks(ours)), dict(webp_chunks(ref))
+    ca, cb = a.get(b"ALPH"), b.get(b"ALPH")
+    if ca == cb:
+        return None
+    if ca is None or cb is None:
+        return "ALPH in one file only"
+    if ca[0] != cb[0]:
+        return f"ALPH header byte {ca[0]:#04x} vs libwebp's {cb[0]:#04x}"
+    if ca[0] & 3 == 0:
+        return "the raw plane"
+    vp8x = a[b"VP8X"]
+    w = 1 + int.from_bytes(vp8x[4:7], "little")
+    h = 1 + int.from_bytes(vp8x[7:10], "little")
+    return "ALPH " + vp8l_divergence(ca[1:], cb[1:], w, h)
+
+
+def alpha_filter(plane: np.ndarray, kind: int) -> np.ndarray:
+    """An (H, W) uint8 plane under libwebp's alpha filter ``kind`` (0 none,
+    1 horizontal, 2 vertical, 3 gradient): row 0 predicted from the left,
+    column 0 from above, the first sample from 0."""
+    a = plane.astype(np.int32)
+    if kind == 0:
+        return plane.astype(np.uint8).copy()
+    pred = np.zeros_like(a)
+    pred[0, 1:], pred[1:, 0] = a[0, :-1], a[:-1, 0]
+    if kind == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif kind == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    else:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def libwebp_alpha_stream(plane: np.ndarray) -> bytes:
+    """libwebp's VP8L stream of an (H, W) uint8 plane as its alpha encoder
+    writes it (alpha_enc.c's EncodeLossless: the plane in green, alpha, red
+    and blue 0; method 4, quality 32, exact): ``WebPEncode`` of that ARGB
+    image, lossless, whose VP8L chunk after its 5-byte header (signature,
+    sides, alpha bit, version) is that stream."""
+    h, w = plane.shape
+    argb = np.zeros((h, w, 4), np.uint8)
+    argb[..., 1] = plane
+    data = libwebp_encode(argb, quality=32.0, lossless=1, method=4, exact=1)
+    chunk = dict(webp_chunks(data))[b"VP8L"]
+    assert chunk[0] == 0x2F, chunk[:5]
+    return chunk[5:]
+
+
 def alph_report(cases: dict[str, np.ndarray]) -> list[str]:
     """For each RGBA array: the port's ALPH chunk against the one Pillow's
-    ``save`` writes (libwebp), as one line: header bytes, sizes and their
-    ratio, whether equal, the first byte at which they part, and each
-    stream's transforms."""
+    ``save`` writes (libwebp), as one line: header bytes, sizes, whether
+    bitwise equal (else where they part), each stream's transforms, and
+    whether the port's VP8L stream of the plane under the chosen filter
+    equals libwebp's own (``libwebp_alpha_stream``, the oracle)."""
     sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import native_image
     from stillleben_tpu_torch.assets.webp import encode_webp
 
     lines = []
     for name, a in cases.items():
-        ours = dict(webp_chunks(encode_webp(a)))[b"ALPH"]
-        ref = dict(webp_chunks(webp_save(a)))[b"ALPH"]
-        part = next((i for i, (x, y) in enumerate(zip(ours, ref)) if x != y), min(len(ours), len(ref)))
+        ours_file, ref_file = encode_webp(a), webp_save(a)
+        ours, ref = dict(webp_chunks(ours_file))[b"ALPH"], dict(webp_chunks(ref_file))[b"ALPH"]
         tf = [vp8l_transforms(c[1:]) if c[0] & 3 else ["raw"] for c in (ours, ref)]
+        plane = alpha_filter(a[..., 3], (ref[0] >> 2) & 3)
+        oracle = native_image.vp8l_encode_plane(plane) == libwebp_alpha_stream(plane)
         lines.append(f"{name}: header {ours[0]:#04x} / libwebp {ref[0]:#04x}; {len(ours)} / "
-                     f"{len(ref)} bytes (ratio {len(ours) / len(ref):.4f}); "
-                     + ("bitwise equal" if ours == ref else f"part at byte {part}")
-                     + f"; transforms {tf[0]} / libwebp {tf[1]}")
+                     f"{len(ref)} bytes; "
+                     + ("bitwise equal" if ours == ref else alph_divergence(ours_file, ref_file))
+                     + f"; transforms {tf[0]} / libwebp {tf[1]}; the plane's VP8L stream equal to "
+                       f"libwebp's {oracle}")
     return lines
 
 
@@ -790,6 +1056,32 @@ def alph_cases() -> dict[str, np.ndarray]:
                         ("mask", disc.astype(np.uint8) * 255), ("transparent", np.zeros((h, w), np.uint8))):
             cases[f"{kind} {h}x{w}"] = np.concatenate([pix, a[..., None]], -1)
     return cases
+
+
+def alpha_webp_sources() -> dict[str, np.ndarray]:
+    """The RGBA arrays behind the ALPH fixtures (``image_fixtures.
+    ALPHA_WEBP_FILES`` beside alpha.webp), by file name, each 64x48 over one
+    smooth RGB: a disc mask of 2 levels (a palette of 2 colours, 8 indices a
+    pixel), a smooth alpha in 12 levels (2 indices a pixel), noise (libwebp
+    stores the plane raw) and a horizontal ramp with smooth ripples (the
+    horizontal filter)."""
+    rgb = smooth(48, 64, 3, 17)
+    yy, xx = np.mgrid[0:48, 0:64]
+    alphas = {
+        "alpha_mask.webp": ((yy - 24) ** 2 + (xx - 28) ** 2 < 18 ** 2).astype(np.uint8) * 255,
+        "alpha_levels.webp": (smooth(48, 64, 1, 18)[..., 0] // 22 * 23).astype(np.uint8),
+        "alpha_noise.webp": np.random.default_rng(19).integers(0, 256, (48, 64)).astype(np.uint8),
+        "alpha_hfilter.webp": np.clip(xx * 4 + smooth(48, 64, 1, 20)[..., 0] // 16, 0, 255).astype(np.uint8),
+    }
+    return {n: np.concatenate([rgb, a[..., None]], -1) for n, a in alphas.items()}
+
+
+def alpha_webp_digests(files: dict[str, bytes]) -> dict:
+    """The SHA-256 of the RGBA WebP fixtures' bytes (alpha.webp and the ALPH
+    fixtures): a host that re-encodes their sources to these digests writes
+    Pillow's files."""
+    names = ("alpha.webp",) + tuple(alpha_webp_sources())
+    return {"ALPHA_WEBP_FILE": {n: hashlib.sha256(files[n]).hexdigest() for n in names}}
 
 
 def make_webp_fixtures() -> dict[str, bytes]:
@@ -818,6 +1110,7 @@ def make_webp_fixtures() -> dict[str, bytes]:
         "blob_basecolor.webp": webp_save(base_color_texture(0)[..., :3], quality=80),
         "checker.webp": webp_save(checker_texture()[..., :3], lossless=True),
         "sky.webp": webp_save(sky_ldr(), quality=80),
+        **{n: webp_save(a, quality=80) for n, a in alpha_webp_sources().items()},
     }
 
 
@@ -1157,7 +1450,8 @@ def digest_module(d: dict) -> str:
              "``imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``). ``ENCODE``: the SHA-256",
              "of each encode fixture's bytes (Pillow's ``save`` of its source);",
              "``PLAIN_FILE`` / ``PLAIN_DECODE``: the plain formats' fixtures (QOI, SGI,",
-             "PCX, DCX, IM, DDS) and Pillow's ``convert(\"RGBA\")`` of each. Written by",
+             "PCX, DCX, IM, DDS) and Pillow's ``convert(\"RGBA\")`` of each;",
+             "``ALPHA_WEBP_FILE``: the RGBA WebP fixtures' bytes. Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -1180,6 +1474,7 @@ if __name__ == "__main__":
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
             f.write(digest_module({**digests(files), **webp_digests(webp_files),
+                                   **alpha_webp_digests(webp_files),
                                    **encode_digests(encode_files),
                                    **plain_digests(plain_files)}))
     for group in (files, webp_files, encode_files, plain_files):
