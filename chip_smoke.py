@@ -14,7 +14,8 @@ on a one-card mesh, two processes of one ``gloo`` group on the card, the
 atlas modes, the classic raster's scan rule), the image formats (JPEG,
 BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
 (the native decoder and encoder), GIF and Netpbm encoding, QOI, SGI, PCX,
-IM and DDS both ways, and the repository's tools that are not TPU-only.
+IM and DDS both ways, the JPEG variants (arithmetic, lossless, CMYK/YCCK,
+block-smoothed) and the repository's tools that are not TPU-only.
 
     python3 chip_smoke.py
 
@@ -299,8 +300,24 @@ Phases (one line each or more; any failure exits non-zero):
     in mm as a 16-bit ``.im`` read back clipped at 255 as Pillow reads it;
     the median ms of 9 encodes and decodes of the 640x480 render per format
     and of a BC7 decode of a 640x480 DDS of random blocks. No kernel: K1's
-    entries of phase 19 cover the render. Then the smoke's total wall
-    seconds.
+    entries of phase 19 cover the render.
+23. JPEG variants (``assets/jpeg.py`` over ``csrc/sl_image.cpp``:
+    arithmetic coding, lossless SOF3, CMYK and YCCK, libjpeg's block
+    smoothing, and the files both libraries refuse): every committed
+    variant fixture (``image_fixtures.JPEG_VARIANT_FILES``, written by
+    libjpeg-turbo 3.1 and Pillow on the CPU host) read both ways to the
+    SHA-256 of Pillow 12.1.0's and OpenCV 5.0.0's readings (or refused as
+    they refuse it); the median ms of 9 decodes, both readings, taken in
+    turns, of the 640x480 frame in six variants and as a baseline Huffman
+    file of the same pixels; phase 18's
+    scene at its settled poses (no second settle) with the blob's texture
+    from an arithmetic progressive JPEG, a GLB with an embedded Adobe CMYK
+    JPEG, the plane from a lossless JPEG and the light map's panorama a YCCK
+    JPEG (OpenCV's reading): phase 13's content checks, K1's launches (one
+    camera, two shadow passes) and no plain piece, K1 ``torch.equal`` to its
+    plain version on the camera and the sun's shadow pass, every field
+    ``torch.equal`` to the same scene from the files' PNG twins. Then the
+    smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3273,6 +3290,163 @@ def run_plain_formats(card, rendered) -> dict:
     return {**secs, **ms}
 
 
+JPEG_DECODE_REPS = 9  # phase 23's median of the 640x480 decodes
+
+
+def run_jpeg_variants(torch, cr, rt, card, settled) -> tuple[list, dict]:
+    """Phase 23: the JPEG variants of the native decoder (see the module
+    docstring). ``settled`` is phase 18's settled state. Returns the
+    kernels' entries of K1 on this phase's inputs and its milliseconds."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import image, jpeg
+    from stillleben_tpu_torch.assets.image_fixtures import JPEG_VARIANT_FILES, JPEG_VARIANT_FRAMES
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (JPEG_VARIANT_DECODE,
+                                                                    JPEG_VARIANT_DECODE_CV2,
+                                                                    JPEG_VARIANT_FILE)
+    from stillleben_tpu_torch.assets.procedural import write_jpeg_variant_fixtures
+    from stillleben_tpu_torch.render import light_map as plm
+
+    refusals = ("cannot identify image file", "broken data stream when reading image file",
+                "image file is truncated")
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"jpegvar_{os.getpid()}")
+    ms = {}
+
+    # every committed variant, both readings, against Pillow's and OpenCV's digests
+    bad, kinds = [], {"read": 0, "refused": 0, "OpenCV only": 0}
+    for name in JPEG_VARIANT_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != JPEG_VARIANT_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        try:
+            got = sha(image.decode_image(data, name).tobytes())
+        except OSError as e:
+            got = "refused: " + next((r for r in refusals if r in str(e)), str(e))
+        except Exception as e:  # noqa: BLE001  (listed, then the phase fails)
+            got = f"{type(e).__name__}: {e}"
+        if got != JPEG_VARIANT_DECODE[name]:
+            bad.append(f"Pillow's reading of {name}: {got[:60]}")
+        have = image.read_image_cv2(fixture(name))
+        have = "None" if have is None else sha(np.ascontiguousarray(have).tobytes())
+        if have != JPEG_VARIANT_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+        ref = JPEG_VARIANT_DECODE[name]
+        kinds["read" if not ref.startswith("refused") else
+              "OpenCV only" if JPEG_VARIANT_DECODE_CV2[name] != "None" else "refused"] += 1
+    phase("jpeg-variants", f"{len(JPEG_VARIANT_FILES)} committed JPEG variants (arithmetic, "
+                           f"lossless, CMYK/YCCK, block-smoothed, refused) read as Pillow 12.1.0 "
+                           f"and OpenCV 5.0.0 read them, against their SHA-256 digests: "
+                           f"{2 * len(JPEG_VARIANT_FILES) - len(bad)} of "
+                           f"{2 * len(JPEG_VARIANT_FILES)} equal ({kinds['read']} read by both, "
+                           f"{kinds['OpenCV only']} by OpenCV only, {kinds['refused']} refused "
+                           f"by both)")
+    if bad:
+        fail(f"jpeg-variants: not the libraries' digests: {bad}")
+
+    # the decoder's times on this host: the 640x480 frame in each variant
+    # and, for the same content, a baseline Huffman file (the port's q75)
+    with open(fixture("frame_arith.jpg"), "rb") as f:
+        pixels = jpeg.decode_jpeg(f.read())[..., :3].copy()
+    frames = {"baseline (Huffman, q75 4:2:0)": jpeg.encode_jpeg(pixels)}
+    for name in JPEG_VARIANT_FRAMES:
+        with open(fixture(name), "rb") as f:
+            frames[name] = f.read()
+    # in turns, file after file, so that the host's drift falls on every file
+    runs = {(name, how): [] for name in frames for how in ("", " cv2")}
+    for rep in range(JPEG_DECODE_REPS + 1):
+        for (name, how), times in runs.items():
+            fn = jpeg.decode_jpeg_cv2 if how else jpeg.decode_jpeg
+            t0 = time.perf_counter()
+            fn(frames[name], name)
+            if rep:  # the first round warms up
+                times.append((time.perf_counter() - t0) * 1e3)
+    for (name, how), times in runs.items():
+        ms[f"{name}{how} decode"] = sorted(times)[len(times) // 2]
+    phase("jpeg-variants", f"decode of the 640x480 frame, median ms of {JPEG_DECODE_REPS} in turns "
+                           "on the card's host (Pillow's reading; OpenCV's): "
+                           + ", ".join(f"{n} {ms[n + ' decode']:.3f} ({ms[n + ' cv2 decode']:.3f}; "
+                                       f"{len(d)} bytes)" for n, d in frames.items())
+                           + f" ({card})")
+
+    # phase 18's scene with its images as variants, at phase 18's settled poses
+    t0 = time.perf_counter()
+    fx = write_jpeg_variant_fixtures(fx_dir, subdiv=6)
+    meshes = sl.Mesh.load_threaded([fx["obj_arith"], fx["glb_cmyk"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    panorama = plm._load_hdr_image(os.path.join(fx_dir, "sky_ycck.jpg"))
+    same_panorama = np.array_equal(panorama, plm._load_hdr_image(
+        os.path.join(fx_dir, "sky_ycck.png")))
+    light = sl.LightMap(fx["ibl_ycck"])
+    torch.cuda.synchronize()
+    ms["load and LightMap"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_lossless"]))
+    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms["render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "jpeg-variants render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("jpeg-variants", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT}: the blob's "
+                           f"texture from an arithmetic progressive JPEG (.mtl), a GLB with an "
+                           f"embedded Adobe CMYK JPEG, the plane from a lossless JPEG, "
+                           f"LightMap(.ibl) whose REFfile is a YCCK JPEG (OpenCV's reading; the "
+                           f"panorama equal to its PNG twin's: {same_panorama}); meshes and "
+                           f"LightMap {ms['load and LightMap']:.1f} ms, RenderPass().render "
+                           f"{ms['render']:.1f} ms; K1 launches by tile {launches}; calls of K1's "
+                           f"plain pieces {plain_calls}; content: {content}; fields torch.equal "
+                           f"to the same scene from the PNG twins: {len(same)} of {len(fields)} "
+                           f"({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields) or not same_panorama:
+        fail(f"jpeg-variants: the variant-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}, panorama equal {same_panorama}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"jpeg-variants: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"jpeg variants camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"jpeg variants shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1],
+         ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms
+
+
 def main() -> None:
     global T_START
     T_START = time.perf_counter()
@@ -3833,6 +4007,14 @@ def main() -> None:
     run_plain_formats(card, webp_render)
     del webp_render
     phase("plain", f"phase 22 in {time.perf_counter() - t0:.1f} s")
+
+    # 23. the JPEG variants: the committed arithmetic, lossless, CMYK/YCCK,
+    # block-smoothed and refused files to their digests, the 640x480
+    # decode's times, and phase 18's scene from variant files through K1
+    t0 = time.perf_counter()
+    jpeg_k1, _ = run_jpeg_variants(torch, cr, rt, card, image_settled)
+    kernels.extend(jpeg_k1)
+    phase("jpeg-variants", f"phase 23 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

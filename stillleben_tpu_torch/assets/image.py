@@ -42,9 +42,11 @@ JPEG, BMP/DIB, TGA, TIFF, WebP, GIF, Netpbm, QOI, SGI, PCX, IM and DDS
 have their own encoders in their modules (``image_saver.ENCODERS`` picks
 them by extension).
 
-The JPEG variants ``jpeg.py`` lists raise ``NotImplementedError`` with
-their names, as do the other formats Pillow or OpenCV open that the port
-does not read. There is no substitute image. Every decoder checks the
+The JPEG kinds both libraries refuse raise ``OSError`` with Pillow's
+message on Pillow's path and give None on OpenCV's (``jpeg.py`` lists
+them); the formats Pillow or OpenCV open that the port does not read raise
+``NotImplementedError`` with their names. There is no substitute image.
+Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
 """

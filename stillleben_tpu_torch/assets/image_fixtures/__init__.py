@@ -26,9 +26,23 @@ with a palette, a two-frame DCX, IM with a palette and of floats, DDS as
 Pillow's DXT1/DXT3/DXT5/BC5 and LA writes, and of random BC4, BC5S, BC6H,
 BC6HS and BC7 blocks (a 7x5 BC7 among them), with 565 and 4444 masks,
 with a palette, and DX10 R8G8B8A8 (the files Pillow does not write are
-``tests/torch_image_fixtures.py``'s). ``digests.py`` holds the SHA-256 of each encode
-fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``) and of Pillow's
-``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP, and of
+``tests/torch_image_fixtures.py``'s); and the JPEG variants
+(``JPEG_VARIANT_FILES``), which libjpeg-turbo 3.1 wrote (the tests' shim
+over Pillow's bundled library; Pillow's ``save`` for Adobe CMYK; the
+tests' own writer for a subsampled lossless file and a lossless YCbCr
+one): arithmetic coding (sequential, progressive, grey, restarts, a DAC
+marker), lossless (SOF3; predictors 1, 4 and 7, a point transform,
+restarts), CMYK and YCCK, progressive files cut after a scan (libjpeg's
+block smoothing) and inside one, the kinds both libraries refuse (12-bit,
+16-bit lossless, hierarchical, lossless arithmetic, lossless YCbCr), the
+640x480 frame in six of these variants (``JPEG_VARIANT_FRAMES``, the decode
+timed on the card's host) and the textured scene's images as variants
+(the blob's base colour arithmetic and CMYK, the checker lossless, the sky
+YCCK). ``digests.py`` holds the SHA-256 of each encode
+fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``; of each
+JPEG variant's: ``JPEG_VARIANT_FILE``) and of Pillow's
+``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP and each
+JPEG variant (or how each library refuses it), and of
 Pillow's JPEG ``save`` (and its decode) of ``seeded_images()``: a host
 that decodes and encodes these to the same digests computes what Pillow
 and OpenCV compute here.
@@ -56,6 +70,14 @@ PLAIN_READ_FILES = ("rle8.sgi", "rle16.sgi", "raw16.sgi", "bits1.pcx", "planes4.
                     "dxt5.dds", "bc5.dds", "la.dds", "bc4.dds", "bc5s.dds", "bc6h.dds",
                     "bc6hs.dds", "bc7.dds", "bc7_odd.dds", "rgb565.dds", "argb4444.dds",
                     "p8.dds", "rgba8.dds")
+JPEG_VARIANT_FRAMES = ("frame_arith.jpg", "frame_arith_prog.jpg", "frame_lossless.jpg",
+                       "frame_cmyk.jpg", "frame_ycck.jpg", "frame_smoothed.jpg")
+JPEG_VARIANT_FILES = ("arith.jpg", "arith_prog.jpg", "arith_grey.jpg", "lossless.jpg",
+                      "lossless_grey.jpg", "lossless_sub.jpg", "cmyk.jpg", "cmyk_prog.jpg",
+                      "ycck.jpg", "ycck_arith.jpg", "smoothed.jpg", "smoothed_arith.jpg",
+                      "truncated_prog.jpg", "bits12.jpg", "lossless16.jpg", "hierarchical.jpg",
+                      "lossless_arith.jpg", "lossless_ycc.jpg") + JPEG_VARIANT_FRAMES + (
+                      "blob_arith.jpg", "blob_cmyk.jpg", "checker_lossless.jpg", "sky_ycck.jpg")
 
 
 def path(name: str) -> str:

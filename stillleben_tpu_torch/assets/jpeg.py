@@ -1,16 +1,25 @@
 """JPEG: decode as Pillow and OpenCV read it, encode as Pillow writes it.
 
 The entropy coding and the sample arithmetic run in the native codec core
-(``native_image``, libjpeg-turbo's default paths: ISLOW IDCT, fancy
-upsampling, fixed-point colour conversion); the layout here.
+(``native_image``, libjpeg-turbo 3.1's paths: the ISLOW IDCT as its SIMD
+version computes it, fancy upsampling, fixed-point colour conversion); the
+layout here.
 
-- ``decode_jpeg``: Pillow 12's ``Image.open(p).convert("RGBA")``. 8-bit
-  Huffman JPEG, baseline and progressive, 1 or 3 components, any integral
-  sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), restart intervals, sizes
-  that are not a multiple of the MCU. EXIF orientation is not applied, as
-  Pillow does not apply it on open.
+- ``decode_jpeg``: Pillow 12's ``Image.open(p).convert("RGBA")``. Every
+  8-bit JPEG libjpeg decodes: Huffman or arithmetic coding (with its DAC
+  conditioning), baseline, extended or progressive DCT, lossless (SOF3:
+  predictors 1-7, a point transform), 1, 3 or 4 components (grey, YCbCr,
+  RGB, CMYK, YCCK as the JFIF and Adobe markers or the component ids
+  select), any integral sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...; a
+  lossless image's replicated), restart intervals, sizes that are not a
+  multiple of the MCU, and progressive files whose scans leave the low
+  coefficients unrefined, block-smoothed as libjpeg smooths them. A CMYK
+  file is opened inverted ("CMYK;I", Adobe's polarity) and converted by
+  Pillow's ``cmyk2rgb``. EXIF orientation is not applied, as Pillow does
+  not apply it on open.
 - ``decode_jpeg_cv2``: ``cv2.imread(p, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``:
-  grey (H, W) or BGR, turned by the EXIF orientation as OpenCV turns it.
+  grey (H, W) or BGR (CMYK through OpenCV's CMYK-to-BGR), turned by the
+  EXIF orientation as OpenCV turns it.
 - ``encode_jpeg``: the bytes of Pillow's ``save`` for modes L and RGB:
   baseline JFIF, standard tables scaled to ``quality`` (75 by default),
   4:2:0 for RGB unless ``subsampling`` says otherwise (Pillow's 0, 1, 2
@@ -18,11 +27,19 @@ upsampling, fixed-point colour conversion); the layout here.
   of its one component). RGBA and 16-bit data raise
   ``OSError`` as Pillow does.
 
-Arithmetic coding, 12-bit samples, lossless JPEG and 4-component
-(CMYK/YCCK) files raise ``NotImplementedError`` by name. A file that ends
-before its EOI marker raises ``OSError`` as Pillow does ("image file is
-truncated"); ``decode_jpeg_cv2`` decodes it as ``cv2.imread`` does: the
-missing data leaves the rest of its segment flat, as libjpeg leaves it.
+What the libraries refuse is refused as they refuse it: a frame of other
+than 8 bits or of 2 (or more than 4) components, or headers that end
+before a scan, raise ``OSError`` "cannot identify image file" (Pillow's
+open); hierarchical and lossless arithmetic frames, lossless YCbCr or
+YCCK (libjpeg converts no colour in lossless mode) and an interleaved MCU
+of more than 10 blocks raise "broken data stream when reading image file"
+(where libjpeg stops), as does an
+arithmetic scan whose data reaches past the 64 KiB Pillow hands libjpeg
+at a time; ``decode_jpeg_cv2`` gives None for each (OpenCV reads the last
+kind). A file that ends before its EOI marker raises ``OSError`` as Pillow
+does ("image file is truncated"); ``decode_jpeg_cv2`` decodes it as
+``cv2.imread`` does: the missing data leaves the rest of its segment flat
+(arithmetic data reads as zeros), as libjpeg leaves it.
 """
 
 from __future__ import annotations
@@ -41,6 +58,8 @@ _SUBSAMPLING = {-1: (2, 2), 0: (1, 1), 1: (2, 1), 2: (2, 2),
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``."""
     px = native_image.jpeg_decode(data, name)
+    if px.ndim == 3 and px.shape[2] == 4:  # CMYK, opened inverted ("CMYK;I")
+        return native_image.cmyk_convert(px, opencv=False)
     out = np.empty(px.shape[:2] + (4,), np.uint8)
     out[..., :3] = px[..., None] if px.ndim == 2 else px
     out[..., 3] = 255
@@ -85,7 +104,11 @@ def decode_jpeg_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W) grey or (H, W, 3) BGR uint8 as ``cv2.imread``, which reads a
     truncated file as libjpeg decodes it."""
     px = native_image.jpeg_decode(data, name, cv2=True)
-    if px.ndim == 3:
+    if px is None:
+        return None
+    if px.ndim == 3 and px.shape[2] == 4:
+        px = native_image.cmyk_convert(px, opencv=True)
+    elif px.ndim == 3:
         px = px[..., ::-1]
     return orient(np.ascontiguousarray(px), exif_orientation(data))
 

@@ -23,7 +23,8 @@ compiler's message. There is no decoder or encoder in Python beside it.
 Each wrapper raises ``NotImplementedError`` for a variant the core does
 not decode, ``ValueError`` for a file that is not valid and ``OSError``
 for one that ends before its image does (Pillow's "image file is
-truncated").
+truncated") or that the libraries refuse (a JPEG that Pillow's open does
+not identify, or that libjpeg stops decoding: Pillow's messages).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
 PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
 PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
 
-_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED = 0, 1, 2, 3, 4
+(_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED, _UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS,
+ _PILLOW_BROKEN) = range(9)
 _ERRLEN = 512
 
 _lock = threading.Lock()
@@ -195,6 +197,9 @@ def load_library() -> ctypes.CDLL:
             for fn in ("sl_jpeg_info", "sl_jpeg_decode", "sl_jpeg_encode", "sl_gif_lzw",
                        "sl_tiff_lzw", "sl_bmp_rle", "sl_tga_rle", "sl_packbits"):
                 getattr(lib, fn).restype = ctypes.c_int
+            lib.sl_cmyk_convert.restype = None
+            lib.sl_cmyk_convert.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                                            ctypes.c_void_p)
             _lib = lib
         return _lib
 
@@ -209,14 +214,18 @@ def _check(rc: int, err, name: str) -> None:
     msg = f"{name}: {err.value.decode(errors='replace')}"
     if rc == _UNSUPPORTED:
         raise NotImplementedError(msg)
-    if rc == _TRUNCATED:
+    if rc in (_TRUNCATED, _TRUNCATED_FAILS):
         raise OSError(msg)
+    if rc == _UNIDENTIFIED:  # PIL.UnidentifiedImageError's message
+        raise OSError(f"cannot identify image file {name!r}")
+    if rc in (_BROKEN, _PILLOW_BROKEN):  # ImageFile.load's, where libjpeg stops
+        raise OSError("broken data stream when reading image file")
     raise ValueError(msg)
 
 
 def jpeg_info(data: bytes, name: str = "<bytes>") -> dict:
     """The frame of a JPEG: width, height, components and colour space
-    (0 grey, 1 YCbCr, 2 RGB)."""
+    (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK)."""
     lib = load_library()
     info = np.zeros(4, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
@@ -225,20 +234,40 @@ def jpeg_info(data: bytes, name: str = "<bytes>") -> dict:
     return dict(zip(keys, (int(v) for v in info)))
 
 
-def jpeg_decode(data: bytes, name: str = "<bytes>", cv2: bool = False) -> np.ndarray:
-    """(H, W) grey or (H, W, 3) RGB uint8. A file that ends before its EOI
-    raises as Pillow does, unless ``cv2``: then what libjpeg makes of it (the
-    missing entropy data left as it is, a flat block per missing MCU), as
-    OpenCV reads it. The size limits are Pillow's, or with ``cv2`` OpenCV's."""
-    info = jpeg_info(data, name)
+def jpeg_decode(data: bytes, name: str = "<bytes>", cv2: bool = False) -> np.ndarray | None:
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) CMYK uint8, as libjpeg
+    outputs it (a YCCK file converted to CMYK). A file that ends before its
+    EOI raises as Pillow does, unless ``cv2``: then what libjpeg makes of it
+    (the missing entropy data left as it is, a flat block per missing MCU),
+    as OpenCV reads it. A file the libraries refuse raises ``OSError`` with
+    Pillow's message, or with ``cv2`` gives None, as ``cv2.imread`` does.
+    The size limits are Pillow's, or with ``cv2`` OpenCV's."""
+    try:
+        info = jpeg_info(data, name)
+    except OSError:
+        if cv2:
+            return None
+        raise
     h, w, c = info["height"], info["width"], info["components"]
     check_size(w, h, name, "JPEG", cv2)
     out = np.empty((h, w, c), np.uint8)
     err = ctypes.create_string_buffer(_ERRLEN)
     rc = load_library().sl_jpeg_decode(data, ctypes.c_size_t(len(data)), _ptr(out), err, _ERRLEN)
-    if not (cv2 and rc == _TRUNCATED):
+    if cv2 and rc in (_UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS):
+        return None
+    if not (cv2 and rc in (_TRUNCATED, _PILLOW_BROKEN)):
         _check(rc, err, name)
     return out[..., 0] if c == 1 else out
+
+
+def cmyk_convert(cmyk: np.ndarray, opencv: bool) -> np.ndarray:
+    """(H, W, 4) CMYK as libjpeg outputs it to Pillow's ``convert("RGBA")``
+    (H, W, 4) or, with ``opencv``, to OpenCV's BGR (H, W, 3)."""
+    src = np.ascontiguousarray(cmyk, np.uint8)
+    out = np.empty(src.shape[:2] + (3 if opencv else 4,), np.uint8)
+    load_library().sl_cmyk_convert(_ptr(src), ctypes.c_size_t(src.shape[0] * src.shape[1]),
+                                   int(opencv), _ptr(out))
+    return out
 
 
 def jpeg_encode(pixels: np.ndarray, quality: int, h0: int, v0: int) -> bytes:

@@ -470,6 +470,68 @@ def write_webp_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
     return paths
 
 
+def write_jpeg_variant_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+    """``write_image_fixtures``'s scene with its images as the JPEG variants
+    the port reads since Pillow and OpenCV do (the committed files of
+    ``image_fixtures``, which libjpeg-turbo and Pillow wrote), each beside a
+    twin that holds its decoded pixels as PNG. Paths by name:
+
+    - ``obj_arith``: the textured blob whose MTL names its base colour as an
+      arithmetic-coded progressive JPEG; ``obj_png``: the same blob whose MTL
+      names the PNG of that file's decode;
+    - ``glb_cmyk``: the textured blob as GLB with the base colour embedded as
+      an Adobe CMYK JPEG (``image/jpeg``); ``glb_png``: with its PNG twin;
+    - ``plane_lossless``: ``checker_texture`` as a lossless JPEG (SOF3);
+      ``plane_png``: its decode as PNG;
+    - ``ibl_ycck``: an sIBL descriptor whose panorama is ``sky_ldr`` as a
+      YCCK JPEG (read as OpenCV reads it: CMYK to BGR); ``ibl_png``: the
+      descriptor of a PNG of that reading (a PNG is linearised as a JPEG
+      is, so the two panoramas are the same floats).
+    """
+    import shutil
+
+    from . import image_fixtures
+    from .image import decode_image, encode_png, read_image_cv2
+    from .objfile import load_obj
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed0"
+    names = {"obj_arith": f"{stem}_arith.obj", "obj_png": f"{stem}_arithtwin.obj",
+             "glb_cmyk": f"{stem}_cmyk.glb", "glb_png": f"{stem}_cmyktwin.glb",
+             "plane_lossless": "checker_lossless.jpg", "plane_png": "checker_lossless.png",
+             "ibl_ycck": "sky_ycck.ibl", "ibl_png": "sky_ycck_twin.ibl"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    for name in ("blob_arith.jpg", "checker_lossless.jpg", "sky_ycck.jpg"):
+        shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
+
+    def twin(name):
+        with open(image_fixtures.path(name), "rb") as f:
+            data = f.read()
+        return data, encode_png(decode_image(data, name)[..., :3])
+
+    arith, arith_png = twin("blob_arith.jpg")
+    cmyk, cmyk_png = twin("blob_cmyk.jpg")
+    atomic_write(os.path.join(directory, "blob_arith.png"), arith_png)
+    atomic_write(paths["plane_png"], twin("checker_lossless.jpg")[1])
+    p, f = _blob(subdiv, 0)
+    for key, tex in (("obj_arith", "blob_arith.jpg"), ("obj_png", "blob_arith.png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex)
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_cmyk"], blob, cmyk, mime="image/jpeg")
+    write_glb(paths["glb_png"], blob, cmyk_png)
+    sky = read_image_cv2(os.path.join(directory, "sky_ycck.jpg"))
+    atomic_write(os.path.join(directory, "sky_ycck.png"), encode_png(sky[..., ::-1].copy()))
+    h, w = sky.shape[:2]
+    atomic_write(paths["ibl_ycck"], _ibl_text("sky_ycck.jpg", h, w))
+    atomic_write(paths["ibl_png"], _ibl_text("sky_ycck.png", h, w))
+    return paths
+
+
 def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
     """Write every format the loaders read into ``directory`` (files kept
     if already there) and return their paths by name. Each mesh is the

@@ -52,108 +52,75 @@ const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 
 
 inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
 
-inline uint8_t clamp_sample(int64_t s) {  // s + 128, saturated as the SIMD pack does
-  s += 128;
-  return uint8_t(s < 0 ? 0 : s > 255 ? 255 : s);
+// jidctint.c's ISLOW IDCT as libjpeg-turbo's SIMD version (jidctint-sse2 /
+// -avx2) computes it, which libjpeg-turbo decodes with on x86: the
+// dequantised coefficients, the workspace and the sums of two 16-bit
+// values are 16-bit words (wrapping); the products are pairs of 16-bit
+// multiplies summed in 32 bits; each pass ends in a saturating pack. On a
+// valid file no word overflows and this is jidctint.c's arithmetic exactly;
+// on damaged data (coefficients decoded from zeros past a cut) the words
+// wrap as the libraries' do.
+inline int32_t w16(int32_t v) { return int16_t(uint16_t(uint32_t(v))); }
+inline int32_t add32(int32_t a, int32_t b) { return int32_t(uint32_t(a) + uint32_t(b)); }
+inline int32_t sub32(int32_t a, int32_t b) { return int32_t(uint32_t(a) - uint32_t(b)); }
+inline int32_t sat16(int32_t v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+
+// one 1-D pass over 8 words; out[k] before its descale
+inline void idct_1d(const int32_t* in, int32_t* out) {
+  const int32_t F029 = FIX_0_298631336, F039 = FIX_0_390180644, F054 = FIX_0_541196100,
+                F076 = FIX_0_765366865, F089 = FIX_0_899976223, F117 = FIX_1_175875602,
+                F150 = FIX_1_501321110, F184 = FIX_1_847759065, F196 = FIX_1_961570560,
+                F205 = FIX_2_053119869, F256 = FIX_2_562915447, F307 = FIX_3_072711026;
+  // even part
+  int32_t z2 = in[2], z3 = in[6];
+  int32_t tmp3 = add32(z2 * (F054 + F076), z3 * F054);
+  int32_t tmp2 = add32(z2 * F054, z3 * (F054 - F184));
+  int32_t tmp0 = int32_t(uint32_t(w16(in[0] + in[4])) << 13);
+  int32_t tmp1 = int32_t(uint32_t(w16(in[0] - in[4])) << 13);
+  int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+  int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+  // odd part
+  int32_t t0 = in[7], t1 = in[5], t2 = in[3], t3 = in[1];
+  int32_t z3o = w16(t0 + t2), z4o = w16(t1 + t3);
+  int32_t Z3 = add32(z3o * (F117 - F196), z4o * F117);
+  int32_t Z4 = add32(z3o * F117, z4o * (F117 - F039));
+  int32_t o0 = add32(add32(t0 * (F029 - F089), t3 * -F089), Z3);
+  int32_t o3 = add32(add32(t0 * -F089, t3 * (F150 - F089)), Z4);
+  int32_t o1 = add32(add32(t1 * (F205 - F256), t2 * -F256), Z4);
+  int32_t o2 = add32(add32(t1 * -F256, t2 * (F307 - F256)), Z3);
+  out[0] = add32(tmp10, o3);
+  out[7] = sub32(tmp10, o3);
+  out[1] = add32(tmp11, o2);
+  out[6] = sub32(tmp11, o2);
+  out[2] = add32(tmp12, o1);
+  out[5] = sub32(tmp12, o1);
+  out[3] = add32(tmp13, o0);
+  out[4] = sub32(tmp13, o0);
 }
 
-// jidctint.c: dequantise and inverse-transform one block into 8 rows of out
+// dequantise and inverse-transform one block into 8 rows of out
 void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
-  int ws[64];
+  int32_t ws[64];
+  bool ac_zero = true;  // the SIMD pass 1 takes a block whose rows 1-7 are zero as DC only
+  for (int k = 8; k < 64 && ac_zero; k++) ac_zero = coef[k] == 0;
+  int32_t col[8], res[8];
   for (int c = 0; c < 8; c++) {
-    const int16_t* in = coef + c;
-    const uint16_t* qp = q + c;
-    int* w = ws + c;
-    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
-      int dc = int(int64_t(in[0]) * qp[0] * 4);
-      for (int k = 0; k < 8; k++) w[8 * k] = dc;
+    if (ac_zero) {
+      int32_t dc = w16(w16(int32_t(coef[c]) * q[c]) << 2);
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
       continue;
     }
-    int64_t z2 = int64_t(in[16]) * qp[16], z3 = int64_t(in[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 - z3 * FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int64_t(in[0]) * qp[0];
-    z3 = int64_t(in[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) << 13, tmp1 = (z2 - z3) << 13;
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(in[56]) * qp[56];
-    tmp1 = int64_t(in[40]) * qp[40];
-    tmp2 = int64_t(in[24]) * qp[24];
-    tmp3 = int64_t(in[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    w[0] = int(descale(tmp10 + tmp3, 11));
-    w[56] = int(descale(tmp10 - tmp3, 11));
-    w[8] = int(descale(tmp11 + tmp2, 11));
-    w[48] = int(descale(tmp11 - tmp2, 11));
-    w[16] = int(descale(tmp12 + tmp1, 11));
-    w[40] = int(descale(tmp12 - tmp1, 11));
-    w[24] = int(descale(tmp13 + tmp0, 11));
-    w[32] = int(descale(tmp13 - tmp0, 11));
+    for (int r = 0; r < 8; r++) col[r] = w16(int32_t(coef[8 * r + c]) * q[8 * r + c]);
+    idct_1d(col, res);
+    for (int r = 0; r < 8; r++) ws[8 * r + c] = sat16(add32(res[r], 1 << 10) >> 11);
   }
   for (int r = 0; r < 8; r++) {
-    const int* w = ws + 8 * r;
+    idct_1d(ws + 8 * r, res);
     uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = clamp_sample(descale(w[0], 5));
-      for (int k = 0; k < 8; k++) o[k] = v;
-      continue;
+    for (int k = 0; k < 8; k++) {
+      int32_t v = add32(res[k], 1 << 17) >> 18;
+      o[k] = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 - z3 * FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(w[0]) + w[4]) << 13, tmp1 = (int64_t(w[0]) - w[4]) << 13;
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = clamp_sample(descale(tmp10 + tmp3, 18));
-    o[7] = clamp_sample(descale(tmp10 - tmp3, 18));
-    o[1] = clamp_sample(descale(tmp11 + tmp2, 18));
-    o[6] = clamp_sample(descale(tmp11 - tmp2, 18));
-    o[2] = clamp_sample(descale(tmp12 + tmp1, 18));
-    o[5] = clamp_sample(descale(tmp12 - tmp1, 18));
-    o[3] = clamp_sample(descale(tmp13 + tmp0, 18));
-    o[4] = clamp_sample(descale(tmp13 - tmp0, 18));
   }
 }
 
@@ -318,6 +285,18 @@ struct HuffDec {
 // JPEG decoder
 // ---------------------------------------------------------------------------
 
+// where the entropy data of a segment resumes after its RSTn marker: the
+// marker at or after p (any bytes before it are skipped, as libjpeg's
+// next_marker skips them); found is whether it is the expected one
+size_t seek_restart(const uint8_t* d, size_t n, size_t p, int expected, bool& found) {
+  while (p + 1 < n) {
+    if (d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF) break;
+    p++;
+  }
+  found = p + 1 < n && d[p + 1] == 0xD0 + expected;
+  return found ? p + 2 : p;
+}
+
 struct BitReader {
   const uint8_t* d;
   size_t n, pos;
@@ -392,21 +371,138 @@ struct BitReader {
   void restart(int expected) {
     acc = 0;
     nbits = fake = 0;
-    size_t p = at_marker ? marker_pos : pos;
-    while (p + 1 < n) {
-      if (d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF) break;
-      p++;
-    }
-    if (p + 1 < n && d[p + 1] == 0xD0 + expected) {
-      pos = p + 2;
+    bool found;
+    size_t p = seek_restart(d, n, at_marker ? marker_pos : pos, expected, found);
+    if (found) {
+      pos = p;
       at_marker = false;
       insufficient = false;  // kept when the marker is not there (libjpeg's process_restart)
     } else {
       // resync: leave the marker to the marker reader, decode zeros
-      pos = p;
+      pos = marker_pos = p;
       at_marker = true;
-      marker_pos = p;
     }
+  }
+  size_t end() const { return at_marker ? marker_pos : pos; }
+};
+
+// jaricom.c: the QM coder's probability states (T.81 Table D.2):
+// Qe_Value, Next_Index_LPS, Next_Index_MPS, Switch_MPS
+const uint16_t kAri[114][4] = {
+    {0x5a1d, 1, 1, 1},     {0x2586, 14, 2, 0},    {0x1114, 16, 3, 0},    {0x080b, 18, 4, 0},
+    {0x03d8, 20, 5, 0},    {0x01da, 23, 6, 0},    {0x00e5, 25, 7, 0},    {0x006f, 28, 8, 0},
+    {0x0036, 30, 9, 0},    {0x001a, 33, 10, 0},   {0x000d, 35, 11, 0},   {0x0006, 9, 12, 0},
+    {0x0003, 10, 13, 0},   {0x0001, 12, 13, 0},   {0x5a7f, 15, 15, 1},   {0x3f25, 36, 16, 0},
+    {0x2cf2, 38, 17, 0},   {0x207c, 39, 18, 0},   {0x17b9, 40, 19, 0},   {0x1182, 42, 20, 0},
+    {0x0cef, 43, 21, 0},   {0x09a1, 45, 22, 0},   {0x072f, 46, 23, 0},   {0x055c, 48, 24, 0},
+    {0x0406, 49, 25, 0},   {0x0303, 51, 26, 0},   {0x0240, 52, 27, 0},   {0x01b1, 54, 28, 0},
+    {0x0144, 56, 29, 0},   {0x00f5, 57, 30, 0},   {0x00b7, 59, 31, 0},   {0x008a, 60, 32, 0},
+    {0x0068, 62, 33, 0},   {0x004e, 63, 34, 0},   {0x003b, 32, 35, 0},   {0x002c, 33, 9, 0},
+    {0x5ae1, 37, 37, 1},   {0x484c, 64, 38, 0},   {0x3a0d, 65, 39, 0},   {0x2ef1, 67, 40, 0},
+    {0x261f, 68, 41, 0},   {0x1f33, 69, 42, 0},   {0x19a8, 70, 43, 0},   {0x1518, 72, 44, 0},
+    {0x1177, 73, 45, 0},   {0x0e74, 74, 46, 0},   {0x0bfb, 75, 47, 0},   {0x09f8, 77, 48, 0},
+    {0x0861, 78, 49, 0},   {0x0706, 79, 50, 0},   {0x05cd, 48, 51, 0},   {0x04de, 50, 52, 0},
+    {0x040f, 50, 53, 0},   {0x0363, 51, 54, 0},   {0x02d4, 52, 55, 0},   {0x025c, 53, 56, 0},
+    {0x01f8, 54, 57, 0},   {0x01a4, 55, 58, 0},   {0x0160, 56, 59, 0},   {0x0125, 57, 60, 0},
+    {0x00f6, 58, 61, 0},   {0x00cb, 59, 62, 0},   {0x00ab, 61, 63, 0},   {0x008f, 61, 32, 0},
+    {0x5b12, 65, 65, 1},   {0x4d04, 80, 66, 0},   {0x412c, 81, 67, 0},   {0x37d8, 82, 68, 0},
+    {0x2fe8, 83, 69, 0},   {0x293c, 84, 70, 0},   {0x2379, 86, 71, 0},   {0x1edf, 87, 72, 0},
+    {0x1aa9, 87, 73, 0},   {0x174e, 72, 74, 0},   {0x1424, 72, 75, 0},   {0x119c, 74, 76, 0},
+    {0x0f6b, 74, 77, 0},   {0x0d51, 75, 78, 0},   {0x0bb6, 77, 79, 0},   {0x0a40, 77, 48, 0},
+    {0x5832, 80, 81, 1},   {0x4d1c, 88, 82, 0},   {0x438e, 89, 83, 0},   {0x3bdd, 90, 84, 0},
+    {0x34ee, 91, 85, 0},   {0x2eae, 92, 86, 0},   {0x299a, 93, 87, 0},   {0x2516, 86, 71, 0},
+    {0x5570, 88, 89, 1},   {0x4ca9, 95, 90, 0},   {0x44d9, 96, 91, 0},   {0x3e22, 97, 92, 0},
+    {0x3824, 99, 93, 0},   {0x32b4, 99, 94, 0},   {0x2e17, 93, 86, 0},   {0x56a8, 95, 96, 1},
+    {0x4f46, 101, 97, 0},  {0x47e5, 102, 98, 0},  {0x41cf, 103, 99, 0},  {0x3c3d, 104, 100, 0},
+    {0x375e, 99, 93, 0},   {0x5231, 105, 102, 0}, {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0},
+    {0x415e, 103, 99, 0},  {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1}, {0x5522, 112, 109, 0},
+    {0x59eb, 112, 111, 1},
+    {0x5a1d, 113, 113, 0}};  // T.851's fixed estimate of 0.5 (the sign and refinement bits)
+
+// jdarith.c: the QM decoder over one segment of entropy data; a marker
+// (or the end of the data) supplies zeros from there on, as libjpeg does
+struct ArithReader {
+  const uint8_t* d;
+  size_t n, pos;
+  bool at_marker = false, ran_out = false;
+  size_t marker_pos = 0;
+  size_t furthest = 0;  // one past the last byte read (n + 1: a byte past the end)
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read first; -1: a bad code, decode nothing
+  // past the end of the data the QM decoder reads zeros and goes on; each
+  // MCU's decoder checks ct for a bad code itself
+  static constexpr bool insufficient = false;
+
+  ArithReader(const uint8_t* d_, size_t n_, size_t p) : d(d_), n(n_), pos(p) {}
+
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= n) {
+      ran_out = at_marker = true;
+      marker_pos = n;
+      furthest = n + 1;
+      return 0;
+    }
+    int v = d[pos++];
+    furthest = std::max(furthest, pos);
+    if (v != 0xFF) return v;
+    size_t p = pos;
+    while (p < n && d[p] == 0xFF) p++;
+    furthest = std::max(furthest, p + 1);  // the marker's code byte (or past the end)
+    if (p < n && d[p] == 0) {
+      pos = p + 1;
+      return 0xFF;
+    }
+    if (p >= n) ran_out = true;
+    at_marker = true;
+    marker_pos = pos - 1;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint16_t* e = kAri[sv & 0x7F];
+    int64_t qe = e[0];
+    int nl = e[1] | (e[3] << 7), nm = e[2];
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= (ct & 63);
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void restart(int expected) {
+    bool found;
+    size_t p = seek_restart(d, n, at_marker ? marker_pos : pos, expected, found);
+    furthest = std::max(furthest, found ? p : p + 1 < n ? p + 2 : n + 1);
+    pos = marker_pos = p;
+    at_marker = !found;
+    c = a = 0;
+    ct = -16;
   }
   size_t end() const { return at_marker ? marker_pos : pos; }
 };
@@ -420,28 +516,61 @@ struct Component {
   int wib = 0, hib = 0;            // width / height in blocks
   int ds_w = 0, ds_h = 0;          // downsampled width / height
   std::vector<int16_t> coef;       // bw * bh blocks of 64, natural order
+  std::vector<uint8_t> samples;    // lossless: ds_w * ds_h samples
   uint16_t q[64];                  // the quantiser latched at the first scan
   bool latched = false;
   int coef_bits[64];               // progressive: each coefficient's last Al, -1 unsent
+  int prev_bits[10];               // coef_bits[0..9] before the component's last scan
   int dc_pred = 0;
 };
+
+// why a file is refused: Pillow's open raises (UnidentifiedImageError), or
+// libjpeg stops while decoding (Pillow: "broken data stream")
+[[noreturn]] void unidentified(const std::string& m) { throw Error(SL_UNIDENTIFIED, m); }
+[[noreturn]] void broken(const std::string& m) { throw Error(SL_BROKEN, m); }
+
+enum { CS_GREY, CS_YCC, CS_RGB, CS_CMYK, CS_YCCK };
 
 struct Jpeg {
   const uint8_t* d;
   size_t n;
   int width = 0, height = 0, precision = 8, ncomp = 0;
-  bool progressive = false, seen_sof = false, jfif = false, adobe = false;
+  bool progressive = false, arith = false, lossless = false;
+  bool seen_sof = false, jfif = false, adobe = false;
   int adobe_transform = -1;
   std::vector<Component> comps;
   uint16_t qt[4][64];
   bool qt_present[4] = {false, false, false, false};
   HuffDec dc[4], ac[4];
+  int dc_max_symbol[4] = {0, 0, 0, 0};
+  uint8_t dac_l[16], dac_u[16], dac_k[16];  // arithmetic conditioning (DAC)
   int restart_interval = 0;
   int max_h = 1, max_v = 1, mcux = 0, mcuy = 0;
   int eobrun = 0;
+  int scan_number = 0;
+  int last_good_imcu = 0;  // libjpeg's last_good_iMCU_row
+  // what libjpeg refuses in a header Pillow's open takes: libjpeg stops
+  // once Pillow has found the first scan ("broken data stream"); without
+  // a scan, Pillow's open does not identify the file
+  std::string refusal;
   bool truncated = false;  // no EOI: Pillow refuses the file, OpenCV reads none
+  // Pillow hands libjpeg the file 64 KiB at a time (ImageFile.MAXBLOCK): its
+  // n-th call sees the bytes before n * 64 KiB, and a call ends only where
+  // libjpeg suspends, which the arithmetic decoder cannot. A scan whose
+  // arithmetic decoding reads past the bytes of the call that read its
+  // header stops libjpeg in Pillow's reading ("broken data stream"), not in
+  // OpenCV's, whose file source reads on.
+  static constexpr size_t kPillowBlock = 65536;
+  size_t pillow_call = 0;
+  bool pillow_broken = false;
 
-  Jpeg(const uint8_t* d_, size_t n_) : d(d_), n(n_) {}
+  Jpeg(const uint8_t* d_, size_t n_) : d(d_), n(n_) {
+    for (int t = 0; t < 16; t++) {  // jdmaster.c's defaults
+      dac_l[t] = 0;
+      dac_u[t] = 1;
+      dac_k[t] = 5;
+    }
+  }
 
   int u16(size_t p) const {
     if (p + 2 > n) corrupt("JPEG: truncated marker segment");
@@ -449,11 +578,12 @@ struct Jpeg {
   }
 
   int colour_space() const {  // jdapimin.c default_decompress_parms
-    if (ncomp == 1) return 0;
-    if (jfif) return 1;
-    if (adobe) return adobe_transform == 0 ? 2 : 1;
-    if (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B') return 2;
-    return 1;
+    if (ncomp == 1) return CS_GREY;
+    if (ncomp == 4) return adobe && adobe_transform != 0 ? CS_YCCK : CS_CMYK;
+    if (jfif) return CS_YCC;
+    if (adobe) return adobe_transform == 0 ? CS_RGB : CS_YCC;
+    if (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B') return CS_RGB;
+    return CS_YCC;
   }
 
   // next marker at or after p (skips fill bytes and garbage); returns its
@@ -477,24 +607,24 @@ struct Jpeg {
 
   void read_sof(size_t p, int len, int marker) {
     if (seen_sof) corrupt("JPEG: two frame headers");
-    switch (marker) {
-      case 0xC0: case 0xC1: break;
-      case 0xC2: progressive = true; break;
-      case 0xC3: unsupported("lossless JPEG (SOF3) is not supported");
-      case 0xC9: case 0xCA: case 0xCB:
-        unsupported("arithmetic-coded JPEG is not supported");
-      default: unsupported("hierarchical JPEG is not supported");
-    }
     if (len < 6) corrupt("JPEG: bad frame header");
     precision = d[p];
     height = u16(p + 1);
     width = u16(p + 3);
     ncomp = d[p + 5];
-    if (precision != 8)
-      unsupported(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
-    if (ncomp == 4) unsupported("4-component (CMYK/YCCK) JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3)
-      unsupported(std::to_string(ncomp) + "-component JPEG is not supported");
+    // Pillow's open takes 8-bit frames of 1, 3 or 4 components only
+    if (precision != 8) unidentified(std::to_string(precision) + "-bit JPEG");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      unidentified(std::to_string(ncomp) + "-component JPEG");
+    switch (marker) {  // libjpeg decodes these processes and no others
+      case 0xC0: case 0xC1: break;
+      case 0xC2: progressive = true; break;
+      case 0xC3: lossless = true; break;
+      case 0xC9: arith = true; break;
+      case 0xCA: arith = progressive = true; break;
+      case 0xCB: refusal = "lossless arithmetic-coded JPEG (SOF11)"; break;
+      default: refusal = "hierarchical JPEG (SOF" + std::to_string(marker - 0xC0) + ")";
+    }
     if (width <= 0 || height <= 0) corrupt("JPEG: empty image or DNL height");
     if (len < 6 + 3 * ncomp) corrupt("JPEG: bad frame header");
     comps.resize(ncomp);
@@ -509,8 +639,9 @@ struct Jpeg {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    mcux = (width + 8 * max_h - 1) / (8 * max_h);
-    mcuy = (height + 8 * max_v - 1) / (8 * max_v);
+    int unit = lossless ? 1 : 8;  // a data unit: a block, or one sample
+    mcux = (width + unit * max_h - 1) / (unit * max_h);
+    mcuy = (height + unit * max_v - 1) / (unit * max_v);
     for (Component& c : comps) {
       c.ds_w = int((int64_t(width) * c.h + max_h - 1) / max_h);
       c.ds_h = int((int64_t(height) * c.v + max_v - 1) / max_v);
@@ -548,11 +679,38 @@ struct Jpeg {
       }
       if (s.count > 256 || p + 17 + s.count > end) corrupt("JPEG: bad Huffman table");
       memcpy(s.vals, d + p + 17, s.count);
-      for (int i = 0; i < s.count && tc == 0; i++)  // jdhuff.c: a DC size is at most 15
-        if (s.vals[i] > 15) corrupt("JPEG: bad DC Huffman table");
+      if (tc == 0) {
+        dc_max_symbol[th] = 0;
+        for (int i = 0; i < s.count; i++)
+          dc_max_symbol[th] = std::max<int>(dc_max_symbol[th], s.vals[i]);
+      }
       (tc ? ac : dc)[th].build(s);
       p += 17 + s.count;
     }
+  }
+
+  // jdmarker.c get_dac
+  void read_dac(size_t p, size_t end) {
+    for (; p + 1 < end; p += 2) {
+      int index = d[p], val = d[p + 1];
+      if (index >= 32) corrupt("JPEG: bad DAC index");
+      if (index >= 16) {
+        dac_k[index - 16] = uint8_t(val);
+      } else {
+        dac_l[index] = uint8_t(val & 15);
+        dac_u[index] = uint8_t(val >> 4);
+        if (dac_l[index] > dac_u[index]) corrupt("JPEG: bad DAC value");
+      }
+    }
+    if (p != end) corrupt("JPEG: bad DAC length");
+  }
+
+  // a marker segment between the frame and a scan (or between two scans)
+  void read_tables(int m, size_t body, size_t end) {
+    if (m == 0xDB) read_dqt(body, end);
+    else if (m == 0xC4) read_dht(body, end);
+    else if (m == 0xCC) read_dac(body, end);
+    else if (m == 0xDD) restart_interval = u16(body);
   }
 
   // the header: every marker up to the first scan (or only the frame)
@@ -560,24 +718,23 @@ struct Jpeg {
   void parse_headers(bool stop_at_sof) {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) corrupt("not a JPEG file");
     while (true) {
+      // a file whose markers end before its first scan: Pillow's open does
+      // not identify it (or, cut inside a segment, raises that its read is
+      // truncated); OpenCV reads nothing
       int m = next_marker(pos);
-      if (m < 0) corrupt("JPEG: no image data");
-      if (m == 0xD9) corrupt("JPEG: no image data before EOI");
+      if (m < 0) unidentified("JPEG: no image data");
+      if (m == 0xD9) unidentified("JPEG: no image data before EOI");
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      if (pos + 2 > n || pos + u16(pos) > n)
+        throw Error(SL_TRUNCATED_FAILS, "JPEG: image file is truncated");
       int len = u16(pos);
       size_t body = pos + 2, end = pos + len;
-      if (len < 2 || end > n) corrupt("JPEG: truncated marker segment");
+      if (len < 2) corrupt("JPEG: bad marker segment");
       if ((m >= 0xC0 && m <= 0xCF) && m != 0xC4 && m != 0xC8 && m != 0xCC) {
         read_sof(body, len - 2, m);
         if (stop_at_sof) return;
-      } else if (m == 0xCC) {
-        unsupported("arithmetic-coded JPEG is not supported");
-      } else if (m == 0xDB) {
-        read_dqt(body, end);
-      } else if (m == 0xC4) {
-        read_dht(body, end);
-      } else if (m == 0xDD) {
-        restart_interval = u16(body);
+      } else if (m == 0xC8 || m == 0xDE || m == 0xDF || (m >= 0xF0 && m <= 0xFD)) {
+        refusal = "JPEG extension marker " + std::to_string(m);  // JPG, DHP, EXP, JPGn
       } else if (m == 0xE0 && len >= 7 && !memcmp(d + body, "JFIF\0", 5)) {
         jfif = true;
       } else if (m == 0xEE && len >= 14 && !memcmp(d + body, "Adobe", 5)) {
@@ -586,14 +743,22 @@ struct Jpeg {
       } else if (m == 0xDA) {
         pos = body;  // at the scan header's body
         if (!seen_sof) corrupt("JPEG: scan before the frame header");
+        if (!refusal.empty()) broken(refusal);
         return;
+      } else {
+        read_tables(m, body, end);
       }
       pos = end;
     }
   }
 
   // ---- scans ----
-  struct ScanComp { Component* c; const HuffDec* dc; const HuffDec* ac; };
+  struct ScanComp {
+    Component* c;
+    const HuffDec* dc;
+    const HuffDec* ac;
+    int dc_ctx = 0;  // arithmetic: the DC statistics' conditioning
+  };
 
   int16_t* block(Component& c, int bx, int by) {
     return c.coef.data() + (size_t(by) * c.bw + bx) * 64;
@@ -613,11 +778,17 @@ struct Jpeg {
       if (!c) corrupt("JPEG: scan names an unknown component");
       c->td = tables >> 4;
       c->ta = tables & 15;
-      if (c->td > 3 || c->ta > 3) corrupt("JPEG: bad table index");
-      sc.push_back({c, &dc[c->td], &ac[c->ta]});
+      if (!arith && (c->td > 3 || c->ta > 3)) corrupt("JPEG: bad table index");
+      sc.push_back({c, &dc[c->td & 3], &ac[c->ta & 3]});
     }
+    int units = 0;  // jdinput.c per_scan_setup: at most 10 blocks (samples) an MCU
+    for (ScanComp& c : sc) units += c.c->h * c.c->v;
+    if (ns > 1 && units > 10) broken("JPEG: more than 10 data units in an MCU");
     int ss = d[p + 1 + 2 * ns], se = d[p + 2 + 2 * ns];
     int ah = d[p + 3 + 2 * ns] >> 4, al = d[p + 3 + 2 * ns] & 15;
+    scan_number++;
+    size_t data = p + 4 + 2 * ns;
+    if (lossless) return decode_lossless_scan(sc, ss, se, ah, al, data);
     if (progressive) {
       bool bad = ss > se || se > 63 || al > 13 || (ss == 0 && se != 0) || (ss > 0 && ns != 1) ||
                  (ah != 0 && ah != al + 1);
@@ -631,6 +802,10 @@ struct Jpeg {
         c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
         std::fill(c.coef_bits, c.coef_bits + 64, -1);
       }
+      if (progressive) {  // jdphuff.c / jdarith.c start_pass
+        for (int k = std::min(ss, 1); k <= 9; k++)
+          c.prev_bits[k] = scan_number > 1 ? c.coef_bits[k] : 0;
+      }
       for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
       if (!c.latched) {  // jdinput.c latch_quant_tables
         if (!qt_present[c.tq]) corrupt("JPEG: a quantisation table is missing");
@@ -639,44 +814,60 @@ struct Jpeg {
       }
       bool need_dc = !progressive || (ss == 0 && ah == 0);
       bool need_ac = !progressive || ss > 0;
-      if ((need_dc && !s.dc->present) || (need_ac && !s.ac->present))
+      if (!arith && ((need_dc && !s.dc->present) || (need_ac && !s.ac->present)))
         corrupt("JPEG: a Huffman table is missing");
+      if (!arith && need_dc && dc_max_symbol[c.td] > 15) corrupt("JPEG: bad DC Huffman table");
       c.dc_pred = 0;
     }
     eobrun = 0;
-    BitReader br(d, n, p + 4 + 2 * ns);
+    if (arith) return decode_arith_scan(sc, ss, se, ah, al, data);
+    BitReader br(d, n, data);
+    for_each_mcu(sc, [](int64_t) {}, br,
+                 [&](ScanComp& s, int16_t* b) {
+                   if (!progressive) decode_baseline(br, s, b);
+                   else if (ss == 0 && ah == 0) b[0] = int16_t(dc_first(br, s) * (1 << al));
+                   else if (ss == 0) { if (br.bits(1)) b[0] |= int16_t(1 << al); }
+                   else if (ah == 0) ac_first(br, s, b, ss, se, al);
+                   else ac_refine(br, s, b, ss, se, al);
+                 });
+    truncated |= br.ran_out;
+    pos = br.end();
+  }
 
-    // the MCUs of the scan: one block each when non-interleaved
-    bool single = ns == 1;
+  // the MCUs of a DCT scan (one block each when it is not interleaved), with
+  // the restarts, and libjpeg's last_good_iMCU_row: the iMCU row of the last
+  // MCU that began before the data ran out
+  template <class Reader, class Restart, class Block>
+  void for_each_mcu(std::vector<ScanComp>& sc, Restart on_restart, Reader& rd, Block blk) {
+    bool single = sc.size() == 1;
     int mw = single ? sc[0].c->wib : mcux, mh = single ? sc[0].c->hib : mcuy;
+    int rows_per_imcu = single ? sc[0].c->v : 1;
     int64_t total = int64_t(mw) * mh, todo = restart_interval, rst = 0;
     for (int64_t m = 0; m < total; m++) {
       if (restart_interval && todo == 0) {
-        br.restart(int(rst));
+        rd.restart(int(rst));
+        on_restart(rst);
         rst = (rst + 1) & 7;
         todo = restart_interval;
         eobrun = 0;
-        for (ScanComp& s : sc) s.c->dc_pred = 0;
+        for (ScanComp& s : sc) {
+          s.c->dc_pred = 0;
+          s.dc_ctx = 0;
+        }
       }
       todo--;
-      if (br.insufficient) continue;  // libjpeg leaves the rest of the segment as it is
       int mx = int(m % mw), my = int(m / mw);
-      for (ScanComp& s : sc) {
-        Component& c = *s.c;
-        int nbx = single ? 1 : c.h, nby = single ? 1 : c.v;
-        for (int by = 0; by < nby; by++)
-          for (int bx = 0; bx < nbx; bx++) {
-            int16_t* b = single ? block(c, mx, my) : block(c, mx * c.h + bx, my * c.v + by);
-            if (!progressive) decode_baseline(br, s, b);
-            else if (ss == 0 && ah == 0) b[0] = int16_t(dc_first(br, s) * (1 << al));
-            else if (ss == 0) { if (br.bits(1)) b[0] |= int16_t(1 << al); }
-            else if (ah == 0) ac_first(br, s, b, ss, se, al);
-            else ac_refine(br, s, b, ss, se, al);
-          }
+      if (!rd.insufficient) {  // else libjpeg leaves the rest of the segment as it is
+        for (ScanComp& s : sc) {
+          Component& c = *s.c;
+          int nbx = single ? 1 : c.h, nby = single ? 1 : c.v;
+          for (int by = 0; by < nby; by++)
+            for (int bx = 0; bx < nbx; bx++)
+              blk(s, single ? block(c, mx, my) : block(c, mx * c.h + bx, my * c.v + by));
+        }
+        last_good_imcu = my / rows_per_imcu;
       }
     }
-    truncated |= br.ran_out;
-    pos = br.end();
   }
 
   int dc_first(BitReader& br, ScanComp& s) {
@@ -757,8 +948,267 @@ struct Jpeg {
     }
   }
 
+  // ---- arithmetic coding (jdarith.c) ----
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+
+  void decode_arith_scan(std::vector<ScanComp>& sc, int ss, int se, int ah, int al, size_t data) {
+    bool dc_scan = !progressive || (ss == 0 && ah == 0), ac_scan = !progressive || ss > 0;
+    auto reset_stats = [&] {
+      for (ScanComp& s : sc) {
+        if (dc_scan) memset(dc_stats[s.c->td], 0, 64);
+        if (ac_scan) memset(ac_stats[s.c->ta], 0, 256);
+      }
+    };
+    reset_stats();
+    ArithReader ar(d, n, data);
+    for_each_mcu(sc, [&](int64_t) { reset_stats(); }, ar, [&](ScanComp& s, int16_t* b) {
+      if (!progressive) {
+        if (ar.ct == -1) return;
+        int v;
+        if (!arith_dc(ar, s, v)) return;
+        b[0] = int16_t(v);
+        arith_ac(ar, s, b, 1, 63, 0);
+      } else if (ss == 0 && ah == 0) {
+        if (ar.ct == -1) return;
+        int v;
+        if (!arith_dc(ar, s, v)) return;
+        b[0] = int16_t(uint16_t(unsigned(v) << al));
+      } else if (ss == 0) {
+        if (ar.decode(&fixed_bin)) b[0] = int16_t(b[0] | (1 << al));
+      } else if (ah == 0) {
+        if (ar.ct == -1) return;
+        arith_ac(ar, s, b, ss, se, al);
+      } else {
+        if (ar.ct == -1) return;
+        arith_ac_refine(ar, s, b, ss, se, al);
+      }
+    });
+    truncated |= ar.ran_out;
+    pos = ar.end();
+    pillow_call = std::max(pillow_call, (data + kPillowBlock - 1) / kPillowBlock);
+    if (ar.furthest > std::min(n, pillow_call * kPillowBlock)) pillow_broken = true;
+  }
+
+  // F.19: one DC difference, added to the prediction (kept to 16 bits as
+  // libjpeg keeps it); false on a bad code
+  bool arith_dc(ArithReader& ar, ScanComp& s, int& out) {
+    int tbl = s.c->td;
+    uint8_t* st = dc_stats[tbl] + s.dc_ctx;
+    if (ar.decode(st) == 0) {
+      s.dc_ctx = 0;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // "bad arithmetic code": decode nothing to the restart
+            return false;
+          }
+          st += 1;
+        }
+      }
+      if (m < int((1L << dac_l[tbl]) >> 1)) s.dc_ctx = 0;
+      else if (m > int((1L << dac_u[tbl]) >> 1)) s.dc_ctx = 12 + sign * 4;
+      else s.dc_ctx = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      s.c->dc_pred = (s.c->dc_pred + v) & 0xFFFF;
+    }
+    out = s.c->dc_pred;
+    return true;
+  }
+
+  // F.20: the AC coefficients ss..se of a block (sequential or first scan)
+  void arith_ac(ArithReader& ar, ScanComp& s, int16_t* b, int ss, int se, int al) {
+    int tbl = s.c->ta;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      int sign = ar.decode(&fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= dac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // magnitude overflow
+            return;
+          }
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      b[kNatural[k]] = int16_t(unsigned(v) << al);
+    }
+  }
+
+  void arith_ac_refine(ArithReader& ar, ScanComp& s, int16_t* b, int ss, int se, int al) {
+    int tbl = s.c->ta;
+    int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; kex--)
+      if (b[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& c = b[kNatural[k]];
+        if (c) {
+          if (ar.decode(st + 2)) c = int16_t(c < 0 ? c + m1 : c + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          c = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+    }
+  }
+
+  // ---- lossless (jdlhuff.c, jddiffct.c, jdpred.c) ----
+  void decode_lossless_scan(std::vector<ScanComp>& sc, int psv, int se, int ah, int pt,
+                            size_t data) {
+    if (psv < 1 || psv > 7 || se != 0 || ah != 0 || pt >= precision)
+      broken("JPEG: bad lossless scan parameters");
+    for (ScanComp& s : sc) {
+      if (!s.dc->present) corrupt("JPEG: a Huffman table is missing");
+      if (s.c->samples.empty()) s.c->samples.assign(size_t(s.c->ds_w) * s.c->ds_h, 0);
+    }
+    bool single = sc.size() == 1;
+    int per_row = single ? sc[0].c->ds_w : mcux;  // MCUs in an MCU row
+    int total = mcuy;                             // iMCU rows: max_v sample rows each
+    if (restart_interval % per_row) broken("JPEG: lossless restart interval not whole rows");
+    int ns = int(sc.size());
+    // per component of the scan: v rows of differences, v rows of samples
+    std::vector<std::vector<int>> diff(ns), undiff(ns);
+    std::vector<int> dw(ns);
+    for (int i = 0; i < ns; i++) {
+      Component& c = *sc[i].c;
+      dw[i] = single ? c.ds_w : per_row * c.h;
+      diff[i].assign(size_t(c.v) * dw[i], 0);
+      undiff[i].assign(size_t(c.v) * c.ds_w, 0);
+    }
+    std::vector<bool> first_row(ncomp, true);  // jdpred.c: predict from 2^(P-Pt-1)
+    auto reset_predictors = [&] { std::fill(first_row.begin(), first_row.end(), true); };
+    BitReader br(d, n, data);
+    int rows_to_go = restart_interval / per_row, rst = 0;
+    int init = 1 << (precision - pt - 1);
+    for (int r = 0; r < total; r++) {
+      int mcu_rows = single ? (r < total - 1 ? sc[0].c->v : last_row_height(*sc[0].c)) : 1;
+      for (int y = 0; y < mcu_rows; y++) {
+        if (restart_interval) {
+          if (rows_to_go == 0) {
+            br.restart(rst);
+            rst = (rst + 1) & 7;
+            reset_predictors();
+            rows_to_go = restart_interval / per_row;
+          }
+        }
+        if (br.insufficient) {  // the rest of the segment: zero differences
+          for (int i = 0; i < ns; i++) {
+            auto row = diff[i].begin() + size_t(y) * dw[i];
+            std::fill(row, row + size_t(single ? 1 : sc[i].c->v) * dw[i], 0);
+          }
+          reset_predictors();
+        } else {
+          for (int x = 0; x < per_row; x++)
+            for (int i = 0; i < ns; i++) {
+              Component& c = *sc[i].c;
+              int nx = single ? 1 : c.h, ny = single ? 1 : c.v;
+              for (int yy = 0; yy < ny; yy++)
+                for (int xx = 0; xx < nx; xx++) {
+                  int s = br.decode(*sc[i].dc);
+                  if (s) s = s == 16 ? 32768 : extend(br.bits(s), s);
+                  diff[i][size_t(y + yy) * dw[i] + x * nx + xx] = s;
+                }
+            }
+        }
+        if (restart_interval) rows_to_go--;
+      }
+      // undifference and scale each row of the iMCU row
+      for (int i = 0; i < ns; i++) {
+        Component& c = *sc[i].c;
+        int ci = int(&c - comps.data());
+        int rows = r == total - 1 ? last_row_height(c) : c.v;
+        for (int row = 0, prev = c.v - 1; row < rows; prev = row, row++) {
+          const int* df = diff[i].data() + size_t(row) * dw[i];
+          const int* up = undiff[i].data() + size_t(prev) * c.ds_w;
+          int* out = undiff[i].data() + size_t(row) * c.ds_w;
+          undifference(first_row[ci] ? 0 : psv, df, up, out, c.ds_w, init);
+          first_row[ci] = false;
+          uint8_t* o = c.samples.data() + size_t(r * c.v + row) * c.ds_w;
+          for (int x = 0; x < c.ds_w; x++) o[x] = uint8_t(out[x] << pt);
+        }
+      }
+    }
+    truncated |= br.ran_out;
+    pos = br.end();
+  }
+
+  static int last_row_height(const Component& c) {
+    int t = c.ds_h % c.v;
+    return t ? t : c.v;
+  }
+
+  // jdpred.c: one row; psv 0 is the first row's rule (Ra, from 2^(P-Pt-1))
+  static void undifference(int psv, const int* df, const int* up, int* out, int w, int init) {
+    if (psv == 0 || psv == 1) {
+      int ra = (df[0] + (psv == 0 ? init : up[0])) & 0xFFFF;
+      out[0] = ra;
+      for (int x = 1; x < w; x++) out[x] = ra = (df[x] + ra) & 0xFFFF;
+      return;
+    }
+    int rb = up[0];
+    int ra = (df[0] + rb) & 0xFFFF;
+    out[0] = ra;
+    for (int x = 1; x < w; x++) {
+      int rc = rb;
+      rb = up[x];
+      int p;
+      switch (psv) {
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      out[x] = ra = (df[x] + p) & 0xFFFF;
+    }
+  }
+
   void decode_all() {
     parse_headers(false);
+    // libjpeg-turbo converts no colour in lossless mode: it stops before the
+    // first scan where YCbCr -> RGB or YCCK -> CMYK would be needed
+    int cs = colour_space();
+    if (lossless && (cs == CS_YCC || cs == CS_YCCK)) broken("lossless JPEG in YCbCr or YCCK");
     while (true) {
       decode_scan();
       int m;
@@ -767,47 +1217,191 @@ struct Jpeg {
         if (m < 0) truncated = true;
         if (m < 0 || m == 0xD9) return;
         if (m >= 0xD0 && m <= 0xD7) continue;
+        if (pos + 2 > n || pos + u16(pos) > n) return read_cut_segment(m);
         int len = u16(pos);
         size_t body = pos + 2, end = pos + len;
-        if (len < 2 || end > n) corrupt("JPEG: truncated marker segment");
+        if (len < 2) corrupt("JPEG: bad marker segment");
         if (m == 0xDA) {
           pos = body;
           break;
         }
-        if (m == 0xDB) read_dqt(body, end);
-        else if (m == 0xC4) read_dht(body, end);
-        else if (m == 0xDD) restart_interval = u16(body);
-        else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)
+        if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC)
           corrupt("JPEG: two frame headers");
+        read_tables(m, body, end);
         pos = end;
       }
     }
   }
 
+  // the data ends inside the marker segment at pos (between two scans):
+  // Pillow's reading is truncated; libjpeg reads on through the fake EOI
+  // markers (FF D9 FF D9 ...) its file source supplies past the end, which
+  // a table or scan header may take for its contents
+  bool cut_segment_fails = false;
+  void read_cut_segment(int m) {
+    truncated = true;
+    std::vector<uint8_t> pad(d + pos, d + n);
+    while (pad.size() < 65540) {
+      pad.push_back(0xFF);
+      pad.push_back(0xD9);
+    }
+    const uint8_t* data = d;
+    size_t size = n;
+    d = pad.data();
+    n = pad.size();
+    try {
+      int len = u16(0);
+      if (m == 0xDA || len < 2) corrupt("JPEG: cut scan header");
+      read_tables(m, 2, size_t(len));
+    } catch (const Error&) {
+      cut_segment_fails = true;
+    }
+    d = data;
+    n = size;
+  }
+
   // ---- samples ----
-  // one component's samples: IDCT of every stored block
-  std::vector<uint8_t> plane(Component& c) {
-    int stride = c.bw * 8;
-    std::vector<uint8_t> out(size_t(stride) * c.bh * 8, 0);
-    if (c.coef.empty()) return out;  // a component no scan covered
-    for (int by = 0; by < c.bh; by++)
-      for (int bx = 0; bx < c.bw; bx++)
-        idct_islow(block(c, bx, by), c.q, out.data() + size_t(by) * 8 * stride + bx * 8, stride);
+  // jdcoefct.c smoothing_ok: whether libjpeg smooths this progressive
+  // image's blocks, with the coefficient bits it latches (latch[ci][0..9]
+  // now, latch[ci][10..19] before each component's last scan)
+  bool smoothing_ok(std::vector<int>& latch) {
+    if (!progressive) return false;
+    bool useful = false;
+    latch.assign(size_t(ncomp) * 20, 0);
+    for (int ci = 0; ci < ncomp; ci++) {
+      Component& c = comps[ci];
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; k++)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      int* l = latch.data() + 20 * ci;
+      l[0] = c.coef_bits[0];
+      for (int k = 1; k < 10; k++) {
+        l[10 + k] = scan_number > 1 ? c.prev_bits[k] : -1;
+        l[k] = c.coef_bits[k];
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+): a block's low
+  // coefficients that are still zero and not known to be exact are
+  // estimated from the DC values of its 5x5 neighbourhood of blocks; with
+  // no AC coefficient known at all, the DC itself is interpolated
+  void smooth_block(const Component& c, const int* cb, int bx, int by, int16_t* ws) {
+    int total = mcuy, last = total - 1;
+    int imcu = by / c.v, block_row = by % c.v;
+    int block_rows = imcu < last ? c.v : (c.hib % c.v ? c.hib % c.v : c.v);
+    int ibr = imcu * block_rows + block_row, ibrs = block_rows * total;
+    int prev = ibr > 0 ? by - 1 : by, next = ibr < ibrs - 1 ? by + 1 : by;
+    int rows[5] = {ibr > 1 ? by - 2 : prev, prev, by, next, ibr < ibrs - 2 ? by + 2 : next};
+    int64_t DC[26];
+    for (int r = 0; r < 5; r++)
+      for (int k = 0; k < 5; k++) {
+        int x = std::min(std::max(bx + k - 2, 0), c.wib - 1);
+        DC[1 + 5 * r + k] = c.coef[(size_t(rows[r]) * c.bw + x) * 64];
+      }
+    bool change_dc = true;
+    for (int k = 1; k <= 9; k++) change_dc &= cb[k] == -1;
+    const uint16_t* q = c.q;
+    int64_t Q00 = q[0];
+    auto est = [&](int k, int pos, int64_t qv, int64_t sum) {
+      int al = cb[k];
+      if (al == 0 || ws[pos] != 0) return;
+      int64_t num = Q00 * sum;
+      int pred;
+      if (num >= 0) {
+        pred = int(((qv << 7) + num) / (qv << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((qv << 7) - num) / (qv << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      ws[pos] = int16_t(pred);
+    };
+    const int64_t* D = DC;
+    if (change_dc) {
+      est(1, 1, q[1], -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] -
+                          3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] +
+                          13 * D[17] - 13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25]);
+      est(2, 8, q[8], -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] +
+                          38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18] -
+                          13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25]);
+      est(3, 16, q[16], D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] -
+                            5 * D[14] + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23]);
+      est(4, 9, q[9], -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25]);
+      est(5, 2, q[2], 2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] +
+                          7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19]);
+      est(6, 3, q[3], D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]);
+      est(7, 10, q[10], D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]);
+      est(8, 17, q[17], D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19]);
+      est(9, 24, q[24], D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19]);
+      int64_t num = Q00 * (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] +
+                           6 * D[7] + 42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11] +
+                           42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] - 6 * D[16] +
+                           6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21] -
+                           6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25]);
+      int pred = num >= 0 ? int(((Q00 << 7) + num) / (Q00 << 8))
+                          : -int(((Q00 << 7) - num) / (Q00 << 8));
+      ws[0] = int16_t(pred);
+    } else {
+      est(1, 1, q[1], -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15]);
+      est(2, 8, q[8], -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23]);
+      est(3, 16, q[16], -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23]);
+      est(4, 9, q[9], D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] +
+                          D[4] - D[6] + 10 * D[7] - 10 * D[9]);
+      est(5, 2, q[2], -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]);
+    }
+  }
+
+  // one component's samples (stride in *stride): the IDCT of every stored
+  // block (smoothed first where libjpeg smooths), or the lossless samples
+  std::vector<uint8_t> plane(Component& c, const std::vector<int>& latch, int* stride) {
+    if (lossless) {
+      *stride = c.ds_w;
+      if (c.samples.empty()) c.samples.assign(size_t(c.ds_w) * c.ds_h, 0);
+      return c.samples;
+    }
+    *stride = c.bw * 8;
+    int st = *stride;
+    // a component no scan covered is all zero coefficients: mid grey
+    std::vector<uint8_t> out(size_t(st) * c.bh * 8, 128);
+    if (c.coef.empty()) return out;
+    if (latch.empty()) {
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++)
+          idct_islow(block(c, bx, by), c.q, out.data() + size_t(by) * 8 * st + bx * 8, st);
+      return out;
+    }
+    int ci = int(&c - comps.data());
+    int16_t ws[64];
+    for (int by = 0; by < c.hib; by++) {
+      const int* cb = latch.data() + 20 * ci + (by / c.v > last_good_imcu ? 10 : 0);
+      for (int bx = 0; bx < c.wib; bx++) {
+        memcpy(ws, block(c, bx, by), sizeof(ws));
+        smooth_block(c, cb, bx, by, ws);
+        idct_islow(ws, c.q, out.data() + size_t(by) * 8 * st + bx * 8, st);
+      }
+    }
     return out;
   }
 
   // jdsample.c: output row y of a component upsampled to the image's size
   // (a row of src, or written into buf); rows and columns past the
-  // component's downsampled size repeat its last one
-  const uint8_t* up_row(const Component& c, const uint8_t* src, int y, uint8_t* buf,
+  // component's downsampled size repeat its last one. A lossless image
+  // (one-sample data units) takes no fancy upsampling.
+  const uint8_t* up_row(const Component& c, const uint8_t* src, int stride, int y, uint8_t* buf,
                         int* colsum) const {
-    int stride = c.bw * 8, W = width, dw = c.ds_w;
+    int W = width, dw = c.ds_w;
     int hx = max_h / c.h, vy = max_v / c.v;
+    bool fancy = !lossless;
     auto row = [&](int j) {
       return src + size_t(std::min(std::max(j, 0), c.ds_h - 1)) * stride;
     };
     if (hx == 1 && vy == 1) return row(y);
-    if (hx == 2 && vy == 1 && dw > 2) {
+    if (fancy && hx == 2 && vy == 1 && dw > 2) {
       const uint8_t* in = row(y);
       for (int i = 0; i < dw; i++) {
         int v3 = in[i] * 3, l = in[std::max(i - 1, 0)], r = in[std::min(i + 1, dw - 1)];
@@ -817,13 +1411,13 @@ struct Jpeg {
       return buf;
     }
     int j = y >> 1, o = (y & 1) ? j + 1 : j - 1;
-    if (hx == 1 && vy == 2) {
+    if (fancy && hx == 1 && vy == 2) {
       const uint8_t *in0 = row(j), *in1 = row(o);
       int bias = (y & 1) ? 2 : 1;
       for (int x = 0; x < W; x++) buf[x] = uint8_t((in0[x] * 3 + in1[x] + bias) >> 2);
       return buf;
     }
-    if (hx == 2 && vy == 2 && dw > 2) {
+    if (fancy && hx == 2 && vy == 2 && dw > 2) {
       const uint8_t *in0 = row(j), *in1 = row(o);
       for (int i = 0; i < dw; i++) colsum[i + 1] = in0[i] * 3 + in1[i];
       colsum[0] = colsum[1];
@@ -835,30 +1429,25 @@ struct Jpeg {
       }
       return buf;
     }
-    // replication (int_upsample; h2v1 and h2v2 of a component 1 or 2 wide)
+    // replication (int_upsample, h2v1 / h2v2 / h1v2 without fancy upsampling)
     const uint8_t* in = row(y / vy);
     for (int x = 0; x < W; x++) buf[x] = in[x / hx];
     return buf;
   }
 
+  // (height, width, ncomp) samples: grey, RGB, or CMYK as libjpeg outputs
+  // a 4-component file (YCCK converted, CMYK as stored)
   void output(uint8_t* out) {
-    // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
-    // image whose DC is known but whose low coefficients are not final
-    if (progressive)
-      for (Component& c : comps) {
-        if (c.coef.empty() || c.coef_bits[0] < 0) continue;
-        for (int k = 0; k <= 9; k++)
-          if (c.coef_bits[k] != 0)
-            unsupported("progressive JPEG with unrefined low coefficients (libjpeg's block "
-                        "smoothing) is not supported");
-      }
     for (Component& c : comps)
-      if (max_h % c.h || max_v % c.v)
-        unsupported("JPEG with fractional sampling ratios is not supported");
+      if (max_h % c.h || max_v % c.v) broken("JPEG with fractional sampling ratios");
+    std::vector<int> latch;
+    if (!smoothing_ok(latch)) latch.clear();
     std::vector<std::vector<uint8_t>> planes, bufs;
     std::vector<std::vector<int>> colsums;
-    for (Component& c : comps) {
-      planes.push_back(plane(c));
+    std::vector<int> strides(ncomp);
+    for (int k = 0; k < ncomp; k++) {
+      Component& c = comps[k];
+      planes.push_back(plane(c, latch, &strides[k]));
       bufs.emplace_back(size_t(2 * c.ds_w + width + 2));
       colsums.emplace_back(size_t(c.ds_w + 2));
     }
@@ -873,23 +1462,34 @@ struct Jpeg {
       cb_g[i] = -22554 * x + 32768;
     }
     auto lim = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
-    bool rgb = ncomp == 3 && colour_space() == 2;
-    const uint8_t* r[3];
+    int cs = colour_space();
+    const uint8_t* r[4];
     for (int y = 0; y < height; y++) {
       for (int k = 0; k < ncomp; k++)
-        r[k] = up_row(comps[k], planes[k].data(), y, bufs[k].data(), colsums[k].data());
+        r[k] = up_row(comps[k], planes[k].data(), strides[k], y, bufs[k].data(),
+                      colsums[k].data());
       uint8_t* o = out + size_t(y) * W * ncomp;
       if (ncomp == 1) {
         memcpy(o, r[0], W);
-      } else if (rgb) {
+      } else if (cs == CS_RGB || cs == CS_CMYK) {
         for (int x = 0; x < W; x++)
-          for (int k = 0; k < 3; k++) o[3 * x + k] = r[k][x];
-      } else {
+          for (int k = 0; k < ncomp; k++) o[ncomp * x + k] = r[k][x];
+      } else {  // YCbCr -> RGB, or YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+        bool ycck = cs == CS_YCCK;
         for (int x = 0; x < W; x++) {
           int yy = r[0][x], cb = r[1][x], cr = r[2][x];
-          o[3 * x] = lim(yy + cr_r[cr]);
-          o[3 * x + 1] = lim(yy + ((cb_g[cb] + cr_g[cr]) >> 16));
-          o[3 * x + 2] = lim(yy + cb_b[cb]);
+          int R = yy + cr_r[cr], G = yy + ((cb_g[cb] + cr_g[cr]) >> 16), B = yy + cb_b[cb];
+          uint8_t* px = o + ncomp * x;
+          if (ycck) {
+            px[0] = lim(255 - R);
+            px[1] = lim(255 - G);
+            px[2] = lim(255 - B);
+            px[3] = r[3][x];
+          } else {
+            px[0] = lim(R);
+            px[1] = lim(G);
+            px[2] = lim(B);
+          }
         }
       }
     }
@@ -1221,7 +1821,15 @@ int sl_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int e
   try {
     Jpeg j(data, n);
     j.decode_all();
+    if (j.cut_segment_fails) {
+      if (err && errlen > 0) snprintf(err, errlen, "JPEG: image file is truncated");
+      return SL_TRUNCATED_FAILS;
+    }
     j.output(out);
+    if (j.pillow_broken) {
+      if (err && errlen > 0) snprintf(err, errlen, "JPEG: arithmetic data past Pillow's block");
+      return SL_PILLOW_BROKEN;
+    }
     if (j.truncated) {
       if (err && errlen > 0) snprintf(err, errlen, "JPEG: image file is truncated");
       return SL_TRUNCATED;
@@ -1231,6 +1839,21 @@ int sl_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int e
     return fail(e, err, errlen);
   } catch (const std::exception& e) {
     return fail(Error(SL_CORRUPT, std::string("JPEG: ") + e.what()), err, errlen);
+  }
+}
+
+void sl_cmyk_convert(const uint8_t* cmyk, size_t npix, int opencv, uint8_t* out) {
+  for (size_t i = 0; i < npix; i++, cmyk += 4) {
+    int k = cmyk[3];
+    if (opencv) {  // icvCvt_CMYK2BGR_8u_C4C3R: k - (255 - c) * k / 256, BGR
+      for (int c = 0; c < 3; c++) out[3 * i + 2 - c] = uint8_t(k - (((255 - cmyk[c]) * k) >> 8));
+    } else {  // "CMYK;I" (255 - v) then Convert.c cmyk2rgb with nk = 255 - (255 - k)
+      for (int c = 0; c < 3; c++) {
+        int t = (255 - cmyk[c]) * k + 128;
+        out[4 * i + c] = uint8_t(k - (((t >> 8) + t) >> 8));
+      }
+      out[4 * i + 3] = 255;
+    }
   }
 }
 

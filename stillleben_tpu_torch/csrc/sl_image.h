@@ -20,6 +20,11 @@
 #define SL_CORRUPT 2      // not a valid file
 #define SL_NO_ROOM 3      // the output buffer is too small
 #define SL_TRUNCATED 4    // the data ends before the image does (no EOI)
+#define SL_UNIDENTIFIED 5 // a JPEG Pillow's open refuses (12-bit, 2 components, ...)
+#define SL_BROKEN 6       // a JPEG libjpeg stops decoding (hierarchical, ...)
+#define SL_TRUNCATED_FAILS 7  // truncated, and libjpeg reading on past the end stops
+#define SL_PILLOW_BROKEN 8    // decoded as OpenCV reads it; Pillow's reading stops
+                              // (arithmetic data past the 64 KiB it hands libjpeg)
 
 #ifdef __cplusplus
 extern "C" {
@@ -29,9 +34,16 @@ extern "C" {
 // colour space (0 grey, 1 YCbCr, 2 RGB)}.
 int sl_jpeg_info(const uint8_t* data, size_t n, int* info, char* err, int errlen);
 
-// Decode to (height, width, components) uint8: grey, or RGB after the
-// YCbCr -> RGB conversion.
+// Decode to (height, width, components) uint8: grey, RGB after the
+// YCbCr -> RGB conversion, or CMYK (YCCK converted) as libjpeg outputs them.
+// Besides SL_OK: SL_TRUNCATED, SL_TRUNCATED_FAILS and SL_PILLOW_BROKEN,
+// after which the output is OpenCV's reading (none for SL_TRUNCATED_FAILS).
 int sl_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int errlen);
+
+// The RGB of npix CMYK pixels as libjpeg outputs them: Pillow's reading
+// (opencv = 0: inverted "CMYK;I" then cmyk2rgb, 4 bytes RGBA a pixel) or
+// OpenCV's (opencv = 1: its CMYK-to-BGR, 3 bytes a pixel).
+void sl_cmyk_convert(const uint8_t* cmyk, size_t npix, int opencv, uint8_t* out);
 
 // Encode (height, width, components) uint8 (1: grey, 3: RGB) as a baseline
 // JFIF JPEG: standard tables scaled to ``quality``, the first component

@@ -12,8 +12,8 @@ JAX package reads images with, on the same files, and the port's
 - the encoder: files Pillow reads back to the same array;
 - ``ImageSaver``: the same samples as the JAX ``ImageSaver``'s files;
   ``ImageLoader`` at one thread: the same textures in the same order;
-- every format the port does not decode (WebP, and the JPEG variants
-  ``jpeg.py`` lists) raises with its name.
+- a file no decoder claims raises by name; a JPEG header the libraries
+  refuse raises their ``OSError`` (and reads as None as OpenCV does).
 """
 
 import os
@@ -206,11 +206,13 @@ def _sof(marker: int, precision: int = 8, comps: int = 3) -> bytes:
     ("hierarchical", _sof(0xC5), ".jpeg"),
 ])
 def test_refused_formats_raise_with_their_name(tmp_path, fmt, head, ext):
-    """The JPEG variants the codec does not decode raise by name in both
-    readings. WebP is decoded: its cases hold a file whose header names WebP
-    over no valid container, which raises as Pillow does (``ValueError``)
-    and reads as None as OpenCV does, and a file of zeros named ``.webp``,
-    which no decoder claims (raised as an unknown format)."""
+    """A file of zeros named ``.webp``, which no decoder claims, raises by
+    name in both readings. WebP is decoded: a file whose header names WebP
+    over no valid container raises as Pillow does (``ValueError``) and reads
+    as None as OpenCV does. The JPEG cases (headers of the variants the port
+    once refused by name, and no scan) raise Pillow's own ``OSError`` and
+    read as None, as the libraries do (``test_torch_jpeg_variants.py`` holds
+    the variants' real files)."""
     path = str(tmp_path / f"x{ext}")
     with open(path, "wb") as f:
         f.write(head + bytes(64))
@@ -219,8 +221,15 @@ def test_refused_formats_raise_with_their_name(tmp_path, fmt, head, ext):
             image.read_image(path)
         assert image.read_image_cv2(path) is None
         return
-    name = "unknown" if fmt == "WebP" else fmt
-    with pytest.raises(NotImplementedError, match=name):
+    if fmt == "WebP":
+        with pytest.raises(NotImplementedError, match="unknown"):
+            image.read_image(path)
+        with pytest.raises(NotImplementedError, match="unknown"):
+            image.read_image_cv2(path)
+        return
+    with pytest.raises(OSError) as ref:
+        Image.open(path).convert("RGBA")
+    with pytest.raises(OSError) as got:
         image.read_image(path)
-    with pytest.raises(NotImplementedError, match=name):
-        image.read_image_cv2(path)
+    assert not isinstance(got.value, NotImplementedError) and str(got.value) == str(ref.value)
+    assert cv2.imread(path, CV2_FLAGS) is None and image.read_image_cv2(path) is None

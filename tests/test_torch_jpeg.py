@@ -9,10 +9,11 @@ against the libraries the JAX package reads and writes JPEG with, Pillow
   grid, EXIF orientations (which
   OpenCV applies and Pillow does not), truncated files (Pillow refuses
   them, OpenCV reads them as libjpeg does); a progressive file libjpeg
-  would smooth is refused;
+  smooths, smoothed as it does;
 - encode: the bytes of Pillow's ``save`` for L and RGB at each quality and
   subsampling Pillow takes; RGBA and 16-bit refused with Pillow's message;
-- each refused variant raises ``NotImplementedError`` by name;
+- frame headers of the variants the port once refused raise as Pillow does
+  (``test_torch_jpeg_variants.py`` holds the variants' files);
 - the native build: a compiler that fails raises with its message, and a
   build is found again by its hash.
 """
@@ -146,14 +147,15 @@ def test_truncated_file(rst, tmp_path):
         np.testing.assert_array_equal(image.read_image_cv2(path), cv2.imread(path, CV2_FLAGS))
 
 
-def test_block_smoothing_refused():
+def test_block_smoothing_refused(tmp_path):
     """A progressive file whose scans leave low coefficients unrefined (here
-    its last scans cut off) is one that libjpeg smooths: refused by name."""
+    its last scans cut off) is one that libjpeg smooths: the port smooths it
+    as libjpeg does, in both readings (the name is the test's from when the
+    port refused such a file)."""
     data = pillow_jpeg(smooth(40, 50, 3, 5), progressive=True)
     scans = [i for i in range(len(data) - 1) if data[i: i + 2] == b"\xff\xda"]
     cut = data[: scans[2]] + b"\xff\xd9"
-    with pytest.raises(NotImplementedError, match="block smoothing"):
-        jpeg.decode_jpeg(cut)
+    assert_both_readings(cut, tmp_path)
 
 
 @pytest.mark.parametrize("subsampling", [-1, 0, 1, 2, "4:2:2", "4:1:1"])
@@ -201,8 +203,17 @@ def _sof(marker: int, precision: int = 8, comps: int = 3) -> bytes:
     ("12-bit", _sof(0xC2, 12)), ("lossless", _sof(0xC3)), ("CMYK", _sof(0xC0, comps=4)),
 ])
 def test_refused_variants_raise_by_name(name, data):
-    with pytest.raises(NotImplementedError, match=name):
+    """A frame header of each variant the port once refused by name, and no
+    scan: the port raises what Pillow raises (an ``OSError``), no longer
+    ``NotImplementedError``. ``test_torch_jpeg_variants.py`` holds the
+    variants' real files to both libraries."""
+    with pytest.raises(OSError) as ref:  # the 12-bit frame, or no scan
+        Image.open(io.BytesIO(data)).convert("RGBA")
+    with pytest.raises(OSError) as got:
         jpeg.decode_jpeg(data)
+    assert not isinstance(got.value, NotImplementedError)
+    assert "cannot identify image file" in str(ref.value)
+    assert str(got.value) == "cannot identify image file '<bytes>'"
 
 
 def test_decompression_bomb_refused():

@@ -33,6 +33,18 @@ packed by masks) and ``bcn_blocks`` (seeded random blocks);
 ``save`` where Pillow writes the variant) and ``plain_digests()`` their
 SHA-256 and Pillow's readings.
 
+The JPEG variants: ``libjpeg_write`` is libjpeg-turbo 3.1's own encoder
+(a C shim, built by gcc at first use into the port's gitignored
+``_build/``, over the system ``jpeglib.h`` and the ``libjpeg-*.so`` Pillow
+bundles): arithmetic coding with its DAC conditioning, libjpeg's simple
+progression, lossless (predictor, point transform), CMYK/YCCK, 12- and
+16-bit samples, restarts; ``lossless_jpeg`` writes the lossless files
+libjpeg does not (subsampled components, YCbCr); ``jpeg_cut_after_scan``
+and ``jpeg_patch_marker`` make the cut and renamed-frame files;
+``make_jpeg_variant_fixtures()`` writes the committed variants and
+``jpeg_variant_digests()`` Pillow's and OpenCV's
+readings of them (``pillow_reading``, ``cv2_reading``).
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder), ``vp8l_divergence``
 (and ``alph_divergence`` for two files' ALPH chunks) the first part of two
@@ -1392,6 +1404,425 @@ def plain_digests(files: dict[str, bytes]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# JPEG variants: libjpeg-turbo's own writer
+# ---------------------------------------------------------------------------
+
+# a shim over the libjpeg-turbo that Pillow ships (3.1), built against the
+# system's jpeglib.h (the jpeg62 ABI both share); the 3.x entry points the
+# older header lacks are declared here
+_JPEG_SHIM = r"""
+#include <setjmp.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+void jpeg_enable_lossless(j_compress_ptr, int, int);
+JDIMENSION jpeg12_write_scanlines(j_compress_ptr, short**, JDIMENSION);
+JDIMENSION jpeg16_write_scanlines(j_compress_ptr, unsigned short**, JDIMENSION);
+
+struct shim_err { struct jpeg_error_mgr pub; jmp_buf jb; char msg[JMSG_LENGTH_MAX]; };
+
+static void on_error(j_common_ptr c) {
+  struct shim_err* e = (struct shim_err*)c->err;
+  (*c->err->format_message)(c, e->msg);
+  longjmp(e->jb, 1);
+}
+
+/* o: quality, progressive, arith, psv (0: not lossless), pt, restart_interval,
+   restart_in_rows, precision, dc_L, dc_U, ac_K, adobe (-1: libjpeg's
+   choice), jfif (-1), jpeg colour space (0: libjpeg's default), then
+   h, v for each component (0: libjpeg's default) */
+int sl_shim_write(const void* pix, int w, int h, int nc, int in_cs, const int* o,
+                  unsigned char** out, unsigned long* len, char* msg) {
+  struct jpeg_compress_struct ci;
+  struct shim_err err;
+  ci.err = jpeg_std_error(&err.pub);
+  err.pub.error_exit = on_error;
+  *out = NULL;
+  *len = 0;
+  if (setjmp(err.jb)) {
+    strcpy(msg, err.msg);
+    jpeg_destroy_compress(&ci);
+    if (*out) free(*out);
+    *out = NULL;
+    return 1;
+  }
+  jpeg_create_compress(&ci);
+  jpeg_mem_dest(&ci, out, len);
+  ci.image_width = w;
+  ci.image_height = h;
+  ci.input_components = nc;
+  ci.in_color_space = (J_COLOR_SPACE)in_cs;
+  ci.data_precision = o[7];
+  jpeg_set_defaults(&ci);
+  ci.data_precision = o[7];
+  if (o[3]) jpeg_enable_lossless(&ci, o[3], o[4]);
+  if (o[13]) jpeg_set_colorspace(&ci, (J_COLOR_SPACE)o[13]);
+  for (int k = 0; k < nc && k < 4; k++)
+    if (o[14 + 2 * k]) {
+      ci.comp_info[k].h_samp_factor = o[14 + 2 * k];
+      ci.comp_info[k].v_samp_factor = o[15 + 2 * k];
+    }
+  jpeg_set_quality(&ci, o[0], TRUE);
+  if (o[2]) ci.arith_code = TRUE;
+  for (int t = 0; t < NUM_ARITH_TBLS; t++) {
+    ci.arith_dc_L[t] = (UINT8)o[8];
+    ci.arith_dc_U[t] = (UINT8)o[9];
+    ci.arith_ac_K[t] = (UINT8)o[10];
+  }
+  if (o[1]) jpeg_simple_progression(&ci);
+  ci.restart_interval = o[5];
+  ci.restart_in_rows = o[6];
+  if (o[11] >= 0) ci.write_Adobe_marker = o[11];
+  if (o[12] >= 0) ci.write_JFIF_header = o[12];
+  jpeg_start_compress(&ci, TRUE);
+  int stride = w * nc;
+  while (ci.next_scanline < ci.image_height) {
+    int y = ci.next_scanline;
+    if (o[7] <= 8) {
+      JSAMPROW row = (JSAMPROW)((const unsigned char*)pix + (size_t)y * stride);
+      jpeg_write_scanlines(&ci, &row, 1);
+    } else if (o[7] <= 12) {
+      short* row = (short*)pix + (size_t)y * stride;
+      jpeg12_write_scanlines(&ci, &row, 1);
+    } else {
+      unsigned short* row = (unsigned short*)pix + (size_t)y * stride;
+      jpeg16_write_scanlines(&ci, &row, 1);
+    }
+  }
+  jpeg_finish_compress(&ci);
+  jpeg_destroy_compress(&ci);
+  return 0;
+}
+
+void sl_shim_free(unsigned char* p) { free(p); }
+"""
+
+# libjpeg's J_COLOR_SPACE values
+JCS = {"L": 1, "RGB": 2, "YCbCr": 3, "CMYK": 4, "YCCK": 5}
+_jpeg_shim_lib = None
+
+
+def _jpeg_shim():
+    """The shim, compiled by gcc at first use into the port's gitignored
+    build directory and linked to Pillow's bundled libjpeg-turbo."""
+    global _jpeg_shim_lib
+    if _jpeg_shim_lib is not None:
+        return _jpeg_shim_lib
+    import ctypes
+    import glob
+    import subprocess
+    import tempfile
+
+    import PIL
+    from PIL import Image  # noqa: F401  (loads Pillow's libjpeg first)
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    libjpeg = glob.glob(os.path.join(libs, "libjpeg-*.so*"))[0]
+    key = hashlib.sha256((_JPEG_SHIM + libjpeg).encode()).hexdigest()[:16]
+    build = os.path.join(ROOT, "stillleben_tpu_torch", "_build")
+    so = os.path.join(build, f"libsl_jpeg_shim_{key}.so")
+    if not os.path.exists(so):
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            src = os.path.join(d, "shim.c")
+            with open(src, "w") as f:
+                f.write(_JPEG_SHIM)
+            tmp = os.path.join(d, "shim.so")
+            subprocess.run(["gcc", "-O1", "-shared", "-fPIC", src, libjpeg, "-o", tmp,
+                            f"-Wl,-rpath,{libs}"], check=True, capture_output=True)
+            os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    lib.sl_shim_write.restype = ctypes.c_int
+    lib.sl_shim_write.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                                  ctypes.POINTER(ctypes.c_ulong), ctypes.c_char_p)
+    lib.sl_shim_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+    lib.sl_shim_free.restype = None
+    _jpeg_shim_lib = lib
+    return lib
+
+
+def libjpeg_write(pixels: np.ndarray, *, mode: str | None = None, quality: int = 75,
+                  progressive: bool = False, arith: bool = False, lossless=None,
+                  restart_interval: int = 0, restart_rows: int = 0, precision: int = 8,
+                  dac=(0, 1, 5), adobe=None, jfif=None, colorspace: str | None = None,
+                  sampling=()) -> bytes:
+    """libjpeg-turbo 3.1's encode of (H, W) or (H, W, C) samples (uint8,
+    or uint16 at ``precision`` 12 or 16): ``mode`` the input colour space
+    (L, RGB or CMYK by the channels), ``arith`` arithmetic coding with the
+    conditioning ``dac`` = (L, U, Kx) on every table, ``progressive``
+    libjpeg's simple progression, ``lossless`` = (predictor, point
+    transform), ``colorspace`` the file's (e.g. YCCK), ``sampling`` the
+    (h, v) of each component, ``adobe`` / ``jfif`` whether those markers are
+    written (libjpeg's choice when None). Raises ``ValueError`` with
+    libjpeg's message where libjpeg refuses."""
+    import ctypes
+
+    lib = _jpeg_shim()
+    a = np.asarray(pixels)
+    nc = 1 if a.ndim == 2 else a.shape[2]
+    mode = mode or {1: "L", 3: "RGB", 4: "CMYK"}[nc]
+    a = np.ascontiguousarray(a, np.uint8 if precision <= 8 else np.uint16)
+    psv, pt = lossless or (0, 0)
+    opts = [quality, int(progressive), int(arith), psv, pt, restart_interval, restart_rows,
+            precision, *dac, -1 if adobe is None else int(adobe),
+            -1 if jfif is None else int(jfif), JCS[colorspace] if colorspace else 0]
+    opts += [0] * 8
+    for k, (hs, vs) in enumerate(sampling):
+        opts[14 + 2 * k], opts[15 + 2 * k] = hs, vs
+    o = np.array(opts, np.int32)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_ulong(0)
+    msg = ctypes.create_string_buffer(512)
+    rc = lib.sl_shim_write(a.ctypes.data_as(ctypes.c_void_p), a.shape[1], a.shape[0], nc,
+                           JCS[mode], o.ctypes.data_as(ctypes.c_void_p), ctypes.byref(out),
+                           ctypes.byref(n), msg)
+    if rc:
+        raise ValueError(f"libjpeg: {msg.value.decode()}")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_shim_free(out)
+
+
+def lossless_jpeg(planes: list[np.ndarray], sampling: list[tuple[int, int]], width: int,
+                  height: int, psv: int = 1, pt: int = 0, restart_interval: int = 0,
+                  ids=None, jfif: bool = True, adobe: int | None = None) -> bytes:
+    """A lossless (SOF3) 8-bit JPEG of one interleaved scan written here, for
+    what libjpeg's writer does not make: subsampled components and YCbCr
+    (libjpeg-turbo writes its lossless files 1x1, without colour
+    conversion). ``planes``: each component's samples at its downsampled
+    size; ``sampling``: its (h, v); ``restart_interval`` in MCUs (a multiple
+    of the MCUs in a row); ``adobe``: an Adobe marker's colour transform.
+    The predictions are the decoder's (jdpred.c):
+    a row that starts the scan or a restart interval predicts its first
+    sample from 2^(7 - pt), the rest of a row's first column from above."""
+    max_h = max(h for h, _ in sampling)
+    max_v = max(v for _, v in sampling)
+    mcux, mcuy = -(-width // max_h), -(-height // max_v)
+    if restart_interval % mcux:
+        raise ValueError("a lossless restart interval is whole MCU rows")
+    # one table for sizes 0..16: two codes of each length 2..9, one of 10
+    bits = [0, 0] + [2] * 8 + [1] + [0] * 6
+    codes, code, sym = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length]):
+            codes[sym] = (code, length)
+            code, sym = code + 1, sym + 1
+        code <<= 1
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(value, n):
+        nonlocal acc, nacc
+        acc, nacc = (acc << n) | value, nacc + n
+        while nacc >= 8:
+            b = (acc >> (nacc - 8)) & 255
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    def flush():
+        nonlocal nacc
+        if nacc:
+            put((1 << (8 - nacc)) - 1, 8 - nacc)
+
+    x = [np.asarray(p, np.int64) >> pt for p in planes]
+    first_row = [True] * len(planes)
+    rows_per_rst = restart_interval // mcux if restart_interval else 0
+    rst = 0
+    for my in range(mcuy):
+        if rows_per_rst and my and my % rows_per_rst == 0:
+            flush()
+            out += bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) & 7
+            first_row = [True] * len(planes)
+        diffs = []  # each component's v rows of differences for this MCU row
+        for ci, (h, v) in enumerate(sampling):
+            p = x[ci]
+            dh, dw = p.shape
+            rows = np.zeros((v, mcux * h), np.int64)
+            for r in range(v):
+                j = my * v + r
+                if j >= dh:
+                    continue
+                for i in range(dw):
+                    ra = p[j, i - 1] if i else 0
+                    rb = p[j - 1, i] if j else 0
+                    rc = p[j - 1, i - 1] if j and i else 0
+                    if first_row[ci] and r == 0:
+                        pred = (1 << (7 - pt)) if i == 0 else ra
+                    elif i == 0:
+                        pred = rb
+                    else:
+                        pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                                rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv - 1]
+                    rows[r, i] = (p[j, i] - pred) & 0xFFFF
+            first_row[ci] = False
+            diffs.append(rows)
+        for mx in range(mcux):
+            for ci, (h, v) in enumerate(sampling):
+                for r in range(v):
+                    for c in range(h):
+                        d = int(diffs[ci][r, mx * h + c])
+                        d = d - 65536 if d > 32768 else d
+                        size = 16 if d == 32768 else abs(d).bit_length()
+                        put(*codes[size])
+                        if 0 < size < 16:
+                            put(d if d > 0 else d + (1 << size) - 1, size)
+    flush()
+    ids = ids or list(range(1, len(planes) + 1))
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    head = b"\xff\xd8"
+    if jfif:
+        head += seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        head += seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    head += seg(0xC4, bytes([0]) + bytes(bits[1:17]) + bytes(range(17)))
+    head += seg(0xC3, struct.pack(">BHHB", 8, height, width, len(planes)) + b"".join(
+        bytes([ids[k], (h << 4) | v, 0]) for k, (h, v) in enumerate(sampling)))
+    if restart_interval:
+        head += seg(0xDD, struct.pack(">H", restart_interval))
+    head += seg(0xDA, bytes([len(planes)]) + b"".join(bytes([i, 0]) for i in ids) +
+                bytes([psv, 0, pt]))
+    return head + bytes(out) + b"\xff\xd9"
+
+
+def jpeg_scans(data: bytes) -> list[int]:
+    """The offsets of a JPEG's SOS markers."""
+    return [i for i in range(2, len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+
+
+def jpeg_cut_after_scan(data: bytes, k: int, eoi: bool = True) -> bytes:
+    """A progressive JPEG's first ``k`` scans, with an EOI or without."""
+    return data[: jpeg_scans(data)[k]] + (b"\xff\xd9" if eoi else b"")
+
+
+def jpeg_patch_marker(data: bytes, old: int, new: int) -> bytes:
+    """``data`` with its first marker ``old`` renamed ``new`` (a frame of
+    another process: hierarchical, lossless arithmetic)."""
+    i = data.index(bytes([0xFF, old]))
+    return data[: i + 1] + bytes([new]) + data[i + 2:]
+
+
+def pillow_cmyk_jpeg(rgb: np.ndarray, **kw) -> bytes:
+    """Pillow's ``save`` of ``convert("CMYK")`` of an RGB image (the Adobe
+    CMYK a photo editor exports)."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(b, "JPEG", **kw)
+    return b.getvalue()
+
+
+def _with_black(rgb: np.ndarray) -> np.ndarray:
+    """uint8 CMYK samples of an RGB image: the inverted channels and a black
+    plane from their minimum (as libjpeg takes CMYK: no inversion)."""
+    c = 255 - rgb.astype(np.int32)
+    k = c.min(-1, keepdims=True)
+    return np.concatenate([c - k // 2, k], -1).astype(np.uint8)
+
+
+def make_jpeg_variant_fixtures() -> dict[str, bytes]:
+    """The JPEG variant fixtures (``image_fixtures.JPEG_VARIANT_FILES``: the
+    files the card's host, which has no libjpeg, cannot write), written by
+    libjpeg-turbo 3.1 (``libjpeg_write``), Pillow, or ``lossless_jpeg``: a
+    61x83 cut of ``webp_frame()`` in each variant (``arith.jpg``: restarts
+    every 3 MCUs and DAC L=2 U=5 Kx=20; ``truncated_prog.jpg`` cut inside its
+    6th scan, no EOI; ``hierarchical.jpg`` and ``lossless_arith.jpg`` a
+    frame renamed SOF5 and SOF11), the whole 640x480 frame in six, and the
+    textured scene's images (the blob's base colour, the checker, the sky)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, checker_texture, sky_ldr
+
+    frame = webp_frame()
+    small = np.ascontiguousarray(frame[200:261, 180:263])
+    blob = base_color_texture(0)[..., :3].copy()
+    w = libjpeg_write
+    sub = [np.ascontiguousarray(small[::2, ::2, 0]), small[..., 1], small[..., 2]]
+    ycc = [small[..., k] for k in range(3)]
+    prog = w(frame[:160, :200], progressive=True)
+    return {
+        "arith.jpg": w(small, arith=True, restart_interval=3, dac=(2, 5, 20)),
+        "arith_prog.jpg": w(small, arith=True, progressive=True,
+                            sampling=((2, 1), (1, 1), (1, 1))),
+        "arith_grey.jpg": w(small[..., 1], arith=True),
+        "lossless.jpg": w(small, lossless=(7, 1), restart_rows=2),
+        "lossless_grey.jpg": w(small[..., 1], lossless=(1, 0)),
+        "lossless_sub.jpg": lossless_jpeg(sub, [(1, 1), (2, 2), (2, 2)], 83, 61, psv=4,
+                                          ids=[82, 71, 66], jfif=False),
+        "cmyk.jpg": pillow_cmyk_jpeg(small),
+        "cmyk_prog.jpg": w(_with_black(small), progressive=True, adobe=False),
+        "ycck.jpg": w(_with_black(small), colorspace="YCCK", sampling=((1, 1),) * 4),
+        "ycck_arith.jpg": w(_with_black(small), colorspace="YCCK", arith=True,
+                            progressive=True),
+        "smoothed.jpg": jpeg_cut_after_scan(w(small, progressive=True), 3),
+        "smoothed_arith.jpg": jpeg_cut_after_scan(w(small, progressive=True, arith=True), 2),
+        "truncated_prog.jpg": prog[: (jpeg_scans(prog)[5] + jpeg_scans(prog)[6]) // 2],
+        "bits12.jpg": w(small.astype(np.uint16) * 16, precision=12),
+        "lossless16.jpg": w(small.astype(np.uint16) * 257, precision=16, lossless=(1, 0)),
+        "hierarchical.jpg": jpeg_patch_marker(w(small), 0xC0, 0xC5),
+        "lossless_arith.jpg": jpeg_patch_marker(w(small, lossless=(1, 0)), 0xC3, 0xCB),
+        "lossless_ycc.jpg": lossless_jpeg(ycc, [(1, 1)] * 3, 83, 61),
+        "frame_arith.jpg": w(frame, arith=True),
+        "frame_arith_prog.jpg": w(frame, arith=True, progressive=True),
+        "frame_lossless.jpg": w(frame, lossless=(6, 1)),
+        "frame_cmyk.jpg": pillow_cmyk_jpeg(frame),
+        "frame_ycck.jpg": w(_with_black(frame), colorspace="YCCK",
+                            sampling=((2, 2), (1, 1), (1, 1), (2, 2))),
+        "frame_smoothed.jpg": jpeg_cut_after_scan(w(frame, progressive=True), 5),
+        "blob_arith.jpg": w(blob, arith=True, progressive=True),
+        "blob_cmyk.jpg": pillow_cmyk_jpeg(blob),
+        "checker_lossless.jpg": w(checker_texture()[..., :3], lossless=(1, 0)),
+        "sky_ycck.jpg": w(_with_black(sky_ldr()), colorspace="YCCK"),
+    }
+
+
+# how Pillow refuses a file, by the words of its message
+PILLOW_REFUSALS = ("cannot identify image file", "broken data stream when reading image file",
+                   "image file is truncated")
+
+
+def pillow_reading(data: bytes) -> str:
+    """SHA-256 of Pillow's ``convert("RGBA")`` of ``data``, or ``refused:``
+    and which of ``PILLOW_REFUSALS`` its ``OSError`` says."""
+    from PIL import Image
+
+    try:
+        return pillow_rgba_sha(data)
+    except OSError as e:
+        return "refused: " + next(r for r in PILLOW_REFUSALS if r in str(e))
+
+
+def cv2_reading(data: bytes) -> str:
+    """SHA-256 of ``cv2.imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``'s bytes
+    of ``data`` as a ``.jpg``, or ``None`` where it reads nothing."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "x.jpg")
+        with open(p, "wb") as f:
+            f.write(data)
+        img = cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    return "None" if img is None else hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def jpeg_variant_digests(files: dict[str, bytes]) -> dict:
+    return {"JPEG_VARIANT_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "JPEG_VARIANT_DECODE": {n: pillow_reading(d) for n, d in sorted(files.items())},
+            "JPEG_VARIANT_DECODE_CV2": {n: cv2_reading(d) for n, d in sorted(files.items())}}
+
+
+# ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -1451,7 +1882,11 @@ def digest_module(d: dict) -> str:
              "of each encode fixture's bytes (Pillow's ``save`` of its source);",
              "``PLAIN_FILE`` / ``PLAIN_DECODE``: the plain formats' fixtures (QOI, SGI,",
              "PCX, DCX, IM, DDS) and Pillow's ``convert(\"RGBA\")`` of each;",
-             "``ALPHA_WEBP_FILE``: the RGBA WebP fixtures' bytes. Written by",
+             "``ALPHA_WEBP_FILE``: the RGBA WebP fixtures' bytes. ``JPEG_VARIANT_FILE``:",
+             "the JPEG variant fixtures' bytes; ``JPEG_VARIANT_DECODE`` /",
+             "``JPEG_VARIANT_DECODE_CV2``: Pillow's and OpenCV's readings of each",
+             "(``refused:`` and Pillow's words where Pillow raises, ``None`` where",
+             "OpenCV reads nothing). Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -1468,14 +1903,17 @@ if __name__ == "__main__":
     webp_files = make_webp_fixtures()
     encode_files = make_encode_fixtures()
     plain_files = make_plain_fixtures()
+    jpeg_files = make_jpeg_variant_fixtures()
     if "--write" in sys.argv:
-        for name, data in {**files, **webp_files, **encode_files, **plain_files}.items():
+        for name, data in {**files, **webp_files, **encode_files, **plain_files,
+                           **jpeg_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
             f.write(digest_module({**digests(files), **webp_digests(webp_files),
                                    **alpha_webp_digests(webp_files),
                                    **encode_digests(encode_files),
-                                   **plain_digests(plain_files)}))
-    for group in (files, webp_files, encode_files, plain_files):
+                                   **plain_digests(plain_files),
+                                   **jpeg_variant_digests(jpeg_files)}))
+    for group in (files, webp_files, encode_files, plain_files, jpeg_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
