@@ -15,7 +15,8 @@ atlas modes, the classic raster's scan rule), the image formats (JPEG,
 BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
 (the native decoder and encoder), GIF and Netpbm encoding, QOI, SGI, PCX,
 IM and DDS both ways, the JPEG variants (arithmetic, lossless, CMYK/YCCK,
-block-smoothed) and the repository's tools that are not TPU-only.
+block-smoothed), ICO and ICNS both ways with Pillow's resampling, CUR and
+PSD, and the repository's tools that are not TPU-only.
 
     python3 chip_smoke.py
 
@@ -170,8 +171,9 @@ Phases (one line each or more; any failure exits non-zero):
     the target pushed and spun, the pusher's rotation locked; ms per step)
     with ``PhysicsTelemetry`` recording each step (summary, JSONL round
     trip, replay). ``JobQueue(num_threads=2)`` settling two scenes of phase
-    13's composition (seeds 2 and 3): finite, above the floor, centres in
-    view; the pair's wall seconds beside phase 13's serial settle.
+    13's composition (seeds 2 and 3; 25 settle frames, cut from 100 for
+    time): finite, above the floor, centres in view; the pair's wall
+    seconds beside phase 13's serial settle scaled to 25 frames.
 
 17. scale-out (``parallel/distributed.py``, ``generate_batch_sharded``):
     ``generate_batch_sharded`` over ``make_device_mesh()`` (one entry on
@@ -181,7 +183,7 @@ Phases (one line each or more; any failure exits non-zero):
     seconds and scenes/s beside phase 6's. Two processes spawned on the one
     card (``tests/torch_port_dist.py``), each ``initialize``d into one
     ``gloo`` group of 2 with the mesh row ``[cuda:0]``: B = 4 of bench-full
-    with 25 settle frames (cut from 100 to keep the phase near 150 s), each
+    with 10 settle frames (cut from 100, then from 25, for time), each
     process's ``local_batch_slice`` (0:2, 2:4) and frames ``torch.equal`` to
     the parent's ``generate_from_draws`` of its rows at B = 2, whether they
     also equal those rows of the parent's 4-scene batch (a scene's settle
@@ -316,8 +318,31 @@ Phases (one line each or more; any failure exits non-zero):
     JPEG (OpenCV's reading): phase 13's content checks, K1's launches (one
     camera, two shadow passes) and no plain piece, K1 ``torch.equal`` to its
     plain version on the camera and the sun's shadow pass, every field
-    ``torch.equal`` to the same scene from the files' PNG twins. Then the
-    smoke's total wall seconds.
+    ``torch.equal`` to the same scene from the files' PNG twins.
+24. ICO, CUR, ICNS and PSD, and Pillow's resampling (``assets/ico.py``,
+    ``icns.py``, ``psd.py``, ``resample.py``, numpy on the host): every
+    committed fixture (``image_fixtures.ICON_FILES``: Pillow's ICO with
+    PNG and with BMP entries, DIB entries at 1-32 bits with AND masks,
+    cursors, run-length and PNG ICNS, PSD in every mode Pillow reads, raw
+    and PackBits, and the kinds Pillow refuses) to the SHA-256 of Pillow
+    12.1.0's reading on the CPU host and OpenCV's None, and the saver's ICO
+    and ICNS of ``image_fixtures.icon_sources()`` to the SHA-256 of
+    Pillow's bytes; phase 19's render (RGB, RGBA) and depth (16-bit, mm)
+    through ``sl.ImageSaver`` as ``.ico`` and ``.icns``, each entry up to
+    256^2 read back by the port bitwise equal to ``resample``'s own
+    LANCZOS thumbnail or BICUBIC square (and the RGBA file's 1024^2 entry
+    through ``icns.decode_icns``); the least ms of 2 in turns of the ICO and ICNS
+    encodes of the render, the PSD decode of a 256^2 PackBits file and a
+    resize per filter (BILINEAR to 256^2, BICUBIC to 1024^2, LANCZOS to
+    256x192), and one ICNS decode; phase 18's scene at its settled poses
+    (its blob at subdivision 4, cut from 6 for time) with the blob's
+    texture from a PackBits PSD, a GLB whose image is an ICO of BMP
+    entries and the plane from an ICNS, under phase 23's light map, a PSD
+    panorama read as its PNG twin's: phase 13's content checks, K1's
+    launches (one camera, two shadow passes) and no plain piece, K1
+    ``torch.equal`` to its plain version on the camera and the sun's shadow
+    pass, every field ``torch.equal`` to the same scene from the files'
+    PNG twins. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1778,6 +1803,7 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
 
 
 JOB_SEEDS = (2, 3)
+JOB_SETTLE = 25  # phase 16's JobQueue settle frames (cut from 100 for time)
 MANIP_STEPS, MANIP_DT = 120, 0.01
 
 
@@ -1830,6 +1856,7 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
     """Phase 16: the rest of the public table on phase 13's settled scene
     of seed 0 (see the module docstring), which it leaves as it found it.
     Returns the kernels' entries of K1 on the dashboard's inputs."""
+    import functools
     import json as json_mod
     import urllib.error
     import urllib.request
@@ -1838,6 +1865,7 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
 
     import stillleben_tpu_torch as sl
     from stillleben_tpu_torch.assets.image import decode_png_samples, read_png_samples
+    from stillleben_tpu_torch.physics import tabletop
     from stillleben_tpu_torch.physics.telemetry import PhysicsTelemetry
     from stillleben_tpu_torch.utils import sanitize
 
@@ -2131,9 +2159,12 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
             or replay_0 > 1e-5 or replay_last > 1e-5):
         fail("manipulation: a property does not hold")
 
-    # -- JobQueue: two scenes of phase 13's composition on two threads
+    # -- JobQueue: two scenes of phase 13's composition on two threads, each
+    # settle cut to JOB_SETTLE frames
     scenes = [make_scene(seed) for seed in JOB_SEEDS]
     queue = sl.JobQueue(num_threads=2)
+    full_settle = tabletop.simulate_tabletop
+    tabletop.simulate_tabletop = functools.partial(full_settle, iterations=JOB_SETTLE)
     try:
         def pair():
             for s in scenes:
@@ -2142,6 +2173,7 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
 
         done, pair_s = sync_timed(torch, pair)
     finally:
+        tabletop.simulate_tabletop = full_settle
         queue.close()
     report = []
     for s in scenes:
@@ -2156,12 +2188,13 @@ def run_public_table(torch, cr, rt, scene, serial_settle_s, make_scene, card) ->
         if not finite or z.min() <= 0.0 or z.max() > 2.0 or not in_view:
             fail(f"job queue: scene {JOB_SEEDS[len(report) - 1]}: finite {finite}, z {z.tolist()}, "
                  f"in view {in_view}")
-    serial = sum(serial_settle_s) / len(serial_settle_s)
+    serial = sum(serial_settle_s) / len(serial_settle_s) * JOB_SETTLE / 100
     phase("public table", f"JobQueue(num_threads=2), seeds {JOB_SEEDS}, {len(scenes[0].objects)} "
-                          f"objects + plane each: the pair in {pair_s:.3f} s wall against "
-                          f"{serial:.3f} s per serial settle in phase 13 (two serial settles "
-                          f"over the pair: {2 * serial / pair_s:.2f}x); (finite, lowest z, "
-                          f"centres in view) {report} ({card})")
+                          f"objects + plane each, {JOB_SETTLE} settle frames (cut from 100 for "
+                          f"time): the pair in {pair_s:.3f} s wall against {serial:.3f} s per "
+                          f"serial settle in phase 13 scaled to {JOB_SETTLE} of its 100 frames "
+                          f"(two such settles over the pair: {2 * serial / pair_s:.2f}x); "
+                          f"(finite, lowest z, centres in view) {report} ({card})")
     if {id(s) for s in done} != {id(s) for s in scenes}:
         fail("job queue: the scenes that came back are not the scenes sent")
     return entries
@@ -2172,7 +2205,7 @@ def _as_f64(torch, x):
 
 
 SCALE_SUB_BATCH = 3  # phase 17's render groups: 3, 3, 2
-TWO_PROC_BATCH, TWO_PROC_ITERATIONS = 4, 25  # phase 17's two processes, depth cut from 100
+TWO_PROC_BATCH, TWO_PROC_ITERATIONS = 4, 10  # phase 17's two processes, depth cut from 100, then 25
 
 
 def run_scale_out(torch, cr, fr, rt, full, ftpl, fcfg, fccfg, solver_cfg, phase6, phase6_k1,
@@ -3293,10 +3326,11 @@ def run_plain_formats(card, rendered) -> dict:
 JPEG_DECODE_REPS = 9  # phase 23's median of the 640x480 decodes
 
 
-def run_jpeg_variants(torch, cr, rt, card, settled) -> tuple[list, dict]:
+def run_jpeg_variants(torch, cr, rt, card, settled) -> tuple[list, dict, object]:
     """Phase 23: the JPEG variants of the native decoder (see the module
     docstring). ``settled`` is phase 18's settled state. Returns the
-    kernels' entries of K1 on this phase's inputs and its milliseconds."""
+    kernels' entries of K1 on this phase's inputs, its milliseconds and its
+    light map (phase 24 renders with it)."""
     import hashlib
     import shutil
 
@@ -3443,6 +3477,266 @@ def run_jpeg_variants(torch, cr, rt, card, settled) -> tuple[list, dict]:
                             source="stillleben_tpu_torch/csrc/cell_raster.cu",
                             replaces="stillleben_tpu/ops/cell_raster.py:43",
                             launches=per_key[key], library_ms=None, **k))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms, light
+
+
+ICON_REPS = 2  # phase 24's timings, taken in turns
+ICON_SUBDIV = 4  # phase 24's blob (cut from phase 23's 6 for time: 5,120 faces)
+
+
+def _reading(image, data: bytes, name: str, refusals) -> str:
+    """The SHA-256 of the port's ``convert("RGBA")`` of ``data``, or how it
+    refuses it: ``torch_image_fixtures.icon_reading``'s form."""
+    import hashlib
+
+    try:
+        return hashlib.sha256(image.decode_image(data, name).tobytes()).hexdigest()
+    except OSError as e:
+        return "refused: " + next((r for r in refusals if r in str(e)), str(e))
+    except Exception as e:  # noqa: BLE001  (the reading is the exception)
+        return f"{type(e).__name__}: {e}"
+
+
+def run_icons_psd(torch, cr, rt, card, settled, rendered, light) -> tuple[list, dict]:
+    """Phase 24: ICO, CUR, ICNS, PSD and Pillow's resampling (see the module
+    docstring). ``settled`` is phase 18's settled state, ``rendered`` phase
+    19's render, ``light`` phase 23's light map. Returns the kernels'
+    entries of K1 on this phase's inputs and its milliseconds."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import icns, ico, image, psd, resample
+    from stillleben_tpu_torch.assets.image_fixtures import ICON_FILES, icon_sources
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (ICON_DECODE, ICON_ENCODE,
+                                                                    ICON_FILE)
+    from stillleben_tpu_torch.assets.procedural import write_icon_fixtures
+    from stillleben_tpu_torch.render import light_map as plm
+
+    refusals = ("cannot identify image file", "image file is truncated", "not enough channels",
+                "cannot load this image")
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"icons_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    ms = {}
+    t_part = time.perf_counter()
+
+    # every committed fixture to the digests of Pillow's reading; the
+    # saver's ICO and ICNS of the committed sources to Pillow's bytes
+    bad, kinds = [], {}
+    for name in ICON_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != ICON_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if _reading(image, data, name, refusals) != ICON_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        if image.read_image_cv2(fixture(name)) is not None:
+            bad.append(f"OpenCV's reading of {name}")
+        ext = os.path.splitext(name)[1]
+        kinds[ext] = kinds.get(ext, 0) + 1
+    encoded = 0
+    for name, a in icon_sources().items():
+        enc = ico.encode_ico if name.endswith(".ico") else icns.encode_icns
+        if sha(enc(a)) == ICON_ENCODE[name]:
+            encoded += 1
+        else:
+            bad.append(f"the encode {name}")
+    phase("icons", f"{len(ICON_FILES)} committed fixtures ({', '.join(f'{n} {k}' for k, n in sorted(kinds.items()))}; "
+                   f"Pillow's ICO with PNG and BMP entries, DIB entries at 1-32 bits with AND "
+                   f"masks, cursors, run-length and PNG ICNS, PSD in every mode raw and PackBits, "
+                   f"and the refused kinds) read to the SHA-256 of Pillow 12.1.0's reading, "
+                   f"OpenCV's None for each; the saver's ICO and ICNS of {len(icon_sources())} "
+                   f"committed sources byte-equal to Pillow's: {encoded}; differences: {bad}")
+    if bad:
+        fail(f"icons: not Pillow's: {bad}")
+    ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 19's render through ImageSaver as ICO and ICNS, read back and
+    # held to the resampler's own output
+    rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
+    mask = np.where(rendered.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    depth_mm = np.clip(np.round(rendered.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    arrays = {"render": rgb, "render_rgba": rgba, "depth_mm": depth_mm}
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), sl.ImageSaver(num_threads=4) as saver:
+        for stem, a in arrays.items():
+            for ext in (".ico", ".icns"):
+                saver.save(a, os.path.join(fx_dir, stem + ext))
+    ms["ImageSaver 3 ICO + 3 ICNS"] = (time.perf_counter() - t0) * 1e3
+
+    def same(data: bytes, at: int, want: np.ndarray) -> bool:
+        """An entry up to 128^2 decoded to the resampler's samples; a
+        larger one (whose Paeth rows the port's PNG unfilter takes a
+        second or more for here: ROADMAP B) to the port's PNG bytes of
+        them, the reading of that PNG being held by the fixtures."""
+        if max(want.shape[:2]) > 128:
+            return data[at: at + len(png := image.encode_png(want))] == png
+        s = image.decode_png_samples(data[at:]).samples
+        return np.array_equal(s[..., 0] if want.ndim == 2 else s, want)
+
+    wrong, decoded, compared = [], 0, 0
+    for stem, a in arrays.items():
+        with open(os.path.join(fx_dir, stem + ".ico"), "rb") as f:
+            data = f.read()
+        ents = ico.entries(data)
+        for e in ents:
+            want = resample.thumbnail(a, (e.width, e.height), resample.LANCZOS)
+            decoded, compared = decoded + (e.width <= 128), compared + (e.width > 128)
+            if not same(data, e.offset, want):
+                wrong.append(f"{stem}.ico {e.width}x{e.height}")
+            if e.width == 256 and a.ndim == 3:  # the port's reading: the largest entry
+                full = want if want.shape[2] == 4 else np.concatenate(
+                    [want, np.full(want.shape[:2] + (1,), 255, np.uint8)], -1)
+                decoded += 1
+                if not np.array_equal(image.read_image(os.path.join(fx_dir, stem + ".ico")), full):
+                    wrong.append(f"{stem}.ico read_image")
+        if [(e.width, e.height) for e in ents] != [(256, 192), (128, 96), (64, 48), (48, 36),
+                                                    (32, 24), (24, 18), (16, 12)]:
+            wrong.append(f"{stem}.ico sizes")
+        with open(os.path.join(fx_dir, stem + ".icns"), "rb") as f:
+            data = f.read()
+        blocks = icns.blocks(data)
+        if sorted(blocks) != sorted([k for k, _ in icns.SAVE_TYPES] + [b"TOC "]):
+            wrong.append(f"{stem}.icns types")
+        body = {k: data[at: at + n] for k, (at, n) in blocks.items()}
+        if body[b"ic13"] != body[b"ic08"] or body[b"ic14"] != body[b"ic09"]:
+            wrong.append(f"{stem}.icns: one size, two streams")
+        for kind, size in icns.SAVE_TYPES:
+            if size > 256 or kind == b"ic13":  # the RGBA file's 1024^2 entry: the timed decode
+                continue
+            want = resample.resize(a, (size, size), resample.BICUBIC)
+            decoded, compared = decoded + (size <= 128), compared + (size > 128)
+            if not same(data, blocks[kind][0], want):
+                wrong.append(f"{stem}.icns {kind.decode()}")
+    phase("icons", f"phase 19's render {WIDTH}x{HEIGHT} (RGB, RGBA with alpha 255 on the "
+                   f"{int((mask > 0).sum())} object pixels, depth in mm as I;16) through "
+                   f"sl.ImageSaver as .ico and .icns in {ms['ImageSaver 3 ICO + 3 ICNS']:.1f} ms "
+                   f"(bytes {', '.join(f'{n} {os.path.getsize(os.path.join(fx_dir, n))}' for n in sorted(os.listdir(fx_dir)))}); "
+                   f"held to the resampler's LANCZOS thumbnails (ICO: 256x192 to 16x12) and "
+                   f"BICUBIC squares (ICNS: 32 to 256): {decoded} entries up to 128^2 and the "
+                   f"RGB and RGBA ICOs' read_image decoded by the port bitwise, {compared} larger "
+                   f"ones byte-equal to the port's PNG of the resampler's output: {not wrong}; "
+                   f"printed: "
+                   f"{printed.getvalue().strip() or 'nothing'}")
+    if wrong or printed.getvalue():
+        fail(f"icons: the render's ICO/ICNS entries: {wrong}")
+    ms["part: saver"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # the codec's times on this host, in turns; then one ICNS decode (the
+    # RGBA file's 1024^2 entry, whose PNG unfilter takes seconds here: ROADMAP
+    # B), held to the resampler's BICUBIC square
+    with open(os.path.join(fx_dir, "render_rgba.icns"), "rb") as f:
+        icns_rgba = f.read()
+    with open(fixture("blob_packbits.psd"), "rb") as f:
+        blob_psd = f.read()
+    square = []
+    jobs = {"ICO encode (RGB)": lambda: ico.encode_ico(rgb),
+            "ICNS encode (RGB)": lambda: icns.encode_icns(rgb),
+            "PSD decode (256^2 RGB PackBits)": lambda: psd.decode_psd(blob_psd),
+            "resize BILINEAR RGBA to 256^2 (the atlas)": lambda: resample.resize(
+                rgba, (256, 256), resample.BILINEAR),
+            "resize BICUBIC RGBA to 1024^2 (ICNS)": lambda: square.append(resample.resize(
+                rgba, (1024, 1024), resample.BICUBIC)),
+            "resize LANCZOS RGBA to 256x192 (ICO)": lambda: resample.resize(
+                rgba, (256, 192), resample.LANCZOS)}
+    runs = {k: [] for k in jobs}
+    for _ in range(ICON_REPS):
+        for k, fn in jobs.items():
+            t0 = time.perf_counter()
+            fn()
+            runs[k].append((time.perf_counter() - t0) * 1e3)
+    for k, times in runs.items():
+        ms[k] = min(times)
+    t0 = time.perf_counter()
+    decoded = icns.decode_icns(icns_rgba)
+    ms["ICNS decode (RGBA, its 1024^2 entry; one)"] = (time.perf_counter() - t0) * 1e3
+    same_1024 = np.array_equal(decoded, square[0])
+    phase("icons", f"the {WIDTH}x{HEIGHT} render on the card's host, the least ms of "
+                   f"{ICON_REPS} taken in turns: "
+                   + ", ".join(f"{k} {ms[k]:.3f}" for k in jobs)
+                   + f"; ICNS decode (RGBA, its 1024^2 entry; one) "
+                     f"{ms['ICNS decode (RGBA, its 1024^2 entry; one)']:.3f}, the entry bitwise "
+                     f"the resampler's: {same_1024} ({card})")
+    if not same_1024:
+        fail("icons: the RGBA ICNS's 1024^2 entry is not the resampler's BICUBIC square")
+    ms["part: times"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 18's scene with its images as icons and PSDs, at its settled poses
+    t0 = time.perf_counter()
+    fx = write_icon_fixtures(fx_dir, subdiv=ICON_SUBDIV)
+    meshes = sl.Mesh.load_threaded([fx["obj_psd"], fx["glb_ico"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    sky = os.path.join(fx_dir, "sky_packbits")
+    same_panorama = np.array_equal(plm._load_hdr_image(sky + ".psd"),
+                                   plm._load_hdr_image(sky + ".png"))
+    ms["meshes"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_icns"]))
+    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms["render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "icons render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("icons", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+                   f"subdivision {ICON_SUBDIV}): the blob's texture from a PackBits PSD (.mtl), "
+                   f"a GLB whose embedded image is an ICO of BMP entries, the plane from an ICNS "
+                   f"(a 256^2 PNG entry over run-length planes), phase 23's light map; a PSD "
+                   f"panorama read as its PNG twin's: {same_panorama}; fixtures and meshes "
+                   f"{ms['meshes']:.1f} ms, RenderPass().render {ms['render']:.1f} ms; K1 "
+                   f"launches by tile {launches}; calls of K1's plain pieces {plain_calls}; "
+                   f"content: {content}; fields torch.equal to the same scene from the PNG "
+                   f"twins: {len(same)} of {len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields) or not same_panorama:
+        fail(f"icons: the icon-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}, panorama equal {same_panorama}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"icons: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"icons camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"icons shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    phase("icons", "phase 24's parts, s: " + ", ".join(
+        f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
     shutil.rmtree(fx_dir, ignore_errors=True)
     return entries, ms
 
@@ -4005,16 +4299,25 @@ def main() -> None:
     # and depth through ImageSaver, the times
     t0 = time.perf_counter()
     run_plain_formats(card, webp_render)
-    del webp_render
     phase("plain", f"phase 22 in {time.perf_counter() - t0:.1f} s")
 
     # 23. the JPEG variants: the committed arithmetic, lossless, CMYK/YCCK,
     # block-smoothed and refused files to their digests, the 640x480
     # decode's times, and phase 18's scene from variant files through K1
     t0 = time.perf_counter()
-    jpeg_k1, _ = run_jpeg_variants(torch, cr, rt, card, image_settled)
+    jpeg_k1, _, jpeg_light = run_jpeg_variants(torch, cr, rt, card, image_settled)
     kernels.extend(jpeg_k1)
     phase("jpeg-variants", f"phase 23 in {time.perf_counter() - t0:.1f} s")
+
+    # 24. ICO, CUR, ICNS and PSD, and Pillow's resampling: the committed
+    # fixtures to Pillow's digests, the saver's ICO and ICNS of the sources
+    # and of phase 19's render, the times, and phase 18's scene from icon
+    # and PSD files through K1
+    t0 = time.perf_counter()
+    icon_k1, _ = run_icons_psd(torch, cr, rt, card, image_settled, webp_render, jpeg_light)
+    kernels.extend(icon_k1)
+    del webp_render, jpeg_light
+    phase("icons", f"phase 24 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

@@ -38,7 +38,20 @@ block smoothing) and inside one, the kinds both libraries refuse (12-bit,
 640x480 frame in six of these variants (``JPEG_VARIANT_FRAMES``, the decode
 timed on the card's host) and the textured scene's images as variants
 (the blob's base colour arithmetic and CMYK, the checker lossless, the sky
-YCCK). ``digests.py`` holds the SHA-256 of each encode
+YCCK); and the icon and Photoshop files (``ICON_FILES``): Pillow's ICO with
+PNG entries and with BMP entries (RGBA, RGB, grey) and of 16-bit grey, and
+the tests' own writers' ICO of 1/4/8/24/32-bit DIB entries with AND masks
+(a black-and-white palette among them), entries of one size at several
+depths, a palette PNG entry with ``tRNS``, cursors of one and of several
+entries, ICNS of run-length planes with masks, of raw planes and of PNG
+entries, an unknown ICNS entry, PSD in every mode Pillow reads (bitmap,
+grey, indexed with and without a palette, RGB, RGBA, five channels, CMYK,
+duotone, multichannel) raw and PackBits, the kinds Pillow refuses (16-bit,
+ZIP, two channels as RGB, cut data), and the textured scene's images (the
+blob's base colour as a PackBits PSD and as an ICO of BMP entries, the
+checker as an ICNS, the sky as a PackBits PSD); ``icon_sources()`` are the
+arrays whose saver ICO and ICNS only have digests (``ICON_ENCODE``).
+``digests.py`` holds the SHA-256 of each encode
 fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``; of each
 JPEG variant's: ``JPEG_VARIANT_FILE``) and of Pillow's
 ``convert("RGBA")`` of each, of OpenCV's ``imread`` of each WebP and each
@@ -78,6 +91,18 @@ JPEG_VARIANT_FILES = ("arith.jpg", "arith_prog.jpg", "arith_grey.jpg", "lossless
                       "truncated_prog.jpg", "bits12.jpg", "lossless16.jpg", "hierarchical.jpg",
                       "lossless_arith.jpg", "lossless_ycc.jpg") + JPEG_VARIANT_FRAMES + (
                       "blob_arith.jpg", "blob_cmyk.jpg", "checker_lossless.jpg", "sky_ycck.jpg")
+
+
+ICON_FILES = ("pillow_rgba.ico", "pillow_bmp_rgba.ico", "pillow_bmp_rgb.ico",
+              "pillow_bmp_grey.ico", "pillow_depth16.ico", "dib1.ico", "dib1_bw.ico", "dib4.ico",
+              "dib8.ico", "dib24.ico", "dib32.ico", "depths.ico", "png_trns.ico", "cursor.cur",
+              "cursors.cur", "cursor8.cur", "rle.icns", "rle48.icns", "raw.icns", "png.icns",
+              "png_grey.icns", "unknown.icns", "checker.icns", "bitmap.psd", "bitmap_rle.psd",
+              "grey_rle.psd", "indexed.psd", "indexed_rle.psd", "indexed_nopalette.psd",
+              "rgb.psd", "rgb_rle.psd", "rgba.psd", "rgba_rle.psd", "rgb5_rle.psd", "cmyk.psd",
+              "cmyk_rle.psd", "cmyk5_rle.psd", "duotone.psd", "multichannel_rle.psd",
+              "grey16.psd", "zip.psd", "two_channels.psd", "truncated.psd",
+              "truncated_rle.psd", "blob_packbits.psd", "sky_packbits.psd", "blob_bmp.ico")
 
 
 def path(name: str) -> str:
@@ -137,3 +162,15 @@ def plain_sources(seed: int = 16) -> dict[str, np.ndarray]:
             "grey.pcx": grey.astype(np.uint8), "frame.im": frame, "frame_rgba.im": rgba,
             "grey.im": grey.astype(np.uint8), "depth16.im": depth, "frame.dds": frame,
             "frame_rgba.dds": rgba, "grey.dds": grey.astype(np.uint8)}
+
+
+def icon_sources() -> dict[str, np.ndarray]:
+    """The arrays whose ICO and ICNS the saver's digests (``ICON_ENCODE``)
+    hold, by file name: ``plain_sources()``'s 64x48 frame, its RGBA, the
+    grey ramp and the 16-bit depth, each as ICO; the RGBA as ICNS (with its
+    1024^2 entry, so only the digests are kept)."""
+    src = plain_sources()
+    out = {"frame.ico": src["frame.qoi"], "frame_rgba.ico": src["frame_rgba.qoi"],
+           "grey.ico": src["grey.bw"], "depth16.ico": src["depth16.im"]}
+    out["frame_rgba.icns"] = src["frame_rgba.qoi"]
+    return out

@@ -19,7 +19,9 @@ fast octree for RGBA, GIF's LZW, native) and ``.ppm``/``.pgm``/``.pbm``/
 ``.pnm``/``.pfm`` (``netpbm.encode_netpbm``, by mode whatever the
 extension), ``.qoi`` (``qoi.encode_qoi``), ``.sgi``/``.rgb``/``.rgba``/
 ``.bw`` (``sgi.encode_sgi``), ``.pcx`` (``pcx.encode_pcx``), ``.im``
-(``im.encode_im``) and ``.dds`` (``dds.encode_dds``). Each writes the bytes
+(``im.encode_im``), ``.dds`` (``dds.encode_dds``), ``.ico`` (``ico.encode_ico``:
+PNG entries of Pillow's LANCZOS thumbnails) and ``.icns``
+(``icns.encode_icns``: PNG entries of its BICUBIC resizes). Each writes the bytes
 of Pillow's ``save`` for the mode the JAX package hands Pillow (8-bit L,
 RGB, RGBA; ``I;16`` for uint16); SGI and IM write the path's base name
 into their headers, so the worker hands those encoders the path
@@ -54,6 +56,8 @@ import numpy as np
 from .bmp import encode_bmp, encode_dib
 from .dds import encode_dds
 from .gif import encode_gif
+from .icns import encode_icns
+from .ico import encode_ico
 from .im import encode_im
 from .image import encode_png
 from .jpeg import encode_jpeg
@@ -74,12 +78,13 @@ ENCODERS = {".png": encode_png, ".apng": encode_png,
             ".ppm": encode_netpbm, ".pgm": encode_netpbm, ".pbm": encode_netpbm,
             ".pnm": encode_netpbm, ".pfm": encode_netpbm, ".qoi": encode_qoi,
             ".sgi": encode_sgi, ".rgb": encode_sgi, ".rgba": encode_sgi, ".bw": encode_sgi,
-            ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds}
+            ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds, ".ico": encode_ico,
+            ".icns": encode_icns}
 # the encoders that write the path's base name into the file
 TAKES_PATH = (encode_sgi, encode_im)
 # extensions Pillow 12.1.0 writes the saver's modes to that the port does not
 # encode yet (ROADMAP.md, queue A)
-NOT_PORTED = (".ico", ".icns", ".eps", ".ps", ".pdf", ".jp2", ".j2k", ".j2c", ".jpc", ".jpf",
+NOT_PORTED = (".eps", ".ps", ".pdf", ".jp2", ".j2k", ".j2c", ".jpc", ".jpf",
               ".jpx", ".avif", ".avifs")
 # extensions Pillow opens the file for before its writer runs, but whose
 # writers refuse every mode the saver hands them

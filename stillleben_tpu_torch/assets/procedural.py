@@ -532,6 +532,69 @@ def write_jpeg_variant_fixtures(directory: str, subdiv: int = 6) -> dict[str, st
     return paths
 
 
+def write_icon_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+    """``write_image_fixtures``'s scene with its images as the icon and
+    Photoshop files the port reads since Pillow does (the committed files
+    of ``image_fixtures``), each beside a twin that holds its decoded
+    pixels as PNG. Paths by name:
+
+    - ``obj_psd``: the textured blob whose MTL names its base colour as a
+      PackBits RGB PSD; ``obj_png``: the same blob whose MTL names the PNG
+      of that file's decode;
+    - ``glb_ico``: the textured blob as GLB with the base colour embedded as
+      an ICO of BMP entries (``image/x-icon``; its largest entry is read);
+      ``glb_png``: with its PNG twin;
+    - ``plane_icns``: ``checker_texture`` as an ICNS (a 256^2 PNG entry over
+      run-length 128^2 planes); ``plane_png``: its decode as PNG;
+    - ``ibl_psd``: an sIBL descriptor whose panorama is ``sky_ldr`` as a
+      PackBits PSD (the light map reads it through the Pillow fallback, as
+      the JAX package does where OpenCV reads nothing: ``(x / 255) ** 2.2``);
+      ``ibl_png``: the descriptor of its PNG twin (a PNG is linearised the
+      same way, so the two panoramas are the same floats).
+    """
+    import shutil
+
+    from . import image_fixtures
+    from .image import decode_image, encode_png
+    from .objfile import load_obj
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed0"
+    names = {"obj_psd": f"{stem}_psd.obj", "obj_png": f"{stem}_psdtwin.obj",
+             "glb_ico": f"{stem}_ico.glb", "glb_png": f"{stem}_icotwin.glb",
+             "plane_icns": "checker.icns", "plane_png": "checker_icns.png",
+             "ibl_psd": "sky_psd.ibl", "ibl_png": "sky_psd_twin.ibl"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    for name in ("blob_packbits.psd", "checker.icns", "sky_packbits.psd"):
+        shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
+
+    def twin(name):
+        with open(image_fixtures.path(name), "rb") as f:
+            data = f.read()
+        return data, encode_png(decode_image(data, name))
+
+    atomic_write(os.path.join(directory, "blob_packbits.png"), twin("blob_packbits.psd")[1])
+    atomic_write(paths["plane_png"], twin("checker.icns")[1])
+    sky_data, sky_png = twin("sky_packbits.psd")
+    atomic_write(os.path.join(directory, "sky_packbits.png"), sky_png)
+    h, w = decode_image(sky_data, "sky_packbits.psd").shape[:2]
+    atomic_write(paths["ibl_psd"], _ibl_text("sky_packbits.psd", h, w))
+    atomic_write(paths["ibl_png"], _ibl_text("sky_packbits.png", h, w))
+    ico, ico_png = twin("blob_bmp.ico")
+    p, f = _blob(subdiv, 0)
+    for key, tex in (("obj_psd", "blob_packbits.psd"), ("obj_png", "blob_packbits.png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex)
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_ico"], blob, ico, mime="image/x-icon")
+    write_glb(paths["glb_png"], blob, ico_png)
+    return paths
+
+
 def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
     """Write every format the loaders read into ``directory`` (files kept
     if already there) and return their paths by name. Each mesh is the

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..assets import resample
 from ..assets.decimate import decimate_faces
 from ..core.tree import tensors_from_numpy
 
@@ -108,61 +109,12 @@ class RenderInputs(NamedTuple):
     sticker_range: torch.Tensor  # (NB, 4)
 
 
-def _resize_coeffs(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) integer weights of Pillow's BILINEAR resize along
-    one axis: a triangle filter whose support grows with the reduction
-    factor, normalized per output texel and rounded to 22 fractional bits
-    (Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc``)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    K = np.zeros((out_size, in_size), np.float64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size)
-        x = np.arange(xmin, xmax)
-        w = np.maximum(1.0 - np.abs((x - center + 0.5) / filterscale), 0.0)
-        total = w.sum()
-        K[xx, xmin:xmax] = w / total if total != 0 else w
-    return np.trunc(K * (1 << 22) + 0.5)
-
-
-def _resize_pass(img: np.ndarray, K: np.ndarray, axis: int) -> np.ndarray:
-    """One pass of the resize along ``axis``, back to uint8 as Pillow does
-    (float64 holds the 30-bit products and their sums exactly)."""
-    acc = np.tensordot(K, img.astype(np.float64), axes=([1], [axis]))  # (out, ...)
-    acc = np.moveaxis(acc, 0, axis).astype(np.int64) + (1 << 21)
-    return np.clip(acc >> 22, 0, 255).astype(np.uint8)
-
-
-def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    t = a.astype(np.int32) * b.astype(np.int32) + 128
-    return (((t >> 8) + t) >> 8).astype(np.uint8)
-
-
 def resize_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
     """uint8 (H, W, 4) -> (h, w, 4) for ``size`` (w, h), or (size, size)
-    for an int: the numpy equal of
-    ``PIL.Image.fromarray(img, "RGBA").resize((w, h), BILINEAR)``. The
-    identity at the same size; otherwise colour premultiplied by alpha, a
-    horizontal then a vertical pass each rounded to uint8, colour divided
-    by alpha again."""
+    for an int: ``PIL.Image.fromarray(img, "RGBA").resize((w, h),
+    BILINEAR)`` through the port's resampler (``assets/resample.py``)."""
     out_w, out_h = (size, size) if isinstance(size, int) else (int(size[0]), int(size[1]))
-    h, w = img.shape[:2]
-    if (h, w) == (out_h, out_w):
-        return img.copy()
-    alpha = img[..., 3:4]
-    work = np.concatenate([_muldiv255(img[..., :3], alpha), alpha], axis=-1)
-    if w != out_w:
-        work = _resize_pass(work, _resize_coeffs(w, out_w), axis=1)
-    if h != out_h:
-        work = _resize_pass(work, _resize_coeffs(h, out_h), axis=0)
-    a = work[..., 3:4].astype(np.int32)
-    rgb = work[..., :3].astype(np.int32)
-    unmul = np.clip(255 * rgb // np.maximum(a, 1), 0, 255)
-    rgb = np.where((a == 255) | (a == 0), rgb, unmul)
-    return np.concatenate([rgb, a], axis=-1).astype(np.uint8)
+    return resample.resize(img, (out_w, out_h), resample.BILINEAR)
 
 
 def _resample_texture_raw(img: np.ndarray, size: int = TEXTURE_SIZE) -> np.ndarray:

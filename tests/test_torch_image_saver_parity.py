@@ -8,7 +8,8 @@ The cases: arrays Pillow makes no image of ((4, 5, 1), (4, 5, 2), (4, 5,
 5) and (4,) uint8), extensions Pillow does not know (``.exr``, ``.xyz``,
 none), extensions Pillow knows but cannot write or refuses the modes for,
 the modes QOI, PCX, SGI and DDS refuse, and every extension of QOI, SGI,
-PCX, IM and DDS in every mode (L, RGB, RGBA, I;16). ``save()`` itself
+PCX, IM, DDS, ICO and ICNS in every mode (L, RGB, RGBA, I;16), and ICO and
+ICNS of an image large enough for several icon sizes. ``save()`` itself
 raises only for the dtype, a uint16 array that is not 2-D, and an
 extension Pillow writes that the port does not encode yet.
 """
@@ -25,7 +26,7 @@ import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdis
 jax_saver = pytest.importorskip("stillleben_tpu.assets.image_saver")
 pytest.importorskip("PIL.Image")
 
-SLICE_EXTS = (".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".im", ".dds")
+SLICE_EXTS = (".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".im", ".dds", ".ico", ".icns")
 
 
 def arrays() -> dict:
@@ -80,6 +81,21 @@ def test_every_mode_of_the_slice(ext, tmp_path, capsys):
     assert out.count("ImageSaver: failed to write") == 2 * refused
 
 
+@pytest.mark.parametrize("ext", (".ico", ".icns"))
+def test_icons_in_every_mode(ext, tmp_path, capsys):
+    """ICO and ICNS of a 37x53 image in L, RGB, RGBA and I;16 (ICO: the 16,
+    24 and 32 thumbnails; ICNS: every size from 32 to 1024): Pillow's bytes."""
+    rng = np.random.default_rng(21)
+    a = {"L": rng.integers(0, 256, (37, 53)).astype(np.uint8),
+         "RGB": rng.integers(0, 256, (37, 53, 3)).astype(np.uint8),
+         "RGBA": rng.integers(0, 256, (37, 53, 4)).astype(np.uint8),
+         "I;16": rng.integers(0, 65536, (37, 53)).astype(np.uint16)}
+    jobs = [(k, v, f"{k.replace(';', '')}_z{ext}") for k, v in a.items()]
+    ref, ours = run_both(tmp_path, jobs)
+    assert len(ref) == 4 and ours == ref
+    assert "failed" not in capsys.readouterr().out
+
+
 def test_what_pillow_refuses(tmp_path, capsys):
     """Arrays Pillow makes no image of, unknown and unwritable extensions,
     and the modes the slice's formats refuse: printed, nothing written."""
@@ -123,7 +139,7 @@ def test_save_raises_only_where_the_jax_saver_does(tmp_path):
         for ext in image_saver.NOT_PORTED:
             with pytest.raises(NotImplementedError, match=ext.replace(".", r"\.")):
                 port.save(np.zeros((4, 5, 3), np.uint8), str(tmp_path / f"x{ext}"))
-        port.save(np.zeros((4, 5, 5), np.uint8), str(tmp_path / "odd.ico"))  # queued: it fails
+        port.save(np.zeros((4, 5, 5), np.uint8), str(tmp_path / "odd.eps"))  # queued: it fails
     finally:
         port.close()
         ref.close()

@@ -1404,6 +1404,263 @@ def plain_digests(files: dict[str, bytes]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ICO, CUR, ICNS and PSD
+# ---------------------------------------------------------------------------
+
+
+def icon_file(entries: list[tuple], cur: bool = False) -> bytes:
+    """An ICO (or, with ``cur``, a CUR) of ready entry bodies: each entry
+    ``(width, height, bpp, body)`` or ``(width, height, bpp, body,
+    colors)``; 256 is stored as 0. A cursor's planes and bits fields hold
+    its hotspot (here (1, 2))."""
+    head = (b"\0\0\2\0" if cur else b"\0\0\1\0") + struct.pack("<H", len(entries))
+    offset = len(head) + 16 * len(entries)
+    dirs, bodies = [], []
+    for e in entries:
+        w, h, bpp, body = e[:4]
+        colors = e[4] if len(e) > 4 else 0
+        planes, bits = (1, 2) if cur else (1, bpp)
+        dirs.append(struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, planes, bits, len(body),
+                                offset))
+        bodies.append(body)
+        offset += len(body)
+    return head + b"".join(dirs) + b"".join(bodies)
+
+
+def and_mask(mask: np.ndarray) -> bytes:
+    """An icon's AND mask: 1 bit a pixel (set = transparent), rows padded
+    to 32 bits, bottom-up."""
+    h, w = mask.shape
+    stride = (w + 31) // 32 * 4
+    bits = np.zeros((h, stride * 8), np.uint8)
+    bits[:, :w] = mask != 0
+    return np.packbits(bits[::-1], axis=1).tobytes()
+
+
+def icon_dib(pix: np.ndarray, bits: int, mask: np.ndarray | None = None,
+             palette: np.ndarray | None = None) -> bytes:
+    """An icon's DIB: the header with twice the height, the palette, the
+    image's rows bottom-up (``pix``: (h, w) indices at 1/4/8 bits, (h, w,
+    3) RGB at 24, (h, w, 4) RGBA at 32) and the AND mask (all opaque where
+    ``mask`` is None)."""
+    h, w = pix.shape[:2]
+    body = raw_rows(pix if bits <= 8 else pix[..., [2, 1, 0, 3][: pix.shape[2]]], bits)
+    body += and_mask(np.zeros((h, w), np.uint8) if mask is None else mask)
+    return bmp(body, w, 2 * h, bits, palette=palette)[14:]
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """One channel in ICNS's run-length code: runs of 3 to 130 equal bytes
+    as ``n + 125, byte``, the rest as literals of at most 128 bytes."""
+    v = np.asarray(plane, np.uint8).ravel()
+    out, lit, i = bytearray(), bytearray(), 0
+    while i < len(v):
+        run = 1
+        while i + run < len(v) and run < 130 and v[i + run] == v[i]:
+            run += 1
+        if run >= 3:
+            for k in range(0, len(lit), 128):
+                out += bytes([len(lit[k: k + 128]) - 1]) + lit[k: k + 128]
+            lit.clear()
+            out += bytes([run + 125, int(v[i])])
+            i += run
+        else:
+            lit.append(int(v[i]))
+            i += 1
+    for k in range(0, len(lit), 128):
+        out += bytes([len(lit[k: k + 128]) - 1]) + lit[k: k + 128]
+    return bytes(out)
+
+
+def icns_file(blocks: list[tuple[bytes, bytes]]) -> bytes:
+    """An ICNS of ``(type, body)`` blocks."""
+    body = b"".join(kind + struct.pack(">I", 8 + len(b)) + b for kind, b in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def psd_resource(rid: int, name: bytes, data: bytes) -> bytes:
+    """One image resource: ``8BIM``, its id, its Pascal name padded to an
+    even length, its data padded to an even length."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) & 1)
+    return b"8BIM" + struct.pack(">H", rid) + pname + struct.pack(">I", len(data)) + data + (
+        b"\0" * (len(data) & 1))
+
+
+def psd_file(planes: np.ndarray, mode: int, *, bits: int = 8, compression: int = 0,
+             color_data: bytes = b"", resources: bytes = b"", layers: bytes = b"",
+             channels: int | None = None, width: int | None = None) -> bytes:
+    """A PSD whose composite image is ``planes`` ((C, H, W) uint8 channels;
+    at 1 bit, (1, H, ceil(W / 8)) packed rows), raw (0) or PackBits (1,
+    with a row-length table for every channel, as Photoshop writes it);
+    ``channels`` overrides the header's count and ``compression`` may be
+    any number (2 is ZIP); ``width`` is the header's (a 1-bit image's
+    may end inside its last byte)."""
+    c, h, row = planes.shape
+    w = width or (row * 8 if bits == 1 else row)
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, w, bits, mode)
+    out = head + struct.pack(">I", len(color_data)) + color_data
+    out += struct.pack(">I", len(resources)) + resources
+    out += struct.pack(">I", len(layers)) + layers + struct.pack(">H", compression)
+    if compression == 1:
+        rows = [packbits(planes[k, y].tobytes(), row) for k in range(c) for y in range(h)]
+        return out + b"".join(struct.pack(">H", len(r)) for r in rows) + b"".join(rows)
+    return out + planes.tobytes()
+
+
+def make_icon_fixtures() -> dict[str, bytes]:
+    """The ICO, CUR, ICNS and PSD read fixtures (``ICON_FILES``): Pillow's
+    ``save`` where Pillow writes the variant (ICO with PNG entries, and with
+    BMP entries through ``bitmap_format="bmp"``), this module's writers for
+    the rest (ICO with 1/4/8/24/32-bit DIBs and AND masks, entries of one
+    size at several depths, a PNG entry with ``tRNS``; cursors; ICNS with
+    run-length planes and masks, raw planes, PNG entries; PSD in every mode
+    Pillow reads, raw and PackBits, and the kinds it refuses), and the
+    textured scene's images (the blob's base colour as a PackBits PSD and as
+    an ICO of BMP entries, the checker as an ICNS, the sky as a PackBits
+    PSD)."""
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image import encode_png, encode_png_samples
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, checker_texture, sky_ldr
+
+    def save(img, fmt, **kw):
+        b = io.BytesIO()
+        img.save(b, fmt, **kw)
+        return b.getvalue()
+
+    rng = np.random.default_rng(19)
+    rgb = smooth(37, 45, 3, 8)
+    rgba = np.concatenate([rgb, smooth(37, 45, 1, 9)], -1)
+    deep = (rgb[..., 0].astype(np.uint16) * 257 + rng.integers(0, 256, rgb.shape[:2])).astype(
+        np.uint16)
+    h, w = 20, 27
+    mask = (smooth(h, w, 1, 10)[..., 0] > 150).astype(np.uint8)
+    pal = {n: rng.integers(0, 256, (n, 3)).astype(np.uint8) for n in (2, 16, 256)}
+    idx = {n: rng.integers(0, n, (h, w)).astype(np.uint8) for n in (2, 16, 256)}
+    pix24 = smooth(h, w, 3, 11)
+    pix32 = np.concatenate([pix24, smooth(h, w, 1, 12)], -1)
+    e = {1: (w, h, 1, icon_dib(idx[2], 1, mask, pal[2]), 2),
+         4: (w, h, 4, icon_dib(idx[16], 4, mask, pal[16]), 16),
+         8: (w, h, 8, icon_dib(idx[256], 8, mask, pal[256])),
+         24: (w, h, 24, icon_dib(pix24, 24, mask)),
+         32: (w, h, 32, icon_dib(pix32, 32, mask))}
+    bw = (w, h, 1, icon_dib(idx[2], 1, mask, np.array([[0, 0, 0], [255, 255, 255]], np.uint8)), 2)
+    small32 = (16, 16, 32, icon_dib(pix32[:16, :16], 32))
+    png_p = encode_png_samples(idx[16][..., None], 3, 8, palette=pal[16],
+                               trns=bytes(range(0, 256, 16)))
+
+    def planes(p):
+        return b"".join(icns_rle(p[..., c]) for c in range(3))
+
+    p128, p48, p32, p16 = (smooth(s, s, 4, 20 + s) for s in (128, 48, 32, 16))
+    p16[3:9, 2:12] = 200  # runs in every plane
+    W, H = 29, 19
+    ch = rng.integers(0, 256, (5, H, W)).astype(np.uint8)
+    ch[:, 5:9, :] = 77
+    ch[:, 12:, 3:20] = smooth(H - 12, 17, 5, 13).transpose(2, 0, 1)
+    res = psd_resource(1039, b"icc", b"abc") + psd_resource(1005, b"", b"1234")
+    palette = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+    bits1 = np.packbits(smooth(H, W, 1, 14)[..., 0] > 128, axis=1)[None]
+    blob = base_color_texture(0)[..., :3]
+    blob_small = np.asarray(Image.fromarray(blob).resize((128, 128), Image.Resampling.BILINEAR))
+    checker = checker_texture(256)[..., :3]
+    return {
+        "pillow_rgba.ico": save(Image.fromarray(rgba), "ICO"),
+        "pillow_bmp_rgba.ico": save(Image.fromarray(rgba), "ICO", bitmap_format="bmp"),
+        "pillow_bmp_rgb.ico": save(Image.fromarray(rgb), "ICO", bitmap_format="bmp"),
+        "pillow_bmp_grey.ico": save(Image.fromarray(rgb[..., 1]), "ICO", bitmap_format="bmp"),
+        "pillow_depth16.ico": save(Image.fromarray(deep), "ICO"),
+        "dib1.ico": icon_file([e[1]]),
+        "dib1_bw.ico": icon_file([bw]),
+        "dib4.ico": icon_file([e[4]]),
+        "dib8.ico": icon_file([e[8]]),
+        "dib24.ico": icon_file([e[24]]),
+        "dib32.ico": icon_file([e[32]]),
+        "depths.ico": icon_file([small32, e[24], e[8], e[32], e[4]]),
+        "png_trns.ico": icon_file([(w, h, 8, png_p)]),
+        "cursor.cur": icon_file([e[32]], cur=True),
+        "cursors.cur": icon_file([small32, e[32], e[24]], cur=True),
+        "cursor8.cur": icon_file([e[8]], cur=True),
+        "rle.icns": icns_file([(b"TOC ", bytes(8)), (b"is32", planes(p16)),
+                               (b"s8mk", p16[..., 3].tobytes()), (b"il32", planes(p32)),
+                               (b"l8mk", p32[..., 3].tobytes()), (b"ih32", planes(p48)),
+                               (b"h8mk", p48[..., 3].tobytes()),
+                               (b"it32", bytes(4) + planes(p128)),
+                               (b"t8mk", p128[..., 3].tobytes())]),
+        "rle48.icns": icns_file([(b"is32", planes(p16)), (b"ih32", planes(p48))]),
+        "raw.icns": icns_file([(b"il32", p32[..., :3].tobytes()),
+                               (b"l8mk", p32[..., 3].tobytes())]),
+        "png.icns": icns_file([(b"it32", bytes(4) + planes(p128)),
+                               (b"ic11", encode_png(p32)), (b"ic07", encode_png(p128[..., :3]))]),
+        "png_grey.icns": icns_file([(b"ic07", encode_png(smooth(128, 128, 1, 15)[..., 0]))]),
+        "unknown.icns": icns_file([(b"ic09", b"JUNK" * 4)]),
+        "checker.icns": icns_file([(b"ic08", encode_png(checker)),
+                                   (b"it32", bytes(4) + planes(checker[::2, ::2])),
+                                   (b"t8mk", bytes(128 * 128))]),
+        "bitmap.psd": psd_file(bits1, 0, bits=1, width=W),
+        "bitmap_rle.psd": psd_file(bits1, 0, bits=1, width=W, compression=1),
+        "grey_rle.psd": psd_file(ch[:1], 1, compression=1, resources=res, layers=bytes(10)),
+        "indexed.psd": psd_file(ch[:1], 2, color_data=palette),
+        "indexed_rle.psd": psd_file(ch[:1], 2, color_data=palette, compression=1),
+        "indexed_nopalette.psd": psd_file(ch[:1], 2),
+        "rgb.psd": psd_file(ch[:3], 3, resources=res),
+        "rgb_rle.psd": psd_file(ch[:3], 3, compression=1),
+        "rgba.psd": psd_file(ch[:4], 3),
+        "rgba_rle.psd": psd_file(ch[:4], 3, compression=1, layers=bytes(6)),
+        "rgb5_rle.psd": psd_file(ch[:5], 3, compression=1),
+        "cmyk.psd": psd_file(ch[:4], 4),
+        "cmyk_rle.psd": psd_file(ch[:4], 4, compression=1),
+        "cmyk5_rle.psd": psd_file(ch[:5], 4, compression=1),
+        "duotone.psd": psd_file(ch[:1], 8, color_data=bytes(10)),
+        "multichannel_rle.psd": psd_file(ch[:3], 7, compression=1),
+        "grey16.psd": psd_file(ch[:2], 1, bits=16),
+        "zip.psd": psd_file(ch[:3], 3, compression=2),
+        "two_channels.psd": psd_file(ch[:2], 3),
+        "truncated.psd": psd_file(ch[:3], 3)[:-50],
+        "truncated_rle.psd": psd_file(ch[:3], 3, compression=1)[:-50],
+        "blob_packbits.psd": psd_file(np.ascontiguousarray(blob.transpose(2, 0, 1)), 3,
+                                      compression=1),
+        "sky_packbits.psd": psd_file(np.ascontiguousarray(sky_ldr(64, 128).transpose(2, 0, 1)), 3,
+                                     compression=1),
+        "blob_bmp.ico": save(Image.fromarray(blob_small), "ICO", bitmap_format="bmp",
+                             sizes=[(32, 32), (128, 128)]),
+    }
+
+
+# what the icon and PSD readers refuse with, by the words of their messages
+ICON_REFUSALS = ("cannot identify image file", "image file is truncated", "not enough channels",
+                 "cannot load this image")
+
+
+def icon_reading(data: bytes) -> str:
+    """SHA-256 of Pillow's ``convert("RGBA")`` of ``data``, or ``refused:``
+    and which of ``ICON_REFUSALS`` its ``OSError`` says, or the type and
+    message of any other exception."""
+    try:
+        return pillow_rgba_sha(data)
+    except OSError as e:
+        return "refused: " + next(r for r in ICON_REFUSALS if r in str(e))
+    except Exception as e:  # noqa: BLE001  (the reading is the exception)
+        return f"{type(e).__name__}: {e}"
+
+
+def icon_digests(files: dict[str, bytes]) -> dict:
+    """``ICON_FILE`` / ``ICON_DECODE``: each icon and PSD fixture's SHA-256
+    and Pillow's reading of it; ``ICON_ENCODE``: the SHA-256 of Pillow's
+    ``save`` of each of ``icon_sources()`` (the saver's ICO and ICNS, not
+    committed)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import icon_sources
+
+    return {"ICON_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "ICON_DECODE": {n: icon_reading(d) for n, d in sorted(files.items())},
+            "ICON_ENCODE": {n: hashlib.sha256(pillow_save(a, os.path.splitext(n)[1])).hexdigest()
+                            for n, a in icon_sources().items()}}
+
+
+# ---------------------------------------------------------------------------
 # JPEG variants: libjpeg-turbo's own writer
 # ---------------------------------------------------------------------------
 
@@ -1886,7 +2143,10 @@ def digest_module(d: dict) -> str:
              "the JPEG variant fixtures' bytes; ``JPEG_VARIANT_DECODE`` /",
              "``JPEG_VARIANT_DECODE_CV2``: Pillow's and OpenCV's readings of each",
              "(``refused:`` and Pillow's words where Pillow raises, ``None`` where",
-             "OpenCV reads nothing). Written by",
+             "OpenCV reads nothing). ``ICON_FILE`` / ``ICON_DECODE``: the ICO, CUR,",
+             "ICNS and PSD fixtures' bytes and Pillow's reading of each (``refused:``",
+             "and Pillow's words, or the exception); ``ICON_ENCODE``: Pillow's ``save``",
+             "of ``icon_sources()`` as ICO and ICNS. Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -1904,9 +2164,10 @@ if __name__ == "__main__":
     encode_files = make_encode_fixtures()
     plain_files = make_plain_fixtures()
     jpeg_files = make_jpeg_variant_fixtures()
+    icon_files = make_icon_fixtures()
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
-                           **jpeg_files}.items():
+                           **jpeg_files, **icon_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
@@ -1914,6 +2175,7 @@ if __name__ == "__main__":
                                    **alpha_webp_digests(webp_files),
                                    **encode_digests(encode_files),
                                    **plain_digests(plain_files),
-                                   **jpeg_variant_digests(jpeg_files)}))
-    for group in (files, webp_files, encode_files, plain_files, jpeg_files):
+                                   **jpeg_variant_digests(jpeg_files),
+                                   **icon_digests(icon_files)}))
+    for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
