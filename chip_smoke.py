@@ -16,7 +16,8 @@ BMP, TGA, GIF, TIFF through the native codec; the ``ycb`` example), WebP
 (the native decoder and encoder), GIF and Netpbm encoding, QOI, SGI, PCX,
 IM and DDS both ways, the JPEG variants (arithmetic, lossless, CMYK/YCCK,
 block-smoothed), ICO and ICNS both ways with Pillow's resampling, CUR and
-PSD, and the repository's tools that are not TPU-only.
+PSD, JPEG 2000 both ways with EPS/PS and PDF written, and the
+repository's tools that are not TPU-only.
 
     python3 chip_smoke.py
 
@@ -342,7 +343,30 @@ Phases (one line each or more; any failure exits non-zero):
     launches (one camera, two shadow passes) and no plain piece, K1
     ``torch.equal`` to its plain version on the camera and the sun's shadow
     pass, every field ``torch.equal`` to the same scene from the files'
-    PNG twins. Then the smoke's total wall seconds.
+    PNG twins.
+25. JPEG 2000 both ways, EPS/PS and PDF written (``assets/jpeg2000.py``
+    over the native ``csrc/sl_j2k.cpp``, g++ -O2, built beside the nvcc
+    builds of phase 2 and timed there;
+    ``eps.py``, ``pdf.py``): the committed sources
+    (``image_fixtures.jpeg2000_sources()``: both kinds, L, RGB, RGBA and
+    I;16, 1x1 to 65x130) re-encoded byte-equal to the files Pillow 12.1.0
+    wrote, the saver's 640x480 JP2 and codestreams and its EPS, PS and PDF
+    (at a fixed clock) to the SHA-256 of Pillow's files, every committed
+    file (``JPEG2000_ENCODE_FILES``, ``JPEG2000_READ_FILES``) read to the
+    SHA-256 of Pillow's and OpenCV's readings or refused naming what it
+    needs; phase 19's render (RGB, RGBA) and depth (16-bit, mm) encoded as
+    JP2 and codestream and decoded back bitwise, each timed (the least ms
+    of 2); ``sl.ImageSaver(num_threads=4)`` over 12 ``.jp2`` files,
+    images/s, read back bitwise; the render through the saver as PDF (the
+    image stream equal to the JPEG or JP2 encoder's, every xref offset at
+    its object) and EPS/PS (the hex dump decoding to the render); phase
+    18's scene at its settled poses (blob at subdivision 4) with the blob's
+    texture from a JP2, a GLB whose image is a JP2 and the plane from a
+    codestream, under phase 23's light map, a JP2 panorama read as its BMP
+    twin's: phase 13's content checks, K1's launches (one camera, two shadow
+    passes) and no plain piece, K1 ``torch.equal`` to its plain version on
+    the camera and the sun's shadow pass, every field ``torch.equal`` to
+    the same scene from PNG twins. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -351,6 +375,7 @@ package beside this file, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -3741,6 +3766,272 @@ def run_icons_psd(torch, cr, rt, card, settled, rendered, light) -> tuple[list, 
     return entries, ms
 
 
+J2K_REPS = 2  # phase 25's timings, the least of this many
+J2K_SAVER_IMAGES = 12  # phase 25's ImageSaver run over .jp2
+
+
+def build_j2k_core() -> tuple[str, float]:
+    """The JPEG 2000 core's g++ build (phase 25's), timed: (path, s)."""
+    from stillleben_tpu_torch.assets import native_image
+
+    t0 = time.perf_counter()
+    path = native_image.build_j2k()
+    return path, time.perf_counter() - t0
+
+
+def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
+                         j2k_build) -> tuple[list, dict]:
+    """Phase 25: JPEG 2000 both ways, EPS/PS and PDF written (see the
+    module docstring). ``settled`` is phase 18's settled state, ``rendered``
+    phase 19's render, ``light`` phase 23's light map, ``j2k_build`` the
+    future of ``build_j2k_core``, started beside the nvcc builds. Returns
+    the kernels' entries of K1 on this phase's inputs and its
+    milliseconds."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import eps, image, jpeg2000, pdf
+    from stillleben_tpu_torch.assets.image_fixtures import (JPEG2000_ENCODE_FILES,
+                                                            JPEG2000_READ_FILES,
+                                                            JPEG2000_REFUSALS, PDF_CLOCK,
+                                                            jpeg2000_saver_sources,
+                                                            jpeg2000_sources)
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (JPEG2000_DECODE,
+                                                                    JPEG2000_DECODE_CV2,
+                                                                    JPEG2000_ENCODE,
+                                                                    JPEG2000_FILE)
+    from stillleben_tpu_torch.assets.jpeg import encode_jpeg
+    from stillleben_tpu_torch.assets.procedural import write_jpeg2000_fixtures
+    from stillleben_tpu_torch.render import light_map as plm
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    kind_of = lambda name: "j2k" if name.endswith(".j2k") else "jp2"  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"j2k_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    ms = {}
+    t_part = time.perf_counter()
+
+    @contextlib.contextmanager
+    def pdf_clock():
+        """``time.gmtime()`` at ``PDF_CLOCK``, the PDF digests' dates."""
+        gmtime = time.gmtime
+        time.gmtime = lambda *a: gmtime(*(a or (PDF_CLOCK,)))
+        try:
+            yield
+        finally:
+            time.gmtime = gmtime
+
+    t0 = time.perf_counter()
+    lib, build_s = j2k_build.result()
+    ms["core build"], ms["core build wait"] = build_s * 1e3, (time.perf_counter() - t0) * 1e3
+    phase("j2k", f"the JPEG 2000 core's g++ build (-O2), beside the nvcc builds: {build_s:.3f} s "
+                 f"({os.path.relpath(lib, ROOT)}); waited for here: "
+                 f"{ms['core build wait'] / 1e3:.3f} s")
+
+    # the committed sources re-encoded to the files Pillow wrote, the saver's
+    # sources to the digests of Pillow's files, every committed file read to
+    # the digests of Pillow's and OpenCV's readings (or refused by name)
+    bad = []
+    for name, a in jpeg2000_sources().items():
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != JPEG2000_FILE[name] or jpeg2000.encode_jpeg2000(a, kind_of(name)) != data:
+            bad.append(f"the encode {name}")
+    for name, a in jpeg2000_saver_sources().items():
+        t0 = time.perf_counter()
+        with pdf_clock():
+            data = (pdf.encode_pdf(a, name) if name.endswith(".pdf") else eps.encode_eps(a)
+                    if name.endswith((".eps", ".ps")) else jpeg2000.encode_jpeg2000(a, kind_of(name)))
+        ms[f"encode {name}"] = (time.perf_counter() - t0) * 1e3
+        if sha(data) != JPEG2000_ENCODE[name]:
+            bad.append(f"the saver's {name}")
+    refused = 0
+    for name in JPEG2000_ENCODE_FILES + JPEG2000_READ_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != JPEG2000_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if name in JPEG2000_REFUSALS:
+            try:
+                image.decode_image(data, name)
+                bad.append(f"{name} read")
+            except NotImplementedError as e:
+                refused += JPEG2000_REFUSALS[name] in str(e)
+            continue
+        if sha(image.decode_image(data, name).tobytes()) != JPEG2000_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        cv = image.read_image_cv2(fixture(name))
+        if ("None" if cv is None else sha(cv.tobytes())) != JPEG2000_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+    if refused != len(JPEG2000_REFUSALS):
+        bad.append(f"{refused} of {len(JPEG2000_REFUSALS)} refused by name")
+    n_files = len(JPEG2000_ENCODE_FILES) + len(JPEG2000_READ_FILES)
+    phase("j2k", f"{len(jpeg2000_sources())} committed sources re-encoded byte-equal to the files "
+                 f"Pillow 12.1.0 (OpenJPEG 2.5.4) wrote (both kinds; L, RGB, RGBA, I;16; 1x1 to "
+                 f"65x130); {len(jpeg2000_saver_sources())} saver sources (640x480 JP2 and "
+                 f"codestreams, EPS, PS, PDF at a fixed clock) to the SHA-256 of Pillow's files; "
+                 f"{n_files} committed files read to the SHA-256 of Pillow's and OpenCV 5.0.0's "
+                 f"readings, {refused} of them refused by name (9/7, layers, precincts, RPCL, "
+                 f"tiles, a code-block style, a 9/7 ICNS entry); the saver sources' encodes, ms: "
+                 + ", ".join(f"{k[7:]} {v:.1f}" for k, v in ms.items() if k.startswith("encode "))
+                 + f"; differences: {bad}")
+    if bad:
+        fail(f"j2k: not Pillow's: {bad}")
+    ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 19's render and depth both ways, timed; the saver over .jp2
+    rgb = np.ascontiguousarray(rendered.rgb()[..., :3].cpu().numpy())
+    mask = np.where(rendered.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    depth_mm = np.clip(np.round(rendered.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    arrays = {"render": rgb, "render_rgba": rgba, "depth_mm": depth_mm}
+    wrong, sizes = [], {}
+    for stem, a in arrays.items():
+        for kind in ("jp2", "j2k"):
+            enc, dec = [], []
+            for _ in range(J2K_REPS):
+                t0 = time.perf_counter()
+                data = jpeg2000.encode_jpeg2000(a, kind)
+                enc.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                back = jpeg2000.decode_samples(data)
+                dec.append((time.perf_counter() - t0) * 1e3)
+            ms[f"{stem}.{kind} encode"], ms[f"{stem}.{kind} decode"] = min(enc), min(dec)
+            sizes[f"{stem}.{kind}"] = len(data)
+            if not (back.dtype == a.dtype and np.array_equal(back, a)):
+                wrong.append(f"{stem}.{kind}")
+    printed = io.StringIO()
+    names = [os.path.join(fx_dir, f"saved_{i}.jp2") for i in range(J2K_SAVER_IMAGES)]
+    sources = [list(arrays.values())[i % 3] for i in range(J2K_SAVER_IMAGES)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed), sl.ImageSaver(num_threads=4) as saver:
+        for a, p in zip(sources, names):
+            saver.save(a, p)
+    saver_s = time.perf_counter() - t0
+    for a, p in zip(sources, names):
+        with open(p, "rb") as f:
+            if not np.array_equal(jpeg2000.decode_samples(f.read(), p), a):
+                wrong.append(os.path.basename(p))
+    phase("j2k", f"phase 19's render {WIDTH}x{HEIGHT} (RGB; RGBA with alpha 255 on the "
+                 f"{int((mask > 0).sum())} object pixels; depth in mm as I;16) encoded as JP2 and "
+                 f"as a codestream and decoded back bitwise: {not wrong}; bytes "
+                 + ", ".join(f"{k} {v}" for k, v in sizes.items())
+                 + f"; the least ms of {J2K_REPS}: "
+                 + ", ".join(f"{k} {v:.1f}" for k, v in ms.items() if k.startswith(tuple(arrays)))
+                 + f"; sl.ImageSaver(num_threads=4) wrote {J2K_SAVER_IMAGES} .jp2 files of the "
+                   f"three in {saver_s * 1e3:.1f} ms, {J2K_SAVER_IMAGES / saver_s:.2f} images/s, "
+                   f"read back bitwise; printed: {printed.getvalue().strip() or 'nothing'} ({card})")
+    ms["ImageSaver .jp2 images/s"] = J2K_SAVER_IMAGES / saver_s
+    if wrong or printed.getvalue():
+        fail(f"j2k: round trips that differ: {wrong}")
+
+    # the render as PDF and EPS through the saver
+    with contextlib.redirect_stdout(printed), sl.ImageSaver(num_threads=4) as saver:
+        for stem, a in (("render", rgb), ("render_rgba", rgba), ("render_grey", rgb[..., 1].copy())):
+            saver.save(a, os.path.join(fx_dir, stem + ".pdf"))
+        saver.save(rgb, os.path.join(fx_dir, "render.eps"))
+        saver.save(rgb[..., 1].copy(), os.path.join(fx_dir, "render_grey.ps"))
+    checks = []
+    for stem, a in (("render", rgb), ("render_rgba", rgba), ("render_grey", rgb[..., 1].copy())):
+        with open(os.path.join(fx_dir, stem + ".pdf"), "rb") as f:
+            data = f.read()
+        stream = jpeg2000.encode_jpeg2000(a, "jp2") if a.ndim == 3 and a.shape[2] == 4 else encode_jpeg(a)
+        at = data.index(b">>stream\n") + 9
+        ok = data[at: at + len(stream) + 11] == stream + b"\nendstream\n"
+        xref = int(data.rsplit(b"startxref\n", 1)[1].split(b"\n")[0])
+        rows = data[xref:].split(b"\n")[3:9]
+        ok &= all(data[int(r[:10]):].startswith(b"%d 0 obj" % n) for n, r in enumerate(rows, 1))
+        checks.append(ok)
+    for name, a in (("render.eps", rgb), ("render_grey.ps", rgb[..., 1])):
+        with open(os.path.join(fx_dir, name), "rb") as f:
+            data = f.read()
+        body = data.split(b"image\n", 1)[1].split(b"\n%%%%EndBinary\n")[0]
+        lines = body.split(b"\n")
+        checks.append(bytes.fromhex(b"".join(lines).decode()) == a.tobytes()
+                      and all(len(x) == 78 for x in lines[:-1]))
+    phase("j2k", f"the render through sl.ImageSaver as PDF (RGB and grey: the JPEG encoder's "
+                 f"stream; RGBA: the JP2's) and EPS/PS: image streams equal to the encoders' and "
+                 f"every xref offset at its object, the hex dumps decoding to the render in lines "
+                 f"of 78 digits: {checks}; printed: {printed.getvalue().strip() or 'nothing'}")
+    if not all(checks) or printed.getvalue():
+        fail(f"j2k: the render's PDF/EPS checks {checks}")
+    ms["part: render files"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 18's scene with its images as JPEG 2000, at its settled poses
+    t0 = time.perf_counter()
+    fx = write_jpeg2000_fixtures(fx_dir, subdiv=ICON_SUBDIV)
+    meshes = sl.Mesh.load_threaded([fx["obj_jp2"], fx["glb_jp2"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    same_panorama = np.array_equal(plm._load_hdr_image(os.path.join(fx_dir, "sky.jp2")),
+                                   plm._load_hdr_image(os.path.join(fx_dir, "sky_jp2.bmp")))
+    ms["meshes"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_j2k"]))
+    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms["render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "j2k render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("j2k", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+                 f"subdivision {ICON_SUBDIV}): the blob's texture from a JP2 (.mtl), a GLB whose "
+                 f"embedded image is a JP2, the plane from a codestream (.j2k), phase 23's light "
+                 f"map; a JP2 panorama read as its BMP twin's: {same_panorama}; fixtures and "
+                 f"meshes {ms['meshes']:.1f} ms, RenderPass().render {ms['render']:.1f} ms; K1 "
+                 f"launches by tile {launches}; calls of K1's plain pieces {plain_calls}; "
+                 f"content: {content}; fields torch.equal to the same scene from the PNG "
+                 f"twins: {len(same)} of {len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields) or not same_panorama:
+        fail(f"j2k: the JPEG 2000-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}, panorama equal {same_panorama}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"j2k: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"jpeg2000 camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"jpeg2000 shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    phase("j2k", "phase 25's parts, s: " + ", ".join(
+        f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms
+
+
 def main() -> None:
     global T_START
     T_START = time.perf_counter()
@@ -3765,13 +4056,16 @@ def main() -> None:
                     f"CUDA {torch.version.cuda}; {card}")
     card = f"{name}; {card}"
 
-    # 2. build: every source at once
+    # 2. build: every source at once, and the JPEG 2000 core (phase 25's)
+    # with g++ beside them
     from stillleben_tpu_torch.ops import cell_raster as cr
     from stillleben_tpu_torch.ops import fine_raster as fr
     from stillleben_tpu_torch.ops import nvcc, smoke
     from stillleben_tpu_torch.render import frame as frame_mod
     from stillleben_tpu_torch.render import rasterize_tiled as rt
 
+    j2k_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    j2k_build = j2k_pool.submit(build_j2k_core)
     t0 = time.perf_counter()
     built = nvcc.build_all()
     phase("build", f"{', '.join(sorted(built))} for sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -4316,8 +4610,19 @@ def main() -> None:
     t0 = time.perf_counter()
     icon_k1, _ = run_icons_psd(torch, cr, rt, card, image_settled, webp_render, jpeg_light)
     kernels.extend(icon_k1)
-    del webp_render, jpeg_light
     phase("icons", f"phase 24 in {time.perf_counter() - t0:.1f} s")
+
+    # 25. JPEG 2000 both ways, EPS/PS and PDF written: the committed sources
+    # and files to Pillow's and OpenCV's digests, the render's round trips
+    # and times, the saver over .jp2, .pdf and .eps, and phase 18's scene
+    # from JPEG 2000 files through K1
+    t0 = time.perf_counter()
+    j2k_k1, _ = run_jpeg2000_eps_pdf(torch, cr, rt, card, image_settled, webp_render, jpeg_light,
+                                     j2k_build)
+    j2k_pool.shutdown()
+    kernels.extend(j2k_k1)
+    del webp_render, jpeg_light
+    phase("j2k", f"phase 25 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

@@ -19,9 +19,14 @@ another; a byte with the high bit set repeats the next byte ``n - 125``
 times, else ``n + 1`` bytes follow; ``it32`` after four zero bytes; a
 block of exactly 3 x w x h bytes is raw RGB) take their
 ``s8mk``/``l8mk``/``h8mk``/``t8mk`` mask as alpha. A PNG entry wins over
-the planes of its size. JPEG 2000 entries raise ``NotImplementedError``
-(the port reads no JPEG 2000; ROADMAP.md queues it); other entries raise
-Pillow's ``ValueError``.
+the planes of its size. A JPEG 2000 entry (a codestream or JP2) is read
+as Pillow reads it, ``convert("RGBA")`` (``jpeg2000.decode_jpeg2000``),
+at the entry's own size (which, as for a PNG entry, some size of the
+file scaled by a whole factor must give: Pillow's ``ValueError``
+otherwise); one the port does not decode (of another shape,
+or damaged) raises ``NotImplementedError`` naming JPEG 2000 (ROADMAP.md,
+the reading queue); other
+entries raise Pillow's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import struct
 import numpy as np
 
 from . import resample
+from .jpeg2000 import JP2_MAGIC, decode_jpeg2000
 
 MAGIC = b"icns"
 HEADERSIZE = 8
@@ -138,9 +144,12 @@ def _read(data: bytes, reader: str, start: int, length: int, w: int, h: int, nam
         sig = data[start: start + 12]
         if sig.startswith(PNG_MAGIC):  # Pillow takes its pixels and palette, not its tRNS
             return {"RGBA": _pil_rgba(decode_png_samples(data[start:], name)._replace(trns=None))}
-        if sig.startswith(_J2K) or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-            raise NotImplementedError(f"{name}: an ICNS entry in JPEG 2000 is not supported (the "
-                                      "port reads no JPEG 2000 yet)")
+        if sig.startswith(_J2K) or sig == JP2_MAGIC:
+            try:
+                return {"RGBA": decode_jpeg2000(data[start: start + length], name)}
+            except Exception as e:
+                raise NotImplementedError(f"{name}: an ICNS entry in JPEG 2000 the port does not "
+                                          f"read ({e})") from e
         raise ValueError("Unsupported icon subimage format")
     if reader == _RLE_T:
         if data[start: start + 4] != b"\0\0\0\0":
@@ -153,6 +162,15 @@ def _read(data: bytes, reader: str, start: int, length: int, w: int, h: int, nam
     return {"A": np.frombuffer(data, np.uint8, count=w * h, offset=start).reshape(h, w)}
 
 
+def _check_size(dct: dict, w: int, h: int) -> None:
+    """Pillow's ``IcnsImageFile.size`` setter, run on the loaded entry's
+    size: some size of the file, scaled by a whole factor, must give it."""
+    for (sw, sh, scale), kinds in SIZES.items():
+        if any(k in dct for k, _ in kinds) and (sh * scale) / h == (sw * scale) // w:
+            return
+    raise ValueError("This is not one of the allowed sizes of this image")
+
+
 def decode_icns(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 4) uint8 as Pillow's ``Image.open(p).convert("RGBA")``."""
     dct = blocks(data, name)
@@ -163,7 +181,9 @@ def decode_icns(data: bytes, name: str = "<bytes>") -> np.ndarray:
         if kind in dct:
             channels.update(_read(data, reader, *dct[kind], w, h, name))
     if "RGBA" in channels:
-        return channels["RGBA"]
+        rgba = channels["RGBA"]
+        _check_size(dct, rgba.shape[1], rgba.shape[0])
+        return rgba
     rgb = channels["RGB"]
     out = np.empty(rgb.shape[:2] + (4,), np.uint8)
     out[..., :3] = rgb

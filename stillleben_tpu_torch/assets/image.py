@@ -22,7 +22,9 @@ library:
   WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation), QOI
   (``qoi.py``), SGI (``sgi.py``), PCX and DCX frame 0 (``pcx.py``), IM
   (``im.py``), DDS (``dds.py``: uncompressed and BC1-BC7), ICO and CUR
-  (``ico.py``), ICNS (``icns.py``) and PSD (``psd.py``). The formats are
+  (``ico.py``), ICNS (``icns.py``), PSD (``psd.py``) and JPEG 2000
+  (``jpeg2000.py``: the codestream and JP2 as Pillow writes them by
+  default). The formats are
   tried in Pillow's order: IM has no magic bytes and is taken where Pillow
   takes it (after PNG, BMP, DIB, PCX, DCX, DDS, CUR, ICNS, ICO and GIF,
   before the others).
@@ -31,7 +33,7 @@ library:
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
   a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
-  includes PAM; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM,
+  includes PAM, JPEG 2000 is read as OpenCV's OpenJPEG reader reads it; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM,
   a DDS, an ICO, a CUR, an ICNS or a PSD, which OpenCV does not read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
@@ -39,8 +41,8 @@ modes the JAX ``ImageSaver`` writes through Pillow) as Pillow's ``save``
 writes them; ``encode_png_samples``
 writes any colour type, depth, palette, ``tRNS`` and interlacing (the
 codec's fixtures); ``encode_hdr`` writes flat or run-length scanlines.
-JPEG, BMP/DIB, TGA, TIFF, WebP, GIF, Netpbm, QOI, SGI, PCX, IM, DDS, ICO
-and ICNS have their own encoders in their modules (``image_saver.ENCODERS`` picks
+JPEG, BMP/DIB, TGA, TIFF, WebP, GIF, Netpbm, QOI, SGI, PCX, IM, DDS, ICO,
+ICNS, JPEG 2000, EPS and PDF have their own encoders in their modules (``image_saver.ENCODERS`` picks
 them by extension).
 
 The JPEG kinds both libraries refuse raise ``OSError`` with Pillow's
@@ -67,6 +69,7 @@ from .gif import decode_gif, decode_gif_cv2
 from .image_limits import check_size
 from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg, decode_jpeg_cv2
+from .jpeg2000 import J2K_MAGIC, JP2_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2
 from .netpbm import decode_netpbm, decode_netpbm_cv2
 from .tga import FOOTER as TGA_FOOTER
 from .tga import decode_tga
@@ -90,7 +93,9 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
 _DECODERS = ((JPEG_MAGIC, decode_jpeg, decode_jpeg_cv2), (b"BM", decode_bmp, decode_bmp_cv2),
              (b"GIF87a", decode_gif, decode_gif_cv2), (b"GIF89a", decode_gif, decode_gif_cv2),
              (b"II*\x00", decode_tiff, decode_tiff_cv2), (b"MM\x00*", decode_tiff, decode_tiff_cv2),
-             (WEBP_MAGIC, decode_webp, decode_webp_cv2))
+             (WEBP_MAGIC, decode_webp, decode_webp_cv2),
+             (J2K_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2),
+             (JP2_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2))
 
 
 class PngImage(NamedTuple):
@@ -292,8 +297,8 @@ def _refuse(path: str, data: bytes):
     fmt = "Radiance HDR" if data[:2] == b"#?" else "unknown"
     raise NotImplementedError(
         f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, DIB, "
-        "TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM, DDS, ICO, CUR, ICNS and PSD, and "
-        "Radiance HDR through read_image_cv2)"
+        "TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM, DDS, ICO, CUR, ICNS, PSD and JPEG 2000, "
+        "and Radiance HDR through read_image_cv2)"
     )
 
 

@@ -50,7 +50,17 @@ duotone, multichannel) raw and PackBits, the kinds Pillow refuses (16-bit,
 ZIP, two channels as RGB, cut data), and the textured scene's images (the
 blob's base colour as a PackBits PSD and as an ICO of BMP entries, the
 checker as an ICNS, the sky as a PackBits PSD); ``icon_sources()`` are the
-arrays whose saver ICO and ICNS only have digests (``ICON_ENCODE``).
+arrays whose saver ICO and ICNS only have digests (``ICON_ENCODE``);
+and the JPEG 2000 files: Pillow's ``save`` at its defaults of
+``jpeg2000_sources()`` (``JPEG2000_ENCODE_FILES``: both kinds, L, RGB,
+RGBA and I;16, and the edge sizes 1x640, 33x33, 65x130, 3x5 and 1x1) and
+of the shapes the decoder reads or refuses (``JPEG2000_READ_FILES``: the
+colour transform, LA, 32x32 code-blocks, two levels; the 9/7 wavelet,
+two layers, precincts, RPCL, tiles, and a code-block style patched into
+Pillow's COD; ICNS with a JPEG 2000 entry read and one refused);
+``jpeg2000_saver_sources()`` are the arrays whose JPEG 2000, EPS, PS and
+PDF files (the PDF's clock at ``PDF_CLOCK``) only have digests
+(``JPEG2000_ENCODE``).
 ``digests.py`` holds the SHA-256 of each encode
 fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``; of each
 JPEG variant's: ``JPEG_VARIANT_FILE``) and of Pillow's
@@ -103,6 +113,20 @@ ICON_FILES = ("pillow_rgba.ico", "pillow_bmp_rgba.ico", "pillow_bmp_rgb.ico",
               "cmyk_rle.psd", "cmyk5_rle.psd", "duotone.psd", "multichannel_rle.psd",
               "grey16.psd", "zip.psd", "two_channels.psd", "truncated.psd",
               "truncated_rle.psd", "blob_packbits.psd", "sky_packbits.psd", "blob_bmp.ico")
+
+JPEG2000_ENCODE_FILES = ("frame.jp2", "frame.j2k", "frame_rgba.jp2", "frame_rgba.j2k", "grey.jp2",
+                         "grey.j2k", "depth16.jp2", "depth16.j2k", "row_1x640.j2k",
+                         "square_33x33.jp2", "odd_65x130.j2k", "tiny_3x5.jp2", "one_1x1.j2k")
+JPEG2000_READ_FILES = ("rct.jp2", "rct_rgba.j2k", "la.jp2", "la.j2k", "cblk32.j2k", "levels2.jp2",
+                       "irreversible.j2k", "layers.jp2", "precincts.j2k", "rpcl.j2k", "tiles.j2k",
+                       "cblk_style.j2k", "j2k_entry.icns", "j2k_refused.icns")
+# what the port names in refusing each refused JPEG 2000 fixture
+JPEG2000_REFUSALS = {"irreversible.j2k": "9/7", "layers.jp2": "quality layers",
+                     "precincts.j2k": "precincts", "rpcl.j2k": "progression order",
+                     "tiles.j2k": "several tiles", "cblk_style.j2k": "code-block style",
+                     "j2k_refused.icns": "JPEG 2000"}
+# the clock of the PDF digests (``time.gmtime(PDF_CLOCK)`` for both dates)
+PDF_CLOCK = 1700000000
 
 
 def path(name: str) -> str:
@@ -174,3 +198,43 @@ def icon_sources() -> dict[str, np.ndarray]:
            "grey.ico": src["grey.bw"], "depth16.ico": src["depth16.im"]}
     out["frame_rgba.icns"] = src["frame_rgba.qoi"]
     return out
+
+
+def jpeg2000_sources() -> dict[str, np.ndarray]:
+    """The arrays behind ``JPEG2000_ENCODE_FILES``, by file name:
+    ``plain_sources()``'s 64x48 frame, its RGBA, the grey ramp and the
+    16-bit depth, each as JP2 and as a bare codestream; a 1x640 grey ramp,
+    33x33 RGBA noise, a 65x130 smooth RGB (code-blocks clipped at the
+    subbands' edges), 3x5 uint16 noise and one grey pixel."""
+    src = plain_sources()
+    rng = np.random.default_rng(20)
+    out = {}
+    for stem, key in (("frame", "frame.qoi"), ("frame_rgba", "frame_rgba.qoi"),
+                      ("grey", "grey.bw"), ("depth16", "depth16.im")):
+        out[stem + ".jp2"] = out[stem + ".j2k"] = src[key]
+    y, x = np.mgrid[0:65, 0:130]
+    out["row_1x640.j2k"] = (np.arange(640) * 255 // 639).astype(np.uint8)[None]
+    out["square_33x33.jp2"] = rng.integers(0, 256, (33, 33, 4)).astype(np.uint8)
+    out["odd_65x130.j2k"] = np.stack([x * 2 % 256, y * 3, (x + y) % 256], -1).astype(np.uint8)
+    out["tiny_3x5.jp2"] = rng.integers(0, 65536, (3, 5)).astype(np.uint16)
+    out["one_1x1.j2k"] = np.full((1, 1), 77, np.uint8)
+    return out
+
+
+def jpeg2000_saver_sources() -> dict[str, np.ndarray]:
+    """The arrays whose JPEG 2000, EPS, PS and PDF files the digests
+    (``JPEG2000_ENCODE``) hold, by file name: ``seeded_images()``'s 640x480
+    frame as JP2 and codestream, with alpha 255 on a disc as JP2, 640x480
+    uint16 depth from 0 to about 3500 as codestream; the 64x48 frame and
+    grey ramp as EPS, PS and PDF, and the RGBA as PDF."""
+    src = plain_sources()
+    frame = seeded_images()["frame"]
+    y, x = np.mgrid[0:480, 0:640]
+    disc = ((y - 240) ** 2 + (x - 300) ** 2 < 150 ** 2).astype(np.uint8) * 255
+    depth = (y * 5 + x * 2 + np.random.default_rng(21).integers(0, 60, (480, 640)))
+    return {"frame640.jp2": frame, "frame640.j2k": frame,
+            "frame640_rgba.jp2": np.concatenate([frame, disc[..., None]], -1),
+            "depth640.j2k": depth.astype(np.uint16),
+            "frame.eps": src["frame.qoi"], "grey.ps": src["grey.bw"],
+            "frame.pdf": src["frame.qoi"], "grey.pdf": src["grey.bw"],
+            "frame_rgba.pdf": src["frame_rgba.qoi"]}

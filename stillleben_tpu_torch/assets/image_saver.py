@@ -21,10 +21,15 @@ extension), ``.qoi`` (``qoi.encode_qoi``), ``.sgi``/``.rgb``/``.rgba``/
 ``.bw`` (``sgi.encode_sgi``), ``.pcx`` (``pcx.encode_pcx``), ``.im``
 (``im.encode_im``), ``.dds`` (``dds.encode_dds``), ``.ico`` (``ico.encode_ico``:
 PNG entries of Pillow's LANCZOS thumbnails) and ``.icns``
-(``icns.encode_icns``: PNG entries of its BICUBIC resizes). Each writes the bytes
+(``icns.encode_icns``: PNG entries of its BICUBIC resizes), ``.eps``/``.ps``
+(``eps.encode_eps``), ``.pdf`` (``pdf.encode_pdf``: the JPEG, or for RGBA
+the JPEG 2000, in Pillow's one-page file) and ``.jp2``/``.j2k``/``.j2c``/
+``.jpc``/``.jpf``/``.jpx`` (``jpeg2000.encode_jpeg2000``: OpenJPEG's
+reversible codestream at Pillow's defaults, in the JP2 container except
+for ``.j2k``). Each writes the bytes
 of Pillow's ``save`` for the mode the JAX package hands Pillow (8-bit L,
-RGB, RGBA; ``I;16`` for uint16); SGI and IM write the path's base name
-into their headers, so the worker hands those encoders the path
+RGB, RGBA; ``I;16`` for uint16); SGI, IM and PDF write the path's base
+name into their files, so the worker hands those encoders the path
 (``TAKES_PATH``). A WebP with transparency has its alpha plane compressed
 by the port's own lossless stream (the alpha is exact, the other chunks
 are Pillow's bytes).
@@ -37,16 +42,19 @@ in the worker, printed as ``ImageSaver: failed to write <path>:
 image of (a 1-D array, a channel count other than 3 and 4), an extension
 Pillow does not know (``.exr``, none at all) or knows but cannot write
 (``.psd``), and a mode or size Pillow refuses for the format (RGBA or
-16-bit as JPEG, 16-bit as BMP, TGA, QOI, SGI, PCX or DDS, RGBA as PCX, a
-side over 16383 as WebP). Where Pillow had opened the file before its
-writer refused (a known format), a file that was there is left empty, as
-Pillow leaves it. The one exception is an extension Pillow writes that the
+16-bit as JPEG, 16-bit as BMP, TGA, QOI, SGI, PCX, DDS, EPS or PDF, RGBA as
+PCX or EPS, a side over 16383 as WebP). Where Pillow had opened the file
+before its writer refused (a known format), a file that was there is left
+empty, as Pillow leaves it, or, for a PDF, holding the objects Pillow had
+written before it refused the mode (``pdf.PdfModeError.partial``). The
+one exception is an extension Pillow writes that the
 port does not encode yet (``NOT_PORTED``): ``save()`` raises
 ``NotImplementedError`` for it, before anything is queued.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -55,14 +63,18 @@ import numpy as np
 
 from .bmp import encode_bmp, encode_dib
 from .dds import encode_dds
+from .eps import encode_eps
 from .gif import encode_gif
 from .icns import encode_icns
 from .ico import encode_ico
 from .im import encode_im
 from .image import encode_png
 from .jpeg import encode_jpeg
+from .jpeg2000 import EXTENSIONS as JPEG2000_EXTENSIONS
+from .jpeg2000 import encode_jpeg2000
 from .netpbm import encode_netpbm
 from .pcx import encode_pcx
+from .pdf import encode_pdf
 from .qoi import encode_qoi
 from .sgi import encode_sgi
 from .tga import encode_tga
@@ -79,13 +91,14 @@ ENCODERS = {".png": encode_png, ".apng": encode_png,
             ".pnm": encode_netpbm, ".pfm": encode_netpbm, ".qoi": encode_qoi,
             ".sgi": encode_sgi, ".rgb": encode_sgi, ".rgba": encode_sgi, ".bw": encode_sgi,
             ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds, ".ico": encode_ico,
-            ".icns": encode_icns}
+            ".icns": encode_icns, ".eps": encode_eps, ".ps": encode_eps, ".pdf": encode_pdf,
+            ".j2k": functools.partial(encode_jpeg2000, kind="j2k")}
+ENCODERS.update({ext: encode_jpeg2000 for ext in JPEG2000_EXTENSIONS if ext != ".j2k"})
 # the encoders that write the path's base name into the file
-TAKES_PATH = (encode_sgi, encode_im)
+TAKES_PATH = (encode_sgi, encode_im, encode_pdf)
 # extensions Pillow 12.1.0 writes the saver's modes to that the port does not
 # encode yet (ROADMAP.md, queue A)
-NOT_PORTED = (".eps", ".ps", ".pdf", ".jp2", ".j2k", ".j2c", ".jpc", ".jpf",
-              ".jpx", ".avif", ".avifs")
+NOT_PORTED = (".avif", ".avifs")
 # extensions Pillow opens the file for before its writer runs, but whose
 # writers refuse every mode the saver hands them
 PIL_REFUSES = (".blp", ".bufr", ".emf", ".grib", ".h5", ".hdf", ".msp", ".palm", ".wmf", ".xbm")
@@ -123,9 +136,10 @@ def _write(arr: np.ndarray, path: str) -> None:
                 raise ValueError(f"cannot write mode {mode} as {ext[1:].upper()}")
             raise ValueError(f"unknown file extension: {ext}")
         data = encoder(arr, path) if encoder in TAKES_PATH else encoder(arr)
-    except Exception:
+    except Exception as e:
         if (encoder is not None or ext in PIL_REFUSES) and os.path.exists(path):
-            open(path, "wb").close()  # Pillow had opened (and so emptied) it
+            with open(path, "wb") as f:  # Pillow had opened (and so emptied) it
+                f.write(getattr(e, "partial", b""))
         raise
     with open(path, "wb") as f:
         f.write(data)

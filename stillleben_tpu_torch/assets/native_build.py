@@ -1,7 +1,8 @@
 """The g++ build of the port's native host libraries (``csrc/*.cpp``).
 
 A library is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17`` into the gitignored ``_build/``. Its name carries a hash of
+-std=c++17`` (or the flags its caller gives) into the gitignored
+``_build/``. Its name carries a hash of
 the source, the headers it includes and the flags, and the compile writes
 a temporary file that is renamed into place, so concurrent processes can
 build at once. A compile that fails raises ``RuntimeError`` with the compiler's
@@ -23,13 +24,13 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 
 def build_library(stem: str, source: str | tuple[str, ...], headers: str | tuple[str, ...],
-                  build_dir: str, what: str) -> str:
+                  build_dir: str, what: str, flags: tuple[str, ...] = CXX_FLAGS) -> str:
     """Compile ``source`` (one file, or every file linked into the library)
     into ``build_dir/lib<stem>_<hash>.so`` unless that version is built
     already; returns the library's path. ``headers``: the header, or every
-    header, the sources include from the package."""
+    header, the sources include from the package; ``flags``: g++'s."""
     sources = (source,) if isinstance(source, str) else tuple(source)
-    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join((CXX,) + tuple(flags)).encode())
     for path in (*sources, *((headers,) if isinstance(headers, str) else headers)):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -39,7 +40,7 @@ def build_library(stem: str, source: str | tuple[str, ...], headers: str | tuple
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so")
     os.close(fd)
-    cmd = [CXX, *CXX_FLAGS, *sources, "-o", tmp]
+    cmd = [CXX, *flags, *sources, "-o", tmp]
     try:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -3,8 +3,9 @@ of its WebP decoder (``csrc/sl_webp.cpp``), of its WebP encoder
 (``csrc/sl_webp_enc.cpp`` with libwebp's lossless encoder for the alpha
 plane, ``csrc/sl_vp8l_enc.cpp``; the decoder and the encoder share
 ``sl_vp8_tables.h``),
-of its GIF encoder (``csrc/sl_gif_enc.cpp``) and of its core for the plain
-formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS).
+of its GIF encoder (``csrc/sl_gif_enc.cpp``), of its core for the plain
+formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS) and of its
+JPEG 2000 codec (``csrc/sl_j2k.cpp``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
@@ -14,7 +15,8 @@ WebP's decode (VP8, VP8L, ALPH, the container and frame 0) and encode
 Pillow's GIF ``save`` does below its Python layer (the median-cut and
 fast-octree quantisers and GIF's LZW), and the loops of the plain formats
 (QOI's encoder and decoder, PCX's run-length coding both ways, SGI's
-run-length rows, the BC1-BC7 blocks of DDS). Each source is
+run-length rows, the BC1-BC7 blocks of DDS), and JPEG 2000's codestream
+both ways (OpenJPEG's reversible coder at Pillow's defaults). Each source is
 built at first use by ``native_build.build_library`` (``g++ -O3 -shared
 -fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
 source and its headers); a compile or load that fails raises with the
@@ -36,7 +38,7 @@ import threading
 import numpy as np
 
 from .image_limits import check_size
-from .native_build import BUILD_DIR, PKG_DIR, build_library
+from .native_build import BUILD_DIR, CXX_FLAGS, PKG_DIR, build_library
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "sl_image.cpp")
 HEADER = os.path.join(PKG_DIR, "csrc", "sl_image.h")
@@ -51,6 +53,11 @@ GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
 GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
 PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
 PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
+J2K_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_j2k.cpp")
+J2K_HEADER = os.path.join(PKG_DIR, "csrc", "sl_j2k.h")
+# -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
+# compile, and the compile is paid at first use
+J2K_FLAGS = ("-O2",) + CXX_FLAGS[1:]
 
 (_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED, _UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS,
  _PILLOW_BROKEN) = range(9)
@@ -62,6 +69,7 @@ _webp_lib: ctypes.CDLL | None = None
 _webp_enc_lib: ctypes.CDLL | None = None
 _gif_enc_lib: ctypes.CDLL | None = None
 _plain_lib: ctypes.CDLL | None = None
+_j2k_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
@@ -91,6 +99,33 @@ def build_plain() -> str:
     """``build`` of the plain formats' core."""
     return build_library("sl_plain", PLAIN_SOURCE, PLAIN_HEADER, BUILD_DIR,
                          "the native QOI/PCX/SGI/DDS core")
+
+
+def build_j2k() -> str:
+    """``build`` of the JPEG 2000 codec."""
+    return build_library("sl_j2k", J2K_SOURCE, J2K_HEADER, BUILD_DIR, "the native JPEG 2000 codec",
+                         J2K_FLAGS)
+
+
+def load_j2k_library() -> ctypes.CDLL:
+    """Build (if needed) and load the JPEG 2000 codec, once per process."""
+    global _j2k_lib
+    with _lock:
+        if _j2k_lib is None:
+            lib = ctypes.CDLL(build_j2k())
+            lib.sl_j2k_encode.argtypes = (
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.c_char_p, ctypes.c_int)
+            for fn in ("sl_j2k_info", "sl_j2k_decode"):
+                getattr(lib, fn).argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_int)
+            for fn in ("sl_j2k_encode", "sl_j2k_info", "sl_j2k_decode"):
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.sl_j2k_free.restype = None
+            lib.sl_j2k_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            _j2k_lib = lib
+        return _j2k_lib
 
 
 def load_plain_library() -> ctypes.CDLL:
@@ -564,3 +599,45 @@ def bcn_decode(data: bytes, n: int, sign: bool, width: int, height: int,
     _check(load_plain_library().sl_bcn_decode(data, ctypes.c_size_t(len(data)), n, int(sign),
                                               width, height, _ptr(out), err, _ERRLEN), err, name)
     return out[:height, :width]
+
+
+def j2k_encode(samples: np.ndarray) -> bytes:
+    """The JPEG 2000 codestream OpenJPEG writes at Pillow's defaults for
+    (H, W) or (H, W, C) samples (C 1-4), uint8 or uint16."""
+    a = np.ascontiguousarray(samples)
+    if a.dtype not in (np.uint8, np.uint16) or a.ndim not in (2, 3) or 0 in a.shape:
+        raise ValueError(f"expected (H, W[, C]) uint8 or uint16 samples, not {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    c = 1 if a.ndim == 2 else a.shape[2]
+    lib = load_j2k_library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(lib.sl_j2k_encode(a.ctypes.data, w, h, c, 8 * a.itemsize, ctypes.byref(out),
+                             ctypes.byref(n), err, _ERRLEN), err, "JPEG 2000 encode")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_j2k_free(out)
+
+
+def j2k_info(codestream: bytes, name: str = "<bytes>") -> dict:
+    """The main header of a codestream the decoder reads (it raises
+    ``NotImplementedError`` by name for one it does not)."""
+    info = np.zeros(6, np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_j2k_library().sl_j2k_info(codestream, ctypes.c_size_t(len(codestream)),
+                                          _ptr(info), err, _ERRLEN), err, name)
+    keys = ("width", "height", "components", "precision", "levels", "mct")
+    return dict(zip(keys, (int(v) for v in info)))
+
+
+def j2k_decode(codestream: bytes, info: dict, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, C) uint16 samples of a codestream, each below 2^precision.
+    The caller has read ``info`` (``j2k_info``) and checked the size
+    (``check_size``)."""
+    out = np.zeros((info["height"], info["width"], info["components"]), np.uint16)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_j2k_library().sl_j2k_decode(codestream, ctypes.c_size_t(len(codestream)),
+                                            _ptr(out), err, _ERRLEN), err, name)
+    return out

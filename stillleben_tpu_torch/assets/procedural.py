@@ -532,6 +532,63 @@ def write_jpeg_variant_fixtures(directory: str, subdiv: int = 6) -> dict[str, st
     return paths
 
 
+def write_jpeg2000_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+    """``write_image_fixtures``'s scene with its images as JPEG 2000, written
+    by the port's own encoder (``jpeg2000.encode_jpeg2000``, Pillow's bytes),
+    each beside a twin that holds the same pixels in another format. The
+    coding is lossless, so each twin holds the source itself. Paths by name:
+
+    - ``obj_jp2``: the textured blob whose MTL names its base colour (seed
+      0) as a JP2; ``obj_png``: the same blob whose MTL names its PNG;
+    - ``glb_jp2``: the textured blob as GLB with the JP2 embedded
+      (``image/jp2``); ``glb_png``: with the PNG embedded;
+    - ``plane_j2k``: ``checker_texture`` as a bare codestream (``.j2k``);
+      ``plane_png``: as PNG;
+    - ``ibl_jp2``: an sIBL descriptor whose panorama is ``sky_ldr`` as a JP2
+      (read through ``read_image_cv2``, as OpenCV reads it, and taken
+      unscaled, as the light map's loader takes every 8-bit panorama whose
+      name does not end in .png, .jpg or .jpeg); ``ibl_bmp``: the
+      descriptor of its BMP.
+    """
+    from .bmp import encode_bmp
+    from .image import encode_png
+    from .jpeg2000 import encode_jpeg2000
+    from .objfile import load_obj
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed0"
+    names = {"obj_jp2": f"{stem}_jp2.obj", "obj_png": f"{stem}_jp2twin.obj",
+             "glb_jp2": f"{stem}_jp2.glb", "glb_png": f"{stem}_jp2twin.glb",
+             "plane_j2k": "checker.j2k", "plane_png": "checker_j2k.png",
+             "ibl_jp2": "sky_jp2.ibl", "ibl_bmp": "sky_jp2twin.ibl"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    base = np.ascontiguousarray(base_color_texture(0)[..., :3])
+    jp2 = encode_jpeg2000(base, "jp2")
+    tex = {"jp2": "blob_basecolor_seed0.jp2", "png": "blob_basecolor_seed0_jp2.png"}
+    atomic_write(os.path.join(directory, tex["jp2"]), jp2)
+    atomic_write(os.path.join(directory, tex["png"]), encode_png(base))
+    p, f = _blob(subdiv, 0)
+    for key, kind in (("obj_jp2", "jp2"), ("obj_png", "png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex[kind])
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_jp2"], blob, jp2, mime="image/jp2")
+    write_glb(paths["glb_png"], blob, encode_png(base))
+    checker = np.ascontiguousarray(checker_texture()[..., :3])
+    atomic_write(paths["plane_j2k"], encode_jpeg2000(checker, "j2k"))
+    atomic_write(paths["plane_png"], encode_png(checker))
+    sky = sky_ldr(64, 128)
+    atomic_write(os.path.join(directory, "sky.jp2"), encode_jpeg2000(sky, "jp2"))
+    atomic_write(os.path.join(directory, "sky_jp2.bmp"), encode_bmp(sky))
+    atomic_write(paths["ibl_jp2"], _ibl_text("sky.jp2", 64, 128))
+    atomic_write(paths["ibl_bmp"], _ibl_text("sky_jp2.bmp", 64, 128))
+    return paths
+
+
 def write_icon_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
     """``write_image_fixtures``'s scene with its images as the icon and
     Photoshop files the port reads since Pillow does (the committed files

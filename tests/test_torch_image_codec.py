@@ -147,8 +147,8 @@ def test_image_saver_refuses_in_save(tmp_path, capsys):
     saver = ImageSaver(num_threads=1)
     try:
         # an extension Pillow writes and the port does not encode yet
-        with pytest.raises(NotImplementedError, match=r"\.eps"):
-            saver.save(np.zeros((4, 4, 3), np.uint8), str(tmp_path / "x.eps"))
+        with pytest.raises(NotImplementedError, match=r"\.avif"):
+            saver.save(np.zeros((4, 4, 3), np.uint8), str(tmp_path / "x.avif"))
         with pytest.raises(ValueError, match="single-channel"):
             saver.save(np.zeros((4, 4, 3), np.uint16), str(tmp_path / "x.png"))
         # an extension Pillow does not know fails in the worker, as in the JAX saver

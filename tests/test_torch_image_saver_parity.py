@@ -8,8 +8,9 @@ The cases: arrays Pillow makes no image of ((4, 5, 1), (4, 5, 2), (4, 5,
 5) and (4,) uint8), extensions Pillow does not know (``.exr``, ``.xyz``,
 none), extensions Pillow knows but cannot write or refuses the modes for,
 the modes QOI, PCX, SGI and DDS refuse, and every extension of QOI, SGI,
-PCX, IM, DDS, ICO and ICNS in every mode (L, RGB, RGBA, I;16), and ICO and
-ICNS of an image large enough for several icon sizes. ``save()`` itself
+PCX, IM, DDS, ICO, ICNS, EPS/PS, PDF and JPEG 2000 in every mode (L, RGB,
+RGBA, I;16; a PDF's dates from one fixed clock in both savers), and ICO
+and ICNS of an image large enough for several icon sizes. ``save()`` itself
 raises only for the dtype, a uint16 array that is not 2-D, and an
 extension Pillow writes that the port does not encode yet.
 """
@@ -20,13 +21,16 @@ import numpy as np
 import pytest
 
 from stillleben_tpu_torch.assets import image_saver
+from stillleben_tpu_torch.assets.image_fixtures import PDF_CLOCK
 from stillleben_tpu_torch.assets.image_saver import ImageSaver
 import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdist)
+from torch_image_fixtures import fixed_clock
 
 jax_saver = pytest.importorskip("stillleben_tpu.assets.image_saver")
 pytest.importorskip("PIL.Image")
 
-SLICE_EXTS = (".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".im", ".dds", ".ico", ".icns")
+SLICE_EXTS = (".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".im", ".dds", ".ico", ".icns",
+              ".eps", ".ps", ".pdf", ".jp2", ".j2k", ".j2c", ".jpc", ".jpf", ".jpx")
 
 
 def arrays() -> dict:
@@ -74,7 +78,8 @@ def test_every_mode_of_the_slice(ext, tmp_path, capsys):
     or, where Pillow refuses the mode, a printed failure and no file."""
     jobs = [(k, a, f"{k.replace(';', '')}_x{ext}") for k, a in arrays().items()
             if k in ("L", "RGB", "RGBA", "I;16")]
-    ref, ours = run_both(tmp_path, jobs)
+    with fixed_clock(PDF_CLOCK):
+        ref, ours = run_both(tmp_path, jobs)
     assert ours == ref
     refused = 4 - len(ref)
     out = capsys.readouterr().out

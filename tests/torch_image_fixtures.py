@@ -45,6 +45,14 @@ and ``jpeg_patch_marker`` make the cut and renamed-frame files;
 ``jpeg_variant_digests()`` Pillow's and OpenCV's
 readings of them (``pillow_reading``, ``cv2_reading``).
 
+JPEG 2000, EPS and PDF: ``pillow_file`` is Pillow's ``save`` to a named
+file (the name picks the container and a PDF's title), ``fixed_clock``
+fixes ``time.gmtime`` for a PDF's dates, ``patch_cod_style`` makes the
+code-block style Pillow does not write; ``make_jpeg2000_fixtures()``
+writes the committed JPEG 2000 files and ``jpeg2000_digests()`` their
+SHA-256, Pillow's and OpenCV's readings and the digests of Pillow's
+files of ``jpeg2000_saver_sources()``.
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder), ``vp8l_divergence``
 (and ``alph_divergence`` for two files' ALPH chunks) the first part of two
@@ -2080,6 +2088,131 @@ def jpeg_variant_digests(files: dict[str, bytes]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# JPEG 2000, EPS and PDF: Pillow's writers
+# ---------------------------------------------------------------------------
+
+
+def pillow_file(pixels: np.ndarray, name: str, **kw) -> bytes:
+    """The bytes of Pillow's ``save`` of ``pixels`` to a file called
+    ``name``, as the JAX ``ImageSaver`` saves it: the name picks the format,
+    JPEG 2000's container (a codestream only for ``.j2k``) and a PDF's
+    title. A PDF's dates are the clock's: fix ``time.gmtime`` for its bytes
+    (``fixed_clock``)."""
+    import tempfile
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, name)
+        Image.fromarray(np.asarray(pixels)).save(p, **kw)
+        with open(p, "rb") as f:
+            return f.read()
+
+
+class fixed_clock:
+    """``time.gmtime()`` without an argument gives ``time.gmtime(at)``
+    inside the ``with`` block (Pillow's PDF writer and the port's read the
+    clock through it)."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def __enter__(self):
+        import time
+
+        self._gmtime = time.gmtime
+        time.gmtime = lambda *a: self._gmtime(*(a or (self.at,)))
+        return self
+
+    def __exit__(self, *exc):
+        import time
+
+        time.gmtime = self._gmtime
+
+
+def patch_cod_style(codestream: bytes, style: int) -> bytes:
+    """A codestream with its COD's code-block style byte replaced."""
+    at = codestream.index(b"\xff\x52") + 12  # marker, Lcod, Scod, SGcod, levels, xcb, ycb
+    return codestream[:at] + bytes([style]) + codestream[at + 1:]
+
+
+def make_jpeg2000_fixtures() -> dict[str, bytes]:
+    """The JPEG 2000 fixtures: Pillow's ``save`` at its defaults of
+    ``jpeg2000_sources()`` (``JPEG2000_ENCODE_FILES``), and
+    ``JPEG2000_READ_FILES``: Pillow's files with the reversible colour
+    transform (RGB, RGBA), of LA, of 32x32 code-blocks and of two levels,
+    which the port reads; with the 9/7 wavelet, two layers, precincts,
+    RPCL, tiles, and its COD's code-block style patched to 1 (Pillow sets
+    no style), which it refuses; an ICNS whose 128^2 entry is Pillow's JP2
+    of an RGBA image and one whose 128^2 entry is a 9/7 codestream."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import jpeg2000_sources
+
+    files = {n: pillow_file(a, n) for n, a in jpeg2000_sources().items()}
+    rgb, rgba = smooth(40, 56, 3, 30), smooth(40, 56, 4, 31)
+    big = smooth(70, 90, 3, 32)
+    nine_seven = pillow_file(rgb, "x.j2k", irreversible=True)
+    nine_seven_128 = pillow_file(smooth(128, 128, 3, 34), "x.j2k", irreversible=True)
+    files.update({
+        "rct.jp2": pillow_file(rgb, "rct.jp2", mct=1),
+        "rct_rgba.j2k": pillow_file(rgba, "rct_rgba.j2k", mct=1),
+        "la.jp2": pillow_file(rgba[..., ::3].copy(), "la.jp2"),
+        "la.j2k": pillow_file(rgba[..., ::3].copy(), "la.j2k"),
+        "cblk32.j2k": pillow_file(big, "cblk32.j2k", codeblock_size=(32, 32)),
+        "levels2.jp2": pillow_file(big, "levels2.jp2", num_resolutions=3),
+        "irreversible.j2k": nine_seven,
+        "layers.jp2": pillow_file(big, "layers.jp2", quality_layers=[40, 10]),
+        "precincts.j2k": pillow_file(big, "precincts.j2k", precinct_size=(64, 64)),
+        "rpcl.j2k": pillow_file(big, "rpcl.j2k", progression="RPCL"),
+        "tiles.j2k": pillow_file(big, "tiles.j2k", tile_size=(32, 32)),
+        "cblk_style.j2k": patch_cod_style(pillow_file(rgb, "x.j2k"), 1),
+        "j2k_entry.icns": icns_file([(b"ic07", pillow_file(smooth(128, 128, 4, 33), "x.jp2"))]),
+        "j2k_refused.icns": icns_file([(b"ic07", nine_seven_128)]),
+    })
+    return files
+
+
+def any_reading(data: bytes) -> str:
+    """SHA-256 of Pillow's ``convert("RGBA")`` of ``data``, or the type and
+    message of the exception it raises."""
+    try:
+        return pillow_rgba_sha(data)
+    except Exception as e:  # noqa: BLE001  (the reading is the exception)
+        return f"{type(e).__name__}: {e}"
+
+
+def cv2_file_reading(data: bytes, name: str) -> str:
+    """``cv2_reading`` of ``data`` saved under ``name``."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, name)
+        with open(p, "wb") as f:
+            f.write(data)
+        img = cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    return "None" if img is None else hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def jpeg2000_digests(files: dict[str, bytes]) -> dict:
+    """``JPEG2000_FILE`` / ``JPEG2000_DECODE`` / ``JPEG2000_DECODE_CV2``:
+    each JPEG 2000 fixture's SHA-256 and Pillow's and OpenCV's readings of
+    it; ``JPEG2000_ENCODE``: the SHA-256 of Pillow's file of each of
+    ``jpeg2000_saver_sources()`` under its name (PDFs at ``PDF_CLOCK``)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import PDF_CLOCK, jpeg2000_saver_sources
+
+    with fixed_clock(PDF_CLOCK):
+        encode = {n: hashlib.sha256(pillow_file(a, n)).hexdigest()
+                  for n, a in jpeg2000_saver_sources().items()}
+    return {"JPEG2000_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "JPEG2000_DECODE": {n: any_reading(d) for n, d in sorted(files.items())},
+            "JPEG2000_DECODE_CV2": {n: cv2_file_reading(d, n) for n, d in sorted(files.items())},
+            "JPEG2000_ENCODE": encode}
+
+
+# ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -2146,7 +2279,11 @@ def digest_module(d: dict) -> str:
              "OpenCV reads nothing). ``ICON_FILE`` / ``ICON_DECODE``: the ICO, CUR,",
              "ICNS and PSD fixtures' bytes and Pillow's reading of each (``refused:``",
              "and Pillow's words, or the exception); ``ICON_ENCODE``: Pillow's ``save``",
-             "of ``icon_sources()`` as ICO and ICNS. Written by",
+             "of ``icon_sources()`` as ICO and ICNS. ``JPEG2000_FILE`` /",
+             "``JPEG2000_DECODE`` / ``JPEG2000_DECODE_CV2``: the JPEG 2000 fixtures'",
+             "bytes and Pillow's and OpenCV's readings of each (or the exception);",
+             "``JPEG2000_ENCODE``: Pillow's ``save`` of ``jpeg2000_saver_sources()``",
+             "under their names (JPEG 2000, EPS, PS, and PDF at ``PDF_CLOCK``). Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -2165,9 +2302,10 @@ if __name__ == "__main__":
     plain_files = make_plain_fixtures()
     jpeg_files = make_jpeg_variant_fixtures()
     icon_files = make_icon_fixtures()
+    j2k_files = make_jpeg2000_fixtures()
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
-                           **jpeg_files, **icon_files}.items():
+                           **jpeg_files, **icon_files, **j2k_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
@@ -2176,6 +2314,7 @@ if __name__ == "__main__":
                                    **encode_digests(encode_files),
                                    **plain_digests(plain_files),
                                    **jpeg_variant_digests(jpeg_files),
-                                   **icon_digests(icon_files)}))
-    for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files):
+                                   **icon_digests(icon_files),
+                                   **jpeg2000_digests(j2k_files)}))
+    for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files, j2k_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
