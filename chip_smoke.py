@@ -95,7 +95,8 @@ Phases (one line each or more; any failure exits non-zero):
 13. api: the public host API on the card (``sl.init()``), bench-full's
     objects, sky and plane built through ``sl.Mesh``/``sl.Object``/
     ``sl.Scene`` at 640x480 on two seeds: ``simulate_tabletop_scene()``
-    (the reference's 100 x 4 substeps, one scene), ``RenderPass().render``
+    (the reference's 100 x 4 substeps, one scene; seed 1's cut to 25
+    frames for time), ``RenderPass().render``
     (first and warm), a ``depth_peel`` pass and a ``supersample=2`` render;
     the seconds per settle and ms per render, K1's launches per render
     (camera, shadow, peel; the light map's sun takes the free slot 1, so
@@ -141,7 +142,8 @@ Phases (one line each or more; any failure exits non-zero):
     ``torch.equal`` to ``from_equirect`` of the decoded panorama with the
     same sun; bench-full's composition from the loaded meshes (3 GLB blobs,
     3 primitive spheres, FBX and primitive cubes, the ``.ibl`` light map,
-    the plane) settled by ``simulate_tabletop_scene()`` and rendered once at
+    the plane) settled by ``simulate_tabletop_scene()`` (25 of its 100
+    frames, for time) and rendered once at
     640x480: phase 13's content checks, K1's launches by tile (one camera,
     two shadow passes) and no plain piece called, K1 ``torch.equal`` to its
     plain version on the camera and both shadow inputs; ``sl.ImageSaver``
@@ -174,7 +176,7 @@ Phases (one line each or more; any failure exits non-zero):
     trip, replay). ``JobQueue(num_threads=2)`` settling two scenes of phase
     13's composition (seeds 2 and 3; 25 settle frames, cut from 100 for
     time): finite, above the floor, centres in view; the pair's wall
-    seconds beside phase 13's serial settle scaled to 25 frames.
+    seconds beside phase 13's serial settle (seed 0's) scaled to 25 frames.
 
 17. scale-out (``parallel/distributed.py``, ``generate_batch_sharded``):
     ``generate_batch_sharded`` over ``make_device_mesh()`` (one entry on
@@ -213,7 +215,8 @@ Phases (one line each or more; any failure exits non-zero):
     ``write_image_fixtures`` (the blob textured from a JPEG through its
     ``.mtl``, a GLB with an embedded JPEG, the plane from a TGA,
     ``sl.LightMap`` of an ``.ibl`` whose ``REFfile`` is a JPEG), settled by
-    ``simulate_tabletop_scene()`` (B = 1) and rendered: phase 13's content
+    ``simulate_tabletop_scene()`` (B = 1; 25 of its 100 frames, for time)
+    and rendered: phase 13's content
     checks, K1's launches (one camera, two shadow passes) and no plain
     piece, K1 ``torch.equal`` to its plain version on each pass, and the
     frame's fields ``torch.equal`` to those of the same scene whose images
@@ -225,7 +228,7 @@ Phases (one line each or more; any failure exits non-zero):
     RLE4 BMP of its class index; written by ``tests/torch_image_fixtures.py``
     and read back bitwise); ``ImageLoader(num_threads=4)``'s images/s over
     16 JPEG frames, 600 textures timed from its construction;
-    ``examples.ycb.run_stream``: 2 batches of 8 at 320x240 with 25 settle
+    ``examples.ycb.run_stream``: 2 batches of 8 at 320x240 with 10 settle
     frames (cut from 100 for time), RGB as PNG and JPEG and the instance
     mask as 16-bit PNG through ``ImageSaver``, every file read back by the
     port's codec.
@@ -247,7 +250,8 @@ Phases (one line each or more; any failure exits non-zero):
     640x480 frame, lossy and lossless, both readings;
     ``ImageLoader(num_threads=4)``'s images/s over 16 WebP frames, 600
     textures from its construction; ``tools.settle_fidelity`` with ``ref``
-    and ``tuned`` at its 24 seeds x 100 frames (its lines, its seconds, and
+    and ``tuned`` at its 24 seeds x 25 frames (cut from 100 for time; its
+    lines, its seconds, and
     the null of ref's two halves of the seeds); ``tools.display_mesh`` (4
     views at 256 of the textured blob), ``tools.viewer_demo`` (12 frames at
     256; its scene's settle cut to 10 frames for time), ``tools.align_mesh``
@@ -366,7 +370,24 @@ Phases (one line each or more; any failure exits non-zero):
     twin's: phase 13's content checks, K1's launches (one camera, two shadow
     passes) and no plain piece, K1 ``torch.equal`` to its plain version on
     the camera and the sun's shadow pass, every field ``torch.equal`` to
-    the same scene from PNG twins. Then the smoke's total wall seconds.
+    the same scene from PNG twins.
+26. AVIF read (``assets/avif.py`` over the native AV1 intra decoder
+    ``csrc/sl_av1.cpp``, g++ -O2, built beside the nvcc builds of phase 2
+    and timed there): every committed AVIF fixture
+    (``image_fixtures.AVIF_FILES``: Pillow 12.1.0's files of the saver's
+    modes, 1x1 to 480x640, the 640x480 frame, the qualities and options
+    that reach each coefficient CDF set and each tool) read to the SHA-256
+    of Pillow's and OpenCV's readings, the refused ones (lossless, 4:4:4,
+    4:2:2, CDEF, loop restoration, film grain, quantizer matrices,
+    premultiplied alpha, limited range, a sequence) refused by name in both
+    readings; one 640x480 RGB and one RGBA decode timed (the least ms of
+    2); phase 18's scene at its settled poses (blob at subdivision 4) with
+    the blob's texture from an AVIF, a GLB whose image is AVIF and the
+    plane from an AVIF, under phase 23's light map: phase 13's content
+    checks, K1's launches (one camera, two shadow passes) and no plain
+    piece, K1 ``torch.equal`` to its plain version on the camera and the
+    sun's shadow pass, every field ``torch.equal`` to the same scene from
+    PNG twins. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1267,7 +1288,9 @@ def run_api(torch, cr, rt, light_map, card) -> tuple:
     def drive():
         for seed in API_SEEDS:
             scene = api_scene(seed)
-            _, settle_s, _ = timed(scene.simulate_tabletop_scene)
+            settle = (scene.simulate_tabletop_scene if seed == API_SEEDS[0]
+                      else lambda: settle_cut(scene, SCENE_SETTLE))
+            _, settle_s, _ = timed(settle)
             rp = sl.RenderPass()
             n0 = len(calls)
             capturing[0] = seed == API_SEEDS[0]
@@ -1310,7 +1333,9 @@ def run_api(torch, cr, rt, light_map, card) -> tuple:
         shown = peel.frame.valid & (warm.depth() < 2999.0)
         deeper = float((peel.depth()[shown] > warm.depth()[shown] + 1e-3).float().mean())
         phase("api", f"seed {run['seed']}: {len(scene.objects)} objects + plane, "
-                     f"simulate_tabletop_scene {run['settle_s']:.3f} s; RenderPass().render "
+                     f"simulate_tabletop_scene "
+                     f"({100 if run['seed'] == API_SEEDS[0] else SCENE_SETTLE} frames) "
+                     f"{run['settle_s']:.3f} s; RenderPass().render "
                      f"{run['first_ms']:.1f} ms first (atlas build), {run['warm_ms']:.1f} ms warm; "
                      f"depth_peel pass {run['peel_ms']:.1f} ms; supersample=2 "
                      f"{run['ss_ms']:.1f} ms ({card})")
@@ -1377,7 +1402,9 @@ def run_api(torch, cr, rt, light_map, card) -> tuple:
                             source="stillleben_tpu_torch/csrc/cell_raster.cu",
                             replaces="stillleben_tpu/ops/cell_raster.py:43", launches=n,
                             library_ms=None, **k))
-    return entries, scenes[0], [run["settle_s"] for run in per_seed], api_scene
+    # the serial settle of the full 100 frames (seed 0's) scales phase 16's
+    # JobQueue pair
+    return entries, scenes[0], [per_seed[0]["settle_s"]], api_scene
 
 
 REFINE_STEPS = 10
@@ -1645,6 +1672,24 @@ LOADER_SOURCES = {"glb": "blob_textured", "gltf": "blob_textured", "fbx": "cube"
                   "stl": "sphere", "off": "sphere", "3ds": "cube", "x": "cube"}
 
 
+SCENE_SETTLE = 25  # the settles cut from 100 frames for time: phases 15 and 18, seed 1 of 13
+
+
+def settle_cut(scene, frames: int) -> None:
+    """``scene.simulate_tabletop_scene()`` with the settle cut to ``frames``
+    of its 100 (as phases 16 and 19 cut theirs)."""
+    import functools
+
+    from stillleben_tpu_torch.physics import tabletop
+
+    full_settle = tabletop.simulate_tabletop
+    tabletop.simulate_tabletop = functools.partial(full_settle, iterations=frames)
+    try:
+        scene.simulate_tabletop_scene()
+    finally:
+        tabletop.simulate_tabletop = full_settle
+
+
 def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     """Phase 15: the reference's asset and light-map loading path (see the
     module docstring). Returns the kernels' entries of K1 on this path's
@@ -1754,7 +1799,7 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     scene.background_plane_texture = sl.Texture2D(checker_texture())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scene.simulate_tabletop_scene()
+    settle_cut(scene, SCENE_SETTLE)
     torch.cuda.synchronize()
     secs["settle"] = time.perf_counter() - t0
 
@@ -1770,7 +1815,8 @@ def run_loaders(torch, cr, rt, card) -> tuple[list, dict]:
     result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
     content = check_api_result(torch, result, scene, "loaders render")
     phase("loaders", f"scene of {len(scene.objects)} loaded objects + plane, {WIDTH}x{HEIGHT}: "
-                     f"simulate_tabletop_scene {secs['settle']:.3f} s, RenderPass().render "
+                     f"simulate_tabletop_scene ({SCENE_SETTLE} frames, cut from 100 for time) "
+                     f"{secs['settle']:.3f} s, RenderPass().render "
                      f"{1e3 * secs['render']:.1f} ms (first: atlas build); K1 launches by tile "
                      f"{launches}; calls of K1's plain pieces {plain_calls}; content: {content} "
                      f"({card})")
@@ -2432,7 +2478,7 @@ def run_scale_out(torch, cr, fr, rt, full, ftpl, fcfg, fccfg, solver_cfg, phase6
 
 
 IMAGE_FORMATS = ("jpeg", "png", "bmp", "tga", "tiff")
-STREAM_SIZE, STREAM_SETTLE = (320, 240), 25  # phase 18's ycb stream (settle cut from 100)
+STREAM_SIZE, STREAM_SETTLE = (320, 240), 10  # phase 18's ycb stream (settle cut from 100)
 LOADER_TEXTURES = 600  # phase 18's ImageLoader count: ~50x its queue and workers' 12
 
 
@@ -2550,7 +2596,7 @@ def run_image_formats(torch, cr, rt, card) -> tuple[list, dict, tuple]:
     twin = image_scene((obj_png, glb_png, cube2, sphere2), light_png, sl.Texture2D(plane))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scene.simulate_tabletop_scene()
+    settle_cut(scene, SCENE_SETTLE)
     torch.cuda.synchronize()
     secs["settle"] = time.perf_counter() - t0
     for a, b in zip(scene.objects, twin.objects):
@@ -2575,7 +2621,8 @@ def run_image_formats(torch, cr, rt, card) -> tuple[list, dict, tuple]:
                     f"texture from a JPEG (.mtl), a GLB with an embedded JPEG, the plane from a "
                     f"TGA, LightMap(.ibl) whose REFfile is a JPEG; load_threaded "
                     f"{secs['load']:.3f} s, LightMap {secs['LightMap(.ibl, JPEG)']:.3f} s, "
-                    f"simulate_tabletop_scene {secs['settle']:.3f} s, RenderPass().render "
+                    f"simulate_tabletop_scene ({SCENE_SETTLE} frames, cut from 100 for time) "
+                    f"{secs['settle']:.3f} s, RenderPass().render "
                     f"{1e3 * secs['render']:.1f} ms; K1 launches by tile {launches}; calls of "
                     f"K1's plain pieces {plain_calls}; content: {content}; fields torch.equal "
                     f"to the same scene with the decoded arrays (PNG twins, the plane's array): "
@@ -2733,6 +2780,7 @@ def run_image_formats(torch, cr, rt, card) -> tuple[list, dict, tuple]:
 
 WEBP_LOADER_FRAMES = 16  # phase 19's ImageLoader directory: 8 lossy and 8 lossless copies
 TOOL_SEEDS = 24  # settle_fidelity's default (tools/settle_fidelity.py)
+TOOL_FRAMES = 25  # settle_fidelity's frames here (cut from its 100 for time)
 VIEWER_SETTLE = 10  # phase 19's viewer_demo settle frames (cut from 100 for time)
 
 
@@ -2888,17 +2936,23 @@ def run_webp_tools(torch, cr, rt, card, settled) -> tuple[list, dict, object]:
     if shapes != {(480, 640, 4)}:
         fail(f"webp: ImageLoader gave textures of {shapes}")
 
-    # settle_fidelity: ref and tuned at the script's 24 seeds x 100 frames
+    # settle_fidelity: ref and tuned at the script's 24 seeds, the frames cut
+    # to TOOL_FRAMES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lines = []
-    results = settle_fidelity.run(["ref", "tuned"], TOOL_SEEDS, "cuda",
-                                  out=lambda line: (lines.append(line),
-                                                    phase("tools", f"settle_fidelity: {line}")))
+    full_frames, settle_fidelity.FRAMES = settle_fidelity.FRAMES, TOOL_FRAMES
+    try:
+        results = settle_fidelity.run(["ref", "tuned"], TOOL_SEEDS, "cuda",
+                                      out=lambda line: (lines.append(line),
+                                                        phase("tools", f"settle_fidelity: {line}")))
+    finally:
+        settle_fidelity.FRAMES = full_frames
     torch.cuda.synchronize()
     secs["settle_fidelity"] = time.perf_counter() - t0
-    phase("tools", f"settle_fidelity ref and tuned, {TOOL_SEEDS} seeds x {settle_fidelity.FRAMES} frames "
-                   f"(one batch each) in {secs['settle_fidelity']:.3f} s ({card})")
+    phase("tools", f"settle_fidelity ref and tuned, {TOOL_SEEDS} seeds x {TOOL_FRAMES} frames "
+                   f"(cut from {settle_fidelity.FRAMES} for time; one batch each) in "
+                   f"{secs['settle_fidelity']:.3f} s ({card})")
     if len(lines) != 3 or set(results) != {"ref", "tuned"}:
         fail(f"tools: settle_fidelity printed {lines}")
     # the tool's null: ref's two halves of the seeds against each other (no
@@ -4032,6 +4086,154 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
     return entries, ms
 
 
+AVIF_REPS = 2  # phase 26's decode timings, the least of this many
+
+
+def build_avif_core() -> tuple[str, float]:
+    """The AVIF core's g++ build (phase 26's), timed: (path, s)."""
+    from stillleben_tpu_torch.assets import native_image
+
+    t0 = time.perf_counter()
+    path = native_image.build_avif()
+    return path, time.perf_counter() - t0
+
+
+def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dict]:
+    """Phase 26: AVIF read (see the module docstring). ``settled`` is phase
+    18's settled state, ``light`` phase 23's light map, ``avif_build`` the
+    future of ``build_avif_core``, started beside the nvcc builds. Returns
+    the kernels' entries of K1 on this phase's inputs and its
+    milliseconds."""
+    import hashlib
+    import shutil
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import image
+    from stillleben_tpu_torch.assets.image_fixtures import AVIF_FILES, AVIF_REFUSALS
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (AVIF_DECODE, AVIF_DECODE_CV2,
+                                                                    AVIF_FILE)
+    from stillleben_tpu_torch.assets.procedural import write_avif_fixtures
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"avif_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    ms = {}
+    t_part = time.perf_counter()
+    t0 = time.perf_counter()
+    lib, build_s = avif_build.result()
+    ms["core build"], ms["core build wait"] = build_s * 1e3, (time.perf_counter() - t0) * 1e3
+    phase("avif", f"the AV1 core's g++ build (-O2), beside the nvcc builds: {build_s:.3f} s "
+                  f"({os.path.relpath(lib, ROOT)}); waited for here: "
+                  f"{ms['core build wait'] / 1e3:.3f} s")
+
+    # every committed file read to the digests of Pillow's and OpenCV's
+    # readings, or refused by name in both
+    bad, refused = [], 0
+    for name in AVIF_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != AVIF_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if name in AVIF_REFUSALS:
+            for reading in (image.read_image, image.read_image_cv2):
+                try:
+                    reading(fixture(name))
+                    bad.append(f"{name} read")
+                except NotImplementedError as e:
+                    refused += AVIF_REFUSALS[name] in str(e)
+            continue
+        if sha(image.decode_image(data, name).tobytes()) != AVIF_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        if sha(image.read_image_cv2(fixture(name)).tobytes()) != AVIF_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+    if refused != 2 * len(AVIF_REFUSALS):
+        bad.append(f"{refused} of {2 * len(AVIF_REFUSALS)} refusals by name")
+    for name in ("frame640.avif", "frame640_rgba.avif"):
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(AVIF_REPS):
+            t0 = time.perf_counter()
+            image.decode_image(data, name)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[f"decode {name}"] = min(times)
+    phase("avif", f"{len(AVIF_FILES)} committed files read to the SHA-256 of Pillow 12.1.0's "
+                  f"(libavif 1.3.0, dav1d 1.5.1) and OpenCV 5.0.0's readings, "
+                  f"{len(AVIF_REFUSALS)} of them refused by name in both readings "
+                  f"({', '.join(sorted(set(AVIF_REFUSALS.values())))}); the 640x480 decodes, the "
+                  f"least ms of {AVIF_REPS}: RGB {ms['decode frame640.avif']:.1f}, RGBA "
+                  f"{ms['decode frame640_rgba.avif']:.1f}; differences: {bad} ({card})")
+    if bad:
+        fail(f"avif: not Pillow's or OpenCV's: {bad}")
+    ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 18's scene with its images as AVIF, at its settled poses
+    t0 = time.perf_counter()
+    fx = write_avif_fixtures(fx_dir, subdiv=ICON_SUBDIV)
+    meshes = sl.Mesh.load_threaded([fx["obj_avif"], fx["glb_avif"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    ms["meshes"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_avif"]))
+    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms["render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, "avif render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("avif", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+                  f"subdivision {ICON_SUBDIV}): the blob's texture from an AVIF (.mtl), a GLB "
+                  f"whose embedded image is AVIF, the plane from an AVIF, phase 23's light map; "
+                  f"fixtures and meshes {ms['meshes']:.1f} ms, RenderPass().render "
+                  f"{ms['render']:.1f} ms; K1 launches by tile {launches}; calls of K1's plain "
+                  f"pieces {plain_calls}; content: {content}; fields torch.equal to the same "
+                  f"scene from the PNG twins: {len(same)} of {len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields):
+        fail(f"avif: the AVIF-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"avif: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"avif camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"avif shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    phase("avif", "phase 26's parts, s: " + ", ".join(
+        f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms
+
+
 def main() -> None:
     global T_START
     T_START = time.perf_counter()
@@ -4056,16 +4258,17 @@ def main() -> None:
                     f"CUDA {torch.version.cuda}; {card}")
     card = f"{name}; {card}"
 
-    # 2. build: every source at once, and the JPEG 2000 core (phase 25's)
-    # with g++ beside them
+    # 2. build: every source at once, and the JPEG 2000 and AV1 cores
+    # (phases 25 and 26) with g++ beside them
     from stillleben_tpu_torch.ops import cell_raster as cr
     from stillleben_tpu_torch.ops import fine_raster as fr
     from stillleben_tpu_torch.ops import nvcc, smoke
     from stillleben_tpu_torch.render import frame as frame_mod
     from stillleben_tpu_torch.render import rasterize_tiled as rt
 
-    j2k_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    j2k_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
     j2k_build = j2k_pool.submit(build_j2k_core)
+    avif_build = j2k_pool.submit(build_avif_core)
     t0 = time.perf_counter()
     built = nvcc.build_all()
     phase("build", f"{', '.join(sorted(built))} for sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -4619,10 +4822,19 @@ def main() -> None:
     t0 = time.perf_counter()
     j2k_k1, _ = run_jpeg2000_eps_pdf(torch, cr, rt, card, image_settled, webp_render, jpeg_light,
                                      j2k_build)
-    j2k_pool.shutdown()
     kernels.extend(j2k_k1)
-    del webp_render, jpeg_light
+    del webp_render
     phase("j2k", f"phase 25 in {time.perf_counter() - t0:.1f} s")
+
+    # 26. AVIF read: the committed files to Pillow's and OpenCV's digests or
+    # refused by name, the 640x480 decodes' times, and phase 18's scene from
+    # AVIF files through K1
+    t0 = time.perf_counter()
+    avif_k1, _ = run_avif(torch, cr, rt, card, image_settled, jpeg_light, avif_build)
+    j2k_pool.shutdown()
+    kernels.extend(avif_k1)
+    del jpeg_light
+    phase("avif", f"phase 26 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

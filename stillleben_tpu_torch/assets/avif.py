@@ -1,0 +1,305 @@
+"""AVIF read as Pillow 12.1.0's ``convert("RGBA")`` (libavif 1.3.0 over
+dav1d 1.5.1, libyuv's conversion) and OpenCV 5.0.0's ``imread(ANYCOLOR |
+ANYDEPTH)`` read it.
+
+The container is parsed here: the HEIF boxes libavif reads for a still
+image (``ftyp``; ``meta`` with ``hdlr`` ``pict``, ``pitm``, ``iloc``
+versions 0-2 with construction methods 0 and 1 (``idat``), ``iinf``/``infe``,
+``iprp``/``ipco``/``ipma`` with ``ispe``, ``pixi``, ``av1C``, ``colr``,
+``auxC``, and ``iref`` ``auxl``). The colour item's and the alpha item's
+AV1 bitstreams go to the native decoder (``csrc/sl_av1.cpp``): an AV1
+intra decoder for the shape Pillow writes by default (8-bit 4:2:0 colour,
+a monochrome alpha item, every intra tool and the deblocking filter), and
+libyuv's fixed-point conversion to RGB with its bilinear chroma upsampling.
+
+- ``decode_avif(data, name)``: (H, W, 4) uint8; the alpha item's samples as
+  stored, else 255. The pixels stay as stored: ``irot``/``imir`` become an
+  EXIF orientation in Pillow, not a turn.
+- ``decode_avif_cv2(data, name)``: (H, W, 3) uint8 BGR, the alpha dropped.
+
+What neither reading of this port decodes raises ``NotImplementedError`` by
+name (ROADMAP.md, the reading queue): grid items, a sequence with no
+primary still item, premultiplied alpha (``prem``), an essential property
+libavif would refuse, and in the bitstream 10- and 12-bit samples, 4:4:4
+and 4:2:2 colour, lossless frames, CDEF, loop restoration, superres, film
+grain, quantizer matrices, and inter or intra-only frames.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import NamedTuple
+
+import numpy as np
+
+from . import native_image
+from .image_limits import check_size
+
+# Pillow's ``_accept``: "ftyp" at byte 4 and one of these major brands
+BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+# the properties libavif reads; an essential one not in this list is refused
+KNOWN_PROPERTIES = (b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"clap", b"irot",
+                    b"imir", b"a1op", b"lsel", b"a1lx", b"clli", b"cclv", b"amve")
+
+
+def is_avif(data: bytes) -> bool:
+    return data[4:8] == b"ftyp" and data[8:12] in BRANDS
+
+
+class AvifItems(NamedTuple):
+    color: bytes  # the colour item's AV1 OBUs
+    alpha: bytes | None  # the alpha item's, or None
+    width: int  # from ispe
+    height: int
+    has_colr: bool  # an nclx colr property; else the AV1 sequence header's values count
+    matrix: int  # nclx matrix coefficients (2 = unspecified)
+    full_range: bool
+
+
+def _boxes(data: bytes, pos: int, end: int, name: str):
+    while pos + 8 <= end:
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                raise ValueError(f"{name}: truncated box header")
+            size = struct.unpack(">Q", data[pos + 8:pos + 16])[0]
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if size < head or pos + size > end:
+            raise ValueError(f"{name}: box {kind!r} overruns its parent")
+        yield kind, pos + head, pos + size
+        pos += size
+
+
+def _uint(data: bytes, pos: int, n: int) -> int:
+    return int.from_bytes(data[pos:pos + n], "big") if n else 0
+
+
+def _parse_iloc(data: bytes, s: int, e: int) -> dict:
+    version = data[s]
+    pos = s + 4
+    sizes = struct.unpack(">H", data[pos:pos + 2])[0]
+    off_size, len_size, base_size = sizes >> 12, (sizes >> 8) & 15, (sizes >> 4) & 15
+    index_size = sizes & 15 if version in (1, 2) else 0
+    pos += 2
+    id_size = 4 if version == 2 else 2
+    count = _uint(data, pos, id_size)
+    pos += id_size
+    items = {}
+    for _ in range(count):
+        item_id = _uint(data, pos, id_size)
+        pos += id_size
+        method = 0
+        if version in (1, 2):
+            method = _uint(data, pos, 2) & 15
+            pos += 2
+        pos += 2  # data_reference_index
+        base = _uint(data, pos, base_size)
+        pos += base_size
+        n_ext = _uint(data, pos, 2)
+        pos += 2
+        extents = []
+        for _ in range(n_ext):
+            pos += index_size
+            off = _uint(data, pos, off_size)
+            pos += off_size
+            length = _uint(data, pos, len_size)
+            pos += len_size
+            extents.append((base + off, length))
+        items[item_id] = (method, extents)
+    if pos > e:
+        raise ValueError("iloc overruns its box")
+    return items
+
+
+def parse_avif(data: bytes, name: str = "<bytes>") -> AvifItems:
+    """The primary item's and its alpha's AV1 bitstreams and CICP values."""
+    top = dict((k, (s, e)) for k, s, e in _boxes(data, 0, len(data), name))
+    if b"meta" not in top:
+        if data[8:12] in (b"avis", b"msf1"):
+            raise NotImplementedError(f"{name}: an AVIF image sequence with no primary still "
+                                      "item is not supported")
+        raise ValueError(f"{name}: AVIF file has no meta box")
+    ms, me = top[b"meta"]
+    meta = {}
+    for k, s, e in _boxes(data, ms + 4, me, name):
+        meta.setdefault(k, (s, e))
+    if b"hdlr" not in meta or data[meta[b"hdlr"][0] + 8:meta[b"hdlr"][0] + 12] != b"pict":
+        raise ValueError(f"{name}: AVIF meta box has no pict handler")
+    if b"pitm" not in meta:
+        if data[8:12] in (b"avis", b"msf1"):
+            raise NotImplementedError(f"{name}: an AVIF image sequence with no primary still "
+                                      "item is not supported")
+        raise ValueError(f"{name}: AVIF file has no primary item")
+    s, _ = meta[b"pitm"]
+    primary = _uint(data, s + 4, 4 if data[s] else 2)
+
+    types = {}
+    if b"iinf" in meta:
+        s, e = meta[b"iinf"]
+        n = 4 if data[s] else 2
+        for k, bs, be in _boxes(data, s + 4 + n, e, name):
+            if k != b"infe" or data[bs] < 2:
+                continue
+            idn = 4 if data[bs] == 3 else 2
+            item_id = _uint(data, bs + 4, idn)
+            types[item_id] = data[bs + 4 + idn + 2:bs + 4 + idn + 6]
+    locs = _parse_iloc(data, *meta[b"iloc"]) if b"iloc" in meta else {}
+
+    props = []
+    assoc: dict[int, list[tuple[int, bool]]] = {}
+    if b"iprp" in meta:
+        ps, pe = meta[b"iprp"]
+        for k, s, e in _boxes(data, ps, pe, name):
+            if k == b"ipco":
+                props = [(pk, bs, be) for pk, bs, be in _boxes(data, s, e, name)]
+            elif k == b"ipma":
+                version, flags = data[s], _uint(data, s + 1, 3)
+                pos = s + 4
+                count = _uint(data, pos, 4)
+                pos += 4
+                for _ in range(count):
+                    idn = 2 if version < 1 else 4
+                    item_id = _uint(data, pos, idn)
+                    pos += idn
+                    na = data[pos]
+                    pos += 1
+                    lst = assoc.setdefault(item_id, [])
+                    for _ in range(na):
+                        if flags & 1:
+                            v = _uint(data, pos, 2)
+                            pos += 2
+                            lst.append((v & 0x7FFF, bool(v >> 15)))
+                        else:
+                            v = data[pos]
+                            pos += 1
+                            lst.append((v & 0x7F, bool(v >> 7)))
+
+    refs: list[tuple[bytes, int, list[int]]] = []
+    if b"iref" in meta:
+        s, e = meta[b"iref"]
+        idn = 4 if data[s] else 2
+        for k, bs, be in _boxes(data, s + 4, e, name):
+            src = _uint(data, bs, idn)
+            n = _uint(data, bs + idn, 2)
+            refs.append((k, src, [_uint(data, bs + idn + 2 + i * idn, idn) for i in range(n)]))
+
+    def item_props(item_id):
+        out = {}
+        for index, essential in assoc.get(item_id, ()):
+            if index == 0:
+                continue
+            if index > len(props):
+                raise ValueError(f"{name}: AVIF property index {index} out of range")
+            kind, s, e = props[index - 1]
+            if kind not in KNOWN_PROPERTIES:
+                if essential:
+                    raise NotImplementedError(f"{name}: AVIF essential property "
+                                              f"{kind.decode('latin-1')!r} is not supported")
+                continue
+            out.setdefault(kind, (s, e))
+        return out
+
+    def payload(item_id):
+        if item_id not in locs:
+            raise ValueError(f"{name}: AVIF item {item_id} has no location")
+        method, extents = locs[item_id]
+        if method == 0:  # offsets in the file
+            base = 0
+        elif method == 1:  # offsets in the idat box
+            if b"idat" not in meta:
+                raise ValueError(f"{name}: AVIF item {item_id} lies in a missing idat box")
+            base = meta[b"idat"][0]
+        else:
+            raise NotImplementedError(f"{name}: AVIF item construction method {method} is not "
+                                      "supported")
+        out = bytearray()
+        for off, length in extents:
+            start = base + off
+            if length == 0:
+                length = len(data) - start
+            if start + length > len(data):
+                raise OSError("image file is truncated")
+            out += data[start:start + length]
+        return bytes(out)
+
+    kind = types.get(primary)
+    if kind == b"grid":
+        raise NotImplementedError(f"{name}: AVIF grid images are not supported")
+    if kind != b"av01":
+        raise ValueError(f"{name}: AVIF primary item is not an AV1 image")
+    cprops = item_props(primary)
+    if b"ispe" not in cprops:
+        raise ValueError(f"{name}: AVIF primary item has no ispe")
+    s, _ = cprops[b"ispe"]
+    width, height = struct.unpack(">II", data[s + 4:s + 12])
+    has_colr, matrix, full_range = False, 2, False
+    if b"colr" in cprops:
+        s, e = cprops[b"colr"]
+        if data[s:s + 4] == b"nclx":
+            has_colr = True
+            matrix = struct.unpack(">H", data[s + 8:s + 10])[0]
+            full_range = bool(data[s + 10] >> 7)
+
+    alpha_id = None
+    for k, src, dsts in refs:  # the colour item refers to its alpha by "prem"
+        if k == b"prem" and primary in (src, *dsts):
+            raise NotImplementedError(f"{name}: AVIF premultiplied alpha is not supported")
+    for k, src, dsts in refs:
+        if k == b"auxl" and primary in dsts and types.get(src) in (b"av01", b"grid"):
+            aux = item_props(src).get(b"auxC")
+            if aux is None:
+                continue
+            urn = data[aux[0] + 4:aux[1]].split(b"\0")[0]
+            if urn in ALPHA_URNS:
+                if types[src] == b"grid":
+                    raise NotImplementedError(f"{name}: AVIF grid images are not supported")
+                alpha_id = src
+                break
+    return AvifItems(payload(primary), payload(alpha_id) if alpha_id is not None else None,
+                     width, height, has_colr, matrix, full_range)
+
+
+# nclx matrix coefficients that libavif converts with the BT.601 constants:
+# unspecified (2), BT.470BG (5), BT.601 (6)
+BT601_MATRICES = (2, 5, 6)
+
+
+def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray:
+    items = parse_avif(data, name)
+    info = native_image.av1_info(items.color, name)
+    if info["monochrome"]:
+        raise NotImplementedError(f"{name}: AVIF monochrome colour items are not supported")
+    if (info["width"], info["height"]) != (items.width, items.height):
+        raise ValueError(f"{name}: AVIF frame of {info['width']}x{info['height']} in an item of "
+                         f"{items.width}x{items.height}")
+    matrix, full = (items.matrix, items.full_range) if items.has_colr else (info["matrix"],
+                                                                          bool(info["full_range"]))
+    if matrix not in BT601_MATRICES:
+        raise NotImplementedError(f"{name}: AVIF matrix coefficients {matrix} are not supported")
+    if not full:
+        raise NotImplementedError(f"{name}: AVIF limited-range colour is not supported")
+    check_size(items.width, items.height, name, "AVIF", cv2)
+    out = native_image.yuv420_to_rgba(*native_image.av1_decode(items.color, info, name))
+    if items.alpha is not None:
+        ainfo = native_image.av1_info(items.alpha, name)
+        if (ainfo["width"], ainfo["height"]) != (items.width, items.height):
+            raise ValueError(f"{name}: AVIF alpha of {ainfo['width']}x{ainfo['height']} for an "
+                             f"image of {items.width}x{items.height}")
+        if not ainfo["full_range"]:
+            raise NotImplementedError(f"{name}: AVIF limited-range alpha is not supported")
+        out[..., 3] = native_image.av1_decode(items.alpha, ainfo, name)[0]
+    return out
+
+
+def decode_avif(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``."""
+    return _decode(data, name, False)
+
+
+def decode_avif_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 BGR as OpenCV's ``imread(ANYCOLOR | ANYDEPTH)``."""
+    return np.ascontiguousarray(_decode(data, name, True)[..., 2::-1])

@@ -22,9 +22,10 @@ library:
   WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation), QOI
   (``qoi.py``), SGI (``sgi.py``), PCX and DCX frame 0 (``pcx.py``), IM
   (``im.py``), DDS (``dds.py``: uncompressed and BC1-BC7), ICO and CUR
-  (``ico.py``), ICNS (``icns.py``), PSD (``psd.py``) and JPEG 2000
+  (``ico.py``), ICNS (``icns.py``), PSD (``psd.py``), JPEG 2000
   (``jpeg2000.py``: the codestream and JP2 as Pillow writes them by
-  default). The formats are
+  default) and AVIF (``avif.py``: the 8-bit 4:2:0 still images Pillow
+  writes by default, with or without alpha). The formats are
   tried in Pillow's order: IM has no magic bytes and is taken where Pillow
   takes it (after PNG, BMP, DIB, PCX, DCX, DDS, CUR, ICNS, ICO and GIF,
   before the others).
@@ -33,8 +34,10 @@ library:
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
   a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
-  includes PAM, JPEG 2000 is read as OpenCV's OpenJPEG reader reads it; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM,
-  a DDS, an ICO, a CUR, an ICNS or a PSD, which OpenCV does not read.
+  includes PAM, JPEG 2000 is read as OpenCV's OpenJPEG reader reads it,
+  AVIF as its libavif reads it (alpha dropped); None for a TGA, a DIB, a
+  QOI, an SGI, a PCX, a DCX, an IM, a DDS, an ICO, a CUR, an ICNS, a PSD
+  or a file that is no image, which OpenCV does not read.
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
 modes the JAX ``ImageSaver`` writes through Pillow) as Pillow's ``save``
@@ -47,8 +50,12 @@ them by extension).
 
 The JPEG kinds both libraries refuse raise ``OSError`` with Pillow's
 message on Pillow's path and give None on OpenCV's (``jpeg.py`` lists
-them); the formats Pillow or OpenCV open that the port does not read raise
-``NotImplementedError`` with their names. There is no substitute image.
+them); the formats of ROADMAP.md's reading queue, which Pillow or OpenCV
+open and the port does not read, raise ``NotImplementedError`` with their
+names (``QUEUED``, tested by their magic as Pillow's plugins test it); any
+other file raises Pillow's ``UnidentifiedImageError`` message as an
+``OSError`` on Pillow's path and gives None on OpenCV's. There is no
+substitute image.
 Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
@@ -64,6 +71,7 @@ from typing import NamedTuple
 import numpy as np
 
 from . import dds, icns, ico, im, pcx, psd, qoi, sgi
+from .avif import decode_avif, decode_avif_cv2, is_avif
 from .bmp import decode_bmp, decode_bmp_cv2, decode_dib, is_dib
 from .gif import decode_gif, decode_gif_cv2
 from .image_limits import check_size
@@ -291,15 +299,42 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _pil_rgba(decode_png_samples(data, name))
 
 
+def _u32(data: bytes, pos: int, order: str) -> int:
+    return int.from_bytes(data[pos:pos + 4], order) if len(data) >= pos + 4 else -1
+
+
+# the formats of ROADMAP.md's reading queue that Pillow opens, by the tests
+# of their plugins' ``_accept`` (Pillow 12.1.0); Radiance HDR, which the
+# port reads through read_image_cv2 alone
+QUEUED = (
+    ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d, 0, "little") == 0xC6D3D0C5),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("FITS", lambda d: d.startswith(b"SIMPLE")),
+    ("FLI/FLC", lambda d: len(d) >= 16 and int.from_bytes(d[4:6], "little") in (0xAF11, 0xAF12)
+     and int.from_bytes(d[14:16], "little") in (0, 3)),
+    ("FTEX", lambda d: d.startswith(b"FTEX")),
+    ("GBR", lambda d: _u32(d, 0, "big") >= 20 and _u32(d, 4, "big") in (1, 2)),
+    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04")),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
+    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00")),
+    ("Sun raster", lambda d: _u32(d, 0, "big") == 0x59A66A95),
+    ("XBM", lambda d: d.lstrip().startswith(b"#define")),
+    ("XPM", lambda d: d.startswith(b"/* XPM */")),
+    ("Radiance HDR", lambda d: d.startswith(b"#?")),
+)
+
+
 def _refuse(path: str, data: bytes):
-    if data[:4] in (ico.MAGIC, ico.CUR_MAGIC):  # an icon's magic, no icon and no TGA
-        raise OSError(f"cannot identify image file {path!r}")
-    fmt = "Radiance HDR" if data[:2] == b"#?" else "unknown"
-    raise NotImplementedError(
-        f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, DIB, "
-        "TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM, DDS, ICO, CUR, ICNS, PSD and JPEG 2000, "
-        "and Radiance HDR through read_image_cv2)"
-    )
+    """A file no module reads: ``NotImplementedError`` by name for a format
+    of the reading queue, else Pillow's ``UnidentifiedImageError`` (an
+    ``OSError``), as ``Image.open`` raises it."""
+    for fmt, accept in QUEUED:
+        if accept(data):
+            raise NotImplementedError(
+                f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, "
+                "DIB, TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM, DDS, ICO, CUR, ICNS, PSD, "
+                "JPEG 2000 and AVIF, and Radiance HDR through read_image_cv2)")
+    raise OSError(f"cannot identify image file {path!r}")
 
 
 def _plain_format(data: bytes):
@@ -343,6 +378,8 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_png(data, name)
     if data[:2] == b"BM":
         return decode_bmp(data, name)
+    if is_avif(data):
+        return decode_avif(data, name)
     if is_dib(data):
         return decode_dib(data, name)
     plain = _plain_format(data)
@@ -506,9 +543,10 @@ def read_image_cv2(path: str) -> np.ndarray | None:
     """The array ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)``
     gives: grey (H, W), colour (H, W, 3) in BGR order with alpha dropped
     and palettes expanded; uint8, uint16 at depth 16 (grey PNG at depths
-    1-4 scaled to 8 bits), float32 for HDR; frame 0 of a WebP; None for a
-    TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM, a DDS, an ICO, a CUR,
-    an ICNS or a PSD, as OpenCV reads none."""
+    1-4 scaled to 8 bits), float32 for HDR; frame 0 of a WebP; AVIF in
+    BGR; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM, a DDS,
+    an ICO, a CUR, an ICNS, a PSD or a file that is no image, as OpenCV
+    reads none; ``NotImplementedError`` for a Sun raster, which it reads."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"#?":
@@ -518,11 +556,13 @@ def read_image_cv2(path: str) -> np.ndarray | None:
     for magic, _, cv2_reading in _DECODERS:
         if data.startswith(magic):
             return cv2_reading(data, path)
+    if is_avif(data):
+        return decode_avif_cv2(data, path)
     if data[:8] != PNG_MAGIC:
-        if (is_dib(data) or _plain_format(data) is not None or _is_tga(data, path)
-                or data[:4] in (ico.MAGIC, ico.CUR_MAGIC)):
-            return None
-        _refuse(path, data)
+        if _u32(data, 0, "big") == 0x59A66A95:
+            raise NotImplementedError(f"{path}: Sun raster images are not supported")
+        # what OpenCV does not read (a TGA, a DIB, a QOI, ... or no image)
+        return None
     png = decode_png_samples(data, path, cv2=True)
     s, ctype, depth = png.samples, png.color_type, png.bit_depth
     if ctype == 0:

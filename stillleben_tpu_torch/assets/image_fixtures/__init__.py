@@ -61,6 +61,13 @@ Pillow's COD; ICNS with a JPEG 2000 entry read and one refused);
 ``jpeg2000_saver_sources()`` are the arrays whose JPEG 2000, EPS, PS and
 PDF files (the PDF's clock at ``PDF_CLOCK``) only have digests
 (``JPEG2000_ENCODE``).
+The AVIF files (``AVIF_FILES``, from ``avif_sources()``): Pillow's
+``save`` (libavif 1.3.0 over aom 3.12.1) at its defaults of the saver's
+modes, of edge sizes and of the 640x480 frame, and at the options that
+reach each coefficient CDF set and each tool the port's AV1 decoder
+implements; and of what it refuses (``AVIF_REFUSALS``). Their bytes depend
+on the writing host's CPU count (Pillow's ``max_threads``): these were
+written on a host of 8.
 ``digests.py`` holds the SHA-256 of each encode
 fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``; of each
 JPEG variant's: ``JPEG_VARIANT_FILE``) and of Pillow's
@@ -127,6 +134,23 @@ JPEG2000_REFUSALS = {"irreversible.j2k": "9/7", "layers.jp2": "quality layers",
                      "j2k_refused.icns": "JPEG 2000"}
 # the clock of the PDF digests (``time.gmtime(PDF_CLOCK)`` for both dates)
 PDF_CLOCK = 1700000000
+# the AVIF fixtures (``avif_sources()``): read as Pillow reads them, or
+# refused by name (``AVIF_REFUSALS``: what the port names in refusing each)
+AVIF_FILES = ("frame.avif", "frame_rgba.avif", "grey.avif", "depth16.avif", "one_1x1.avif",
+              "two_2x2.avif", "tiny_3x5.avif", "row_1x640.avif", "col_640x1.avif",
+              "square_33x33.avif", "odd_65x130.avif", "flat_65x130.avif", "few_480x640.avif",
+              "frame640.avif", "frame640_rgba.avif", "q94.avif", "q85.avif", "q30.avif",
+              "sb128.avif", "chroma_dq.avif", "delta_q_lf.avif", "reduced_tx_set.avif",
+              "tiles.avif", "tools_smooth.avif",
+              "tools_smooth_q40.avif", "tools_noise.avif", "tools_few.avif", "rot.avif",
+              "mirror.avif", "lossless.avif", "yuv444.avif", "yuv422.avif", "cdef.avif",
+              "restoration.avif", "film_grain.avif", "qm.avif", "prem.avif", "limited.avif",
+              "anim.avifs", "blob_basecolor.avif", "checker.avif")
+AVIF_REFUSALS = {"lossless.avif": "lossless", "yuv444.avif": "4:4:4", "yuv422.avif": "4:2:2",
+                 "cdef.avif": "CDEF", "restoration.avif": "loop restoration",
+                 "film_grain.avif": "film grain", "qm.avif": "quantizer matrices",
+                 "prem.avif": "premultiplied", "limited.avif": "limited-range",
+                 "anim.avifs": "CDEF"}
 
 
 def path(name: str) -> str:
@@ -238,3 +262,99 @@ def jpeg2000_saver_sources() -> dict[str, np.ndarray]:
             "frame.eps": src["frame.qoi"], "grey.ps": src["grey.bw"],
             "frame.pdf": src["frame.qoi"], "grey.pdf": src["grey.bw"],
             "frame_rgba.pdf": src["frame_rgba.qoi"]}
+
+
+def _waves(h: int, w: int, c: int, seed: int) -> np.ndarray:
+    """Seeded uint8 (h, w, c): low-frequency waves and a little noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    out = [128 + 80 * np.sin(a * x + p * 7) + 40 * np.cos(b * y + k) + rng.normal(0, 3, (h, w))
+           for k, (a, b, p) in enumerate(rng.uniform(0.02, 0.15, (c, 3)))]
+    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
+
+
+def _few_colours(h: int, w: int, seed: int, n: int = 4, cell: int = 4) -> np.ndarray:
+    """Seeded uint8 (h, w, 3): ``n`` colours in cells of ``cell`` pixels
+    (what sends aom to its screen-content tools: palette, intra block copy)."""
+    rng = np.random.default_rng(seed)
+    pal = rng.integers(0, 256, (n, 3))
+    idx = rng.integers(0, n, (h // cell + 1, w // cell + 1)).repeat(cell, 0).repeat(cell, 1)
+    return pal[idx[:h, :w]].astype(np.uint8)
+
+
+def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
+    """The arrays and the ``save`` options of the AVIF fixtures
+    (``AVIF_FILES``; Pillow's defaults where the options are empty), by
+    file name: ``plain_sources()``'s 64x48 frame, its RGBA, the grey ramp
+    and the 16-bit depth (the modes the JAX ``ImageSaver`` hands Pillow);
+    sizes 1x1 to 480x640 (H x W) with constant, random, smooth and
+    few-colour content; ``seeded_images()``'s 640x480 frame, and with alpha
+    on a disc; a smooth 64x48 at qualities 94, 85 and 30 (with the default
+    75, ``base_q_idx`` in each of the four coefficient CDF sets); 128x128
+    superblocks, chroma delta q, delta q and delta lf per superblock (aom's
+    variance boost), the reduced transform set, 2x2 tiles; ``speed`` 1 and
+    3 with CDEF and
+    loop restoration off (``tools_*``: filter intra, the 4-way and 3-way
+    partitions, 64-point transforms); EXIF orientations Pillow stores as
+    ``irot`` and ``imir``; and what the port refuses: lossless, 4:4:4,
+    4:2:2, CDEF, loop restoration (``speed`` 4), film grain, quantizer
+    matrices, premultiplied alpha, limited range; and the textured scene's
+    images (the blob's base colour and the checker, ``write_avif_fixtures``).
+    ``anim.avifs`` (three frames, ``save_all``) is not here:
+    ``make_avif_fixtures`` writes it."""
+    from PIL import Image
+
+    from ..procedural import base_color_texture, checker_texture
+
+    src = plain_sources()
+    frame = seeded_images()["frame"]
+    rng = np.random.default_rng(40)
+    y, x = np.mgrid[0:480, 0:640]
+    disc = ((y - 240) ** 2 + (x - 300) ** 2 < 150 ** 2).astype(np.uint8) * 255
+    rotated, mirrored = Image.Exif(), Image.Exif()
+    rotated[0x0112], mirrored[0x0112] = 6, 2
+    small = _waves(48, 64, 3, 41)
+    off = {"enable-restoration": "0", "enable-cdef": "0"}
+    return {
+        "frame.avif": (src["frame.qoi"], {}), "frame_rgba.avif": (src["frame_rgba.qoi"], {}),
+        "grey.avif": (src["grey.bw"], {}), "depth16.avif": (src["depth16.im"], {}),
+        "one_1x1.avif": (np.full((1, 1, 3), (200, 40, 90), np.uint8), {}),
+        "two_2x2.avif": (rng.integers(0, 256, (2, 2, 3)).astype(np.uint8), {}),
+        "tiny_3x5.avif": (rng.integers(0, 256, (3, 5, 4)).astype(np.uint8), {}),
+        "row_1x640.avif": (_waves(1, 640, 3, 42), {}),
+        "col_640x1.avif": (_few_colours(640, 1, 43, cell=16), {}),
+        "square_33x33.avif": (rng.integers(0, 256, (33, 33, 3)).astype(np.uint8), {}),
+        "odd_65x130.avif": (_waves(65, 130, 4, 44), {}),
+        "flat_65x130.avif": (np.full((65, 130, 3), (30, 160, 220), np.uint8), {}),
+        "few_480x640.avif": (_few_colours(480, 640, 45, n=5, cell=8), {}),
+        "frame640.avif": (frame, {}),
+        "frame640_rgba.avif": (np.concatenate([frame, disc[..., None]], -1), {}),
+        "q94.avif": (small, {"quality": 94}), "q85.avif": (small, {"quality": 85}),
+        "q30.avif": (small, {"quality": 30}),
+        "sb128.avif": (_waves(130, 100, 3, 46), {"advanced": {"sb-size": "128"}}),
+        "chroma_dq.avif": (small, {"advanced": {"enable-chroma-deltaq": "1"}}),
+        "delta_q_lf.avif": (_waves(256, 256, 3, 7), {"advanced": {"deltaq-mode": "6",
+                                                                  "delta-lf-mode": "1"}}),
+        "reduced_tx_set.avif": (_waves(100, 130, 3, 51),
+                                {"advanced": {"reduced-tx-type-set": "1"}}),
+        "tiles.avif": (_waves(100, 130, 3, 47), {"tile_rows": 1, "tile_cols": 1}),
+        "tools_smooth.avif": (_waves(160, 200, 3, 48), {"quality": 90, "speed": 1, "advanced": off}),
+        "tools_smooth_q40.avif": (_waves(160, 200, 3, 48), {"quality": 40, "speed": 3,
+                                                              "advanced": off}),
+        "tools_noise.avif": (rng.integers(0, 256, (160, 200, 3)).astype(np.uint8),
+                             {"quality": 40, "speed": 1, "advanced": off}),
+        "tools_few.avif": (_few_colours(160, 200, 49, n=3), {"speed": 1, "advanced": off}),
+        "rot.avif": (small, {"exif": rotated.tobytes()}),
+        "mirror.avif": (small, {"exif": mirrored.tobytes()}),
+        "lossless.avif": (small, {"quality": 100}),
+        "yuv444.avif": (small, {"subsampling": "4:4:4"}),
+        "yuv422.avif": (small, {"subsampling": "4:2:2"}),
+        "cdef.avif": (small, {"advanced": {"enable-cdef": "1"}}),
+        "restoration.avif": (small, {"speed": 4}),
+        "film_grain.avif": (small, {"advanced": {"film-grain-test": "1"}}),
+        "qm.avif": (small, {"advanced": {"enable-qm": "1"}}),
+        "prem.avif": (src["frame_rgba.qoi"], {"alpha_premultiplied": True}),
+        "limited.avif": (small, {"range": "limited"}),
+        "blob_basecolor.avif": (np.ascontiguousarray(base_color_texture(0)[..., :3]), {}),
+        "checker.avif": (np.ascontiguousarray(checker_texture()[..., :3]), {}),
+    }

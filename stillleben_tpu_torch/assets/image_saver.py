@@ -130,6 +130,10 @@ def _write(arr: np.ndarray, path: str) -> None:
         raise ValueError(f"Pillow makes no image of a {arr.dtype} array of shape {arr.shape}")
     ext = os.path.splitext(path)[1].lower()
     encoder = ENCODERS.get(ext)
+    if ext == ".j2k" and not path.endswith(".j2k"):
+        # Pillow writes the bare codestream only for a name that ends in
+        # ".j2k" as written (Jpeg2KImagePlugin): ".J2K" and ".J2k" get JP2
+        encoder = encode_jpeg2000
     try:
         if encoder is None:
             if ext in PIL_REFUSES:

@@ -4,8 +4,10 @@ of its WebP decoder (``csrc/sl_webp.cpp``), of its WebP encoder
 plane, ``csrc/sl_vp8l_enc.cpp``; the decoder and the encoder share
 ``sl_vp8_tables.h``),
 of its GIF encoder (``csrc/sl_gif_enc.cpp``), of its core for the plain
-formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS) and of its
-JPEG 2000 codec (``csrc/sl_j2k.cpp``).
+formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS), of its
+JPEG 2000 codec (``csrc/sl_j2k.cpp``) and of its AVIF core
+(``csrc/sl_av1.cpp``: an AV1 intra decoder and libyuv's RGB conversion;
+the specification's tables in ``sl_av1_tables.h``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
@@ -16,7 +18,8 @@ Pillow's GIF ``save`` does below its Python layer (the median-cut and
 fast-octree quantisers and GIF's LZW), and the loops of the plain formats
 (QOI's encoder and decoder, PCX's run-length coding both ways, SGI's
 run-length rows, the BC1-BC7 blocks of DDS), and JPEG 2000's codestream
-both ways (OpenJPEG's reversible coder at Pillow's defaults). Each source is
+both ways (OpenJPEG's reversible coder at Pillow's defaults), and the AV1
+decode of AVIF. Each source is
 built at first use by ``native_build.build_library`` (``g++ -O3 -shared
 -fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
 source and its headers); a compile or load that fails raises with the
@@ -55,8 +58,12 @@ PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
 PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
 J2K_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_j2k.cpp")
 J2K_HEADER = os.path.join(PKG_DIR, "csrc", "sl_j2k.h")
+AVIF_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_av1.cpp")
+AVIF_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_av1.h"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"))
 # -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
-# compile, and the compile is paid at first use
+# compile, and the compile is paid at first use (the AV1 core's too: 11.6 s
+# at -O3 against 6.9 s)
 J2K_FLAGS = ("-O2",) + CXX_FLAGS[1:]
 
 (_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED, _UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS,
@@ -70,6 +77,7 @@ _webp_enc_lib: ctypes.CDLL | None = None
 _gif_enc_lib: ctypes.CDLL | None = None
 _plain_lib: ctypes.CDLL | None = None
 _j2k_lib: ctypes.CDLL | None = None
+_avif_lib: ctypes.CDLL | None = None
 
 
 def build() -> str:
@@ -105,6 +113,32 @@ def build_j2k() -> str:
     """``build`` of the JPEG 2000 codec."""
     return build_library("sl_j2k", J2K_SOURCE, J2K_HEADER, BUILD_DIR, "the native JPEG 2000 codec",
                          J2K_FLAGS)
+
+
+def build_avif() -> str:
+    """``build`` of the AV1 decoder and RGB conversion of AVIF."""
+    return build_library("sl_av1", AVIF_SOURCE, AVIF_HEADER, BUILD_DIR, "the native AVIF decoder",
+                         J2K_FLAGS)
+
+
+def load_avif_library() -> ctypes.CDLL:
+    """Build (if needed) and load the AVIF core, once per process."""
+    global _avif_lib
+    with _lock:
+        if _avif_lib is None:
+            lib = ctypes.CDLL(build_avif())
+            lib.sl_av1_info.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                        ctypes.c_char_p, ctypes.c_size_t)
+            lib.sl_av1_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
+                                          ctypes.c_size_t)
+            lib.sl_av1_info.restype = lib.sl_av1_decode.restype = ctypes.c_int
+            lib.sl_avif_yuv420_to_rgba.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p)
+            lib.sl_avif_yuv420_to_rgba.restype = None
+            _avif_lib = lib
+        return _avif_lib
 
 
 def load_j2k_library() -> ctypes.CDLL:
@@ -640,4 +674,38 @@ def j2k_decode(codestream: bytes, info: dict, name: str = "<bytes>") -> np.ndarr
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_j2k_library().sl_j2k_decode(codestream, ctypes.c_size_t(len(codestream)),
                                             _ptr(out), err, _ERRLEN), err, name)
+    return out
+
+
+def av1_info(obus: bytes, name: str = "<bytes>") -> dict:
+    """The frame an AV1 item codes (it raises ``NotImplementedError`` by
+    name for a stream the decoder does not read)."""
+    info = np.zeros(8, np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_avif_library().sl_av1_info(obus, len(obus), _ptr(info), err, _ERRLEN), err, name)
+    keys = ("width", "height", "monochrome", "bit_depth", "subsampling_x", "subsampling_y",
+            "full_range", "matrix")
+    return dict(zip(keys, (int(v) for v in info)))
+
+
+def av1_decode(obus: bytes, info: dict, name: str = "<bytes>"):
+    """The planes of an AV1 item: Y (H, W) and, unless it is monochrome, U
+    and V ((H + 1) // 2, (W + 1) // 2), uint8. The caller has read ``info``
+    (``av1_info``) and checked the size."""
+    h, w = info["height"], info["width"]
+    y = np.empty((h, w), np.uint8)
+    u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    v = np.empty_like(u)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(load_avif_library().sl_av1_decode(obus, len(obus), _ptr(y), _ptr(u), _ptr(v), err,
+                                             _ERRLEN), err, name)
+    return (y,) if info["monochrome"] else (y, u, v)
+
+
+def yuv420_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """(H, W, 4) uint8 RGB with alpha 255: libyuv's BT.601 full-range
+    conversion with bilinear chroma upsampling, as libavif runs it."""
+    h, w = y.shape
+    out = np.empty((h, w, 4), np.uint8)
+    load_avif_library().sl_avif_yuv420_to_rgba(_ptr(y), _ptr(u), _ptr(v), w, h, _ptr(out))
     return out

@@ -652,6 +652,55 @@ def write_icon_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
     return paths
 
 
+def write_avif_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+    """``write_image_fixtures``'s scene with its images as the AVIF files
+    Pillow wrote (the committed ``blob_basecolor.avif`` and
+    ``checker.avif`` of ``image_fixtures``; the port writes no AVIF), each
+    beside a twin that holds its decoded pixels as PNG. Paths by name:
+
+    - ``obj_avif``: the textured blob whose MTL names its base colour as
+      AVIF; ``obj_png``: the same blob whose MTL names the PNG of its decode;
+    - ``glb_avif``: the textured blob as GLB with the AVIF embedded
+      (``image/avif``, as glTF's ``EXT_texture_avif`` carries it);
+      ``glb_png``: with its PNG twin;
+    - ``plane_avif``: ``checker_texture`` as AVIF; ``plane_png``: its decode
+      as PNG.
+    """
+    import shutil
+
+    from . import image_fixtures
+    from .image import decode_image, encode_png
+    from .objfile import load_obj
+    from .writers import atomic_write, write_glb
+
+    os.makedirs(directory, exist_ok=True)
+    stem = f"blob_s{subdiv}_seed0"
+    names = {"obj_avif": f"{stem}_avif.obj", "obj_png": f"{stem}_aviftwin.obj",
+             "glb_avif": f"{stem}_avif.glb", "glb_png": f"{stem}_aviftwin.glb",
+             "plane_avif": "checker.avif", "plane_png": "checker_avif.png"}
+    paths = {k: os.path.join(directory, v) for k, v in names.items()}
+    if all(os.path.exists(v) for v in paths.values()):
+        return paths
+    files = {}
+    for name in ("blob_basecolor.avif", "checker.avif"):
+        shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
+        with open(image_fixtures.path(name), "rb") as f:
+            files[name] = f.read()
+    blob_avif = files["blob_basecolor.avif"]
+    blob_png = encode_png(decode_image(blob_avif, "blob_basecolor.avif"))
+    atomic_write(os.path.join(directory, "blob_basecolor_avif.png"), blob_png)
+    atomic_write(paths["plane_png"], encode_png(decode_image(files["checker.avif"], "checker.avif")))
+    p, f = _blob(subdiv, 0)
+    for key, tex in (("obj_avif", "blob_basecolor.avif"), ("obj_png", "blob_basecolor_avif.png")):
+        mtl = os.path.splitext(names[key])[0] + ".mtl"
+        _write_mtl(os.path.join(directory, mtl), "blob", tex)
+        _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
+    blob = load_obj(paths["obj_png"]).meshes[0][0]
+    write_glb(paths["glb_avif"], blob, blob_avif, mime="image/avif")
+    write_glb(paths["glb_png"], blob, blob_png)
+    return paths
+
+
 def write_loader_fixtures(directory: str, subdiv: int = 6, seed: int = 0) -> dict[str, str]:
     """Write every format the loaders read into ``directory`` (files kept
     if already there) and return their paths by name. Each mesh is the

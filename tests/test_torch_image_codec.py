@@ -12,8 +12,10 @@ JAX package reads images with, on the same files, and the port's
 - the encoder: files Pillow reads back to the same array;
 - ``ImageSaver``: the same samples as the JAX ``ImageSaver``'s files;
   ``ImageLoader`` at one thread: the same textures in the same order;
-- a file no decoder claims raises by name; a JPEG header the libraries
-  refuse raises their ``OSError`` (and reads as None as OpenCV does).
+- a file no library reads raises Pillow's ``OSError`` (and reads as None
+  as OpenCV does), also through the panorama reader, as in the JAX
+  package; a format of the reading queue raises ``NotImplementedError`` by
+  name; a JPEG header the libraries refuse raises their ``OSError``.
 """
 
 import os
@@ -206,8 +208,9 @@ def _sof(marker: int, precision: int = 8, comps: int = 3) -> bytes:
     ("hierarchical", _sof(0xC5), ".jpeg"),
 ])
 def test_refused_formats_raise_with_their_name(tmp_path, fmt, head, ext):
-    """A file of zeros named ``.webp``, which no decoder claims, raises by
-    name in both readings. WebP is decoded: a file whose header names WebP
+    """A file of zeros named ``.webp``, which no decoder claims, raises
+    Pillow's ``UnidentifiedImageError`` message as an ``OSError`` and reads
+    as None, as the libraries do (C-23). WebP is decoded: a file whose header names WebP
     over no valid container raises as Pillow does (``ValueError``) and reads
     as None as OpenCV does. The JPEG cases (headers of the variants the port
     once refused by name, and no scan) raise Pillow's own ``OSError`` and
@@ -221,15 +224,68 @@ def test_refused_formats_raise_with_their_name(tmp_path, fmt, head, ext):
             image.read_image(path)
         assert image.read_image_cv2(path) is None
         return
-    if fmt == "WebP":
-        with pytest.raises(NotImplementedError, match="unknown"):
-            image.read_image(path)
-        with pytest.raises(NotImplementedError, match="unknown"):
-            image.read_image_cv2(path)
-        return
     with pytest.raises(OSError) as ref:
         Image.open(path).convert("RGBA")
     with pytest.raises(OSError) as got:
         image.read_image(path)
     assert not isinstance(got.value, NotImplementedError) and str(got.value) == str(ref.value)
     assert cv2.imread(path, CV2_FLAGS) is None and image.read_image_cv2(path) is None
+
+
+# files neither library reads (C-23): Pillow's UnidentifiedImageError, None
+# from OpenCV (whose build has no OpenEXR), and so the JAX panorama reader's
+# Pillow fallback fails with the same error
+UNREADABLE = {"text.png": b"a text file, not a PNG\n" * 3, "empty.jpg": b"",
+              "scene.exr": b"\x76\x2f\x31\x01\x02\x00\x00\x00" + bytes(56)}
+
+
+@pytest.mark.parametrize("name", sorted(UNREADABLE))
+def test_unreadable_file_raises_pillows_oserror(tmp_path, name):
+    from stillleben_tpu.render.light_map import _load_hdr_image as jax_panorama
+    from stillleben_tpu_torch.render.light_map import _load_hdr_image as port_panorama
+
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(UNREADABLE[name])
+    with pytest.raises(OSError) as ref:
+        Image.open(path).convert("RGBA")
+    for read in (image.read_image, port_panorama):
+        with pytest.raises(OSError) as got:
+            read(path)
+        assert not isinstance(got.value, NotImplementedError)
+        assert str(got.value) == str(ref.value)
+    with pytest.raises(OSError) as jax_got:
+        jax_panorama(path)
+    assert str(jax_got.value) == str(ref.value)
+    assert cv2.imread(path, CV2_FLAGS) is None and image.read_image_cv2(path) is None
+
+
+def _sun_raster(h: int = 8, w: int = 8) -> bytes:
+    """An uncompressed 24-bit Sun raster (BGR rows, each padded to 16 bits)."""
+    rows = np.arange(h * w * 3, dtype=np.uint8).reshape(h, w * 3)
+    data = rows.tobytes() if (w * 3) % 2 == 0 else b"".join(r.tobytes() + b"\0" for r in rows)
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, len(data), 1, 0, 0) + data
+
+
+def test_reading_queue_raises_by_name(tmp_path):
+    """A file of a format ROADMAP.md queues for reading, which Pillow or
+    OpenCV reads, still raises ``NotImplementedError`` by name: a 9/7
+    JPEG 2000 codestream, a LAB PSD, and a Sun raster (read by both
+    libraries; the port's OpenCV reading refuses it too)."""
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture_path
+    from torch_image_fixtures import psd_file
+
+    lab = psd_file(np.full((3, 4, 5), 128, np.uint8), 9)
+    cases = {"irreversible.j2k": (open(fixture_path("irreversible.j2k"), "rb").read(), "9/7"),
+             "lab.psd": (lab, "LAB"), "sun.ras": (_sun_raster(), "Sun raster")}
+    for name, (data, what) in cases.items():
+        path = str(tmp_path / name)
+        with open(path, "wb") as f:
+            f.write(data)
+        Image.open(path).convert("RGBA")  # Pillow reads each
+        with pytest.raises(NotImplementedError, match=what):
+            image.read_image(path)
+    sun = str(tmp_path / "sun.ras")
+    assert cv2.imread(sun, CV2_FLAGS).shape == (8, 8, 3)
+    with pytest.raises(NotImplementedError, match="Sun raster"):
+        image.read_image_cv2(sun)

@@ -101,6 +101,20 @@ def test_icons_in_every_mode(ext, tmp_path, capsys):
     assert "failed" not in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("ext", (".J2K", ".J2k", ".j2k"))
+def test_j2k_suffix_keeps_its_case(ext, tmp_path, capsys):
+    """Pillow writes the bare codestream only for a name ending in ".j2k" as
+    written: ".J2K" and ".J2k" get JP2 (C-22). Both savers in every mode,
+    byte for byte."""
+    jobs = [(k, a, f"{k.replace(';', '')}_x{ext}") for k, a in arrays().items()
+            if k in ("L", "RGB", "RGBA", "I;16")]
+    ref, ours = run_both(tmp_path, jobs)
+    assert len(ref) == 4 and ours == ref
+    jp2 = ext != ".j2k"
+    assert all(b.startswith(b"\x00\x00\x00\x0cjP  ") == jp2 for b in ours.values())
+    assert "failed" not in capsys.readouterr().out
+
+
 def test_what_pillow_refuses(tmp_path, capsys):
     """Arrays Pillow makes no image of, unknown and unwritable extensions,
     and the modes the slice's formats refuse: printed, nothing written."""

@@ -53,6 +53,10 @@ writes the committed JPEG 2000 files and ``jpeg2000_digests()`` their
 SHA-256, Pillow's and OpenCV's readings and the digests of Pillow's
 files of ``jpeg2000_saver_sources()``.
 
+AVIF: ``make_avif_fixtures()`` writes Pillow's files of
+``image_fixtures.avif_sources()`` and a three-frame ``.avifs``, and
+``avif_digests()`` their SHA-256 and Pillow's and OpenCV's readings.
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder), ``vp8l_divergence``
 (and ``alph_divergence`` for two files' ALPH chunks) the first part of two
@@ -2212,6 +2216,37 @@ def jpeg2000_digests(files: dict[str, bytes]) -> dict:
             "JPEG2000_ENCODE": encode}
 
 
+def make_avif_fixtures() -> dict[str, bytes]:
+    """The AVIF fixtures (``AVIF_FILES``): Pillow's ``save`` of
+    ``avif_sources()`` with their options, and ``anim.avifs``: three smooth
+    frames saved with ``save_all`` (a sequence; libavif writes its first
+    frame as the still item too, with CDEF on)."""
+    import tempfile
+
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import avif_sources
+
+    files = {n: pillow_file(a, n, **kw) for n, (a, kw) in avif_sources().items()}
+    frames = [Image.fromarray(smooth(32, 48, 3, 50 + i)) for i in range(3)]
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "anim.avifs")
+        frames[0].save(p, save_all=True, append_images=frames[1:])
+        with open(p, "rb") as f:
+            files["anim.avifs"] = f.read()
+    return files
+
+
+def avif_digests(files: dict[str, bytes]) -> dict:
+    """``AVIF_FILE`` / ``AVIF_DECODE`` / ``AVIF_DECODE_CV2``: each AVIF
+    fixture's SHA-256 and Pillow's and OpenCV's readings of it (or the
+    exception Pillow raises)."""
+    return {"AVIF_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "AVIF_DECODE": {n: any_reading(d) for n, d in sorted(files.items())},
+            "AVIF_DECODE_CV2": {n: cv2_file_reading(d, n) for n, d in sorted(files.items())}}
+
+
 # ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
@@ -2283,7 +2318,9 @@ def digest_module(d: dict) -> str:
              "``JPEG2000_DECODE`` / ``JPEG2000_DECODE_CV2``: the JPEG 2000 fixtures'",
              "bytes and Pillow's and OpenCV's readings of each (or the exception);",
              "``JPEG2000_ENCODE``: Pillow's ``save`` of ``jpeg2000_saver_sources()``",
-             "under their names (JPEG 2000, EPS, PS, and PDF at ``PDF_CLOCK``). Written by",
+             "under their names (JPEG 2000, EPS, PS, and PDF at ``PDF_CLOCK``).",
+             "``AVIF_FILE`` / ``AVIF_DECODE`` / ``AVIF_DECODE_CV2``: the AVIF fixtures'",
+             "bytes and Pillow's and OpenCV's readings of each (or the exception). Written by",
              '``tests/torch_image_fixtures.py --write``."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
@@ -2303,9 +2340,10 @@ if __name__ == "__main__":
     jpeg_files = make_jpeg_variant_fixtures()
     icon_files = make_icon_fixtures()
     j2k_files = make_jpeg2000_fixtures()
+    avif_files = make_avif_fixtures()
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
-                           **jpeg_files, **icon_files, **j2k_files}.items():
+                           **jpeg_files, **icon_files, **j2k_files, **avif_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
@@ -2315,6 +2353,8 @@ if __name__ == "__main__":
                                    **plain_digests(plain_files),
                                    **jpeg_variant_digests(jpeg_files),
                                    **icon_digests(icon_files),
-                                   **jpeg2000_digests(j2k_files)}))
-    for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files, j2k_files):
+                                   **jpeg2000_digests(j2k_files),
+                                   **avif_digests(avif_files)}))
+    for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files, j2k_files,
+                  avif_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
