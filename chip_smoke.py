@@ -387,7 +387,15 @@ Phases (one line each or more; any failure exits non-zero):
     checks, K1's launches (one camera, two shadow passes) and no plain
     piece, K1 ``torch.equal`` to its plain version on the camera and the
     sun's shadow pass, every field ``torch.equal`` to the same scene from
-    PNG twins. Then the smoke's total wall seconds.
+    PNG twins. And AVIF written (``avif.encode_avif`` over the native AV1
+    encoder ``csrc/sl_av1_enc.cpp``, built into the same core): that
+    frame's RGB, its RGBA (alpha 255 on the objects) and its depth in mm
+    as I;16 through ``sl.ImageSaver`` as ``.avif``, each read back by
+    ``decode_avif`` bitwise as the encoder reconstructed it, with its encode
+    ms, bytes and PSNR; ``image_fixtures.avif_write_sources()`` through the
+    saver (four threads) to the committed digests ``AVIF_ENCODE`` (the CPU
+    tests hold those files to Pillow's). Then the smoke's total wall
+    seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4098,6 +4106,74 @@ def build_avif_core() -> tuple[str, float]:
     return path, time.perf_counter() - t0
 
 
+def write_avif(sl, result, fx_dir, ms, card) -> None:
+    """Phase 26's AVIF writing (see the module docstring): ``result`` is the
+    phase's card-rendered frame; the encode milliseconds go into ``ms``."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from stillleben_tpu_torch.assets import avif
+    from stillleben_tpu_torch.assets.image_fixtures import avif_write_sources
+    from stillleben_tpu_torch.assets.image_fixtures.digests import AVIF_ENCODE
+
+    rgb = np.ascontiguousarray(result.rgb()[..., :3].cpu().numpy())
+    mask = np.where(result.instance_index().cpu().numpy() > 0, 255, 0).astype(np.uint8)
+    rgba = np.ascontiguousarray(np.concatenate([rgb, mask[..., None]], -1))
+    depth_mm = np.clip(np.round(result.depth().cpu().numpy() * 1000.0), 0, 65535).astype(np.uint16)
+    frames = {"render.avif": rgb, "render_rgba.avif": rgba, "depth_mm.avif": depth_mm}
+    sources = avif_write_sources()
+
+    def timed(a):
+        t0 = time.perf_counter()
+        out = avif.encode_avif_reconstructed(a)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(frames)) as pool:
+        direct = {k: pool.submit(timed, a) for k, a in frames.items()}
+        with sl.ImageSaver(num_threads=4) as saver:
+            for name, a in {**frames, **sources}.items():
+                saver.save(a, os.path.join(fx_dir, name))
+        direct = {k: f.result() for k, f in direct.items()}
+    wall = time.perf_counter() - t0
+
+    def psnr(x, y):
+        mse = np.mean((x.astype(np.float64) - y.astype(np.float64)) ** 2)
+        return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+    bad, stats = [], []
+    for name, a in frames.items():
+        with open(os.path.join(fx_dir, name), "rb") as f:
+            data = f.read()
+        (enc, recon), enc_ms = direct[name]
+        ms[f"encode {name}"] = enc_ms
+        if data != enc:
+            bad.append(f"the saver's {name} is not encode_avif's")
+        if not np.array_equal(avif.decode_avif(data, name), recon):
+            bad.append(f"{name} read back is not the encoder's reconstruction")
+        src = np.repeat(np.minimum(a, 255).astype(np.uint8)[..., None], 3, -1) if a.ndim == 2 else a
+        line = f"{name} {enc_ms:.1f} ms, {len(data)} B, RGB {psnr(recon[..., :3], src[..., :3]):.2f} dB"
+        if a.ndim == 3 and a.shape[2] == 4:
+            line += f", alpha {psnr(recon[..., 3], src[..., 3]):.2f} dB"
+        stats.append(line)
+    digests = {}
+    for name in sources:
+        with open(os.path.join(fx_dir, name), "rb") as f:
+            digests[name] = hashlib.sha256(f.read()).hexdigest()
+    wrong = sorted(n for n in sources if digests[n] != AVIF_ENCODE.get(n))
+    if wrong:
+        bad.append(f"not the committed digests: {wrong}")
+    phase("avif", f"the card's frame written as AVIF by sl.ImageSaver and read back bitwise as "
+                  f"the encoder reconstructed it ({'; '.join(stats)}); "
+                  f"{len(sources) - len(wrong)} of {len(sources)} avif_write_sources() files "
+                  f"through the saver (4 threads) to the committed digests; all {wall:.2f} s "
+                  f"wall; differences: {bad} ({card})")
+    if bad:
+        fail(f"avif write: {bad}")
+
+
 def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dict]:
     """Phase 26: AVIF read (see the module docstring). ``settled`` is phase
     18's settled state, ``light`` phase 23's light map, ``avif_build`` the
@@ -4228,6 +4304,9 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
                             replaces="stillleben_tpu/ops/cell_raster.py:43",
                             launches=per_key[key], library_ms=None, **k))
     ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    t_part = time.perf_counter()
+    write_avif(sl, result, fx_dir, ms, card)
+    ms["part: write"] = (time.perf_counter() - t_part) * 1e3
     phase("avif", "phase 26's parts, s: " + ", ".join(
         f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
     shutil.rmtree(fx_dir, ignore_errors=True)

@@ -1,6 +1,7 @@
 """AVIF read as Pillow 12.1.0's ``convert("RGBA")`` (libavif 1.3.0 over
 dav1d 1.5.1, libyuv's conversion) and OpenCV 5.0.0's ``imread(ANYCOLOR |
-ANYDEPTH)`` read it.
+ANYDEPTH)`` read it, and written for the modes the JAX ``ImageSaver`` hands
+Pillow's ``save`` at its defaults (quality 75).
 
 The container is parsed here: the HEIF boxes libavif reads for a still
 image (``ftyp``; ``meta`` with ``hdlr`` ``pict``, ``pitm``, ``iloc``
@@ -16,6 +17,19 @@ libyuv's fixed-point conversion to RGB with its bilinear chroma upsampling.
   stored, else 255. The pixels stay as stored: ``irot``/``imir`` become an
   EXIF orientation in Pillow, not a turn.
 - ``decode_avif_cv2(data, name)``: (H, W, 3) uint8 BGR, the alpha dropped.
+- ``encode_avif(arr)``: the file of an L, RGB, RGBA or I;16 array.
+  ``encode_avif_reconstructed(arr)`` gives the reconstruction beside it:
+  what any reader of the file decodes, through libyuv's conversion.
+
+Writing follows Pillow's ``_save``: L and I;16 (clamped at 255) become RGB;
+libavif's RGB to YUV 4:2:0 (BT.601 full range, its single-precision
+arithmetic); an RGBA array whose alpha is all 255 writes no alpha item. The
+AV1 items are the native encoder's (``csrc/sl_av1_enc.cpp``) at the
+quantizer libavif picks for quality 75 (``BASE_Q_IDX``, both items), and the
+HEIF boxes are libavif's, box for box: only ``iloc``'s extents and the
+``mdat`` differ from Pillow's file of the same array. The AV1 bitstream is
+the port's own (its block decisions; aom's depend on the host's CPU count,
+ROADMAP C-24); its sequence header and ``av1C`` are aom's, byte for byte.
 
 What neither reading of this port decodes raises ``NotImplementedError`` by
 name (ROADMAP.md, the reading queue): grid items, a sequence with no
@@ -303,3 +317,101 @@ def decode_avif(data: bytes, name: str = "<bytes>") -> np.ndarray:
 def decode_avif_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 3) uint8 BGR as OpenCV's ``imread(ANYCOLOR | ANYDEPTH)``."""
     return np.ascontiguousarray(_decode(data, name, True)[..., 2::-1])
+
+
+# libavif's quantizer for quality 75, ((100 - 75) * 63 + 50) // 100 = 16,
+# in aom's quantizer_to_qindex: the base_q_idx of Pillow's colour and alpha
+# items at its default quality
+BASE_Q_IDX = 64
+ALPHA_URN = ALPHA_URNS[0]
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def _full_box(kind: bytes, payload: bytes, version: int = 0, flags: int = 0) -> bytes:
+    return _box(kind, struct.pack(">I", (version << 24) | flags) + payload)
+
+
+def _av1c(obus: bytes, monochrome: bool) -> bytes:
+    """The av1C property of an item from its sequence header (the OBU after
+    the temporal delimiter): profile 0, the level, 8-bit 4:2:0 or
+    monochrome, no config OBUs."""
+    level = ((obus[4] & 7) << 2) | (obus[5] >> 6)
+    return _box(b"av1C", bytes((0x81, level, (int(monochrome) << 4) | 0x0C, 0)))
+
+
+# the ftyp of libavif's still image: the AVIF baseline profile (MA1B), as
+# libavif writes it for the main AV1 profile at every size
+FTYP_BRANDS = b"avif" + b"\0\0\0\0" + b"avifmif1miafMA1B"
+
+
+def avif_container(color: bytes, alpha: bytes | None, width: int, height: int) -> bytes:
+    """libavif 1.3.0's file of a still image: the colour item (1) and its
+    alpha item (2), each an AV1 item's OBUs; the alpha's data first in the
+    mdat."""
+    ftyp = _box(b"ftyp", FTYP_BRANDS)
+    hdlr = _full_box(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = _full_box(b"pitm", struct.pack(">H", 1))
+    infe = [_full_box(b"infe", struct.pack(">HH", 1, 0) + b"av01Color\0", version=2)]
+    props = [_full_box(b"ispe", struct.pack(">II", width, height)),
+             _full_box(b"pixi", bytes((3, 8, 8, 8))), _av1c(color, False),
+             _box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 0x80))]
+    assoc = [(1, (1, 2, 0x83, 4))]
+    iref = b""
+    if alpha is not None:
+        infe.append(_full_box(b"infe", struct.pack(">HH", 2, 0) + b"av01Alpha\0", version=2))
+        iref = _full_box(b"iref", _box(b"auxl", struct.pack(">HHH", 2, 1, 1)))
+        props += [_full_box(b"pixi", bytes((1, 8))), _av1c(alpha, True),
+                  _full_box(b"auxC", ALPHA_URN + b"\0")]
+        assoc.append((2, (1, 5, 0x86, 7)))
+    iinf = _full_box(b"iinf", struct.pack(">H", len(infe)) + b"".join(infe))
+    ipma = _full_box(b"ipma", struct.pack(">I", len(assoc)) + b"".join(
+        struct.pack(">HB", item, len(a)) + bytes(a) for item, a in assoc))
+    iprp = _box(b"iprp", _box(b"ipco", b"".join(props)) + ipma)
+
+    def meta(offsets):
+        locs = [(1, offsets[0], len(color))]
+        if alpha is not None:
+            locs.append((2, offsets[1], len(alpha)))
+        iloc = _full_box(b"iloc", bytes((0x44, 0)) + struct.pack(">H", len(locs)) + b"".join(
+            struct.pack(">HHHII", item, 0, 1, off, n) for item, off, n in locs))
+        return _full_box(b"meta", hdlr + pitm + iloc + iinf + iref + iprp)
+
+    start = len(ftyp) + len(meta((0, 0))) + 8
+    offsets = (start + (len(alpha) if alpha is not None else 0), start)
+    data = (alpha or b"") + color
+    return ftyp + meta(offsets) + _box(b"mdat", data)
+
+
+def _saver_rgb(arr: np.ndarray) -> np.ndarray:
+    """The RGB or RGBA array Pillow's ``_save`` encodes for the JAX saver's
+    image of ``arr``: L and I;16 (clamped at 255) become RGB."""
+    if arr.dtype == np.uint16:
+        arr = np.minimum(arr, 255).astype(np.uint8)
+    if arr.ndim == 2:
+        return np.repeat(arr[..., None], 3, axis=2)
+    return np.ascontiguousarray(arr)
+
+
+def encode_avif_reconstructed(arr: np.ndarray, name: str = "<array>") -> tuple[bytes, np.ndarray]:
+    """``encode_avif``'s file and the (H, W, 4) uint8 RGBA any reader
+    decodes from it (the encoder's reconstruction through libyuv's
+    conversion; alpha 255 without an alpha item)."""
+    rgb = _saver_rgb(np.asarray(arr))
+    h, w = rgb.shape[:2]
+    planes = native_image.rgb_to_yuv420(rgb)
+    color, recon = native_image.av1_encode(planes, BASE_Q_IDX, name)
+    out = native_image.yuv420_to_rgba(*recon)
+    alpha = None
+    if rgb.shape[2] == 4 and not (rgb[..., 3] == 255).all():
+        alpha, (a,) = native_image.av1_encode((rgb[..., 3],), BASE_Q_IDX, name)
+        out[..., 3] = a
+    return avif_container(color, alpha, w, h), out
+
+
+def encode_avif(arr: np.ndarray, name: str = "<array>") -> bytes:
+    """The AVIF file of an L, RGB, RGBA or I;16 array, as the port writes
+    Pillow's ``save`` at its defaults (see the module docstring)."""
+    return encode_avif_reconstructed(arr, name)[0]

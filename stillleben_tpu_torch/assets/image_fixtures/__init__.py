@@ -67,7 +67,9 @@ modes, of edge sizes and of the 640x480 frame, and at the options that
 reach each coefficient CDF set and each tool the port's AV1 decoder
 implements; and of what it refuses (``AVIF_REFUSALS``). Their bytes depend
 on the writing host's CPU count (Pillow's ``max_threads``): these were
-written on a host of 8.
+written on a host of 8. The port's own AVIF files, as its ``ImageSaver``
+writes them, have digests only (``AVIF_ENCODE``, of
+``avif_write_sources()``): they are the same on every host.
 ``digests.py`` holds the SHA-256 of each encode
 fixture's bytes (and of each RGBA WebP file's: ``ALPHA_WEBP_FILE``; of each
 JPEG variant's: ``JPEG_VARIANT_FILE``) and of Pillow's
@@ -81,6 +83,7 @@ and OpenCV compute here.
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
@@ -282,6 +285,12 @@ def _few_colours(h: int, w: int, seed: int, n: int = 4, cell: int = 4) -> np.nda
     return pal[idx[:h, :w]].astype(np.uint8)
 
 
+def orientation_exif(orientation: int) -> bytes:
+    """Pillow's ``Exif.tobytes()`` of one Orientation tag (big-endian TIFF,
+    one IFD entry of type SHORT), without Pillow."""
+    return b"Exif\0\0MM\0*" + struct.pack(">IHHHIHHI", 8, 1, 0x0112, 3, 1, orientation, 0, 0)
+
+
 def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
     """The arrays and the ``save`` options of the AVIF fixtures
     (``AVIF_FILES``; Pillow's defaults where the options are empty), by
@@ -302,8 +311,6 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
     images (the blob's base colour and the checker, ``write_avif_fixtures``).
     ``anim.avifs`` (three frames, ``save_all``) is not here:
     ``make_avif_fixtures`` writes it."""
-    from PIL import Image
-
     from ..procedural import base_color_texture, checker_texture
 
     src = plain_sources()
@@ -311,8 +318,6 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
     rng = np.random.default_rng(40)
     y, x = np.mgrid[0:480, 0:640]
     disc = ((y - 240) ** 2 + (x - 300) ** 2 < 150 ** 2).astype(np.uint8) * 255
-    rotated, mirrored = Image.Exif(), Image.Exif()
-    rotated[0x0112], mirrored[0x0112] = 6, 2
     small = _waves(48, 64, 3, 41)
     off = {"enable-restoration": "0", "enable-cdef": "0"}
     return {
@@ -344,8 +349,8 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
         "tools_noise.avif": (rng.integers(0, 256, (160, 200, 3)).astype(np.uint8),
                              {"quality": 40, "speed": 1, "advanced": off}),
         "tools_few.avif": (_few_colours(160, 200, 49, n=3), {"speed": 1, "advanced": off}),
-        "rot.avif": (small, {"exif": rotated.tobytes()}),
-        "mirror.avif": (small, {"exif": mirrored.tobytes()}),
+        "rot.avif": (small, {"exif": orientation_exif(6)}),
+        "mirror.avif": (small, {"exif": orientation_exif(2)}),
         "lossless.avif": (small, {"quality": 100}),
         "yuv444.avif": (small, {"subsampling": "4:4:4"}),
         "yuv422.avif": (small, {"subsampling": "4:2:2"}),
@@ -358,3 +363,19 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
         "blob_basecolor.avif": (np.ascontiguousarray(base_color_texture(0)[..., :3]), {}),
         "checker.avif": (np.ascontiguousarray(checker_texture()[..., :3]), {}),
     }
+
+
+def avif_write_sources() -> dict[str, np.ndarray]:
+    """The arrays whose AVIF files the port's saver writes to the digests
+    ``AVIF_ENCODE``: each distinct array of ``avif_sources()`` under its
+    first file name (the saver writes Pillow's defaults, so the options are
+    dropped), and the 64x48 frame with an opaque alpha (libavif drops an
+    alpha of all 255)."""
+    out: dict[str, np.ndarray] = {}
+    for name, (a, _) in avif_sources().items():
+        if not any(b.shape == a.shape and b.dtype == a.dtype and np.array_equal(b, a)
+                   for b in out.values()):
+            out[name] = a
+    frame = out["frame.avif"]
+    out["frame_opaque.avif"] = np.concatenate([frame, np.full(frame.shape[:2] + (1,), 255, np.uint8)], -1)
+    return out

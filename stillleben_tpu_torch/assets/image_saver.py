@@ -26,9 +26,14 @@ PNG entries of Pillow's LANCZOS thumbnails) and ``.icns``
 the JPEG 2000, in Pillow's one-page file) and ``.jp2``/``.j2k``/``.j2c``/
 ``.jpc``/``.jpf``/``.jpx`` (``jpeg2000.encode_jpeg2000``: OpenJPEG's
 reversible codestream at Pillow's defaults, in the JP2 container except
-for ``.j2k``). Each writes the bytes
+for ``.j2k``) and ``.avif``/``.avifs`` (``avif.encode_avif``: the port's AV1
+encoder at the quantizer libavif picks for quality 75, in libavif's
+container). Each but AVIF writes the bytes
 of Pillow's ``save`` for the mode the JAX package hands Pillow (8-bit L,
-RGB, RGBA; ``I;16`` for uint16); SGI, IM and PDF write the path's base
+RGB, RGBA; ``I;16`` for uint16); AVIF's bytes are the port's own (aom's
+depend on the host's CPU count), with libavif's boxes, aom's sequence
+header and quantizer, and a reconstruction every reader decodes alike
+(ROADMAP C-24); SGI, IM and PDF write the path's base
 name into their files, so the worker hands those encoders the path
 (``TAKES_PATH``). A WebP with transparency has its alpha plane compressed
 by the port's own lossless stream (the alpha is exact, the other chunks
@@ -47,9 +52,8 @@ PCX or EPS, a side over 16383 as WebP). Where Pillow had opened the file
 before its writer refused (a known format), a file that was there is left
 empty, as Pillow leaves it, or, for a PDF, holding the objects Pillow had
 written before it refused the mode (``pdf.PdfModeError.partial``). The
-one exception is an extension Pillow writes that the
-port does not encode yet (``NOT_PORTED``): ``save()`` raises
-``NotImplementedError`` for it, before anything is queued.
+port writes every extension the JAX saver writes (``NOT_PORTED`` is
+empty).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import threading
 
 import numpy as np
 
+from .avif import encode_avif
 from .bmp import encode_bmp, encode_dib
 from .dds import encode_dds
 from .eps import encode_eps
@@ -92,13 +97,14 @@ ENCODERS = {".png": encode_png, ".apng": encode_png,
             ".sgi": encode_sgi, ".rgb": encode_sgi, ".rgba": encode_sgi, ".bw": encode_sgi,
             ".pcx": encode_pcx, ".im": encode_im, ".dds": encode_dds, ".ico": encode_ico,
             ".icns": encode_icns, ".eps": encode_eps, ".ps": encode_eps, ".pdf": encode_pdf,
-            ".j2k": functools.partial(encode_jpeg2000, kind="j2k")}
+            ".j2k": functools.partial(encode_jpeg2000, kind="j2k"),
+            ".avif": encode_avif, ".avifs": encode_avif}
 ENCODERS.update({ext: encode_jpeg2000 for ext in JPEG2000_EXTENSIONS if ext != ".j2k"})
 # the encoders that write the path's base name into the file
 TAKES_PATH = (encode_sgi, encode_im, encode_pdf)
 # extensions Pillow 12.1.0 writes the saver's modes to that the port does not
-# encode yet (ROADMAP.md, queue A)
-NOT_PORTED = (".avif", ".avifs")
+# encode: none is left
+NOT_PORTED = ()
 # extensions Pillow opens the file for before its writer runs, but whose
 # writers refuse every mode the saver hands them
 PIL_REFUSES = (".blp", ".bufr", ".emf", ".grib", ".h5", ".hdf", ".msp", ".palm", ".wmf", ".xbm")
@@ -180,12 +186,6 @@ class ImageSaver:
             raise TypeError("ImageSaver expects uint8 or uint16 data")
         if arr.dtype == np.uint16 and arr.ndim != 2:
             raise ValueError("uint16 images must be single-channel")
-        ext = os.path.splitext(path)[1].lower()
-        if ext in NOT_PORTED and _pillow_mode(arr) is not None:
-            raise NotImplementedError(
-                f"ImageSaver: the port does not write {ext} files yet ({path!r}; it encodes "
-                f"{' '.join(ENCODERS)})"
-            )
         self._queue.put((np.ascontiguousarray(arr), path))
 
     def flush(self):

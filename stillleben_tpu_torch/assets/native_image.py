@@ -7,7 +7,9 @@ of its GIF encoder (``csrc/sl_gif_enc.cpp``), of its core for the plain
 formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS), of its
 JPEG 2000 codec (``csrc/sl_j2k.cpp``) and of its AVIF core
 (``csrc/sl_av1.cpp``: an AV1 intra decoder and libyuv's RGB conversion;
-the specification's tables in ``sl_av1_tables.h``).
+``csrc/sl_av1_enc.cpp``: an AV1 still-image encoder and libavif's RGB to
+YUV; the reconstruction both share in ``sl_av1_recon.h``, the
+specification's tables in ``sl_av1_tables.h``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
@@ -18,8 +20,8 @@ Pillow's GIF ``save`` does below its Python layer (the median-cut and
 fast-octree quantisers and GIF's LZW), and the loops of the plain formats
 (QOI's encoder and decoder, PCX's run-length coding both ways, SGI's
 run-length rows, the BC1-BC7 blocks of DDS), and JPEG 2000's codestream
-both ways (OpenJPEG's reversible coder at Pillow's defaults), and the AV1
-decode of AVIF. Each source is
+both ways (OpenJPEG's reversible coder at Pillow's defaults), and AVIF's
+AV1 both ways. Each source is
 built at first use by ``native_build.build_library`` (``g++ -O3 -shared
 -fPIC -std=c++17`` into the gitignored ``_build/``, named by a hash of the
 source and its headers); a compile or load that fails raises with the
@@ -58,13 +60,19 @@ PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
 PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
 J2K_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_j2k.cpp")
 J2K_HEADER = os.path.join(PKG_DIR, "csrc", "sl_j2k.h")
-AVIF_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_av1.cpp")
+AVIF_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_av1.cpp"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_enc.cpp"))
 AVIF_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_av1.h"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_enc.h"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_recon.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"))
 # -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
 # compile, and the compile is paid at first use (the AV1 core's too: 11.6 s
 # at -O3 against 6.9 s)
 J2K_FLAGS = ("-O2",) + CXX_FLAGS[1:]
+# the AV1 core's: its RGB to YUV conversion is libavif's single-precision
+# arithmetic, which a fused multiply-add would round differently
+AVIF_FLAGS = J2K_FLAGS + ("-ffp-contract=off",)
 
 (_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED, _UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS,
  _PILLOW_BROKEN) = range(9)
@@ -116,9 +124,10 @@ def build_j2k() -> str:
 
 
 def build_avif() -> str:
-    """``build`` of the AV1 decoder and RGB conversion of AVIF."""
-    return build_library("sl_av1", AVIF_SOURCE, AVIF_HEADER, BUILD_DIR, "the native AVIF decoder",
-                         J2K_FLAGS)
+    """``build`` of the AV1 decoder and encoder and the RGB conversions of
+    AVIF."""
+    return build_library("sl_av1", AVIF_SOURCE, AVIF_HEADER, BUILD_DIR, "the native AVIF codec",
+                         AVIF_FLAGS)
 
 
 def load_avif_library() -> ctypes.CDLL:
@@ -137,6 +146,26 @@ def load_avif_library() -> ctypes.CDLL:
                                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_void_p)
             lib.sl_avif_yuv420_to_rgba.restype = None
+            lib.sl_av1_encode.argtypes = (
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.c_char_p, ctypes.c_int)
+            lib.sl_av1_encode.restype = ctypes.c_int
+            lib.sl_av1_enc_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
+            lib.sl_av1_enc_free.restype = None
+            lib.sl_av1_rgb_to_yuv420.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.c_void_p)
+            lib.sl_av1_rgb_to_yuv420.restype = None
+            lib.sl_av1_write_symbols.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.c_int)
+            lib.sl_av1_write_symbols.restype = ctypes.c_int
+            lib.sl_av1_read_symbols.argtypes = (ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                                ctypes.c_void_p)
+            lib.sl_av1_read_symbols.restype = ctypes.c_int
             _avif_lib = lib
         return _avif_lib
 
@@ -678,13 +707,16 @@ def j2k_decode(codestream: bytes, info: dict, name: str = "<bytes>") -> np.ndarr
 
 
 def av1_info(obus: bytes, name: str = "<bytes>") -> dict:
-    """The frame an AV1 item codes (it raises ``NotImplementedError`` by
-    name for a stream the decoder does not read)."""
-    info = np.zeros(8, np.int32)
+    """The frame an AV1 item codes, from its sequence and frame headers: the
+    size and colour fields, ``base_q_idx``, the tile counts and the loop
+    filter's levels (it raises ``NotImplementedError`` by name for a stream
+    the decoder does not read)."""
+    info = np.zeros(16, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_avif_library().sl_av1_info(obus, len(obus), _ptr(info), err, _ERRLEN), err, name)
     keys = ("width", "height", "monochrome", "bit_depth", "subsampling_x", "subsampling_y",
-            "full_range", "matrix")
+            "full_range", "matrix", "base_q_idx", "tile_cols", "tile_rows", "filter_level_y0",
+            "filter_level_y1", "filter_level_u", "filter_level_v", "filter_sharpness")
     return dict(zip(keys, (int(v) for v in info)))
 
 
@@ -709,3 +741,62 @@ def yuv420_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     out = np.empty((h, w, 4), np.uint8)
     load_avif_library().sl_avif_yuv420_to_rgba(_ptr(y), _ptr(u), _ptr(v), w, h, _ptr(out))
     return out
+
+
+def rgb_to_yuv420(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """libavif 1.3.0's RGB to YUV 4:2:0 (BT.601, full range) of an (H, W, 3
+    or 4) uint8 array, as Pillow's AVIF save runs it: Y (H, W), U and V
+    ((H + 1) // 2, (W + 1) // 2)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, c = rgb.shape
+    y = np.empty((h, w), np.uint8)
+    u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    v = np.empty_like(u)
+    load_avif_library().sl_av1_rgb_to_yuv420(_ptr(rgb), w, h, c, _ptr(y), _ptr(u), _ptr(v))
+    return y, u, v
+
+
+def av1_encode(planes: tuple, base_q_idx: int, name: str = "<array>"):
+    """The AV1 item (its OBUs) of Y, U, V planes (as ``rgb_to_yuv420``
+    gives them) or of one monochrome plane, and the encoder's
+    reconstruction of each plane (what a decoder reads from the item)."""
+    planes = tuple(np.ascontiguousarray(p, np.uint8) for p in planes)
+    h, w = planes[0].shape
+    recon = tuple(np.empty_like(p) for p in planes)
+    mono = len(planes) == 1
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    lib = load_avif_library()
+    null = ctypes.c_void_p()
+    rc = lib.sl_av1_encode(_ptr(planes[0]), null if mono else _ptr(planes[1]),
+                           null if mono else _ptr(planes[2]), w, h, int(mono), base_q_idx,
+                           _ptr(recon[0]), null if mono else _ptr(recon[1]),
+                           null if mono else _ptr(recon[2]), ctypes.byref(out), ctypes.byref(n),
+                           err, _ERRLEN)
+    _check(rc, err, name)
+    try:
+        data = ctypes.string_at(out, n.value)
+    finally:
+        lib.sl_av1_enc_free(out)
+    return data, recon
+
+
+def av1_symbols_round_trip(symbols: np.ndarray, sizes: np.ndarray, offsets: np.ndarray,
+                           cdfs: np.ndarray) -> tuple[bytes, np.ndarray, np.ndarray, np.ndarray]:
+    """The range encoder's bytes of ``symbols`` (symbol i of ``sizes[i]``
+    under the CDF at ``cdfs[offsets[i]:]``, in the decoder's layout; size 0:
+    an 8-bit literal), the symbol decoder's reading of those bytes, and the
+    CDFs as each side leaves them after adapting."""
+    symbols, sizes, offsets = (np.ascontiguousarray(a, np.int32) for a in (symbols, sizes, offsets))
+    enc_cdfs, dec_cdfs = np.array(cdfs, np.uint16), np.array(cdfs, np.uint16)
+    out = np.zeros(4 * len(symbols) + 64, np.uint8)
+    lib = load_avif_library()
+    n = lib.sl_av1_write_symbols(_ptr(symbols), _ptr(sizes), _ptr(offsets), len(symbols),
+                                 _ptr(enc_cdfs), _ptr(out), len(out))
+    back = np.zeros(len(symbols), np.int32)
+    rc = lib.sl_av1_read_symbols(_ptr(out), n, _ptr(sizes), _ptr(offsets), len(symbols),
+                                 _ptr(dec_cdfs), _ptr(back))
+    if n < 0 or rc != _OK:
+        raise ValueError("range coder round trip failed")
+    return out[:n].tobytes(), back, enc_cdfs, dec_cdfs

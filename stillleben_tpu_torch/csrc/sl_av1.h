@@ -45,6 +45,13 @@ int sl_av1_info(const uint8_t* obus, size_t size, int32_t* info, char* err, size
 int sl_av1_decode(const uint8_t* obus, size_t size, uint8_t* y, uint8_t* u, uint8_t* v,
                   char* err, size_t errlen);
 
+// The symbol decoder alone (8.2), the inverse of sl_av1_write_symbols: reads
+// ``count`` symbols from one tile's bytes, symbol i from the CDF ``cdfs +
+// offsets[i]`` of ``sizes[i]`` symbols (adapted in place), or a literal of
+// 8 bits where the size is 0.
+int sl_av1_read_symbols(const uint8_t* data, size_t size, const int32_t* sizes, const int32_t* offsets,
+                        int count, uint16_t* cdfs, int32_t* symbols);
+
 // libyuv's I420 to RGBA with the BT.601 full-range (JPEG) constants and
 // bilinear chroma upsampling, as libavif 1.3.0 calls it for an 8-bit 4:2:0
 // image; alpha is set to 255.

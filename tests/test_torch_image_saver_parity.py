@@ -10,11 +10,13 @@ none), extensions Pillow knows but cannot write or refuses the modes for,
 the modes QOI, PCX, SGI and DDS refuse, and every extension of QOI, SGI,
 PCX, IM, DDS, ICO, ICNS, EPS/PS, PDF and JPEG 2000 in every mode (L, RGB,
 RGBA, I;16; a PDF's dates from one fixed clock in both savers), and ICO
-and ICNS of an image large enough for several icon sizes. ``save()`` itself
-raises only for the dtype, a uint16 array that is not 2-D, and an
-extension Pillow writes that the port does not encode yet.
+and ICNS of an image large enough for several icon sizes; AVIF in every
+mode, read back at the same size and mode (its bytes are the port's own).
+``save()`` itself raises only for the dtype and a uint16 array that is not
+2-D.
 """
 
+import io
 import os
 
 import numpy as np
@@ -27,7 +29,7 @@ import torch_port_scene  # noqa: F401  (limits torch's threads under pytest-xdis
 from torch_image_fixtures import fixed_clock
 
 jax_saver = pytest.importorskip("stillleben_tpu.assets.image_saver")
-pytest.importorskip("PIL.Image")
+Image = pytest.importorskip("PIL.Image")
 
 SLICE_EXTS = (".qoi", ".sgi", ".rgb", ".rgba", ".bw", ".pcx", ".im", ".dds", ".ico", ".icns",
               ".eps", ".ps", ".pdf", ".jp2", ".j2k", ".j2c", ".jpc", ".jpf", ".jpx")
@@ -145,9 +147,10 @@ def test_failures_over_existing_files(tmp_path, capsys):
 
 
 def test_save_raises_only_where_the_jax_saver_does(tmp_path):
-    """``save()`` raises for the dtype and for 3-D uint16 in both savers;
-    the port also raises for an extension Pillow writes that it does not
-    encode yet (the JAX saver writes it)."""
+    """``save()`` raises for the dtype and for 3-D uint16 in both savers,
+    and nowhere else: no extension the JAX saver writes is left unported
+    (AVIF was the last)."""
+    assert image_saver.NOT_PORTED == ()
     port, ref = ImageSaver(num_threads=1), jax_saver.ImageSaver(num_threads=1)
     try:
         for saver in (port, ref):
@@ -155,11 +158,25 @@ def test_save_raises_only_where_the_jax_saver_does(tmp_path):
                 saver.save(np.zeros((4, 5), np.float32), str(tmp_path / "x.png"))
             with pytest.raises(ValueError):
                 saver.save(np.zeros((4, 5, 3), np.uint16), str(tmp_path / "x.png"))
-        for ext in image_saver.NOT_PORTED:
-            with pytest.raises(NotImplementedError, match=ext.replace(".", r"\.")):
-                port.save(np.zeros((4, 5, 3), np.uint8), str(tmp_path / f"x{ext}"))
         port.save(np.zeros((4, 5, 5), np.uint8), str(tmp_path / "odd.eps"))  # queued: it fails
+        port.save(np.zeros((4, 5, 5), np.uint8), str(tmp_path / "odd.avif"))  # so does this
     finally:
         port.close()
         ref.close()
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("ext", (".avif", ".avifs", ".AVIF"))
+def test_avif_in_every_mode(ext, tmp_path, capsys):
+    """AVIF in L, RGB, RGBA and I;16, and of the arrays Pillow makes no
+    image of: a file from both savers or a printed failure from both. The
+    bytes are the port's own (tests/test_torch_avif_write.py holds them to
+    Pillow's): Pillow reads both files at the same size and mode."""
+    jobs = [(k, a, f"{k.replace(';', '')}_x{ext}") for k, a in arrays().items()]
+    ref, ours = run_both(tmp_path, jobs)
+    assert sorted(ours) == sorted(ref) == sorted(f"{k.replace(';', '')}_x{ext}"
+                                                 for k in ("L", "RGB", "RGBA", "I;16"))
+    for name in ref:
+        a, b = Image.open(io.BytesIO(ours[name])), Image.open(io.BytesIO(ref[name]))
+        assert (a.format, a.size, a.mode) == (b.format, b.size, b.mode) == ("AVIF", (5, 4), a.mode)
+    assert capsys.readouterr().out.count("ImageSaver: failed to write") == 2 * 4

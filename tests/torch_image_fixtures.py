@@ -55,7 +55,9 @@ files of ``jpeg2000_saver_sources()``.
 
 AVIF: ``make_avif_fixtures()`` writes Pillow's files of
 ``image_fixtures.avif_sources()`` and a three-frame ``.avifs``, and
-``avif_digests()`` their SHA-256 and Pillow's and OpenCV's readings.
+``avif_digests()`` their SHA-256 and Pillow's and OpenCV's readings;
+``avif_encode_digests()`` the SHA-256 of the port's own files of
+``avif_write_sources()`` (``--avif-encode`` rewrites those alone).
 
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder), ``vp8l_divergence``
@@ -2247,6 +2249,31 @@ def avif_digests(files: dict[str, bytes]) -> dict:
             "AVIF_DECODE_CV2": {n: cv2_file_reading(d, n) for n, d in sorted(files.items())}}
 
 
+def avif_encode_digests() -> dict:
+    """``AVIF_ENCODE``: the SHA-256 of the port's own AVIF file of each of
+    ``avif_write_sources()`` (``avif.encode_avif``, which the saver calls;
+    the same bytes on every host)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.avif import encode_avif
+    from stillleben_tpu_torch.assets.image_fixtures import avif_write_sources
+
+    return {"AVIF_ENCODE": {n: hashlib.sha256(encode_avif(a)).hexdigest()
+                            for n, a in sorted(avif_write_sources().items())}}
+
+
+def rewrite_avif_encode_digests() -> None:
+    """Rewrites ``digests.py`` with a new ``AVIF_ENCODE`` table and every
+    other table as it stands (``--avif-encode``: no other fixture is made
+    again)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    tables = {k: v for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    tables.update(avif_encode_digests())
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+
+
 # ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
@@ -2320,8 +2347,10 @@ def digest_module(d: dict) -> str:
              "``JPEG2000_ENCODE``: Pillow's ``save`` of ``jpeg2000_saver_sources()``",
              "under their names (JPEG 2000, EPS, PS, and PDF at ``PDF_CLOCK``).",
              "``AVIF_FILE`` / ``AVIF_DECODE`` / ``AVIF_DECODE_CV2``: the AVIF fixtures'",
-             "bytes and Pillow's and OpenCV's readings of each (or the exception). Written by",
-             '``tests/torch_image_fixtures.py --write``."""', ""]
+             "bytes and Pillow's and OpenCV's readings of each (or the exception);",
+             "``AVIF_ENCODE``: the port's own AVIF file of each of ``avif_write_sources()``",
+             "(``avif.encode_avif``). Written by ``tests/torch_image_fixtures.py --write``",
+             '(``--avif-encode`` rewrites ``AVIF_ENCODE`` alone)."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
         lines += [f'    "{k}": "{v}",' for k, v in table.items()]
@@ -2332,6 +2361,9 @@ def digest_module(d: dict) -> str:
 if __name__ == "__main__":
     if "--alph" in sys.argv:  # the port's ALPH chunks against libwebp's
         print("\n".join(alph_report(alph_cases())))
+        sys.exit(0)
+    if "--avif-encode" in sys.argv:
+        rewrite_avif_encode_digests()
         sys.exit(0)
     files = make_fixtures()
     webp_files = make_webp_fixtures()
@@ -2354,7 +2386,7 @@ if __name__ == "__main__":
                                    **jpeg_variant_digests(jpeg_files),
                                    **icon_digests(icon_files),
                                    **jpeg2000_digests(j2k_files),
-                                   **avif_digests(avif_files)}))
+                                   **avif_digests(avif_files), **avif_encode_digests()}))
     for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files, j2k_files,
                   avif_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
