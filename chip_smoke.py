@@ -372,22 +372,29 @@ Phases (one line each or more; any failure exits non-zero):
     the camera and the sun's shadow pass, every field ``torch.equal`` to
     the same scene from PNG twins.
 26. AVIF read (``assets/avif.py`` over the native AV1 intra decoder
-    ``csrc/sl_av1.cpp``, g++ -O2, built beside the nvcc builds of phase 2
+    ``csrc/sl_av1.cpp`` with its CDEF and loop restoration in
+    ``sl_av1_post.h``, g++ -O2, built beside the nvcc builds of phase 2
     and timed there): every committed AVIF fixture
     (``image_fixtures.AVIF_FILES``: Pillow 12.1.0's files of the saver's
     modes, 1x1 to 480x640, the 640x480 frame, the qualities and options
-    that reach each coefficient CDF set and each tool) read to the SHA-256
-    of Pillow's and OpenCV's readings, the refused ones (lossless, 4:4:4,
-    4:2:2, CDEF, loop restoration, film grain, quantizer matrices,
-    premultiplied alpha, limited range, a sequence) refused by name in both
-    readings; one 640x480 RGB and one RGBA decode timed (the least ms of
-    2); phase 18's scene at its settled poses (blob at subdivision 4) with
-    the blob's texture from an AVIF, a GLB whose image is AVIF and the
-    plane from an AVIF, under phase 23's light map: phase 13's content
-    checks, K1's launches (one camera, two shadow passes) and no plain
-    piece, K1 ``torch.equal`` to its plain version on the camera and the
-    sun's shadow pass, every field ``torch.equal`` to the same scene from
-    PNG twins. And AVIF written (``avif.encode_avif`` over the native AV1
+    that reach each coefficient CDF set and each tool, lossless, 4:4:4,
+    4:2:2, CDEF, loop restoration, premultiplied alpha, limited range, a
+    sequence) read to the SHA-256 of Pillow's and OpenCV's readings, film
+    grain and quantizer matrices refused by name in both readings; one
+    640x480 RGB and one RGBA decode timed (the least ms of 2); the files of
+    the decoder's other tools (``AVIF_TOOL_FILES``: loop restoration at
+    speeds 0 to 4, CDEF, 4:4:4 and 4:2:2, lossless, BT.709, the identity
+    matrix, a limited-range alpha) to their digests, and the decode of the
+    RGB frame's file at each new kind's settings timed (``AVIF_TIMED``:
+    speed 4, CDEF, 4:4:4, lossless 4:4:4; the least ms of 2); phase 18's scene at its settled poses (blob
+    at subdivision 4) with the blob's texture from an AVIF, a GLB whose
+    image is AVIF and the plane from an AVIF, under phase 23's light map,
+    twice: from Pillow's default files, then from a speed-4 4:4:4 base
+    colour and a CDEF plane; each time phase 13's content checks, K1's
+    launches (one camera, two shadow passes) and no plain piece, K1
+    ``torch.equal`` to its plain version on the camera and the sun's
+    shadow pass, every field ``torch.equal`` to the same scene from PNG
+    twins. And AVIF written (``avif.encode_avif`` over the native AV1
     encoder ``csrc/sl_av1_enc.cpp``, built into the same core): that
     frame's RGB, its RGBA (alpha 255 on the objects) and its depth in mm
     as I;16 through ``sl.ImageSaver`` as ``.avif``, each read back by
@@ -4174,6 +4181,76 @@ def write_avif(sl, result, fx_dir, ms, card) -> None:
         fail(f"avif write: {bad}")
 
 
+def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color, plane):
+    """Phase 26's render of phase 18's settled scene with the blob's base
+    colour (.mtl and GLB) from the committed AVIF ``base_color`` and the
+    plane from ``plane``, through K1, against the same scene from PNG twins
+    of the decoded pixels: returns the result and K1's entries."""
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets.procedural import write_avif_fixtures
+
+    t0 = time.perf_counter()
+    fx = write_avif_fixtures(fx_dir, subdiv=ICON_SUBDIV, base_color=base_color, plane=plane)
+    meshes = sl.Mesh.load_threaded([fx["obj_avif"], fx["glb_avif"], "primitive://cube",
+                                    "primitive://sphere"], physics=False)
+    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    ms[f"{tag} meshes"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_avif"]))
+    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms[f"{tag} render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, f"{tag} render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("avif", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+                  f"subdivision {ICON_SUBDIV}): the blob's texture from {base_color} (.mtl), a GLB "
+                  f"whose embedded image is {base_color}, the plane from {plane}, phase 23's light "
+                  f"map; "
+                  f"fixtures and meshes {ms[tag + ' meshes']:.1f} ms, RenderPass().render "
+                  f"{ms[tag + ' render']:.1f} ms; K1 launches by tile {launches}; calls of K1's "
+                  f"plain pieces {plain_calls}; content: {content}; fields torch.equal to the same "
+                  f"scene from the PNG twins: {len(same)} of {len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields):
+        fail(f"{tag}: the AVIF-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"{tag}: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"{tag} camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"{tag} shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    return result, entries
+
+
 def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dict]:
     """Phase 26: AVIF read (see the module docstring). ``settled`` is phase
     18's settled state, ``light`` phase 23's light map, ``avif_build`` the
@@ -4185,11 +4262,11 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
 
     import stillleben_tpu_torch as sl
     from stillleben_tpu_torch.assets import image
-    from stillleben_tpu_torch.assets.image_fixtures import AVIF_FILES, AVIF_REFUSALS
+    from stillleben_tpu_torch.assets.image_fixtures import (AVIF_FILES, AVIF_REFUSALS, AVIF_TIMED,
+                                                            AVIF_TOOL_FILES)
     from stillleben_tpu_torch.assets.image_fixtures import path as fixture
     from stillleben_tpu_torch.assets.image_fixtures.digests import (AVIF_DECODE, AVIF_DECODE_CV2,
                                                                     AVIF_FILE)
-    from stillleben_tpu_torch.assets.procedural import write_avif_fixtures
 
     sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
     fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"avif_{os.getpid()}")
@@ -4244,66 +4321,49 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
         fail(f"avif: not Pillow's or OpenCV's: {bad}")
     ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
 
-    # phase 18's scene with its images as AVIF, at its settled poses
-    t0 = time.perf_counter()
-    fx = write_avif_fixtures(fx_dir, subdiv=ICON_SUBDIV)
-    meshes = sl.Mesh.load_threaded([fx["obj_avif"], fx["glb_avif"], "primitive://cube",
-                                    "primitive://sphere"], physics=False)
-    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
-                                   "primitive://sphere"], physics=False)
-    ms["meshes"] = (time.perf_counter() - t0) * 1e3
-    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_avif"]))
-    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
-    poses, camera, plane_pose = settled
-    for s_ in (scene, twin):
-        for o, p in zip(s_.objects, poses):
-            o.set_pose(p)
-        s_.set_camera_pose(camera)
-        s_.background_plane_pose = plane_pose
+    # the files of loop restoration (speeds 0 to 4), CDEF, 4:4:4 and 4:2:2,
+    # lossless frames, BT.709, the identity matrix and a limited-range alpha
+    for name in AVIF_TOOL_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != AVIF_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if sha(image.decode_image(data, name).tobytes()) != AVIF_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        if sha(image.read_image_cv2(fixture(name)).tobytes()) != AVIF_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+    sizes = {}
+    for kind, name in AVIF_TIMED.items():
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        sizes[kind] = len(data)
+        times = []
+        for _ in range(AVIF_REPS):
+            t0 = time.perf_counter()
+            image.decode_image(data, name)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[f"decode {kind}"] = min(times)
+    timed = ", ".join(f"{kind} ({name}, {sizes[kind]} B) {ms['decode ' + kind]:.1f}"
+                      for kind, name in AVIF_TIMED.items())
+    phase("avif", f"{len(AVIF_TOOL_FILES)} committed files of the decoder's other tools (loop "
+                  f"restoration at speeds 0 to 4, CDEF, 4:4:4 and 4:2:2, lossless, BT.709, the "
+                  f"identity matrix, a limited-range alpha) read to the SHA-256 of Pillow's and "
+                  f"OpenCV's readings; the 640x480 decodes, the least ms of {AVIF_REPS}: {timed}; "
+                  f"differences: {bad} ({card})")
+    if bad:
+        fail(f"avif: not Pillow's or OpenCV's: {bad}")
+    ms["part: tool fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
 
-    def render():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sl.RenderPass().render(scene)
-        torch.cuda.synchronize()
-        ms["render"] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
-    content = check_api_result(torch, result, scene, "avif render")
-    ref = sl.RenderPass().render(twin)
-    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
-    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
-    phase("avif", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
-                  f"subdivision {ICON_SUBDIV}): the blob's texture from an AVIF (.mtl), a GLB "
-                  f"whose embedded image is AVIF, the plane from an AVIF, phase 23's light map; "
-                  f"fixtures and meshes {ms['meshes']:.1f} ms, RenderPass().render "
-                  f"{ms['render']:.1f} ms; K1 launches by tile {launches}; calls of K1's plain "
-                  f"pieces {plain_calls}; content: {content}; fields torch.equal to the same "
-                  f"scene from the PNG twins: {len(same)} of {len(fields)} ({card})")
-    cam = [a for k, _, a in calls if k == "camera"]
-    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
-    per_key = {}
-    for k, sl_, _ in calls:
-        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
-    if len(same) != len(fields):
-        fail(f"avif: the AVIF-textured frame differs from its twins' in "
-             f"{sorted(set(fields) - set(same))}")
-    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
-            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
-        fail(f"avif: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
-             f"plain calls {plain_calls}")
-    entries = []
-    for label, args, key in (
-        (f"avif camera, tile {cam[0][7]}", cam[0], ("camera", None)),
-        (f"avif shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
-    ):
-        k = check_k1(torch, cr, args, label, card)
-        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
-                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
-                            replaces="stillleben_tpu/ops/cell_raster.py:43",
-                            launches=per_key[key], library_ms=None, **k))
-    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    # phase 18's scene with its images as AVIF, at its settled poses: from
+    # Pillow's default files, then from a restored 4:4:4 base colour and a
+    # CDEF plane
+    result, entries = avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, "avif",
+                                 "blob_basecolor.avif", "checker.avif")
+    ms["part: scene"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+    _, tool_entries = avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, "avif tools",
+                                 "blob_basecolor_444_s4.avif", "checker_cdef.avif")
+    entries += tool_entries
+    ms["part: tools scene"] = (time.perf_counter() - t_part) * 1e3
     t_part = time.perf_counter()
     write_avif(sl, result, fx_dir, ms, card)
     ms["part: write"] = (time.perf_counter() - t_part) * 1e3

@@ -3,15 +3,23 @@ dav1d 1.5.1, libyuv's conversion) and OpenCV 5.0.0's ``imread(ANYCOLOR |
 ANYDEPTH)`` read it, and written for the modes the JAX ``ImageSaver`` hands
 Pillow's ``save`` at its defaults (quality 75).
 
-The container is parsed here: the HEIF boxes libavif reads for a still
-image (``ftyp``; ``meta`` with ``hdlr`` ``pict``, ``pitm``, ``iloc``
-versions 0-2 with construction methods 0 and 1 (``idat``), ``iinf``/``infe``,
+The container is parsed here: the HEIF boxes libavif reads for a still image
+(``ftyp``; ``meta`` with ``hdlr`` ``pict``, ``pitm``, ``iloc`` versions 0-2
+with construction methods 0 and 1 (``idat``), ``iinf``/``infe``,
 ``iprp``/``ipco``/``ipma`` with ``ispe``, ``pixi``, ``av1C``, ``colr``,
-``auxC``, and ``iref`` ``auxl``). The colour item's and the alpha item's
-AV1 bitstreams go to the native decoder (``csrc/sl_av1.cpp``): an AV1
-intra decoder for the shape Pillow writes by default (8-bit 4:2:0 colour,
-a monochrome alpha item, every intra tool and the deblocking filter), and
-libyuv's fixed-point conversion to RGB with its bilinear chroma upsampling.
+``auxC``, and ``iref`` ``auxl`` and ``prem``). The colour item's and the
+alpha item's AV1 bitstreams go to the native decoder (``csrc/sl_av1.cpp``):
+an AV1 intra decoder for what Pillow's writer (aom) writes at its settings
+but film grain and quantizer matrices: 8-bit 4:2:0, 4:2:2 or 4:4:4 colour, a
+monochrome alpha item, every intra tool, lossless blocks, and the deblocking
+filter, CDEF and loop restoration (``csrc/sl_av1_post.h``). Then libavif's
+conversion to RGB: libyuv's fixed-point arithmetic with its bilinear chroma
+upsampling for BT.601 (matrix coefficients 2, 5 and 6) and BT.709 (1), full
+or limited range, and libavif's copy of the identity matrix (0) of a
+full-range 4:4:4 item; a limited-range alpha item widened as libavif widens
+it (Pillow's rounds, OpenCV's truncates); premultiplied colour divided by
+its alpha as libyuv's ``ARGBUnattenuate`` divides it (both readers
+straighten it).
 
 - ``decode_avif(data, name)``: (H, W, 4) uint8; the alpha item's samples as
   stored, else 255. The pixels stay as stored: ``irot``/``imir`` become an
@@ -33,10 +41,11 @@ ROADMAP C-24); its sequence header and ``av1C`` are aom's, byte for byte.
 
 What neither reading of this port decodes raises ``NotImplementedError`` by
 name (ROADMAP.md, the reading queue): grid items, a sequence with no
-primary still item, premultiplied alpha (``prem``), an essential property
-libavif would refuse, and in the bitstream 10- and 12-bit samples, 4:4:4
-and 4:2:2 colour, lossless frames, CDEF, loop restoration, superres, film
-grain, quantizer matrices, and inter or intra-only frames.
+primary still item, an essential property libavif would refuse, matrix
+coefficients other than 0, 1, 2, 5 and 6, the identity matrix on a
+subsampled or limited-range item, a monochrome colour item, and in the
+bitstream 10- and 12-bit samples, 4:4:0 colour, superres, film grain,
+quantizer matrices, and inter or intra-only frames.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ class AvifItems(NamedTuple):
     has_colr: bool  # an nclx colr property; else the AV1 sequence header's values count
     matrix: int  # nclx matrix coefficients (2 = unspecified)
     full_range: bool
+    premultiplied: bool  # the colour item refers to its alpha by "prem"
 
 
 def _boxes(data: bytes, pos: int, end: int, name: str):
@@ -259,9 +269,6 @@ def parse_avif(data: bytes, name: str = "<bytes>") -> AvifItems:
             full_range = bool(data[s + 10] >> 7)
 
     alpha_id = None
-    for k, src, dsts in refs:  # the colour item refers to its alpha by "prem"
-        if k == b"prem" and primary in (src, *dsts):
-            raise NotImplementedError(f"{name}: AVIF premultiplied alpha is not supported")
     for k, src, dsts in refs:
         if k == b"auxl" and primary in dsts and types.get(src) in (b"av01", b"grid"):
             aux = item_props(src).get(b"auxC")
@@ -273,13 +280,38 @@ def parse_avif(data: bytes, name: str = "<bytes>") -> AvifItems:
                     raise NotImplementedError(f"{name}: AVIF grid images are not supported")
                 alpha_id = src
                 break
+    # the colour item refers to its alpha by "prem" when the colour is
+    # premultiplied by it
+    prem = alpha_id is not None and any(k == b"prem" and src == primary and alpha_id in dsts
+                                        for k, src, dsts in refs)
     return AvifItems(payload(primary), payload(alpha_id) if alpha_id is not None else None,
-                     width, height, has_colr, matrix, full_range)
+                     width, height, has_colr, matrix, full_range, prem)
 
 
-# nclx matrix coefficients that libavif converts with the BT.601 constants:
+# nclx matrix coefficients libavif converts (through libyuv, or as a copy
+# for the identity): identity (0), BT.709 (1), and the BT.601 ones,
 # unspecified (2), BT.470BG (5), BT.601 (6)
-BT601_MATRICES = (2, 5, 6)
+MATRICES = (0, 1, 2, 5, 6)
+
+
+def _limited_to_full(a: np.ndarray, cv2: bool) -> np.ndarray:
+    """A limited-range alpha item widened to full range, clamped to 0..255:
+    (v - 16) * 255 / 219 rounded to nearest by Pillow's libavif 1.3.0, and
+    truncated toward zero (C's integer division) by OpenCV's libavif 1.4.2."""
+    v = (a.astype(np.int32) - 16) * 255 / 219
+    return np.clip(np.fix(v) if cv2 else np.floor(v + 0.5), 0, 255).astype(np.uint8)
+
+
+# libyuv's fixed_invtbl8: 1 / alpha in 8.8 fixed point
+_INV_ALPHA = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)] + [0x100], np.int64)
+
+
+def _unpremultiply(rgba: np.ndarray) -> None:
+    """libyuv's ARGBUnattenuate, in place, as libavif calls it to turn
+    premultiplied colour into straight: each channel c of alpha a becomes
+    min(255, (c * 257 * inv(a)) >> 16) (``_INV_ALPHA``)."""
+    inv = _INV_ALPHA[rgba[..., 3:4]]
+    rgba[..., :3] = np.minimum((rgba[..., :3].astype(np.int64) * 257 * inv) >> 16, 255)
 
 
 def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray:
@@ -292,20 +324,21 @@ def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray:
                          f"{items.width}x{items.height}")
     matrix, full = (items.matrix, items.full_range) if items.has_colr else (info["matrix"],
                                                                           bool(info["full_range"]))
-    if matrix not in BT601_MATRICES:
+    if matrix not in MATRICES:
         raise NotImplementedError(f"{name}: AVIF matrix coefficients {matrix} are not supported")
-    if not full:
-        raise NotImplementedError(f"{name}: AVIF limited-range colour is not supported")
     check_size(items.width, items.height, name, "AVIF", cv2)
-    out = native_image.yuv420_to_rgba(*native_image.av1_decode(items.color, info, name))
+    sub = (info["subsampling_x"], info["subsampling_y"])
+    out = native_image.yuv_to_rgba(*native_image.av1_decode(items.color, info, name), sub, matrix,
+                                   full, name)
     if items.alpha is not None:
         ainfo = native_image.av1_info(items.alpha, name)
         if (ainfo["width"], ainfo["height"]) != (items.width, items.height):
             raise ValueError(f"{name}: AVIF alpha of {ainfo['width']}x{ainfo['height']} for an "
                              f"image of {items.width}x{items.height}")
-        if not ainfo["full_range"]:
-            raise NotImplementedError(f"{name}: AVIF limited-range alpha is not supported")
-        out[..., 3] = native_image.av1_decode(items.alpha, ainfo, name)[0]
+        a = native_image.av1_decode(items.alpha, ainfo, name)[0]
+        out[..., 3] = a if ainfo["full_range"] else _limited_to_full(a, cv2)
+        if items.premultiplied:
+            _unpremultiply(out)
     return out
 
 
@@ -403,7 +436,7 @@ def encode_avif_reconstructed(arr: np.ndarray, name: str = "<array>") -> tuple[b
     h, w = rgb.shape[:2]
     planes = native_image.rgb_to_yuv420(rgb)
     color, recon = native_image.av1_encode(planes, BASE_Q_IDX, name)
-    out = native_image.yuv420_to_rgba(*recon)
+    out = native_image.yuv_to_rgba(*recon, (1, 1), 2, True, name)
     alpha = None
     if rgb.shape[2] == 4 and not (rgb[..., 3] == 255).all():
         alpha, (a,) = native_image.av1_encode((rgb[..., 3],), BASE_Q_IDX, name)

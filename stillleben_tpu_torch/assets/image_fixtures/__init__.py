@@ -65,7 +65,11 @@ The AVIF files (``AVIF_FILES``, from ``avif_sources()``): Pillow's
 ``save`` (libavif 1.3.0 over aom 3.12.1) at its defaults of the saver's
 modes, of edge sizes and of the 640x480 frame, and at the options that
 reach each coefficient CDF set and each tool the port's AV1 decoder
-implements; and of what it refuses (``AVIF_REFUSALS``). Their bytes depend
+implements; and of what it refuses (``AVIF_REFUSALS``). The AVIF files of
+the decoder's other tools (``AVIF_TOOL_FILES``, from ``avif_tool_sources()``
+and ``avif_colr_variants()``): Pillow's ``save`` at speeds 0 to 4 (loop
+restoration), with CDEF, in 4:4:4 and 4:2:2, lossless, and files whose
+``colr`` box alone is patched to BT.709 or the identity matrix. Their bytes depend
 on the writing host's CPU count (Pillow's ``max_threads``): these were
 written on a host of 8. The port's own AVIF files, as its ``ImageSaver``
 writes them, have digests only (``AVIF_ENCODE``, of
@@ -149,11 +153,28 @@ AVIF_FILES = ("frame.avif", "frame_rgba.avif", "grey.avif", "depth16.avif", "one
               "mirror.avif", "lossless.avif", "yuv444.avif", "yuv422.avif", "cdef.avif",
               "restoration.avif", "film_grain.avif", "qm.avif", "prem.avif", "limited.avif",
               "anim.avifs", "blob_basecolor.avif", "checker.avif")
-AVIF_REFUSALS = {"lossless.avif": "lossless", "yuv444.avif": "4:4:4", "yuv422.avif": "4:2:2",
-                 "cdef.avif": "CDEF", "restoration.avif": "loop restoration",
-                 "film_grain.avif": "film grain", "qm.avif": "quantizer matrices",
-                 "prem.avif": "premultiplied", "limited.avif": "limited-range",
-                 "anim.avifs": "CDEF"}
+AVIF_REFUSALS = {"film_grain.avif": "film grain", "qm.avif": "quantizer matrices"}
+# the AVIF fixtures of the decoder's loop restoration, CDEF, 4:4:4 and 4:2:2
+# colour, lossless frames and matrices (``avif_tool_sources()``, then
+# ``avif_colr_variants()``), read as Pillow and OpenCV read them; the
+# 640x480 ones are phase 26's timings (``AVIF_TIMED``)
+AVIF_TOOL_FILES = (
+    "lr_speed0.avif", "lr_speed1.avif", "lr_speed2.avif", "lr_speed3.avif", "lr_speed4.avif",
+    "lr_sb128.avif", "lr_unit64.avif", "lr_tiles.avif", "lr_rgba.avif", "lr_1x1.avif",
+    "lr_3x5.avif",
+    "lr_65x130.avif", "lr_130x65.avif", "lr_77x201.avif", "lr_640.avif",
+    "cdef_q30.avif", "cdef_sb128.avif", "cdef_few.avif", "cdef_rgba.avif", "cdef_3x5.avif",
+    "cdef_65x130.avif", "cdef_wiener.avif", "cdef_sgrproj.avif", "cdef_640.avif",
+    "yuv444_s6_q30.avif", "yuv444_s4_q60_rgba.avif", "yuv444_s4_q94.avif",
+    "yuv444_s6_q85_rgba.avif", "yuv444_few.avif", "yuv444_65x130.avif", "yuv444_640.avif",
+    "yuv422_s6_q30.avif", "yuv422_s4_q60_rgba.avif", "yuv422_s4_q94.avif",
+    "yuv422_s6_q85_rgba.avif", "yuv422_few.avif", "yuv422_65x130.avif",
+    "lossless_422.avif", "lossless_444.avif", "lossless_444_rgba.avif", "lossless_444_640.avif",
+    "blob_basecolor_444_s4.avif", "checker_cdef.avif",
+    "bt709_full.avif", "bt709_limited.avif", "identity_444.avif", "identity_444_rgba.avif",
+    "alpha_limited.avif")
+AVIF_TIMED = {"speed 4": "lr_640.avif", "CDEF": "cdef_640.avif", "4:4:4": "yuv444_640.avif",
+              "lossless 4:4:4": "lossless_444_640.avif"}
 
 
 def path(name: str) -> str:
@@ -363,6 +384,124 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
         "blob_basecolor.avif": (np.ascontiguousarray(base_color_texture(0)[..., :3]), {}),
         "checker.avif": (np.ascontiguousarray(checker_texture()[..., :3]), {}),
     }
+
+
+def avif_tool_sources() -> dict[str, tuple[np.ndarray, dict]]:
+    """The arrays and the ``save`` options of ``AVIF_TOOL_FILES`` but the
+    patched ones (``avif_colr_variants()``), by file name. Loop restoration:
+    ``speed`` 0 to 4 on contents and qualities where aom picks the Wiener
+    filter, the self-guided filter and both (switchable) and the unit sizes
+    128 and 256, and 64 with 64x64 superblocks; with 128x128 superblocks,
+    2x2 tiles (each tile restarts the coefficients' references), an alpha
+    item that restores too, and sizes 65x130, 130x65 and 77x201 (units and
+    stripes cut by the frame's edges; aom restores nothing at 1x1 and 3x5,
+    which are here as written). CDEF (``enable-cdef``) at qualities 30 to
+    60, with 128x128 superblocks, on few colours with intra block copy and
+    palettes off (both strengths of both planes), with alpha, at odd sizes,
+    and at speed 4 with the Wiener or the self-guided filter restoring its
+    output (the stripes' outer rows from the deblocked frame). 4:4:4 and
+    4:2:2 in RGB and RGBA at speeds 6 and 4 and qualities 30 to 94, on few
+    colours (chroma palettes), at 65x130. Lossless (``quality`` 100) in
+    4:2:2 and 4:4:4. The 640x480 frame of ``frame640.avif`` at each new
+    kind's settings (``AVIF_TIMED``: speed 4, CDEF, 4:4:4, lossless 4:4:4).
+    And the textured scene's images of phase 26's second render: the blob's
+    base colour at speed 4 in 4:4:4, the checker with CDEF."""
+    from ..procedural import base_color_texture, checker_texture
+
+    frame = seeded_images()["frame"]
+    rng = np.random.default_rng(230)
+
+    def mix(h, w, seed):  # the noisy frame on the left, waves on the right
+        a = np.ascontiguousarray(frame[:h, :w]).copy()
+        a[:, w // 2:] = _waves(h, w - w // 2, 3, seed)
+        return a
+
+    def rgba(a, seed):
+        return np.concatenate([a, _waves(a.shape[0], a.shape[1], 1, seed)], -1)
+
+    cdef = {"enable-cdef": "1"}
+    few = _few_colours(96, 128, 231, n=4, cell=8)
+    out = {
+        "lr_speed0.avif": (mix(256, 256, 232), {"speed": 0, "quality": 40}),
+        "lr_speed1.avif": (np.ascontiguousarray(frame[:256, :256]), {"speed": 1, "quality": 70}),
+        "lr_speed2.avif": (_waves(256, 256, 3, 233), {"speed": 2, "quality": 40}),
+        "lr_speed3.avif": (np.ascontiguousarray(frame[100:300, 200:456]), {"speed": 3,
+                                                                           "quality": 70}),
+        "lr_speed4.avif": (_waves(256, 256, 3, 234), {"speed": 4, "quality": 70}),
+        "lr_sb128.avif": (mix(200, 256, 235), {"speed": 4, "quality": 60,
+                                                "advanced": {"sb-size": "128"}}),
+        "lr_unit64.avif": (mix(192, 256, 500), {"speed": 0, "quality": 80,
+                                                 "advanced": {"sb-size": "64"}}),
+        "lr_tiles.avif": (mix(256, 256, 236), {"speed": 4, "quality": 60, "tile_rows": 1,
+                                                "tile_cols": 1}),
+        "lr_rgba.avif": (rgba(_waves(160, 200, 3, 237), 238), {"speed": 4, "quality": 60}),
+        "lr_1x1.avif": (np.full((1, 1, 3), (20, 200, 90), np.uint8), {"speed": 4}),
+        "lr_3x5.avif": (rng.integers(0, 256, (3, 5, 3)).astype(np.uint8), {"speed": 4}),
+        "lr_65x130.avif": (_waves(65, 130, 3, 585), {"speed": 4, "quality": 80}),
+        "lr_130x65.avif": (np.ascontiguousarray(frame[:130, :65]), {"speed": 2, "quality": 80}),
+        "lr_77x201.avif": (np.ascontiguousarray(frame[:77, :201]), {"speed": 4, "quality": 60}),
+        "lr_640.avif": (frame, {"speed": 4}),
+        "cdef_q30.avif": (np.ascontiguousarray(frame[:128, :160]), {"quality": 30,
+                                                                    "advanced": cdef}),
+        "cdef_sb128.avif": (_waves(200, 256, 3, 240), {"quality": 50, "advanced": {
+            "enable-cdef": "1", "sb-size": "128"}}),
+        "cdef_few.avif": (_few_colours(160, 200, 49, n=3), {"speed": 4, "quality": 60, "advanced": {
+            "enable-cdef": "1", "enable-intrabc": "0", "enable-palette": "0"}}),
+        "cdef_rgba.avif": (rgba(_waves(128, 160, 3, 241), 242), {"quality": 30, "advanced": cdef}),
+        "cdef_3x5.avif": (rng.integers(0, 256, (3, 5, 3)).astype(np.uint8), {"quality": 30,
+                                                                            "advanced": cdef}),
+        "cdef_65x130.avif": (_waves(65, 130, 3, 243), {"quality": 30, "advanced": cdef}),
+        "cdef_wiener.avif": (_waves(192, 256, 3, 300), {"speed": 4, "quality": 60,
+                                                         "advanced": cdef}),
+        "cdef_sgrproj.avif": (np.ascontiguousarray(frame[:192, :256]), {"speed": 4, "quality": 60,
+                                                                        "advanced": cdef}),
+        "cdef_640.avif": (frame, {"advanced": cdef}),
+        "blob_basecolor_444_s4.avif": (np.ascontiguousarray(base_color_texture(0)[..., :3]),
+                                       {"speed": 4, "subsampling": "4:4:4"}),
+        "checker_cdef.avif": (np.ascontiguousarray(checker_texture()[..., :3]), {"advanced": cdef}),
+        "lossless_422.avif": (_waves(48, 64, 3, 41), {"quality": 100, "subsampling": "4:2:2"}),
+        "lossless_444.avif": (_waves(48, 64, 3, 41), {"quality": 100, "subsampling": "4:4:4"}),
+        "lossless_444_rgba.avif": (rgba(_waves(40, 56, 3, 244), 245), {"quality": 100,
+                                                                       "subsampling": "4:4:4"}),
+        "lossless_444_640.avif": (frame, {"quality": 100, "subsampling": "4:4:4"}),
+    }
+    for sub in ("444", "422"):
+        ss = f"4:{sub[1]}:{sub[2]}"
+        out.update({
+            f"yuv{sub}_s6_q30.avif": (_waves(96, 128, 3, 246), {"quality": 30, "subsampling": ss}),
+            f"yuv{sub}_s4_q60_rgba.avif": (rgba(mix(96, 128, 247), 248), {
+                "speed": 4, "quality": 60, "subsampling": ss}),
+            f"yuv{sub}_s4_q94.avif": (mix(96, 128, 249), {"speed": 4, "quality": 94,
+                                                           "subsampling": ss}),
+            f"yuv{sub}_s6_q85_rgba.avif": (rgba(_waves(96, 128, 3, 250), 251), {
+                "quality": 85, "subsampling": ss}),
+            f"yuv{sub}_few.avif": (few, {"quality": 60, "subsampling": ss}),
+            f"yuv{sub}_65x130.avif": (_waves(65, 130, 3, 252), {"speed": 4, "quality": 50,
+                                                                 "subsampling": ss}),
+        })
+    out["yuv444_640.avif"] = (frame, {"subsampling": "4:4:4"})
+    return out
+
+
+def avif_colr_variants() -> dict[str, tuple[str, int, bool]]:
+    """The AVIF fixtures made from another of ``avif_tool_sources()``'s by
+    patching its ``colr`` box's ``nclx`` matrix coefficients and full-range
+    flag alone (the AV1 bitstream is Pillow's): name -> (source, matrix,
+    full range). ``alpha_limited.avif`` is not here: it is
+    ``lr_rgba.avif`` with its alpha item's ``color_range`` bit cleared
+    (``make_avif_tool_fixtures``)."""
+    return {"bt709_full.avif": ("lr_speed4.avif", 1, True),
+            "bt709_limited.avif": ("cdef_q30.avif", 1, False),
+            "identity_444.avif": ("yuv444_s4_q94.avif", 0, True),
+            "identity_444_rgba.avif": ("yuv444_s6_q85_rgba.avif", 0, True)}
+
+
+def patch_colr(data: bytes, matrix: int, full_range: bool) -> bytes:
+    """``data`` with the first ``nclx`` colr box's matrix coefficients and
+    full-range flag set."""
+    i = data.index(b"colrnclx") + 8
+    flags = (data[i + 6] & 0x7F) | (0x80 if full_range else 0)
+    return data[:i + 4] + struct.pack(">HB", matrix, flags) + data[i + 7:]
 
 
 def avif_write_sources() -> dict[str, np.ndarray]:

@@ -6,10 +6,11 @@ plane, ``csrc/sl_vp8l_enc.cpp``; the decoder and the encoder share
 of its GIF encoder (``csrc/sl_gif_enc.cpp``), of its core for the plain
 formats (``csrc/sl_plain_formats.cpp``: QOI, PCX, SGI, DDS), of its
 JPEG 2000 codec (``csrc/sl_j2k.cpp``) and of its AVIF core
-(``csrc/sl_av1.cpp``: an AV1 intra decoder and libyuv's RGB conversion;
-``csrc/sl_av1_enc.cpp``: an AV1 still-image encoder and libavif's RGB to
-YUV; the reconstruction both share in ``sl_av1_recon.h``, the
-specification's tables in ``sl_av1_tables.h``).
+(``csrc/sl_av1.cpp``: an AV1 intra decoder, its CDEF and loop restoration
+in ``sl_av1_post.h``, and libyuv's RGB conversion; ``csrc/sl_av1_enc.cpp``:
+an AV1 still-image encoder and libavif's RGB to YUV; the reconstruction
+both share in ``sl_av1_recon.h``, the specification's tables in
+``sl_av1_tables.h``).
 
 The serial bit loops of the image formats: JPEG's entropy coding and
 sample arithmetic (decode and encode), the LZW decoders of GIF and TIFF,
@@ -65,6 +66,7 @@ AVIF_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_av1.cpp"),
 AVIF_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_av1.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_enc.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_recon.h"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_post.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"))
 # -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
 # compile, and the compile is paid at first use (the AV1 core's too: 11.6 s
@@ -142,10 +144,17 @@ def load_avif_library() -> ctypes.CDLL:
                                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
                                           ctypes.c_size_t)
             lib.sl_av1_info.restype = lib.sl_av1_decode.restype = ctypes.c_int
-            lib.sl_avif_yuv420_to_rgba.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
-                                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p)
-            lib.sl_avif_yuv420_to_rgba.restype = None
+            lib.sl_avif_yuv_to_rgba.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
+                ctypes.c_void_p,)
+            lib.sl_avif_yuv_to_rgba.restype = ctypes.c_int
+            lib.sl_av1_decode_counts.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                                 ctypes.c_char_p, ctypes.c_size_t)
+            lib.sl_av1_decode_counts.restype = ctypes.c_int
+            lib.sl_av1_count_names.argtypes = ()
+            lib.sl_av1_count_names.restype = ctypes.c_char_p
+            lib.sl_av1_wiener.argtypes = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p)
+            lib.sl_av1_wiener.restype = ctypes.c_int
             lib.sl_av1_encode.argtypes = (
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -708,25 +717,28 @@ def j2k_decode(codestream: bytes, info: dict, name: str = "<bytes>") -> np.ndarr
 
 def av1_info(obus: bytes, name: str = "<bytes>") -> dict:
     """The frame an AV1 item codes, from its sequence and frame headers: the
-    size and colour fields, ``base_q_idx``, the tile counts and the loop
-    filter's levels (it raises ``NotImplementedError`` by name for a stream
-    the decoder does not read)."""
-    info = np.zeros(16, np.int32)
+    size and colour fields, ``base_q_idx``, the tile counts, the loop
+    filter's levels and the bit of ``obus`` that holds ``color_range`` (-1
+    where the sequence header does not code it). It raises
+    ``NotImplementedError`` by name for a stream the decoder does not read."""
+    info = np.zeros(17, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_avif_library().sl_av1_info(obus, len(obus), _ptr(info), err, _ERRLEN), err, name)
     keys = ("width", "height", "monochrome", "bit_depth", "subsampling_x", "subsampling_y",
             "full_range", "matrix", "base_q_idx", "tile_cols", "tile_rows", "filter_level_y0",
-            "filter_level_y1", "filter_level_u", "filter_level_v", "filter_sharpness")
+            "filter_level_y1", "filter_level_u", "filter_level_v", "filter_sharpness",
+            "color_range_bit")
     return dict(zip(keys, (int(v) for v in info)))
 
 
 def av1_decode(obus: bytes, info: dict, name: str = "<bytes>"):
     """The planes of an AV1 item: Y (H, W) and, unless it is monochrome, U
-    and V ((H + 1) // 2, (W + 1) // 2), uint8. The caller has read ``info``
-    (``av1_info``) and checked the size."""
+    and V (H and W divided by the subsampling, rounded up), uint8. The
+    caller has read ``info`` (``av1_info``) and checked the size."""
     h, w = info["height"], info["width"]
+    sx, sy = info["subsampling_x"], info["subsampling_y"]
     y = np.empty((h, w), np.uint8)
-    u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    u = np.empty(((h + sy) >> sy, (w + sx) >> sx), np.uint8)
     v = np.empty_like(u)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_avif_library().sl_av1_decode(obus, len(obus), _ptr(y), _ptr(u), _ptr(v), err,
@@ -734,12 +746,54 @@ def av1_decode(obus: bytes, info: dict, name: str = "<bytes>"):
     return (y,) if info["monochrome"] else (y, u, v)
 
 
-def yuv420_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """(H, W, 4) uint8 RGB with alpha 255: libyuv's BT.601 full-range
-    conversion with bilinear chroma upsampling, as libavif runs it."""
+def av1_decode_counts(obus: bytes, name: str = "<bytes>") -> dict:
+    """What decoding an AV1 item ran, by the names sl_av1_post.h gives the
+    counts (``SL_AV1_COUNTS``): each plane's ``FrameRestorationType`` (0
+    none, 1 Wiener, 2 self-guided, 3 switchable), ``lr_unit_shift`` (-1
+    without loop restoration), the Wiener and self-guided units of each
+    plane and a bit for each ``Sgr_Params`` set they used, the 8x8s CDEF
+    filtered with a nonzero primary or secondary strength (luma; chroma),
+    the 64x64s it left (every block skips its residual), the CfL, lossless
+    and chroma palette blocks, a bit for each chroma transform size,
+    ``subsampling_x * 2 + subsampling_y``, and ``cdef_bits`` (-1 where the
+    frame runs no CDEF)."""
+    lib = load_avif_library()
+    names = lib.sl_av1_count_names().decode().split(",")[:-1]
+    counts = np.zeros(len(names), np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(lib.sl_av1_decode_counts(obus, len(obus), _ptr(counts), err, _ERRLEN), err, name)
+    return dict(zip(names, (int(v) for v in counts)))
+
+
+def av1_wiener(plane: np.ndarray, taps) -> np.ndarray:
+    """AV1 loop restoration's Wiener filter (7.17.4) over a whole (H, W)
+    uint8 plane whose edges repeat: ``taps`` are the vertical filter's three
+    outer coefficients, then the horizontal filter's."""
+    plane = np.ascontiguousarray(plane, np.uint8)
+    t = np.asarray(taps, np.int8)
+    out = np.empty_like(plane)
+    if load_avif_library().sl_av1_wiener(_ptr(plane), plane.shape[1], plane.shape[0], _ptr(t),
+                                         _ptr(out)) != _OK:
+        raise ValueError(f"no Wiener filter over a plane of shape {plane.shape}")
+    return out
+
+
+def yuv_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray, subsampling: tuple[int, int],
+                matrix: int, full_range: bool, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) uint8 RGB with alpha 255 from planes of any subsampling, as
+    libavif converts them: libyuv's I420 and I422 with bilinear chroma
+    upsampling or I444, with the constants of BT.709 (``matrix`` 1) or
+    BT.601 (any other), full or limited range; the identity matrix (0) of a
+    full-range 4:4:4 image as G, B, R."""
     h, w = y.shape
     out = np.empty((h, w, 4), np.uint8)
-    load_avif_library().sl_avif_yuv420_to_rgba(_ptr(y), _ptr(u), _ptr(v), w, h, _ptr(out))
+    rc = load_avif_library().sl_avif_yuv_to_rgba(_ptr(y), _ptr(u), _ptr(v), w, h, subsampling[0],
+                                                 subsampling[1], matrix, int(full_range), _ptr(out))
+    if rc != _OK:
+        kind = ("4:4:4", "4:4:0", "4:2:2", "4:2:0")[subsampling[0] * 2 + subsampling[1]]
+        rng = "" if full_range else "limited-range "
+        raise NotImplementedError(f"{name}: AVIF {rng}identity matrix on {kind} colour is not "
+                                  "supported")
     return out
 
 

@@ -652,11 +652,13 @@ def write_icon_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
     return paths
 
 
-def write_avif_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
+def write_avif_fixtures(directory: str, subdiv: int = 6, base_color: str = "blob_basecolor.avif",
+                        plane: str = "checker.avif") -> dict[str, str]:
     """``write_image_fixtures``'s scene with its images as the AVIF files
-    Pillow wrote (the committed ``blob_basecolor.avif`` and
-    ``checker.avif`` of ``image_fixtures``; the port writes no AVIF), each
-    beside a twin that holds its decoded pixels as PNG. Paths by name:
+    Pillow wrote (the committed ``base_color`` and ``plane`` of
+    ``image_fixtures``, ``blob_basecolor.avif`` and ``checker.avif`` unless
+    named), each beside a twin that holds its decoded pixels as PNG. Paths
+    by name:
 
     - ``obj_avif``: the textured blob whose MTL names its base colour as
       AVIF; ``obj_png``: the same blob whose MTL names the PNG of its decode;
@@ -674,24 +676,25 @@ def write_avif_fixtures(directory: str, subdiv: int = 6) -> dict[str, str]:
     from .writers import atomic_write, write_glb
 
     os.makedirs(directory, exist_ok=True)
-    stem = f"blob_s{subdiv}_seed0"
+    base_stem, plane_stem = os.path.splitext(base_color)[0], os.path.splitext(plane)[0]
+    stem = f"blob_s{subdiv}_seed0" + ("" if base_color == "blob_basecolor.avif" else f"_{base_stem}")
     names = {"obj_avif": f"{stem}_avif.obj", "obj_png": f"{stem}_aviftwin.obj",
              "glb_avif": f"{stem}_avif.glb", "glb_png": f"{stem}_aviftwin.glb",
-             "plane_avif": "checker.avif", "plane_png": "checker_avif.png"}
+             "plane_avif": plane, "plane_png": f"{plane_stem}_avif.png"}
     paths = {k: os.path.join(directory, v) for k, v in names.items()}
     if all(os.path.exists(v) for v in paths.values()):
         return paths
     files = {}
-    for name in ("blob_basecolor.avif", "checker.avif"):
+    for name in (base_color, plane):
         shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
         with open(image_fixtures.path(name), "rb") as f:
             files[name] = f.read()
-    blob_avif = files["blob_basecolor.avif"]
-    blob_png = encode_png(decode_image(blob_avif, "blob_basecolor.avif"))
-    atomic_write(os.path.join(directory, "blob_basecolor_avif.png"), blob_png)
-    atomic_write(paths["plane_png"], encode_png(decode_image(files["checker.avif"], "checker.avif")))
+    blob_avif = files[base_color]
+    blob_png = encode_png(decode_image(blob_avif, base_color))
+    atomic_write(os.path.join(directory, f"{base_stem}_avif.png"), blob_png)
+    atomic_write(paths["plane_png"], encode_png(decode_image(files[plane], plane)))
     p, f = _blob(subdiv, 0)
-    for key, tex in (("obj_avif", "blob_basecolor.avif"), ("obj_png", "blob_basecolor_avif.png")):
+    for key, tex in (("obj_avif", base_color), ("obj_png", f"{base_stem}_avif.png")):
         mtl = os.path.splitext(names[key])[0] + ".mtl"
         _write_mtl(os.path.join(directory, mtl), "blob", tex)
         _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))

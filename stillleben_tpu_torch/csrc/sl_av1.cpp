@@ -3,12 +3,13 @@
 // The decoding follows the AV1 Bitstream & Decoding Process Specification
 // section by section: the OBU and header syntax (5.3-5.9), the tile and
 // block syntax (5.11), the symbol decoder (8.2), the intra prediction and
-// reconstruction processes (7.11.2, 7.12, 7.13) and the loop filter (7.14).
+// reconstruction processes (7.11.2, 7.12, 7.13), the loop filter (7.14),
+// CDEF (7.15) and loop restoration (7.17; both in sl_av1_post.h).
 // The names of variables and functions are the specification's where it
 // has one.
 
 
-#include "sl_av1_recon.h"
+#include "sl_av1_post.h"
 
 namespace {
 
@@ -70,7 +71,9 @@ uint64_t leb128(const uint8_t* d, size_t n, size_t* p) {
   return v;
 }
 
-void parse_sequence_header(BitReader& b, SequenceHeader& s) {
+// ``color_range_bit``: where color_range lies in the reader's bits, -1 where
+// the header does not code it
+void parse_sequence_header(BitReader& b, SequenceHeader& s, int64_t* color_range_bit) {
   s.seq_profile = b.f(3);
   s.still_picture = b.f(1);
   s.reduced_still_picture_header = b.f(1);
@@ -157,7 +160,9 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
     s.transfer_characteristics = b.f(8);
     s.matrix_coefficients = b.f(8);
   }
+  *color_range_bit = -1;
   if (s.mono_chrome) {
+    *color_range_bit = (int64_t)b.pos;
     s.color_range = b.f(1);
     s.subsampling_x = s.subsampling_y = 1;
     s.separate_uv_delta_q = 0;
@@ -166,6 +171,7 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
       s.color_range = 1;
       s.subsampling_x = s.subsampling_y = 0;
     } else {
+      *color_range_bit = (int64_t)b.pos;
       s.color_range = b.f(1);
       if (s.seq_profile == 0) {
         s.subsampling_x = s.subsampling_y = 1;
@@ -188,11 +194,9 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
 
 void check_supported(const SequenceHeader& s) {
   if (s.BitDepth != 8) unsupported(s.BitDepth == 10 ? "10-bit samples" : "12-bit samples");
-  if (!s.mono_chrome && !(s.subsampling_x && s.subsampling_y))
-    unsupported(s.subsampling_y ? "4:4:0 colour" : (s.subsampling_x ? "4:2:2 colour" : "4:4:4 colour"));
+  // no profile codes 4:4:0
+  if (!s.mono_chrome && !s.subsampling_x && s.subsampling_y) unsupported("4:4:0 colour");
   if (s.enable_superres) unsupported("superres");
-  if (s.enable_cdef) unsupported("CDEF");
-  if (s.enable_restoration) unsupported("loop restoration");
 }
 
 // ---------------------------------------------------------------------------
@@ -269,17 +273,19 @@ struct SymbolDecoder {
   }
 };
 
-struct Decoder : Recon {
+struct Decoder : Recon, Post {
   // frame header
   int disable_cdf_update = 0, allow_screen_content_tools = 0, allow_intrabc = 0;
   int TileSizeBytes = 4;
   int SegIdPreSkip = 0, LastActiveSegId = 0;
   int delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0;
-  int CodedLossless = 0, LosslessArray[8] = {0};
+  int CodedLossless = 0, AllLossless = 0, LosslessArray[8] = {0};
   int TxMode = 0;
   bool have_frame_header = false, frame_done = false;
+  int64_t color_range_bit = -1;  // in the item's bits (sl_av1_info)
   // state
   Cdfs cdf;
+  uint16_t use_wiener_cdf[3], use_sgrproj_cdf[3], restoration_type_cdf[4];
   SymbolDecoder sd;
   int ReadDeltas = 0;
   // block state
@@ -365,18 +371,19 @@ struct Decoder : Recon {
                            DeltaQVAc == 0 && DeltaQVDc == 0;
       if (!LosslessArray[sid]) CodedLossless = 0;
     }
-    for (int sid = 0; sid < 8; sid++)
-      if (LosslessArray[sid]) unsupported("lossless frames");
+    AllLossless = CodedLossless;  // no superres
     loop_filter_params(b);
-    // cdef_params and lr_params read nothing: CDEF and loop restoration are
-    // off in the sequence header (check_supported)
-    TxMode = b.f(1) ? 2 : 1;  // tx_mode_select: TX_MODE_SELECT : TX_MODE_LARGEST
+    cdef_params(b);
+    lr_params(b);
+    if (CodedLossless) TxMode = 0;  // ONLY_4X4
+    else TxMode = b.f(1) ? 2 : 1;  // tx_mode_select: TX_MODE_SELECT : TX_MODE_LARGEST
     // reference_select, skip_mode_present, allow_warped_motion: intra
     reduced_tx_set = b.f(1);
     // global motion: none for an intra frame
     if (s.film_grain_params_present && b.f(1)) unsupported("film grain");
     have_frame_header = true;
     alloc();
+    alloc_post(*this);
   }
 
   void tile_info(BitReader& b) {
@@ -503,6 +510,53 @@ struct Decoder : Recon {
   }
 
 
+  void cdef_params(BitReader& b) {
+    cdef_on = !(CodedLossless || allow_intrabc || !seq.enable_cdef);
+    cdef_bits = 0;
+    cdef_y_pri_strength[0] = cdef_y_sec_strength[0] = 0;
+    cdef_uv_pri_strength[0] = cdef_uv_sec_strength[0] = 0;
+    CdefDamping = 3;
+    if (!cdef_on) return;
+    CdefDamping = b.f(2) + 3;
+    cdef_bits = b.f(2);
+    for (int i = 0; i < (1 << cdef_bits); i++) {
+      cdef_y_pri_strength[i] = b.f(4);
+      cdef_y_sec_strength[i] = b.f(2);
+      if (cdef_y_sec_strength[i] == 3) cdef_y_sec_strength[i] += 1;
+      if (seq.NumPlanes > 1) {
+        cdef_uv_pri_strength[i] = b.f(4);
+        cdef_uv_sec_strength[i] = b.f(2);
+        if (cdef_uv_sec_strength[i] == 3) cdef_uv_sec_strength[i] += 1;
+      }
+    }
+  }
+
+  void lr_params(BitReader& b) {
+    UsesLr = 0;
+    lr_unit_shift = -1;
+    lr_uv_shift = 0;
+    for (int i = 0; i < 3; i++) FrameRestorationType[i] = RESTORE_NONE;
+    if (AllLossless || allow_intrabc || !seq.enable_restoration) return;
+    int usesChromaLr = 0;
+    for (int i = 0; i < seq.NumPlanes; i++) {
+      FrameRestorationType[i] = Remap_Lr_Type[b.f(2)];
+      if (FrameRestorationType[i] != RESTORE_NONE) {
+        UsesLr = 1;
+        if (i > 0) usesChromaLr = 1;
+      }
+    }
+    if (!UsesLr) return;
+    if (seq.use_128x128_superblock) {
+      lr_unit_shift = b.f(1) + 1;
+    } else {
+      lr_unit_shift = b.f(1);
+      if (lr_unit_shift) lr_unit_shift += b.f(1);
+    }
+    LoopRestorationSize[0] = 256 >> (2 - lr_unit_shift);
+    if (seq.subsampling_x && seq.subsampling_y && usesChromaLr) lr_uv_shift = b.f(1);
+    LoopRestorationSize[1] = LoopRestorationSize[2] = LoopRestorationSize[0] >> lr_uv_shift;
+  }
+
   // ---- tiles -------------------------------------------------------------
 
   void tile_group(const uint8_t* data, size_t size) {
@@ -534,28 +588,146 @@ struct Decoder : Recon {
       }
       set_tile(tileRow, tileCol);
       cdf.init(base_q_idx);
+      copy_cdf(use_wiener_cdf, Default_Use_Wiener_Cdf);
+      copy_cdf(use_sgrproj_cdf, Default_Use_Sgrproj_Cdf);
+      copy_cdf(restoration_type_cdf, Default_Restoration_Type_Cdf);
       sd.init(data + pos, tileSize, disable_cdf_update);
       decode_tile();
       pos += tileSize;
     }
     if (tg_end == NumTiles - 1) {
       loop_filter();
+      post_filters(*this);
       frame_done = true;
     }
   }
 
   void decode_tile() {
     clear_above_context();
+    reset_lr_refs();
     int sbSize = seq.use_128x128_superblock ? BLOCK_128X128 : BLOCK_64X64;
     int sbSize4 = Num_4x4_Blocks_Wide[sbSize];
     for (int r = MiRowStart; r < MiRowEnd; r += sbSize4) {
       clear_left_context();
       for (int c = MiColStart; c < MiColEnd; c += sbSize4) {
         ReadDeltas = delta_q_present;
+        clear_cdef(r, c);
         clear_block_decoded_flags(r, c, sbSize4);
+        read_lr(r, c, sbSize);
         decode_partition(r, c, sbSize);
       }
     }
+  }
+
+  void clear_cdef(int r, int c) {
+    cdef_at(r, c) = -1;
+    if (seq.use_128x128_superblock) {
+      if (c + 16 < MiCols) cdef_at(r, c + 16) = -1;
+      if (r + 16 < MiRows) cdef_at(r + 16, c) = -1;
+      if (r + 16 < MiRows && c + 16 < MiCols) cdef_at(r + 16, c + 16) = -1;
+    }
+  }
+
+  void read_cdef() {
+    if (skip || !cdef_on) return;  // cdef_on: enable_cdef, and neither CodedLossless nor allow_intrabc
+    int r = MiRow & ~15, c = MiCol & ~15;
+    if (cdef_at(r, c) == -1) {
+      int idx = sd.literal(cdef_bits);
+      int w4 = Num_4x4_Blocks_Wide[MiSize], h4 = Num_4x4_Blocks_High[MiSize];
+      for (int y = r; y < r + h4; y += 16)
+        for (int x = c; x < c + w4; x += 16)
+          if (y < MiRows && x < MiCols) cdef_at(y, x) = idx;
+    }
+  }
+
+  // ---- loop restoration coefficients (5.11.57, 5.11.58) --------------------
+
+  void read_lr(int r, int c, int bSize) {
+    if (allow_intrabc) return;
+    int w = Num_4x4_Blocks_Wide[bSize], h = Num_4x4_Blocks_High[bSize];
+    for (int plane = 0; plane < seq.NumPlanes; plane++) {
+      if (FrameRestorationType[plane] == RESTORE_NONE) continue;
+      int subX = plane ? seq.subsampling_x : 0, subY = plane ? seq.subsampling_y : 0;
+      int unitSize = LoopRestorationSize[plane];
+      int unitRowStart = (r * (4 >> subY) + unitSize - 1) / unitSize;
+      int unitRowEnd = std::min(unitRows[plane], ((r + h) * (4 >> subY) + unitSize - 1) / unitSize);
+      int numerator = 4 >> subX, denominator = unitSize;
+      int unitColStart = (c * numerator + denominator - 1) / denominator;
+      int unitColEnd = std::min(unitCols[plane], ((c + w) * numerator + denominator - 1) / denominator);
+      for (int unitRow = unitRowStart; unitRow < unitRowEnd; unitRow++)
+        for (int unitCol = unitColStart; unitCol < unitColEnd; unitCol++) read_lr_unit(plane, unitRow, unitCol);
+    }
+  }
+
+  void read_lr_unit(int plane, int unitRow, int unitCol) {
+    LrUnit& u = LrUnits[plane][(size_t)unitRow * unitCols[plane] + unitCol];
+    int type;
+    if (FrameRestorationType[plane] == RESTORE_WIENER)
+      type = sd.symbol(use_wiener_cdf, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (FrameRestorationType[plane] == RESTORE_SGRPROJ)
+      type = sd.symbol(use_sgrproj_cdf, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else
+      type = sd.symbol(restoration_type_cdf, 3);  // RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ
+    u.type = type;
+    if (type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; pass++) {
+        int firstCoeff = 0;
+        if (plane) {
+          firstCoeff = 1;
+          u.wiener[pass][0] = 0;
+        }
+        for (int j = firstCoeff; j < 3; j++) {
+          int v = decode_signed_subexp_with_ref_bool(Wiener_Taps_Min[j], Wiener_Taps_Max[j] + 1, Wiener_Taps_K[j],
+                                                     RefLrWiener[plane][pass][j]);
+          u.wiener[pass][j] = v;
+          RefLrWiener[plane][pass][j] = v;
+        }
+      }
+    } else if (type == RESTORE_SGRPROJ) {
+      int set = sd.literal(4);
+      u.set = set;
+      for (int i = 0; i < 2; i++) {
+        int radius = Sgr_Params[set][i * 2];
+        int mn = Sgrproj_Xqd_Min[i], mx = Sgrproj_Xqd_Max[i];
+        int v;
+        if (radius) {
+          v = decode_signed_subexp_with_ref_bool(mn, mx + 1, 4, RefSgrXqd[plane][i]);
+        } else {
+          v = 0;
+          if (i == 1) v = Clip3(mn, mx, (1 << 7) - RefSgrXqd[plane][0]);
+        }
+        u.xqd[i] = v;
+        RefSgrXqd[plane][i] = v;
+      }
+    }
+  }
+
+  int decode_signed_subexp_with_ref_bool(int low, int high, int k, int r) {
+    return decode_unsigned_subexp_with_ref_bool(high - low, k, r - low) + low;
+  }
+  int decode_unsigned_subexp_with_ref_bool(int mx, int k, int r) {
+    int v = decode_subexp_bool(mx, k);
+    if ((r << 1) <= mx) return inverse_recenter(r, v);
+    return mx - 1 - inverse_recenter(mx - 1 - r, v);
+  }
+  int decode_subexp_bool(int numSyms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      int b2 = i ? k + i - 1 : k;
+      int a = 1 << b2;
+      if (numSyms <= mk + 3 * a) return (int)sd.ns(numSyms - mk) + mk;
+      if (sd.literal(1)) {
+        i++;
+        mk += a;
+      } else {
+        return (int)sd.literal(b2) + mk;
+      }
+    }
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
   }
 
 
@@ -654,6 +826,11 @@ struct Decoder : Recon {
 
 
   void decode_block(int r, int c, int subSize) {
+    // 4:2:2 has no chroma block for a luma block taller than wide
+    // (Subsampled_Size)
+    if (seq.NumPlanes > 1 && seq.subsampling_x && !seq.subsampling_y &&
+        Num_4x4_Blocks_High[subSize] > Num_4x4_Blocks_Wide[subSize])
+      fail(SL_CORRUPT, "AV1 block size with no 4:2:2 chroma size");
     set_block(r, c, subSize);
     intra_frame_mode_info();
     palette_tokens();
@@ -673,7 +850,9 @@ struct Decoder : Recon {
       skip = sd.symbol(cdf.skip[skip_ctx()], 2);
     }
     if (!SegIdPreSkip) intra_segment_id();
+    read_cdef();
     Lossless = LosslessArray[segment_id];
+    counts[CNT_LOSSLESS] += Lossless;
     read_delta_qindex();
     read_delta_lf();
     ReadDeltas = 0;
@@ -701,7 +880,10 @@ struct Decoder : Recon {
     if (HasChroma) {
       if (cfl_allowed()) UVMode = sd.symbol(cdf.uv_cfl[YMode], 14);
       else UVMode = sd.symbol(cdf.uv_nocfl[YMode], 13);
-      if (UVMode == UV_CFL_PRED) read_cfl_alphas();
+      if (UVMode == UV_CFL_PRED) {
+        read_cfl_alphas();
+        counts[CNT_CFL]++;
+      }
       if (MiSize >= BLOCK_8X8 && is_directional_mode(UVMode))
         AngleDeltaUV = sd.symbol(cdf.angle_delta[UVMode - V_PRED], 7) - 3;
     }
@@ -1096,6 +1278,7 @@ struct Decoder : Recon {
       read_color_map(ColorMapY, 0, PaletteSizeY, bw, bh, ow, oh);
     }
     if (PaletteSizeUV) {
+      counts[CNT_PALETTE_UV]++;
       color_map_size(1, &bw, &bh, &ow, &oh);
       read_color_map(ColorMapUV, 1, PaletteSizeUV, bw, bh, ow, oh);
     }
@@ -1173,6 +1356,7 @@ struct Decoder : Recon {
       for (int chunkX = 0; chunkX < widthChunks; chunkX++) {
         for (int plane = 0; plane < 1 + HasChroma * 2; plane++) {
           int txSz = Lossless ? TX_4X4 : get_tx_size(plane, TxSize);
+          if (plane) counts[CNT_UV_TX_SIZES] |= 1 << txSz;
           int stepX = Tx_Width(txSz) >> 2, stepY = Tx_Height(txSz) >> 2;
           int planeSz = get_plane_residual_size(MiSize, plane);
           int num4x4W = Num_4x4_Blocks_Wide[planeSz], num4x4H = Num_4x4_Blocks_High[planeSz];
@@ -1355,7 +1539,8 @@ int run(const uint8_t* data, size_t size, Decoder& d, bool headers_only, char* e
       if (type == 1) {
         BitReader b(obu, obu_size);
         SequenceHeader s;
-        parse_sequence_header(b, s);
+        parse_sequence_header(b, s, &d.color_range_bit);
+        if (d.color_range_bit >= 0) d.color_range_bit += (int64_t)(obu - data) * 8;
         d.seq = s;
         if (!headers_only) check_supported(d.seq);
       } else if (type == 3 || type == 6) {
@@ -1415,6 +1600,7 @@ int sl_av1_info(const uint8_t* obus, size_t size, int32_t* info, char* err, size
   info[10] = d.TileRows;
   for (int i = 0; i < 4; i++) info[11 + i] = d.loop_filter_level[i];
   info[15] = d.loop_filter_sharpness;
+  info[16] = (int32_t)d.color_range_bit;
   return SL_OK;
 }
 
@@ -1426,12 +1612,41 @@ int sl_av1_decode(const uint8_t* obus, size_t size, uint8_t* y, uint8_t* u, uint
   int W = d.FrameWidth, H = d.FrameHeight;
   for (int r = 0; r < H; r++) memcpy(y + (size_t)r * W, d.planes[0].at(r, 0), W);
   if (d.seq.NumPlanes > 1) {
-    int cw = (W + 1) >> 1, ch = (H + 1) >> 1;
+    int cw = (W + d.seq.subsampling_x) >> d.seq.subsampling_x;
+    int ch = (H + d.seq.subsampling_y) >> d.seq.subsampling_y;
     for (int r = 0; r < ch; r++) {
       memcpy(u + (size_t)r * cw, d.planes[1].at(r, 0), cw);
       memcpy(v + (size_t)r * cw, d.planes[2].at(r, 0), cw);
     }
   }
+  return SL_OK;
+}
+
+int sl_av1_decode_counts(const uint8_t* obus, size_t size, int32_t* counts, char* err, size_t errlen) {
+  Decoder d;
+  int rc = run(obus, size, d, false, err, errlen);
+  if (rc != SL_OK) return rc;
+  memcpy(counts, d.counts, sizeof d.counts);
+  return SL_OK;
+}
+
+const char* sl_av1_count_names() { return Count_Names; }
+
+int sl_av1_wiener(const uint8_t* src, int width, int height, const int8_t* taps, uint8_t* dst) {
+  if (width < 1 || height < 1) return SL_CORRUPT;
+  Post post;
+  LrUnit u;
+  u.type = RESTORE_WIENER;
+  memcpy(u.wiener, taps, sizeof u.wiener);
+  Plane out;
+  out.stride = width;
+  out.rows = height;
+  out.px.assign((size_t)width * height, 0);
+  auto at = [&](int x, int y) -> int {
+    return src[(size_t)std::max(0, std::min(height - 1, y)) * width + std::max(0, std::min(width - 1, x))];
+  };
+  post.wiener(u, at, out, 0, 0, width, height, 0);
+  memcpy(dst, out.px.data(), out.px.size());
   return SL_OK;
 }
 
@@ -1451,13 +1666,14 @@ int sl_av1_read_symbols(const uint8_t* data, size_t size, const int32_t* sizes, 
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// libyuv's I420 to RGB with bilinear chroma upsampling (the "filter"
-// variants libavif calls): the chroma rows are doubled with the (3, 1)/4
-// linear filter at the first and, for an even height, the last row, and
-// with the (9, 3, 3, 1)/16 bilinear filter between; the first and last
-// columns take their chroma sample as it is (linear) or in a (3, 1)/4 mix
-// of two rows (bilinear). Then libyuv's fixed point BT.601 full-range
-// (JPEG) arithmetic, 6 fraction bits.
+// libyuv's YUV to RGB as libavif calls it: I420 and I422 with bilinear
+// chroma upsampling (the "filter" variants), I444 as it is. The chroma
+// rows are doubled with the (3, 1)/4 linear filter at the first and, for
+// an even height, the last row, and with the (9, 3, 3, 1)/16 bilinear
+// filter between; the first and last columns take their chroma sample as
+// it is (linear) or in a (3, 1)/4 mix of two rows (bilinear). A 4:2:2 row
+// is widened with the linear filter alone. Then libyuv's fixed point
+// arithmetic, 6 fraction bits, with the constants of the matrix and range.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -1490,38 +1706,91 @@ void up_bilinear(const uint8_t* sa, const uint8_t* sb, int W, int* da, int* db) 
 
 inline uint8_t clamp255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
 
-void yuv_row(const uint8_t* y, const int* u, const int* v, int W, uint8_t* rgba) {
+// libyuv's YuvConstants: the scale and bias of Y, and the U and V
+// contributions to R, G and B (6 fraction bits)
+struct YuvConstants {
+  int yg, yb, ub, ug, vg, vr;
+};
+const YuvConstants kYuvJPEG = {16320, 32, 113, 22, 46, 90};     // BT.601 full range
+const YuvConstants kYuvI601 = {18997, -1160, 128, 25, 52, 102};  // BT.601 limited range
+const YuvConstants kYuvF709 = {16320, 32, 119, 12, 30, 101};     // BT.709 full range
+const YuvConstants kYuvH709 = {18997, -1160, 128, 14, 34, 115};  // BT.709 limited range
+
+void yuv_row(const uint8_t* y, const int* u, const int* v, int W, const YuvConstants& k, uint8_t* rgba) {
   for (int x = 0; x < W; x++) {
-    int y1 = (int)(((uint32_t)y[x] * 0x0101 * 16320) >> 16);
+    int y1 = (int)(((uint32_t)y[x] * 0x0101 * k.yg) >> 16);
     int uu = u[x] - 128, vv = v[x] - 128;
-    rgba[4 * x + 0] = clamp255((y1 + 90 * vv + 32) >> 6);
-    rgba[4 * x + 1] = clamp255((y1 - 22 * uu - 46 * vv + 32) >> 6);
-    rgba[4 * x + 2] = clamp255((y1 + 113 * uu + 32) >> 6);
+    rgba[4 * x + 0] = clamp255((y1 + k.vr * vv + k.yb) >> 6);
+    rgba[4 * x + 1] = clamp255((y1 - k.ug * uu - k.vg * vv + k.yb) >> 6);
+    rgba[4 * x + 2] = clamp255((y1 + k.ub * uu + k.yb) >> 6);
     rgba[4 * x + 3] = 255;
   }
 }
 
-}  // namespace
-
-extern "C" void sl_avif_yuv420_to_rgba(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width,
-                                       int height, uint8_t* rgba) {
+void yuv420_rows(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width, int height,
+                 const YuvConstants& kc, uint8_t* rgba) {
   int cw = (width + 1) / 2;
   std::vector<int> u1(width), u2(width), v1(width), v2(width);
   size_t stride = (size_t)width * 4;
   up_linear(u, width, u1.data());
   up_linear(v, width, v1.data());
-  yuv_row(y, u1.data(), v1.data(), width, rgba);
+  yuv_row(y, u1.data(), v1.data(), width, kc, rgba);
   int row = 1, k = 0;
   for (int yy = 0; yy < height - 2; yy += 2, k++) {
     up_bilinear(u + (size_t)k * cw, u + (size_t)(k + 1) * cw, width, u1.data(), u2.data());
     up_bilinear(v + (size_t)k * cw, v + (size_t)(k + 1) * cw, width, v1.data(), v2.data());
-    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, rgba + row * stride);
-    yuv_row(y + (size_t)(row + 1) * width, u2.data(), v2.data(), width, rgba + (row + 1) * stride);
+    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, kc, rgba + row * stride);
+    yuv_row(y + (size_t)(row + 1) * width, u2.data(), v2.data(), width, kc, rgba + (row + 1) * stride);
     row += 2;
   }
   if (!(height & 1)) {
     up_linear(u + (size_t)k * cw, width, u1.data());
     up_linear(v + (size_t)k * cw, width, v1.data());
-    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, rgba + row * stride);
+    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, kc, rgba + row * stride);
   }
+}
+
+}  // namespace
+
+extern "C" int sl_avif_yuv_to_rgba(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width, int height,
+                                   int subsampling_x, int subsampling_y, int matrix, int full_range,
+                                   uint8_t* rgba) {
+  size_t stride = (size_t)width * 4;
+  if (matrix == 0) {  // identity (GBR): libavif's own copy, 4:4:4 full range only
+    if (subsampling_x || subsampling_y || !full_range) return SL_UNSUPPORTED;
+    for (int r = 0; r < height; r++)
+      for (int x = 0; x < width; x++) {
+        size_t i = (size_t)r * width + x;
+        uint8_t* px = rgba + r * stride + 4 * x;
+        px[0] = v[i];
+        px[1] = y[i];
+        px[2] = u[i];
+        px[3] = 255;
+      }
+    return SL_OK;
+  }
+  const YuvConstants& kc = matrix == 1 ? (full_range ? kYuvF709 : kYuvH709) : (full_range ? kYuvJPEG : kYuvI601);
+  if (subsampling_x && subsampling_y) {
+    yuv420_rows(y, u, v, width, height, kc, rgba);
+  } else if (subsampling_x) {
+    int cw = (width + 1) / 2;
+    std::vector<int> u1(width), v1(width);
+    for (int r = 0; r < height; r++) {
+      up_linear(u + (size_t)r * cw, width, u1.data());
+      up_linear(v + (size_t)r * cw, width, v1.data());
+      yuv_row(y + (size_t)r * width, u1.data(), v1.data(), width, kc, rgba + r * stride);
+    }
+  } else if (!subsampling_y) {
+    std::vector<int> u1(width), v1(width);
+    for (int r = 0; r < height; r++) {
+      for (int x = 0; x < width; x++) {
+        u1[x] = u[(size_t)r * width + x];
+        v1[x] = v[(size_t)r * width + x];
+      }
+      yuv_row(y + (size_t)r * width, u1.data(), v1.data(), width, kc, rgba + r * stride);
+    }
+  } else {
+    return SL_UNSUPPORTED;
+  }
+  return SL_OK;
 }

@@ -1,20 +1,21 @@
 // The port's AVIF core (host code, C interface for ctypes): an AV1 intra
 // decoder for the still pictures Pillow 12.1.0 writes through libavif 1.3.0
-// and aom 3.12.1, and libavif's conversion to RGB as Pillow's build runs it
-// (libyuv 1909's fixed-point BT.601 full-range arithmetic with its bilinear
-// chroma upsampling).
+// and aom 3.12.1 at any of its settings, and libavif's conversion to RGB as
+// Pillow's build runs it (libyuv 1909's fixed-point arithmetic with its
+// bilinear chroma upsampling, and libavif's copy of the identity matrix).
 //
 // The decoder reads the OBUs of one AVIF item: a sequence header (reduced or
 // full) and one shown KEY_FRAME (frame OBU, or frame header and tile
-// groups) of 8-bit samples, 4:2:0 colour or monochrome. It implements the
-// intra tools (every partition, the intra modes with angle deltas, edge
-// filtering and upsampling, smooth and Paeth, CfL, filter intra, palette),
-// segmentation, delta q and delta lf, uniform and explicit tiles, every
-// intra transform (DCT 4-64, ADST 4-16, flipped ADST, identity) and the
-// deblocking filter. What it does not decode is refused with SL_UNSUPPORTED
-// and its name: 10- and 12-bit samples, 4:4:4 and 4:2:2, lossless frames,
-// CDEF, loop restoration, superres, film grain, quantizer matrices, intra
-// block copy, and inter or intra-only frames.
+// groups) of 8-bit samples, 4:2:0, 4:2:2 or 4:4:4 colour or monochrome. It
+// implements the intra tools (every partition, the intra modes with angle
+// deltas, edge filtering and upsampling, smooth and Paeth, CfL, filter
+// intra, palette), segmentation, delta q and delta lf, uniform and explicit
+// tiles, every intra transform (DCT 4-64, ADST 4-16, flipped ADST,
+// identity) and lossless blocks (the Walsh-Hadamard transform), intra block
+// copy, and the loop filters: deblocking, CDEF and loop restoration (Wiener
+// and self-guided). What it does not decode is refused with SL_UNSUPPORTED
+// and its name: 10- and 12-bit samples, 4:4:0, superres, film grain,
+// quantizer matrices, and inter or intra-only frames.
 //
 // Every function returns SL_OK or an error code with a message in ``err``.
 
@@ -35,13 +36,16 @@
 extern "C" {
 #endif
 
-// The frame size of an AV1 item: info = {width, height, monochrome,
-// bit depth, subsampling x, subsampling y, full range, matrix coefficients}.
+// The frame an AV1 item codes: info = {width, height, monochrome, bit depth,
+// subsampling x, subsampling y, full range, matrix coefficients,
+// base_q_idx, tile columns, tile rows, the four loop filter levels, the
+// loop filter sharpness, the bit of the item where color_range lies (-1
+// where the sequence header does not code it)}.
 int sl_av1_info(const uint8_t* obus, size_t size, int32_t* info, char* err, size_t errlen);
 
-// Decodes an AV1 item into planes: y (width x height), u and v ((width + 1)
-// / 2 x (height + 1) / 2; untouched for a monochrome item), each row-major
-// with no padding.
+// Decodes an AV1 item into planes: y (width x height), u and v ((width +
+// subsampling x) >> subsampling x by (height + subsampling y) >> subsampling
+// y; untouched for a monochrome item), each row-major with no padding.
 int sl_av1_decode(const uint8_t* obus, size_t size, uint8_t* y, uint8_t* u, uint8_t* v,
                   char* err, size_t errlen);
 
@@ -52,11 +56,30 @@ int sl_av1_decode(const uint8_t* obus, size_t size, uint8_t* y, uint8_t* u, uint
 int sl_av1_read_symbols(const uint8_t* data, size_t size, const int32_t* sizes, const int32_t* offsets,
                         int count, uint16_t* cdfs, int32_t* symbols);
 
-// libyuv's I420 to RGBA with the BT.601 full-range (JPEG) constants and
-// bilinear chroma upsampling, as libavif 1.3.0 calls it for an 8-bit 4:2:0
-// image; alpha is set to 255.
-void sl_avif_yuv420_to_rgba(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width,
-                            int height, uint8_t* rgba);
+// libyuv's YUV to RGBA as libavif 1.3.0 calls it for an 8-bit image, alpha
+// set to 255: I420 and I422 with bilinear chroma upsampling, or I444, with
+// the constants of matrix coefficients 1 (BT.709) or the BT.601 ones (any
+// other), full or limited range; and the identity matrix (0) of a
+// full-range 4:4:4 image, which libavif copies as G, B, R. SL_UNSUPPORTED
+// for the identity matrix on any other.
+int sl_avif_yuv_to_rgba(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width, int height,
+                        int subsampling_x, int subsampling_y, int matrix, int full_range, uint8_t* rgba);
+
+// Decodes as sl_av1_decode does and fills ``counts`` (CNT_COUNT int32s,
+// sl_av1_post.h) with what the decode ran: the restoration types, unit
+// shift and units of each kind, the CDEF blocks by strength, the skipped
+// 64x64s, the CfL, lossless and chroma palette blocks, and the chroma
+// transform sizes.
+int sl_av1_decode_counts(const uint8_t* obus, size_t size, int32_t* counts, char* err, size_t errlen);
+
+// The names of sl_av1_decode_counts's counts in their order, each followed
+// by a comma.
+const char* sl_av1_count_names(void);
+
+// The Wiener filter of loop restoration (7.17.4) over one whole plane of
+// 8-bit samples whose edges repeat: ``taps`` holds the vertical filter's
+// three outer coefficients, then the horizontal filter's.
+int sl_av1_wiener(const uint8_t* src, int width, int height, const int8_t* taps, uint8_t* dst);
 
 #ifdef __cplusplus
 }

@@ -1362,6 +1362,53 @@ struct Recon {
         Residual[i][j] = (int32_t)std::max<int64_t>(-(1 << 15), std::min<int64_t>((1 << 15) - 1, dq));
       }
     // 2D inverse transform (7.13.3)
+    if (Lossless) {
+      inverse_wht4(Residual);
+    } else {
+      inverse_transform_2d(Residual, txSz, t, log2W, log2H);
+    }
+    Plane& P = planes[plane];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int xx = flipLR ? (w - j - 1) : j;
+        int yy = flipUD ? (h - i - 1) : i;
+        uint8_t* p = P.at(y + yy, x + xx);
+        *p = Clip1(*p + Residual[i][j]);
+      }
+  }
+
+  // the inverse Walsh-Hadamard transform of a lossless 4x4 (7.13.2.10):
+  // the rows with shift 2, then the columns with shift 0
+  static void wht4(int32_t* T, int shift) {
+    int32_t a = T[0] >> shift, c = T[1] >> shift, d = T[2] >> shift, b = T[3] >> shift;
+    a += c;
+    d -= b;
+    int32_t e = (a - d) >> 1;
+    b = e - b;
+    c = e - c;
+    a -= b;
+    d += c;
+    T[0] = a;
+    T[1] = b;
+    T[2] = c;
+    T[3] = d;
+  }
+  static void inverse_wht4(int32_t (*Residual)[64]) {
+    int32_t T[4];
+    for (int i = 0; i < 4; i++) {
+      for (int j = 0; j < 4; j++) T[j] = Residual[i][j];
+      wht4(T, 2);
+      for (int j = 0; j < 4; j++) Residual[i][j] = T[j];
+    }
+    for (int j = 0; j < 4; j++) {
+      for (int i = 0; i < 4; i++) T[i] = Residual[i][j];
+      wht4(T, 0);
+      for (int i = 0; i < 4; i++) Residual[i][j] = T[i];
+    }
+  }
+
+  static void inverse_transform_2d(int32_t (*Residual)[64], int txSz, int t, int log2W, int log2H) {
+    int w = 1 << log2W, h = 1 << log2H;
     int rowShift = Transform_Row_Shift[txSz];
     Txfm tf;
     for (int i = 0; i < std::min(h, 32); i++) {
@@ -1387,14 +1434,6 @@ struct Recon {
       tf.run(ColKind[t], log2H);
       for (int i = 0; i < h; i++) Residual[i][j] = Round2(tf.T[i], 4);
     }
-    Plane& P = planes[plane];
-    for (int i = 0; i < h; i++)
-      for (int j = 0; j < w; j++) {
-        int xx = flipLR ? (w - j - 1) : j;
-        int yy = flipUD ? (h - i - 1) : i;
-        uint8_t* p = P.at(y + yy, x + xx);
-        *p = Clip1(*p + Residual[i][j]);
-      }
   }
 
   bool is_smooth(int row, int col, int plane) {

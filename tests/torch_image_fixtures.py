@@ -2240,6 +2240,148 @@ def make_avif_fixtures() -> dict[str, bytes]:
     return files
 
 
+def make_avif_tool_fixtures() -> dict[str, bytes]:
+    """The AVIF fixtures of the decoder's other tools (``AVIF_TOOL_FILES``):
+    Pillow's ``save`` of ``avif_tool_sources()`` with their options, then
+    ``avif_colr_variants()``: a file of those with its ``colr`` box patched,
+    and ``alpha_limited.avif``: ``lr_rgba.avif`` with its alpha item's
+    sequence header saying limited range."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import (avif_colr_variants, avif_tool_sources,
+                                                            patch_colr)
+
+    files = {n: pillow_file(a, n, **kw) for n, (a, kw) in avif_tool_sources().items()}
+    for n, (src, matrix, full) in avif_colr_variants().items():
+        files[n] = patch_colr(files[src], matrix, full)
+    files["alpha_limited.avif"] = limited_alpha(files["lr_rgba.avif"])
+    return files
+
+
+def limited_alpha(data: bytes) -> bytes:
+    """``data`` with its alpha item's ``color_range`` bit cleared, where the
+    decoder's sequence header parser finds it (``av1_info``), so Pillow and
+    OpenCV widen the alpha as they widen a limited-range one."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import avif, native_image
+
+    alpha = avif.parse_avif(data).alpha
+    bit = native_image.av1_info(alpha)["color_range_bit"]
+    b = bytearray(alpha)
+    b[bit // 8] &= ~(0x80 >> (bit % 8))
+    return data.replace(alpha, bytes(b), 1)
+
+
+def add_avif_tool_fixtures() -> None:
+    """Writes ``make_avif_tool_fixtures()``'s files and rewrites
+    ``digests.py`` with their entries added to ``AVIF_FILE``,
+    ``AVIF_DECODE`` and ``AVIF_DECODE_CV2`` and every other entry as it
+    stands (``--avif-tools``: no other fixture is made again)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    files = make_avif_tool_fixtures()
+    for name, data in files.items():
+        with open(os.path.join(FIXTURES, name), "wb") as f:
+            f.write(data)
+    tables = {k: dict(v) for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    for key, table in avif_digests(files).items():
+        tables[key].update(table)
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
+
+
+def avif_sweep_case(i: int) -> tuple[np.ndarray, dict]:
+    """Seeded case ``i`` of ``avif_sweep``: an array (random, smooth, a cut
+    of the 640x480 frame, or few colours; RGB or RGBA; up to 199 a side, 79
+    at speeds 0 and 1) and Pillow ``save`` options (speed 0-6, quality
+    20-100, each subsampling; CDEF, 64x64 or 128x128 superblocks, intra
+    block copy off, 2x2 tiles, premultiplied alpha, limited range at
+    random)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import _few_colours, seeded_images
+
+    rng = np.random.default_rng(10000 + i)
+    speed = int(rng.integers(0, 7))
+    top = 80 if speed <= 1 else 200
+    h, w = (int(v) for v in rng.integers(1, top, 2))
+    c = int(rng.choice([3, 4]))
+    kind = int(rng.integers(0, 4))
+    if kind == 0:
+        a = rng.integers(0, 256, (h, w, c)).astype(np.uint8)
+    elif kind == 1:
+        a = smooth(h, w, c, i)
+    else:
+        if kind == 2:
+            y0, x0 = int(rng.integers(0, 480 - h)), int(rng.integers(0, 640 - w))
+            a = np.ascontiguousarray(seeded_images()["frame"][y0:y0 + h, x0:x0 + w])
+        else:
+            a = _few_colours(h, w, i, n=int(rng.integers(2, 6)), cell=int(rng.integers(1, 9)))
+        if c == 4:
+            a = np.concatenate([a, smooth(h, w, 1, i)], -1)
+    kw = {"speed": speed, "quality": int(rng.integers(20, 101)),
+          "subsampling": str(rng.choice(["4:2:0", "4:2:2", "4:4:4"]))}
+    adv = {}
+    if rng.random() < 0.4:
+        adv["enable-cdef"] = "1"
+    if rng.random() < 0.2:
+        adv["sb-size"] = str(rng.choice(["64", "128"]))
+    if rng.random() < 0.1:
+        adv["enable-intrabc"] = "0"
+    if adv:
+        kw["advanced"] = adv
+    if rng.random() < 0.15:
+        kw["tile_rows"] = kw["tile_cols"] = 1
+    if c == 4 and rng.random() < 0.2:
+        kw["alpha_premultiplied"] = True
+    if rng.random() < 0.15:
+        kw["range"] = "limited"
+    return a, kw
+
+
+def avif_sweep_one(i: int) -> tuple[int, str]:
+    """Case ``i`` through Pillow's writer, read by the port as Pillow and
+    OpenCV read it: (i, "" or what differed)."""
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import avif
+
+    a, kw = avif_sweep_case(i)
+    b = io.BytesIO()
+    Image.fromarray(a).save(b, "AVIF", **kw)
+    d = b.getvalue()
+    try:
+        pil = np.array_equal(avif.decode_avif(d), np.asarray(Image.open(io.BytesIO(d)).convert("RGBA")))
+        with tempfile.NamedTemporaryFile(suffix=".avif") as f:
+            f.write(d)
+            f.flush()
+            ref = cv2.imread(f.name, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        ocv = ref is not None and np.array_equal(avif.decode_avif_cv2(d), ref)
+    except Exception as e:  # noqa: BLE001  (a refusal is a difference too)
+        return i, f"{a.shape} {kw}: {type(e).__name__}: {e}"
+    return i, "" if pil and ocv else f"{a.shape} {kw}: Pillow {pil}, OpenCV {ocv}"
+
+
+def avif_sweep(n: int, start: int = 0, workers: int = 3) -> list[str]:
+    """``--avif-sweep N [START]``: cases START .. START + N - 1 of
+    ``avif_sweep_case`` through Pillow's writer and the port's readings;
+    prints and returns what differed."""
+    import multiprocessing
+
+    bad = []
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for i, diff in pool.imap_unordered(avif_sweep_one, range(start, start + n)):
+            if diff:
+                bad.append(f"case {i}: {diff}")
+                print(bad[-1], flush=True)
+    print(f"{n} cases from {start}: {n - len(bad)} read as Pillow and OpenCV read them")
+    return bad
+
+
 def avif_digests(files: dict[str, bytes]) -> dict:
     """``AVIF_FILE`` / ``AVIF_DECODE`` / ``AVIF_DECODE_CV2``: each AVIF
     fixture's SHA-256 and Pillow's and OpenCV's readings of it (or the
@@ -2350,7 +2492,8 @@ def digest_module(d: dict) -> str:
              "bytes and Pillow's and OpenCV's readings of each (or the exception);",
              "``AVIF_ENCODE``: the port's own AVIF file of each of ``avif_write_sources()``",
              "(``avif.encode_avif``). Written by ``tests/torch_image_fixtures.py --write``",
-             '(``--avif-encode`` rewrites ``AVIF_ENCODE`` alone)."""', ""]
+             "(``--avif-encode`` rewrites ``AVIF_ENCODE`` alone; ``--avif-tools`` writes",
+             '``AVIF_TOOL_FILES`` and adds their AVIF entries)."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
         lines += [f'    "{k}": "{v}",' for k, v in table.items()]
@@ -2365,6 +2508,13 @@ if __name__ == "__main__":
     if "--avif-encode" in sys.argv:
         rewrite_avif_encode_digests()
         sys.exit(0)
+    if "--avif-tools" in sys.argv:
+        add_avif_tool_fixtures()
+        sys.exit(0)
+    if "--avif-sweep" in sys.argv:
+        k = sys.argv.index("--avif-sweep")
+        args = [int(v) for v in sys.argv[k + 1:k + 3]]
+        sys.exit(1 if avif_sweep(*args) else 0)
     files = make_fixtures()
     webp_files = make_webp_fixtures()
     encode_files = make_encode_fixtures()
@@ -2372,7 +2522,7 @@ if __name__ == "__main__":
     jpeg_files = make_jpeg_variant_fixtures()
     icon_files = make_icon_fixtures()
     j2k_files = make_jpeg2000_fixtures()
-    avif_files = make_avif_fixtures()
+    avif_files = {**make_avif_fixtures(), **make_avif_tool_fixtures()}
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
                            **jpeg_files, **icon_files, **j2k_files, **avif_files}.items():
