@@ -356,9 +356,14 @@ Phases (one line each or more; any failure exits non-zero):
     I;16, 1x1 to 65x130) re-encoded byte-equal to the files Pillow 12.1.0
     wrote, the saver's 640x480 JP2 and codestreams and its EPS, PS and PDF
     (at a fixed clock) to the SHA-256 of Pillow's files, every committed
-    file (``JPEG2000_ENCODE_FILES``, ``JPEG2000_READ_FILES``) read to the
-    SHA-256 of Pillow's and OpenCV's readings or refused naming what it
-    needs; phase 19's render (RGB, RGBA) and depth (16-bit, mm) encoded as
+    file (``JPEG2000_ENCODE_FILES``, ``JPEG2000_READ_FILES``, and
+    ``JPEG2000_SETTINGS_FILES``: Pillow's files at its other settings, the
+    9/7 wavelet and the ICT, quality layers, precincts, the five
+    progression orders, tiles and offsets, signed samples, the cinema
+    profiles) read to the SHA-256 of Pillow's and OpenCV's readings or
+    refused naming what it needs; the 640x480 frame as 9/7 + ICT, as three
+    layers and as tiles + precincts + PCRL (``JPEG2000_TIMED``) decoded,
+    each timed (the least ms of 2); phase 19's render (RGB, RGBA) and depth (16-bit, mm) encoded as
     JP2 and codestream and decoded back bitwise, each timed (the least ms
     of 2); ``sl.ImageSaver(num_threads=4)`` over 12 ``.jp2`` files,
     images/s, read back bitwise; the render through the saver as PDF (the
@@ -370,7 +375,10 @@ Phases (one line each or more; any failure exits non-zero):
     twin's: phase 13's content checks, K1's launches (one camera, two shadow
     passes) and no plain piece, K1 ``torch.equal`` to its plain version on
     the camera and the sun's shadow pass, every field ``torch.equal`` to
-    the same scene from PNG twins.
+    the same scene from PNG twins; the same scene again with the blob's
+    texture (.mtl and GLB) from Pillow's layered 9/7 + ICT JP2 and the
+    plane from its tiled codestream with offsets (``JPEG2000_SCENE``),
+    against PNG twins of their decoded pixels, checked the same way.
 26. AVIF read (``assets/avif.py`` over the native AV1 intra decoder
     ``csrc/sl_av1.cpp`` with its CDEF and loop restoration in
     ``sl_av1_post.h``, g++ -O2, built beside the nvcc builds of phase 2
@@ -3848,6 +3856,74 @@ def build_j2k_core() -> tuple[str, float]:
     return path, time.perf_counter() - t0
 
 
+def j2k_scene(torch, cr, rt, card, settled, light, ms, tag, files, twin_files, what) -> list:
+    """Phase 25's render of phase 18's settled scene with the blob (.mtl),
+    the blob's GLB and the plane from ``files``, through K1, against the
+    same scene from ``twin_files`` (their PNG twins): checks every field,
+    K1's calls by (pass, light slot) and K1 against its plain version;
+    returns K1's entries."""
+    import stillleben_tpu_torch as sl
+
+    obj, glb, plane = files
+    t0 = time.perf_counter()
+    meshes = sl.Mesh.load_threaded([obj, glb, "primitive://cube", "primitive://sphere"],
+                                   physics=False)
+    twins = sl.Mesh.load_threaded([twin_files[0], twin_files[1], "primitive://cube",
+                                   "primitive://sphere"], physics=False)
+    ms[f"{tag} meshes"] = (time.perf_counter() - t0) * 1e3
+    scene = image_scene(meshes, light, sl.Texture2D(plane))
+    twin = image_scene(twins, light, sl.Texture2D(twin_files[2]))
+    poses, camera, plane_pose = settled
+    for s_ in (scene, twin):
+        for o, p in zip(s_.objects, poses):
+            o.set_pose(p)
+        s_.set_camera_pose(camera)
+        s_.background_plane_pose = plane_pose
+
+    def render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sl.RenderPass().render(scene)
+        torch.cuda.synchronize()
+        ms[f"{tag} render"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
+    content = check_api_result(torch, result, scene, f"{tag} render")
+    ref = sl.RenderPass().render(twin)
+    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
+    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
+    phase("j2k", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+                 f"subdivision {ICON_SUBDIV}): {what}; meshes {ms[tag + ' meshes']:.1f} ms, "
+                 f"RenderPass().render {ms[tag + ' render']:.1f} ms; K1 launches by tile "
+                 f"{launches}; calls of K1's plain pieces {plain_calls}; content: {content}; "
+                 f"fields torch.equal to the same scene from the PNG twins: {len(same)} of "
+                 f"{len(fields)} ({card})")
+    cam = [a for k, _, a in calls if k == "camera"]
+    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
+    per_key = {}
+    for k, sl_, _ in calls:
+        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
+    if len(same) != len(fields):
+        fail(f"{tag}: the JPEG 2000-textured frame differs from its twins' in "
+             f"{sorted(set(fields) - set(same))}")
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
+        fail(f"{tag}: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
+             f"plain calls {plain_calls}")
+    entries = []
+    for label, args, key in (
+        (f"{tag} camera, tile {cam[0][7]}", cam[0], ("camera", None)),
+        (f"{tag} shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+    ):
+        k = check_k1(torch, cr, args, label, card)
+        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
+                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
+                            replaces="stillleben_tpu/ops/cell_raster.py:43",
+                            launches=per_key[key], library_ms=None, **k))
+    return entries
+
+
 def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
                          j2k_build) -> tuple[list, dict]:
     """Phase 25: JPEG 2000 both ways, EPS/PS and PDF written (see the
@@ -3867,7 +3943,10 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
     from stillleben_tpu_torch.assets import eps, image, jpeg2000, pdf
     from stillleben_tpu_torch.assets.image_fixtures import (JPEG2000_ENCODE_FILES,
                                                             JPEG2000_READ_FILES,
-                                                            JPEG2000_REFUSALS, PDF_CLOCK,
+                                                            JPEG2000_REFUSALS,
+                                                            JPEG2000_SCENE,
+                                                            JPEG2000_SETTINGS_FILES,
+                                                            JPEG2000_TIMED, PDF_CLOCK,
                                                             jpeg2000_saver_sources,
                                                             jpeg2000_sources)
     from stillleben_tpu_torch.assets.image_fixtures import path as fixture
@@ -3876,7 +3955,8 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
                                                                     JPEG2000_ENCODE,
                                                                     JPEG2000_FILE)
     from stillleben_tpu_torch.assets.jpeg import encode_jpeg
-    from stillleben_tpu_torch.assets.procedural import write_jpeg2000_fixtures
+    from stillleben_tpu_torch.assets.procedural import (write_jpeg2000_fixtures,
+                                                        write_jpeg2000_settings_fixtures)
     from stillleben_tpu_torch.render import light_map as plm
 
     sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
@@ -3921,7 +4001,7 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
         if sha(data) != JPEG2000_ENCODE[name]:
             bad.append(f"the saver's {name}")
     refused = 0
-    for name in JPEG2000_ENCODE_FILES + JPEG2000_READ_FILES:
+    for name in JPEG2000_ENCODE_FILES + JPEG2000_READ_FILES + JPEG2000_SETTINGS_FILES:
         with open(fixture(name), "rb") as f:
             data = f.read()
         if sha(data) != JPEG2000_FILE[name]:
@@ -3940,18 +4020,38 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
             bad.append(f"OpenCV's reading of {name}")
     if refused != len(JPEG2000_REFUSALS):
         bad.append(f"{refused} of {len(JPEG2000_REFUSALS)} refused by name")
-    n_files = len(JPEG2000_ENCODE_FILES) + len(JPEG2000_READ_FILES)
+    n_files = len(JPEG2000_ENCODE_FILES) + len(JPEG2000_READ_FILES) + len(JPEG2000_SETTINGS_FILES)
     phase("j2k", f"{len(jpeg2000_sources())} committed sources re-encoded byte-equal to the files "
                  f"Pillow 12.1.0 (OpenJPEG 2.5.4) wrote (both kinds; L, RGB, RGBA, I;16; 1x1 to "
                  f"65x130); {len(jpeg2000_saver_sources())} saver sources (640x480 JP2 and "
                  f"codestreams, EPS, PS, PDF at a fixed clock) to the SHA-256 of Pillow's files; "
                  f"{n_files} committed files read to the SHA-256 of Pillow's and OpenCV 5.0.0's "
-                 f"readings, {refused} of them refused by name (9/7, layers, precincts, RPCL, "
-                 f"tiles, a code-block style, a 9/7 ICNS entry); the saver sources' encodes, ms: "
+                 f"readings ({len(JPEG2000_SETTINGS_FILES)} of Pillow's other settings: 9/7 and "
+                 f"the ICT, layers, precincts, the five orders, tiles and offsets, signed, "
+                 f"cinema), "
+                 f"{refused} of {len(JPEG2000_REFUSALS)} refused by name (a code-block style, in "
+                 f"a codestream and in an ICNS entry); the saver sources' encodes, ms: "
                  + ", ".join(f"{k[7:]} {v:.1f}" for k, v in ms.items() if k.startswith("encode "))
                  + f"; differences: {bad}")
     if bad:
         fail(f"j2k: not Pillow's: {bad}")
+
+    # the 640x480 frame three ways, each decoded to Pillow's reading, timed
+    timed = []
+    for what, name in JPEG2000_TIMED.items():
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        runs = []
+        for _ in range(J2K_REPS):
+            t0 = time.perf_counter()
+            out = jpeg2000.decode_jpeg2000(data, name)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[f"decode {name}"] = min(runs)
+        timed.append(f"{what} ({name}, {len(data)} B) {min(runs):.1f}")
+        if sha(out.tobytes()) != JPEG2000_DECODE[name]:
+            fail(f"j2k: the timed reading of {name} is not Pillow's")
+    phase("j2k", f"the 640x480 frame decoded to Pillow's reading, the least ms of {J2K_REPS} on "
+                 f"the host: " + ", ".join(timed) + f" ({card})")
     ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
 
     # phase 19's render and depth both ways, timed; the saver over .jp2
@@ -4032,68 +4132,32 @@ def run_jpeg2000_eps_pdf(torch, cr, rt, card, settled, rendered, light,
         fail(f"j2k: the render's PDF/EPS checks {checks}")
     ms["part: render files"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
 
-    # phase 18's scene with its images as JPEG 2000, at its settled poses
+    # phase 18's scene with its images as JPEG 2000, at its settled poses:
+    # the port's own files, then Pillow's at its other settings
     t0 = time.perf_counter()
     fx = write_jpeg2000_fixtures(fx_dir, subdiv=ICON_SUBDIV)
-    meshes = sl.Mesh.load_threaded([fx["obj_jp2"], fx["glb_jp2"], "primitive://cube",
-                                    "primitive://sphere"], physics=False)
-    twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
-                                   "primitive://sphere"], physics=False)
     same_panorama = np.array_equal(plm._load_hdr_image(os.path.join(fx_dir, "sky.jp2")),
                                    plm._load_hdr_image(os.path.join(fx_dir, "sky_jp2.bmp")))
     ms["meshes"] = (time.perf_counter() - t0) * 1e3
-    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_j2k"]))
-    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
-    poses, camera, plane_pose = settled
-    for s_ in (scene, twin):
-        for o, p in zip(s_.objects, poses):
-            o.set_pose(p)
-        s_.set_camera_pose(camera)
-        s_.background_plane_pose = plane_pose
-
-    def render():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sl.RenderPass().render(scene)
-        torch.cuda.synchronize()
-        ms["render"] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    result, calls, launches, plain_calls = record_k1(torch, cr, rt, render)
-    content = check_api_result(torch, result, scene, "j2k render")
-    ref = sl.RenderPass().render(twin)
-    fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
-    same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
-    phase("j2k", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
-                 f"subdivision {ICON_SUBDIV}): the blob's texture from a JP2 (.mtl), a GLB whose "
-                 f"embedded image is a JP2, the plane from a codestream (.j2k), phase 23's light "
-                 f"map; a JP2 panorama read as its BMP twin's: {same_panorama}; fixtures and "
-                 f"meshes {ms['meshes']:.1f} ms, RenderPass().render {ms['render']:.1f} ms; K1 "
-                 f"launches by tile {launches}; calls of K1's plain pieces {plain_calls}; "
-                 f"content: {content}; fields torch.equal to the same scene from the PNG "
-                 f"twins: {len(same)} of {len(fields)} ({card})")
-    cam = [a for k, _, a in calls if k == "camera"]
-    shadow = {sl_: a for k, sl_, a in calls if k == "shadow"}
-    per_key = {}
-    for k, sl_, _ in calls:
-        per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
-    if len(same) != len(fields) or not same_panorama:
-        fail(f"j2k: the JPEG 2000-textured frame differs from its twins' in "
-             f"{sorted(set(fields) - set(same))}, panorama equal {same_panorama}")
-    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
-            or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
-        fail(f"j2k: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
-             f"plain calls {plain_calls}")
-    entries = []
-    for label, args, key in (
-        (f"jpeg2000 camera, tile {cam[0][7]}", cam[0], ("camera", None)),
-        (f"jpeg2000 shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
-    ):
-        k = check_k1(torch, cr, args, label, card)
-        entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
-                            source="stillleben_tpu_torch/csrc/cell_raster.cu",
-                            replaces="stillleben_tpu/ops/cell_raster.py:43",
-                            launches=per_key[key], library_ms=None, **k))
+    entries = j2k_scene(
+        torch, cr, rt, card, settled, light, ms, "jpeg2000",
+        (fx["obj_jp2"], fx["glb_jp2"], fx["plane_j2k"]),
+        (fx["obj_png"], fx["glb_png"], fx["plane_png"]),
+        f"the blob's texture from a JP2 (.mtl), a GLB whose embedded image is a JP2, the plane "
+        f"from a codestream (.j2k), phase 23's light map; a JP2 panorama read as its BMP twin's: "
+        f"{same_panorama}")
+    if not same_panorama:
+        fail("j2k: the JP2 panorama differs from its BMP twin's")
+    t0 = time.perf_counter()
+    sx = write_jpeg2000_settings_fixtures(os.path.join(fx_dir, "settings"), subdiv=ICON_SUBDIV)
+    ms["settings meshes"] = (time.perf_counter() - t0) * 1e3
+    entries += j2k_scene(
+        torch, cr, rt, card, settled, light, ms, "jpeg2000 settings",
+        (sx["obj_j2k"], sx["glb_j2k"], sx["plane_j2k"]),
+        (sx["obj_png"], sx["glb_png"], sx["plane_png"]),
+        f"the blob's texture from Pillow's layered 9/7 + ICT JP2 {JPEG2000_SCENE[0]} (.mtl and an "
+        f"embedded GLB image), the plane from its tiled codestream with offsets "
+        f"{JPEG2000_SCENE[1]}, phase 23's light map; twins: PNG files of the decoded pixels")
     ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
     phase("j2k", "phase 25's parts, s: " + ", ".join(
         f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))

@@ -57,7 +57,15 @@ RGBA and I;16, and the edge sizes 1x640, 33x33, 65x130, 3x5 and 1x1) and
 of the shapes the decoder reads or refuses (``JPEG2000_READ_FILES``: the
 colour transform, LA, 32x32 code-blocks, two levels; the 9/7 wavelet,
 two layers, precincts, RPCL, tiles, and a code-block style patched into
-Pillow's COD; ICNS with a JPEG 2000 entry read and one refused);
+Pillow's COD, the one refused; ICNS with a JPEG 2000 entry and with a 9/7
+one); Pillow's ``save`` at its other settings
+(``JPEG2000_SETTINGS_FILES``: the 9/7 wavelet in every mode with and
+without the ICT, quality layers in both modes, precincts, the five
+progression orders, tiles with offsets, one resolution, PLT markers,
+signed samples, the cinema profiles, the edge sizes under 9/7 and under
+tiles, an ICNS entry of 9/7 with layers and one of a code-block style, the
+refused one; ``JPEG2000_TIMED``: the 640x480 frame three ways;
+``JPEG2000_SCENE``: the blob's base colour and the checker plane);
 ``jpeg2000_saver_sources()`` are the arrays whose JPEG 2000, EPS, PS and
 PDF files (the PDF's clock at ``PDF_CLOCK``) only have digests
 (``JPEG2000_ENCODE``).
@@ -133,12 +141,29 @@ JPEG2000_ENCODE_FILES = ("frame.jp2", "frame.j2k", "frame_rgba.jp2", "frame_rgba
                          "square_33x33.jp2", "odd_65x130.j2k", "tiny_3x5.jp2", "one_1x1.j2k")
 JPEG2000_READ_FILES = ("rct.jp2", "rct_rgba.j2k", "la.jp2", "la.j2k", "cblk32.j2k", "levels2.jp2",
                        "irreversible.j2k", "layers.jp2", "precincts.j2k", "rpcl.j2k", "tiles.j2k",
-                       "cblk_style.j2k", "j2k_entry.icns", "j2k_refused.icns")
+                       "cblk_style.j2k", "j2k_entry.icns", "j2k_97.icns")
+# Pillow's files at its other settings; the 640x480 ones are phase 25's
+# timings (``JPEG2000_TIMED``), the last two its scene's textures
+# (``JPEG2000_SCENE``: the blob's base colour, the plane)
+JPEG2000_TIMED = {"9/7 + ICT": "frame_ict.j2k", "three layers": "frame_layers.jp2",
+                  "tiles + precincts + PCRL": "frame_tiles.j2k"}
+JPEG2000_SCENE = ("blob_basecolor_97.jp2", "checker_tiles.j2k")
+JPEG2000_SETTINGS_FILES = (
+    "i97_l.j2k", "i97_rgb.jp2", "i97_la.jp2", "i97_rgba.j2k", "i97_i16.j2k", "i97_i16.jp2",
+    "ict_rgb.j2k", "ict_rgba.jp2", "ict_la.j2k",
+    "layers_rates.j2k", "layers_db.jp2", "layers_97.j2k", "layers_db_97.j2k",
+    "prec16.j2k", "prec32.j2k", "prec64.jp2", "prec16_97.j2k", "prec32_97.j2k", "prec64_97.jp2",
+    "order_lrcp.j2k", "order_rlcp.j2k", "order_rpcl.j2k", "order_pcrl.j2k", "order_cprl.j2k",
+    "order_rpcl_97.jp2", "order_cprl_97.j2k",
+    "tiles_col1.j2k", "tiles_row1.jp2", "tiles_odd_97.j2k", "tiles_rgba.jp2", "offset.j2k",
+    "res1.j2k", "res1_97.jp2", "plt.j2k", "plt_97.jp2",
+    "signed_l.j2k", "signed_rgb.jp2", "signed_i16.j2k", "signed_97.j2k",
+    "cinema2k24.j2k", "cinema2k48.j2k", "cinema4k24.j2k", "cinema4k24_48x64.j2k",
+    "i97_1x1.j2k", "i97_1x640.j2k", "i97_3x5.jp2", "i97_33x33.j2k", "i97_65x130.j2k",
+    "tiled_1x1.j2k", "tiled_1x640.j2k", "tiled_3x5.j2k", "tiled_33x33.jp2", "tiled_65x130.j2k",
+    "j2k_layers.icns", "j2k_style.icns") + tuple(JPEG2000_TIMED.values()) + JPEG2000_SCENE
 # what the port names in refusing each refused JPEG 2000 fixture
-JPEG2000_REFUSALS = {"irreversible.j2k": "9/7", "layers.jp2": "quality layers",
-                     "precincts.j2k": "precincts", "rpcl.j2k": "progression order",
-                     "tiles.j2k": "several tiles", "cblk_style.j2k": "code-block style",
-                     "j2k_refused.icns": "JPEG 2000"}
+JPEG2000_REFUSALS = {"cblk_style.j2k": "code-block style", "j2k_style.icns": "code-block style"}
 # the clock of the PDF digests (``time.gmtime(PDF_CLOCK)`` for both dates)
 PDF_CLOCK = 1700000000
 # the AVIF fixtures (``avif_sources()``): read as Pillow reads them, or

@@ -15,21 +15,29 @@ at Pillow's defaults), read as Pillow's ``convert("RGBA")`` and OpenCV's
 - ``decode_jpeg2000(data, name)``: (H, W, 4) uint8. Pillow's mode comes
   from the codestream's SIZ or the JP2 header's ``ihdr``: one component
   is L, or I;16 above 8 bits (clipped at 255 on the way to RGBA); two are
-  LA, three RGB, four RGBA; 16-bit colour keeps its high byte.
+  LA, three RGB, four RGBA; 16-bit colour keeps its high byte. The image
+  is the SIZ's less its offset (Xsiz - XOsiz by Ysiz - YOsiz); a signed
+  sample reads as Pillow unpacks it, offset by half its range.
 - ``decode_samples(data, name)``: the samples as stored (the round trip
-  of ``encode_jpeg2000``).
+  of ``encode_jpeg2000``); signed ones as int8 or int16 (a size up where
+  unsigned components sit beside them).
 - ``decode_jpeg2000_cv2(data, name)``: OpenCV's reading: one component
   stays grey, colour becomes BGR with any alpha dropped, 16-bit samples
   stay uint16; two components of a bare codestream give None (OpenCV's
   sRGB conversion refuses them), of a greyscale JP2 the grey channel
-  three times.
+  three times; signed samples or an image offset give None.
 
-The decoder reads the streams Pillow writes by default and the same with
-the reversible colour transform (``mct=1``), any number of levels and any
-code-block size; others (the 9/7 wavelet, several layers, precincts,
-another progression order, several tiles, a code-block style other than
-0, a palette, CMYK or sYCC colour) raise ``NotImplementedError`` by name
-(ROADMAP.md, the reading queue).
+The decoder reads every codestream Pillow's ``save`` writes, at any of
+its options: either wavelet (the irreversible 9/7 in OpenJPEG 2.5.4's
+single-precision arithmetic, so bitwise), with or without the colour
+transform (RCT or ICT), quality layers, precincts, the five progression
+orders and POC, tiles and image offsets, several tile-parts, PLT and TLM
+markers, signed samples, any number of levels and any code-block size.
+Others (a code-block style other than 0, SOP/EPH markers, COC, QCC, RGN,
+PPM, PPT, derived quantisation, precisions other than 8 and 16,
+sub-sampled components, a POC that leaves out a component's highest
+resolution, a palette, CMYK or sYCC colour) raise ``NotImplementedError``
+by name (ROADMAP.md, the reading queue).
 """
 
 from __future__ import annotations
@@ -152,7 +160,12 @@ def decode_samples(data: bytes, name: str = "<bytes>") -> np.ndarray:
     (H, W, C); uint8 up to 8 bits, else uint16. ``encode_jpeg2000``'s
     coding is lossless, so this gives back the array it was given."""
     s, info, _, _ = _read(data, name, cv2=False)
-    if info["precision"] <= 8:
+    signed = (info["signed"] >> np.arange(info["components"])) & 1
+    if signed.any():  # the native decoder gives a signed sample plus half its range
+        types = (np.int8, np.int16, np.int32)[info["precision"] > 8:]
+        s = (s.astype(np.int32) - signed * (1 << (info["precision"] - 1))).astype(
+            types[not signed.all()])  # wide enough for unsigned components beside them
+    elif info["precision"] <= 8:
         s = s.astype(np.uint8)
     return s[..., 0] if info["components"] == 1 else s
 
@@ -183,6 +196,8 @@ def decode_jpeg2000_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray | None
     """What ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)`` gives:
     grey (H, W), colour (H, W, 3) BGR; uint8, or uint16 above 8 bits."""
     s, info, _, colour = _read(data, name, cv2=True)
+    if info["signed"] or info["x0"] or info["y0"]:  # OpenCV refuses both
+        return None
     if info["precision"] <= 8:
         s = s.astype(np.uint8)
     nc = info["components"]

@@ -70,11 +70,11 @@ AVIF_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_av1.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"))
 # -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
 # compile, and the compile is paid at first use (the AV1 core's too: 11.6 s
-# at -O3 against 6.9 s)
-J2K_FLAGS = ("-O2",) + CXX_FLAGS[1:]
-# the AV1 core's: its RGB to YUV conversion is libavif's single-precision
-# arithmetic, which a fused multiply-add would round differently
-AVIF_FLAGS = J2K_FLAGS + ("-ffp-contract=off",)
+# at -O3 against 6.9 s); -ffp-contract=off: the 9/7 wavelet and the ICT are
+# OpenJPEG's single-precision arithmetic, and the AV1 core's RGB to YUV
+# conversion libavif's, which a fused multiply-add would round differently
+J2K_FLAGS = ("-O2",) + CXX_FLAGS[1:] + ("-ffp-contract=off",)
+AVIF_FLAGS = J2K_FLAGS
 
 (_OK, _UNSUPPORTED, _CORRUPT, _NO_ROOM, _TRUNCATED, _UNIDENTIFIED, _BROKEN, _TRUNCATED_FAILS,
  _PILLOW_BROKEN) = range(9)
@@ -696,11 +696,11 @@ def j2k_encode(samples: np.ndarray) -> bytes:
 def j2k_info(codestream: bytes, name: str = "<bytes>") -> dict:
     """The main header of a codestream the decoder reads (it raises
     ``NotImplementedError`` by name for one it does not)."""
-    info = np.zeros(6, np.int32)
+    info = np.zeros(9, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_j2k_library().sl_j2k_info(codestream, ctypes.c_size_t(len(codestream)),
                                           _ptr(info), err, _ERRLEN), err, name)
-    keys = ("width", "height", "components", "precision", "levels", "mct")
+    keys = ("width", "height", "components", "precision", "levels", "mct", "signed", "x0", "y0")
     return dict(zip(keys, (int(v) for v in info)))
 
 

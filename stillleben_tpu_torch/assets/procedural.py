@@ -668,6 +668,31 @@ def write_avif_fixtures(directory: str, subdiv: int = 6, base_color: str = "blob
     - ``plane_avif``: ``checker_texture`` as AVIF; ``plane_png``: its decode
       as PNG.
     """
+    stem = f"blob_s{subdiv}_seed0"
+    if base_color != "blob_basecolor.avif":
+        stem += "_" + os.path.splitext(base_color)[0]
+    return _write_committed_textures(directory, subdiv, stem, base_color, plane, "avif",
+                                     "image/avif")
+
+
+def write_jpeg2000_settings_fixtures(directory: str, subdiv: int = 6,
+                                     base_color: str = "blob_basecolor_97.jp2",
+                                     plane: str = "checker_tiles.j2k") -> dict[str, str]:
+    """``write_avif_fixtures`` of the JPEG 2000 files Pillow wrote at its
+    other settings (``image_fixtures.JPEG2000_SCENE``: the blob's base
+    colour as a layered 9/7 + ICT JP2, the checker as a tiled codestream
+    with offsets, unless named). Paths by name: ``obj_j2k``, ``obj_png``,
+    ``glb_j2k`` (``image/jp2``), ``glb_png``, ``plane_j2k``, ``plane_png``.
+    """
+    stem = f"blob_s{subdiv}_seed0_" + os.path.splitext(base_color)[0]
+    return _write_committed_textures(directory, subdiv, stem, base_color, plane, "j2k", "image/jp2")
+
+
+def _write_committed_textures(directory: str, subdiv: int, stem: str, base_color: str, plane: str,
+                              tag: str, mime: str) -> dict[str, str]:
+    """The blob (``stem``) textured from the committed ``base_color`` and
+    the committed ``plane``, each beside a PNG twin of its decode; paths by
+    name, ``tag`` naming the committed files' kind."""
     import shutil
 
     from . import image_fixtures
@@ -677,10 +702,9 @@ def write_avif_fixtures(directory: str, subdiv: int = 6, base_color: str = "blob
 
     os.makedirs(directory, exist_ok=True)
     base_stem, plane_stem = os.path.splitext(base_color)[0], os.path.splitext(plane)[0]
-    stem = f"blob_s{subdiv}_seed0" + ("" if base_color == "blob_basecolor.avif" else f"_{base_stem}")
-    names = {"obj_avif": f"{stem}_avif.obj", "obj_png": f"{stem}_aviftwin.obj",
-             "glb_avif": f"{stem}_avif.glb", "glb_png": f"{stem}_aviftwin.glb",
-             "plane_avif": plane, "plane_png": f"{plane_stem}_avif.png"}
+    names = {f"obj_{tag}": f"{stem}_{tag}.obj", "obj_png": f"{stem}_{tag}twin.obj",
+             f"glb_{tag}": f"{stem}_{tag}.glb", "glb_png": f"{stem}_{tag}twin.glb",
+             f"plane_{tag}": plane, "plane_png": f"{plane_stem}_{tag}.png"}
     paths = {k: os.path.join(directory, v) for k, v in names.items()}
     if all(os.path.exists(v) for v in paths.values()):
         return paths
@@ -689,17 +713,16 @@ def write_avif_fixtures(directory: str, subdiv: int = 6, base_color: str = "blob
         shutil.copyfile(image_fixtures.path(name), os.path.join(directory, name))
         with open(image_fixtures.path(name), "rb") as f:
             files[name] = f.read()
-    blob_avif = files[base_color]
-    blob_png = encode_png(decode_image(blob_avif, base_color))
-    atomic_write(os.path.join(directory, f"{base_stem}_avif.png"), blob_png)
+    blob_png = encode_png(decode_image(files[base_color], base_color))
+    atomic_write(os.path.join(directory, f"{base_stem}_{tag}.png"), blob_png)
     atomic_write(paths["plane_png"], encode_png(decode_image(files[plane], plane)))
     p, f = _blob(subdiv, 0)
-    for key, tex in (("obj_avif", base_color), ("obj_png", f"{base_stem}_avif.png")):
+    for key, tex in ((f"obj_{tag}", base_color), ("obj_png", f"{base_stem}_{tag}.png")):
         mtl = os.path.splitext(names[key])[0] + ".mtl"
         _write_mtl(os.path.join(directory, mtl), "blob", tex)
         _write_obj(paths[key], p, f, uvs=_spherical_uv(p), mtl=(mtl, "blob"))
     blob = load_obj(paths["obj_png"]).meshes[0][0]
-    write_glb(paths["glb_avif"], blob, blob_avif, mime="image/avif")
+    write_glb(paths[f"glb_{tag}"], blob, files[base_color], mime=mime)
     write_glb(paths["glb_png"], blob, blob_png)
     return paths
 

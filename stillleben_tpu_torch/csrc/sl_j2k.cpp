@@ -1,16 +1,25 @@
-// JPEG 2000 codestreams both ways, as OpenJPEG 2.5.4 codes them at Pillow's
-// defaults (see sl_j2k.h). The stages follow ISO/IEC 15444-1: the DC level
-// shift, the reversible 5/3 lifting with symmetric extension (Annex F), the
+// JPEG 2000 codestreams both ways (see sl_j2k.h): written as OpenJPEG 2.5.4
+// codes them at Pillow's defaults, read as OpenJPEG 2.5.4 reads every
+// stream Pillow's save writes at any of its options. The stages follow
+// ISO/IEC 15444-1: the DC level shift, the colour transforms (the RCT and
+// the ICT), the reversible 5/3 and irreversible 9/7 lifting with symmetric
+// extension at any origin (Annex F), the dequantisation (Annex E), the
 // code-block coder with its three passes per bitplane over the MQ coder
-// (Annexes C and D), the packet headers with their tag trees (Annex B) and
-// the marker segments (Annex A). Where the standard leaves the encoder a
-// choice, OpenJPEG's is taken: the MQ coder's flush (opj_mqc_flush), the
-// termination of the last pass only, one layer of every pass, the packet
-// header's leading 1 bit even for a packet that includes nothing.
+// (Annexes C and D), the packets with their tag trees, layers, precincts
+// and five progression orders (Annex B) and the marker segments (Annex A).
+// Where the standard leaves the encoder a choice, OpenJPEG's is taken: the
+// MQ coder's flush (opj_mqc_flush), the termination of the last pass only,
+// one layer of every pass, the packet header's leading 1 bit even for a
+// packet that includes nothing. Where it leaves the decoder one, OpenJPEG's
+// is taken too: its single-precision 9/7 constants and their order, the
+// step size without the band's gain beside a 2/K high-pass scaling, and
+// lrintf's rounding at the DC shift.
 
 #include "sl_j2k.h"
 
 #include <algorithm>
+#include <climits>
+#include <cmath>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
@@ -32,7 +41,8 @@ int floorlog2(uint32_t v) {
     return l;
 }
 
-int ceil_shift(int v, int n) { return (int)(((int64_t)v + (1LL << n) - 1) >> n); }
+// ceil(v / 2^n), v of either sign (opj_int64_ceildivpow2)
+int64_t ceil_pow2(int64_t v, int n) { return (v + ((int64_t)1 << n) - 1) >> n; }
 
 // ---------------------------------------------------------------------------
 // The MQ coder (Annex C)
@@ -423,12 +433,14 @@ CodedBlock encode_block(const int32_t* coef, int stride, int w, int h, int orien
 }
 
 // The inverse of ``encode_block``: ``passes`` passes from ``numbps``
-// bitplanes down, into ``coef`` (row stride ``stride``) as OpenJPEG
-// reconstructs a reversible block (the half step of the bitplanes not
-// decoded, then halved towards zero).
-void decode_block(const uint8_t* data, size_t size, int numbps, int passes, int32_t* coef,
+// bitplanes down, into ``out`` (``w`` x ``h``, row stride ``stride``) as
+// OpenJPEG's opj_t1_decode_cblk leaves them: each value twice the
+// magnitude decoded plus the half step of the bitplanes not decoded, with
+// its sign (the reversible path halves it towards zero, the irreversible
+// one scales it by half the step size).
+void decode_block(const uint8_t* data, size_t size, int numbps, int passes, int32_t* out,
                   int stride, int w, int h, int orient) {
-    for (int y = 0; y < h; ++y) std::fill(coef + (size_t)y * stride, coef + (size_t)y * stride + w, 0);
+    for (int y = 0; y < h; ++y) std::fill(out + (size_t)y * stride, out + (size_t)y * stride + w, 0);
     if (passes == 0 || numbps <= 0) return;
     if (numbps > 30) fail(SL_CORRUPT, "a code-block of more than 30 bitplanes");
     Flags fl;
@@ -505,13 +517,13 @@ void decode_block(const uint8_t* data, size_t size, int numbps, int passes, int3
     }
     for (int y = 0; y < h; ++y)
         for (int x = 0; x < w; ++x) {
-            int32_t m = mag[(size_t)y * w + x] / 2;
-            coef[(size_t)y * stride + x] = (*fl.at(x, y) & F_NEG) ? -m : m;
+            int32_t m = mag[(size_t)y * w + x];
+            out[(size_t)y * stride + x] = (*fl.at(x, y) & F_NEG) ? -m : m;
         }
 }
 
 // ---------------------------------------------------------------------------
-// The reversible 5/3 wavelet (Annex F), origin 0
+// The forward reversible 5/3 wavelet (Annex F), origin 0
 // ---------------------------------------------------------------------------
 
 // one line of ``n`` samples ``stride`` apart: lifting, then the low half
@@ -530,36 +542,14 @@ void dwt53_forward_line(int32_t* x, int n, int stride, std::vector<int32_t>& tmp
     for (int i = 0; i < dn; ++i) x[(size_t)(sn + i) * stride] = d[i];
 }
 
-void dwt53_inverse_line(int32_t* x, int n, int stride) {
-    if (n < 2) return;
-    const int sn = (n + 1) / 2, dn = n / 2;
-    std::vector<int32_t> s(sn), d(dn);
-    for (int i = 0; i < sn; ++i) s[i] = x[(size_t)i * stride];
-    for (int i = 0; i < dn; ++i) d[i] = x[(size_t)(sn + i) * stride];
-    auto D = [&](int i) { return d[std::max(0, std::min(dn - 1, i))]; };
-    for (int i = 0; i < sn; ++i) s[i] -= (D(i - 1) + D(i) + 2) >> 2;
-    auto S = [&](int i) { return s[std::max(0, std::min(sn - 1, i))]; };
-    for (int i = 0; i < dn; ++i) d[i] += (S(i) + S(i + 1)) >> 1;
-    for (int i = 0; i < sn; ++i) x[(size_t)(2 * i) * stride] = s[i];
-    for (int i = 0; i < dn; ++i) x[(size_t)(2 * i + 1) * stride] = d[i];
-}
-
 // ``levels`` decompositions of a ``w`` x ``h`` plane: each level's columns,
 // then its rows (opj_dwt_encode)
 void dwt53_forward(int32_t* plane, int w, int h, int levels) {
     std::vector<int32_t> tmp;
     for (int l = 0; l < levels; ++l) {
-        int rw = ceil_shift(w, l), rh = ceil_shift(h, l);
+        int rw = (int)ceil_pow2(w, l), rh = (int)ceil_pow2(h, l);
         for (int x = 0; x < rw; ++x) dwt53_forward_line(plane + x, rh, w, tmp);
         for (int y = 0; y < rh; ++y) dwt53_forward_line(plane + (size_t)y * w, rw, 1, tmp);
-    }
-}
-
-void dwt53_inverse(int32_t* plane, int w, int h, int levels) {
-    for (int l = levels - 1; l >= 0; --l) {
-        int rw = ceil_shift(w, l), rh = ceil_shift(h, l);
-        for (int y = 0; y < rh; ++y) dwt53_inverse_line(plane + (size_t)y * w, rw, 1);
-        for (int x = 0; x < rw; ++x) dwt53_inverse_line(plane + x, rh, w);
     }
 }
 
@@ -575,10 +565,10 @@ struct Band {
 // the bands of resolution ``r`` (0 = the lowest) of a ``w`` x ``h`` plane
 // after ``levels`` decompositions, in codestream order
 std::vector<Band> bands_of(int w, int h, int levels, int r) {
-    if (r == 0) return {{0, 0, ceil_shift(w, levels), ceil_shift(h, levels), 0}};
+    if (r == 0) return {{0, 0, (int)ceil_pow2(w, levels), (int)ceil_pow2(h, levels), 0}};
     const int n = levels - r + 1;  // the decomposition level
-    const int rw = ceil_shift(w, n - 1), rh = ceil_shift(h, n - 1);
-    const int lw = ceil_shift(w, n), lh = ceil_shift(h, n);
+    const int rw = (int)ceil_pow2(w, n - 1), rh = (int)ceil_pow2(h, n - 1);
+    const int lw = (int)ceil_pow2(w, n), lh = (int)ceil_pow2(h, n);
     return {{lw, 0, rw - lw, lh, 1}, {0, lh, lw, rh - lh, 2}, {lw, lh, rw - lw, rh - lh, 3}};
 }
 
@@ -883,16 +873,44 @@ std::vector<uint8_t> encode(const void* pixels, int w, int h, int nc, int depth)
 // Decoder
 // ---------------------------------------------------------------------------
 
+// Each stage below mirrors OpenJPEG 2.5.4's decoder: the tile grid and
+// the tile-component, resolution, subband, precinct and code-block bounds
+// of opj_tcd_init_tile (Annex B.5-B.7), the packet iterator of opj_pi_next_*
+// (Annex B.12, with POC), the packet headers of opj_t2_read_packet_header,
+// the dequantisation of opj_t1_clbl_decode_processor, both inverse wavelets
+// at any origin (opj_dwt_decode_tile, opj_dwt_decode_tile_97), the inverse
+// RCT and ICT (opj_mct_decode, opj_mct_decode_real) and the DC level shift
+// (opj_tcd_dc_level_shift_decode).
+
+// one progression: layers [0, lye), resolutions [rs, re), components
+// [cs, ce) in the order ``prg`` (0 LRCP, 1 RLCP, 2 RPCL, 3 PCRL, 4 CPRL)
+struct Progression {
+    int rs, cs, lye, re, ce, prg;
+};
+
+struct TileStream {
+    std::vector<uint8_t> data;      // the tile's packets, its tile-parts joined in order
+    std::vector<Progression> pocs;  // the POC entries of its tile-part headers
+    bool seen = false;
+};
+
 struct Stream {
-    int w = 0, h = 0, nc = 0, prec = 0;
-    int levels = -1, cbw = 0, cbh = 0, mct = 0;
+    int64_t xs = 0, ys = 0, xo = 0, yo = 0, xt = 0, yt = 0, xto = 0, yto = 0;
+    int nc = 0, prec = 0, sgnd = 0;  // sgnd: bit c for a signed component c
+    int prog = 0, layers = 0, levels = -1, cbw = 0, cbh = 0, mct = 0, reversible = 1;
+    int ppx[33] = {}, ppy[33] = {};  // the precinct exponents by resolution
     int guard = -1;
-    std::vector<int> expn;
-    std::vector<uint8_t> tile;  // the tile's packets, every tile-part in order
+    std::vector<int> expn, mant;     // by subband, in codestream order
+    std::vector<Progression> pocs;   // the main header's POC entries
+    int tiles_x = 0, tiles_y = 0;
+    std::vector<TileStream> tiles;
 };
 
 uint32_t rd16(const uint8_t* p) { return ((uint32_t)p[0] << 8) | p[1]; }
 uint32_t rd32(const uint8_t* p) { return (rd16(p) << 16) | rd16(p + 2); }
+
+// ceil(v / d), v >= 0
+int64_t ceil_div(int64_t v, int64_t d) { return (v + d - 1) / d; }
 
 std::string hex(uint32_t m) {
     char b[16];
@@ -905,10 +923,45 @@ const char* marker_refusal(uint32_t m) {
         case 0xff53: return "per-component coding styles (COC)";
         case 0xff5d: return "per-component quantisation (QCC)";
         case 0xff5e: return "a region of interest (RGN)";
-        case 0xff5f: return "progression order changes (POC)";
         case 0xff60: return "packed packet headers (PPM)";
         case 0xff61: return "packed packet headers (PPT)";
         default: return nullptr;
+    }
+}
+
+void parse_siz(Stream& st, const uint8_t* p, size_t n) {
+    if (n < 36) fail(SL_CORRUPT, "a SIZ marker segment is too short");
+    st.xs = rd32(p + 2);
+    st.ys = rd32(p + 6);
+    st.xo = rd32(p + 10);
+    st.yo = rd32(p + 14);
+    st.xt = rd32(p + 18);
+    st.yt = rd32(p + 22);
+    st.xto = rd32(p + 26);
+    st.yto = rd32(p + 30);
+    int csiz = (int)rd16(p + 34);
+    if (csiz < 1 || csiz > 4) fail(SL_UNSUPPORTED, std::to_string(csiz) + " components are not supported");
+    if (n < (size_t)(36 + 3 * csiz)) fail(SL_CORRUPT, "a SIZ marker segment is too short");
+    if (st.xs > 0x7fffffff || st.ys > 0x7fffffff || st.xo >= st.xs || st.yo >= st.ys)
+        fail(SL_CORRUPT, "an empty image");
+    if (st.xt == 0 || st.yt == 0 || st.xto > st.xo || st.yto > st.yo || st.xto + st.xt <= st.xo ||
+        st.yto + st.yt <= st.yo)
+        fail(SL_CORRUPT, "a tile grid that misses the image");
+    int64_t tx = ceil_div(st.xs - st.xto, st.xt), ty = ceil_div(st.ys - st.yto, st.yt);
+    if (tx * ty > 65535) fail(SL_CORRUPT, "more than 65535 tiles");
+    st.tiles_x = (int)tx;
+    st.tiles_y = (int)ty;
+    st.nc = csiz;
+    for (int c = 0; c < csiz; ++c) {
+        int ssiz = p[36 + 3 * c];
+        if (ssiz & 0x80) st.sgnd |= 1 << c;
+        int prec = (ssiz & 0x7f) + 1;
+        if (prec != 8 && prec != 16)
+            fail(SL_UNSUPPORTED, "a precision of " + std::to_string(prec) + " bits is not supported (only 8 and 16)");
+        if (c && prec != st.prec) fail(SL_UNSUPPORTED, "components of different precisions are not supported");
+        st.prec = prec;
+        if (p[37 + 3 * c] != 1 || p[38 + 3 * c] != 1)
+            fail(SL_UNSUPPORTED, "sub-sampled components are not supported");
     }
 }
 
@@ -916,34 +969,62 @@ void parse_cod(Stream& st, const uint8_t* p, size_t n) {
     if (n < 10) fail(SL_CORRUPT, "a COD marker segment is too short");
     int scod = p[0];
     if (scod & 6) fail(SL_UNSUPPORTED, "SOP/EPH markers are not supported");
-    if (p[1] != 0) fail(SL_UNSUPPORTED, "the progression order " + std::to_string(p[1]) +
-                                            " is not supported (only LRCP)");
-    int layers = (int)rd16(p + 2);
-    if (layers != 1) fail(SL_UNSUPPORTED, std::to_string(layers) + " quality layers are not supported (only one)");
+    if (scod & ~7) fail(SL_CORRUPT, "an unknown coding style " + hex(scod).substr(4));
+    st.prog = p[1];
+    if (st.prog > 4) fail(SL_CORRUPT, "an unknown progression order " + std::to_string(st.prog));
+    st.layers = (int)rd16(p + 2);
+    if (st.layers == 0) fail(SL_CORRUPT, "a COD marker segment of no quality layers");
     st.mct = p[4];
     if (st.mct > 1) fail(SL_UNSUPPORTED, "the multiple component transform " + std::to_string(st.mct));
     st.levels = p[5];
     if (st.levels > 32) fail(SL_CORRUPT, "more than 32 decomposition levels");
     int xcb = p[6] + 2, ycb = p[7] + 2;
     if (xcb > 10 || ycb > 10 || xcb + ycb > 12) fail(SL_CORRUPT, "a code-block size out of range");
-    st.cbw = 1 << xcb;
-    st.cbh = 1 << ycb;
+    st.cbw = xcb;
+    st.cbh = ycb;
     if (p[8] != 0) fail(SL_UNSUPPORTED, "the code-block style " + hex(p[8]).substr(4) +
                                             " is not supported (only style 0)");
-    if (p[9] != 1) fail(SL_UNSUPPORTED, "the irreversible 9/7 wavelet is not supported (only 5/3)");
-    if (scod & 1) {
+    if (p[9] > 1) fail(SL_CORRUPT, "an unknown wavelet transform " + std::to_string(p[9]));
+    st.reversible = p[9];
+    for (int r = 0; r <= st.levels; ++r) {
+        st.ppx[r] = st.ppy[r] = 15;
+        if (!(scod & 1)) continue;
         if (n < (size_t)(10 + st.levels + 1)) fail(SL_CORRUPT, "a COD marker segment is too short");
-        for (int r = 0; r <= st.levels; ++r)
-            if (p[10 + r] != 0xff) fail(SL_UNSUPPORTED, "precincts are not supported (only maximal ones)");
+        st.ppx[r] = p[10 + r] & 15;
+        st.ppy[r] = p[10 + r] >> 4;
+        // Table A.21: an exponent of 0 only for the lowest resolution
+        if (r && (st.ppx[r] == 0 || st.ppy[r] == 0)) fail(SL_CORRUPT, "an invalid precinct size");
     }
 }
 
 void parse_qcd(Stream& st, const uint8_t* p, size_t n) {
     if (n < 1) fail(SL_CORRUPT, "a QCD marker segment is too short");
-    if ((p[0] & 0x1f) != 0) fail(SL_UNSUPPORTED, "quantised subbands are not supported (only reversible ones)");
+    int style = p[0] & 0x1f;
+    if (style == 1) fail(SL_UNSUPPORTED, "derived quantisation (scalar derived) is not supported");
+    if (style != 0 && style != 2) fail(SL_CORRUPT, "an unknown quantisation style " + std::to_string(style));
     st.guard = p[0] >> 5;
     st.expn.clear();
-    for (size_t i = 1; i < n; ++i) st.expn.push_back(p[i] >> 3);
+    st.mant.clear();
+    if (style == 0) {
+        for (size_t i = 1; i < n; ++i) {
+            st.expn.push_back(p[i] >> 3);
+            st.mant.push_back(0);
+        }
+    } else {
+        for (size_t i = 1; i + 1 < n; i += 2) {
+            st.expn.push_back((int)(rd16(p + i) >> 11));
+            st.mant.push_back((int)(rd16(p + i) & 0x7ff));
+        }
+    }
+}
+
+void parse_poc(std::vector<Progression>& out, int nc, const uint8_t* p, size_t n) {
+    if (n == 0 || n % 7) fail(SL_CORRUPT, "a POC marker segment of the wrong length");
+    for (size_t i = 0; i < n; i += 7) {
+        Progression q{p[i], p[i + 1], (int)rd16(p + i + 2), p[i + 4], std::min((int)p[i + 5], nc), p[i + 6]};
+        if (q.prg > 4) fail(SL_CORRUPT, "an unknown progression order " + std::to_string(q.prg) + " in a POC");
+        out.push_back(q);
+    }
 }
 
 Stream parse(const uint8_t* d, size_t size) {
@@ -961,51 +1042,35 @@ Stream parse(const uint8_t* d, size_t size) {
         const uint8_t* p = d + pos + 4;
         size_t n = len - 2;
         if (m == 0xff51) {
-            if (n < 36) fail(SL_CORRUPT, "a SIZ marker segment is too short");
-            uint32_t xs = rd32(p + 2), ys = rd32(p + 6), xo = rd32(p + 10), yo = rd32(p + 14);
-            uint32_t xt = rd32(p + 18), yt = rd32(p + 22), xto = rd32(p + 26), yto = rd32(p + 30);
-            int csiz = (int)rd16(p + 34);
-            if (xo || yo) fail(SL_UNSUPPORTED, "an image offset is not supported");
-            if (xto || yto || xt < xs || yt < ys) fail(SL_UNSUPPORTED, "several tiles are not supported (only one)");
-            if (csiz < 1 || csiz > 4) fail(SL_UNSUPPORTED, std::to_string(csiz) + " components are not supported");
-            if (n < (size_t)(36 + 3 * csiz)) fail(SL_CORRUPT, "a SIZ marker segment is too short");
-            if (xs == 0 || ys == 0 || xs > 0x7fffffff || ys > 0x7fffffff) fail(SL_CORRUPT, "an empty image");
-            st.w = (int)xs;
-            st.h = (int)ys;
-            st.nc = csiz;
-            for (int c = 0; c < csiz; ++c) {
-                int ssiz = p[36 + 3 * c];
-                if (ssiz & 0x80) fail(SL_UNSUPPORTED, "signed samples are not supported");
-                int prec = (ssiz & 0x7f) + 1;
-                if (prec != 8 && prec != 16)
-                    fail(SL_UNSUPPORTED, "a precision of " + std::to_string(prec) + " bits is not supported (only 8 and 16)");
-                if (c && prec != st.prec) fail(SL_UNSUPPORTED, "components of different precisions are not supported");
-                st.prec = prec;
-                if (p[37 + 3 * c] != 1 || p[38 + 3 * c] != 1)
-                    fail(SL_UNSUPPORTED, "sub-sampled components are not supported");
-            }
+            parse_siz(st, p, n);
             siz = true;
         } else if (m == 0xff52) {
             parse_cod(st, p, n);
         } else if (m == 0xff5c) {
             parse_qcd(st, p, n);
+        } else if (m == 0xff5f) {
+            if (!siz) fail(SL_CORRUPT, "a POC marker segment before SIZ");
+            parse_poc(st.pocs, st.nc, p, n);
         } else if (const char* what = marker_refusal(m)) {
             fail(SL_UNSUPPORTED, std::string(what) + " are not supported");
         } else if ((m & 0xff00) != 0xff00) {
             fail(SL_CORRUPT, "a marker expected at byte " + std::to_string(pos));
         }
-        pos += 2 + len;
+        pos += 2 + len;  // TLM, PLM, CRG, COM and others carry nothing the decoder needs
     }
     if (!siz || st.levels < 0 || st.guard < 0) fail(SL_CORRUPT, "the main header lacks SIZ, COD or QCD");
     if (st.mct && st.nc < 3) fail(SL_CORRUPT, "a colour transform of fewer than three components");
     if ((int)st.expn.size() < 3 * st.levels + 1) fail(SL_CORRUPT, "a QCD marker segment is too short");
-    // tile-parts
+    st.tiles.resize((size_t)st.tiles_x * st.tiles_y);
+    // tile-parts, of the tiles in any order
     while (pos + 2 <= size) {
         uint32_t m = rd16(d + pos);
         if (m == 0xffd9) break;
         if (m != 0xff90) fail(SL_CORRUPT, "an SOT marker expected at byte " + std::to_string(pos));
         if (pos + 12 > size) fail(SL_TRUNCATED, "the codestream ends in a tile-part header");
-        if (rd16(d + pos + 4) != 0) fail(SL_UNSUPPORTED, "several tiles are not supported (only one)");
+        uint32_t isot = rd16(d + pos + 4);
+        if (isot >= st.tiles.size()) fail(SL_CORRUPT, "a tile index beyond the tile grid");
+        TileStream& tile = st.tiles[isot];
         uint32_t psot = rd32(d + pos + 6);
         size_t end = psot ? pos + psot : size;
         if (psot == 0 && size >= 2 && rd16(d + size - 2) == 0xffd9) end = size - 2;
@@ -1020,97 +1085,447 @@ Stream parse(const uint8_t* d, size_t size) {
             }
             if (q + 4 > end) fail(SL_TRUNCATED, "a tile-part header ends before its SOD");
             uint32_t len = rd16(d + q + 2);
-            if (tm == 0xff52 || tm == 0xff5c || marker_refusal(tm))
+            if (len < 2 || q + 2 + len > end) fail(SL_TRUNCATED, "a marker segment runs past its tile-part");
+            if (tm == 0xff5f)
+                parse_poc(tile.pocs, st.nc, d + q + 4, len - 2);
+            else if (tm == 0xff52 || tm == 0xff5c || marker_refusal(tm))
                 fail(SL_UNSUPPORTED, "a tile-part header's marker " + hex(tm) + " is not supported");
-            q += 2 + len;
+            q += 2 + len;  // PLT, COM
         }
-        st.tile.insert(st.tile.end(), d + q, d + end);
+        tile.data.insert(tile.data.end(), d + q, d + end);
+        tile.seen = true;
         pos = end;
     }
     return st;
 }
 
-struct DecBlock {
-    int numbps = 0, passes = 0;
-    const uint8_t* data = nullptr;
-    size_t len = 0;
+// ---------------------------------------------------------------------------
+// A tile's structure (opj_tcd_init_tile)
+// ---------------------------------------------------------------------------
+
+struct Cblk {
+    int x0, y0, x1, y1;
+    int numbps = 0, numlenbits = 0, passes = 0, newpasses = 0;
+    uint32_t newlen = 0;
+    bool included = false;
+    std::vector<uint8_t> data;  // its bytes of every layer, joined
 };
 
-void decode(const Stream& st, uint16_t* out) {
-    const int w = st.w, h = st.h, nc = st.nc, L = st.levels;
-    std::vector<std::vector<int32_t>> planes(nc, std::vector<int32_t>((size_t)w * h, 0));
-    const uint8_t* p = st.tile.data();
-    const uint8_t* end = p + st.tile.size();
-    for (int r = 0; r <= L; ++r)
-        for (int c = 0; c < nc; ++c) {
-            std::vector<Band> bands = bands_of(w, h, L, r);
-            std::vector<std::vector<DecBlock>> blocks(bands.size());
-            if (p >= end) fail(SL_TRUNCATED, "the tile's data ends before its packets do");
-            BitReader br(p, end);
-            if (br.bit()) {
-                for (size_t bi = 0; bi < bands.size(); ++bi) {
-                    const Band& b = bands[bi];
-                    if (b.w == 0 || b.h == 0) continue;
-                    const int cw = (b.w + st.cbw - 1) / st.cbw, ch = (b.h + st.cbh - 1) / st.cbh;
-                    const int band_index = r == 0 ? 0 : 3 * (r - 1) + b.orient;
-                    const int band_numbps = st.expn[band_index] + st.guard - 1;
-                    TagTree incl, imsb;
-                    incl.init(cw, ch);
-                    imsb.init(cw, ch);
-                    blocks[bi].resize((size_t)cw * ch);
-                    for (int k = 0; k < cw * ch; ++k) {
-                        DecBlock& db = blocks[bi][k];
-                        if (!tag_decode(br, incl, k, 1)) continue;
-                        int zero = 0;
-                        while (!tag_decode(br, imsb, k, zero)) {
-                            if (++zero > 64) fail(SL_CORRUPT, "a zero-bitplane count out of range");
-                        }
-                        db.numbps = band_numbps + 1 - zero;
-                        db.passes = get_numpasses(br);
-                        int numlenbits = 3;
-                        while (br.bit()) {
-                            if (++numlenbits > 32) fail(SL_CORRUPT, "a length indicator out of range");
-                        }
-                        db.len = br.bits(numlenbits + floorlog2(db.passes));
-                    }
+struct Precinct {
+    int cw = 0, ch = 0;
+    TagTree incl, imsb;
+    std::vector<Cblk> blocks;
+};
+
+struct Subband {
+    int x0, y0, x1, y1;
+    int bandno;  // 0 LL, 1 HL, 2 LH, 3 HH
+    int numbps;
+    float half_step;  // half the irreversible path's step size
+    std::vector<Precinct> precincts;
+    bool empty() const { return x1 <= x0 || y1 <= y0; }
+};
+
+struct Resolution {
+    int x0, y0, x1, y1;
+    int pdx, pdy, pw, ph;
+    std::vector<Subband> bands;
+    std::vector<int> layers_done;  // by precinct: the packets read, a prefix of the layers
+};
+
+struct TileComponent {
+    int x0, y0, x1, y1;
+    std::vector<Resolution> res;
+};
+
+TileComponent init_tile_component(const Stream& st, int tx0, int ty0, int tx1, int ty1) {
+    TileComponent tc{tx0, ty0, tx1, ty1, {}};
+    const int L = st.levels;
+    tc.res.resize(L + 1);
+    for (int r = 0; r <= L; ++r) {
+        Resolution& R = tc.res[r];
+        const int lev = L - r;
+        R.x0 = (int)ceil_pow2(tx0, lev);
+        R.y0 = (int)ceil_pow2(ty0, lev);
+        R.x1 = (int)ceil_pow2(tx1, lev);
+        R.y1 = (int)ceil_pow2(ty1, lev);
+        R.pdx = st.ppx[r];
+        R.pdy = st.ppy[r];
+        const int64_t px0 = ((int64_t)R.x0 >> R.pdx) << R.pdx, py0 = ((int64_t)R.y0 >> R.pdy) << R.pdy;
+        const int64_t px1 = ceil_pow2(R.x1, R.pdx) << R.pdx, py1 = ceil_pow2(R.y1, R.pdy) << R.pdy;
+        R.pw = R.x0 == R.x1 ? 0 : (int)((px1 - px0) >> R.pdx);
+        R.ph = R.y0 == R.y1 ? 0 : (int)((py1 - py0) >> R.pdy);
+        if ((int64_t)R.pw * R.ph > (1 << 24)) fail(SL_CORRUPT, "more than 2^24 precincts in a resolution");
+        R.layers_done.assign((size_t)R.pw * R.ph, 0);
+        // the precincts' partition of the bands, and their code-blocks
+        const int64_t gx0 = r == 0 ? px0 : ceil_pow2(px0, 1), gy0 = r == 0 ? py0 : ceil_pow2(py0, 1);
+        const int gw = r == 0 ? R.pdx : R.pdx - 1, gh = r == 0 ? R.pdy : R.pdy - 1;
+        const int cbw = std::min(st.cbw, gw), cbh = std::min(st.cbh, gh);
+        for (int b = 0; b < (r == 0 ? 1 : 3); ++b) {
+            Subband B;
+            B.bandno = r == 0 ? 0 : b + 1;
+            if (r == 0) {
+                B.x0 = R.x0;
+                B.y0 = R.y0;
+                B.x1 = R.x1;
+                B.y1 = R.y1;
+            } else {
+                const int64_t ox = (int64_t)(B.bandno & 1) << lev, oy = (int64_t)(B.bandno >> 1) << lev;
+                B.x0 = (int)ceil_pow2(tx0 - ox, lev + 1);
+                B.y0 = (int)ceil_pow2(ty0 - oy, lev + 1);
+                B.x1 = (int)ceil_pow2(tx1 - ox, lev + 1);
+                B.y1 = (int)ceil_pow2(ty1 - oy, lev + 1);
+            }
+            const int q = r == 0 ? 0 : 3 * (r - 1) + B.bandno;
+            B.numbps = st.expn[q] + st.guard - 1;
+            // Annex E's step size, without the band's gain: OpenJPEG's 9/7
+            // inverse scales the high-pass by 2/K in its place
+            B.half_step = 0.5f * (float)std::ldexp(1.0 + st.mant[q] / 2048.0, st.prec - st.expn[q]);
+            B.precincts.resize((size_t)R.pw * R.ph);
+            for (int pn = 0; pn < R.pw * R.ph; ++pn) {
+                Precinct& P = B.precincts[pn];
+                const int64_t cx0 = gx0 + (int64_t)(pn % R.pw) * ((int64_t)1 << gw);
+                const int64_t cy0 = gy0 + (int64_t)(pn / R.pw) * ((int64_t)1 << gh);
+                const int64_t x0 = std::max<int64_t>(cx0, B.x0), y0 = std::max<int64_t>(cy0, B.y0);
+                const int64_t x1 = std::min<int64_t>(cx0 + ((int64_t)1 << gw), B.x1);
+                const int64_t y1 = std::min<int64_t>(cy0 + ((int64_t)1 << gh), B.y1);
+                const int64_t bx0 = (x0 >> cbw) << cbw, by0 = (y0 >> cbh) << cbh;
+                P.cw = (int)std::max<int64_t>(0, ((ceil_pow2(x1, cbw) << cbw) - bx0) >> cbw);
+                P.ch = (int)std::max<int64_t>(0, ((ceil_pow2(y1, cbh) << cbh) - by0) >> cbh);
+                if (P.cw * P.ch == 0) continue;
+                P.incl.init(P.cw, P.ch);
+                P.imsb.init(P.cw, P.ch);
+                P.blocks.resize((size_t)P.cw * P.ch);
+                for (int k = 0; k < P.cw * P.ch; ++k) {
+                    Cblk& cb = P.blocks[k];
+                    const int64_t kx = bx0 + ((int64_t)(k % P.cw) << cbw), ky = by0 + ((int64_t)(k / P.cw) << cbh);
+                    cb.x0 = (int)std::max(kx, x0);
+                    cb.y0 = (int)std::max(ky, y0);
+                    cb.x1 = (int)std::min(kx + ((int64_t)1 << cbw), x1);
+                    cb.y1 = (int)std::min(ky + ((int64_t)1 << cbh), y1);
                 }
             }
-            br.align();
-            p = br.p;
-            for (size_t bi = 0; bi < bands.size(); ++bi)
-                for (DecBlock& db : blocks[bi]) {
-                    if (!db.passes) continue;
-                    if ((size_t)(end - p) < db.len) fail(SL_TRUNCATED, "a code-block's data runs past the tile's");
-                    db.data = p;
-                    p += db.len;
-                }
-            for (size_t bi = 0; bi < bands.size(); ++bi) {
-                const Band& b = bands[bi];
-                if (blocks[bi].empty()) continue;
-                const int cw = (b.w + st.cbw - 1) / st.cbw;
-                for (size_t k = 0; k < blocks[bi].size(); ++k) {
-                    const DecBlock& db = blocks[bi][k];
-                    int x0 = (int)(k % cw) * st.cbw, y0 = (int)(k / cw) * st.cbh;
-                    int bw = std::min(st.cbw, b.w - x0), bh = std::min(st.cbh, b.h - y0);
-                    decode_block(db.data, db.len, db.numbps, db.passes,
-                                 planes[c].data() + (size_t)(b.y0 + y0) * w + b.x0 + x0, w, bw, bh, b.orient);
-                }
-            }
-        }
-    for (int c = 0; c < nc; ++c) dwt53_inverse(planes[c].data(), w, h, L);
-    const size_t n = (size_t)w * h;
-    if (st.mct) {
-        for (size_t i = 0; i < n; ++i) {
-            int32_t y = planes[0][i], u = planes[1][i], v = planes[2][i];
-            int32_t g = y - ((u + v) >> 2);
-            planes[0][i] = v + g;
-            planes[1][i] = g;
-            planes[2][i] = u + g;
+            R.bands.push_back(std::move(B));
         }
     }
-    const int32_t shift = 1 << (st.prec - 1), hi = (1 << st.prec) - 1;
+    return tc;
+}
+
+// ---------------------------------------------------------------------------
+// Packets (opj_t2_read_packet_header, opj_t2_read_packet_data)
+// ---------------------------------------------------------------------------
+
+void read_packet(const uint8_t*& p, const uint8_t* end, Resolution& R, int precno, int layno) {
+    if (p >= end) fail(SL_TRUNCATED, "the tile's data ends before its packets do");
+    BitReader br(p, end);
+    const bool present = br.bit();
+    if (present) {
+        for (Subband& B : R.bands) {
+            if (B.empty()) continue;
+            Precinct& P = B.precincts[precno];
+            for (int k = 0; k < P.cw * P.ch; ++k) {
+                Cblk& cb = P.blocks[k];
+                const int included = cb.included ? br.bit() : tag_decode(br, P.incl, k, layno + 1);
+                cb.newpasses = 0;
+                if (!included) continue;
+                if (!cb.included) {
+                    int zero = 0;
+                    while (!tag_decode(br, P.imsb, k, zero)) {
+                        if (++zero > 64) fail(SL_CORRUPT, "a zero-bitplane count out of range");
+                    }
+                    cb.numbps = B.numbps + 1 - zero;
+                    cb.numlenbits = 3;
+                    cb.included = true;
+                }
+                cb.newpasses = get_numpasses(br);
+                while (br.bit()) {
+                    if (++cb.numlenbits > 32) fail(SL_CORRUPT, "a length indicator out of range");
+                }
+                // style 0 codes every pass of a code-block into one segment
+                if (cb.passes + cb.newpasses > 109) fail(SL_CORRUPT, "a code-block of more than 109 passes");
+                const int nbits = cb.numlenbits + floorlog2(cb.newpasses);
+                if (nbits > 32) fail(SL_CORRUPT, "a length indicator out of range");
+                cb.newlen = br.bits(nbits);
+            }
+        }
+    }
+    br.align();
+    p = br.p;
+    if (!present) return;
+    for (Subband& B : R.bands) {
+        if (B.empty()) continue;
+        for (Cblk& cb : B.precincts[precno].blocks) {
+            if (!cb.newpasses) continue;
+            if ((size_t)(end - p) < cb.newlen) fail(SL_TRUNCATED, "a code-block's data runs past the tile's");
+            cb.data.insert(cb.data.end(), p, p + cb.newlen);
+            p += cb.newlen;
+            cb.passes += cb.newpasses;
+        }
+    }
+}
+
+struct TileDecoder {
+    const Stream& st;
+    std::vector<TileComponent> comps;
+    int64_t tx0, ty0, tx1, ty1;
+    const uint8_t* p;
+    const uint8_t* end;
+    std::vector<int> top;  // by component: the highest resolution of a packet read
+
+    // the packet (layno, r, c, precno), unless a progression read it before
+    void packet(int layno, int r, int c, int precno) {
+        top[c] = std::max(top[c], r);
+        Resolution& R = comps[c].res[r];
+        if (precno < 0 || precno >= R.pw * R.ph) fail(SL_CORRUPT, "a precinct beyond its resolution's");
+        int& done = R.layers_done[precno];
+        if (layno < done) return;
+        if (layno > done) fail(SL_CORRUPT, "a packet before its precinct's earlier layers");
+        read_packet(p, end, R, precno, layno);
+        done = layno + 1;
+    }
+
+    // the precinct of (r, c) whose top-left is at (x, y) on the reference
+    // grid, or -1 (opj_pi_next_rpcl's test)
+    int precinct_at(int r, int c, int64_t x, int64_t y) const {
+        const Resolution& R = comps[c].res[r];
+        const int lev = st.levels - r;
+        const int64_t rx0 = ceil_pow2(tx0, lev), ry0 = ceil_pow2(ty0, lev);
+        const int64_t rx1 = ceil_pow2(tx1, lev), ry1 = ceil_pow2(ty1, lev);
+        const int rpx = R.pdx + lev, rpy = R.pdy + lev;
+        if (!(y % ((int64_t)1 << rpy) == 0 || (y == ty0 && ((ry0 << lev) % ((int64_t)1 << rpy)))))
+            return -1;
+        if (!(x % ((int64_t)1 << rpx) == 0 || (x == tx0 && ((rx0 << lev) % ((int64_t)1 << rpx)))))
+            return -1;
+        if (R.pw == 0 || R.ph == 0 || rx0 == rx1 || ry0 == ry1) return -1;
+        const int64_t i = (ceil_pow2(x, lev) >> R.pdx) - (rx0 >> R.pdx);
+        const int64_t j = (ceil_pow2(y, lev) >> R.pdy) - (ry0 >> R.pdy);
+        return (int)(i + j * R.pw);
+    }
+
+    // the position step of components [c0, c1): the least precinct size
+    // over their resolutions on the reference grid
+    void steps(int c0, int c1, int64_t* dx, int64_t* dy) const {
+        *dx = *dy = 0;
+        for (int c = c0; c < c1; ++c)
+            for (int r = 0; r <= st.levels; ++r) {
+                const Resolution& R = comps[c].res[r];
+                const int sx = R.pdx + st.levels - r, sy = R.pdy + st.levels - r;
+                if (sx < 32) *dx = *dx ? std::min(*dx, (int64_t)1 << sx) : (int64_t)1 << sx;
+                if (sy < 32) *dy = *dy ? std::min(*dy, (int64_t)1 << sy) : (int64_t)1 << sy;
+            }
+    }
+
+    void progression(const Progression& q) {
+        const int nres = st.levels + 1;
+        const int lye = std::min(q.lye, st.layers), re = std::min(q.re, nres);
+        auto at = [&](int r, int c, int64_t x, int64_t y) {
+            int pn = precinct_at(r, c, x, y);
+            if (pn >= 0)
+                for (int l = 0; l < lye; ++l) packet(l, r, c, pn);
+        };
+        int64_t dx, dy;
+        switch (q.prg) {
+            case 0:  // LRCP
+                for (int l = 0; l < lye; ++l)
+                    for (int r = q.rs; r < re; ++r)
+                        for (int c = q.cs; c < q.ce; ++c)
+                            for (int pn = 0; pn < comps[c].res[r].pw * comps[c].res[r].ph; ++pn) packet(l, r, c, pn);
+                break;
+            case 1:  // RLCP
+                for (int r = q.rs; r < re; ++r)
+                    for (int l = 0; l < lye; ++l)
+                        for (int c = q.cs; c < q.ce; ++c)
+                            for (int pn = 0; pn < comps[c].res[r].pw * comps[c].res[r].ph; ++pn) packet(l, r, c, pn);
+                break;
+            case 2:  // RPCL
+                steps(0, st.nc, &dx, &dy);
+                if (!dx || !dy) break;
+                for (int r = q.rs; r < re; ++r)
+                    for (int64_t y = ty0; y < ty1; y += dy - y % dy)
+                        for (int64_t x = tx0; x < tx1; x += dx - x % dx)
+                            for (int c = q.cs; c < q.ce; ++c) at(r, c, x, y);
+                break;
+            case 3:  // PCRL
+                steps(0, st.nc, &dx, &dy);
+                if (!dx || !dy) break;
+                for (int64_t y = ty0; y < ty1; y += dy - y % dy)
+                    for (int64_t x = tx0; x < tx1; x += dx - x % dx)
+                        for (int c = q.cs; c < q.ce; ++c)
+                            for (int r = q.rs; r < re; ++r) at(r, c, x, y);
+                break;
+            default:  // CPRL
+                for (int c = q.cs; c < q.ce; ++c) {
+                    steps(c, c + 1, &dx, &dy);
+                    if (!dx || !dy) return;
+                    for (int64_t y = ty0; y < ty1; y += dy - y % dy)
+                        for (int64_t x = tx0; x < tx1; x += dx - x % dx)
+                            for (int r = q.rs; r < re; ++r) at(r, c, x, y);
+                }
+        }
+    }
+};
+
+// ---------------------------------------------------------------------------
+// The inverse wavelets (Annex F), at any origin
+// ---------------------------------------------------------------------------
+
+// One line of ``n`` samples ``stride`` apart, its ``sn`` low-pass samples
+// first; ``cas`` 1 where its first sample is at an odd coordinate (a
+// high-pass one). The lifting extends the line symmetrically.
+void idwt53_line(int32_t* x, int n, int stride, int sn, int cas, std::vector<int32_t>& t) {
+    if (n == 1) {
+        if (cas) x[0] /= 2;
+        return;
+    }
+    if (n < 1) return;
+    t.resize(n);
+    for (int i = 0; i < sn; ++i) t[2 * i + cas] = x[(size_t)i * stride];
+    for (int i = 0; i < n - sn; ++i) t[2 * i + 1 - cas] = x[(size_t)(sn + i) * stride];
+    auto at = [&](int k) { return t[k < 0 ? -k : (k >= n ? 2 * (n - 1) - k : k)]; };
+    for (int k = cas; k < n; k += 2) t[k] -= (at(k - 1) + at(k + 1) + 2) >> 2;
+    for (int k = 1 - cas; k < n; k += 2) t[k] += (at(k - 1) + at(k + 1)) >> 1;
+    for (int k = 0; k < n; ++k) x[(size_t)k * stride] = t[k];
+}
+
+// OpenJPEG's single-precision lifting constants (opj_v8dwt_decode): the
+// low-pass scaled by K, the high-pass by its historic 2/K
+const float K97 = 1.230174105f, TWO_INV_K97 = 1.625732422f;
+const float ALPHA97 = -1.586134342f, BETA97 = -0.052980118f, GAMMA97 = 0.882911075f, DELTA97 = 0.443506852f;
+
+void idwt97_line(float* x, int n, int stride, int sn, int cas, std::vector<float>& t) {
+    if (n <= 1) return;  // a lone sample stays as it is, even a high-pass one
+    t.resize(n);
+    for (int i = 0; i < sn; ++i) t[2 * i + cas] = x[(size_t)i * stride] * K97;
+    for (int i = 0; i < n - sn; ++i) t[2 * i + 1 - cas] = x[(size_t)(sn + i) * stride] * TWO_INV_K97;
+    auto at = [&](int k) { return t[k < 0 ? -k : (k >= n ? 2 * (n - 1) - k : k)]; };
+    for (int k = cas; k < n; k += 2) t[k] = t[k] - (at(k - 1) + at(k + 1)) * DELTA97;
+    for (int k = 1 - cas; k < n; k += 2) t[k] = t[k] - (at(k - 1) + at(k + 1)) * GAMMA97;
+    for (int k = cas; k < n; k += 2) t[k] = t[k] - (at(k - 1) + at(k + 1)) * BETA97;
+    for (int k = 1 - cas; k < n; k += 2) t[k] = t[k] - (at(k - 1) + at(k + 1)) * ALPHA97;
+    for (int k = 0; k < n; ++k) x[(size_t)k * stride] = t[k];
+}
+
+// every level of a tile-component's plane (row stride ``w``): its rows,
+// then its columns
+template <class T, class Line>
+void idwt_2d(T* plane, int w, const TileComponent& tc, Line line) {
+    std::vector<T> t;
+    for (size_t r = 1; r < tc.res.size(); ++r) {
+        const Resolution &lo = tc.res[r - 1], &R = tc.res[r];
+        const int rw = R.x1 - R.x0, rh = R.y1 - R.y0;
+        for (int j = 0; j < rh; ++j) line(plane + (size_t)j * w, rw, 1, lo.x1 - lo.x0, R.x0 & 1, t);
+        for (int i = 0; i < rw; ++i) line(plane + i, rh, w, lo.y1 - lo.y0, R.y0 & 1, t);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// A tile, then the image
+// ---------------------------------------------------------------------------
+
+void decode_tile(const Stream& st, const TileStream& ts, int64_t tx0, int64_t ty0, int64_t tx1, int64_t ty1,
+                 uint16_t* out) {
+    const int nc = st.nc;
+    TileDecoder td{st, {}, tx0, ty0, tx1, ty1, ts.data.data(), ts.data.data() + ts.data.size(),
+                   std::vector<int>(nc, -1)};
+    for (int c = 0; c < nc; ++c) td.comps.push_back(init_tile_component(st, (int)tx0, (int)ty0, (int)tx1, (int)ty1));
+    std::vector<Progression> order(st.pocs);
+    order.insert(order.end(), ts.pocs.begin(), ts.pocs.end());
+    if (order.empty()) order.push_back({0, 0, st.layers, st.levels + 1, nc, st.prog});
+    for (const Progression& q : order) td.progression(q);
+    // OpenJPEG gives such a component at the resolution its packets reach,
+    // into a buffer of the full one
     for (int c = 0; c < nc; ++c)
-        for (size_t i = 0; i < n; ++i) out[i * nc + c] = (uint16_t)std::max(0, std::min(hi, planes[c][i] + shift));
+        if (td.top[c] < st.levels)
+            fail(SL_UNSUPPORTED, "progression order changes (POC) that leave out a component's highest "
+                                 "resolution are not supported");
+
+    const int w = (int)(tx1 - tx0), h = (int)(ty1 - ty0);
+    const size_t n = (size_t)w * h;
+    std::vector<std::vector<int32_t>> ip(st.reversible ? nc : 0, std::vector<int32_t>(n, 0));
+    std::vector<std::vector<float>> fp(st.reversible ? 0 : nc, std::vector<float>(n, 0.0f));
+    std::vector<int32_t> raw;
+    for (int c = 0; c < nc; ++c) {
+        const TileComponent& tc = td.comps[c];
+        for (size_t r = 0; r < tc.res.size(); ++r)
+            for (const Subband& B : tc.res[r].bands)
+                for (const Precinct& P : B.precincts)
+                    for (const Cblk& cb : P.blocks) {
+                        const int bw = cb.x1 - cb.x0, bh = cb.y1 - cb.y0;
+                        if (bw <= 0 || bh <= 0) continue;
+                        int x = cb.x0 - B.x0, y = cb.y0 - B.y0;
+                        if (B.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
+                        if (B.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
+                        raw.resize((size_t)bw * bh);
+                        decode_block(cb.data.data(), cb.data.size(), cb.numbps, cb.passes, raw.data(), bw, bw,
+                                     bh, B.bandno);
+                        for (int j = 0; j < bh; ++j)
+                            for (int i = 0; i < bw; ++i) {
+                                const size_t at = (size_t)(y + j) * w + x + i;
+                                const int32_t v = raw[(size_t)j * bw + i];
+                                if (st.reversible)
+                                    ip[c][at] = v / 2;
+                                else
+                                    fp[c][at] = (float)v * B.half_step;
+                            }
+                    }
+        if (st.reversible)
+            idwt_2d(ip[c].data(), w, tc, idwt53_line);
+        else
+            idwt_2d(fp[c].data(), w, tc, idwt97_line);
+    }
+    if (st.mct && nc >= 3) {
+        if (st.reversible) {
+            for (size_t i = 0; i < n; ++i) {
+                int32_t y = ip[0][i], u = ip[1][i], v = ip[2][i];
+                int32_t g = y - ((u + v) >> 2);
+                ip[0][i] = v + g;
+                ip[1][i] = g;
+                ip[2][i] = u + g;
+            }
+        } else {
+            for (size_t i = 0; i < n; ++i) {
+                float y = fp[0][i], u = fp[1][i], v = fp[2][i];
+                fp[0][i] = y + v * 1.402f;
+                fp[1][i] = y - u * 0.34413f - v * 0.71414f;
+                fp[2][i] = y + u * 1.772f;
+            }
+        }
+    }
+    const int64_t W = st.xs - st.xo;
+    for (int c = 0; c < nc; ++c) {
+        const bool sg = (st.sgnd >> c) & 1;
+        const int64_t half = (int64_t)1 << (st.prec - 1);
+        const int64_t shift = sg ? 0 : half, lo = sg ? -half : 0, hi = sg ? half - 1 : 2 * half - 1;
+        for (int j = 0; j < h; ++j) {
+            uint16_t* row = out + ((size_t)(ty0 - st.yo + j) * W + (size_t)(tx0 - st.xo)) * nc + c;
+            for (int i = 0; i < w; ++i) {
+                int64_t v;
+                if (st.reversible) {
+                    v = std::max(lo, std::min(hi, (int64_t)ip[c][(size_t)j * w + i] + shift));
+                } else {
+                    const float f = fp[c][(size_t)j * w + i];
+                    if (f > (float)INT32_MAX)
+                        v = hi;
+                    else if (f < (float)INT32_MIN)
+                        v = lo;
+                    else  // lrintf: to nearest, ties to even
+                        v = std::max(lo, std::min(hi, (int64_t)std::lrintf(f) + shift));
+                }
+                row[(size_t)i * nc] = (uint16_t)(v + (sg ? half : 0));
+            }
+        }
+    }
+}
+
+void decode(const Stream& st, uint16_t* out) {
+    for (size_t t = 0; t < st.tiles.size(); ++t) {
+        if (!st.tiles[t].seen) fail(SL_TRUNCATED, "the codestream ends before its tile " + std::to_string(t));
+        const int64_t p = (int64_t)(t % st.tiles_x), q = (int64_t)(t / st.tiles_x);
+        const int64_t tx0 = std::max(st.xto + p * st.xt, st.xo), ty0 = std::max(st.yto + q * st.yt, st.yo);
+        const int64_t tx1 = std::min(st.xto + (p + 1) * st.xt, st.xs);
+        const int64_t ty1 = std::min(st.yto + (q + 1) * st.yt, st.ys);
+        decode_tile(st, st.tiles[t], tx0, ty0, tx1, ty1, out);
+    }
 }
 
 void set_err(char* err, int errlen, const std::string& msg) {
@@ -1147,12 +1562,15 @@ void sl_j2k_free(uint8_t* buffer) { free(buffer); }
 int sl_j2k_info(const uint8_t* data, size_t size, int32_t* info, char* err, int errlen) {
     try {
         Stream st = parse(data, size);
-        info[0] = st.w;
-        info[1] = st.h;
+        info[0] = (int32_t)(st.xs - st.xo);
+        info[1] = (int32_t)(st.ys - st.yo);
         info[2] = st.nc;
         info[3] = st.prec;
         info[4] = st.levels;
         info[5] = st.mct;
+        info[6] = st.sgnd;
+        info[7] = (int32_t)st.xo;
+        info[8] = (int32_t)st.yo;
         return SL_OK;
     } catch (const J2kError& e) {
         set_err(err, errlen, e.msg);

@@ -269,14 +269,16 @@ def _sun_raster(h: int = 8, w: int = 8) -> bytes:
 
 def test_reading_queue_raises_by_name(tmp_path):
     """A file of a format ROADMAP.md queues for reading, which Pillow or
-    OpenCV reads, still raises ``NotImplementedError`` by name: a 9/7
-    JPEG 2000 codestream, a LAB PSD, and a Sun raster (read by both
-    libraries; the port's OpenCV reading refuses it too)."""
+    OpenCV reads, still raises ``NotImplementedError`` by name: a JPEG
+    2000 codestream of a code-block style other than 0, a LAB PSD, and a
+    Sun raster (read by both libraries; the port's OpenCV reading refuses
+    it too)."""
     from stillleben_tpu_torch.assets.image_fixtures import path as fixture_path
     from torch_image_fixtures import psd_file
 
     lab = psd_file(np.full((3, 4, 5), 128, np.uint8), 9)
-    cases = {"irreversible.j2k": (open(fixture_path("irreversible.j2k"), "rb").read(), "9/7"),
+    cases = {"cblk_style.j2k": (open(fixture_path("cblk_style.j2k"), "rb").read(),
+                                "code-block style"),
              "lab.psd": (lab, "LAB"), "sun.ras": (_sun_raster(), "Sun raster")}
     for name, (data, what) in cases.items():
         path = str(tmp_path / name)

@@ -8,12 +8,15 @@ and the JAX package.
   smooth and constant content; the committed encode fixtures from their
   sources; the saver's 640x480 files to the digests of Pillow's.
 - Reading: every committed fixture to the digests of Pillow's and
-  OpenCV's readings (the card's host checks the same); the streams the
-  decoder does not read refused by name; an ICNS with a JPEG 2000 entry;
-  seeded round trips.
+  OpenCV's readings (the card's host checks the same), those of Pillow's
+  other settings among them (the 9/7 wavelet and the ICT, quality layers,
+  precincts, the five progression orders, tiles and offsets, signed
+  samples, the cinema profiles); the streams the decoder does not read
+  refused by name; ICNS with JPEG 2000 entries; seeded round trips of the
+  port's own files and of Pillow's at its settings, 1x1 to 480x640.
 - The JAX package on the same files: ``Texture``, ``ImageLoader``, the
   light map's panorama reader, and the documents and scene atlas of a blob
-  textured from JP2 files.
+  textured from JP2 files and from files of the other settings.
 """
 
 import hashlib
@@ -36,13 +39,15 @@ from stillleben_tpu.render.atlas import build_scene_atlas as jax_build_scene_atl
 from stillleben_tpu_torch.assets import image, jpeg2000
 from stillleben_tpu_torch.assets.gltf import load_gltf
 from stillleben_tpu_torch.assets.image_fixtures import (JPEG2000_ENCODE_FILES, JPEG2000_READ_FILES,
-                                                        JPEG2000_REFUSALS, digests,
-                                                        jpeg2000_saver_sources, jpeg2000_sources)
+                                                        JPEG2000_REFUSALS, JPEG2000_SETTINGS_FILES,
+                                                        digests, jpeg2000_saver_sources,
+                                                        jpeg2000_sources)
 from stillleben_tpu_torch.assets.image_fixtures import path as fixture
 from stillleben_tpu_torch.assets.image_loader import ImageLoader
 from stillleben_tpu_torch.assets.mesh import Mesh
 from stillleben_tpu_torch.assets.objfile import load_obj
-from stillleben_tpu_torch.assets.procedural import write_jpeg2000_fixtures
+from stillleben_tpu_torch.assets.procedural import (write_jpeg2000_fixtures,
+                                                    write_jpeg2000_settings_fixtures)
 from stillleben_tpu_torch.assets.texture import Texture
 from stillleben_tpu_torch.render import atlas as patlas
 from stillleben_tpu_torch.render import light_map as plm
@@ -56,7 +61,7 @@ cv2 = pytest.importorskip("cv2")
 pytestmark = pytest.mark.filterwarnings("ignore::UserWarning", "ignore::DeprecationWarning")
 
 SIZES = ((1, 1), (1, 640), (2, 2), (3, 5), (31, 40), (33, 33), (64, 64), (65, 130), (480, 640))
-ALL_FILES = JPEG2000_ENCODE_FILES + JPEG2000_READ_FILES
+ALL_FILES = JPEG2000_ENCODE_FILES + JPEG2000_READ_FILES + JPEG2000_SETTINGS_FILES
 
 
 def sha(b: bytes) -> str:
@@ -165,7 +170,9 @@ def test_fixture_readings(name):
     assert ("None" if cv is None else sha(cv.tobytes())) == digests.JPEG2000_DECODE_CV2[name]
 
 
-@pytest.mark.parametrize("name", JPEG2000_ENCODE_FILES[:8] + ("rct.jp2", "la.jp2", "la.j2k"))
+@pytest.mark.parametrize("name", JPEG2000_ENCODE_FILES[:8] + (
+    "rct.jp2", "la.jp2", "la.j2k", "i97_rgba.j2k", "i97_i16.jp2", "ict_rgba.jp2", "order_pcrl.j2k",
+    "tiles_col1.j2k", "signed_i16.j2k", "cinema4k24_48x64.j2k", "frame_tiles.j2k"))
 def test_readings_match_the_libraries(name):
     """The same against Pillow and OpenCV here, with dtype and shape."""
     data = read(name)
@@ -196,15 +203,71 @@ def test_decode_is_lossless():
     np.testing.assert_array_equal(jpeg2000.decode_jpeg2000(b.getvalue()), a)
 
 
-def test_refusals_by_name():
+@pytest.mark.parametrize("start", range(0, 120, 20))
+def test_settings_round_trips(start):
+    """Twenty seeded cases each: the port reads Pillow's file of each as
+    Pillow reads it, and raises where Pillow raises (a precinct exponent of
+    0 above the lowest resolution); files Pillow's ``save`` refuses to
+    write are skipped."""
+    read_ = 0
+    for i in range(start, start + 20):
+        a, kw = tif.jpeg2000_sweep_case(i)
+        name = ("x.j2k", "x.jp2")[i % 2]
+        try:
+            data = tif.pillow_file(a, name, **kw)
+        except (OSError, ValueError):  # a tile grid that misses the image, an encoder error
+            continue
+        try:
+            ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+        except OSError:
+            with pytest.raises((OSError, ValueError)):
+                jpeg2000.decode_jpeg2000(data, name)
+            continue
+        np.testing.assert_array_equal(jpeg2000.decode_jpeg2000(data, name), ref,
+                                      err_msg=str((i, kw)))
+        read_ += 1
+    assert read_ >= 12
+
+
+@pytest.mark.parametrize("name", ("signed_l.j2k", "signed_i16.j2k"))
+def test_signed_samples(name):
+    """``decode_samples`` gives a signed file's samples as int8 or int16;
+    Pillow's L or I;16 holds each plus half the range."""
+    data = read(name)
+    s = jpeg2000.decode_samples(data, name)
+    ref = np.asarray(Image.open(io.BytesIO(data))).astype(np.int32)
+    assert s.dtype == (np.int8 if name == "signed_l.j2k" else np.int16)
+    np.testing.assert_array_equal(s.astype(np.int32) + (128 if s.dtype == np.int8 else 32768), ref)
+
+
+def test_refusals_by_name(tmp_path):
     """Each refusal names its parameter (the fixtures cover the rest);
-    damaged streams raise, none gives an image."""
+    damaged streams raise, none gives an image. A SIZ patched to a signed
+    first component is read as Pillow reads it (RGB), and OpenCV reads
+    nothing of it."""
     data = read("frame.j2k")
     siz = data.index(b"\xff\x51")
     signed = bytearray(data)
     signed[siz + 40] |= 0x80
-    with pytest.raises(NotImplementedError, match="signed"):
-        jpeg2000.decode_jpeg2000(bytes(signed))
+    np.testing.assert_array_equal(jpeg2000.decode_jpeg2000(bytes(signed)),
+                                  np.asarray(Image.open(io.BytesIO(bytes(signed))).convert("RGBA")))
+    (tmp_path / "signed.j2k").write_bytes(bytes(signed))
+    flags = cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH
+    assert cv2.imread(str(tmp_path / "signed.j2k"), flags) is None
+    assert jpeg2000.decode_jpeg2000_cv2(bytes(signed)) is None
+    cod = data.index(b"\xff\x52")
+    end_cod = cod + 2 + struct.unpack_from(">H", data, cod + 2)[0]
+    coc = b"\xff\x53\x00\x09\x00\x00\x05\x04\x04\x00\x01"  # component 0: COD's own values
+    with pytest.raises(NotImplementedError, match="COC"):
+        jpeg2000.decode_jpeg2000(data[:end_cod] + coc + data[end_cod:])
+    qcd = data.index(b"\xff\x5c")
+    derived = bytearray(data)
+    derived[qcd + 4] = (derived[qcd + 4] & 0xe0) | 1
+    with pytest.raises(NotImplementedError, match="derived quantisation"):
+        jpeg2000.decode_jpeg2000(bytes(derived))
+    poc = b"\xff\x5f\x00\x09\x00\x00\x00\x01\x01\x03\x00"  # resolution 0 alone, LRCP
+    with pytest.raises(NotImplementedError, match="progression order changes"):
+        jpeg2000.decode_jpeg2000(data[:end_cod] + poc + data[end_cod:])
     twelve = bytearray(data)
     for c in range(3):
         twelve[siz + 40 + 3 * c] = 11
@@ -223,13 +286,14 @@ def test_refusals_by_name():
 
 
 def test_icns_entries():
-    """An ICNS whose 128^2 entry is a JP2 reads as Pillow reads it; one
-    whose entry is a 9/7 codestream is refused naming JPEG 2000; an entry
-    of a size the file's sizes do not give fails as in Pillow."""
-    data = read("j2k_entry.icns")
-    assert sha(image.decode_image(data).tobytes()) == digests.JPEG2000_DECODE["j2k_entry.icns"]
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
-        image.decode_image(read("j2k_refused.icns"))
+    """ICNS whose 128^2 entry is a JP2, a 9/7 codestream or a layered 9/7
+    JP2 read as Pillow reads them; one whose entry's code-block style is
+    not 0 is refused naming the ICNS entry and the style; an entry of a
+    size the file's sizes do not give fails as in Pillow."""
+    for name in ("j2k_entry.icns", "j2k_97.icns", "j2k_layers.icns"):
+        assert sha(image.decode_image(read(name)).tobytes()) == digests.JPEG2000_DECODE[name]
+    with pytest.raises(NotImplementedError, match="ICNS entry in JPEG 2000.*code-block style"):
+        image.decode_image(read("j2k_style.icns"))
     odd = tif.icns_file([(b"ic07", tif.pillow_file(smooth(40, 56, 4, 35), "x.jp2"))])
     with pytest.raises(ValueError, match="not one of the allowed sizes") as ref:
         Image.open(io.BytesIO(odd)).convert("RGBA")
@@ -243,7 +307,10 @@ def test_icns_entries():
 # ---------------------------------------------------------------------------
 
 JAX_READ = ("frame.jp2", "frame_rgba.j2k", "grey.jp2", "depth16.j2k", "la.jp2", "rct.jp2",
-            "cblk32.j2k")
+            "cblk32.j2k", "ict_rgba.jp2", "order_pcrl.j2k", "tiles_col1.j2k", "i97_i16.jp2",
+            "signed_rgb.jp2")
+# the kinds of Pillow's other settings among them, each a blob's texture
+JAX_SETTINGS = JAX_READ[7:]
 
 
 @pytest.mark.parametrize("name", JAX_READ)
@@ -274,6 +341,11 @@ def test_image_loader_matches_jax(tmp_path):
 @pytest.fixture(scope="module")
 def scene_files(tmp_path_factory):
     return write_jpeg2000_fixtures(str(tmp_path_factory.mktemp("j2k")), subdiv=2)
+
+
+@pytest.fixture(scope="module")
+def settings_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("j2k_settings"))
 
 
 @pytest.mark.parametrize("name", ("obj_jp2", "glb_jp2"))
@@ -307,3 +379,37 @@ def test_atlas_matches_jax(scene_files):
     sky = plm._load_hdr_image(os.path.join(d, "sky.jp2"))
     np.testing.assert_array_equal(sky, jlm._load_hdr_image(os.path.join(d, "sky.jp2")))
     np.testing.assert_array_equal(sky, plm._load_hdr_image(os.path.join(d, "sky_jp2.bmp")))
+
+
+@pytest.mark.parametrize("name", JAX_SETTINGS)
+def test_settings_atlas_matches_jax(settings_dir, name):
+    """The blob textured (.mtl) from each kind of Pillow's other settings
+    (9/7 + ICT RGBA, layered PCRL, tiled with offsets, 16-bit 9/7, signed):
+    the scene atlas is the JAX package's, bitwise, and its texture the PNG
+    twin's."""
+    fx = write_jpeg2000_settings_fixtures(settings_dir, subdiv=2, base_color=name)
+    pa = patlas.build_scene_atlas([Object(Mesh(fx["obj_j2k"], physics=False))], "cpu")
+    ja = to_numpy(jax_build_scene_atlas([jsl.Object(jsl.Mesh(fx["obj_j2k"], physics=False))]))
+    for field in pa._fields:
+        if field != "num_objects":
+            np.testing.assert_array_equal(getattr(pa, field).numpy(), getattr(ja, field),
+                                          err_msg=field)
+    twin = patlas.build_scene_atlas([Object(Mesh(fx["obj_png"], physics=False))], "cpu")
+    np.testing.assert_array_equal(pa.tex_combo.numpy(), twin.tex_combo.numpy())
+
+
+def test_settings_scene_matches_jax(settings_dir):
+    """Phase 25's scene textures: the layered 9/7 + ICT blob (.mtl and GLB)
+    and the tiled checker plane, as the JAX package reads them and as
+    their PNG twins hold them."""
+    fx = write_jpeg2000_settings_fixtures(settings_dir, subdiv=2)
+    for key in ("obj_j2k", "glb_j2k"):
+        port = load_obj(fx[key]) if key.startswith("obj") else load_gltf(fx[key])
+        ref = jax_obj(fx[key]) if key.startswith("obj") else jax_gltf(fx[key])
+        assert_same(port, ref)
+        twin = fx[key.split("_")[0] + "_png"]
+        twin_doc = load_obj(twin) if key.startswith("obj") else load_gltf(twin)
+        np.testing.assert_array_equal(port.images[0], twin_doc.images[0])
+    plane = Texture(fx["plane_j2k"]).pixels
+    np.testing.assert_array_equal(plane, jsl.Texture(fx["plane_j2k"]).pixels)
+    np.testing.assert_array_equal(plane, Texture(fx["plane_png"]).pixels)

@@ -2144,13 +2144,14 @@ def patch_cod_style(codestream: bytes, style: int) -> bytes:
 
 def make_jpeg2000_fixtures() -> dict[str, bytes]:
     """The JPEG 2000 fixtures: Pillow's ``save`` at its defaults of
-    ``jpeg2000_sources()`` (``JPEG2000_ENCODE_FILES``), and
+    ``jpeg2000_sources()`` (``JPEG2000_ENCODE_FILES``),
     ``JPEG2000_READ_FILES``: Pillow's files with the reversible colour
-    transform (RGB, RGBA), of LA, of 32x32 code-blocks and of two levels,
-    which the port reads; with the 9/7 wavelet, two layers, precincts,
-    RPCL, tiles, and its COD's code-block style patched to 1 (Pillow sets
-    no style), which it refuses; an ICNS whose 128^2 entry is Pillow's JP2
-    of an RGBA image and one whose 128^2 entry is a 9/7 codestream."""
+    transform (RGB, RGBA), of LA, of 32x32 code-blocks, of two levels, with
+    the 9/7 wavelet, two layers, precincts, RPCL and tiles, and its COD's
+    code-block style patched to 1 (Pillow sets no style), which the port
+    refuses; an ICNS whose 128^2 entry is Pillow's JP2 of an RGBA image and
+    one whose 128^2 entry is a 9/7 codestream; and
+    ``jpeg2000_settings_fixtures()`` (``JPEG2000_SETTINGS_FILES``)."""
     sys.path.insert(0, ROOT)
     from stillleben_tpu_torch.assets.image_fixtures import jpeg2000_sources
 
@@ -2173,9 +2174,304 @@ def make_jpeg2000_fixtures() -> dict[str, bytes]:
         "tiles.j2k": pillow_file(big, "tiles.j2k", tile_size=(32, 32)),
         "cblk_style.j2k": patch_cod_style(pillow_file(rgb, "x.j2k"), 1),
         "j2k_entry.icns": icns_file([(b"ic07", pillow_file(smooth(128, 128, 4, 33), "x.jp2"))]),
-        "j2k_refused.icns": icns_file([(b"ic07", nine_seven_128)]),
+        "j2k_97.icns": icns_file([(b"ic07", nine_seven_128)]),
     })
+    files.update(jpeg2000_settings_fixtures())
     return files
+
+
+def jpeg2000_settings_fixtures() -> dict[str, bytes]:
+    """``JPEG2000_SETTINGS_FILES``: Pillow's ``save`` at the options other
+    encoders' files carry: the 9/7 wavelet in L, RGB, LA, RGBA and I;16,
+    with and without the ICT (``mct=1``; Pillow writes none for LA); quality
+    layers by rate and by dB, with either wavelet; precincts of 16, 32 and
+    64 with either wavelet (16 at five resolutions or fewer: OpenJPEG reads
+    no precinct exponent of 0 above the lowest resolution); the five
+    progression orders on one multi-resolution, multi-precinct, three-layer
+    file, and RPCL and CPRL under 9/7; tiles with tile and image offsets
+    (a last tile column 1 px wide, a last tile row 1 px high, tiles at odd
+    origins) and an image offset in one tile; one resolution; PLT markers; signed
+    samples (L, RGB, I;16, 9/7); the three cinema profiles at 1x1, and
+    4K's at 48x64 (its POC in a tile-part header); the edge sizes under 9/7
+    and under tiles; ICNS whose 128^2 entry is a JP2 of 9/7 with two layers
+    and one whose entry's code-block style is patched to 1, which the port
+    refuses; the 640x480 frame of ``seeded_images()`` three ways
+    (``JPEG2000_TIMED``); the blob's base colour as a layered 9/7 + ICT JP2
+    and the checker as a tiled codestream (``JPEG2000_SCENE``)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import seeded_images
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, checker_texture
+
+    rgb, rgba = smooth(40, 56, 3, 40), smooth(40, 56, 4, 41)
+    grey, la = rgb[..., 1].copy(), rgba[..., ::3].copy()
+    noise = np.random.default_rng(42).integers(0, 256, (40, 56))
+    deep = (smooth(40, 56, 1, 43)[..., 0].astype(np.int64) * 256 + noise).astype(np.uint16)
+    big = smooth(70, 90, 3, 44)
+    ramp = (np.arange(640) * 255 // 639).astype(np.uint8)[None]
+    frame = seeded_images()["frame"]
+    nine, ict = {"irreversible": True}, {"irreversible": True, "mct": 1}
+    layered = {"precinct_size": (32, 32), "quality_layers": [40, 20, 10]}
+    specs = {
+        "i97_l.j2k": (grey, nine), "i97_rgb.jp2": (rgb, nine), "i97_la.jp2": (la, nine),
+        "i97_rgba.j2k": (rgba, nine), "i97_i16.j2k": (deep, nine), "i97_i16.jp2": (deep, nine),
+        "ict_rgb.j2k": (rgb, ict), "ict_rgba.jp2": (rgba, ict), "ict_la.j2k": (la, ict),
+        "layers_rates.j2k": (big, {"quality_layers": [40, 20, 10]}),
+        "layers_db.jp2": (big, {"quality_mode": "dB", "quality_layers": [30, 40, 50]}),
+        "layers_97.j2k": (big, {**ict, "quality_layers": [60, 20, 5]}),
+        "layers_db_97.j2k": (big, {**nine, "quality_mode": "dB", "quality_layers": [25, 35]}),
+        "prec16.j2k": (big, {"precinct_size": (16, 16), "num_resolutions": 5}),
+        "prec32.j2k": (big, {"precinct_size": (32, 32)}),
+        "prec64.jp2": (big, {"precinct_size": (64, 64)}),
+        "prec16_97.j2k": (big, {**nine, "precinct_size": (16, 16), "num_resolutions": 4}),
+        "prec32_97.j2k": (big, {**ict, "precinct_size": (32, 32)}),
+        "prec64_97.jp2": (big, {**nine, "precinct_size": (64, 64)}),
+        **{f"order_{o.lower()}.j2k": (big, {**layered, "progression": o})
+           for o in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")},
+        "order_rpcl_97.jp2": (rgba, {**ict, **layered, "progression": "RPCL",
+                                     "precinct_size": (16, 16), "num_resolutions": 5}),
+        "order_cprl_97.j2k": (big, {**ict, **layered, "progression": "CPRL"}),
+        "tiles_col1.j2k": (smooth(50, 61, 3, 45),
+                           {"tile_size": (32, 32), "tile_offset": (5, 7), "offset": (9, 11)}),
+        "tiles_row1.jp2": (smooth(63, 70, 3, 46),
+                           {"tile_size": (32, 32), "tile_offset": (2, 3), "offset": (3, 5)}),
+        "tiles_odd_97.j2k": (smooth(45, 60, 4, 47),
+                             {**ict, "tile_size": (17, 23), "tile_offset": (1, 3),
+                              "offset": (3, 4), "quality_layers": [30, 10]}),
+        "tiles_rgba.jp2": (rgba, {"tile_size": (24, 16), "precinct_size": (16, 16),
+                                  "progression": "PCRL"}),
+        "offset.j2k": (rgb, {"offset": (7, 3), "tile_size": (63, 43)}),
+        "res1.j2k": (rgb, {"num_resolutions": 1}),
+        "res1_97.jp2": (rgba, {**nine, "num_resolutions": 1}),
+        "plt.j2k": (big, {"plt": True, "quality_layers": [40, 10]}),
+        "plt_97.jp2": (big, {**ict, "plt": True, "progression": "PCRL",
+                             "precinct_size": (32, 32)}),
+        "signed_l.j2k": (grey, {"signed": True}), "signed_rgb.jp2": (rgb, {"signed": True}),
+        "signed_i16.j2k": (deep, {"signed": True}), "signed_97.j2k": (rgb, {**ict, "signed": True}),
+        "cinema2k24.j2k": (smooth(1, 1, 3, 48), {"cinema_mode": "cinema2k-24"}),
+        "cinema2k48.j2k": (smooth(1, 1, 3, 49), {"cinema_mode": "cinema2k-48"}),
+        "cinema4k24.j2k": (smooth(1, 1, 3, 50), {"cinema_mode": "cinema4k-24"}),
+        "cinema4k24_48x64.j2k": (smooth(48, 64, 3, 51), {"cinema_mode": "cinema4k-24"}),
+        "i97_1x1.j2k": (smooth(1, 1, 3, 52), nine), "i97_1x640.j2k": (ramp, nine),
+        "i97_3x5.jp2": (smooth(3, 5, 4, 53), ict), "i97_33x33.j2k": (smooth(33, 33, 3, 54), ict),
+        "i97_65x130.j2k": (smooth(65, 130, 3, 55), {**nine, "quality_layers": [20, 5]}),
+        "tiled_1x1.j2k": (smooth(1, 1, 3, 56), {"tile_size": (2, 2), "offset": (1, 1)}),
+        "tiled_1x640.j2k": (ramp, {"tile_size": (100, 4), "tile_offset": (0, 1),
+                                   "offset": (5, 2)}),
+        "tiled_3x5.j2k": (deep[:3, :5].copy(), {"tile_size": (2, 2), "offset": (1, 0)}),
+        "tiled_33x33.jp2": (smooth(33, 33, 4, 57), {"tile_size": (16, 16), "tile_offset": (1, 1),
+                                                    "offset": (2, 3)}),
+        "tiled_65x130.j2k": (smooth(65, 130, 3, 58), {**ict, "tile_size": (64, 32),
+                                                      "offset": (1, 1)}),
+        "frame_ict.j2k": (frame, {**ict, "quality_layers": [20]}),
+        "frame_layers.jp2": (frame, {**ict, "quality_layers": [40, 20, 10]}),
+        "frame_tiles.j2k": (frame, {**ict, "tile_size": (256, 256), "precinct_size": (64, 64),
+                                    "progression": "PCRL", "quality_layers": [20]}),
+        "blob_basecolor_97.jp2": (np.ascontiguousarray(base_color_texture(0)[..., :3]),
+                                  {**ict, "quality_layers": [40, 20, 10]}),
+        "checker_tiles.j2k": (np.ascontiguousarray(checker_texture()[..., :3]),
+                              {"tile_size": (160, 96), "tile_offset": (1, 2), "offset": (3, 5)}),
+    }
+    files = {n: pillow_file(a, n, **kw) for n, (a, kw) in specs.items()}
+    files["j2k_layers.icns"] = icns_file([(b"ic07", pillow_file(
+        smooth(128, 128, 4, 59), "x.jp2", **ict, quality_layers=[30, 10]))])
+    files["j2k_style.icns"] = icns_file([(b"ic07", patch_cod_style(
+        pillow_file(smooth(128, 128, 3, 60), "x.j2k"), 1))])
+    return files
+
+
+J2K_SWEEP_SIZES = ((1, 1), (1, 64), (5, 1), (3, 5), (16, 16), (31, 40), (33, 33), (64, 64),
+                   (65, 130), (100, 77), (130, 65))
+
+
+def jpeg2000_sweep_case(i: int) -> tuple[np.ndarray, dict]:
+    """Seeded case ``i`` of Pillow's JPEG 2000 settings: a mode (L, LA, RGB, RGBA,
+    I;16), a size (480x640 for every tenth), random or smooth content, and
+    ``save`` options: the 9/7 wavelet (with the ICT for colour), quality
+    layers by rate or dB, precincts, an order, code-block sizes, a number
+    of resolutions that fits the image, tiles with offsets (under 5/3:
+    OpenJPEG's encoder aborts on a 9/7 line of one sample), signed samples,
+    PLT markers."""
+    rng = np.random.default_rng(500 + i)
+    mode = ("L", "LA", "RGB", "RGBA", "I;16")[i % 5]
+    h, w = (480, 640) if i % 10 == 9 else J2K_SWEEP_SIZES[int(rng.integers(len(J2K_SWEEP_SIZES)))]
+    c = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4, "I;16": 1}[mode]
+    if rng.random() < 0.5:
+        a = rng.integers(0, 65536 if mode == "I;16" else 256, (h, w, c))
+    else:
+        a = smooth(h, w, c, i).astype(np.int64) * (257 if mode == "I;16" else 1)
+    a = a.astype(np.uint16 if mode == "I;16" else np.uint8)
+    a = a[..., 0] if c == 1 else a
+    kw = {}
+    nine = rng.random() < 0.5
+    if nine:
+        kw["irreversible"] = True
+        if c >= 3 and rng.random() < 0.7:
+            kw["mct"] = 1
+    if rng.random() < 0.5:
+        if rng.random() < 0.5:
+            rates = rng.choice([2, 5, 10, 20, 40, 80], rng.integers(1, 4))
+            kw["quality_layers"] = sorted(rates)[::-1]
+        else:
+            kw["quality_mode"] = "dB"
+            kw["quality_layers"] = sorted(rng.choice([20, 30, 40, 50], rng.integers(1, 4)))
+        kw["quality_layers"] = [int(v) for v in kw["quality_layers"]]
+    fit = int(np.log2(min(h, w))) + 1
+    if rng.random() < 0.4:
+        kw["num_resolutions"] = int(rng.integers(1, fit + 1))
+    if rng.random() < 0.4:
+        kw["precinct_size"] = tuple(int(v) for v in rng.choice([16, 32, 64, 128], 2))
+    if rng.random() < 0.6:
+        kw["progression"] = str(rng.choice(["LRCP", "RLCP", "RPCL", "PCRL", "CPRL"]))
+    if rng.random() < 0.3:
+        kw["codeblock_size"] = tuple(int(v) for v in rng.choice([8, 16, 32, 64], 2))
+    if not nine and rng.random() < 0.4:
+        ox, oy = (int(v) for v in rng.integers(0, 9, 2))
+        kw["tile_size"] = tuple(int(v) for v in rng.integers(1, 80, 2))
+        kw["offset"] = (ox, oy)
+        kw["tile_offset"] = (int(rng.integers(0, ox + 1)), int(rng.integers(0, oy + 1)))
+    if rng.random() < 0.15:
+        kw["signed"] = True
+    if rng.random() < 0.15:
+        kw["plt"] = True
+    return a, kw
+
+
+def pillow_file_forked(pixels: np.ndarray, name: str, **kw) -> bytes | None:
+    """``pillow_file`` in a forked child: None where OpenJPEG's encoder
+    aborts the process (it does on some lines of one sample, such as a 1x1
+    image in tiles at an offset); raises what Pillow's ``save`` raises."""
+    import pickle
+
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            out = ("ok", pillow_file(pixels, name, **kw))
+        except Exception as e:  # noqa: BLE001  (sent to the parent, which raises it)
+            out = ("error", e)
+        with os.fdopen(w, "wb") as f:
+            pickle.dump(out, f)
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r, "rb") as f:
+        data = f.read()
+    os.waitpid(pid, 0)
+    if not data:
+        return None
+    kind, value = pickle.loads(data)  # the child's own bytes
+    if kind == "error":
+        raise value
+    return value
+
+
+def jpeg2000_sweep_one(i: int) -> tuple[int, str]:
+    """Case ``i`` of ``jpeg2000_sweep_case`` through Pillow's writer and the
+    port's readings: "" where both match the libraries' (or the port
+    raises where Pillow's reading does), "skipped" where Pillow's save
+    refuses the options or its encoder aborts, else what differed."""
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import jpeg2000
+
+    a, kw = jpeg2000_sweep_case(i)
+    name = ("x.j2k", "x.jp2")[i % 2]
+    try:
+        d = pillow_file_forked(a, name, **kw)
+    except (OSError, ValueError):
+        d = None
+    if d is None:
+        return i, "skipped"
+    try:
+        ref = np.asarray(Image.open(io.BytesIO(d)).convert("RGBA"))
+    except OSError:
+        try:
+            jpeg2000.decode_jpeg2000(d, name)
+        except (OSError, ValueError):
+            return i, ""
+        return i, f"{a.shape} {kw}: read where Pillow raises"
+    try:
+        pil = np.array_equal(jpeg2000.decode_jpeg2000(d, name), ref)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(d)
+            cv = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        got = jpeg2000.decode_jpeg2000_cv2(d, name)
+        ocv = (cv is None) == (got is None) and (cv is None or np.array_equal(got, cv))
+    except Exception as e:  # noqa: BLE001  (a refusal is a difference too)
+        return i, f"{a.shape} {kw}: {type(e).__name__}: {e}"
+    return i, "" if pil and ocv else f"{a.shape} {kw}: Pillow {pil}, OpenCV {ocv}"
+
+
+def jpeg2000_sweep(n: int, start: int = 0, workers: int = 3) -> list[str]:
+    """``--jpeg2000-sweep N [START]``: cases START .. START + N - 1 of
+    ``jpeg2000_sweep_case`` through Pillow's writer and the port's
+    readings; prints and returns what differed."""
+    import multiprocessing
+
+    bad, skipped = [], 0
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for i, diff in pool.imap_unordered(jpeg2000_sweep_one, range(start, start + n)):
+            skipped += diff == "skipped"
+            if diff and diff != "skipped":
+                bad.append(f"case {i}: {diff}")
+                print(bad[-1], flush=True)
+    print(f"{n} cases from {start}: {skipped} not written (Pillow refused or its encoder "
+          f"aborted), {n - skipped - len(bad)} read as Pillow and OpenCV read them")
+    return bad
+
+
+def jpeg2000_times(reps: int = 5) -> None:
+    """``--jpeg2000-times``: the least ms of ``reps`` of Pillow's
+    ``convert("RGBA")`` and of the port's ``decode_jpeg2000`` on each of
+    ``JPEG2000_TIMED``, one after the other, on this host."""
+    import time
+
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import jpeg2000
+    from stillleben_tpu_torch.assets.image_fixtures import JPEG2000_TIMED, path
+
+    for what, name in JPEG2000_TIMED.items():
+        with open(path(name), "rb") as f:
+            d = f.read()
+        pil, port = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ref = np.asarray(Image.open(io.BytesIO(d)).convert("RGBA"))
+            t1 = time.perf_counter()
+            got = jpeg2000.decode_jpeg2000(d, name)
+            pil.append(t1 - t0)
+            port.append(time.perf_counter() - t1)
+        print(f"{what} ({name}, {len(d)} B): Pillow {min(pil) * 1e3:.1f} ms, the port "
+              f"{min(port) * 1e3:.1f} ms, the least of {reps}; equal {np.array_equal(got, ref)}")
+
+
+def write_jpeg2000_fixtures() -> None:
+    """Writes ``make_jpeg2000_fixtures()``'s files and rewrites
+    ``digests.py`` with new ``JPEG2000_FILE``, ``JPEG2000_DECODE`` and
+    ``JPEG2000_DECODE_CV2`` tables and every other table as it stands
+    (``--jpeg2000``: no other fixture is made again)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    files = make_jpeg2000_fixtures()
+    for name, data in files.items():
+        with open(os.path.join(FIXTURES, name), "wb") as f:
+            f.write(data)
+    tables = {k: dict(v) for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    new = jpeg2000_digests(files)
+    for key in ("JPEG2000_FILE", "JPEG2000_DECODE", "JPEG2000_DECODE_CV2"):
+        tables[key] = new[key]
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
 
 
 def any_reading(data: bytes) -> str:
@@ -2493,7 +2789,8 @@ def digest_module(d: dict) -> str:
              "``AVIF_ENCODE``: the port's own AVIF file of each of ``avif_write_sources()``",
              "(``avif.encode_avif``). Written by ``tests/torch_image_fixtures.py --write``",
              "(``--avif-encode`` rewrites ``AVIF_ENCODE`` alone; ``--avif-tools`` writes",
-             '``AVIF_TOOL_FILES`` and adds their AVIF entries)."""', ""]
+             "``AVIF_TOOL_FILES`` and adds their AVIF entries; ``--jpeg2000`` writes the",
+             'JPEG 2000 fixtures and their three tables)."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
         lines += [f'    "{k}": "{v}",' for k, v in table.items()]
@@ -2510,6 +2807,16 @@ if __name__ == "__main__":
         sys.exit(0)
     if "--avif-tools" in sys.argv:
         add_avif_tool_fixtures()
+        sys.exit(0)
+    if "--jpeg2000" in sys.argv:
+        write_jpeg2000_fixtures()
+        sys.exit(0)
+    if "--jpeg2000-sweep" in sys.argv:
+        k = sys.argv.index("--jpeg2000-sweep")
+        args = [int(v) for v in sys.argv[k + 1:k + 3]]
+        sys.exit(1 if jpeg2000_sweep(*args) else 0)
+    if "--jpeg2000-times" in sys.argv:
+        jpeg2000_times()
         sys.exit(0)
     if "--avif-sweep" in sys.argv:
         k = sys.argv.index("--avif-sweep")
