@@ -409,8 +409,27 @@ Phases (one line each or more; any failure exits non-zero):
     ``decode_avif`` bitwise as the encoder reconstructed it, with its encode
     ms, bytes and PSNR; ``image_fixtures.avif_write_sources()`` through the
     saver (four threads) to the committed digests ``AVIF_ENCODE`` (the CPU
-    tests hold those files to Pillow's). Then the smoke's total wall
-    seconds.
+    tests hold those files to Pillow's).
+27. Pillow's rarer formats and OpenCV's Sun raster (``assets/blp.py``,
+    ``ftex.py``, ``sun.py``, ``xbm.py``, ``xpm.py``, ``msp.py``, ``gbr.py``,
+    ``fits.py``, ``fli.py``, ``spider.py``, ``mcidas.py``, ``pixar.py``,
+    ``imt.py``, ``xvthumb.py``, ``pcd.py``, ``iptc.py``; the run-length and
+    block loops in ``csrc/sl_pillow_formats.cpp``, built into phase 22's
+    core): every committed file (``image_fixtures.PILLOW_FORMAT_FILES``:
+    Pillow's BLP, XBM and MSP, OpenCV's Sun rasters, the writers' files of
+    every depth, kind and chunk) read to the SHA-256 of Pillow 12.1.0's
+    reading, the refused one refused as Pillow refuses it, the writers'
+    files remade byte-equal from ``image_fixtures.rare_formats``, the Sun
+    rasters to OpenCV 5.0.0's readings, three PhotoCD files from seeds to
+    their digests; one 640x480 file per format parsed (cut to 4 KiB) and
+    decoded, each timed (the least ms of 2); phase 18's scene at its
+    settled poses (blob at subdivision 4) with the blob's texture (.mtl and
+    GLB) from a BLP2 DXT5 file and the plane from a run-length Sun raster,
+    under phase 23's light map: phase 13's content checks, K1's launches
+    (one camera, two shadow passes) and no plain piece, K1 ``torch.equal``
+    to its plain version on the camera and the sun's shadow pass, every
+    field ``torch.equal`` to the same scene from PNG twins of the decoded
+    pixels. Then the smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4245,22 +4264,28 @@ def write_avif(sl, result, fx_dir, ms, card) -> None:
         fail(f"avif write: {bad}")
 
 
-def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color, plane):
+def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color, plane,
+               kind="avif", label="avif"):
     """Phase 26's render of phase 18's settled scene with the blob's base
     colour (.mtl and GLB) from the committed AVIF ``base_color`` and the
     plane from ``plane``, through K1, against the same scene from PNG twins
-    of the decoded pixels: returns the result and K1's entries."""
+    of the decoded pixels: returns the result and K1's entries. Phase 27
+    renders it from its own files (``kind`` "rare": the writer of
+    ``procedural.write_pillow_format_scene_fixtures``, the lines under
+    ``label``)."""
     import stillleben_tpu_torch as sl
-    from stillleben_tpu_torch.assets.procedural import write_avif_fixtures
+    from stillleben_tpu_torch.assets import procedural
 
     t0 = time.perf_counter()
-    fx = write_avif_fixtures(fx_dir, subdiv=ICON_SUBDIV, base_color=base_color, plane=plane)
-    meshes = sl.Mesh.load_threaded([fx["obj_avif"], fx["glb_avif"], "primitive://cube",
+    writer = {"avif": procedural.write_avif_fixtures,
+              "rare": procedural.write_pillow_format_scene_fixtures}[kind]
+    fx = writer(fx_dir, subdiv=ICON_SUBDIV, base_color=base_color, plane=plane)
+    meshes = sl.Mesh.load_threaded([fx[f"obj_{kind}"], fx[f"glb_{kind}"], "primitive://cube",
                                     "primitive://sphere"], physics=False)
     twins = sl.Mesh.load_threaded([fx["obj_png"], fx["glb_png"], "primitive://cube",
                                    "primitive://sphere"], physics=False)
     ms[f"{tag} meshes"] = (time.perf_counter() - t0) * 1e3
-    scene = image_scene(meshes, light, sl.Texture2D(fx["plane_avif"]))
+    scene = image_scene(meshes, light, sl.Texture2D(fx[f"plane_{kind}"]))
     twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
     poses, camera, plane_pose = settled
     for s_ in (scene, twin):
@@ -4282,7 +4307,7 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
     ref = sl.RenderPass().render(twin)
     fields = ("rgb", "depth", "class_index", "instance_index", "normals", "cam_coordinates")
     same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
-    phase("avif", f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
+    phase(label, f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
                   f"subdivision {ICON_SUBDIV}): the blob's texture from {base_color} (.mtl), a GLB "
                   f"whose embedded image is {base_color}, the plane from {plane}, phase 23's light "
                   f"map; "
@@ -4296,7 +4321,7 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
     for k, sl_, _ in calls:
         per_key[(k, sl_)] = per_key.get((k, sl_), 0) + 1
     if len(same) != len(fields):
-        fail(f"{tag}: the AVIF-textured frame differs from its twins' in "
+        fail(f"{tag}: the {base_color}-textured frame differs from its twins' in "
              f"{sorted(set(fields) - set(same))}")
     if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
             or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
@@ -4432,6 +4457,113 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
     write_avif(sl, result, fx_dir, ms, card)
     ms["part: write"] = (time.perf_counter() - t_part) * 1e3
     phase("avif", "phase 26's parts, s: " + ", ".join(
+        f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms
+
+
+PILLOW_FORMAT_REPS = 2  # phase 27's timings, the least of this many
+HEADER_CUT = 4096  # phase 27's "parse" timing: the file cut to its first 4 KiB
+
+
+def run_pillow_formats(torch, cr, rt, card, settled, light) -> tuple[list, dict]:
+    """Phase 27: Pillow's rarer formats and OpenCV's Sun raster (see the
+    module docstring). ``settled`` is phase 18's settled state, ``light``
+    phase 23's light map. Returns K1's entries on this phase's inputs and
+    its milliseconds."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from stillleben_tpu_torch.assets import image
+    from stillleben_tpu_torch.assets.image_fixtures import (PILLOW_FORMAT_FILES,
+                                                            PILLOW_FORMAT_REFUSALS,
+                                                            PILLOW_FORMAT_SCENE, rare_formats)
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (PCD_DECODE, PCD_FILE,
+                                                                    PILLOW_FORMAT_DECODE,
+                                                                    PILLOW_FORMAT_DECODE_CV2,
+                                                                    PILLOW_FORMAT_FILE)
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"rare_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    ms = {}
+    t_part = time.perf_counter()
+
+    # the committed files to Pillow's and OpenCV's digests, the writers'
+    # files remade byte-equal, the seeded PhotoCD files
+    bad, refused, cv2_read = [], 0, 0
+    written = rare_formats.pillow_format_files()
+    for name in PILLOW_FORMAT_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != PILLOW_FORMAT_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if name in written and written[name] != data:
+            bad.append(f"the writer's {name}")
+        if name in PILLOW_FORMAT_REFUSALS:
+            try:
+                image.read_image(fixture(name))
+                bad.append(f"{name} read")
+            except PILLOW_FORMAT_REFUSALS[name]:
+                refused += 1
+        elif sha(image.read_image(fixture(name)).tobytes()) != PILLOW_FORMAT_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        if name in PILLOW_FORMAT_DECODE_CV2:
+            got = image.read_image_cv2(fixture(name))
+            reading = "None" if got is None else sha(np.ascontiguousarray(got).tobytes())
+            cv2_read += got is not None
+            if reading != PILLOW_FORMAT_DECODE_CV2[name]:
+                bad.append(f"OpenCV's reading of {name}")
+    for name, data in rare_formats.pcd_files().items():
+        if sha(data) != PCD_FILE[name] or sha(image.decode_image(data, name).tobytes()) != \
+                PCD_DECODE[name]:
+            bad.append(f"the seeded {name}")
+    phase("rare", f"{len(PILLOW_FORMAT_FILES)} committed files of BLP, FTEX, Sun raster, XBM, XPM, "
+                  f"MSP, GBR, FITS, FLI/FLC, SPIDER, McIdas, PIXAR, IM Tools, XV and IPTC read to "
+                  f"the SHA-256 of Pillow 12.1.0's readings ({refused} refused as Pillow refuses "
+                  f"it), {len(written)} of them remade byte-equal by their writers; "
+                  f"{len(PILLOW_FORMAT_DECODE_CV2)} Sun rasters to OpenCV 5.0.0's readings "
+                  f"({cv2_read} images, the rest None as OpenCV reads them); "
+                  f"{len(PCD_FILE)} seeded PhotoCD files to their digests; differences: {bad} "
+                  f"({card})")
+    if bad:
+        fail(f"rare formats: not Pillow's or OpenCV's: {bad}")
+    ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # one 640x480 file per format: the parse (the file cut to 4 KiB:
+    # identified, its header parsed, refused at the pixels) and the decode
+    lines = []
+    for fmt, data in rare_formats.timing_files().items():
+        times = {"parse": [], "decode": []}
+        for _ in range(PILLOW_FORMAT_REPS):
+            t0 = time.perf_counter()
+            try:
+                image.decode_image(data[:HEADER_CUT], fmt)
+            except (OSError, ValueError):
+                pass
+            t1 = time.perf_counter()
+            out = image.decode_image(data, fmt)
+            times["parse"].append((t1 - t0) * 1e3)
+            times["decode"].append((time.perf_counter() - t1) * 1e3)
+        if out.shape != (480, 640, 4):
+            bad.append(f"{fmt}: {out.shape}")
+        ms[f"parse {fmt}"], ms[f"decode {fmt}"] = min(times["parse"]), min(times["decode"])
+        lines.append(f"{fmt} ({len(data)} B) {ms['parse ' + fmt]:.2f} / {ms['decode ' + fmt]:.1f}")
+    phase("rare", f"640x480 files, parse / decode ms, the least of {PILLOW_FORMAT_REPS}: "
+                  f"{'; '.join(lines)}; differences: {bad} ({card})")
+    if bad:
+        fail(f"rare formats: {bad}")
+    ms["part: timings"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 18's scene with the blob's base colour from a BLP2 DXT5 file and
+    # the plane from a run-length Sun raster
+    _, entries = avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, "rare formats",
+                            *PILLOW_FORMAT_SCENE, kind="rare", label="rare")
+    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    phase("rare", "phase 27's parts, s: " + ", ".join(
         f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
     shutil.rmtree(fx_dir, ignore_errors=True)
     return entries, ms
@@ -5036,8 +5168,16 @@ def main() -> None:
     avif_k1, _ = run_avif(torch, cr, rt, card, image_settled, jpeg_light, avif_build)
     j2k_pool.shutdown()
     kernels.extend(avif_k1)
-    del jpeg_light
     phase("avif", f"phase 26 in {time.perf_counter() - t0:.1f} s")
+
+    # 27. Pillow's rarer formats and OpenCV's Sun raster: the committed files
+    # to Pillow's and OpenCV's digests, the 640x480 parse and decode times,
+    # and phase 18's scene from a BLP2 DXT5 and a run-length Sun raster
+    t0 = time.perf_counter()
+    rare_k1, _ = run_pillow_formats(torch, cr, rt, card, image_settled, jpeg_light)
+    kernels.extend(rare_k1)
+    del jpeg_light
+    phase("rare", f"phase 27 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

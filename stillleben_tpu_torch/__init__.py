@@ -4,8 +4,9 @@ The package imports torch and numpy, never jax and nothing of
 ``stillleben_tpu``. It has its own host asset layer (``assets/``: glTF/GLB,
 OBJ, PLY, STL, OFF, DAE, FBX, 3DS and .x import, ``primitive://``
 meshes, consolidation, native and Python convex cooking, decimation, its
-own image codec (PNG, PPM, Radiance HDR, and JPEG, BMP, TGA, GIF and TIFF
-over the native ``csrc/sl_image.cpp``), ``ImageLoader`` and ``ImageSaver``;
+own image codec (the formats the JAX package reads through Pillow or
+OpenCV, as ``assets/image.py`` lists them, over native ``csrc/`` loops),
+``ImageLoader`` and ``ImageSaver``;
 ``physics/bodies``: mass properties). Every TPU kernel of the JAX package is a CUDA kernel here
 (``csrc/``, wrapped by ``ops/``): the compact-cell z-buffer of the default
 raster, the fine z-buffer of the classic raster

@@ -1,13 +1,13 @@
-"""The port's own image codec: the formats the JAX package opens through
-Pillow or OpenCV that the port reads (listed below; ROADMAP.md queues the
-rest).
+"""The port's own image codec: every format the JAX package opens through
+Pillow or OpenCV that the port reads (ROADMAP.md queues the rest).
 
 numpy and the standard library here (zlib for PNG's deflate); the JPEG,
-GIF, TIFF and WebP modules reach the native codec (``native_image``,
-``csrc/sl_image.cpp``, ``csrc/sl_webp.cpp``, built with g++ at first use)
-for their bit loops.
-Two readings of a file, each the one a part of the JAX package gets from a
-library:
+GIF, TIFF and WebP modules and the run-length and block decoders of the
+rarer formats reach the native codec (``native_image``,
+``csrc/sl_image.cpp``, ``csrc/sl_webp.cpp``, ``csrc/sl_plain_formats.cpp``,
+``csrc/sl_pillow_formats.cpp``, built with g++ at first use) for their bit
+loops. Two readings of a file, each the one a part of the JAX package gets
+from a library:
 
 - ``read_image`` / ``decode_image``: (H, W, 4) uint8, what
   ``PIL.Image.open(path).convert("RGBA")`` gives (mesh textures, glTF
@@ -23,21 +23,35 @@ library:
   (``qoi.py``), SGI (``sgi.py``), PCX and DCX frame 0 (``pcx.py``), IM
   (``im.py``), DDS (``dds.py``: uncompressed and BC1-BC7), ICO and CUR
   (``ico.py``), ICNS (``icns.py``), PSD (``psd.py``), JPEG 2000
-  (``jpeg2000.py``: the codestream and JP2 as Pillow writes them by
-  default) and AVIF (``avif.py``: the 8-bit 4:2:0 still images Pillow
-  writes by default, with or without alpha). The formats are
-  tried in Pillow's order: IM has no magic bytes and is taken where Pillow
-  takes it (after PNG, BMP, DIB, PCX, DCX, DDS, CUR, ICNS, ICO and GIF,
-  before the others).
+  (``jpeg2000.py``: the codestream and JP2 as Pillow writes them), AVIF
+  (``avif.py``), and the rest of Pillow's readers: BLP (``blp.py``), FTEX
+  (``ftex.py``), Sun raster (``sun.py``), XBM (``xbm.py``), XPM
+  (``xpm.py``), MSP (``msp.py``), GIMP brushes (``gbr.py``), FITS
+  (``fits.py``), FLI/FLC frame 0 (``fli.py``), SPIDER (``spider.py``),
+  McIdas (``mcidas.py``), PIXAR (``pixar.py``), IM Tools (``imt.py``), XV
+  thumbnails (``xvthumb.py``), PhotoCD (``pcd.py``) and IPTC
+  (``iptc.py``). The formats are tried in Pillow's order
+  (``PILLOW_ORDER``), each behind its plugin's ``_accept`` test where it
+  has one; a reader that finds its header is not the format's sends the
+  file on to the next format (``pillow_open.NotThisFormat``), as Pillow's
+  ``Image.open`` does on ``SyntaxError``. Where Pillow opens a file but
+  cannot load it, the port raises Pillow's ``OSError``: the BUFR, GRIB and
+  HDF5 stubs ("cannot find loader for this ... file"), WMF and EMF (no
+  renderer on Linux), MPEG ("cannot load this image") and EPS, which
+  Pillow renders through Ghostscript ("Unable to locate Ghostscript on
+  paths", as on a host without it). A file no format takes, a Radiance
+  ``.hdr`` among them, raises Pillow's ``UnidentifiedImageError`` message as
+  an ``OSError``.
 - ``read_image_cv2``: what ``cv2.imread(path, IMREAD_ANYCOLOR |
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
   a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
   includes PAM, JPEG 2000 is read as OpenCV's OpenJPEG reader reads it,
-  AVIF as its libavif reads it (alpha dropped); None for a TGA, a DIB, a
-  QOI, an SGI, a PCX, a DCX, an IM, a DDS, an ICO, a CUR, an ICNS, a PSD
-  or a file that is no image, which OpenCV does not read.
+  AVIF as its libavif reads it (alpha dropped), a Sun raster as OpenCV's
+  own reader reads it (``sun.decode_sun_cv2``); None for a file OpenCV does
+  not read (a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM, a DDS, an
+  ICO, a CUR, an ICNS, a PSD, Pillow's rarer formats, no image).
 
 Encoders: ``encode_png`` writes 8-bit L, RGB and RGBA and 16-bit grey (the
 modes the JAX ``ImageSaver`` writes through Pillow) as Pillow's ``save``
@@ -50,12 +64,9 @@ them by extension).
 
 The JPEG kinds both libraries refuse raise ``OSError`` with Pillow's
 message on Pillow's path and give None on OpenCV's (``jpeg.py`` lists
-them); the formats of ROADMAP.md's reading queue, which Pillow or OpenCV
-open and the port does not read, raise ``NotImplementedError`` with their
-names (``QUEUED``, tested by their magic as Pillow's plugins test it); any
-other file raises Pillow's ``UnidentifiedImageError`` message as an
-``OSError`` on Pillow's path and gives None on OpenCV's. There is no
-substitute image.
+them); the kinds of ROADMAP.md's reading queue (a JPEG 2000 code-block
+style, AVIF film grain and quantizer matrices, a LAB PSD) raise
+``NotImplementedError`` with their names. There is no substitute image.
 Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
@@ -70,7 +81,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-from . import dds, icns, ico, im, pcx, psd, qoi, sgi
+from . import (blp, dds, eps, fits, fli, ftex, gbr, icns, ico, im, imt, iptc, mcidas, msp, pcd, pcx,
+               pixar, psd, qoi, sgi, spider, sun, xbm, xpm, xvthumb)
 from .avif import decode_avif, decode_avif_cv2, is_avif
 from .bmp import decode_bmp, decode_bmp_cv2, decode_dib, is_dib
 from .gif import decode_gif, decode_gif_cv2
@@ -79,6 +91,7 @@ from .jpeg import MAGIC as JPEG_MAGIC
 from .jpeg import decode_jpeg, decode_jpeg_cv2
 from .jpeg2000 import J2K_MAGIC, JP2_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2
 from .netpbm import decode_netpbm, decode_netpbm_cv2
+from .pillow_open import NotThisFormat
 from .tga import FOOTER as TGA_FOOTER
 from .tga import decode_tga
 from .tiff import decode_tiff, decode_tiff_cv2
@@ -86,8 +99,7 @@ from .webp import MAGIC as WEBP_MAGIC
 from .webp import decode_webp, decode_webp_cv2
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# the byte after "P" that sends a file to the Netpbm module (Pillow's and
-# OpenCV's signatures, and the Netpbm kinds neither reads, which raise there)
+# the byte after "P" that sends a file to OpenCV's Netpbm reading
 PNM_KINDS = b"0123456789fFy"
 # PNG colour type -> (samples per pixel, allowed bit depths)
 _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -95,15 +107,14 @@ _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
-# the decoders by magic bytes: (Pillow's reading, OpenCV's reading); every
-# RIFF file goes to the WebP decoder, which raises (or gives None) for one
-# that is not WebP
-_DECODERS = ((JPEG_MAGIC, decode_jpeg, decode_jpeg_cv2), (b"BM", decode_bmp, decode_bmp_cv2),
-             (b"GIF87a", decode_gif, decode_gif_cv2), (b"GIF89a", decode_gif, decode_gif_cv2),
-             (b"II*\x00", decode_tiff, decode_tiff_cv2), (b"MM\x00*", decode_tiff, decode_tiff_cv2),
-             (WEBP_MAGIC, decode_webp, decode_webp_cv2),
-             (J2K_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2),
-             (JP2_MAGIC, decode_jpeg2000, decode_jpeg2000_cv2))
+# OpenCV's decoders by magic bytes; every RIFF file goes to the WebP
+# decoder, which gives None for one that is not WebP
+_CV2_DECODERS = ((JPEG_MAGIC, decode_jpeg_cv2), (b"BM", decode_bmp_cv2),
+                 (b"GIF87a", decode_gif_cv2), (b"GIF89a", decode_gif_cv2),
+                 (b"II*\x00", decode_tiff_cv2), (b"MM\x00*", decode_tiff_cv2),
+                 (WEBP_MAGIC, decode_webp_cv2), (J2K_MAGIC, decode_jpeg2000_cv2),
+                 (JP2_MAGIC, decode_jpeg2000_cv2),
+                 (sun.MAGIC.to_bytes(4, "big"), sun.decode_sun_cv2))
 
 
 class PngImage(NamedTuple):
@@ -299,106 +310,147 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _pil_rgba(decode_png_samples(data, name))
 
 
-def _u32(data: bytes, pos: int, order: str) -> int:
-    return int.from_bytes(data[pos:pos + 4], order) if len(data) >= pos + 4 else -1
+def _ppm(data: bytes, name: str) -> np.ndarray:
+    """PPM as Pillow takes it: a header its plugin does not identify sends
+    the file on to the next format."""
+    try:
+        return decode_netpbm(data, name)
+    except ValueError as e:
+        if "cannot identify the image" in str(e):
+            raise NotThisFormat(str(e)) from e
+        raise
 
 
-# the formats of ROADMAP.md's reading queue that Pillow opens, by the tests
-# of their plugins' ``_accept`` (Pillow 12.1.0); Radiance HDR, which the
-# port reads through read_image_cv2 alone
-QUEUED = (
-    ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d, 0, "little") == 0xC6D3D0C5),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
-    ("FITS", lambda d: d.startswith(b"SIMPLE")),
-    ("FLI/FLC", lambda d: len(d) >= 16 and int.from_bytes(d[4:6], "little") in (0xAF11, 0xAF12)
-     and int.from_bytes(d[14:16], "little") in (0, 3)),
-    ("FTEX", lambda d: d.startswith(b"FTEX")),
-    ("GBR", lambda d: _u32(d, 0, "big") >= 20 and _u32(d, 4, "big") in (1, 2)),
-    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04")),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
-    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00")),
-    ("Sun raster", lambda d: _u32(d, 0, "big") == 0x59A66A95),
-    ("XBM", lambda d: d.lstrip().startswith(b"#define")),
-    ("XPM", lambda d: d.startswith(b"/* XPM */")),
-    ("Radiance HDR", lambda d: d.startswith(b"#?")),
+def _stub(fmt: str):
+    """The stubs Pillow opens without a handler (BUFR, GRIB, HDF5): the
+    load raises."""
+    def refuse(data: bytes, name: str):
+        raise OSError(f"cannot find loader for this {fmt} file")
+    return refuse
+
+
+def _mpeg(data: bytes, name: str):
+    """MPEG: Pillow reads the sequence header's size, then has no decoder."""
+    if len(data) < 7:
+        raise NotThisFormat("index out of range")
+    w, h = data[4] << 4 | data[5] >> 4, (data[5] & 15) << 8 | data[6]
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("not identified by this driver")
+    check_size(w, h, name, "MPEG")
+    raise OSError("cannot load this image")
+
+
+def _wmf(data: bytes, name: str):
+    """WMF and EMF: Pillow reads the size, then has no renderer on Linux."""
+    s = data[:44]
+    if s.startswith(b"\xd7\xcd\xc6\x9a\x00\x00"):
+        if len(s) < 16:
+            raise NotThisFormat("unpack_from requires a buffer of at least 16 bytes")
+        inch = struct.unpack_from("<H", s, 14)[0]
+        if inch == 0:
+            raise ValueError("Invalid inch")
+        x0, y0, x1, y1 = struct.unpack_from("<4h", s, 6)
+        size = (x1 - x0) * 72 // inch, (y1 - y0) * 72 // inch
+        if s[22:26] != b"\x01\x00\t\x00":
+            raise NotThisFormat("Unsupported WMF file format")
+    elif s.startswith(b"\x01\x00\x00\x00") and s[40:44] == b" EMF":
+        x0, y0, x1, y1, f0, f1, f2, f3 = struct.unpack_from("<8i", s, 8)
+        # the dots per inch Pillow computes: ZeroDivisionError on an empty frame
+        _dpi = 2540.0 * (x1 - x0) / (f2 - f0), 2540.0 * (y1 - y0) / (f3 - f1)
+        size = x1 - x0, y1 - y0
+    else:
+        raise NotThisFormat("Unsupported file format")
+    if size[0] <= 0 or size[1] <= 0:
+        raise NotThisFormat("not identified by this driver")
+    check_size(*size, name, "WMF")
+    raise OSError("cannot find loader for this WMF file")
+
+
+def _tga(data: bytes, name: str) -> np.ndarray:
+    """TGA has no magic bytes: here its extension or its 2.0 footer names it."""
+    if not (name.lower().endswith(".tga") or data.endswith(TGA_FOOTER)):
+        raise NotThisFormat("not a TGA file")
+    return decode_tga(data, name)
+
+
+# Pillow 12.1.0's Image.open order: the formats of ``preinit`` (BMP, DIB,
+# GIF, JPEG, PPM, PNG), then every plugin as ``init`` registers it. Each
+# entry: (name, the test of the plugin's ``_accept``, which sees the first
+# 16 bytes, or None where the plugin has none; Pillow's reading). A reading
+# that raises ``NotThisFormat`` sends the file on to the next entry, as
+# Pillow's open does on ``SyntaxError``; the formats the port read before
+# this list existed are taken by their magic and raise from their modules.
+PILLOW_ORDER = (
+    ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
+    ("DIB", is_dib, decode_dib),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), decode_gif),
+    ("JPEG", lambda d: d.startswith(JPEG_MAGIC), decode_jpeg),
+    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1:2] in b"0123456fy", _ppm),
+    ("PNG", lambda d: d[:8] == PNG_MAGIC, decode_png),
+    ("AVIF", is_avif, decode_avif),
+    ("BLP", blp.accept, blp.decode_blp),
+    ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")), _stub("BUFR")),
+    ("CUR", ico.is_cur, ico.decode_cur),
+    ("PCX", pcx.is_pcx, pcx.decode_pcx),
+    ("DCX", pcx.is_dcx, pcx.decode_dcx),
+    ("DDS", lambda d: d.startswith(dds.MAGIC), dds.decode_dds),
+    ("EPS", eps.accept, eps.decode_eps),
+    ("FITS", fits.accept, fits.decode_fits),
+    ("FLI", fli.accept, fli.decode_fli),
+    ("FTEX", ftex.accept, ftex.decode_ftex),
+    ("GBR", gbr.accept, gbr.decode_gbr),
+    ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1, _stub("GRIB")),
+    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), _stub("HDF5")),
+    ("JPEG2000", lambda d: d.startswith((J2K_MAGIC, JP2_MAGIC)), decode_jpeg2000),
+    ("ICNS", lambda d: d.startswith(icns.MAGIC), icns.decode_icns),
+    ("ICO", ico.is_ico, ico.decode_ico),
+    ("IM", lambda d: im.parse_header(d) is not None, im.decode_im),
+    ("IMT", None, imt.decode_imt),
+    ("IPTC", None, iptc.decode_iptc),
+    ("MCIDAS", mcidas.accept, mcidas.decode_mcidas),
+    ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3"), _mpeg),
+    ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), decode_tiff),
+    ("MSP", msp.accept, msp.decode_msp),
+    ("PCD", None, pcd.decode_pcd),
+    ("PIXAR", pixar.accept, pixar.decode_pixar),
+    ("PSD", lambda d: d.startswith(psd.MAGIC), psd.decode_psd),
+    ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
+    ("SGI", sgi.is_sgi, sgi.decode_sgi),
+    ("SPIDER", None, spider.decode_spider),
+    ("SUN", sun.is_sun, sun.decode_sun),
+    ("TGA", None, _tga),
+    ("WEBP", lambda d: d.startswith(WEBP_MAGIC), decode_webp),
+    ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00")), _wmf),
+    ("XBM", xbm.accept, xbm.decode_xbm),
+    ("XPM", lambda d: d.startswith(xpm.MAGIC), xpm.decode_xpm),
+    ("XVTHUMB", xvthumb.accept, xvthumb.decode_xvthumb),
 )
 
 
-def _refuse(path: str, data: bytes):
-    """A file no module reads: ``NotImplementedError`` by name for a format
-    of the reading queue, else Pillow's ``UnidentifiedImageError`` (an
-    ``OSError``), as ``Image.open`` raises it."""
-    for fmt, accept in QUEUED:
-        if accept(data):
-            raise NotImplementedError(
-                f"{path}: {fmt} images are not supported (the port decodes PNG, Netpbm, JPEG, BMP, "
-                "DIB, TGA, GIF, TIFF, WebP, QOI, SGI, PCX, DCX, IM, DDS, ICO, CUR, ICNS, PSD, "
-                "JPEG 2000 and AVIF, and Radiance HDR through read_image_cv2)")
-    raise OSError(f"cannot identify image file {path!r}")
+# the readers that read as Pillow reads a file opened by its path (mapped
+# raw rows, a file's ``read`` of a negative length), not a byte stream
+FROM_FILE = ("FITS", "FTEX", "GBR", "IMT", "MCIDAS", "XVTHUMB")
 
 
-def _plain_format(data: bytes):
-    """The decoder of a CUR, QOI, SGI, PCX, DCX, ICNS, ICO, IM, PSD or DDS
-    file, or None. IM is tested where Pillow tests it: after PCX, DCX, DDS,
-    CUR, ICNS and ICO (and PNG, BMP, DIB and GIF), before every other
-    format of the port."""
-    if pcx.is_pcx(data):
-        return pcx.decode_pcx
-    if pcx.is_dcx(data):
-        return pcx.decode_dcx
-    if data.startswith(dds.MAGIC):
-        return dds.decode_dds
-    if ico.is_cur(data):
-        return ico.decode_cur
-    if data.startswith(icns.MAGIC):
-        return icns.decode_icns
-    if ico.is_ico(data):
-        return ico.decode_ico
-    if data[:6] not in (b"GIF87a", b"GIF89a") and im.parse_header(data) is not None:
-        return im.decode_im
-    if data.startswith(psd.MAGIC):
-        return psd.decode_psd
-    if data.startswith(qoi.MAGIC):
-        return qoi.decode_qoi
-    if sgi.is_sgi(data):
-        return sgi.decode_sgi
-    return None
-
-
-def _is_tga(data: bytes, name: str) -> bool:
-    """TGA has no magic bytes: Pillow tries it last; here its extension or
-    its 2.0 footer names it."""
-    return name.lower().endswith(".tga") or data.endswith(TGA_FOOTER)
-
-
-def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``; formats no module
-    reads raise by name."""
-    if data[:8] == PNG_MAGIC:
-        return decode_png(data, name)
-    if data[:2] == b"BM":
-        return decode_bmp(data, name)
-    if is_avif(data):
-        return decode_avif(data, name)
-    if is_dib(data):
-        return decode_dib(data, name)
-    plain = _plain_format(data)
-    if plain is not None:
-        return plain(data, name)
-    if data[:1] == b"P" and data[1:2] and data[1:2] in PNM_KINDS:
-        return decode_netpbm(data, name)
-    for magic, pil, _ in _DECODERS:
-        if data.startswith(magic):
-            return pil(data, name)
-    if _is_tga(data, name):
-        return decode_tga(data, name)
-    _refuse(name, data)
+def decode_image(data: bytes, name: str = "<bytes>", from_file: bool = False) -> np.ndarray:
+    """(H, W, 4) uint8 as Pillow's ``convert("RGBA")``; raises what
+    Pillow raises, and for a file no format takes Pillow's
+    ``UnidentifiedImageError`` message as an ``OSError``. ``from_file``:
+    the bytes are a file Pillow opens by its path, else a stream."""
+    for fmt, accept, read in PILLOW_ORDER:
+        if accept is not None and not accept(data):
+            continue
+        try:
+            return read(data, name, from_file=from_file) if fmt in FROM_FILE else read(data, name)
+        except NotThisFormat:
+            continue
+    raise OSError(f"cannot identify image file {name!r}")
 
 
 def read_image(path: str) -> np.ndarray:
     """``decode_image`` of a file."""
     with open(path, "rb") as f:
-        return decode_image(f.read(), path)
+        return decode_image(f.read(), path, from_file=True)
 
 
 def read_png_samples(path: str) -> PngImage:
@@ -544,23 +596,22 @@ def read_image_cv2(path: str) -> np.ndarray | None:
     gives: grey (H, W), colour (H, W, 3) in BGR order with alpha dropped
     and palettes expanded; uint8, uint16 at depth 16 (grey PNG at depths
     1-4 scaled to 8 bits), float32 for HDR; frame 0 of a WebP; AVIF in
-    BGR; None for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM, a DDS,
-    an ICO, a CUR, an ICNS, a PSD or a file that is no image, as OpenCV
-    reads none; ``NotImplementedError`` for a Sun raster, which it reads."""
+    BGR; a Sun raster by OpenCV's own rules (``sun.decode_sun_cv2``); None
+    for a TGA, a DIB, a QOI, an SGI, a PCX, a DCX, an IM, a DDS, an ICO, a
+    CUR, an ICNS, a PSD, Pillow's rarer formats or a file that is no image,
+    as OpenCV reads none."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"#?":
         return np.ascontiguousarray(decode_hdr(data, path)[..., ::-1])
     if data[:1] == b"P" and data[1:2] and data[1:2] in PNM_KINDS:
         return decode_netpbm_cv2(data, path)
-    for magic, _, cv2_reading in _DECODERS:
+    for magic, cv2_reading in _CV2_DECODERS:
         if data.startswith(magic):
             return cv2_reading(data, path)
     if is_avif(data):
         return decode_avif_cv2(data, path)
     if data[:8] != PNG_MAGIC:
-        if _u32(data, 0, "big") == 0x59A66A95:
-            raise NotImplementedError(f"{path}: Sun raster images are not supported")
         # what OpenCV does not read (a TGA, a DIB, a QOI, ... or no image)
         return None
     png = decode_png_samples(data, path, cv2=True)

@@ -198,6 +198,25 @@ AVIF_TOOL_FILES = (
     "blob_basecolor_444_s4.avif", "checker_cdef.avif",
     "bt709_full.avif", "bt709_limited.avif", "identity_444.avif", "identity_444_rgba.avif",
     "alpha_limited.avif")
+# Pillow's rarer formats (``tests/torch_image_fixtures.py``'s
+# ``make_pillow_format_fixtures``): Pillow's BLP, XBM and MSP files, OpenCV's
+# Sun rasters, the scene's images (``PILLOW_FORMAT_SCENE``) and the files of
+# ``rare_formats.pillow_format_files()``, which the card's host remakes
+PILLOW_FORMAT_SAVED = ("blp1_palette.blp", "blp1_palette_rgba.blp", "blp2_palette.blp",
+                       "blp2_palette_rgba.blp", "frame.xbm", "frame.msp", "cv2_grey.ras",
+                       "cv2_bgr.ras")
+PILLOW_FORMAT_SCENE = ("blob_basecolor_dxt5.blp", "checker_rle.ras")
+PILLOW_FORMAT_WRITTEN = (
+    "bits1.ras", "palette4.ras", "grey8.ras", "palette8.ras", "bgr24.ras", "rgb24_type3.ras",
+    "xbgr32.ras", "rle8.ras", "rle24.ras", "dxt1.blp", "dxt1_alpha.blp", "dxt3.blp", "dxt5.blp",
+    "bgra.blp", "dxt1.ftc", "rgb.ftu", "lins.msp", "palette.xpm", "rgb.xpm", "brush_v1.gbr",
+    "brush_rgba.gbr", "int8.fits", "int16.fits", "int32.fits", "float32.fits", "float64.fits",
+    "gzip.fits", "brun.flc", "copy.fli", "lc.fli", "ss2.flc", "float_be.spi", "float_le.spi",
+    "area1.mcidas", "area2.mcidas", "area4.mcidas", "frame.pxr", "frame.imt", "thumb.xv",
+    "raw.iim", "band.iim")
+PILLOW_FORMAT_FILES = PILLOW_FORMAT_SAVED + PILLOW_FORMAT_SCENE + PILLOW_FORMAT_WRITTEN
+# the fixtures Pillow refuses, and the exception the port raises as Pillow does
+PILLOW_FORMAT_REFUSALS = {"bgra.blp": NotImplementedError}
 AVIF_TIMED = {"speed 4": "lr_640.avif", "CDEF": "cdef_640.avif", "4:4:4": "yuv444_640.avif",
               "lossless 4:4:4": "lossless_444_640.avif"}
 

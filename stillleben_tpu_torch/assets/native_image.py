@@ -57,8 +57,10 @@ WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"),
                    os.path.join(PKG_DIR, "csrc", "sl_vp8l_enc.h"), WEBP_TABLES)
 GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
 GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
-PLAIN_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp")
-PLAIN_HEADER = os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h")
+PLAIN_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp"),
+                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.cpp"))
+PLAIN_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h"),
+                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.h"))
 J2K_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_j2k.cpp")
 J2K_HEADER = os.path.join(PKG_DIR, "csrc", "sl_j2k.h")
 AVIF_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_av1.cpp"),
@@ -116,7 +118,8 @@ def build_gif_enc() -> str:
 def build_plain() -> str:
     """``build`` of the plain formats' core."""
     return build_library("sl_plain", PLAIN_SOURCE, PLAIN_HEADER, BUILD_DIR,
-                         "the native QOI/PCX/SGI/DDS core")
+                         "the native QOI/PCX/SGI/DDS core and the loops of Pillow's "
+                         "rarer readers")
 
 
 def build_j2k() -> str:
@@ -222,8 +225,22 @@ def load_plain_library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int)
             lib.sl_bcn_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t) + (ctypes.c_int,) * 4 + (
                 ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int)
+            lib.sl_sun_rle_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.POINTER(ctypes.c_size_t))
+            lib.sl_msp_rle_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                              ctypes.c_int, ctypes.c_int) + out[:2] + (
+                ctypes.POINTER(ctypes.c_int),)
+            lib.sl_fli_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int))
+            lib.sl_fli_decode.restype = ctypes.c_long
+            lib.sl_blp_dxt_decode.argtypes = (ctypes.c_char_p,) + (ctypes.c_int,) * 4 + (
+                ctypes.c_void_p,)
+            lib.sl_blp_dxt_decode.restype = None
             for fn in ("sl_qoi_encode", "sl_pcx_encode", "sl_qoi_decode", "sl_pcx_decode",
-                       "sl_sgi_rle_decode", "sl_bcn_decode"):
+                       "sl_sgi_rle_decode", "sl_bcn_decode", "sl_sun_rle_decode",
+                       "sl_msp_rle_decode"):
                 getattr(lib, fn).restype = ctypes.c_int
             lib.sl_plain_free.restype = None
             lib.sl_plain_free.argtypes = (ctypes.POINTER(ctypes.c_uint8),)
@@ -671,6 +688,59 @@ def bcn_decode(data: bytes, n: int, sign: bool, width: int, height: int,
     _check(load_plain_library().sl_bcn_decode(data, ctypes.c_size_t(len(data)), n, int(sign),
                                               width, height, _ptr(out), err, _ERRLEN), err, name)
     return out[:height, :width]
+
+
+def sun_rle_decode(data: bytes, line_bytes: int, rows: int) -> tuple[np.ndarray, int | None]:
+    """(rows, line_bytes) uint8 of Sun raster run-length data as Pillow's
+    ``sun_rle`` decoder reads it, and None when every row is decoded, else
+    the bytes left over (an incomplete code) where the data ends first."""
+    out = np.zeros((rows, line_bytes), np.uint8)
+    used = ctypes.c_size_t(0)
+    done = load_plain_library().sl_sun_rle_decode(data, ctypes.c_size_t(len(data)), line_bytes,
+                                                  rows, _ptr(out), ctypes.byref(used))
+    return out, None if done else len(data) - used.value
+
+
+def msp_rle_decode(data: bytes, rowmap: np.ndarray, blank_bytes: int) -> tuple[bytes, int, int]:
+    """MSP v2's rows (``data`` from the first row on, ``rowmap`` their
+    encoded lengths) as Pillow's ``MspDecoder`` concatenates them, with 0
+    or the failure (1: the data ends in a row, 2: a run passes a row's
+    end) and the row at fault."""
+    lib = load_plain_library()
+    rm = np.ascontiguousarray(rowmap, np.uint16)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    bad = ctypes.c_int(-1)
+    rc = lib.sl_msp_rle_decode(data, ctypes.c_size_t(len(data)), _ptr(rm), len(rm), blank_bytes,
+                               ctypes.byref(out), ctypes.byref(n), ctypes.byref(bad))
+    try:
+        if rc == 3:
+            raise MemoryError("MSP decode: out of memory")
+        return ctypes.string_at(out, n.value), rc, bad.value
+    finally:
+        lib.sl_plain_free(out)
+
+
+def fli_decode(data: bytes, frame: np.ndarray) -> tuple[int, int]:
+    """One call of Pillow's FLI decoder on ``data`` (from the frame's
+    start), decoding into ``frame`` ((height, width) uint8, in place):
+    (bytes consumed or -1 when done, Pillow's error code)."""
+    err = ctypes.c_int(0)
+    h, w = frame.shape
+    n = load_plain_library().sl_fli_decode(data, ctypes.c_size_t(len(data)), w, h, _ptr(frame),
+                                           ctypes.byref(err))
+    return int(n), err.value
+
+
+def blp_dxt_decode(data: bytes, kind: int, alpha: bool, blocks: int, block_rows: int) -> np.ndarray:
+    """BLP's DXT1/3/5 (``kind`` 1, 3, 5) blocks as Pillow's Python decoders
+    emit them: (4 x block_rows, 4 x blocks, 3 or 4) uint8."""
+    bpp = 3 if kind == 1 and not alpha else 4
+    if kind not in (1, 3, 5) or len(data) < blocks * block_rows * (8 if kind == 1 else 16):
+        raise ValueError(f"BLP DXT{kind}: {len(data)} bytes for {blocks}x{block_rows} blocks")
+    out = np.empty((4 * block_rows, 4 * blocks, bpp), np.uint8)
+    load_plain_library().sl_blp_dxt_decode(data, kind, int(alpha), blocks, block_rows, _ptr(out))
+    return out
 
 
 def j2k_encode(samples: np.ndarray) -> bytes:

@@ -688,6 +688,20 @@ def write_jpeg2000_settings_fixtures(directory: str, subdiv: int = 6,
     return _write_committed_textures(directory, subdiv, stem, base_color, plane, "j2k", "image/jp2")
 
 
+def write_pillow_format_scene_fixtures(directory: str, subdiv: int = 6,
+                                       base_color: str = "blob_basecolor_dxt5.blp",
+                                       plane: str = "checker_rle.ras") -> dict[str, str]:
+    """``write_avif_fixtures`` of the committed files of Pillow's rarer
+    formats (``image_fixtures.PILLOW_FORMAT_SCENE``: the blob's base colour
+    as BLP2 DXT5, the checker as a run-length Sun raster, unless named).
+    Paths by name: ``obj_rare``, ``obj_png``, ``glb_rare`` (the BLP
+    embedded as ``image/x-blp``), ``glb_png``, ``plane_rare``,
+    ``plane_png``."""
+    stem = f"blob_s{subdiv}_seed0_" + os.path.splitext(base_color)[0]
+    return _write_committed_textures(directory, subdiv, stem, base_color, plane, "rare",
+                                     "image/x-blp")
+
+
 def _write_committed_textures(directory: str, subdiv: int, stem: str, base_color: str, plane: str,
                               tag: str, mime: str) -> dict[str, str]:
     """The blob (``stem``) textured from the committed ``base_color`` and

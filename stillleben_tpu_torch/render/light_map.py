@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..assets.image import read_image, read_image_cv2
+from ..assets.pillow_open import NoRGBA
 from ..core import math as m
 
 CUBE_SIZE = 512
@@ -345,7 +346,11 @@ def _load_hdr_image(path: str) -> np.ndarray:
     package's Pillow fallback: ``convert("RGB") / 255`` to the power 2.2."""
     img = read_image_cv2(path)
     if img is None:
-        return np.ascontiguousarray((read_image(path)[..., :3].astype(np.float32) / 255.0) ** 2.2)
+        try:
+            rgb = read_image(path)[..., :3]
+        except NoRGBA as e:  # convert("RGB") reads what convert("RGBA") refuses
+            rgb = e.rgb
+        return np.ascontiguousarray((rgb.astype(np.float32) / 255.0) ** 2.2)
     img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)

@@ -270,16 +270,15 @@ def _sun_raster(h: int = 8, w: int = 8) -> bytes:
 def test_reading_queue_raises_by_name(tmp_path):
     """A file of a format ROADMAP.md queues for reading, which Pillow or
     OpenCV reads, still raises ``NotImplementedError`` by name: a JPEG
-    2000 codestream of a code-block style other than 0, a LAB PSD, and a
-    Sun raster (read by both libraries; the port's OpenCV reading refuses
-    it too)."""
+    2000 codestream of a code-block style other than 0 and a LAB PSD. A
+    Sun raster, once queued, is read as both libraries read it."""
     from stillleben_tpu_torch.assets.image_fixtures import path as fixture_path
     from torch_image_fixtures import psd_file
 
     lab = psd_file(np.full((3, 4, 5), 128, np.uint8), 9)
     cases = {"cblk_style.j2k": (open(fixture_path("cblk_style.j2k"), "rb").read(),
                                 "code-block style"),
-             "lab.psd": (lab, "LAB"), "sun.ras": (_sun_raster(), "Sun raster")}
+             "lab.psd": (lab, "LAB")}
     for name, (data, what) in cases.items():
         path = str(tmp_path / name)
         with open(path, "wb") as f:
@@ -288,6 +287,9 @@ def test_reading_queue_raises_by_name(tmp_path):
         with pytest.raises(NotImplementedError, match=what):
             image.read_image(path)
     sun = str(tmp_path / "sun.ras")
-    assert cv2.imread(sun, CV2_FLAGS).shape == (8, 8, 3)
-    with pytest.raises(NotImplementedError, match="Sun raster"):
-        image.read_image_cv2(sun)
+    with open(sun, "wb") as f:
+        f.write(_sun_raster())
+    np.testing.assert_array_equal(image.read_image(sun), np.asarray(Image.open(sun).convert("RGBA")))
+    ref = cv2.imread(sun, CV2_FLAGS)
+    assert ref.shape == (8, 8, 3)
+    np.testing.assert_array_equal(image.read_image_cv2(sun), ref)

@@ -59,6 +59,20 @@ AVIF: ``make_avif_fixtures()`` writes Pillow's files of
 ``avif_encode_digests()`` the SHA-256 of the port's own files of
 ``avif_write_sources()`` (``--avif-encode`` rewrites those alone).
 
+Pillow's rarer formats: ``make_pillow_format_fixtures()`` writes the
+committed files of BLP, FTEX, Sun raster, XBM, XPM, MSP, GBR, FITS,
+FLI/FLC, SPIDER, McIdas, PIXAR, IM Tools, XV thumbnails and IPTC (Pillow's
+``save`` of BLP1 and BLP2 palette images, XBM and MSP; OpenCV's ``imwrite``
+of ``.ras``; ``image_fixtures.rare_formats``' writers for the rest, and
+the textured scene's blob base colour as BLP2 DXT5 and checker as a
+run-length Sun raster) and ``pillow_format_digests()`` their SHA-256 and
+Pillow's and OpenCV's readings, and those of the seeded PhotoCD files
+(``--pillow-formats`` writes these alone); ``pillow_formats_sweep_case``
+draws a file of a writer's options from a seed (``--pillow-formats-sweep
+N [START]`` holds N of them to Pillow's and OpenCV's readings;
+``--pillow-formats-times`` times Pillow and the port on one 640x480 file
+per format on this host).
+
 ``vp8_divergence`` names the first stage at which two lossy WebP files
 part (the divergence finder of the port's encoder), ``vp8l_divergence``
 (and ``alph_divergence`` for two files' ALPH chunks) the first part of two
@@ -2713,6 +2727,284 @@ def rewrite_avif_encode_digests() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Pillow's rarer formats
+# ---------------------------------------------------------------------------
+
+
+def make_pillow_format_fixtures() -> dict[str, bytes]:
+    """The committed files of Pillow's rarer formats (``PILLOW_FORMAT_FILES``):
+    Pillow's ``save`` of BLP1 and BLP2 palette images (RGB and RGBA
+    palettes), XBM and MSP; OpenCV's ``imwrite`` of grey and colour ``.ras``
+    (8 and 24 bits); the scene's blob base colour as BLP2 DXT5 and the
+    checker plane as a run-length Sun raster of its two colours' indices
+    and a palette; and
+    ``rare_formats.pillow_format_files()``."""
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import rare_formats
+    from stillleben_tpu_torch.assets.procedural import base_color_texture, checker_texture
+
+    img = rare_formats.integer_image(31, 45, 4, 60)
+    grey = img[..., 0]
+    files = {}
+
+    def save(im, fmt, **kw):
+        b = io.BytesIO()
+        im.save(b, fmt, **kw)
+        return b.getvalue()
+
+    for version in ("BLP1", "BLP2"):
+        for alpha in (False, True):
+            pal = Image.fromarray((grey // 16).astype(np.uint8), "P")
+            colours = rare_formats.integer_image(16, 1, 4 if alpha else 3, 61)[:, 0]
+            pal.putpalette(colours.tobytes(), "RGBA" if alpha else "RGB")
+            name = f"{version.lower()}_palette{'_rgba' if alpha else ''}.blp"
+            files[name] = save(pal, "BLP", blp_version=version)
+    files["frame.xbm"] = save(Image.fromarray(grey).convert("1"), "XBM")
+    files["frame.msp"] = save(Image.fromarray(grey).convert("1"), "MSP")
+    with tempfile.TemporaryDirectory() as d:
+        for name, a in (("cv2_grey.ras", grey), ("cv2_bgr.ras", img[..., :3])):
+            cv2.imwrite(os.path.join(d, name), a)
+            with open(os.path.join(d, name), "rb") as f:
+                files[name] = f.read()
+    files["blob_basecolor_dxt5.blp"] = rare_formats.blp_dxt(base_color_texture(0), 5)
+    colours, index = np.unique(checker_texture()[..., :3].reshape(-1, 3), axis=0,
+                               return_inverse=True)
+    files["checker_rle.ras"] = rare_formats.sun_raster(index.reshape(512, 512), 8,
+                                                       palette=colours, rle=True)
+    files.update(rare_formats.pillow_format_files())
+    return files
+
+
+def pillow_format_digests(files: dict[str, bytes]) -> dict:
+    """``PILLOW_FORMAT_FILE`` / ``PILLOW_FORMAT_DECODE`` /
+    ``PILLOW_FORMAT_DECODE_CV2``: each file's SHA-256 and Pillow's and
+    OpenCV's readings (or the exception; OpenCV's of the Sun rasters only);
+    ``PCD_FILE`` / ``PCD_DECODE``: the same of ``rare_formats.pcd_files()``."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import rare_formats
+
+    pcd = rare_formats.pcd_files()
+    return {"PILLOW_FORMAT_FILE": {n: hashlib.sha256(d).hexdigest()
+                                   for n, d in sorted(files.items())},
+            "PILLOW_FORMAT_DECODE": {n: any_reading(d) for n, d in sorted(files.items())},
+            "PILLOW_FORMAT_DECODE_CV2": {n: cv2_file_reading(d, n) for n, d in sorted(files.items())
+                                         if n.endswith(".ras")},
+            "PCD_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(pcd.items())},
+            "PCD_DECODE": {n: any_reading(d) for n, d in sorted(pcd.items())}}
+
+
+def write_pillow_format_fixtures() -> None:
+    """``--pillow-formats``: writes ``make_pillow_format_fixtures()``'s
+    files and their five tables into ``digests.py``, every other table as it
+    stands."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    files = make_pillow_format_fixtures()
+    for name, data in files.items():
+        with open(os.path.join(FIXTURES, name), "wb") as f:
+            f.write(data)
+    tables = {k: dict(v) for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    tables.update(pillow_format_digests(files))
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
+
+
+def pillow_formats_times(reps: int = 5) -> None:
+    """``--pillow-formats-times``: per format of ``rare_formats.timing_files()``
+    (one 640x480 file each), the least ms of ``reps`` of Pillow's
+    ``Image.open`` (the header) and ``convert("RGBA")`` and of the port's
+    ``decode_image``, one after the other, on this host."""
+    import time
+
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import image
+    from stillleben_tpu_torch.assets.image_fixtures import rare_formats
+
+    for fmt, data in rare_formats.timing_files().items():
+        opened, pil, port = [], [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            im = Image.open(io.BytesIO(data))
+            t1 = time.perf_counter()
+            ref = np.asarray(im.convert("RGBA"))
+            t2 = time.perf_counter()
+            got = image.decode_image(data, fmt)
+            opened.append(t1 - t0)
+            pil.append(t2 - t0)
+            port.append(time.perf_counter() - t2)
+        print(f"{fmt}: Pillow open {min(opened) * 1e3:.2f} ms, open + convert "
+              f"{min(pil) * 1e3:.1f} ms; the port {min(port) * 1e3:.1f} ms (least of {reps}); "
+              f"equal {np.array_equal(got, ref)}")
+
+
+PILLOW_SWEEP_SIZES = ((1, 1), (3, 5), (33, 33), (65, 130))
+PILLOW_SWEEP_FORMATS = ("sun", "sun_rle", "blp_dxt", "blp_palette", "ftex", "xbm", "xpm", "msp",
+                        "gbr", "fits", "fli", "spider", "mcidas", "pixar", "imt", "xv", "iptc")
+
+
+def pillow_formats_sweep_case(i: int) -> tuple[str, bytes]:
+    """Seeded case ``i``: a format (in turn) at a size of
+    ``PILLOW_SWEEP_SIZES`` with seeded content (noise, flat, or runs) and
+    the writer's options drawn from the seed; (name, bytes)."""
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import rare_formats as rf
+
+    rng = np.random.default_rng(7000 + i)
+    fmt = PILLOW_SWEEP_FORMATS[i % len(PILLOW_SWEEP_FORMATS)]
+    h, w = PILLOW_SWEEP_SIZES[int(rng.integers(len(PILLOW_SWEEP_SIZES)))]
+    if rng.random() < 0.5:
+        h, w = w, h
+    kind = int(rng.integers(3))
+    rgba = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    if kind == 1:
+        rgba[:] = rgba[:1, :1]
+    elif kind == 2:
+        rgba = np.repeat(rgba[:, : -(-w // 7)], 7, axis=1)[:, :w]
+    rgb, grey = rgba[..., :3], rgba[..., 0]
+    bits = (grey > 127).astype(np.uint8)
+
+    def pick(*options):
+        return options[int(rng.integers(len(options)))]
+
+    if fmt == "sun":
+        depth = pick(1, 4, 8, 24, 32)
+        vals = {1: bits, 4: grey >> 4, 8: grey}.get(depth, rgb)
+        pal = None
+        if depth in (4, 8) and rng.random() < 0.5:
+            pal = rng.integers(0, 256, (int(rng.integers(1, 257)), 3))
+        return "x.ras", rf.sun_raster(vals, depth, ftype=pick(0, 1, 3, 4, 5), palette=pal)
+    if fmt == "sun_rle":
+        depth = pick(1, 8, 24, 32)
+        vals = {1: bits, 8: grey}.get(depth, rgb)
+        return "x.ras", rf.sun_raster(vals, depth, rle=True)
+    if fmt == "blp_dxt":
+        kind = pick(1, 3, 5)
+        return "x.blp", rf.blp_dxt(rgba, kind, alpha=bool(rng.random() < 0.7))
+    if fmt == "blp_palette":
+        pal = Image.fromarray(grey, "P")
+        raw = pick("RGB", "RGBA")
+        pal.putpalette(rng.integers(0, 256, 256 * len(raw)).astype(np.uint8).tobytes(), raw)
+        b = io.BytesIO()
+        pal.save(b, "BLP", blp_version=pick("BLP1", "BLP2"))
+        return "x.blp", b.getvalue()
+    if fmt == "ftex":
+        return pick(("x.ftc", rf.ftex(w, h, 0, rf.dxt_blocks(rgba, 1))),
+                    ("x.ftu", rf.ftex(w, h, 1, rgb.tobytes())))
+    if fmt == "xbm":
+        b = io.BytesIO()
+        Image.fromarray(bits * 255).convert("1").save(b, "XBM")
+        return "x.xbm", b.getvalue()
+    if fmt == "xpm":
+        n = pick(2, 16, 256, 300)
+        palette = rng.integers(0, 256, (n, 3))
+        return "x.xpm", rf.xpm(rng.integers(0, n, (h, w)), palette, chars=1 if n <= 80 else 2,
+                               pixels_comment=bool(rng.random() < 0.5))
+    if fmt == "msp":
+        if rng.random() < 0.5:
+            b = io.BytesIO()
+            Image.fromarray(bits * 255).convert("1").save(b, "MSP")
+            return "x.msp", b.getvalue()
+        return "x.msp", rf.msp_v2(bits, blank_rows=(0,) if rng.random() < 0.3 else ())
+    if fmt == "gbr":
+        return "x.gbr", rf.gbr(pick(grey, rgba), version=pick(1, 2))
+    if fmt == "fits":
+        bitpix = pick(8, 16, 32, -32, -64)
+        vals = grey.astype(np.int64) * pick(1, 3) - pick(0, 40)
+        if rng.random() < 0.25:
+            return "x.fits", rf.fits_gzip(vals, bitpix)
+        return "x.fits", rf.fits(vals if bitpix > 0 else vals / 1.7, bitpix)
+    if fmt == "fli":
+        chunks = [rf.fli_palette(rng.integers(0, 256, (256, 3)), colour64=bool(rng.random() < .5))]
+        chunks.append(pick(rf.fli_brun, rf.fli_copy, rf.fli_lc, rf.fli_ss2)(grey))
+        if rng.random() < 0.3:
+            chunks.append(rf.fli_pstamp())
+        return "x.flc", rf.fli_file(w, h, chunks, flc=bool(rng.random() < 0.5))
+    if fmt == "spider":
+        return "x.spi", rf.spider(grey.astype(np.float32) * 1.3 - 20, order=pick(">", "<"))
+    if fmt == "mcidas":
+        nbytes = pick(1, 2, 4)
+        return "x.area", rf.mcidas(grey.astype(np.int64) * nbytes, nbytes,
+                                   prefix_bytes=int(rng.integers(0, 5)))
+    if fmt == "pixar":
+        return "x.pxr", rf.pixar(rgb)
+    if fmt == "imt":
+        return "x.imt", rf.imt(grey)
+    if fmt == "xv":
+        return "x.xv", rf.xvthumb(grey)
+    if rng.random() < 0.5:
+        return "x.iim", rf.iptc(w, h, grey.tobytes(), chunk=int(rng.integers(1, 900)))
+    return "x.iim", rf.iptc(w, h, grey.tobytes(), layers=pick(3, 4), component=1,
+                            band=int(rng.integers(1, 4)))
+
+
+def pillow_formats_sweep_one(i: int) -> tuple[int, str]:
+    """Case ``i`` through Pillow and the port: "" where ``read_image``
+    equals ``Image.open(p).convert("RGBA")`` (and a Sun raster's
+    ``read_image_cv2`` OpenCV's ``imread``), or raises as Pillow raises;
+    else what differed."""
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import image
+
+    name, d = pillow_formats_sweep_case(i)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(d)
+        try:
+            ref = np.asarray(Image.open(path).convert("RGBA"))
+        except Exception as e:  # noqa: BLE001  (the reading is the exception)
+            ref = type(e)
+        try:
+            got = image.read_image(path)
+        except Exception as e:  # noqa: BLE001
+            got = type(e)
+        if name.endswith(".ras"):
+            cv = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+            ours = image.read_image_cv2(path)
+            if not ((cv is None and ours is None) or (cv is not None and ours is not None
+                                                      and cv.dtype == ours.dtype
+                                                      and np.array_equal(cv, ours))):
+                return i, f"{name}: OpenCV's reading differs"
+    if isinstance(ref, type) or isinstance(got, type):
+        same = isinstance(ref, type) and isinstance(got, type) and issubclass(got, (
+            OSError if issubclass(ref, OSError) else ref))
+        return i, "" if same else f"{name}: Pillow {ref}, the port {got}"
+    return i, "" if np.array_equal(ref, got) else f"{name}: pixels differ"
+
+
+def pillow_formats_sweep(n: int, start: int = 0, workers: int = 3) -> list[str]:
+    """``--pillow-formats-sweep N [START]``: cases START .. START + N - 1 of
+    ``pillow_formats_sweep_case`` held to Pillow's (and OpenCV's) reading;
+    prints and returns what differed."""
+    import multiprocessing
+
+    bad = []
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for i, diff in pool.imap_unordered(pillow_formats_sweep_one, range(start, start + n)):
+            if diff:
+                bad.append(f"case {i}: {diff}")
+                print(bad[-1], flush=True)
+    print(f"{n} cases from {start}: {n - len(bad)} read as Pillow (and OpenCV) read them")
+    return bad
+
+
+# ---------------------------------------------------------------------------
 # the committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -2790,7 +3082,12 @@ def digest_module(d: dict) -> str:
              "(``avif.encode_avif``). Written by ``tests/torch_image_fixtures.py --write``",
              "(``--avif-encode`` rewrites ``AVIF_ENCODE`` alone; ``--avif-tools`` writes",
              "``AVIF_TOOL_FILES`` and adds their AVIF entries; ``--jpeg2000`` writes the",
-             'JPEG 2000 fixtures and their three tables)."""', ""]
+             "JPEG 2000 fixtures and their three tables; ``--pillow-formats`` writes the",
+             "files of Pillow's rarer formats and their tables). ``PILLOW_FORMAT_FILE`` /",
+             "``PILLOW_FORMAT_DECODE`` / ``PILLOW_FORMAT_DECODE_CV2``: those files' bytes",
+             "and Pillow's and OpenCV's (Sun rasters) readings, or the exception;",
+             "``PCD_FILE`` / ``PCD_DECODE``: the same of the seeded PhotoCD files",
+             '(``rare_formats.pcd_files()``)."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
         lines += [f'    "{k}": "{v}",' for k, v in table.items()]
@@ -2818,6 +3115,16 @@ if __name__ == "__main__":
     if "--jpeg2000-times" in sys.argv:
         jpeg2000_times()
         sys.exit(0)
+    if "--pillow-formats" in sys.argv:
+        write_pillow_format_fixtures()
+        sys.exit(0)
+    if "--pillow-formats-times" in sys.argv:
+        pillow_formats_times()
+        sys.exit(0)
+    if "--pillow-formats-sweep" in sys.argv:
+        k = sys.argv.index("--pillow-formats-sweep")
+        args = [int(v) for v in sys.argv[k + 1:k + 3]]
+        sys.exit(1 if pillow_formats_sweep(*args) else 0)
     if "--avif-sweep" in sys.argv:
         k = sys.argv.index("--avif-sweep")
         args = [int(v) for v in sys.argv[k + 1:k + 3]]
@@ -2830,9 +3137,11 @@ if __name__ == "__main__":
     icon_files = make_icon_fixtures()
     j2k_files = make_jpeg2000_fixtures()
     avif_files = {**make_avif_fixtures(), **make_avif_tool_fixtures()}
+    rare_files = make_pillow_format_fixtures()
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
-                           **jpeg_files, **icon_files, **j2k_files, **avif_files}.items():
+                           **jpeg_files, **icon_files, **j2k_files, **avif_files,
+                           **rare_files}.items():
             with open(os.path.join(FIXTURES, name), "wb") as f:
                 f.write(data)
         with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
@@ -2843,7 +3152,8 @@ if __name__ == "__main__":
                                    **jpeg_variant_digests(jpeg_files),
                                    **icon_digests(icon_files),
                                    **jpeg2000_digests(j2k_files),
-                                   **avif_digests(avif_files), **avif_encode_digests()}))
+                                   **avif_digests(avif_files), **avif_encode_digests(),
+                                   **pillow_format_digests(rare_files)}))
     for group in (files, webp_files, encode_files, plain_files, jpeg_files, icon_files, j2k_files,
-                  avif_files):
+                  avif_files, rare_files):
         print({k: len(v) for k, v in group.items()}, sum(map(len, group.values())))
