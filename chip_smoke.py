@@ -429,7 +429,24 @@ Phases (one line each or more; any failure exits non-zero):
     (one camera, two shadow passes) and no plain piece, K1 ``torch.equal``
     to its plain version on the camera and the sun's shadow pass, every
     field ``torch.equal`` to the same scene from PNG twins of the decoded
-    pixels. Then the smoke's total wall seconds.
+    pixels.
+28. TIFF as Pillow and OpenCV write it (``assets/tiff.py``, ``lab.py``;
+    CCITT and ZSTD in ``csrc/sl_fax.cpp`` and ``csrc/sl_zstd.cpp``, built
+    into phase 22's core; JPEG strips through ``csrc/sl_image.cpp``) and
+    the faults C-26 to C-29: every committed file
+    (``image_fixtures.TIFF_FILES``) read to the SHA-256 of Pillow 12.1.0's
+    and OpenCV 5.0.0's readings, refusals in Pillow's words and None where
+    OpenCV reads nothing, the writer's files remade byte-equal from
+    ``image_fixtures.tiff_files``; one 640x480 file per new kind (JPEG,
+    Group 4, LZMA, ZSTD, CMYK LZW, float32 RGB with predictor 3) parsed and
+    decoded, each timed (the least ms of 2); ``LightMap`` of an ``.ibl``
+    over a float32 TIFF panorama ``torch.equal`` to the one over its
+    ``.hdr`` twin; phase 18's scene at its settled poses with the blob's
+    texture (.mtl and GLB) from Pillow's JPEG-in-TIFF and the plane from a
+    Group 4 checker, lit by the TIFF light map, every field ``torch.equal``
+    to the PNG twins' scene under the ``.hdr`` light map, K1 ``torch.equal``
+    to its plain version on the camera and the sun's shadow pass. Then the
+    smoke's total wall seconds.
 
 The last three lines are a JSON object of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4265,20 +4282,22 @@ def write_avif(sl, result, fx_dir, ms, card) -> None:
 
 
 def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color, plane,
-               kind="avif", label="avif"):
+               kind="avif", label="avif", twin_light=None, light_label="phase 23's light map"):
     """Phase 26's render of phase 18's settled scene with the blob's base
     colour (.mtl and GLB) from the committed AVIF ``base_color`` and the
     plane from ``plane``, through K1, against the same scene from PNG twins
     of the decoded pixels: returns the result and K1's entries. Phase 27
     renders it from its own files (``kind`` "rare": the writer of
     ``procedural.write_pillow_format_scene_fixtures``, the lines under
-    ``label``)."""
+    ``label``), phase 28 from its TIFF files (``kind`` "tif", the twin under
+    its own ``twin_light``)."""
     import stillleben_tpu_torch as sl
     from stillleben_tpu_torch.assets import procedural
 
     t0 = time.perf_counter()
     writer = {"avif": procedural.write_avif_fixtures,
-              "rare": procedural.write_pillow_format_scene_fixtures}[kind]
+              "rare": procedural.write_pillow_format_scene_fixtures,
+              "tif": procedural.write_tiff_scene_fixtures}[kind]
     fx = writer(fx_dir, subdiv=ICON_SUBDIV, base_color=base_color, plane=plane)
     meshes = sl.Mesh.load_threaded([fx[f"obj_{kind}"], fx[f"glb_{kind}"], "primitive://cube",
                                     "primitive://sphere"], physics=False)
@@ -4286,7 +4305,8 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
                                    "primitive://sphere"], physics=False)
     ms[f"{tag} meshes"] = (time.perf_counter() - t0) * 1e3
     scene = image_scene(meshes, light, sl.Texture2D(fx[f"plane_{kind}"]))
-    twin = image_scene(twins, light, sl.Texture2D(fx["plane_png"]))
+    twin = image_scene(twins, light if twin_light is None else twin_light,
+                       sl.Texture2D(fx["plane_png"]))
     poses, camera, plane_pose = settled
     for s_ in (scene, twin):
         for o, p in zip(s_.objects, poses):
@@ -4309,8 +4329,7 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
     same = [f for f in fields if torch.equal(getattr(result, f)(), getattr(ref, f)())]
     phase(label, f"phase 18's scene at its settled poses, {WIDTH}x{HEIGHT} (the blob at "
                   f"subdivision {ICON_SUBDIV}): the blob's texture from {base_color} (.mtl), a GLB "
-                  f"whose embedded image is {base_color}, the plane from {plane}, phase 23's light "
-                  f"map; "
+                  f"whose embedded image is {base_color}, the plane from {plane}, {light_label}; "
                   f"fixtures and meshes {ms[tag + ' meshes']:.1f} ms, RenderPass().render "
                   f"{ms[tag + ' render']:.1f} ms; K1 launches by tile {launches}; calls of K1's "
                   f"plain pieces {plain_calls}; content: {content}; fields torch.equal to the same "
@@ -4564,6 +4583,150 @@ def run_pillow_formats(torch, cr, rt, card, settled, light) -> tuple[list, dict]
                             *PILLOW_FORMAT_SCENE, kind="rare", label="rare")
     ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
     phase("rare", "phase 27's parts, s: " + ", ".join(
+        f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
+    shutil.rmtree(fx_dir, ignore_errors=True)
+    return entries, ms
+
+
+TIFF_REPS = 2  # phase 28's timings, the least of this many
+
+
+def run_tiff(torch, cr, rt, card, settled) -> tuple[list, dict]:
+    """Phase 28: TIFF as Pillow and OpenCV write it, and the faults C-26 to
+    C-29 (see the module docstring). ``settled`` is phase 18's settled
+    state. Returns K1's entries on this phase's inputs and its
+    milliseconds."""
+    import hashlib
+    import lzma
+    import shutil
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import image, tiff
+    from stillleben_tpu_torch.assets.image_fixtures import (TIFF_FILES, TIFF_SCENE, TIFF_TIMED,
+                                                            TIFF_WRITTEN)
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (TIFF_DECODE, TIFF_DECODE_CV2,
+                                                                    TIFF_FILE)
+    from stillleben_tpu_torch.assets.image_fixtures.tiff_files import (sky_float, tiff_file,
+                                                                       tiff_fixtures)
+    from stillleben_tpu_torch.assets.procedural import write_tiff_scene_fixtures
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    fx_dir = os.path.join(ROOT, "stillleben_tpu_torch", "_build", f"tiff_{os.getpid()}")
+    os.makedirs(fx_dir, exist_ok=True)
+    ms = {}
+    t_part = time.perf_counter()
+
+    # the committed files to Pillow's and OpenCV's readings (refusals in
+    # Pillow's words, None where OpenCV reads nothing), the writer's files
+    # remade byte-equal
+    def reading(data, name):
+        try:
+            return sha(image.decode_image(data, name).tobytes())
+        except OSError as e:
+            return f"refused: {e}"
+        except Exception as e:  # noqa: BLE001  (the reading is the exception)
+            return f"{type(e).__name__}: {e}"
+
+    bad, refused, none = [], 0, 0
+    lzma.LZMADecompressor().decompress(lzma.compress(b"lzma"))  # the host's lzma works
+    written = tiff_fixtures()
+    for name in TIFF_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != TIFF_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if name in written and written[name] != data:
+            bad.append(f"the writer's {name}")
+        got = reading(data, name)
+        refused += not got[0].isalnum() or ":" in got
+        if got != TIFF_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        cv = image.read_image_cv2(fixture(name))
+        none += cv is None
+        cv = "None" if cv is None else (f"{cv.dtype} {tuple(cv.shape)} "
+                                        f"{sha(np.ascontiguousarray(cv).tobytes())}")
+        if cv != TIFF_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+    phase("tiff", f"{len(TIFF_FILES)} committed files (JPEG in strips and YCbCr tiles, CCITT "
+                  f"modified Huffman, Group 3 1-D and 2-D, Group 4, LZMA, ZSTD, CMYK, YCbCr, "
+                  f"CIELab, float32 and int32, BigTIFF, WhiteIsZero, planar, predictor 3, "
+                  f"OpenCV's 16-bit and broken JPEG 2000) read to the SHA-256 of Pillow 12.1.0's "
+                  f"readings ({refused} refused in Pillow's words: float32 RGB, a big-endian "
+                  f"BigTIFF, uncompressed YCbCr, the JP2 without a codestream) and OpenCV "
+                  f"5.0.0's ({none} None as OpenCV reads them: LZMA, ZSTD, float32 RGBA, the "
+                  f"broken JP2); {len(TIFF_WRITTEN)} remade byte-equal by the package's writer; "
+                  f"differences: {bad} ({card})")
+    if bad:
+        fail(f"tiff: not Pillow's or OpenCV's: {bad}")
+    ms["part: fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # one 640x480 file per new kind: the header's parse and the decode
+    timed = {kind: (name, fixture(name)) for kind, name in TIFF_TIMED.items()}
+    fl = (np.tile(sky_float(), (8, 5, 1))[:480, :640] - np.float32(1.5)).astype(np.float32)
+    pred3 = os.path.join(fx_dir, "timed_float_pred3.tif")
+    with open(pred3, "wb") as f:
+        f.write(tiff_file(fl, 2, compression=8, predictor=3, rows=32))
+    timed["float32 RGB, predictor 3 (OpenCV's reading)"] = ("timed_float_pred3.tif", pred3)
+    lines = []
+    for kind, (name, path) in timed.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        read = image.read_image_cv2 if kind.startswith("float") else image.read_image
+        times = {"parse": [], "decode": []}
+        for _ in range(TIFF_REPS):
+            t0 = time.perf_counter()
+            tiff._tags(data, name)
+            t1 = time.perf_counter()
+            out = read(path)
+            times["parse"].append((t1 - t0) * 1e3)
+            times["decode"].append((time.perf_counter() - t1) * 1e3)
+        if out.shape[:2] != (480, 640):
+            bad.append(f"{kind}: {out.shape}")
+        if kind.startswith("float") and not np.array_equal(out, fl[..., ::-1]):
+            bad.append(f"{kind}: not the writer's floats")
+        ms[f"parse {kind}"], ms[f"decode {kind}"] = min(times["parse"]), min(times["decode"])
+        lines.append(f"{kind} ({len(data)} B) {ms['parse ' + kind]:.2f} / "
+                     f"{ms['decode ' + kind]:.1f}")
+    phase("tiff", f"640x480 files, parse / decode ms, the least of {TIFF_REPS}: "
+                  f"{'; '.join(lines)}; differences: {bad} ({card})")
+    if bad:
+        fail(f"tiff: {bad}")
+    ms["part: timings"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # the light map of a float32 TIFF panorama (the pixels sky.hdr decodes
+    # to) beside the same descriptor over sky.hdr: the same equirect floats
+    # through the OpenCV path, and the same light map
+    fx = write_tiff_scene_fixtures(fx_dir, subdiv=ICON_SUBDIV)
+    t0 = time.perf_counter()
+    light = sl.LightMap(fx["ibl_tif"])
+    torch.cuda.synchronize()
+    ms["light map, TIFF"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    twin_light = sl.LightMap(fx["ibl_hdr"])
+    torch.cuda.synchronize()
+    ms["light map, HDR"] = (time.perf_counter() - t0) * 1e3
+    from stillleben_tpu_torch.render.light_map import LightMapData
+    same = [f for f in LightMapData._fields
+            if torch.equal(getattr(light.data, f), getattr(twin_light.data, f))]
+    phase("tiff", f"LightMap of the float32 TIFF .ibl {ms['light map, TIFF']:.0f} ms, of its "
+                  f".hdr twin {ms['light map, HDR']:.0f} ms; fields torch.equal: {len(same)} of "
+                  f"{len(LightMapData._fields)} ({card})")
+    if len(same) != len(LightMapData._fields):
+        fail(f"tiff: the TIFF light map differs from the .hdr one in "
+             f"{sorted(set(LightMapData._fields) - set(same))}")
+    ms["part: light maps"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # phase 18's scene with the blob's base colour from Pillow's JPEG-in-TIFF
+    # and the plane from a Group 4 checker, lit by the TIFF light map, against
+    # the PNG twins lit by the .hdr one
+    _, entries = avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, "tiff", *TIFF_SCENE,
+                            kind="tif", label="tiff", twin_light=twin_light,
+                            light_label="the float32 TIFF .ibl's light map (the twin: the .hdr's)")
+    ms["part: scene"] = (time.perf_counter() - t_part) * 1e3
+    phase("tiff", "phase 28's parts, s: " + ", ".join(
         f"{k[6:]} {v / 1e3:.1f}" for k, v in ms.items() if k.startswith("part: ")))
     shutil.rmtree(fx_dir, ignore_errors=True)
     return entries, ms
@@ -5178,6 +5341,15 @@ def main() -> None:
     kernels.extend(rare_k1)
     del jpeg_light
     phase("rare", f"phase 27 in {time.perf_counter() - t0:.1f} s")
+
+    # 28. TIFF as Pillow and OpenCV write it, C-26 to C-29: the committed
+    # files to Pillow's and OpenCV's digests, the 640x480 parse and decode
+    # times, the float32 TIFF light map against its .hdr twin, and phase 18's
+    # scene from a JPEG-in-TIFF and a Group 4 checker
+    t0 = time.perf_counter()
+    tiff_k1, _ = run_tiff(torch, cr, rt, card, image_settled)
+    kernels.extend(tiff_k1)
+    phase("tiff", f"phase 28 in {time.perf_counter() - t0:.1f} s")
     phase("total", f"the smoke's wall time so far: {time.perf_counter() - T_START:.1f} s")
 
     # the kernels' line: K1 and K2 at each configuration's shapes; launches

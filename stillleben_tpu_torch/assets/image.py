@@ -18,7 +18,10 @@ from a library:
   clips at 255, a transparent colour is matched against the samples as
   Pillow holds them (``_pil_rgba``). Netpbm ``P1``-``P6`` and ``Pf``
   (``netpbm.py``), JPEG (``jpeg.py``), BMP and DIB (``bmp.py``), TGA
-  (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0 (``tiff.py``),
+  (``tga.py``), GIF frame 0 (``gif.py``), TIFF page 0 (``tiff.py``: classic
+  and BigTIFF; uncompressed, LZW, Deflate, PackBits, JPEG, CCITT RLE, Group
+  3 and 4, LZMA and ZSTD; 1-64-bit samples, float and signed among them;
+  grey, RGB, palette, CMYK, YCbCr and CIELab; strips, tiles, planes),
   WebP frame 0 (``webp.py``: lossy, lossless, alpha, animation), QOI
   (``qoi.py``), SGI (``sgi.py``), PCX and DCX frame 0 (``pcx.py``), IM
   (``im.py``), DDS (``dds.py``: uncompressed and BC1-BC7), ICO and CUR
@@ -46,6 +49,8 @@ from a library:
   IMREAD_ANYDEPTH)`` gives (the light map's panorama): grey stays one
   channel, colour becomes three in BGR order with any alpha dropped,
   16-bit samples stay 16-bit, an ``.hdr`` or PFM file decodes to float32,
+  a TIFF of 32 or 64-bit samples to float32, int32 or float64 (8-bit and
+  1-bit TIFFs through libtiff's RGBA reader, LZMA and ZSTD ones None),
   a JPEG is turned by its EXIF orientation, a WebP gives frame 0, Netpbm
   includes PAM, JPEG 2000 is read as OpenCV's OpenJPEG reader reads it,
   AVIF as its libavif reads it (alpha dropped), a Sun raster as OpenCV's
@@ -65,8 +70,9 @@ them by extension).
 The JPEG kinds both libraries refuse raise ``OSError`` with Pillow's
 message on Pillow's path and give None on OpenCV's (``jpeg.py`` lists
 them); the kinds of ROADMAP.md's reading queue (a JPEG 2000 code-block
-style, AVIF film grain and quantizer matrices, a LAB PSD) raise
-``NotImplementedError`` with their names. There is no substitute image.
+style, AVIF film grain and quantizer matrices, a LAB PSD, old-style JPEG
+and ``tiff_raw_16`` TIFFs and the other TIFF layouts ``tiff.py`` lists)
+raise ``NotImplementedError`` with their names. There is no substitute image.
 Every decoder checks the
 size its header claims against Pillow's limit (or OpenCV's, for
 ``read_image_cv2``) before it decodes a pixel (``image_limits.py``).
@@ -94,6 +100,7 @@ from .netpbm import decode_netpbm, decode_netpbm_cv2
 from .pillow_open import NotThisFormat
 from .tga import FOOTER as TGA_FOOTER
 from .tga import decode_tga
+from .tiff import MAGIC as TIFF_MAGIC
 from .tiff import decode_tiff, decode_tiff_cv2
 from .webp import MAGIC as WEBP_MAGIC
 from .webp import decode_webp, decode_webp_cv2
@@ -111,7 +118,7 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
 # decoder, which gives None for one that is not WebP
 _CV2_DECODERS = ((JPEG_MAGIC, decode_jpeg_cv2), (b"BM", decode_bmp_cv2),
                  (b"GIF87a", decode_gif_cv2), (b"GIF89a", decode_gif_cv2),
-                 (b"II*\x00", decode_tiff_cv2), (b"MM\x00*", decode_tiff_cv2),
+                 *((m, decode_tiff_cv2) for m in TIFF_MAGIC),
                  (WEBP_MAGIC, decode_webp_cv2), (J2K_MAGIC, decode_jpeg2000_cv2),
                  (JP2_MAGIC, decode_jpeg2000_cv2),
                  (sun.MAGIC.to_bytes(4, "big"), sun.decode_sun_cv2))
@@ -409,7 +416,7 @@ PILLOW_ORDER = (
     ("IPTC", None, iptc.decode_iptc),
     ("MCIDAS", mcidas.accept, mcidas.decode_mcidas),
     ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3"), _mpeg),
-    ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), decode_tiff),
+    ("TIFF", lambda d: d[:4] in TIFF_MAGIC, decode_tiff),
     ("MSP", msp.accept, msp.decode_msp),
     ("PCD", None, pcd.decode_pcd),
     ("PIXAR", pixar.accept, pixar.decode_pixar),

@@ -221,6 +221,26 @@ AVIF_TIMED = {"speed 4": "lr_640.avif", "CDEF": "cdef_640.avif", "4:4:4": "yuv44
               "lossless 4:4:4": "lossless_444_640.avif"}
 
 
+# the TIFF slice: Pillow's and OpenCV's files (``torch_image_fixtures.py
+# --tiff``), among them ``tiff_files.tiff_fixtures()``'s (``TIFF_WRITTEN``),
+# the scene's textures, the light map's float32 panorama and the 640x480
+# timed files; and OpenCV's 16-bit and broken JPEG 2000 files
+TIFF_WRITTEN = ("whiteiszero8.tif", "whiteiszero16.tif", "planar_rgb.tif",
+                "planar_rgba_tiles.tif", "bigtiff_le.tif", "bigtiff_be.tif", "pred3_float.tif",
+                "pred3_float_be.tif", "int32_be.tif")
+TIFF_SCENE = ("blob_basecolor_jpeg.tif", "checker_g4.tif")
+TIFF_SKY = "sky_float.tif"
+TIFF_TIMED = {"JPEG": "timed_jpeg.tif", "Group 4": "timed_g4.tif", "LZMA": "timed_lzma.tif",
+              "ZSTD": "timed_zstd.tif", "CMYK LZW": "timed_cmyk_lzw.tif"}
+TIFF_FILES = ("jpeg_rgb.tif", "jpeg_l.tif", "jpeg_ycbcr.tif", "jpeg_cmyk.tif", "g4.tif", "g3.tif",
+              "g3_2d_fill2.tif", "ccitt_rle.tif", "lzma_rgb.tif", "zstd_rgb.tif", "cmyk.tif",
+              "cmyk_lzw.tif", "ycbcr.tif", "lab.tif", "mode_f.tif", "mode_i.tif",
+              "bigtiff_rgb.tif", "jpeg_tiles_ycbcr.tif", "cv2_float_rgb.tif",
+              "cv2_float_rgb_pred3.tif", "cv2_float_rgba.tif", "cv2_int32.tif",
+              "cv2_rgb16.jp2", "cv2_rgba16.jp2", "cv2_broken.jp2") + TIFF_WRITTEN + TIFF_SCENE + (
+    TIFF_SKY,) + tuple(TIFF_TIMED.values())
+
+
 def path(name: str) -> str:
     return os.path.join(DIR, name)
 

@@ -138,7 +138,9 @@ def _parse(data: bytes, name: str):
     if ihdr is None:
         raise ValueError(f"{name}: malformed JP2 header")
     if codestream is None:
-        raise ValueError(f"{name}: a JP2 file without a codestream")
+        # OpenJPEG finds no codestream: Pillow's load fails as a broken
+        # stream, OpenCV reads nothing (``NoCodestream``)
+        raise NoCodestream("broken data stream when reading image file")
     if colour is not None and colour not in (_GREY, _SRGB):
         raise NotImplementedError(f"{name}: the JP2 colour space {colour} is not supported "
                                   "(only greyscale and sRGB)")
@@ -153,6 +155,11 @@ def _read(data: bytes, name: str, cv2: bool):
                          f"codestream's {info['components']}")
     check_size(info["width"], info["height"], name, "JPEG 2000", cv2)
     return native_image.j2k_decode(codestream, info, name), info, ihdr, colour
+
+
+class NoCodestream(OSError):
+    """A JP2 file whose boxes hold no codestream (what ``cv2.imwrite`` leaves
+    where its encoder fails): Pillow's ``OSError``, None for OpenCV."""
 
 
 def decode_samples(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -182,7 +189,12 @@ def decode_jpeg2000(data: bytes, name: str = "<bytes>") -> np.ndarray:
         out[..., :3] = np.minimum(s, 255).astype(np.uint8)
         out[..., 3] = 255
         return out
-    s8 = (s >> (info["precision"] - 8)).astype(np.uint8)
+    # Pillow 12.1.0 rounds wider colour and grey + alpha samples to 8 bits,
+    # and the sum wraps: ((s + 128) >> 8) & 255 at 16 bits
+    shift = info["precision"] - 8
+    if shift > 0:
+        s = ((s.astype(np.int64) + (1 << (shift - 1))) >> shift) & 255
+    s8 = s.astype(np.uint8)
     if nc <= 2:
         out[..., :3] = s8[..., :1]
         out[..., 3] = s8[..., 1] if nc == 2 else 255
@@ -195,7 +207,10 @@ def decode_jpeg2000(data: bytes, name: str = "<bytes>") -> np.ndarray:
 def decode_jpeg2000_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray | None:
     """What ``cv2.imread(path, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)`` gives:
     grey (H, W), colour (H, W, 3) BGR; uint8, or uint16 above 8 bits."""
-    s, info, _, colour = _read(data, name, cv2=True)
+    try:
+        s, info, _, colour = _read(data, name, cv2=True)
+    except NoCodestream:
+        return None
     if info["signed"] or info["x0"] or info["y0"]:  # OpenCV refuses both
         return None
     if info["precision"] <= 8:

@@ -58,9 +58,13 @@ WEBP_ENC_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_webp_enc.h"),
 GIF_ENC_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.cpp")
 GIF_ENC_HEADER = os.path.join(PKG_DIR, "csrc", "sl_gif_enc.h")
 PLAIN_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_plain_formats.cpp"),
-                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.cpp"))
+                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.cpp"),
+                os.path.join(PKG_DIR, "csrc", "sl_fax.cpp"),
+                os.path.join(PKG_DIR, "csrc", "sl_zstd.cpp"))
 PLAIN_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_plain_formats.h"),
-                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.h"))
+                os.path.join(PKG_DIR, "csrc", "sl_pillow_formats.h"),
+                os.path.join(PKG_DIR, "csrc", "sl_fax.h"),
+                os.path.join(PKG_DIR, "csrc", "sl_zstd.h"))
 J2K_SOURCE = os.path.join(PKG_DIR, "csrc", "sl_j2k.cpp")
 J2K_HEADER = os.path.join(PKG_DIR, "csrc", "sl_j2k.h")
 AVIF_SOURCE = (os.path.join(PKG_DIR, "csrc", "sl_av1.cpp"),
@@ -238,6 +242,13 @@ def load_plain_library() -> ctypes.CDLL:
             lib.sl_blp_dxt_decode.argtypes = (ctypes.c_char_p,) + (ctypes.c_int,) * 4 + (
                 ctypes.c_void_p,)
             lib.sl_blp_dxt_decode.restype = None
+            lib.sl_fax_decode.argtypes = (ctypes.c_char_p, ctypes.c_size_t) + (ctypes.c_int,) * 4 + (
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int))
+            lib.sl_fax_decode.restype = ctypes.c_int
+            lib.sl_zstd_decompress.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                               ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
+                                               ctypes.c_char_p, ctypes.c_int)
+            lib.sl_zstd_decompress.restype = ctypes.c_int
             for fn in ("sl_qoi_encode", "sl_pcx_encode", "sl_qoi_decode", "sl_pcx_decode",
                        "sl_sgi_rle_decode", "sl_bcn_decode", "sl_sun_rle_decode",
                        "sl_msp_rle_decode"):
@@ -318,7 +329,8 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for fn in ("sl_jpeg_info", "sl_jpeg_decode", "sl_jpeg_encode", "sl_gif_lzw",
+            for fn in ("sl_jpeg_info", "sl_jpeg_decode", "sl_jpeg_info_tiff",
+                       "sl_jpeg_decode_tiff", "sl_jpeg_encode", "sl_gif_lzw",
                        "sl_tiff_lzw", "sl_bmp_rle", "sl_tga_rle", "sl_packbits"):
                 getattr(lib, fn).restype = ctypes.c_int
             lib.sl_cmyk_convert.restype = None
@@ -382,6 +394,28 @@ def jpeg_decode(data: bytes, name: str = "<bytes>", cv2: bool = False) -> np.nda
     if not (cv2 and rc in (_TRUNCATED, _PILLOW_BROKEN)):
         _check(rc, err, name)
     return out[..., 0] if c == 1 else out
+
+
+def jpeg_decode_tiff(data: bytes, ycbcr: bool, components: int,
+                     name: str = "<bytes>") -> np.ndarray:
+    """(H, W, C) uint8 of one JPEG strip or tile of a TIFF (its tables in
+    front) as libtiff's JPEG codec hands it on: YCbCr converted to RGB when
+    ``ycbcr``, else the components as stored; ``components`` is what the
+    TIFF's samples expect. Raises ``ValueError`` or ``OSError`` where the
+    strip does not decode."""
+    lib = load_library()
+    info = np.zeros(4, np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(lib.sl_jpeg_info_tiff(data, ctypes.c_size_t(len(data)), int(ycbcr), _ptr(info), err,
+                                 _ERRLEN), err, name)
+    w, h, c = int(info[0]), int(info[1]), int(info[2])
+    if c != components:
+        raise ValueError(f"{name}: a JPEG strip of {c} components for {components} samples")
+    check_size(w, h, name, "JPEG strip")
+    out = np.zeros((h, w, c), np.uint8)
+    _check(lib.sl_jpeg_decode_tiff(data, ctypes.c_size_t(len(data)), int(ycbcr), _ptr(out), err,
+                                   _ERRLEN), err, name)
+    return out
 
 
 def cmyk_convert(cmyk: np.ndarray, opencv: bool) -> np.ndarray:
@@ -730,6 +764,34 @@ def fli_decode(data: bytes, frame: np.ndarray) -> tuple[int, int]:
     n = load_plain_library().sl_fli_decode(data, ctypes.c_size_t(len(data)), w, h, _ptr(frame),
                                            ctypes.byref(err))
     return int(n), err.value
+
+
+def fax_decode(data: bytes, compression: int, width: int, rows: int, t4options: int = 0,
+               name: str = "<bytes>") -> bytes:
+    """``rows`` packed rows (a black pixel a 1 bit, most significant bit
+    first) of one CCITT strip or tile as libtiff decodes it: ``compression``
+    2 (modified Huffman), 3 (Group 3, with its ``T4Options``) or 4 (Group
+    4); the data is read most significant bit first. Raises ``OSError``
+    where libtiff's decode fails."""
+    out = np.zeros(rows * ((width + 7) // 8), np.uint8)
+    done = ctypes.c_int(0)
+    rc = load_plain_library().sl_fax_decode(data, ctypes.c_size_t(len(data)), compression, width,
+                                            rows, t4options, _ptr(out), ctypes.byref(done))
+    if rc:
+        what = "the data ends" if rc == 1 else "a row's runs overflow"
+        raise OSError(f"{name}: CCITT: {what} at row {done.value} of {rows}")
+    return out.tobytes()
+
+
+def zstd_decompress(data: bytes, size: int, name: str = "<bytes>") -> bytes:
+    """One ZSTD strip or tile (RFC 8878 frames), up to ``size`` bytes."""
+    lib = load_plain_library()
+    out = np.zeros(size, np.uint8)
+    n = ctypes.c_size_t(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _check(lib.sl_zstd_decompress(data, ctypes.c_size_t(len(data)), _ptr(out),
+                                  ctypes.c_size_t(size), ctypes.byref(n), err, _ERRLEN), err, name)
+    return out[: n.value].tobytes()
 
 
 def blp_dxt_decode(data: bytes, kind: int, alpha: bool, blocks: int, block_rows: int) -> np.ndarray:

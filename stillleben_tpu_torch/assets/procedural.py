@@ -702,6 +702,39 @@ def write_pillow_format_scene_fixtures(directory: str, subdiv: int = 6,
                                      "image/x-blp")
 
 
+def write_tiff_scene_fixtures(directory: str, subdiv: int = 6,
+                              base_color: str = "blob_basecolor_jpeg.tif",
+                              plane: str = "checker_g4.tif") -> dict[str, str]:
+    """``write_avif_fixtures`` of the committed TIFF files (``image_fixtures.
+    TIFF_SCENE``: the blob's base colour as Pillow's JPEG-in-TIFF, the
+    checker as Group 4, unless named), and the light map both ways: paths
+    ``obj_tif``, ``obj_png``, ``glb_tif`` (``image/tiff``), ``glb_png``,
+    ``plane_tif``, ``plane_png``; ``ibl_tif``, an sIBL descriptor whose
+    panorama is ``image_fixtures.TIFF_SKY`` (float32 RGB, the pixels
+    ``sky.hdr`` decodes to), and ``ibl_hdr``, the same descriptor over
+    ``sky.hdr`` (``sky_equirect`` as run-length Radiance)."""
+    import shutil
+
+    from . import image_fixtures
+    from .image import encode_hdr
+    from .writers import atomic_write
+
+    stem = f"blob_s{subdiv}_seed0_" + os.path.splitext(base_color)[0]
+    paths = _write_committed_textures(directory, subdiv, stem, base_color, plane, "tif",
+                                      "image/tiff")
+    sky = os.path.join(directory, image_fixtures.TIFF_SKY)
+    if not os.path.exists(sky):
+        shutil.copyfile(image_fixtures.path(image_fixtures.TIFF_SKY), sky)
+    paths["ibl_tif"] = os.path.join(directory, "sky_float.ibl")
+    paths["ibl_hdr"] = os.path.join(directory, "sky_floattwin.ibl")
+    if not os.path.exists(paths["ibl_hdr"]):
+        atomic_write(os.path.join(directory, "sky_floattwin.hdr"),
+                     encode_hdr(sky_equirect(), rle=True))
+        atomic_write(paths["ibl_tif"], _ibl_text(image_fixtures.TIFF_SKY, 64, 128))
+        atomic_write(paths["ibl_hdr"], _ibl_text("sky_floattwin.hdr", 64, 128))
+    return paths
+
+
 def _write_committed_textures(directory: str, subdiv: int, stem: str, base_color: str, plane: str,
                               tag: str, mime: str) -> dict[str, str]:
     """The blob (``stem``) textured from the committed ``base_color`` and

@@ -529,7 +529,8 @@ struct Component {
 [[noreturn]] void unidentified(const std::string& m) { throw Error(SL_UNIDENTIFIED, m); }
 [[noreturn]] void broken(const std::string& m) { throw Error(SL_BROKEN, m); }
 
-enum { CS_GREY, CS_YCC, CS_RGB, CS_CMYK, CS_YCCK };
+// CS_RAW: the components as stored (libtiff's JCS_UNKNOWN)
+enum { CS_GREY, CS_YCC, CS_RGB, CS_CMYK, CS_YCCK, CS_RAW };
 
 struct Jpeg {
   const uint8_t* d;
@@ -563,6 +564,10 @@ struct Jpeg {
   static constexpr size_t kPillowBlock = 65536;
   size_t pillow_call = 0;
   bool pillow_broken = false;
+  // a strip of a JPEG-compressed TIFF: libtiff's JPEG codec takes 1 to 4
+  // components and sets the colour space itself (forced_cs)
+  bool tiff = false;
+  int forced_cs = -1;
 
   Jpeg(const uint8_t* d_, size_t n_) : d(d_), n(n_) {
     for (int t = 0; t < 16; t++) {  // jdmaster.c's defaults
@@ -578,6 +583,7 @@ struct Jpeg {
   }
 
   int colour_space() const {  // jdapimin.c default_decompress_parms
+    if (forced_cs >= 0) return forced_cs;
     if (ncomp == 1) return CS_GREY;
     if (ncomp == 4) return adobe && adobe_transform != 0 ? CS_YCCK : CS_CMYK;
     if (jfif) return CS_YCC;
@@ -614,7 +620,8 @@ struct Jpeg {
     ncomp = d[p + 5];
     // Pillow's open takes 8-bit frames of 1, 3 or 4 components only
     if (precision != 8) unidentified(std::to_string(precision) + "-bit JPEG");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+    if (tiff && (ncomp < 1 || ncomp > 4)) corrupt("JPEG: " + std::to_string(ncomp) + " components");
+    if (!tiff && ncomp != 1 && ncomp != 3 && ncomp != 4)
       unidentified(std::to_string(ncomp) + "-component JPEG");
     switch (marker) {  // libjpeg decodes these processes and no others
       case 0xC0: case 0xC1: break;
@@ -1471,7 +1478,7 @@ struct Jpeg {
       uint8_t* o = out + size_t(y) * W * ncomp;
       if (ncomp == 1) {
         memcpy(o, r[0], W);
-      } else if (cs == CS_RGB || cs == CS_CMYK) {
+      } else if (cs == CS_RGB || cs == CS_CMYK || cs == CS_RAW) {
         for (int x = 0; x < W; x++)
           for (int k = 0; k < ncomp; k++) o[ncomp * x + k] = r[k][x];
       } else {  // YCbCr -> RGB, or YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
@@ -1834,6 +1841,59 @@ int sl_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int e
       if (err && errlen > 0) snprintf(err, errlen, "JPEG: image file is truncated");
       return SL_TRUNCATED;
     }
+    return SL_OK;
+  } catch (const Error& e) {
+    return fail(e, err, errlen);
+  } catch (const std::exception& e) {
+    return fail(Error(SL_CORRUPT, std::string("JPEG: ") + e.what()), err, errlen);
+  }
+}
+
+// a TIFF strip: YCbCr converted to RGB where the photometric is YCbCr,
+// every other colour space left as stored (tif_jpeg.c JPEGPreDecode with
+// JPEGCOLORMODE_RGB); a subsampled component outside YCbCr takes libtiff's
+// raw-data path, which this decoder does not follow
+static void setup_tiff(Jpeg& j, int ycbcr) {
+  j.tiff = true;
+  j.parse_headers(true);
+  if (!j.seen_sof) corrupt("JPEG: no frame header");
+  if (ycbcr && j.ncomp != 3) corrupt("JPEG: YCbCr TIFF strip of " + std::to_string(j.ncomp) +
+                                     " components");
+  j.forced_cs = ycbcr ? CS_YCC : CS_RAW;
+  for (const Component& c : j.comps)
+    if (!ycbcr && (c.h != j.max_h || c.v != j.max_v))
+      throw Error(SL_UNSUPPORTED, "a JPEG TIFF of subsampled components outside YCbCr");
+}
+
+int sl_jpeg_info_tiff(const uint8_t* data, size_t n, int ycbcr, int* info, char* err,
+                      int errlen) {
+  try {
+    Jpeg j(data, n);
+    setup_tiff(j, ycbcr);
+    info[0] = j.width;
+    info[1] = j.height;
+    info[2] = j.ncomp;
+    info[3] = j.colour_space();
+    return SL_OK;
+  } catch (const Error& e) {
+    return fail(e, err, errlen);
+  }
+}
+
+int sl_jpeg_decode_tiff(const uint8_t* data, size_t n, int ycbcr, uint8_t* out, char* err,
+                        int errlen) {
+  try {
+    Jpeg j(data, n);
+    j.tiff = true;
+    j.forced_cs = ycbcr ? CS_YCC : CS_RAW;
+    j.decode_all();
+    if (j.cut_segment_fails) {
+      if (err && errlen > 0) snprintf(err, errlen, "JPEG: image file is truncated");
+      return SL_TRUNCATED_FAILS;
+    }
+    // libtiff's JPEG codec takes libjpeg's warnings as warnings: a strip
+    // whose data ends early decodes as libjpeg fills it
+    j.output(out);
     return SL_OK;
   } catch (const Error& e) {
     return fail(e, err, errlen);

@@ -40,6 +40,17 @@ int sl_jpeg_info(const uint8_t* data, size_t n, int* info, char* err, int errlen
 // after which the output is OpenCV's reading (none for SL_TRUNCATED_FAILS).
 int sl_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int errlen);
 
+// One strip or tile of a JPEG-compressed TIFF (its JPEGTables in front), as
+// libtiff's JPEG codec decodes it with JPEGCOLORMODE RGB: 1 to 4 components,
+// YCbCr converted to RGB when ``ycbcr`` (the photometric is YCbCr), every
+// other colour space as stored. info as sl_jpeg_info's; a strip whose data
+// ends early decodes as libjpeg fills it (libtiff takes libjpeg's warnings
+// as warnings), and SL_TRUNCATED_FAILS is returned where libjpeg stops.
+int sl_jpeg_info_tiff(const uint8_t* data, size_t n, int ycbcr, int* info, char* err,
+                      int errlen);
+int sl_jpeg_decode_tiff(const uint8_t* data, size_t n, int ycbcr, uint8_t* out, char* err,
+                        int errlen);
+
 // The RGB of npix CMYK pixels as libjpeg outputs them: Pillow's reading
 // (opencv = 0: inverted "CMYK;I" then cmyk2rgb, 4 bytes RGBA a pixel) or
 // OpenCV's (opencv = 1: its CMYK-to-BGR, 3 bytes a pixel).

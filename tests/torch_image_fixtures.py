@@ -94,6 +94,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "stillleben_tpu_torch", "assets", "image_fixtures")
+if ROOT not in sys.path:  # run as a script from the checkout
+    sys.path.insert(0, ROOT)
+
+from stillleben_tpu_torch.assets.image_fixtures import tiff_files  # noqa: E402
 
 
 def smooth(h: int, w: int, c: int, seed: int) -> np.ndarray:
@@ -322,110 +326,413 @@ def gif(index: np.ndarray, *, screen=None, offset=(0, 0), global_pal=None, local
 # ---------------------------------------------------------------------------
 
 
-def packbits(raw: bytes, row: int) -> bytes:
-    """PackBits, row by row of ``row`` bytes: runs of three or more equal
-    bytes as repeat packets, the rest as literal packets (at most 128 bytes
-    a packet)."""
-    out = bytearray()
-    a = np.frombuffer(raw, np.uint8)
-    for r in range(0, len(a), row):
-        v = a[r: r + row]
-        starts = np.flatnonzero(np.concatenate([[True], v[1:] != v[:-1]]))
-        lens = np.diff(np.append(starts, len(v)))
-        lit = bytearray()
-        for s, n in zip(starts.tolist() + [len(v)], lens.tolist() + [3]):
-            if n < 3 and s < len(v):
-                lit += v[s: s + n].tobytes()
-                continue
-            for i in range(0, len(lit), 128):
-                chunk = lit[i: i + 128]
-                out += bytes([len(chunk) - 1]) + chunk
-            lit.clear()
-            while s < len(v) and n:
-                k = min(n, 128)
-                out += bytes([257 - k if k > 1 else 0, v[s]])
-                n -= k
-    return bytes(out)
+# the package's writer (the card's host remakes its files without Pillow)
+packbits = tiff_files.packbits
+tiff = tiff_files.tiff_file
 
 
-def tiff(samples: np.ndarray, photometric: int, *, endian: str = "<", tile=None, rows: int = 0,
-         compression: int = 1, predictor: int = 1, extra=(), colormap=None, bits: int = 0) -> bytes:
-    """A TIFF of (h, w, spp) uint8/uint16 samples (or sub-byte grey with
-    ``bits``): strips of ``rows`` rows or tiles of ``tile`` = (w, h),
-    uncompressed, Deflate (8) or PackBits (32773), with the horizontal
-    predictor."""
-    h, w, spp = samples.shape
-    bits = bits or samples.dtype.itemsize * 8
-    dt = np.dtype(endian + ("u2" if bits == 16 else "u1"))
-    cw, ch = tile or (w, rows or h)
-    chunks = []
-    for ty in range(0, h, ch):
-        for tx in range(0, w if tile else 1, cw if tile else 1):
-            part = np.zeros((ch, cw, spp), np.int64)
-            src = samples[ty: ty + ch, tx: tx + cw].astype(np.int64)
-            part[: src.shape[0], : src.shape[1]] = src
-            if not tile:
-                part = part[: src.shape[0]]
-            if predictor == 2:
-                part[:, 1:] = (part[:, 1:] - part[:, :-1]) & ((1 << bits) - 1)
-            if bits < 8:
-                per = 8 // bits
-                v = part[..., 0]
-                v = np.concatenate([v, np.zeros((v.shape[0], (-v.shape[1]) % per), np.int64)], 1)
-                v = v.reshape(v.shape[0], -1, per)
-                raw = (v << (bits * np.arange(per - 1, -1, -1))).sum(-1).astype(np.uint8).tobytes()
-            else:
-                raw = part.astype(dt).tobytes()
-            if compression == 8:
-                raw = zlib.compress(raw)
-            elif compression == 32773:
-                raw = packbits(raw, len(raw) // part.shape[0])
-            chunks.append(raw)
-    e = endian
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp), (259, 3, [compression]),
-               (262, 3, [photometric]), (277, 3, [spp])]
-    if predictor != 1:
-        entries.append((317, 3, [predictor]))
-    if colormap is not None:
-        entries.append((320, 3, list(np.asarray(colormap, np.uint16).reshape(-1))))
-    if extra:
-        entries.append((338, 3, list(extra)))
-    if tile:
-        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, None),
-                    (325, 4, [len(c) for c in chunks])]
+def forked(fn, *args, **kw):
+    """``fn(*args, **kw)`` in a forked child: its value, None where the
+    child dies (libtiff's encoder aborts the process on some settings), or
+    what it raises, raised here."""
+    import pickle
+
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            out = ("ok", fn(*args, **kw))
+        except Exception as e:  # noqa: BLE001  (sent to the parent, which raises it)
+            out = ("error", e)
+        with os.fdopen(w, "wb") as f:
+            pickle.dump(out, f)
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r, "rb") as f:
+        data = f.read()
+    os.waitpid(pid, 0)
+    if not data:
+        return None
+    kind, value = pickle.loads(data)
+    if kind == "error":
+        raise value
+    return value
+
+
+def _pillow_tiff(pixels: np.ndarray, mode: str, **kw) -> bytes:
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.frombytes(mode, pixels.shape[1::-1], pixels.tobytes()).save(b, "TIFF", **kw)
+    return b.getvalue()
+
+
+def pillow_tiff(pixels: np.ndarray, mode: str, **kw) -> bytes | None:
+    """Pillow's ``save(..., "TIFF", **kw)`` of ``pixels`` (the mode's raw
+    bytes, (h, w) or (h, w, bands)) in a forked child: None where libtiff
+    aborts the process."""
+    return forked(_pillow_tiff, np.ascontiguousarray(pixels), mode, **kw)
+
+
+# Pillow's TIFF modes: (bands, numpy dtype of their raw bytes)
+TIFF_MODES = {"1": (1, "u1"), "L": (1, "u1"), "LA": (2, "u1"), "RGB": (3, "u1"),
+              "RGBA": (4, "u1"), "CMYK": (4, "u1"), "YCbCr": (3, "u1"), "LAB": (3, "u1"),
+              "I;16": (1, "<u2"), "I;16B": (1, ">u2"), "F": (1, "<f4"), "I": (1, "<i4"),
+              "P": (1, "u1"), "PA": (2, "u1")}
+# the compressions libtiff writes for each
+TIFF_CODECS = ("raw", "tiff_lzw", "tiff_deflate", "tiff_adobe_deflate", "packbits", "lzma", "zstd")
+TIFF_JPEG_MODES = ("L", "LA", "RGB", "RGBA", "CMYK", "YCbCr", "LAB")
+TIFF_SWEEP_SIZES = ((1, 1), (3, 5), (37, 53), (64, 17), (130, 65))
+
+
+def tiff_mode_pixels(mode: str, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded raw bytes of ``mode`` (smooth, so JPEG and the codecs see
+    image-like content; F and I spread over their range)."""
+    bands, dt = TIFF_MODES[mode]
+    rng = np.random.default_rng(seed)
+    if mode == "1":
+        return (smooth(h, w, 1, seed)[..., 0] > 127).astype(np.uint8) * 255
+    if mode == "F":
+        return (rng.standard_normal((h, w)) * 200 + 100).astype("<f4")
+    if mode == "I":
+        return rng.integers(-300, 600, (h, w)).astype("<i4")
+    if dt.endswith("u2"):
+        return (smooth(h, w, 1, seed)[..., 0].astype(np.uint16) * 257 + rng.integers(
+            0, 257, (h, w))).astype(dt)
+    a = smooth(h, w, bands, seed)
+    return a[..., 0] if bands == 1 else a
+
+
+def tiff_sweep_case(i: int) -> tuple[str, bytes]:
+    """A seeded TIFF: Pillow's ``save`` of a mode and compression (JPEG at
+    a seeded quality, CCITT for mode 1, BigTIFF), or ``tiff_files.tiff_file``
+    of a photometric, sample type, layout (strips or tiles, planar), byte
+    order, fill order, predictor and codec. (label, bytes)."""
+    rng = np.random.default_rng(1000 + i)
+    pick = lambda options: options[int(rng.integers(len(options)))]  # noqa: E731
+    h, w = pick(TIFF_SWEEP_SIZES)
+    if rng.random() < 0.3:
+        h, w = w, h
+    if i % 5 < 2:  # Pillow's writer
+        mode = pick(tuple(TIFF_MODES))
+        codecs = TIFF_CODECS + (("jpeg",) if mode in TIFF_JPEG_MODES else ()) + (
+            ("group3", "group4", "tiff_ccitt") if mode == "1" else ())
+        comp = pick(codecs)
+        kw = {"compression": comp}
+        if comp == "jpeg":
+            kw["quality"] = int(rng.integers(10, 96))
+        if comp == "raw" and rng.random() < 0.5:
+            kw["big_tiff"] = True
+        px = tiff_mode_pixels(mode, h, w, i)
+        if mode in ("P", "PA"):
+            px = (px.astype(np.uint16) % 64).astype(np.uint8)
+        label = f"pillow {mode} {comp} {w}x{h} {kw}"
+        return label, pillow_tiff(px, mode, **kw) or b""
+    kind = pick(("grey", "grey", "rgb", "rgb", "palette", "cmyk", "ycbcr", "lab"))
+    dtype = "u1"
+    spp, extra, photo, bits, colormap, tags = 1, (), 1, 0, None, {}
+    if kind == "grey":
+        photo = pick((0, 1))
+        dtype = pick(("b1", "b2", "b4", "u1", "u1", "i1", "u2", "i2", "u4", "i4", "f4", "f8"))
+        if dtype == "u1" and rng.random() < 0.3:
+            spp, extra = 2, (2,)
+    elif kind == "rgb":
+        photo = 2
+        dtype = pick(("u1", "u1", "u2", "i2", "i4", "f4", "f8"))
+        spp = pick((3, 3, 4))
+        if spp == 4:
+            extra = pick(((), (0,), (1,), (2,)))
+    elif kind == "palette":
+        photo = 3
+        dtype = pick(("b1", "b2", "b4", "u1"))
+    elif kind == "cmyk":
+        photo, spp = 5, 4
+        dtype = pick(("u1", "u1", "u2"))
+    elif kind == "ycbcr":
+        photo, spp = 6, 3
+        tags = {530: (3, (1, 1)), 532: (5, ((0, 1), (255, 1), (128, 1), (255, 1), (128, 1),
+                                            (255, 1)))}
     else:
-        entries += [(273, 4, None), (278, 4, [ch]), (279, 4, [len(c) for c in chunks])]
-    entries.sort(key=lambda t: t[0])
-    n = len(entries)
-    head = (b"II*\x00" if e == "<" else b"MM\x00*") + struct.pack(e + "I", 8)
-    at = 8 + 2 + 12 * n + 4
-    blobs, offsets_tag = bytearray(), None
-    fmt = {3: "H", 4: "I"}
-    ifd = struct.pack(e + "H", n)
-    # lay out: IFD, the out-of-line values, then the chunks
-    values = []
-    for tag, typ, vals in entries:
-        if vals is None:
-            vals = [0] * len(chunks)
-            offsets_tag = len(values)
-        values.append((tag, typ, vals))
-    sizes = [len(v) * (2 if t == 3 else 4) for _, t, v in values]
-    out_of_line = sum(s for s in sizes if s > 4)
-    data_at = at + out_of_line
-    pos, offs = data_at, []
-    for c in chunks:
-        offs.append(pos)
-        pos += len(c)
-    values[offsets_tag] = (values[offsets_tag][0], 4, offs)
-    for (tag, typ, vals), size in zip(values, sizes):
-        packed = struct.pack(f"{e}{len(vals)}{fmt[typ]}", *vals)
-        if size > 4:
-            ifd += struct.pack(e + "HHII", tag, typ, len(vals), at + len(blobs))
-            blobs += packed
+        photo, spp = 8, 3
+    if dtype.startswith("b"):
+        bits = int(dtype[1])
+        samples = rng.integers(0, 1 << bits, (h, w, 1)).astype(np.uint8)
+        dt = np.dtype(np.uint8)
+    else:
+        dt = np.dtype(dtype)
+        if dt.kind == "f":
+            samples = (rng.standard_normal((h, w, spp)) * 150 + 100).astype(dt)
+        elif dt.itemsize == 1:
+            samples = smooth(h, w, spp, i).astype(dt)
         else:
-            ifd += struct.pack(e + "HHI", tag, typ, len(vals)) + packed.ljust(4, b"\0")
-    ifd += b"\0\0\0\0"
-    return head + ifd + bytes(blobs) + b"".join(chunks)
+            info = np.iinfo(dt)
+            samples = rng.integers(max(info.min, -2 ** 20), min(info.max, 2 ** 20) + 1,
+                                   (h, w, spp)).astype(dt)
+    if photo == 3:
+        colormap = rng.integers(0, 65536, (3, 1 << (bits or 8)))
+    comp = pick((1, 8, 32773, 34925))
+    predictor = 1
+    if comp in (8, 34925) and not bits:
+        predictor = pick((1, 2, 3) if dt.kind == "f" else (1, 2))
+    tile = None
+    rows = 0
+    if rng.random() < 0.4:
+        tile = (16 * int(rng.integers(1, 4)), 16 * int(rng.integers(1, 4)))
+    elif rng.random() < 0.5:
+        rows = int(rng.integers(1, h + 1))
+    opts = dict(endian=pick(("<", ">")), tile=tile, rows=rows, compression=comp,
+                predictor=predictor, extra=extra, colormap=colormap, bits=bits,
+                planar=pick((1, 2)) if spp > 1 else 1, bigtiff=rng.random() < 0.3,
+                fill=2 if rng.random() < 0.15 else 1, tags=tags)
+    label = f"writer {kind} photometric {photo} {dtype} spp {spp} {w}x{h} " + " ".join(
+        f"{k}={v}" for k, v in opts.items() if k not in ("colormap", "tags") and v)
+    return label, tiff(samples, photo, **opts)
+
+
+def jpeg_tiled_tiff(rgb: np.ndarray, tile: int = 16, quality: int = 75) -> bytes:
+    """A YCbCr TIFF of JPEG tiles, each a whole JFIF file of Pillow's
+    ``save`` (4:2:0), no ``JPEGTables``: libtiff upsamples and converts."""
+    from PIL import Image
+
+    h, w = rgb.shape[:2]
+    chunks = []
+    for ty in range(0, h, tile):
+        for tx in range(0, w, tile):
+            part = np.zeros((tile, tile, 3), np.uint8)
+            src = rgb[ty: ty + tile, tx: tx + tile]
+            part[: src.shape[0], : src.shape[1]] = src
+            b = io.BytesIO()
+            Image.fromarray(part).save(b, "JPEG", quality=quality)
+            chunks.append(b.getvalue())
+    return tiff(rgb, 6, tile=(tile, tile), compression=7, raw_chunks=chunks,
+                tags={530: (3, (2, 2))})
+
+
+def _cv2_file(a: np.ndarray, ext: str, params=()) -> bytes:
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "x" + ext)
+        cv2.imwrite(p, a, list(params))
+        with open(p, "rb") as f:
+            return f.read()
+
+
+def make_tiff_fixtures() -> dict[str, bytes]:
+    """The TIFF and JPEG 2000 files of the TIFF slice: Pillow's ``save`` at
+    the kinds the usual writers make, OpenCV's ``imwrite`` of float32 and
+    16-bit arrays, JPEG tiles, the scene's textures, the 640x480 timed
+    files, and ``tiff_files.tiff_fixtures()``."""
+    import cv2
+
+    from stillleben_tpu_torch.assets.image import decode_hdr, encode_hdr
+    from stillleben_tpu_torch.assets.image_fixtures import _few_colours
+    from stillleben_tpu_torch.assets.procedural import (base_color_texture, checker_texture,
+                                                        sky_equirect)
+
+    files = {}
+
+    def pil(name, mode, px, **kw):
+        files[name] = pillow_tiff(px, mode, **kw)
+
+    rgb, grey = smooth(53, 37, 3, 40), smooth(53, 37, 1, 41)[..., 0]
+    for mode, px in (("RGB", rgb), ("L", grey), ("YCbCr", rgb), ("CMYK", smooth(53, 37, 4, 42))):
+        pil(f"jpeg_{mode.lower()}.tif", mode, px, compression="jpeg")
+    bits = tiff_mode_pixels("1", 53, 37, 43)
+    pil("g4.tif", "1", bits, compression="group4")
+    pil("g3.tif", "1", bits, compression="group3")
+    pil("g3_2d_fill2.tif", "1", bits, compression="group3", tiffinfo={292: 1, 266: 2})
+    pil("ccitt_rle.tif", "1", bits, compression="tiff_ccitt")
+    pil("lzma_rgb.tif", "RGB", rgb, compression="lzma")
+    pil("zstd_rgb.tif", "RGB", rgb, compression="zstd")
+    cmyk = smooth(53, 37, 4, 44)
+    pil("cmyk.tif", "CMYK", cmyk)
+    pil("cmyk_lzw.tif", "CMYK", cmyk, compression="tiff_lzw")
+    pil("ycbcr.tif", "YCbCr", rgb)
+    pil("lab.tif", "LAB", smooth(53, 37, 3, 45))
+    pil("mode_f.tif", "F", tiff_mode_pixels("F", 53, 37, 46))
+    pil("mode_i.tif", "I", tiff_mode_pixels("I", 53, 37, 47))
+    pil("bigtiff_rgb.tif", "RGB", rgb, big_tiff=True)
+    files["jpeg_tiles_ycbcr.tif"] = jpeg_tiled_tiff(smooth(53, 37, 3, 48))
+    fl = (np.random.default_rng(49).standard_normal((53, 37, 3)) * 40).astype(np.float32)
+    files["cv2_float_rgb.tif"] = _cv2_file(fl, ".tif")
+    files["cv2_float_rgb_pred3.tif"] = _cv2_file(fl, ".tif", (cv2.IMWRITE_TIFF_COMPRESSION, 5,
+                                                               cv2.IMWRITE_TIFF_PREDICTOR, 3))
+    files["cv2_float_rgba.tif"] = _cv2_file(np.concatenate([fl, fl[..., :1]], -1), ".tif")
+    files["cv2_int32.tif"] = _cv2_file(tiff_mode_pixels("I", 53, 37, 50) * 7919, ".tif")
+    # the light map's panorama: the pixels sky.hdr decodes to, float32 RGB
+    # (OpenCV writes BGR arrays as RGB files)
+    sky = decode_hdr(encode_hdr(sky_equirect(), rle=True))
+    files["sky_float.tif"] = _cv2_file(np.ascontiguousarray(sky[..., ::-1]), ".tif", (
+        cv2.IMWRITE_TIFF_COMPRESSION, 5, cv2.IMWRITE_TIFF_PREDICTOR, 3))
+    # the scene: the blob's base colour as Pillow's JPEG, the checker as Group 4
+    # at 256^2 (the PNG twin of a 512^2 black and white checker takes the
+    # port's slow Paeth unfilter, ROADMAP B, host item 3)
+    pil("blob_basecolor_jpeg.tif", "RGB", base_color_texture(), compression="jpeg")
+    checker = checker_texture(size=256)[..., 0] > 127
+    pil("checker_g4.tif", "1", checker.astype(np.uint8) * 255, compression="group4")
+    # the timed 640x480 files: few colours in 8-pixel cells keep them small
+    frame = _few_colours(480, 640, 51, n=6, cell=8)
+    pil("timed_jpeg.tif", "RGB", frame, compression="jpeg")
+    pil("timed_g4.tif", "1", (frame[..., 0] > 127).astype(np.uint8) * 255, compression="group4")
+    pil("timed_lzma.tif", "RGB", frame, compression="lzma")
+    pil("timed_zstd.tif", "RGB", frame, compression="zstd")
+    pil("timed_cmyk_lzw.tif", "CMYK", np.concatenate([frame, frame[..., :1]], -1),
+        compression="tiff_lzw")
+    # C-26 and C-29: OpenCV's 16-bit JPEG 2000 and the file its failed write leaves
+    rng = np.random.default_rng(52)
+    for name, c in (("cv2_rgb16.jp2", 3), ("cv2_rgba16.jp2", 4)):
+        files[name] = _cv2_file(rng.integers(0, 65536, (53, 37, c)).astype(np.uint16), ".jp2")
+    files["cv2_broken.jp2"] = _cv2_file(rng.integers(0, 65536, (31, 29)).astype(np.uint16),
+                                        ".jp2")
+    files.update(tiff_files.tiff_fixtures())
+    return files
+
+
+def tiff_reading(data: bytes, name: str) -> str:
+    """SHA-256 of Pillow's ``convert("RGBA")`` of ``data`` opened as the file
+    ``name``, or ``refused:`` and the ``OSError``'s message (the path as
+    ``name``), or another exception's type and message."""
+    import tempfile
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, name)
+        with open(p, "wb") as f:
+            f.write(data)
+        try:
+            return hashlib.sha256(np.asarray(Image.open(p).convert("RGBA")).tobytes()).hexdigest()
+        except OSError as e:  # UnidentifiedImageError too: the port's OSError
+            return "refused: " + str(e).replace(p, name)
+        except Exception as e:  # noqa: BLE001  (the reading is the exception)
+            return f"{type(e).__name__}: {str(e).replace(p, name)}"
+
+
+def port_tiff_reading(data: bytes, name: str) -> str:
+    """``tiff_reading``'s form of the port's ``decode_image``."""
+    from stillleben_tpu_torch.assets import image
+
+    try:
+        return hashlib.sha256(image.decode_image(data, name).tobytes()).hexdigest()
+    except OSError as e:
+        return f"refused: {e}"
+    except Exception as e:  # noqa: BLE001  (the reading is the exception)
+        return f"{type(e).__name__}: {e}"
+
+
+def tiff_cv2_reading(data: bytes, name: str) -> str:
+    """``cv2.imread(IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)`` of ``data`` saved as
+    ``name``: its dtype, shape and SHA-256, or ``None``."""
+    import tempfile
+
+    import cv2
+
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, name)
+        with open(p, "wb") as f:
+            f.write(data)
+        img = cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    return "None" if img is None else array_reading(img)
+
+
+def array_reading(a: np.ndarray) -> str:
+    """``dtype shape sha256`` of an array's bytes."""
+    a = np.ascontiguousarray(a)
+    return f"{a.dtype} {tuple(a.shape)} {hashlib.sha256(a.tobytes()).hexdigest()}"
+
+
+def tiff_digests(files: dict[str, bytes]) -> dict:
+    """``TIFF_FILE`` / ``TIFF_DECODE`` / ``TIFF_DECODE_CV2``: each file's
+    SHA-256 and Pillow's and OpenCV's readings."""
+    return {"TIFF_FILE": {n: hashlib.sha256(d).hexdigest() for n, d in sorted(files.items())},
+            "TIFF_DECODE": {n: tiff_reading(d, n) for n, d in sorted(files.items())},
+            "TIFF_DECODE_CV2": {n: tiff_cv2_reading(d, n) for n, d in sorted(files.items())}}
+
+
+def write_tiff_fixtures() -> None:
+    """``--tiff``: writes ``make_tiff_fixtures()``'s files and their three
+    tables into ``digests.py``, every other table as it stands."""
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    files = make_tiff_fixtures()
+    for name, data in files.items():
+        with open(os.path.join(FIXTURES, name), "wb") as f:
+            f.write(data)
+    tables = {k: dict(v) for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    tables.update(tiff_digests(files))
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
+
+
+def tiff_sweep_one(i: int, directory: str) -> str:
+    """Case ``i`` through Pillow, OpenCV and the port: "" where
+    ``read_image`` equals ``Image.open(p).convert("RGBA")`` (or raises an
+    exception of Pillow's class) and ``read_image_cv2`` equals
+    ``cv2.imread(p, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH)`` (dtype, shape and
+    values, or None); else what differed."""
+    import cv2
+    from PIL import Image
+
+    from stillleben_tpu_torch.assets import image
+
+    label, data = tiff_sweep_case(i)
+    if not data:
+        return ""  # libtiff's encoder refused the settings
+    path = os.path.join(directory, f"sweep{i}.tif")
+    with open(path, "wb") as f:
+        f.write(data)
+    try:
+        ref = np.asarray(Image.open(path).convert("RGBA"))
+    except Exception as e:  # noqa: BLE001  (the reading is the exception)
+        ref = type(e)
+    try:
+        got = image.read_image(path)
+    except Exception as e:  # noqa: BLE001
+        got = type(e)
+    diffs = []
+    if isinstance(ref, type) or isinstance(got, type):
+        if not (isinstance(ref, type) and isinstance(got, type) and issubclass(
+                got, OSError if issubclass(ref, OSError) else ref)):
+            diffs.append(f"Pillow {ref if isinstance(ref, type) else 'reads'}, the port "
+                         f"{got if isinstance(got, type) else 'reads'}")
+    elif not np.array_equal(ref, got):
+        diffs.append("Pillow's pixels differ")
+    want = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    try:
+        have = image.read_image_cv2(path)
+    except Exception as e:  # noqa: BLE001
+        have = type(e)
+    if isinstance(have, type) or (want is None) != (have is None):
+        diffs.append(f"OpenCV {'None' if want is None else 'reads'}, the port "
+                     f"{have if isinstance(have, type) or have is None else 'reads'}")
+    elif want is not None and not (want.dtype == have.dtype and want.shape == have.shape
+                                   and np.array_equal(want, have, equal_nan=True)):
+        diffs.append(f"OpenCV's array differs ({want.dtype}{want.shape} against "
+                     f"{have.dtype}{have.shape})")
+    os.remove(path)
+    return f"{label}: {'; '.join(diffs)}" if diffs else ""
+
+
+def tiff_sweep(n: int, start: int = 0) -> list[str]:
+    """``--tiff-sweep N [START]``: cases START .. START + N - 1 of
+    ``tiff_sweep_case`` held to Pillow's and OpenCV's readings; prints and
+    returns what differed."""
+    import tempfile
+
+    bad = []
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(start, start + n):
+            diff = tiff_sweep_one(i, d)
+            if diff:
+                bad.append(f"case {i}: {diff}")
+                print(bad[-1], flush=True)
+    print(f"{n} cases from {start}: {n - len(bad)} read as Pillow and OpenCV read them")
+    return bad
 
 
 # ---------------------------------------------------------------------------
@@ -2351,32 +2658,11 @@ def jpeg2000_sweep_case(i: int) -> tuple[np.ndarray, dict]:
 
 
 def pillow_file_forked(pixels: np.ndarray, name: str, **kw) -> bytes | None:
-    """``pillow_file`` in a forked child: None where OpenJPEG's encoder
-    aborts the process (it does on some lines of one sample, such as a 1x1
-    image in tiles at an offset); raises what Pillow's ``save`` raises."""
-    import pickle
-
-    r, w = os.pipe()
-    pid = os.fork()
-    if pid == 0:
-        os.close(r)
-        try:
-            out = ("ok", pillow_file(pixels, name, **kw))
-        except Exception as e:  # noqa: BLE001  (sent to the parent, which raises it)
-            out = ("error", e)
-        with os.fdopen(w, "wb") as f:
-            pickle.dump(out, f)
-        os._exit(0)
-    os.close(w)
-    with os.fdopen(r, "rb") as f:
-        data = f.read()
-    os.waitpid(pid, 0)
-    if not data:
-        return None
-    kind, value = pickle.loads(data)  # the child's own bytes
-    if kind == "error":
-        raise value
-    return value
+    """``pillow_file`` in a forked child (``forked``): None where OpenJPEG's
+    encoder aborts the process (it does on some lines of one sample, such
+    as a 1x1 image in tiles at an offset); raises what Pillow's ``save``
+    raises."""
+    return forked(pillow_file, pixels, name, **kw)
 
 
 def jpeg2000_sweep_one(i: int) -> tuple[int, str]:
@@ -3087,7 +3373,10 @@ def digest_module(d: dict) -> str:
              "``PILLOW_FORMAT_DECODE`` / ``PILLOW_FORMAT_DECODE_CV2``: those files' bytes",
              "and Pillow's and OpenCV's (Sun rasters) readings, or the exception;",
              "``PCD_FILE`` / ``PCD_DECODE``: the same of the seeded PhotoCD files",
-             '(``rare_formats.pcd_files()``)."""', ""]
+             "(``rare_formats.pcd_files()``). ``TIFF_FILE`` / ``TIFF_DECODE`` /",
+             "``TIFF_DECODE_CV2``: the TIFF slice's files (``--tiff``) and Pillow's",
+             "reading (or the exception) and OpenCV's (dtype, shape and SHA-256, or",
+             '``None``) of each."""', ""]
     for key, table in d.items():
         lines.append(f"{key} = {{")
         lines += [f'    "{k}": "{v}",' for k, v in table.items()]
@@ -3096,6 +3385,13 @@ def digest_module(d: dict) -> str:
 
 
 if __name__ == "__main__":
+    if "--tiff" in sys.argv:
+        write_tiff_fixtures()
+        sys.exit(0)
+    if "--tiff-sweep" in sys.argv:
+        k = sys.argv.index("--tiff-sweep")
+        args = [int(a) for a in sys.argv[k + 1: k + 3]]
+        sys.exit(1 if tiff_sweep(*args) else 0)
     if "--alph" in sys.argv:  # the port's ALPH chunks against libwebp's
         print("\n".join(alph_report(alph_cases())))
         sys.exit(0)
