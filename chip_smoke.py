@@ -387,8 +387,8 @@ Phases (one line each or more; any failure exits non-zero):
     modes, 1x1 to 480x640, the 640x480 frame, the qualities and options
     that reach each coefficient CDF set and each tool, lossless, 4:4:4,
     4:2:2, CDEF, loop restoration, premultiplied alpha, limited range, a
-    sequence) read to the SHA-256 of Pillow's and OpenCV's readings, film
-    grain and quantizer matrices refused by name in both readings; one
+    sequence, film grain, quantizer matrices) read to the SHA-256 of
+    Pillow's and OpenCV's readings; one
     640x480 RGB and one RGBA decode timed (the least ms of 2); the files of
     the decoder's other tools (``AVIF_TOOL_FILES``: loop restoration at
     speeds 0 to 4, CDEF, 4:4:4 and 4:2:2, lossless, BT.709, the identity
@@ -402,7 +402,19 @@ Phases (one line each or more; any failure exits non-zero):
     launches (one camera, two shadow passes) and no plain piece, K1
     ``torch.equal`` to its plain version on the camera and the sun's
     shadow pass, every field ``torch.equal`` to the same scene from PNG
-    twins. And AVIF written (``avif.encode_avif`` over the native AV1
+    twins. Then OpenCV's files and what the decoder reads beyond Pillow's
+    8-bit colour (``avif_cv2_part``): the AV1 tables header
+    (``csrc/sl_av1_tables_hbd.h``) at its SHA-256; ``AVIF_CV2_FILES``
+    (OpenCV's ``imwrite`` at 8, 10 and 12 bits with its quantizer matrices,
+    Pillow's 4:0:0 and quantizer matrices at levels 0-14, film grain at
+    every depth, limited range and BT.709) to the digests of both readings;
+    ``AVIF_CV2_TIMED``'s 640x480 decodes (OpenCV's colour and grey, 10-bit,
+    12-bit, film grain; Pillow's and OpenCV's reading, the least ms of 2);
+    ``sl.LightMap`` of the bare 10-bit panorama ``cv2_sky10.avif`` on the
+    card, every field ``torch.equal`` to the light map of its 16-bit TIFF
+    twin; phase 18's scene a third time, the blob from OpenCV's default
+    AVIF and the plane from its grey one, lit by that light map, against
+    the PNG twins lit by the TIFF twin's (K1 as above). And AVIF written (``avif.encode_avif`` over the native AV1
     encoder ``csrc/sl_av1_enc.cpp``, built into the same core): that
     frame's RGB, its RGBA (alpha 255 on the objects) and its depth in mm
     as I;16 through ``sl.ImageSaver`` as ``.avif``, each read back by
@@ -4342,14 +4354,19 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
     if len(same) != len(fields):
         fail(f"{tag}: the {base_color}-textured frame differs from its twins' in "
              f"{sorted(set(fields) - set(same))}")
-    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != [0, 1]
+    # the scene's light in slot 0, and an .ibl's sun in slot 1 (a bare
+    # panorama brings none)
+    slots = [0, 1] if light is not None and len(light.light_directions) else [0]
+    if (any(plain_calls.values()) or len(cam) != 1 or sorted(shadow) != slots
             or set(per_key.values()) != {1} or sum(launches.values()) != len(calls)):
         fail(f"{tag}: K1 calls by (pass, light slot) {per_key}, launches {launches}, "
              f"plain calls {plain_calls}")
     entries = []
     for label, args, key in (
         (f"{tag} camera, tile {cam[0][7]}", cam[0], ("camera", None)),
-        (f"{tag} shadow, the .ibl sun in slot 1, tile {shadow[1][7]}", shadow[1], ("shadow", 1)),
+        (f"{tag} shadow, the .ibl sun in slot 1, tile {shadow[1][7]}" if slots[-1] else
+         f"{tag} shadow, the scene's light in slot 0, tile {shadow[0][7]}", shadow[slots[-1]],
+         ("shadow", slots[-1])),
     ):
         k = check_k1(torch, cr, args, label, card)
         entries.append(dict(name=f"cell_raster[{label}]", route="cuda",
@@ -4357,6 +4374,109 @@ def avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, tag, base_color,
                             replaces="stillleben_tpu/ops/cell_raster.py:43",
                             launches=per_key[key], library_ms=None, **k))
     return result, entries
+
+
+def avif_cv2_part(torch, cr, rt, card, settled, fx_dir, ms) -> list:
+    """Phase 26's part of OpenCV's files and what the decoder reads beyond
+    Pillow's 8-bit colour (see the module docstring): the tables header,
+    ``AVIF_CV2_FILES`` to the digests of both readings, the 640x480 decodes
+    of ``AVIF_CV2_TIMED``, the light map of a bare 10-bit panorama against
+    its 16-bit TIFF twin, and phase 18's scene from OpenCV's files through
+    K1. Returns K1's entries."""
+    import hashlib
+
+    import numpy as np
+
+    import stillleben_tpu_torch as sl
+    from stillleben_tpu_torch.assets import image
+    from stillleben_tpu_torch.assets.image_fixtures import (AVIF_CV2_FILES, AVIF_CV2_SCENE,
+                                                            AVIF_CV2_TIMED, av1_tables)
+    from stillleben_tpu_torch.assets.image_fixtures import path as fixture
+    from stillleben_tpu_torch.assets.image_fixtures.digests import (AVIF_DECODE, AVIF_DECODE_CV2,
+                                                                    AVIF_FILE)
+    from stillleben_tpu_torch.assets.image_fixtures.tiff_files import tiff_file
+    from stillleben_tpu_torch.render.light_map import LightMapData
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()  # noqa: E731
+    t_part = time.perf_counter()
+    bad = []
+    with open(av1_tables.HEADER, "rb") as f:
+        if sha(f.read()) != av1_tables.HEADER_SHA256:
+            bad.append("the tables header's digest")
+    kinds = {}
+    for name in AVIF_CV2_FILES:
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        if sha(data) != AVIF_FILE[name]:
+            bad.append(f"the bytes of {name}")
+        if sha(image.decode_image(data, name).tobytes()) != AVIF_DECODE[name]:
+            bad.append(f"the reading of {name}")
+        cv = image.read_image_cv2(fixture(name))
+        if ("None" if cv is None else sha(cv.tobytes())) != AVIF_DECODE_CV2[name]:
+            bad.append(f"OpenCV's reading of {name}")
+        key = "None" if cv is None else f"{cv.dtype} {'grey' if cv.ndim == 2 else 'BGR'}"
+        kinds[key] = kinds.get(key, 0) + 1
+    lines = []
+    for kind, name in AVIF_CV2_TIMED.items():
+        with open(fixture(name), "rb") as f:
+            data = f.read()
+        for reading, call in (("Pillow", lambda: image.decode_image(data, name)),
+                              ("OpenCV", lambda: image.read_image_cv2(fixture(name)))):
+            times = []
+            for _ in range(AVIF_REPS):
+                t0 = time.perf_counter()
+                out = call()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[f"decode {kind}, {reading}"] = min(times)
+        if out.shape[:2] != (480, 640):
+            bad.append(f"{name}: {out.shape}")
+        lines.append(f"{kind} ({name}, {len(data)} B) {ms[f'decode {kind}, Pillow']:.1f} / "
+                     f"{ms[f'decode {kind}, OpenCV']:.1f} ({out.dtype})")
+    phase("avif", f"the AV1 tables header (sl_av1_tables_hbd.h) at its SHA-256; "
+                  f"{len(AVIF_CV2_FILES)} committed files of OpenCV 5.0.0's imwrite (8, 10 and 12 "
+                  f"bits, quantizer matrices at its defaults), Pillow's 4:0:0 colour and quantizer "
+                  f"matrices at levels 0-14, film grain at 8, 10 and 12 bits, limited range and "
+                  f"BT.709 at 10 and 12 bits, read to the SHA-256 of Pillow's and OpenCV's "
+                  f"readings (OpenCV's by kind: {kinds}); the 640x480 decodes, Pillow's / "
+                  f"OpenCV's reading, the least ms of {AVIF_REPS}: {'; '.join(lines)}; "
+                  f"differences: {bad} ({card})")
+    if bad:
+        fail(f"avif: not Pillow's or OpenCV's: {bad}")
+    ms["part: OpenCV fixtures"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+
+    # the light map of a bare 10-bit panorama (OpenCV's uint16 samples,
+    # unscaled) beside the same samples as a 16-bit TIFF read on the host
+    base_color, plane, sky = AVIF_CV2_SCENE
+    samples = image.read_image_cv2(fixture(sky))
+    twin_path = os.path.join(fx_dir, "cv2_sky10_twin.tif")
+    with open(twin_path, "wb") as f:
+        f.write(tiff_file(np.ascontiguousarray(samples[..., ::-1]), 2))
+    if not np.array_equal(image.read_image_cv2(twin_path), samples):
+        fail("avif: the 16-bit TIFF twin does not read to the panorama's samples")
+    t0 = time.perf_counter()
+    light = sl.LightMap(fixture(sky))
+    torch.cuda.synchronize()
+    ms["light map, 10-bit AVIF"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    twin_light = sl.LightMap(twin_path)
+    torch.cuda.synchronize()
+    ms["light map, TIFF twin"] = (time.perf_counter() - t0) * 1e3
+    same = [f for f in LightMapData._fields
+            if torch.equal(getattr(light.data, f), getattr(twin_light.data, f))]
+    phase("avif", f"LightMap of the bare 10-bit panorama {sky} ({samples.shape[1]}x"
+                  f"{samples.shape[0]}, uint16 up to {int(samples.max())}) "
+                  f"{ms['light map, 10-bit AVIF']:.0f} ms, of its 16-bit TIFF twin "
+                  f"{ms['light map, TIFF twin']:.0f} ms; fields torch.equal: {len(same)} of "
+                  f"{len(LightMapData._fields)} ({card})")
+    if len(same) != len(LightMapData._fields):
+        fail(f"avif: the 10-bit AVIF light map differs from its twin's in "
+             f"{sorted(set(LightMapData._fields) - set(same))}")
+    ms["part: 10-bit light map"], t_part = (time.perf_counter() - t_part) * 1e3, time.perf_counter()
+    _, entries = avif_scene(torch, cr, rt, card, settled, light, fx_dir, ms, "avif OpenCV",
+                            base_color, plane, twin_light=twin_light,
+                            light_label=f"the light map of {sky} (the twin: its 16-bit TIFF's)")
+    ms["part: OpenCV scene"] = (time.perf_counter() - t_part) * 1e3
+    return entries
 
 
 def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dict]:
@@ -4370,8 +4490,7 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
 
     import stillleben_tpu_torch as sl
     from stillleben_tpu_torch.assets import image
-    from stillleben_tpu_torch.assets.image_fixtures import (AVIF_FILES, AVIF_REFUSALS, AVIF_TIMED,
-                                                            AVIF_TOOL_FILES)
+    from stillleben_tpu_torch.assets.image_fixtures import AVIF_FILES, AVIF_TIMED, AVIF_TOOL_FILES
     from stillleben_tpu_torch.assets.image_fixtures import path as fixture
     from stillleben_tpu_torch.assets.image_fixtures.digests import (AVIF_DECODE, AVIF_DECODE_CV2,
                                                                     AVIF_FILE)
@@ -4389,27 +4508,17 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
                   f"{ms['core build wait'] / 1e3:.3f} s")
 
     # every committed file read to the digests of Pillow's and OpenCV's
-    # readings, or refused by name in both
-    bad, refused = [], 0
+    # readings
+    bad = []
     for name in AVIF_FILES:
         with open(fixture(name), "rb") as f:
             data = f.read()
         if sha(data) != AVIF_FILE[name]:
             bad.append(f"the bytes of {name}")
-        if name in AVIF_REFUSALS:
-            for reading in (image.read_image, image.read_image_cv2):
-                try:
-                    reading(fixture(name))
-                    bad.append(f"{name} read")
-                except NotImplementedError as e:
-                    refused += AVIF_REFUSALS[name] in str(e)
-            continue
         if sha(image.decode_image(data, name).tobytes()) != AVIF_DECODE[name]:
             bad.append(f"the reading of {name}")
         if sha(image.read_image_cv2(fixture(name)).tobytes()) != AVIF_DECODE_CV2[name]:
             bad.append(f"OpenCV's reading of {name}")
-    if refused != 2 * len(AVIF_REFUSALS):
-        bad.append(f"{refused} of {2 * len(AVIF_REFUSALS)} refusals by name")
     for name in ("frame640.avif", "frame640_rgba.avif"):
         with open(fixture(name), "rb") as f:
             data = f.read()
@@ -4420,9 +4529,8 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
             times.append((time.perf_counter() - t0) * 1e3)
         ms[f"decode {name}"] = min(times)
     phase("avif", f"{len(AVIF_FILES)} committed files read to the SHA-256 of Pillow 12.1.0's "
-                  f"(libavif 1.3.0, dav1d 1.5.1) and OpenCV 5.0.0's readings, "
-                  f"{len(AVIF_REFUSALS)} of them refused by name in both readings "
-                  f"({', '.join(sorted(set(AVIF_REFUSALS.values())))}); the 640x480 decodes, the "
+                  f"(libavif 1.3.0, dav1d 1.5.1) and OpenCV 5.0.0's readings (film grain and "
+                  f"quantizer matrices among them); the 640x480 decodes, the "
                   f"least ms of {AVIF_REPS}: RGB {ms['decode frame640.avif']:.1f}, RGBA "
                   f"{ms['decode frame640_rgba.avif']:.1f}; differences: {bad} ({card})")
     if bad:
@@ -4472,6 +4580,9 @@ def run_avif(torch, cr, rt, card, settled, light, avif_build) -> tuple[list, dic
                                  "blob_basecolor_444_s4.avif", "checker_cdef.avif")
     entries += tool_entries
     ms["part: tools scene"] = (time.perf_counter() - t_part) * 1e3
+    # OpenCV's files, 10 and 12 bits, monochrome items, quantizer matrices,
+    # film grain; the 10-bit panorama's light map and OpenCV's scene
+    entries += avif_cv2_part(torch, cr, rt, card, settled, fx_dir, ms)
     t_part = time.perf_counter()
     write_avif(sl, result, fx_dir, ms, card)
     ms["part: write"] = (time.perf_counter() - t_part) * 1e3
@@ -5324,9 +5435,9 @@ def main() -> None:
     del webp_render
     phase("j2k", f"phase 25 in {time.perf_counter() - t0:.1f} s")
 
-    # 26. AVIF read: the committed files to Pillow's and OpenCV's digests or
-    # refused by name, the 640x480 decodes' times, and phase 18's scene from
-    # AVIF files through K1
+    # 26. AVIF read: the committed files to Pillow's and OpenCV's digests,
+    # the 640x480 decodes' times, a 10-bit AVIF light map, and phase 18's
+    # scene from AVIF files through K1
     t0 = time.perf_counter()
     avif_k1, _ = run_avif(torch, cr, rt, card, image_settled, jpeg_light, avif_build)
     j2k_pool.shutdown()

@@ -1,7 +1,7 @@
 """AVIF read as Pillow 12.1.0's ``convert("RGBA")`` (libavif 1.3.0 over
 dav1d 1.5.1, libyuv's conversion) and OpenCV 5.0.0's ``imread(ANYCOLOR |
-ANYDEPTH)`` read it, and written for the modes the JAX ``ImageSaver`` hands
-Pillow's ``save`` at its defaults (quality 75).
+ANYDEPTH)`` (libavif 1.4.2 over aom) read it, and written for the modes the
+JAX ``ImageSaver`` hands Pillow's ``save`` at its defaults (quality 75).
 
 The container is parsed here: the HEIF boxes libavif reads for a still image
 (``ftyp``; ``meta`` with ``hdlr`` ``pict``, ``pitm``, ``iloc`` versions 0-2
@@ -9,22 +9,40 @@ with construction methods 0 and 1 (``idat``), ``iinf``/``infe``,
 ``iprp``/``ipco``/``ipma`` with ``ispe``, ``pixi``, ``av1C``, ``colr``,
 ``auxC``, and ``iref`` ``auxl`` and ``prem``). The colour item's and the
 alpha item's AV1 bitstreams go to the native decoder (``csrc/sl_av1.cpp``):
-an AV1 intra decoder for what Pillow's writer (aom) writes at its settings
-but film grain and quantizer matrices: 8-bit 4:2:0, 4:2:2 or 4:4:4 colour, a
-monochrome alpha item, every intra tool, lossless blocks, and the deblocking
-filter, CDEF and loop restoration (``csrc/sl_av1_post.h``). Then libavif's
-conversion to RGB: libyuv's fixed-point arithmetic with its bilinear chroma
-upsampling for BT.601 (matrix coefficients 2, 5 and 6) and BT.709 (1), full
-or limited range, and libavif's copy of the identity matrix (0) of a
-full-range 4:4:4 item; a limited-range alpha item widened as libavif widens
-it (Pillow's rounds, OpenCV's truncates); premultiplied colour divided by
-its alpha as libyuv's ``ARGBUnattenuate`` divides it (both readers
-straighten it).
+an AV1 intra decoder for what Pillow's writer and OpenCV's (aom) write at
+any of their settings: 8-, 10- and 12-bit samples, 4:2:0, 4:2:2, 4:4:4 or
+monochrome colour, a monochrome alpha item, every intra tool, quantizer
+matrices, lossless blocks, the deblocking filter, CDEF and loop
+restoration (``csrc/sl_av1_post.h``), and film grain on the output. Then
+libavif's conversion to RGB, which differs between the two readers:
 
-- ``decode_avif(data, name)``: (H, W, 4) uint8; the alpha item's samples as
-  stored, else 255. The pixels stay as stored: ``irot``/``imir`` become an
-  EXIF orientation in Pillow, not a turn.
-- ``decode_avif_cv2(data, name)``: (H, W, 3) uint8 BGR, the alpha dropped.
+- Pillow asks libavif for 8-bit RGB (RGBA with an alpha item). 8-bit colour
+  goes through libyuv's fixed-point arithmetic with its bilinear chroma
+  upsampling for BT.601 (matrix coefficients 2, 5 and 6) and BT.709 (1),
+  full or limited range, and libavif copies the identity matrix (0) of a
+  full-range 4:4:4 item. 10- and 12-bit colour without alpha is shifted to
+  8 bits first; with alpha it takes libyuv's 10-bit rows (10-bit), its
+  12-bit rows with the nearest chroma sample (12-bit 4:2:0) or the 8-bit
+  path (12-bit 4:2:2 and 4:4:4), its alpha shifted or rounded to 8 bits
+  accordingly. A monochrome item is libavif's own single-precision grey
+  without alpha and libyuv's ``I400`` with it (``_pillow_rgba``); the
+  identity matrix at 10 and 12 bits (OpenCV's lossless files) libavif's own
+  rounding of each channel.
+- OpenCV keeps 8-bit colour on libyuv's path, converts 10- and 12-bit colour
+  through libavif's single-precision path to uint16 at the item's depth
+  (the identity matrix as a copy), and copies a monochrome item's luma
+  plane as it is (with an alpha item its reader fails: None).
+
+A limited-range 8-bit alpha item is widened as libavif widens it (Pillow's
+rounds, OpenCV's truncates); premultiplied colour is divided by its alpha as
+libyuv's ``ARGBUnattenuate`` divides it (both readers straighten it).
+
+- ``decode_avif(data, name)``: (H, W, 4) uint8; the alpha item's samples
+  (narrowed to 8 bits), else 255. The pixels stay as stored: ``irot``/
+  ``imir`` become an EXIF orientation in Pillow, not a turn.
+- ``decode_avif_cv2(data, name)``: (H, W, 3) BGR, uint8 or uint16 at 10 and
+  12 bits (values up to 1023 and 4095), the alpha dropped; (H, W) for a
+  monochrome item; None for a monochrome item with alpha.
 - ``encode_avif(arr)``: the file of an L, RGB, RGBA or I;16 array.
   ``encode_avif_reconstructed(arr)`` gives the reconstruction beside it:
   what any reader of the file decodes, through libyuv's conversion.
@@ -43,9 +61,10 @@ What neither reading of this port decodes raises ``NotImplementedError`` by
 name (ROADMAP.md, the reading queue): grid items, a sequence with no
 primary still item, an essential property libavif would refuse, matrix
 coefficients other than 0, 1, 2, 5 and 6, the identity matrix on a
-subsampled or limited-range item, a monochrome colour item, and in the
-bitstream 10- and 12-bit samples, 4:4:0 colour, superres, film grain,
-quantizer matrices, and inter or intra-only frames.
+subsampled, limited-range or monochrome item, an alpha item
+of another depth than its colour, a limited-range or premultiplied alpha of
+10 or 12 bits, and in the bitstream 4:4:0 colour, superres, and inter or
+intra-only frames.
 """
 
 from __future__ import annotations
@@ -314,11 +333,71 @@ def _unpremultiply(rgba: np.ndarray) -> None:
     rgba[..., :3] = np.minimum((rgba[..., :3].astype(np.int64) * 257 * inv) >> 16, 255)
 
 
-def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray:
+def _alpha8(a: np.ndarray, depth: int, by_float: bool) -> np.ndarray:
+    """An alpha item of more than 8 bits narrowed to 8 as Pillow's libavif
+    narrows it: libyuv's shift (``a >> (depth - 8)``) or libavif's own
+    single-precision rounding of ``a / max * 255``."""
+    if by_float:
+        f = a.astype(np.float32) / np.float32((1 << depth) - 1) * np.float32(255) + np.float32(0.5)
+        return f.astype(np.uint8)
+    return np.minimum(a >> (depth - 8), 255).astype(np.uint8)
+
+
+def _identity(planes: tuple, depth: int, sub: tuple[int, int], full: bool, name: str,
+              dtype) -> np.ndarray:
+    """(H, W, 4) RGBA of a 10- or 12-bit identity-matrix item (R, G, B from
+    V, Y, U) as libavif's own path converts it: OpenCV's at the item's depth
+    (uint16, a copy), Pillow's to 8 bits (uint8: each ``v / max * 255``
+    rounded in single precision); alpha at its maximum. A subsampled or
+    limited-range one is refused."""
+    if sub != (0, 0) or not full:
+        kind = ("4:4:4", "4:4:0", "4:2:2", "4:2:0")[sub[0] * 2 + sub[1]]
+        rng = "" if full else "limited-range "
+        raise NotImplementedError(f"{name}: AVIF {rng}identity matrix on {kind} colour is not "
+                                  "supported")
+    top = (1 << depth) - 1
+    rgb = np.stack([planes[2], planes[0], planes[1]], -1)
+    if dtype == np.uint8:
+        rgb = (np.float32(0.5) + rgb.astype(np.float32) / np.float32(top) * np.float32(255))
+    out = np.empty(rgb.shape[:2] + (4,), dtype)
+    out[..., :3] = rgb
+    out[..., 3] = top if dtype == np.uint16 else 255
+    return out
+
+
+def _pillow_rgba(planes: tuple, depth: int, sub: tuple[int, int], matrix: int, full: bool,
+                 alpha: np.ndarray | None, name: str) -> tuple[np.ndarray, bool]:
+    """The (H, W, 4) uint8 colour as Pillow's libavif 1.3.0 converts it
+    (alpha 255), and whether an alpha item of more than 8 bits narrows by
+    libavif's rounding (else by libyuv's shift). Which conversion runs
+    depends on the depth, the subsampling and whether Pillow asks for RGBA
+    (an alpha item) or RGB; each was settled against the library's
+    ``avifImageYUVToRGB`` on random planes: 8-bit colour through libyuv's
+    8-bit rows; 10- and 12-bit colour without alpha shifted to 8 bits first
+    (libavif's ``Convert16To8Plane``), with alpha through libyuv's 10-bit
+    rows (10-bit), its 12-bit rows with the nearest chroma (12-bit 4:2:0)
+    or shifted to 8 bits (12-bit 4:2:2, 4:4:4); a monochrome item through
+    libavif's own single-precision path without alpha, and through libyuv's
+    ``I400`` (shifted to 8 bits) with it."""
+    mono = len(planes) == 1
+    if matrix == 0 and depth > 8:  # libavif's own identity path, full-range 4:4:4
+        return _identity(planes, depth, sub, full, name, np.uint8), True
+    down = tuple((p >> (depth - 8)).astype(np.uint8) for p in planes) if depth > 8 else planes
+    if mono and alpha is None:
+        return native_image.yuv16_to_rgba(planes, depth, sub, matrix, full,
+                                          native_image.YUV16_FLOAT8, name), False
+    if mono:  # libyuv's I400: the rows of 4:4:4 with neutral chroma
+        flat = np.full_like(down[0], 128)
+        return native_image.yuv_to_rgba(down[0], flat, flat, (0, 0), matrix, full, name), True
+    if depth == 8 or alpha is None or (depth == 12 and sub != (1, 1)):
+        return native_image.yuv_to_rgba(*down, sub, matrix, full, name), False
+    kind = native_image.YUV16_LIBYUV if depth == 10 else native_image.YUV16_LIBYUV_NEAREST
+    return native_image.yuv16_to_rgba(planes, depth, sub, matrix, full, kind, name), depth == 12
+
+
+def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray | None:
     items = parse_avif(data, name)
     info = native_image.av1_info(items.color, name)
-    if info["monochrome"]:
-        raise NotImplementedError(f"{name}: AVIF monochrome colour items are not supported")
     if (info["width"], info["height"]) != (items.width, items.height):
         raise ValueError(f"{name}: AVIF frame of {info['width']}x{info['height']} in an item of "
                          f"{items.width}x{items.height}")
@@ -326,17 +405,46 @@ def _decode(data: bytes, name: str, cv2: bool) -> np.ndarray:
                                                                           bool(info["full_range"]))
     if matrix not in MATRICES:
         raise NotImplementedError(f"{name}: AVIF matrix coefficients {matrix} are not supported")
+    depth, mono = info["bit_depth"], bool(info["monochrome"])
+    if matrix == 0 and mono:
+        raise NotImplementedError(f"{name}: AVIF identity matrix on monochrome colour is not "
+                                  "supported")
     check_size(items.width, items.height, name, "AVIF", cv2)
     sub = (info["subsampling_x"], info["subsampling_y"])
-    out = native_image.yuv_to_rgba(*native_image.av1_decode(items.color, info, name), sub, matrix,
-                                   full, name)
+    planes = native_image.av1_decode(items.color, info, name)
+    a = None
     if items.alpha is not None:
         ainfo = native_image.av1_info(items.alpha, name)
         if (ainfo["width"], ainfo["height"]) != (items.width, items.height):
             raise ValueError(f"{name}: AVIF alpha of {ainfo['width']}x{ainfo['height']} for an "
                              f"image of {items.width}x{items.height}")
+        if ainfo["bit_depth"] != depth:
+            raise NotImplementedError(f"{name}: AVIF {ainfo['bit_depth']}-bit alpha of "
+                                      f"{depth}-bit colour is not supported")
+        if depth > 8 and (not ainfo["full_range"] or items.premultiplied):
+            kind = "premultiplied" if items.premultiplied else "limited-range"
+            raise NotImplementedError(f"{name}: AVIF {kind} {depth}-bit alpha is not supported")
         a = native_image.av1_decode(items.alpha, ainfo, name)[0]
-        out[..., 3] = a if ainfo["full_range"] else _limited_to_full(a, cv2)
+        if depth == 8 and not ainfo["full_range"]:
+            a = _limited_to_full(a, cv2)
+    if cv2:
+        if mono:
+            # OpenCV copies the luma plane as it is; with an alpha item its
+            # reader fails and reads nothing
+            return None if a is not None else planes[0]
+        if depth > 8:  # libavif's own path at the image's depth
+            out = (_identity(planes, depth, sub, full, name, np.uint16) if matrix == 0 else
+                   native_image.yuv16_to_rgba(planes, depth, sub, matrix, full,
+                                              native_image.YUV16_FLOAT, name))
+            return np.ascontiguousarray(out[..., 2::-1])
+        out = native_image.yuv_to_rgba(*planes, sub, matrix, full, name)
+        if a is not None and items.premultiplied:
+            out[..., 3] = a
+            _unpremultiply(out)
+        return np.ascontiguousarray(out[..., 2::-1])
+    out, by_float = _pillow_rgba(planes, depth, sub, matrix, full, a, name)
+    if a is not None:
+        out[..., 3] = a if depth == 8 else _alpha8(a, depth, by_float)
         if items.premultiplied:
             _unpremultiply(out)
     return out
@@ -347,9 +455,12 @@ def decode_avif(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _decode(data, name, False)
 
 
-def decode_avif_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 BGR as OpenCV's ``imread(ANYCOLOR | ANYDEPTH)``."""
-    return np.ascontiguousarray(_decode(data, name, True)[..., 2::-1])
+def decode_avif_cv2(data: bytes, name: str = "<bytes>") -> np.ndarray | None:
+    """As OpenCV's ``imread(ANYCOLOR | ANYDEPTH)``: (H, W, 3) BGR, the
+    alpha dropped, uint8 at 8 bits and uint16 at 10 and 12 (values up to
+    1023 and 4095); a monochrome item as its (H, W) luma plane, None with
+    an alpha item."""
+    return _decode(data, name, True)
 
 
 # libavif's quantizer for quality 75, ((100 - 75) * 63 + 50) // 100 = 16,

@@ -73,7 +73,7 @@ The AVIF files (``AVIF_FILES``, from ``avif_sources()``): Pillow's
 ``save`` (libavif 1.3.0 over aom 3.12.1) at its defaults of the saver's
 modes, of edge sizes and of the 640x480 frame, and at the options that
 reach each coefficient CDF set and each tool the port's AV1 decoder
-implements; and of what it refuses (``AVIF_REFUSALS``). The AVIF files of
+implements, film grain and quantizer matrices among them. The AVIF files of
 the decoder's other tools (``AVIF_TOOL_FILES``, from ``avif_tool_sources()``
 and ``avif_colr_variants()``): Pillow's ``save`` at speeds 0 to 4 (loop
 restoration), with CDEF, in 4:4:4 and 4:2:2, lossless, and files whose
@@ -166,8 +166,7 @@ JPEG2000_SETTINGS_FILES = (
 JPEG2000_REFUSALS = {"cblk_style.j2k": "code-block style", "j2k_style.icns": "code-block style"}
 # the clock of the PDF digests (``time.gmtime(PDF_CLOCK)`` for both dates)
 PDF_CLOCK = 1700000000
-# the AVIF fixtures (``avif_sources()``): read as Pillow reads them, or
-# refused by name (``AVIF_REFUSALS``: what the port names in refusing each)
+# the AVIF fixtures (``avif_sources()``), read as Pillow and OpenCV read them
 AVIF_FILES = ("frame.avif", "frame_rgba.avif", "grey.avif", "depth16.avif", "one_1x1.avif",
               "two_2x2.avif", "tiny_3x5.avif", "row_1x640.avif", "col_640x1.avif",
               "square_33x33.avif", "odd_65x130.avif", "flat_65x130.avif", "few_480x640.avif",
@@ -178,7 +177,6 @@ AVIF_FILES = ("frame.avif", "frame_rgba.avif", "grey.avif", "depth16.avif", "one
               "mirror.avif", "lossless.avif", "yuv444.avif", "yuv422.avif", "cdef.avif",
               "restoration.avif", "film_grain.avif", "qm.avif", "prem.avif", "limited.avif",
               "anim.avifs", "blob_basecolor.avif", "checker.avif")
-AVIF_REFUSALS = {"film_grain.avif": "film grain", "qm.avif": "quantizer matrices"}
 # the AVIF fixtures of the decoder's loop restoration, CDEF, 4:4:4 and 4:2:2
 # colour, lossless frames and matrices (``avif_tool_sources()``, then
 # ``avif_colr_variants()``), read as Pillow and OpenCV read them; the
@@ -219,6 +217,35 @@ PILLOW_FORMAT_FILES = PILLOW_FORMAT_SAVED + PILLOW_FORMAT_SCENE + PILLOW_FORMAT_
 PILLOW_FORMAT_REFUSALS = {"bgra.blp": NotImplementedError}
 AVIF_TIMED = {"speed 4": "lr_640.avif", "CDEF": "cdef_640.avif", "4:4:4": "yuv444_640.avif",
               "lossless 4:4:4": "lossless_444_640.avif"}
+# the AVIF files of OpenCV's writer and of what the decoder reads beyond
+# Pillow's 8-bit colour (``avif_cv2_sources()``, then ``avif_cv2_variants()``):
+# OpenCV 5.0.0's ``imwrite`` at its defaults (quantizer matrices) of BGR,
+# grey and BGRA at 8, 10 and 12 bits, at two more qualities and lossless
+# (the identity matrix at 10 and 12 bits); Pillow's
+# 4:0:0 colour (with and without alpha); the quantizer matrices at every
+# level 0-14 (Pillow's ``qm-min`` = ``qm-max``) and the contents that weigh
+# every transform size; film grain at 8, 10 and 12 bits in each
+# subsampling (OpenCV's libavif 1.4.2 over aom, ``film-grain-test`` 1-16);
+# files whose ``colr`` box says limited range or BT.709; the 640x480 ones
+# timed on the card (``AVIF_CV2_TIMED``); and the scene's (``AVIF_CV2_SCENE``:
+# the blob's base colour and the plane as OpenCV writes them, a 10-bit
+# panorama for the light map and a 12-bit one)
+AVIF_CV2_TIMED = {"OpenCV BGR": "cv2_frame640.avif", "OpenCV grey": "cv2_grey640.avif",
+                  "10-bit": "cv2_frame640_10.avif", "12-bit": "cv2_frame640_12.avif",
+                  "film grain": "film_grain640.avif"}
+AVIF_CV2_SCENE = ("cv2_blob_basecolor.avif", "cv2_checker_grey.avif", "cv2_sky10.avif")
+QM_LEVEL_FILES = tuple(f"qm_level{level}.avif" for level in range(15))
+AVIF_CV2_FILES = (
+    "cv2_bgr.avif", "cv2_grey.avif", "cv2_bgra.avif", "cv2_bgr10.avif", "cv2_grey10.avif",
+    "cv2_bgra10.avif", "cv2_bgr12.avif", "cv2_grey12.avif", "cv2_bgra12.avif",
+    "cv2_bgr_q30.avif", "cv2_bgr_q90.avif", "cv2_bgr10_q60.avif", "cv2_bgr10_lossless.avif",
+    "cv2_bgra12_lossless.avif", "yuv400.avif",
+    "yuv400_rgba.avif") + QM_LEVEL_FILES + (
+    "qm_mix.avif", "qm_bands.avif", "grain8_422.avif", "grain10_420.avif", "grain10_444.avif",
+    "grain10_400.avif", "grain12_420.avif", "grain12_422.avif", "cv2_grey_limited.avif",
+    "cv2_grey10_limited.avif", "cv2_bgr10_limited.avif", "cv2_bgra10_bt709.avif",
+    "cv2_bgr12_bt709_limited.avif", "cv2_sky12.avif") + AVIF_CV2_SCENE + tuple(
+    AVIF_CV2_TIMED.values())
 
 
 # the TIFF slice: Pillow's and OpenCV's files (``torch_image_fixtures.py
@@ -390,9 +417,9 @@ def avif_sources() -> dict[str, tuple[np.ndarray, dict]]:
     3 with CDEF and
     loop restoration off (``tools_*``: filter intra, the 4-way and 3-way
     partitions, 64-point transforms); EXIF orientations Pillow stores as
-    ``irot`` and ``imir``; and what the port refuses: lossless, 4:4:4,
-    4:2:2, CDEF, loop restoration (``speed`` 4), film grain, quantizer
-    matrices, premultiplied alpha, limited range; and the textured scene's
+    ``irot`` and ``imir``; lossless, 4:4:4, 4:2:2, CDEF, loop restoration
+    (``speed`` 4), film grain, quantizer matrices, premultiplied alpha,
+    limited range; and the textured scene's
     images (the blob's base colour and the checker, ``write_avif_fixtures``).
     ``anim.avifs`` (three frames, ``save_all``) is not here:
     ``make_avif_fixtures`` writes it."""
@@ -558,6 +585,155 @@ def avif_colr_variants() -> dict[str, tuple[str, int, bool]]:
             "bt709_limited.avif": ("cdef_q30.avif", 1, False),
             "identity_444.avif": ("yuv444_s4_q94.avif", 0, True),
             "identity_444_rgba.avif": ("yuv444_s6_q85_rgba.avif", 0, True)}
+
+
+def _deep(a: np.ndarray, depth: int, seed: int) -> np.ndarray:
+    """uint8 ``a`` widened to ``depth`` bits, its new low bits seeded noise."""
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, 1 << (depth - 8), a.shape)
+    return ((a.astype(np.uint16) << (depth - 8)) + low).astype(np.uint16)
+
+
+def _qm_contents(seed: int = 60) -> dict[str, np.ndarray]:
+    """uint8 RGB arrays whose blocks aom codes with every transform size:
+    ``rect`` (64x64 squares split into 64x32, 32x64, 16x64, 64x16 and 32x8
+    tiles of smooth content; at speed 0 the rectangular sizes up to 64),
+    ``mix`` (stripes, a cut of the frame, waves: 4x4 to 64x64) and
+    ``bands`` (16-row bands of horizontal waves: 64x16)."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((256, 256))
+
+    def fill(y0, x0, h, w):
+        yy, xx = np.mgrid[0:h, 0:w]
+        fy, fx = rng.integers(0, 3, 2)
+        a[y0:y0 + h, x0:x0 + w] = rng.uniform(40, 200) + rng.uniform(-60, 60) * np.cos(
+            np.pi * (xx + 0.5) / w * fx) * np.cos(np.pi * (yy + 0.5) / h * fy)
+
+    for y0 in range(0, 256, 64):
+        for x0 in range(0, 256, 64):
+            k = (y0 // 64 + x0 // 64) % 5
+            if k == 0:
+                fill(y0, x0, 32, 64), fill(y0 + 32, x0, 32, 64)
+            elif k == 1:
+                fill(y0, x0, 64, 32), fill(y0, x0 + 32, 64, 32)
+            elif k == 2:
+                for i in range(0, 64, 16):
+                    fill(y0, x0 + i, 64, 16)
+            elif k == 3:
+                for i in range(0, 64, 16):
+                    fill(y0 + i, x0, 16, 64)
+            else:
+                for i in range(0, 64, 8):
+                    fill(y0 + i, x0, 8, 32), fill(y0 + i, x0 + 32, 8, 32)
+    rect = np.stack([a, a * 0.8 + 20, 255 - a], -1) + rng.normal(0, 1, (256, 256, 3))
+    y, x = np.mgrid[0:256, 0:256]
+    mix = np.zeros((256, 256, 3))
+    mix[:128, :128] = (128 + 100 * np.sin(y[:128, :128] * 0.7))[..., None]
+    mix[:128, 128:] = (128 + 100 * np.sin(x[:128, 128:] * 0.7))[..., None]
+    mix[128:, :128] = seeded_images()["frame"][:128, :128]
+    waves = 128 + 60 * np.sin(x[128:, 128:] * 0.2) + 60 * np.sin(y[128:, 128:] * 0.05)
+    mix[128:, 128:] = waves[..., None]
+    mix += rng.normal(0, 3, mix.shape)
+    bands = np.zeros((128, 256))
+    yy, xx = np.mgrid[0:16, 0:64]
+    for y0 in range(0, 128, 16):
+        for x0 in range(0, 256, 64):
+            bands[y0:y0 + 16, x0:x0 + 64] = rng.uniform(40, 200) + rng.uniform(-80, 80) * np.cos(
+                np.pi * (xx + 0.5) / 64 * rng.integers(1, 4))
+    out = {"rect": rect, "mix": mix, "bands": np.stack([bands] * 3, -1)}
+    return {k: np.clip(v, 0, 255).astype(np.uint8) for k, v in out.items()}
+
+
+def _grain_planes(h: int, w: int, depth: int, subsampling: str, seed: int) -> list[np.ndarray]:
+    """Seeded YUV planes of ``depth`` bits (waves), of 4:2:0, 4:2:2, 4:4:4
+    or 4:0:0 (Y alone)."""
+    rng = np.random.default_rng(seed)
+    sx, sy = {"4:2:0": (1, 1), "4:2:2": (1, 0), "4:4:4": (0, 0), "4:0:0": (1, 1)}[subsampling]
+    sizes = [(h, w)] + ([] if subsampling == "4:0:0" else [((h + sy) >> sy, (w + sx) >> sx)] * 2)
+    mid, amp = 1 << (depth - 1), 1 << (depth - 2)
+    out = []
+    for ph, pw in sizes:
+        y, x = np.mgrid[0:ph, 0:pw]
+        f = rng.uniform(0.02, 0.2, 2)
+        out.append(np.clip(mid + amp * np.sin(x * f[0] + y * f[1]) + rng.normal(0, 2, (ph, pw)),
+                           0, (1 << depth) - 1).astype(np.uint16 if depth > 8 else np.uint8))
+    return out
+
+
+def avif_cv2_sources() -> dict[str, tuple[str, object, dict]]:
+    """The sources of ``AVIF_CV2_FILES`` but ``avif_cv2_variants()``'s, by
+    file name: (writer, pixels, options). ``"cv2"``: OpenCV's ``imwrite``
+    of the array (BGR order) with these ``IMWRITE_AVIF_*`` parameters by
+    name (``DEPTH``, ``QUALITY``); ``"pillow"``: Pillow's ``save`` of the
+    array with these options; ``"libavif"``: a list of YUV planes that
+    OpenCV's libavif encodes with these settings (``depth``,
+    ``subsampling``, ``film-grain-test``)."""
+    from ..procedural import base_color_texture, checker_texture, sky_equirect
+
+    src = plain_sources()
+    frame, rgba, grey = src["frame.qoi"], src["frame_rgba.qoi"], src["grey.bw"]
+    bgr, bgra = frame[..., ::-1], rgba[..., [2, 1, 0, 3]]
+    big = seeded_images()["frame"]
+    out: dict[str, tuple[str, object, dict]] = {
+        "cv2_bgr.avif": ("cv2", bgr, {}), "cv2_grey.avif": ("cv2", grey, {}),
+        "cv2_bgra.avif": ("cv2", bgra, {}),
+        "cv2_bgr_q30.avif": ("cv2", bgr, {"QUALITY": 30}),
+        "cv2_bgr_q90.avif": ("cv2", bgr, {"QUALITY": 90}),
+        "cv2_bgr10_q60.avif": ("cv2", _deep(bgr, 10, 61), {"DEPTH": 10, "QUALITY": 60}),
+        "cv2_bgr10_lossless.avif": ("cv2", _deep(bgr, 10, 62), {"DEPTH": 10, "QUALITY": 100}),
+        "cv2_bgra12_lossless.avif": ("cv2", _deep(bgra, 12, 63), {"DEPTH": 12, "QUALITY": 100}),
+        "yuv400.avif": ("pillow", frame, {"subsampling": "4:0:0"}),
+        "yuv400_rgba.avif": ("pillow", rgba, {"subsampling": "4:0:0"}),
+    }
+    for depth in (10, 12):
+        out[f"cv2_bgr{depth}.avif"] = ("cv2", _deep(bgr, depth, depth), {"DEPTH": depth})
+        out[f"cv2_grey{depth}.avif"] = ("cv2", _deep(grey, depth, depth + 1), {"DEPTH": depth})
+        out[f"cv2_bgra{depth}.avif"] = ("cv2", _deep(bgra, depth, depth + 2), {"DEPTH": depth})
+    qm = _qm_contents()
+    off = {"enable-qm": "1", "enable-cdef": "0", "enable-restoration": "0"}
+    for level in range(15):
+        opts = {**off, "qm-min": str(level), "qm-max": str(level)}
+        out[f"qm_level{level}.avif"] = ("pillow", qm["rect"], {"quality": 50, "speed": 0,
+                                                              "advanced": opts})
+    three = {**off, "qm-min": "3", "qm-max": "3"}
+    out["qm_mix.avif"] = ("pillow", qm["mix"], {"quality": 40, "speed": 1, "advanced": three})
+    out["qm_bands.avif"] = ("pillow", qm["bands"], {"quality": 50, "speed": 0, "advanced": three})
+    # film grain: (depth, subsampling, aom's film-grain-test vector, h, w)
+    grain = {"grain8_422.avif": (8, "4:2:2", 3, 40, 56),
+             "grain10_420.avif": (10, "4:2:0", 1, 48, 64),
+             "grain10_444.avif": (10, "4:4:4", 10, 33, 47),
+             "grain10_400.avif": (10, "4:0:0", 6, 40, 56),
+             "grain12_420.avif": (12, "4:2:0", 13, 65, 70),
+             "grain12_422.avif": (12, "4:2:2", 16, 37, 80)}
+    for name, (depth, sub, test, h, w) in grain.items():
+        out[name] = ("libavif", _grain_planes(h, w, depth, sub, test),
+                     {"depth": depth, "subsampling": sub, "film-grain-test": test})
+    # the 640x480 files timed on the card
+    out["cv2_frame640.avif"] = ("cv2", big[..., ::-1], {})
+    out["cv2_grey640.avif"] = ("cv2", big[..., 1], {})
+    out["cv2_frame640_10.avif"] = ("cv2", _deep(big[..., ::-1], 10, 64), {"DEPTH": 10})
+    out["cv2_frame640_12.avif"] = ("cv2", _deep(big[..., ::-1], 12, 65), {"DEPTH": 12})
+    out["film_grain640.avif"] = ("pillow", big, {"advanced": {"film-grain-test": "1"}})
+    # the scene's: base colour and plane as OpenCV writes them, panoramas
+    sky = sky_equirect()  # 64x128 float32 HDR
+    blob_bgr = np.ascontiguousarray(base_color_texture(0)[..., 2::-1])
+    out["cv2_blob_basecolor.avif"] = ("cv2", blob_bgr, {})
+    out["cv2_checker_grey.avif"] = ("cv2", np.ascontiguousarray(checker_texture()[..., 1]), {})
+    for depth in (10, 12):
+        top = (1 << depth) - 1
+        pano = np.clip(sky / sky.max() * top * 4, 0, top).astype(np.uint16)[..., ::-1]
+        out[f"cv2_sky{depth}.avif"] = ("cv2", np.ascontiguousarray(pano), {"DEPTH": depth})
+    return out
+
+
+def avif_cv2_variants() -> dict[str, tuple[str, int, bool]]:
+    """The files of ``AVIF_CV2_FILES`` made from another by patching its
+    ``colr`` box (``patch_colr``): name -> (source, matrix, full range)."""
+    return {"cv2_grey_limited.avif": ("cv2_grey.avif", 2, False),
+            "cv2_grey10_limited.avif": ("cv2_grey10.avif", 2, False),
+            "cv2_bgr10_limited.avif": ("cv2_bgr10.avif", 6, False),
+            "cv2_bgra10_bt709.avif": ("cv2_bgra10.avif", 1, True),
+            "cv2_bgr12_bt709_limited.avif": ("cv2_bgr12.avif", 1, False)}
 
 
 def patch_colr(data: bytes, matrix: int, full_range: bool) -> bytes:

@@ -73,7 +73,8 @@ AVIF_HEADER = (os.path.join(PKG_DIR, "csrc", "sl_av1.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_enc.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_recon.h"),
                os.path.join(PKG_DIR, "csrc", "sl_av1_post.h"),
-               os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"))
+               os.path.join(PKG_DIR, "csrc", "sl_av1_tables.h"),
+               os.path.join(PKG_DIR, "csrc", "sl_av1_tables_hbd.h"))
 # -O2: -O3 makes the JPEG 2000 core no faster and takes twice as long to
 # compile, and the compile is paid at first use (the AV1 core's too: 11.6 s
 # at -O3 against 6.9 s); -ffp-contract=off: the 9/7 wavelet and the ICT are
@@ -154,6 +155,9 @@ def load_avif_library() -> ctypes.CDLL:
             lib.sl_avif_yuv_to_rgba.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
                 ctypes.c_void_p,)
             lib.sl_avif_yuv_to_rgba.restype = ctypes.c_int
+            lib.sl_avif_yuv16_to_rgba.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9 + (
+                ctypes.c_void_p,)
+            lib.sl_avif_yuv16_to_rgba.restype = ctypes.c_int
             lib.sl_av1_decode_counts.argtypes = (ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
                                                  ctypes.c_char_p, ctypes.c_size_t)
             lib.sl_av1_decode_counts.restype = ctypes.c_int
@@ -850,27 +854,30 @@ def j2k_decode(codestream: bytes, info: dict, name: str = "<bytes>") -> np.ndarr
 def av1_info(obus: bytes, name: str = "<bytes>") -> dict:
     """The frame an AV1 item codes, from its sequence and frame headers: the
     size and colour fields, ``base_q_idx``, the tile counts, the loop
-    filter's levels and the bit of ``obus`` that holds ``color_range`` (-1
-    where the sequence header does not code it). It raises
+    filter's levels, the bit of ``obus`` that holds ``color_range`` (-1
+    where the sequence header does not code it), the quantizer matrices'
+    flag and levels, and whether film grain applies. It raises
     ``NotImplementedError`` by name for a stream the decoder does not read."""
-    info = np.zeros(17, np.int32)
+    info = np.zeros(22, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_avif_library().sl_av1_info(obus, len(obus), _ptr(info), err, _ERRLEN), err, name)
     keys = ("width", "height", "monochrome", "bit_depth", "subsampling_x", "subsampling_y",
             "full_range", "matrix", "base_q_idx", "tile_cols", "tile_rows", "filter_level_y0",
             "filter_level_y1", "filter_level_u", "filter_level_v", "filter_sharpness",
-            "color_range_bit")
+            "color_range_bit", "using_qmatrix", "qm_y", "qm_u", "qm_v", "apply_grain")
     return dict(zip(keys, (int(v) for v in info)))
 
 
 def av1_decode(obus: bytes, info: dict, name: str = "<bytes>"):
     """The planes of an AV1 item: Y (H, W) and, unless it is monochrome, U
-    and V (H and W divided by the subsampling, rounded up), uint8. The
-    caller has read ``info`` (``av1_info``) and checked the size."""
+    and V (H and W divided by the subsampling, rounded up), uint8 at 8 bits
+    and uint16 at 10 and 12, film grain applied where the frame asks for
+    it. The caller has read ``info`` (``av1_info``) and checked the size."""
     h, w = info["height"], info["width"]
     sx, sy = info["subsampling_x"], info["subsampling_y"]
-    y = np.empty((h, w), np.uint8)
-    u = np.empty(((h + sy) >> sy, (w + sx) >> sx), np.uint8)
+    dtype = np.uint8 if info["bit_depth"] == 8 else np.uint16
+    y = np.empty((h, w), dtype)
+    u = np.empty(((h + sy) >> sy, (w + sx) >> sx), dtype)
     v = np.empty_like(u)
     err = ctypes.create_string_buffer(_ERRLEN)
     _check(load_avif_library().sl_av1_decode(obus, len(obus), _ptr(y), _ptr(u), _ptr(v), err,
@@ -887,8 +894,9 @@ def av1_decode_counts(obus: bytes, name: str = "<bytes>") -> dict:
     filtered with a nonzero primary or secondary strength (luma; chroma),
     the 64x64s it left (every block skips its residual), the CfL, lossless
     and chroma palette blocks, a bit for each chroma transform size,
-    ``subsampling_x * 2 + subsampling_y``, and ``cdef_bits`` (-1 where the
-    frame runs no CDEF)."""
+    ``subsampling_x * 2 + subsampling_y``, ``cdef_bits`` (-1 where the
+    frame runs no CDEF), and a bit for each transform size a quantizer
+    matrix weighed."""
     lib = load_avif_library()
     names = lib.sl_av1_count_names().decode().split(",")[:-1]
     counts = np.zeros(len(names), np.int32)
@@ -926,6 +934,33 @@ def yuv_to_rgba(y: np.ndarray, u: np.ndarray, v: np.ndarray, subsampling: tuple[
         rng = "" if full_range else "limited-range "
         raise NotImplementedError(f"{name}: AVIF {rng}identity matrix on {kind} colour is not "
                                   "supported")
+    return out
+
+
+# the kinds of sl_avif_yuv16_to_rgba: libavif's single-precision path to 8
+# bits or to the image's depth, libyuv's 10- and 12-bit rows with bilinear
+# or nearest chroma
+YUV16_FLOAT8, YUV16_FLOAT, YUV16_LIBYUV, YUV16_LIBYUV_NEAREST = range(4)
+
+
+def yuv16_to_rgba(planes: tuple, depth: int, subsampling: tuple[int, int], matrix: int,
+                  full_range: bool, kind: int, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 4) RGBA from planes of ``depth`` bits (one for a monochrome
+    item) as libavif converts them (``kind``: ``YUV16_*``): uint16 for
+    ``YUV16_FLOAT``, else uint8; alpha at its maximum. The caller keeps the
+    identity matrix (``avif._identity``) and 8-bit libyuv rows away."""
+    y = np.ascontiguousarray(planes[0], np.uint16)
+    mono = len(planes) == 1
+    u = y if mono else np.ascontiguousarray(planes[1], np.uint16)
+    v = y if mono else np.ascontiguousarray(planes[2], np.uint16)
+    h, w = y.shape
+    out = np.empty((h, w, 4), np.uint16 if kind == YUV16_FLOAT else np.uint8)
+    rc = load_avif_library().sl_avif_yuv16_to_rgba(_ptr(y), _ptr(u), _ptr(v), w, h, depth,
+                                                   subsampling[0], subsampling[1], int(mono),
+                                                   matrix, int(full_range), kind, _ptr(out))
+    if rc != _OK:
+        raise ValueError(f"{name}: no conversion of kind {kind} for the identity matrix or "
+                         f"{depth}-bit samples")
     return out
 
 

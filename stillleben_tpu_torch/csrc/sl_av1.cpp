@@ -4,10 +4,13 @@
 // section by section: the OBU and header syntax (5.3-5.9), the tile and
 // block syntax (5.11), the symbol decoder (8.2), the intra prediction and
 // reconstruction processes (7.11.2, 7.12, 7.13), the loop filter (7.14),
-// CDEF (7.15) and loop restoration (7.17; both in sl_av1_post.h).
+// CDEF (7.15), loop restoration (7.17) and the film grain synthesis
+// (7.18.3; all in sl_av1_post.h).
 // The names of variables and functions are the specification's where it
 // has one.
 
+
+#include <memory>
 
 #include "sl_av1_post.h"
 
@@ -193,7 +196,6 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s, int64_t* color_range
 }
 
 void check_supported(const SequenceHeader& s) {
-  if (s.BitDepth != 8) unsupported(s.BitDepth == 10 ? "10-bit samples" : "12-bit samples");
   // no profile codes 4:4:0
   if (!s.mono_chrome && !s.subsampling_x && s.subsampling_y) unsupported("4:4:0 colour");
   if (s.enable_superres) unsupported("superres");
@@ -281,6 +283,8 @@ struct Decoder : Recon, Post {
   int delta_q_res = 0, delta_lf_present = 0, delta_lf_res = 0;
   int CodedLossless = 0, AllLossless = 0, LosslessArray[8] = {0};
   int TxMode = 0;
+  int qm_y = 15, qm_u = 15, qm_v = 15;
+  FilmGrainParams grain;
   bool have_frame_header = false, frame_done = false;
   int64_t color_range_bit = -1;  // in the item's bits (sl_av1_info)
   // state
@@ -371,6 +375,12 @@ struct Decoder : Recon, Post {
                            DeltaQVAc == 0 && DeltaQVDc == 0;
       if (!LosslessArray[sid]) CodedLossless = 0;
     }
+    if (using_qmatrix)
+      for (int sid = 0; sid < 8; sid++) {
+        SegQMLevel[0][sid] = LosslessArray[sid] ? 15 : qm_y;
+        SegQMLevel[1][sid] = LosslessArray[sid] ? 15 : qm_u;
+        SegQMLevel[2][sid] = LosslessArray[sid] ? 15 : qm_v;
+      }
     AllLossless = CodedLossless;  // no superres
     loop_filter_params(b);
     cdef_params(b);
@@ -380,7 +390,8 @@ struct Decoder : Recon, Post {
     // reference_select, skip_mode_present, allow_warped_motion: intra
     reduced_tx_set = b.f(1);
     // global motion: none for an intra frame
-    if (s.film_grain_params_present && b.f(1)) unsupported("film grain");
+    grain = FilmGrainParams();
+    if (s.film_grain_params_present) film_grain_params(b);
     have_frame_header = true;
     alloc();
     alloc_post(*this);
@@ -452,7 +463,69 @@ struct Decoder : Recon, Post {
         DeltaQVAc = DeltaQUAc;
       }
     }
-    if (b.f(1)) unsupported("quantizer matrices");
+    using_qmatrix = b.f(1);
+    if (using_qmatrix) {
+      qm_y = b.f(4);
+      qm_u = b.f(4);
+      qm_v = seq.separate_uv_delta_q ? b.f(4) : qm_u;
+    }
+  }
+
+  // film_grain_params (5.9.30) of a shown key frame: update_grain is 1
+  void film_grain_params(BitReader& b) {
+    FilmGrainParams& g = grain;
+    g.apply_grain = b.f(1);
+    if (!g.apply_grain) return;
+    g.grain_seed = b.f(16);
+    g.num_y_points = b.f(4);
+    if (g.num_y_points > 14) fail(SL_CORRUPT, "AV1 film grain of %d luma points", g.num_y_points);
+    for (int i = 0; i < g.num_y_points; i++) {
+      g.point_y_value[i] = b.f(8);
+      g.point_y_scaling[i] = b.f(8);
+    }
+    g.chroma_scaling_from_luma = seq.mono_chrome ? 0 : b.f(1);
+    if (seq.mono_chrome || g.chroma_scaling_from_luma ||
+        (seq.subsampling_x == 1 && seq.subsampling_y == 1 && g.num_y_points == 0)) {
+      g.num_cb_points = g.num_cr_points = 0;
+    } else {
+      g.num_cb_points = b.f(4);
+      if (g.num_cb_points > 10) fail(SL_CORRUPT, "AV1 film grain of %d cb points", g.num_cb_points);
+      for (int i = 0; i < g.num_cb_points; i++) {
+        g.point_cb_value[i] = b.f(8);
+        g.point_cb_scaling[i] = b.f(8);
+      }
+      g.num_cr_points = b.f(4);
+      if (g.num_cr_points > 10) fail(SL_CORRUPT, "AV1 film grain of %d cr points", g.num_cr_points);
+      for (int i = 0; i < g.num_cr_points; i++) {
+        g.point_cr_value[i] = b.f(8);
+        g.point_cr_scaling[i] = b.f(8);
+      }
+    }
+    g.grain_scaling_minus_8 = b.f(2);
+    g.ar_coeff_lag = b.f(2);
+    int numPosLuma = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1), numPosChroma = numPosLuma;
+    if (g.num_y_points) {
+      numPosChroma = numPosLuma + 1;
+      for (int i = 0; i < numPosLuma; i++) g.ar_coeffs_y_plus_128[i] = b.f(8);
+    }
+    if (g.chroma_scaling_from_luma || g.num_cb_points)
+      for (int i = 0; i < numPosChroma; i++) g.ar_coeffs_cb_plus_128[i] = b.f(8);
+    if (g.chroma_scaling_from_luma || g.num_cr_points)
+      for (int i = 0; i < numPosChroma; i++) g.ar_coeffs_cr_plus_128[i] = b.f(8);
+    g.ar_coeff_shift_minus_6 = b.f(2);
+    g.grain_scale_shift = b.f(2);
+    if (g.num_cb_points) {
+      g.cb_mult = b.f(8);
+      g.cb_luma_mult = b.f(8);
+      g.cb_offset = b.f(9);
+    }
+    if (g.num_cr_points) {
+      g.cr_mult = b.f(8);
+      g.cr_luma_mult = b.f(8);
+      g.cr_offset = b.f(9);
+    }
+    g.overlap_flag = b.f(1);
+    g.clip_to_restricted_range = b.f(1);
   }
 
   void segmentation_params(BitReader& b) {
@@ -1178,17 +1251,19 @@ struct Decoder : Recon, Post {
       int px = (baseX << 4) + ((2 * Mv[1]) >> subX);
       int py = (baseY << 4) + ((2 * Mv[0]) >> subY);
       int fx = px & 15, fy = py & 15, ix = px >> 4, iy = py >> 4;
+      // InterRound0 and InterRound1 (7.11.3.2): 3 and 11, 5 and 9 at 12 bits
+      int round0 = seq.BitDepth == 12 ? 5 : 3, round1 = 14 - round0;
       static thread_local int inter[72][64];
       for (int r = 0; r < h + 1; r++)
         for (int c = 0; c < w; c++) {
           int yy = Clip3(0, lastY, iy + r);
           int a = *P.at(yy, Clip3(0, lastX, ix + c)), b = *P.at(yy, Clip3(0, lastX, ix + c + 1));
-          inter[r][c] = Round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+          inter[r][c] = Round2((128 - 8 * fx) * a + 8 * fx * b, round0);
         }
-      static thread_local uint8_t out[64][64];
+      static thread_local uint16_t out[64][64];
       for (int r = 0; r < h; r++)
         for (int c = 0; c < w; c++)
-          out[r][c] = Clip1(Round2((128 - 8 * fy) * inter[r][c] + 8 * fy * inter[r + 1][c], 11));
+          out[r][c] = Clip1(Round2((128 - 8 * fy) * inter[r][c] + 8 * fy * inter[r + 1][c], round1));
       for (int r = 0; r < h; r++)
         for (int c = 0; c < w; c++) *P.at(baseY + r, baseX + c) = out[r][c];
     }
@@ -1198,7 +1273,8 @@ struct Decoder : Recon, Post {
 
   void palette_mode_info() {
     int bsizeCtx = Mi_Width_Log2[MiSize] + Mi_Height_Log2[MiSize] - 2;
-    uint8_t cache[16];
+    uint16_t cache[16];
+    int bd = seq.BitDepth;
     if (YMode == DC_PRED) {
       int ctx = 0;
       if (AvailU && M(MiRow - 1, MiCol).palette_size[0] > 0) ctx++;
@@ -1209,13 +1285,13 @@ struct Decoder : Recon, Post {
         int idx = 0;
         for (int i = 0; i < cacheN && idx < PaletteSizeY; i++)
           if (sd.literal(1)) palette_colors_y[idx++] = cache[i];
-        if (idx < PaletteSizeY) palette_colors_y[idx++] = sd.literal(8);
+        if (idx < PaletteSizeY) palette_colors_y[idx++] = sd.literal(bd);
         int paletteBits = 0;
-        if (idx < PaletteSizeY) paletteBits = 8 - 3 + sd.literal(2);
+        if (idx < PaletteSizeY) paletteBits = bd - 3 + sd.literal(2);
         while (idx < PaletteSizeY) {
           int delta = sd.literal(paletteBits) + 1;
           palette_colors_y[idx] = Clip1(palette_colors_y[idx - 1] + delta);
-          int range = 256 - palette_colors_y[idx] - 1;
+          int range = (1 << bd) - palette_colors_y[idx] - 1;
           paletteBits = std::min(paletteBits, CeilLog2(range));
           idx++;
         }
@@ -1229,21 +1305,21 @@ struct Decoder : Recon, Post {
         int idx = 0;
         for (int i = 0; i < cacheN && idx < PaletteSizeUV; i++)
           if (sd.literal(1)) palette_colors_u[idx++] = cache[i];
-        if (idx < PaletteSizeUV) palette_colors_u[idx++] = sd.literal(8);
+        if (idx < PaletteSizeUV) palette_colors_u[idx++] = sd.literal(bd);
         int paletteBits = 0;
-        if (idx < PaletteSizeUV) paletteBits = 8 - 3 + sd.literal(2);
+        if (idx < PaletteSizeUV) paletteBits = bd - 3 + sd.literal(2);
         while (idx < PaletteSizeUV) {
           int delta = sd.literal(paletteBits);
           palette_colors_u[idx] = Clip1(palette_colors_u[idx - 1] + delta);
-          int range = 256 - palette_colors_u[idx];
+          int range = (1 << bd) - palette_colors_u[idx];
           idx++;
           paletteBits = std::min(paletteBits, CeilLog2(range));
         }
         std::sort(palette_colors_u, palette_colors_u + PaletteSizeUV);
         if (sd.literal(1)) {  // delta_encode_palette_colors_v
-          int minBits = 8 - 4, maxVal = 256;
+          int minBits = bd - 4, maxVal = 1 << bd;
           int bits = minBits + sd.literal(2);
-          palette_colors_v[0] = sd.literal(8);
+          palette_colors_v[0] = sd.literal(bd);
           for (idx = 1; idx < PaletteSizeUV; idx++) {
             int delta = sd.literal(bits);
             if (delta && sd.literal(1)) delta = -delta;
@@ -1253,7 +1329,7 @@ struct Decoder : Recon, Post {
             palette_colors_v[idx] = Clip1(val);
           }
         } else {
-          for (idx = 0; idx < PaletteSizeUV; idx++) palette_colors_v[idx] = sd.literal(8);
+          for (idx = 0; idx < PaletteSizeUV; idx++) palette_colors_v[idx] = sd.literal(bd);
         }
       }
     }
@@ -1601,23 +1677,45 @@ int sl_av1_info(const uint8_t* obus, size_t size, int32_t* info, char* err, size
   for (int i = 0; i < 4; i++) info[11 + i] = d.loop_filter_level[i];
   info[15] = d.loop_filter_sharpness;
   info[16] = (int32_t)d.color_range_bit;
+  info[17] = d.using_qmatrix;
+  info[18] = d.qm_y;
+  info[19] = d.qm_u;
+  info[20] = d.qm_v;
+  info[21] = d.grain.apply_grain;
   return SL_OK;
 }
 
-int sl_av1_decode(const uint8_t* obus, size_t size, uint8_t* y, uint8_t* u, uint8_t* v, char* err,
-                  size_t errlen) {
+int sl_av1_decode(const uint8_t* obus, size_t size, void* y, void* u, void* v, char* err, size_t errlen) {
   Decoder d;
   int rc = run(obus, size, d, false, err, errlen);
   if (rc != SL_OK) return rc;
   int W = d.FrameWidth, H = d.FrameHeight;
-  for (int r = 0; r < H; r++) memcpy(y + (size_t)r * W, d.planes[0].at(r, 0), W);
+  const Plane* out = d.planes;
+  std::vector<Plane> grained;
+  if (d.grain.apply_grain) {  // on copies: the grain is the output's alone
+    grained.assign(d.planes, d.planes + d.seq.NumPlanes);
+    try {
+      std::unique_ptr<FilmGrain> fg(new FilmGrain(d.grain, d.seq));
+      fg->apply(grained.data(), W, H);
+    } catch (const Fail& f) {
+      snprintf(err, errlen, "%s", f.msg.c_str());
+      return f.code;
+    }
+    out = grained.data();
+  }
+  auto put = [&](const Plane& P, void* dst, int w, int h) {
+    for (int r = 0; r < h; r++) {
+      const uint16_t* row = &P.px[(size_t)r * P.stride];
+      if (d.seq.BitDepth == 8) std::copy_n(row, w, (uint8_t*)dst + (size_t)r * w);
+      else std::copy_n(row, w, (uint16_t*)dst + (size_t)r * w);
+    }
+  };
+  put(out[0], y, W, H);
   if (d.seq.NumPlanes > 1) {
     int cw = (W + d.seq.subsampling_x) >> d.seq.subsampling_x;
     int ch = (H + d.seq.subsampling_y) >> d.seq.subsampling_y;
-    for (int r = 0; r < ch; r++) {
-      memcpy(u + (size_t)r * cw, d.planes[1].at(r, 0), cw);
-      memcpy(v + (size_t)r * cw, d.planes[2].at(r, 0), cw);
-    }
+    put(out[1], u, cw, ch);
+    put(out[2], v, cw, ch);
   }
   return SL_OK;
 }
@@ -1626,6 +1724,7 @@ int sl_av1_decode_counts(const uint8_t* obus, size_t size, int32_t* counts, char
   Decoder d;
   int rc = run(obus, size, d, false, err, errlen);
   if (rc != SL_OK) return rc;
+  d.counts[CNT_QM_TX_SIZES] = (int32_t)d.QmTxSizes;
   memcpy(counts, d.counts, sizeof d.counts);
   return SL_OK;
 }
@@ -1646,7 +1745,7 @@ int sl_av1_wiener(const uint8_t* src, int width, int height, const int8_t* taps,
     return src[(size_t)std::max(0, std::min(height - 1, y)) * width + std::max(0, std::min(width - 1, x))];
   };
   post.wiener(u, at, out, 0, 0, width, height, 0);
-  memcpy(dst, out.px.data(), out.px.size());
+  std::copy(out.px.begin(), out.px.end(), dst);
   return SL_OK;
 }
 
@@ -1678,7 +1777,8 @@ int sl_av1_read_symbols(const uint8_t* data, size_t size, const int32_t* sizes, 
 
 namespace {
 
-void up_linear(const uint8_t* s, int W, int* d) {
+template <typename T>
+void up_linear(const T* s, int W, int* d) {
   d[0] = s[0];
   int ww = (W - 1) & ~1;
   for (int x = 0; x < ww / 2; x++) {
@@ -1688,7 +1788,8 @@ void up_linear(const uint8_t* s, int W, int* d) {
   d[W - 1] = s[(W - 1) / 2];
 }
 
-void up_bilinear(const uint8_t* sa, const uint8_t* sb, int W, int* da, int* db) {
+template <typename T>
+void up_bilinear(const T* sa, const T* sb, int W, int* da, int* db) {
   da[0] = (3 * sa[0] + sb[0] + 2) >> 2;
   db[0] = (sa[0] + 3 * sb[0] + 2) >> 2;
   int ww = (W - 1) & ~1;
@@ -1727,26 +1828,28 @@ void yuv_row(const uint8_t* y, const int* u, const int* v, int W, const YuvConst
   }
 }
 
-void yuv420_rows(const uint8_t* y, const uint8_t* u, const uint8_t* v, int width, int height,
-                 const YuvConstants& kc, uint8_t* rgba) {
+// ``row(y, u, v, W, rgba)`` converts one row of samples given its chroma
+// upsampled to full width
+template <typename T, typename Row>
+void yuv420_rows(const T* y, const T* u, const T* v, int width, int height, Row row, uint8_t* rgba) {
   int cw = (width + 1) / 2;
   std::vector<int> u1(width), u2(width), v1(width), v2(width);
   size_t stride = (size_t)width * 4;
   up_linear(u, width, u1.data());
   up_linear(v, width, v1.data());
-  yuv_row(y, u1.data(), v1.data(), width, kc, rgba);
-  int row = 1, k = 0;
+  row(y, u1.data(), v1.data(), width, rgba);
+  int r = 1, k = 0;
   for (int yy = 0; yy < height - 2; yy += 2, k++) {
     up_bilinear(u + (size_t)k * cw, u + (size_t)(k + 1) * cw, width, u1.data(), u2.data());
     up_bilinear(v + (size_t)k * cw, v + (size_t)(k + 1) * cw, width, v1.data(), v2.data());
-    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, kc, rgba + row * stride);
-    yuv_row(y + (size_t)(row + 1) * width, u2.data(), v2.data(), width, kc, rgba + (row + 1) * stride);
-    row += 2;
+    row(y + (size_t)r * width, u1.data(), v1.data(), width, rgba + r * stride);
+    row(y + (size_t)(r + 1) * width, u2.data(), v2.data(), width, rgba + (r + 1) * stride);
+    r += 2;
   }
   if (!(height & 1)) {
     up_linear(u + (size_t)k * cw, width, u1.data());
     up_linear(v + (size_t)k * cw, width, v1.data());
-    yuv_row(y + (size_t)row * width, u1.data(), v1.data(), width, kc, rgba + row * stride);
+    row(y + (size_t)r * width, u1.data(), v1.data(), width, rgba + r * stride);
   }
 }
 
@@ -1771,7 +1874,8 @@ extern "C" int sl_avif_yuv_to_rgba(const uint8_t* y, const uint8_t* u, const uin
   }
   const YuvConstants& kc = matrix == 1 ? (full_range ? kYuvF709 : kYuvH709) : (full_range ? kYuvJPEG : kYuvI601);
   if (subsampling_x && subsampling_y) {
-    yuv420_rows(y, u, v, width, height, kc, rgba);
+    auto row = [&](const uint8_t* yr, const int* ur, const int* vr, int W, uint8_t* out) { yuv_row(yr, ur, vr, W, kc, out); };
+    yuv420_rows(y, u, v, width, height, row, rgba);
   } else if (subsampling_x) {
     int cw = (width + 1) / 2;
     std::vector<int> u1(width), v1(width);
@@ -1791,6 +1895,133 @@ extern "C" int sl_avif_yuv_to_rgba(const uint8_t* y, const uint8_t* u, const uin
     }
   } else {
     return SL_UNSUPPORTED;
+  }
+  return SL_OK;
+}
+
+// ---------------------------------------------------------------------------
+// the conversions of samples of any depth held as uint16_t: libavif's own
+// single-precision path (avifImageYUVAnyToRGBAnySlow: each chroma sample of
+// a subsampled plane from its four nearest, weighed 9, 3, 3, 1 / 16, and
+// R, G, B from the matrix's kr and kb), and libyuv's rows of 10- and 12-bit
+// samples (I010, I210, I410 ToARGBMatrixFilter; I012ToARGBMatrix, whose
+// chroma is the nearest sample)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// one output pixel of libavif's path: the channel's value in [0, 1] to an
+// integer of ``maxF``
+inline int float_out(float c, float maxF) {
+  float cl = c < 0.0f ? 0.0f : (c > 1.0f ? 1.0f : c);
+  return (int)(0.5f + cl * maxF);
+}
+
+template <typename Out>
+void float_rows(const uint16_t* y, const uint16_t* u, const uint16_t* v, int W, int H, int depth, int sx, int sy,
+                int mono, int matrix, int full, int outDepth, Out* rgba) {
+  int maxChannel = (1 << depth) - 1;
+  float biasY = full ? 0.0f : (float)(16 << (depth - 8));
+  float rangeY = full ? (float)maxChannel : (float)(219 << (depth - 8));
+  float biasUV = (float)(1 << (depth - 1));
+  float rangeUV = full ? (float)maxChannel : (float)(224 << (depth - 8));
+  std::vector<float> tY(maxChannel + 1), tUV(maxChannel + 1);
+  for (int i = 0; i <= maxChannel; i++) {
+    tY[i] = ((float)i - biasY) / rangeY;
+    tUV[i] = ((float)i - biasUV) / rangeUV;
+  }
+  float kr = matrix == 1 ? 0.2126f : 0.299f, kb = matrix == 1 ? 0.0722f : 0.114f;
+  float kg = 1.0f - kr - kb;
+  float maxF = (float)((1 << outDepth) - 1);
+  int cw = (W + sx) >> sx;
+  for (int j = 0; j < H; j++)
+    for (int i = 0; i < W; i++) {
+      float Y = tY[std::min<int>(y[(size_t)j * W + i], maxChannel)], R, G, B;
+      if (mono) {
+        R = G = B = Y;
+      } else {
+        int uvJ = j >> sy, uvI = i >> sx;
+        float Cb, Cr;
+        auto at = [&](const uint16_t* p, int jj, int ii) { return tUV[std::min<int>(p[(size_t)jj * cw + ii], maxChannel)]; };
+        if (!sx && !sy) {
+          Cb = at(u, uvJ, uvI);
+          Cr = at(v, uvJ, uvI);
+        } else {
+          int adjCol = (i == 0 || (i == W - 1 && (i % 2) != 0)) ? 0 : ((i % 2) != 0 ? 1 : -1);
+          int adjRow = (j == 0 || (j == H - 1 && (j % 2) != 0) || !sy) ? 0 : ((j % 2) != 0 ? 1 : -1);
+          Cb = (at(u, uvJ, uvI) * (9.0f / 16.0f)) + (at(u, uvJ, uvI + adjCol) * (3.0f / 16.0f)) +
+               (at(u, uvJ + adjRow, uvI) * (3.0f / 16.0f)) + (at(u, uvJ + adjRow, uvI + adjCol) * (1.0f / 16.0f));
+          Cr = (at(v, uvJ, uvI) * (9.0f / 16.0f)) + (at(v, uvJ, uvI + adjCol) * (3.0f / 16.0f)) +
+               (at(v, uvJ + adjRow, uvI) * (3.0f / 16.0f)) + (at(v, uvJ + adjRow, uvI + adjCol) * (1.0f / 16.0f));
+        }
+        R = Y + (2 * (1 - kr)) * Cr;
+        B = Y + (2 * (1 - kb)) * Cb;
+        G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
+      }
+      Out* px = rgba + ((size_t)j * W + i) * 4;
+      px[0] = (Out)float_out(R, maxF);
+      px[1] = (Out)float_out(G, maxF);
+      px[2] = (Out)float_out(B, maxF);
+      px[3] = (Out)((1 << outDepth) - 1);
+    }
+}
+
+// libyuv's row of 10- or 12-bit samples (YuvPixel10, YuvPixel12): the luma
+// widened to 16 bits by repeating its top bits, the chroma narrowed to 8
+void yuv16_row(const uint16_t* y, const int* u, const int* v, int W, int depth, const YuvConstants& k,
+               uint8_t* rgba) {
+  for (int x = 0; x < W; x++) {
+    uint32_t y32 = ((uint32_t)y[x] << (16 - depth)) | (y[x] >> (2 * depth - 16));
+    int y1 = (int)((y32 * (uint32_t)k.yg) >> 16);
+    int uu = std::min(255, u[x] >> (depth - 8)) - 128, vv = std::min(255, v[x] >> (depth - 8)) - 128;
+    rgba[4 * x + 0] = clamp255((y1 + k.vr * vv + k.yb) >> 6);
+    rgba[4 * x + 1] = clamp255((y1 - k.ug * uu - k.vg * vv + k.yb) >> 6);
+    rgba[4 * x + 2] = clamp255((y1 + k.ub * uu + k.yb) >> 6);
+    rgba[4 * x + 3] = 255;
+  }
+}
+
+}  // namespace
+
+extern "C" int sl_avif_yuv16_to_rgba(const uint16_t* y, const uint16_t* u, const uint16_t* v, int width, int height,
+                                     int depth, int subsampling_x, int subsampling_y, int monochrome, int matrix,
+                                     int full_range, int kind, void* rgba) {
+  if (matrix == 0 || depth < 8 || depth > 12) return SL_UNSUPPORTED;
+  int sx = subsampling_x, sy = subsampling_y;
+  if (kind == 0 || kind == 1) {
+    if (kind == 0)
+      float_rows(y, u, v, width, height, depth, sx, sy, monochrome, matrix, full_range, 8, (uint8_t*)rgba);
+    else
+      float_rows(y, u, v, width, height, depth, sx, sy, monochrome, matrix, full_range, depth, (uint16_t*)rgba);
+    return SL_OK;
+  }
+  if (monochrome || depth == 8 || (!sx && sy)) return SL_UNSUPPORTED;
+  const YuvConstants& kc = matrix == 1 ? (full_range ? kYuvF709 : kYuvH709) : (full_range ? kYuvJPEG : kYuvI601);
+  uint8_t* out = (uint8_t*)rgba;
+  size_t stride = (size_t)width * 4;
+  int cw = (width + sx) >> sx;
+  auto row = [&](const uint16_t* yr, const int* ur, const int* vr, int W, uint8_t* o) {
+    yuv16_row(yr, ur, vr, W, depth, kc, o);
+  };
+  std::vector<int> u1(width), v1(width);
+  if (kind == 3 || !sx) {  // the nearest chroma sample (I012), or none to upsample (4:4:4)
+    for (int r = 0; r < height; r++) {
+      const uint16_t* ur = u + (size_t)(r >> sy) * cw;
+      const uint16_t* vr = v + (size_t)(r >> sy) * cw;
+      for (int x = 0; x < width; x++) {
+        u1[x] = ur[x >> sx];
+        v1[x] = vr[x >> sx];
+      }
+      row(y + (size_t)r * width, u1.data(), v1.data(), width, out + r * stride);
+    }
+  } else if (sy) {
+    yuv420_rows(y, u, v, width, height, row, out);
+  } else {
+    for (int r = 0; r < height; r++) {
+      up_linear(u + (size_t)r * cw, width, u1.data());
+      up_linear(v + (size_t)r * cw, width, v1.data());
+      row(y + (size_t)r * width, u1.data(), v1.data(), width, out + r * stride);
+    }
   }
   return SL_OK;
 }

@@ -306,7 +306,7 @@ void forward_1d(int kind, int ln, double* v) {
 struct Modes {
   int y = DC_PRED, uv = DC_PRED, dy = 0, duv = 0, cflU = 0, cflV = 0, fi = 0, fiMode = 0, txDepth = 0;
   int palY = 0, palUV = 0;
-  uint8_t colY[8], colU[8], colV[8];
+  uint16_t colY[8], colU[8], colV[8];
 };
 
 // the decisions of a partition node
@@ -405,9 +405,9 @@ struct Encoder : Recon {
     src[p].px.assign(planes[p].px.size(), 0);
     for (int y = 0; y < src[p].rows; y++) {
       const uint8_t* row = data + (size_t)std::min(y, h - 1) * w;
-      uint8_t* d = src[p].at(y, 0);
-      memcpy(d, row, w);
-      memset(d + w, row[w - 1], src[p].stride - w);
+      uint16_t* d = src[p].at(y, 0);
+      std::copy(row, row + w, d);
+      std::fill(d + w, d + src[p].stride, row[w - 1]);
     }
   }
 
@@ -511,8 +511,8 @@ struct Encoder : Recon {
   template <class S>
   void code_palette_colors(S& s, int plane) {
     int n = plane ? PaletteSizeUV : PaletteSizeY;
-    const uint8_t* col = plane ? palette_colors_u : palette_colors_y;
-    uint8_t cache[16];
+    const uint16_t* col = plane ? palette_colors_u : palette_colors_y;
+    uint16_t cache[16];
     int cacheN = get_palette_cache(plane, cache), idx = 0;
     bool used[8] = {false};
     for (int i = 0; i < cacheN && idx < n; i++) {
@@ -600,7 +600,7 @@ struct Encoder : Recon {
   }
   // the distinct values (or U, V pairs) of the block's onscreen source, if
   // 2 to 8: a palette that predicts it exactly
-  int exact_palette(int plane, uint8_t* a, uint8_t* b) {
+  int exact_palette(int plane, uint16_t* a, uint16_t* b) {
     int bw, bh, ow, oh;
     color_map_size(plane, &bw, &bh, &ow, &oh);
     int sx = plane ? seq.subsampling_x : 0, sy = plane ? seq.subsampling_y : 0;
@@ -854,8 +854,8 @@ struct Encoder : Recon {
     int64_t d = 0;
     int x1 = std::min(x0 + w, visW[plane]), y1 = std::min(y0 + h, visH[plane]);
     for (int y = y0; y < y1; y++) {
-      const uint8_t* a = planes[plane].at(y, 0);
-      const uint8_t* b = src[plane].at(y, 0);
+      const uint16_t* a = planes[plane].at(y, 0);
+      const uint16_t* b = src[plane].at(y, 0);
       for (int x = x0; x < x1; x++) {
         int e = a[x] - b[x];
         d += e * e;
@@ -962,8 +962,8 @@ struct Encoder : Recon {
     predict_tx_intra(plane, startX, startY, x, y, txSz);
     static thread_local int32_t resid[64 * 64];
     for (int i = 0; i < h; i++) {
-      const uint8_t* p = planes[plane].at(startY + i, startX);
-      const uint8_t* s = src[plane].at(startY + i, startX);
+      const uint16_t* p = planes[plane].at(startY + i, startX);
+      const uint16_t* s = src[plane].at(startY + i, startX);
       for (int j = 0; j < w; j++) resid[i * w + j] = s[j] - p[j];
     }
     t.plane = plane;
@@ -1068,12 +1068,12 @@ struct Encoder : Recon {
     PaletteSizeY = m.palY;
     PaletteSizeUV = m.palUV;
     if (PaletteSizeY) {
-      memcpy(palette_colors_y, m.colY, 8);
+      memcpy(palette_colors_y, m.colY, sizeof m.colY);
       build_color_map(0);
     }
     if (PaletteSizeUV) {
-      memcpy(palette_colors_u, m.colU, 8);
-      memcpy(palette_colors_v, m.colV, 8);
+      memcpy(palette_colors_u, m.colU, sizeof m.colU);
+      memcpy(palette_colors_v, m.colV, sizeof m.colV);
       build_color_map(1);
     }
     TxSize = Max_Tx_Size_Rect[MiSize];
@@ -1406,7 +1406,7 @@ struct Encoder : Recon {
   // what the coding of a block region changes, to try another partition
   struct Snapshot {
     int r, c, bSize;
-    std::vector<uint8_t> px[3];
+    std::vector<uint16_t> px[3];
     std::vector<ModeInfo> mis;
     std::vector<uint8_t> ctx[3][4];
     uint8_t bd[3][34][34];
@@ -1428,7 +1428,7 @@ struct Encoder : Recon {
       int x0, y0, w, h;
       region(p, r, c, bSize, &x0, &y0, &w, &h);
       s.px[p].resize((size_t)w * h);
-      for (int i = 0; i < h; i++) memcpy(&s.px[p][(size_t)i * w], planes[p].at(y0 + i, x0), w);
+      for (int i = 0; i < h; i++) std::copy_n(planes[p].at(y0 + i, x0), w, &s.px[p][(size_t)i * w]);
       int ax0 = (c >> (p ? 1 : 0)), lx0 = (r >> (p ? 1 : 0));
       int n = std::max(Num_4x4_Blocks_Wide[bSize], Num_4x4_Blocks_High[bSize]) + 2;
       s.ctx[p][0].assign(&AboveLevelContext[p][ax0], &AboveLevelContext[p][ax0] + n);
@@ -1447,7 +1447,7 @@ struct Encoder : Recon {
     for (int p = 0; p < seq.NumPlanes; p++) {
       int x0, y0, w, h;
       region(p, r, c, bSize, &x0, &y0, &w, &h);
-      for (int i = 0; i < h; i++) memcpy(planes[p].at(y0 + i, x0), &s.px[p][(size_t)i * w], w);
+      for (int i = 0; i < h; i++) std::copy_n(&s.px[p][(size_t)i * w], w, planes[p].at(y0 + i, x0));
       int ax0 = (c >> (p ? 1 : 0)), lx0 = (r >> (p ? 1 : 0));
       std::copy(s.ctx[p][0].begin(), s.ctx[p][0].end(), &AboveLevelContext[p][ax0]);
       std::copy(s.ctx[p][1].begin(), s.ctx[p][1].end(), &AboveDcContext[p][ax0]);
@@ -1777,11 +1777,11 @@ int sl_av1_encode(const uint8_t* y, const uint8_t* u, const uint8_t* v, int widt
     *out = buf;
     *out_size = obus.size();
     if (recon_y)
-      for (int r = 0; r < height; r++) memcpy(recon_y + (size_t)r * width, e->planes[0].at(r, 0), width);
+      for (int r = 0; r < height; r++) std::copy_n(e->planes[0].at(r, 0), width, recon_y + (size_t)r * width);
     if (!monochrome && recon_u && recon_v)
       for (int r = 0; r < ch; r++) {
-        memcpy(recon_u + (size_t)r * cw, e->planes[1].at(r, 0), cw);
-        memcpy(recon_v + (size_t)r * cw, e->planes[2].at(r, 0), cw);
+        std::copy_n(e->planes[1].at(r, 0), cw, recon_u + (size_t)r * cw);
+        std::copy_n(e->planes[2].at(r, 0), cw, recon_v + (size_t)r * cw);
       }
     return SL_OK;
   } catch (const Fail& f) {

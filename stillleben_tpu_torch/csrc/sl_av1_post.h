@@ -3,8 +3,8 @@
 // restoration (7.17: the Wiener filter and the self-guided filter), with
 // the frame header's parameters for both (5.9.19, 5.9.20), what the tiles
 // read per 64x64 and per restoration unit, and the counts of what a decode
-// ran (sl_av1_decode_counts). Only the decoder includes it: the encoder
-// writes neither filter.
+// ran (sl_av1_decode_counts); and the film grain synthesis (7.18.3) of the
+// output. Only the decoder includes it: the encoder writes none of these.
 //
 // The names of variables and functions are the specification's (AV1
 // Bitstream & Decoding Process Specification) where it has one.
@@ -66,7 +66,8 @@ const int Div_Table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
   X(PALETTE_UV, palette_uv)         /* blocks with a chroma palette */                            \
   X(UV_TX_SIZES, uv_tx_sizes)       /* a bit for each chroma transform size */                    \
   X(SUBSAMPLING, subsampling)       /* subsampling_x * 2 + subsampling_y */                       \
-  X(CDEF_BITS, cdef_bits)           /* cdef_bits, or -1 where the frame has no CDEF */
+  X(CDEF_BITS, cdef_bits)           /* cdef_bits, or -1 where the frame has no CDEF */         \
+  X(QM_TX_SIZES, qm_tx_sizes)       /* a bit for each transform size a quantizer matrix weighed */
 
 #define SL_AV1_COUNT_ENUM(e, name) CNT_##e,
 #define SL_AV1_COUNT_NAME(e, name) #name ","
@@ -81,6 +82,7 @@ struct LrUnit {
 };
 
 struct Post {
+  int BitDepth = 8;
   // cdef_params
   int cdef_bits = 0, CdefDamping = 3;
   int cdef_y_pri_strength[8] = {0}, cdef_y_sec_strength[8] = {0};
@@ -102,6 +104,7 @@ struct Post {
 
   // after the frame header: the grid of cdef_idx and of restoration units
   void alloc_post(const Recon& f) {
+    BitDepth = f.seq.BitDepth;
     cdef_stride = (f.MiCols + 15) >> 4;
     cdef_idx.assign((size_t)cdef_stride * ((f.MiRows + 15) >> 4) + 2 * cdef_stride + 2, -1);
     for (int p = 0; p < f.seq.NumPlanes; p++) {
@@ -137,12 +140,12 @@ struct Post {
   }
 
   // the direction of the 8x8 luma block at (x0, y0) and its variance
-  static int cdef_direction(const Plane& P, int x0, int y0, int* var) {
+  static int cdef_direction(const Plane& P, int x0, int y0, int bitDepth, int* var) {
     int64_t cost[8] = {0};
     int partial[8][15] = {{0}};
     for (int i = 0; i < 8; i++)
       for (int j = 0; j < 8; j++) {
-        int x = P.px[(size_t)(y0 + i) * P.stride + x0 + j] - 128;
+        int x = (P.px[(size_t)(y0 + i) * P.stride + x0 + j] >> (bitDepth - 8)) - 128;
         partial[0][i + j] += x;
         partial[1][i + j / 2] += x;
         partial[2][i] += x;
@@ -191,7 +194,7 @@ struct Post {
     int subX = plane ? f.seq.subsampling_x : 0, subY = plane ? f.seq.subsampling_y : 0;
     int x0 = (c * 4) >> subX, y0 = (r * 4) >> subY;
     int w = 8 >> subX, h = 8 >> subY;
-    const int priTap = (priStr & 1);
+    const int priTap = (priStr >> (f.seq.BitDepth - 8)) & 1;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int x = src.px[(size_t)(y0 + i) * src.stride + x0 + j];
@@ -222,7 +225,7 @@ struct Post {
             }
           }
         dst.px[(size_t)(y0 + i) * dst.stride + x0 + j] =
-            (uint8_t)Clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+            (uint16_t)Clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
       }
   }
 
@@ -238,23 +241,25 @@ struct Post {
         }
         if (f.M(r, c).skip && f.M(r + 1, c).skip && f.M(r, c + 1).skip && f.M(r + 1, c + 1).skip)
           continue;
+        // samples of more than 8 bits scale the strengths and the damping
+        int coeffShift = BitDepth - 8;
         int var = 0;
-        int yDir = cdef_direction(deblocked[0], c * 4, r * 4, &var);
-        int priStr = cdef_y_pri_strength[idx], secStr = cdef_y_sec_strength[idx];
+        int yDir = cdef_direction(deblocked[0], c * 4, r * 4, BitDepth, &var);
+        int priStr = cdef_y_pri_strength[idx] << coeffShift, secStr = cdef_y_sec_strength[idx] << coeffShift;
         int dir = priStr == 0 ? 0 : yDir;
         int varStr = (var >> 6) ? std::min(FloorLog2(var >> 6), 12) : 0;
         priStr = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
         counts[CNT_CDEF_Y_PRI] += priStr > 0;
         counts[CNT_CDEF_Y_SEC] += secStr > 0;
-        cdef_filter(f, deblocked[0], f.planes[0], 0, r, c, priStr, secStr, CdefDamping, dir);
+        cdef_filter(f, deblocked[0], f.planes[0], 0, r, c, priStr, secStr, CdefDamping + coeffShift, dir);
         if (NumPlanes == 1) continue;
-        priStr = cdef_uv_pri_strength[idx];
-        secStr = cdef_uv_sec_strength[idx];
+        priStr = cdef_uv_pri_strength[idx] << coeffShift;
+        secStr = cdef_uv_sec_strength[idx] << coeffShift;
         dir = priStr == 0 ? 0 : Cdef_Uv_Dir[f.seq.subsampling_x][f.seq.subsampling_y][yDir];
         counts[CNT_CDEF_UV_PRI] += priStr > 0;
         counts[CNT_CDEF_UV_SEC] += secStr > 0;
         for (int p = 1; p < 3; p++)
-          cdef_filter(f, deblocked[p], f.planes[p], p, r, c, priStr, secStr, CdefDamping - 1, dir);
+          cdef_filter(f, deblocked[p], f.planes[p], p, r, c, priStr, secStr, CdefDamping - 1 + coeffShift, dir);
       }
   }
 
@@ -314,21 +319,22 @@ struct Post {
         filter[3] -= 2 * c;
       }
     }
-    // 8-bit samples: InterRound0 = 3, InterRound1 = 11; the intermediate
-    // lies in [-offset, limit - offset]
-    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+    // InterRound0 = 3 and InterRound1 = 11 (5 and 9 at 12 bits); the
+    // intermediate lies in [-offset, limit - offset]
+    const int round0 = BitDepth == 12 ? 5 : 3, round1 = 14 - round0;
+    const int offset = 1 << (BitDepth + 7 - round0 - 1), limit = (1 << (BitDepth + 1 + 7 - round0)) - 1;
     std::vector<int> inter((size_t)(h + 6) * w);
     for (int r = 0; r < h + 6; r++)
       for (int c = 0; c < w; c++) {
         int s = 0;
         for (int t = 0; t < 7; t++) s += hfilter[t] * src(x + c + t - 3, y + r - 3);
-        inter[(size_t)r * w + c] = Clip3(-offset, limit - offset, Round2(s, 3));
+        inter[(size_t)r * w + c] = Clip3(-offset, limit - offset, Round2(s, round0));
       }
     for (int r = 0; r < h; r++)
       for (int c = 0; c < w; c++) {
         int s = 0;
         for (int t = 0; t < 7; t++) s += vfilter[t] * inter[(size_t)(r + t) * w + c];
-        out.px[(size_t)(y + r) * out.stride + x + c] = (uint8_t)Clip1(Round2(s, 11));
+        out.px[(size_t)(y + r) * out.stride + x + c] = (uint16_t)ClipBd(Round2(s, round1), BitDepth);
       }
   }
 
@@ -336,7 +342,7 @@ struct Post {
   // F (w x h), in the precision SGRPROJ_RST_BITS adds
   template <typename Src>
   static void box_filter(Src& src, const Plane& cdef, int x, int y, int w, int h, int set, int pass,
-                         std::vector<int>& F) {
+                         int bitDepth, std::vector<int>& F) {
     int r = Sgr_Params[set][pass * 2], s = Sgr_Params[set][pass * 2 + 1];
     int n = (2 * r + 1) * (2 * r + 1);
     int oneOverN = ((1 << 12) + (n / 2)) / n;
@@ -357,15 +363,18 @@ struct Post {
             a += c * c;
             b += c;
           }
-        int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)b * b);
+        // samples of more than 8 bits: a and b scaled back to 8 bits
+        a = Round2(a, 2 * (bitDepth - 8));
+        int d = Round2(b, bitDepth - 8);
+        int64_t p = std::max<int64_t>(0, (int64_t)a * n - (int64_t)d * d);
         int z = (int)Round2L(p * s, 20);
         int a2;
         if (z >= 255) a2 = 256;
         else if (z == 0) a2 = 1;
         else a2 = ((z << 8) + (z / 2)) / (z + 1);
-        int b2 = ((1 << 8) - a2) * b * oneOverN;
+        int64_t b2 = (int64_t)((1 << 8) - a2) * b * oneOverN;
         A[(size_t)(i + 1) * aw + j + 1] = a2;
-        B[(size_t)(i + 1) * aw + j + 1] = Round2(b2, 12);
+        B[(size_t)(i + 1) * aw + j + 1] = (int)Round2L(b2, 12);
       }
     }
     F.assign((size_t)w * h, 0);
@@ -396,8 +405,8 @@ struct Post {
     int set = u.set;
     int r0 = Sgr_Params[set][0], r1 = Sgr_Params[set][2];
     std::vector<int> flt0, flt1;
-    if (r0) box_filter(src, cdef, x, y, w, h, set, 0, flt0);
-    if (r1) box_filter(src, cdef, x, y, w, h, set, 1, flt1);
+    if (r0) box_filter(src, cdef, x, y, w, h, set, 0, BitDepth, flt0);
+    if (r1) box_filter(src, cdef, x, y, w, h, set, 1, BitDepth, flt1);
     int w0 = u.xqd[0], w1 = u.xqd[1], w2 = (1 << 7) - w0 - w1;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
@@ -405,7 +414,7 @@ struct Post {
         int v = w1 * uu;
         v += w0 * (r0 ? flt0[(size_t)i * w + j] : uu);
         v += w2 * (r1 ? flt1[(size_t)i * w + j] : uu);
-        out.px[(size_t)(y + i) * out.stride + x + j] = (uint8_t)Clip1(Round2(v, 4 + 7));
+        out.px[(size_t)(y + i) * out.stride + x + j] = (uint16_t)ClipBd(Round2(v, 4 + 7), BitDepth);
       }
   }
 
@@ -423,6 +432,266 @@ struct Post {
       Plane cdef = f.planes[p];
       lr_plane(f, p, deblocked[p], cdef);
     }
+  }
+};
+
+// ---- film grain (5.9.30, 7.18.3) -----------------------------------------------
+
+struct FilmGrainParams {
+  int apply_grain = 0, grain_seed = 0;
+  int num_y_points = 0, point_y_value[16] = {0}, point_y_scaling[16] = {0};
+  int chroma_scaling_from_luma = 0;
+  int num_cb_points = 0, point_cb_value[16] = {0}, point_cb_scaling[16] = {0};
+  int num_cr_points = 0, point_cr_value[16] = {0}, point_cr_scaling[16] = {0};
+  int grain_scaling_minus_8 = 0, ar_coeff_lag = 0;
+  int ar_coeffs_y_plus_128[24] = {0}, ar_coeffs_cb_plus_128[25] = {0}, ar_coeffs_cr_plus_128[25] = {0};
+  int ar_coeff_shift_minus_6 = 0, grain_scale_shift = 0;
+  int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0, cr_mult = 0, cr_luma_mult = 0, cr_offset = 0;
+  int overlap_flag = 0, clip_to_restricted_range = 0;
+};
+
+// The film grain synthesis process (7.18.3) on the output planes ``out``
+// (copies of the decoded frame: the grain never reaches a reference).
+struct FilmGrain {
+  const FilmGrainParams& g;
+  int BitDepth, subX, subY, NumPlanes, matrix;
+  int RandomRegister = 0, GrainCenter = 0, GrainMin = 0, GrainMax = 0;
+  int LumaGrain[73][82], CbGrain[73][82], CrGrain[73][82];
+  int ScalingLut[3][256];
+
+  FilmGrain(const FilmGrainParams& params, const SequenceHeader& s)
+      : g(params), BitDepth(s.BitDepth), subX(s.subsampling_x), subY(s.subsampling_y), NumPlanes(s.NumPlanes),
+        matrix(s.matrix_coefficients) {}
+
+  int get_random_number(int bits) {
+    int r = RandomRegister;
+    int bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    r = (r >> 1) | (bit << 15);
+    RandomRegister = r;
+    return (r >> (16 - bits)) & ((1 << bits) - 1);
+  }
+
+  // 7.18.3.3
+  void generate_grain() {
+    int shift = 12 - BitDepth + g.grain_scale_shift;
+    for (int y = 0; y < 73; y++)
+      for (int x = 0; x < 82; x++) {
+        int v = g.num_y_points > 0 ? Gaussian_Sequence[get_random_number(11)] : 0;
+        LumaGrain[y][x] = Round2(v, shift);
+      }
+    int arShift = g.ar_coeff_shift_minus_6 + 6, lag = g.ar_coeff_lag;
+    if (g.num_y_points > 0)
+      for (int y = 3; y < 73; y++)
+        for (int x = 3; x < 82 - 3; x++) {
+          int sum = 0, pos = 0;
+          for (int deltaRow = -lag; deltaRow <= 0; deltaRow++)
+            for (int deltaCol = -lag; deltaCol <= lag; deltaCol++) {
+              if (deltaRow == 0 && deltaCol == 0) break;
+              sum += LumaGrain[y + deltaRow][x + deltaCol] * (g.ar_coeffs_y_plus_128[pos] - 128);
+              pos++;
+            }
+          LumaGrain[y][x] = Clip3(GrainMin, GrainMax, LumaGrain[y][x] + Round2(sum, arShift));
+        }
+    if (NumPlanes == 1) return;
+    int chromaW = subX ? 44 : 82, chromaH = subY ? 38 : 73;
+    bool cb = g.num_cb_points || g.chroma_scaling_from_luma, cr = g.num_cr_points || g.chroma_scaling_from_luma;
+    RandomRegister = g.grain_seed ^ 0xb524;
+    for (int y = 0; y < chromaH; y++)
+      for (int x = 0; x < chromaW; x++) CbGrain[y][x] = Round2(cb ? Gaussian_Sequence[get_random_number(11)] : 0, shift);
+    RandomRegister = g.grain_seed ^ 0x49d8;
+    for (int y = 0; y < chromaH; y++)
+      for (int x = 0; x < chromaW; x++) CrGrain[y][x] = Round2(cr ? Gaussian_Sequence[get_random_number(11)] : 0, shift);
+    for (int y = 3; y < chromaH; y++)
+      for (int x = 3; x < chromaW - 3; x++) {
+        int sum0 = 0, sum1 = 0, pos = 0;
+        for (int deltaRow = -lag; deltaRow <= 0; deltaRow++)
+          for (int deltaCol = -lag; deltaCol <= lag; deltaCol++) {
+            int c0 = g.ar_coeffs_cb_plus_128[pos] - 128, c1 = g.ar_coeffs_cr_plus_128[pos] - 128;
+            if (deltaRow == 0 && deltaCol == 0) {
+              if (g.num_y_points > 0) {
+                int luma = 0;
+                int lumaX = ((x - 3) << subX) + 3, lumaY = ((y - 3) << subY) + 3;
+                for (int i = 0; i <= subY; i++)
+                  for (int j = 0; j <= subX; j++) luma += LumaGrain[lumaY + i][lumaX + j];
+                luma = Round2(luma, subX + subY);
+                sum0 += luma * c0;
+                sum1 += luma * c1;
+              }
+              break;
+            }
+            sum0 += c0 * CbGrain[y + deltaRow][x + deltaCol];
+            sum1 += c1 * CrGrain[y + deltaRow][x + deltaCol];
+            pos++;
+          }
+        if (cb) CbGrain[y][x] = Clip3(GrainMin, GrainMax, CbGrain[y][x] + Round2(sum0, arShift));
+        if (cr) CrGrain[y][x] = Clip3(GrainMin, GrainMax, CrGrain[y][x] + Round2(sum1, arShift));
+      }
+  }
+
+  // 7.18.3.4
+  void init_scaling(int plane) {
+    int numPoints;
+    const int *value, *scaling;
+    if (plane == 0 || g.chroma_scaling_from_luma) {
+      numPoints = g.num_y_points;
+      value = g.point_y_value;
+      scaling = g.point_y_scaling;
+    } else if (plane == 1) {
+      numPoints = g.num_cb_points;
+      value = g.point_cb_value;
+      scaling = g.point_cb_scaling;
+    } else {
+      numPoints = g.num_cr_points;
+      value = g.point_cr_value;
+      scaling = g.point_cr_scaling;
+    }
+    int* lut = ScalingLut[plane];
+    if (numPoints == 0) {
+      for (int i = 0; i < 256; i++) lut[i] = 0;
+      return;
+    }
+    for (int i = 0; i < value[0]; i++) lut[i] = scaling[0];
+    for (int point = 0; point < numPoints - 1; point++) {
+      int deltaY = scaling[point + 1] - scaling[point];
+      int deltaX = value[point + 1] - value[point];
+      if (deltaX <= 0) fail(SL_CORRUPT, "AV1 film grain points out of order");
+      int delta = deltaY * ((65536 + (deltaX >> 1)) / deltaX);
+      for (int x = 0; x < deltaX; x++) lut[value[point] + x] = scaling[point] + ((x * delta + 32768) >> 16);
+    }
+    for (int i = value[numPoints - 1]; i < 256; i++) lut[i] = scaling[numPoints - 1];
+  }
+
+  int scale_lut(int plane, int index) {
+    int shift = BitDepth - 8;
+    int x = index >> shift, rem = index - (x << shift);
+    if (BitDepth == 8 || x == 255) return ScalingLut[plane][x];
+    int start = ScalingLut[plane][x], end = ScalingLut[plane][x + 1];
+    return start + Round2((end - start) * rem, shift);
+  }
+
+  // 7.18.3.5 over planes of w x h luma samples
+  void add_noise(Plane* out, int w, int h) {
+    int numStripes = ((h + 1) / 2 + 15) / 16;
+    int stripeW = ((w + 1) / 2 + 15) / 16 * 32 + 34;
+    // NoiseStripe[lumaNum][plane][34 rows][stripeW]
+    std::vector<int> stripes((size_t)numStripes * NumPlanes * 34 * stripeW, 0);
+    auto NS = [&](int lumaNum, int plane, int i, int x) -> int& {
+      return stripes[(((size_t)lumaNum * NumPlanes + plane) * 34 + i) * stripeW + x];
+    };
+    int lumaNum = 0;
+    for (int y = 0; y < (h + 1) / 2; y += 16) {
+      RandomRegister = g.grain_seed;
+      RandomRegister ^= ((lumaNum * 37 + 178) & 255) << 8;
+      RandomRegister ^= ((lumaNum * 173 + 105) & 255);
+      for (int x = 0; x < (w + 1) / 2; x += 16) {
+        int rand = get_random_number(8);
+        int offsetX = rand >> 4, offsetY = rand & 15;
+        for (int plane = 0; plane < NumPlanes; plane++) {
+          int planeSubX = plane ? subX : 0, planeSubY = plane ? subY : 0;
+          int planeOffsetX = planeSubX ? 6 + offsetX : 9 + offsetX * 2;
+          int planeOffsetY = planeSubY ? 6 + offsetY : 9 + offsetY * 2;
+          int (*grain)[82] = plane == 0 ? LumaGrain : (plane == 1 ? CbGrain : CrGrain);
+          for (int i = 0; i < (34 >> planeSubY); i++)
+            for (int j = 0; j < (34 >> planeSubX); j++) {
+              int v = grain[planeOffsetY + i][planeOffsetX + j];
+              if (planeSubX == 0) {
+                if (j < 2 && g.overlap_flag && x > 0) {
+                  int old = NS(lumaNum, plane, i, x * 2 + j);
+                  v = j == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+                  v = Clip3(GrainMin, GrainMax, Round2(v, 5));
+                }
+                NS(lumaNum, plane, i, x * 2 + j) = v;
+              } else {
+                if (j == 0 && g.overlap_flag && x > 0) {
+                  int old = NS(lumaNum, plane, i, x + j);
+                  v = old * 23 + v * 22;
+                  v = Clip3(GrainMin, GrainMax, Round2(v, 5));
+                }
+                NS(lumaNum, plane, i, x + j) = v;
+              }
+            }
+        }
+      }
+      lumaNum++;
+    }
+    // the noise image, the stripes blended where they overlap
+    std::vector<int> noise[3];
+    for (int plane = 0; plane < NumPlanes; plane++) {
+      int planeSubX = plane ? subX : 0, planeSubY = plane ? subY : 0;
+      int pw = (w + planeSubX) >> planeSubX, ph = (h + planeSubY) >> planeSubY;
+      noise[plane].assign((size_t)pw * ph, 0);
+      for (int y = 0; y < ph; y++) {
+        int ln = y >> (5 - planeSubY), i = y - (ln << (5 - planeSubY));
+        for (int x = 0; x < pw; x++) {
+          int v = NS(ln, plane, i, x);
+          if (planeSubY == 0) {
+            if (i < 2 && ln > 0 && g.overlap_flag) {
+              int old = NS(ln - 1, plane, i + 32, x);
+              v = i == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+              v = Clip3(GrainMin, GrainMax, Round2(v, 5));
+            }
+          } else if (i < 1 && ln > 0 && g.overlap_flag) {
+            int old = NS(ln - 1, plane, i + 16, x);
+            v = old * 23 + v * 22;
+            v = Clip3(GrainMin, GrainMax, Round2(v, 5));
+          }
+          noise[plane][(size_t)y * pw + x] = v;
+        }
+      }
+    }
+    int minValue, maxLuma, maxChroma;
+    if (g.clip_to_restricted_range) {
+      minValue = 16 << (BitDepth - 8);
+      maxLuma = 235 << (BitDepth - 8);
+      maxChroma = matrix == 0 ? maxLuma : 240 << (BitDepth - 8);
+    } else {
+      minValue = 0;
+      maxLuma = maxChroma = (256 << (BitDepth - 8)) - 1;
+    }
+    int ScalingShift = g.grain_scaling_minus_8 + 8;
+    if (NumPlanes > 1) {
+      int pw = (w + subX) >> subX, ph = (h + subY) >> subY;
+      for (int y = 0; y < ph; y++)
+        for (int x = 0; x < pw; x++) {
+          int lumaX = x << subX, lumaY = y << subY, lumaNextX = std::min(lumaX + 1, w - 1);
+          int averageLuma = subX ? Round2(*out[0].at(lumaY, lumaX) + *out[0].at(lumaY, lumaNextX), 1)
+                                 : *out[0].at(lumaY, lumaX);
+          for (int plane = 1; plane < 3; plane++) {
+            bool on = plane == 1 ? (g.num_cb_points > 0 || g.chroma_scaling_from_luma)
+                                 : (g.num_cr_points > 0 || g.chroma_scaling_from_luma);
+            if (!on) continue;
+            uint16_t* p = out[plane].at(y, x);
+            int orig = *p, merged;
+            if (g.chroma_scaling_from_luma) {
+              merged = averageLuma;
+            } else {
+              int lm = plane == 1 ? g.cb_luma_mult : g.cr_luma_mult, m = plane == 1 ? g.cb_mult : g.cr_mult;
+              int off = plane == 1 ? g.cb_offset : g.cr_offset;
+              int combined = averageLuma * (lm - 128) + orig * (m - 128);
+              merged = ClipBd((combined >> 6) + ((off - 256) << (BitDepth - 8)), BitDepth);
+            }
+            int n = Round2(scale_lut(plane, merged) * noise[plane][(size_t)y * pw + x], ScalingShift);
+            *p = Clip3(minValue, maxChroma, orig + n);
+          }
+        }
+    }
+    if (g.num_y_points > 0)
+      for (int y = 0; y < h; y++)
+        for (int x = 0; x < w; x++) {
+          uint16_t* p = out[0].at(y, x);
+          int n = Round2(scale_lut(0, *p) * noise[0][(size_t)y * w + x], ScalingShift);
+          *p = Clip3(minValue, maxLuma, *p + n);
+        }
+  }
+
+  void apply(Plane* out, int w, int h) {
+    RandomRegister = g.grain_seed;
+    GrainCenter = 128 << (BitDepth - 8);
+    GrainMin = -GrainCenter;
+    GrainMax = (256 << (BitDepth - 8)) - 1 - GrainCenter;
+    generate_grain();
+    for (int p = 0; p < NumPlanes; p++) init_scaling(p);
+    add_noise(out, w, h);
   }
 };
 

@@ -2,11 +2,12 @@
 // encoder (sl_av1_enc.cpp) share: the specification's sizes and scans, the
 // CDFs of a tile, and the reconstruction of a frame (struct Recon): intra
 // prediction with the edge filter and upsampling, CfL, filter intra and
-// palettes, dequantisation and the inverse transforms, the deblocking
-// filter, and the
+// palettes, dequantisation with the quantizer matrices and the inverse
+// transforms, the deblocking filter, and the
 // contexts the block syntax derives from what was decoded before. The
 // encoder reconstructs through these functions, so its reconstruction is
-// the decoder's by construction.
+// the decoder's by construction. Planes hold 16-bit samples and every step
+// follows seq.BitDepth (8, 10 or 12); the encoder writes 8 bits.
 //
 // The names of variables and functions are the specification's (AV1
 // Bitstream & Decoding Process Specification) where it has one.
@@ -24,6 +25,7 @@
 
 #include "sl_av1.h"
 #include "sl_av1_tables.h"
+#include "sl_av1_tables_hbd.h"
 
 namespace sl_av1 {
 
@@ -44,7 +46,8 @@ struct Fail {
 [[noreturn]] inline void unsupported(const char* what) { fail(SL_UNSUPPORTED, "AV1 %s is not supported", what); }
 
 inline int Clip3(int lo, int hi, int x) { return x < lo ? lo : (x > hi ? hi : x); }
-inline int Clip1(int x) { return x < 0 ? 0 : (x > 255 ? 255 : x); }
+// Clip1 of samples of ``bitDepth`` bits
+inline int ClipBd(int x, int bitDepth) { return Clip3(0, (1 << bitDepth) - 1, x); }
 inline int Round2(int x, int n) { return n == 0 ? x : (x + (1 << (n - 1))) >> n; }
 inline int64_t Round2L(int64_t x, int n) { return n == 0 ? x : (x + ((int64_t)1 << (n - 1))) >> n; }
 inline int Round2Signed(int x, int n) { return x >= 0 ? Round2(x, n) : -Round2(-x, n); }
@@ -649,10 +652,11 @@ const uint8_t RowKind[16] = {0, 0, 1, 1, 0, 1, 1, 1, 1, 2, 2, 0, 2, 1, 2, 1};
 // the frame decoder
 // ---------------------------------------------------------------------------
 
+// the samples of one plane, of 8, 10 or 12 bits
 struct Plane {
-  std::vector<uint8_t> px;
+  std::vector<uint16_t> px;
   int stride = 0, rows = 0;
-  uint8_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
+  uint16_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
 };
 
 struct ModeInfo {  // per 4x4 luma unit
@@ -660,7 +664,7 @@ struct ModeInfo {  // per 4x4 luma unit
   int16_t mv[2];  // the intra block copy vector (row, column) in 1/8 pixels
   uint8_t palette_size[2];
   int8_t delta_lf[4];
-  uint8_t palette_colors[2][8];
+  uint16_t palette_colors[2][8];
 };
 
 // ---------------------------------------------------------------------------
@@ -679,6 +683,8 @@ struct Recon {
   int loop_filter_level[4] = {0}, loop_filter_sharpness = 0, loop_filter_delta_enabled = 0;
   int loop_filter_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, loop_filter_mode_deltas[2] = {0, 0};
   int reduced_tx_set = 0;
+  int using_qmatrix = 0, SegQMLevel[3][8] = {{0}};
+  uint32_t QmTxSizes = 0;  // a bit for each transform size a quantizer matrix weighed
   // state
   Plane planes[3];
   std::vector<ModeInfo> mi;
@@ -699,7 +705,7 @@ struct Recon {
   int CflAlphaU = 0, CflAlphaV = 0, use_filter_intra = 0, filter_intra_mode = 0, TxSize = 0;
   int PaletteSizeY = 0, PaletteSizeUV = 0, is_inter = 0;
   int Mv[2] = {0, 0};
-  uint8_t palette_colors_y[8] = {0}, palette_colors_u[8] = {0}, palette_colors_v[8] = {0};
+  uint16_t palette_colors_y[8] = {0}, palette_colors_u[8] = {0}, palette_colors_v[8] = {0};
   uint8_t ColorMapY[64][64], ColorMapUV[64][64];
   int MaxLumaW = 0, MaxLumaH = 0;
   int PlaneTxType = 0;
@@ -862,8 +868,8 @@ struct Recon {
         m.mv[1] = Mv[1];
         m.palette_size[0] = PaletteSizeY;
         m.palette_size[1] = PaletteSizeUV;
-        memcpy(m.palette_colors[0], palette_colors_y, 8);
-        memcpy(m.palette_colors[1], palette_colors_u, 8);
+        memcpy(m.palette_colors[0], palette_colors_y, sizeof palette_colors_y);
+        memcpy(m.palette_colors[1], palette_colors_u, sizeof palette_colors_u);
         for (int i = 0; i < 4; i++) m.delta_lf[i] = DeltaLF[i];
       }
   }
@@ -957,13 +963,13 @@ struct Recon {
     int maxX = (MiCols * 4) - 1, maxY = (MiRows * 4) - 1;
     return startX < (maxX >> subX) + 1 && startY < (maxY >> subY) + 1;
   }
-  int get_palette_cache(int plane, uint8_t* cache) {
+  int get_palette_cache(int plane, uint16_t* cache) {
     int aboveN = 0, leftN = 0;
     if (((MiRow * 4) % 64) && AvailU) aboveN = M(MiRow - 1, MiCol).palette_size[plane];
     if (AvailL) leftN = M(MiRow, MiCol - 1).palette_size[plane];
     int aboveIdx = 0, leftIdx = 0, n = 0;
-    const uint8_t* above = aboveN ? M(MiRow - 1, MiCol).palette_colors[plane] : nullptr;
-    const uint8_t* left = leftN ? M(MiRow, MiCol - 1).palette_colors[plane] : nullptr;
+    const uint16_t* above = aboveN ? M(MiRow - 1, MiCol).palette_colors[plane] : nullptr;
+    const uint16_t* left = leftN ? M(MiRow, MiCol - 1).palette_colors[plane] : nullptr;
     while (aboveIdx < aboveN && leftIdx < leftN) {
       int aboveC = above[aboveIdx], leftC = left[leftIdx];
       if (leftC < aboveC) {
@@ -988,7 +994,7 @@ struct Recon {
 
   void predict_palette(int plane, int startX, int startY, int x, int y, int txSz) {
     int w = Tx_Width(txSz), h = Tx_Height(txSz);
-    const uint8_t* palette = plane == 0 ? palette_colors_y : (plane == 1 ? palette_colors_u : palette_colors_v);
+    const uint16_t* palette = plane == 0 ? palette_colors_y : (plane == 1 ? palette_colors_u : palette_colors_v);
     uint8_t (*map)[64] = plane == 0 ? ColorMapY : ColorMapUV;
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) *planes[plane].at(startY + i, startX + j) = palette[map[y * 4 + i][x * 4 + j]];
@@ -1324,8 +1330,15 @@ struct Recon {
 
   // ---- reconstruction ----------------------------------------------------
 
-  int dc_q(int b) { return Dc_Qlookup[Clip3(0, 255, b)]; }
-  int ac_q(int b) { return Ac_Qlookup[Clip3(0, 255, b)]; }
+  int Clip1(int x) const { return ClipBd(x, seq.BitDepth); }
+  int dc_q(int b) const {
+    b = Clip3(0, 255, b);
+    return seq.BitDepth == 8 ? Dc_Qlookup[b] : Dc_Qlookup_Hbd[(seq.BitDepth - 10) >> 1][b];
+  }
+  int ac_q(int b) const {
+    b = Clip3(0, 255, b);
+    return seq.BitDepth == 8 ? Ac_Qlookup[b] : Ac_Qlookup_Hbd[(seq.BitDepth - 10) >> 1][b];
+  }
 
   void reconstruct(int plane, int x, int y, int txSz) {
     int log2W = Tx_Width_Log2[txSz], log2H = Tx_Height_Log2[txSz];
@@ -1348,6 +1361,15 @@ struct Recon {
       dcQ = dc_q(qindex + DeltaQVDc);
       acQ = ac_q(qindex + DeltaQVAc);
     }
+    // the quantizer matrix weighs a 2-D transform's coefficients, stored
+    // as w rows of h weights (sl_av1_tables_hbd.h)
+    const uint8_t* qm = nullptr;
+    int qmLevel = using_qmatrix ? SegQMLevel[plane][segment_id] : 15;
+    if (qmLevel < 15 && !Lossless && t < IDTX) {
+      qm = Quantizer_Matrix[qmLevel][plane > 0] + Qm_Offset[txSz];
+      QmTxSizes |= 1u << txSz;
+    }
+    int dqMax = 1 << (7 + seq.BitDepth);
     static thread_local int32_t Residual[64][64];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) Residual[i][j] = 0;
@@ -1356,23 +1378,24 @@ struct Recon {
         int32_t coef = Quant[i * tw + j];
         if (!coef) continue;
         int q = (i == 0 && j == 0) ? dcQ : acQ;
+        if (qm) q = Round2(q * qm[j * th + i], 5);  // AOM_QM_BITS
         int64_t dq = ((int64_t)std::abs(coef) * q) & 0xFFFFFF;
         dq = dq / dqDenom;
         if (coef < 0) dq = -dq;
-        Residual[i][j] = (int32_t)std::max<int64_t>(-(1 << 15), std::min<int64_t>((1 << 15) - 1, dq));
+        Residual[i][j] = (int32_t)std::max<int64_t>(-dqMax, std::min<int64_t>(dqMax - 1, dq));
       }
     // 2D inverse transform (7.13.3)
     if (Lossless) {
       inverse_wht4(Residual);
     } else {
-      inverse_transform_2d(Residual, txSz, t, log2W, log2H);
+      inverse_transform_2d(Residual, txSz, t, log2W, log2H, seq.BitDepth);
     }
     Plane& P = planes[plane];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int xx = flipLR ? (w - j - 1) : j;
         int yy = flipUD ? (h - i - 1) : i;
-        uint8_t* p = P.at(y + yy, x + xx);
+        uint16_t* p = P.at(y + yy, x + xx);
         *p = Clip1(*p + Residual[i][j]);
       }
   }
@@ -1407,9 +1430,13 @@ struct Recon {
     }
   }
 
-  static void inverse_transform_2d(int32_t (*Residual)[64], int txSz, int t, int log2W, int log2H) {
+  static void inverse_transform_2d(int32_t (*Residual)[64], int txSz, int t, int log2W, int log2H,
+                                   int bitDepth) {
     int w = 1 << log2W, h = 1 << log2H;
     int rowShift = Transform_Row_Shift[txSz];
+    // the row transform's input clamps to BitDepth + 8 bits, its output to
+    // Max(BitDepth + 6, 16)
+    int rowMax = 1 << (bitDepth + 7), colMax = 1 << (std::max(bitDepth + 6, 16) - 1);
     Txfm tf;
     for (int i = 0; i < std::min(h, 32); i++) {
       bool nz = false;
@@ -1423,12 +1450,12 @@ struct Recon {
       }
       if (std::abs(log2W - log2H) == 1)
         for (int j = 0; j < w; j++) tf.T[j] = (int32_t)Round2L((int64_t)tf.T[j] * 2896, 12);
-      for (int j = 0; j < w; j++) tf.T[j] = Clip3(-(1 << 15), (1 << 15) - 1, tf.T[j]);
+      for (int j = 0; j < w; j++) tf.T[j] = Clip3(-rowMax, rowMax - 1, tf.T[j]);
       tf.run(RowKind[t], log2W);
       for (int j = 0; j < w; j++) Residual[i][j] = Round2(tf.T[j], rowShift);
     }
     for (int i = 0; i < h; i++)
-      for (int j = 0; j < w; j++) Residual[i][j] = Clip3(-(1 << 15), (1 << 15) - 1, Residual[i][j]);
+      for (int j = 0; j < w; j++) Residual[i][j] = Clip3(-colMax, colMax - 1, Residual[i][j]);
     for (int j = 0; j < w; j++) {
       for (int i = 0; i < h; i++) tf.T[i] = Residual[i][j];
       tf.run(ColKind[t], log2H);
@@ -1519,7 +1546,7 @@ struct Recon {
     }
   }
 
-  static void edge_upsample(int* buf, int numPx) {
+  static void edge_upsample(int* buf, int numPx, int bitDepth) {
     int dup[300];
     dup[0] = buf[-1];
     for (int i = -1; i < numPx; i++) dup[i + 2] = buf[i];
@@ -1527,7 +1554,7 @@ struct Recon {
     buf[-2] = dup[0];
     for (int i = 0; i < numPx; i++) {
       int s = -dup[i] + (9 * dup[i + 1]) + (9 * dup[i + 2]) - dup[i + 3];
-      s = Clip1(Round2(s, 4));
+      s = ClipBd(Round2(s, 4), bitDepth);
       buf[2 * i - 1] = s;
       buf[2 * i] = dup[i + 2];
     }
@@ -1542,11 +1569,12 @@ struct Recon {
     int aboveBuf[320], leftBuf[320];
     int* AboveRow = aboveBuf + 16;
     int* LeftCol = leftBuf + 16;
+    int mid = 1 << (seq.BitDepth - 1);
     if (!haveAbove && haveLeft) {
       int v = *P.at(y, x - 1);
       for (int i = 0; i < w + h; i++) AboveRow[i] = v;
     } else if (!haveAbove && !haveLeft) {
-      for (int i = 0; i < w + h; i++) AboveRow[i] = 127;
+      for (int i = 0; i < w + h; i++) AboveRow[i] = mid - 1;
     } else {
       int aboveLimit = std::min(maxX, x + (haveAboveRight ? 2 * w : w) - 1);
       for (int i = 0; i < w + h; i++) AboveRow[i] = *P.at(y - 1, std::min(aboveLimit, x + i));
@@ -1555,7 +1583,7 @@ struct Recon {
       int v = *P.at(y - 1, x);
       for (int i = 0; i < w + h; i++) LeftCol[i] = v;
     } else if (!haveLeft && !haveAbove) {
-      for (int i = 0; i < w + h; i++) LeftCol[i] = 129;
+      for (int i = 0; i < w + h; i++) LeftCol[i] = mid + 1;
     } else {
       int leftLimit = std::min(maxY, y + (haveBelowLeft ? 2 * h : h) - 1);
       for (int i = 0; i < w + h; i++) LeftCol[i] = *P.at(std::min(leftLimit, y + i), x - 1);
@@ -1563,7 +1591,7 @@ struct Recon {
     if (haveAbove && haveLeft) AboveRow[-1] = *P.at(y - 1, x - 1);
     else if (haveAbove) AboveRow[-1] = *P.at(y - 1, x);
     else if (haveLeft) AboveRow[-1] = *P.at(y, x - 1);
-    else AboveRow[-1] = 128;
+    else AboveRow[-1] = mid;
     LeftCol[-1] = AboveRow[-1];
     static thread_local int pred[64][64];
     if (plane == 0 && use_filter_intra) {
@@ -1610,9 +1638,9 @@ struct Recon {
           }
         }
         upsampleAbove = use_upsample(w, h, filterType, pAngle - 90);
-        if (upsampleAbove) edge_upsample(AboveRow, w + (pAngle < 90 ? h : 0));
+        if (upsampleAbove) edge_upsample(AboveRow, w + (pAngle < 90 ? h : 0), seq.BitDepth);
         upsampleLeft = use_upsample(w, h, filterType, pAngle - 180);
-        if (upsampleLeft) edge_upsample(LeftCol, h + (pAngle > 180 ? w : 0));
+        if (upsampleLeft) edge_upsample(LeftCol, h + (pAngle > 180 ? w : 0), seq.BitDepth);
       }
       int dx = 0, dy = 0;
       if (pAngle < 90) dx = Dr_Intra_Derivative[pAngle];
@@ -1688,7 +1716,7 @@ struct Recon {
         for (int k = 0; k < w; k++) sum += AboveRow[k];
         avg = Clip1((sum + (w >> 1)) >> log2W);
       } else {
-        avg = 128;
+        avg = mid;
       }
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++) pred[i][j] = avg;
@@ -1704,7 +1732,7 @@ struct Recon {
         }
     }
     for (int i = 0; i < h; i++)
-      for (int j = 0; j < w; j++) *P.at(y + i, x + j) = (uint8_t)pred[i][j];
+      for (int j = 0; j < w; j++) *P.at(y + i, x + j) = (uint16_t)pred[i][j];
   }
 
   static const uint8_t* sm_weights(int log2) {
@@ -1740,7 +1768,7 @@ struct Recon {
     lumaAvg = Round2(lumaAvg, Tx_Width_Log2[txSz] + Tx_Height_Log2[txSz]);
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
-        uint8_t* p = planes[plane].at(startY + i, startX + j);
+        uint16_t* p = planes[plane].at(startY + i, startX + j);
         int scaledLuma = Round2Signed(alpha * (L[i][j] - lumaAvg), 6);
         *p = Clip1(*p + scaledLuma);
       }
@@ -1810,14 +1838,17 @@ struct Recon {
     int blimit = 2 * (lvl + 2) + limit;
     int thresh = lvl >> 4;
     if (!isTxEdge || lvl == 0) return;
+    // samples of more than 8 bits: the thresholds scale with them
+    int shiftBd = seq.BitDepth - 8;
     for (int i = 0; i < 4; i++)
-      sample_filter(xP + dy * i, yP + dx * i, plane, limit, blimit, thresh, dx, dy, filterSize);
+      sample_filter(xP + dy * i, yP + dx * i, plane, limit << shiftBd, blimit << shiftBd, thresh << shiftBd, dx,
+                    dy, filterSize);
   }
 
   void sample_filter(int x, int y, int plane, int limit, int blimit, int thresh, int dx, int dy,
                      int filterSize) {
     Plane& P = planes[plane];
-    auto S = [&](int k) -> uint8_t& {  // k >= 0: q_k, k < 0: p_{-k-1}
+    auto S = [&](int k) -> uint16_t& {  // k >= 0: q_k, k < 0: p_{-k-1}
       return *P.at(y + dy * k, x + dx * k);
     };
     int q0 = S(0), q1 = S(1), q2 = S(2), q3 = S(3);
@@ -1838,19 +1869,21 @@ struct Recon {
     }
     if (mask) return;
     bool flat = false, flat2 = false;
+    int one = 1 << (seq.BitDepth - 8);  // flatness: within 1 << (BitDepth - 8)
     if (len == 6) {
-      flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 && std::abs(q2 - q0) <= 1;
+      flat = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+             std::abs(q2 - q0) <= one;
     } else if (len >= 8) {
-      flat = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
-             std::abs(q2 - q0) <= 1 && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+      flat = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+             std::abs(q2 - q0) <= one && std::abs(p3 - p0) <= one && std::abs(q3 - q0) <= one;
     }
     if (len == 16) {
       int q4 = S(4), q5 = S(5), q6 = S(6), p4 = S(-5), p5 = S(-6), p6 = S(-7);
-      flat2 = std::abs(p6 - p0) <= 1 && std::abs(q6 - q0) <= 1 && std::abs(p5 - p0) <= 1 &&
-              std::abs(q5 - q0) <= 1 && std::abs(p4 - p0) <= 1 && std::abs(q4 - q0) <= 1;
+      flat2 = std::abs(p6 - p0) <= one && std::abs(q6 - q0) <= one && std::abs(p5 - p0) <= one &&
+              std::abs(q5 - q0) <= one && std::abs(p4 - p0) <= one && std::abs(q4 - q0) <= one;
     }
     if (len == 4 || !flat) {
-      narrow_filter(S, hevMask);
+      narrow_filter(S, hevMask, seq.BitDepth);
     } else if (len == 8 || len == 6 || !flat2) {
       wide_filter(S, 3, plane);
     } else {
@@ -1859,19 +1892,20 @@ struct Recon {
   }
 
   template <typename F>
-  static void narrow_filter(F& S, bool hevMask) {
-    auto c4 = [](int v) { return Clip3(-128, 127, v); };
-    int ps1 = S(-2) - 128, ps0 = S(-1) - 128, qs0 = S(0) - 128, qs1 = S(1) - 128;
+  static void narrow_filter(F& S, bool hevMask, int bitDepth) {
+    int half = 1 << (bitDepth - 1);  // 0x80 << (BitDepth - 8)
+    auto c4 = [half](int v) { return Clip3(-half, half - 1, v); };
+    int ps1 = S(-2) - half, ps0 = S(-1) - half, qs0 = S(0) - half, qs1 = S(1) - half;
     int filter = hevMask ? c4(ps1 - qs1) : 0;
     filter = c4(filter + 3 * (qs0 - ps0));
     int filter1 = c4(filter + 4) >> 3;
     int filter2 = c4(filter + 3) >> 3;
-    S(0) = c4(qs0 - filter1) + 128;
-    S(-1) = c4(ps0 + filter2) + 128;
+    S(0) = c4(qs0 - filter1) + half;
+    S(-1) = c4(ps0 + filter2) + half;
     if (!hevMask) {
       filter = Round2(filter1, 1);
-      S(1) = c4(qs1 - filter) + 128;
-      S(-2) = c4(ps1 + filter) + 128;
+      S(1) = c4(qs1 - filter) + half;
+      S(-2) = c4(ps1 + filter) + half;
     }
   }
 

@@ -3,8 +3,8 @@
 OpenCV 5.0.0 (libavif 1.4.2) and the JAX package.
 
 - Every committed fixture to the digests of Pillow's and OpenCV's readings
-  (the card's host checks the same); the refused ones by name in both
-  readings; a few against the libraries here, with dtype and shape.
+  (the card's host checks the same); a few against the libraries here,
+  with dtype and shape.
 - Seeded round trips: Pillow writes small images of seeded sizes, contents
   and qualities, and the port reads each as Pillow and OpenCV do, bitwise.
 - The JAX package on the same files: ``Texture``, ``ImageLoader``, the
@@ -28,7 +28,7 @@ from stillleben_tpu.render import light_map as jlm
 from stillleben_tpu.render.atlas import build_scene_atlas as jax_build_scene_atlas
 from stillleben_tpu_torch.assets import avif, image
 from stillleben_tpu_torch.assets.gltf import load_gltf
-from stillleben_tpu_torch.assets.image_fixtures import AVIF_FILES, AVIF_REFUSALS, digests
+from stillleben_tpu_torch.assets.image_fixtures import AVIF_FILES, digests
 from stillleben_tpu_torch.assets.image_fixtures import path as fixture
 from stillleben_tpu_torch.assets.image_loader import ImageLoader
 from stillleben_tpu_torch.assets.mesh import Mesh
@@ -60,16 +60,9 @@ def read(name: str) -> bytes:
 @pytest.mark.parametrize("name", AVIF_FILES)
 def test_fixture_readings(name):
     """Each fixture's bytes, and the port's readings against the digests of
-    Pillow's and OpenCV's; the refused ones raise ``NotImplementedError``
-    naming what they need in both readings (Pillow and OpenCV read them)."""
+    Pillow's and OpenCV's."""
     data = read(name)
     assert sha(data) == digests.AVIF_FILE[name]
-    if name in AVIF_REFUSALS:
-        for reading in (image.read_image, image.read_image_cv2):
-            with pytest.raises(NotImplementedError, match=AVIF_REFUSALS[name]):
-                reading(fixture(name))
-        assert len(digests.AVIF_DECODE[name]) == len(digests.AVIF_DECODE_CV2[name]) == 64
-        return
     assert sha(image.read_image(fixture(name)).tobytes()) == digests.AVIF_DECODE[name]
     assert sha(image.read_image_cv2(fixture(name)).tobytes()) == digests.AVIF_DECODE_CV2[name]
 

@@ -58,6 +58,11 @@ AVIF: ``make_avif_fixtures()`` writes Pillow's files of
 ``avif_digests()`` their SHA-256 and Pillow's and OpenCV's readings;
 ``avif_encode_digests()`` the SHA-256 of the port's own files of
 ``avif_write_sources()`` (``--avif-encode`` rewrites those alone).
+``make_avif_cv2_fixtures()`` writes ``AVIF_CV2_FILES`` (OpenCV's
+``imwrite`` at 8, 10 and 12 bits, Pillow's 4:0:0 and quantizer matrices,
+film grain through OpenCV's libavif: ``libavif_encode_planes``;
+``--avif-cv2`` writes these and their digests alone); ``--avif-cv2-sweep N
+[START]`` holds seeded files of those writers to both libraries.
 
 Pillow's rarer formats: ``make_pillow_format_fixtures()`` writes the
 committed files of BLP, FTEX, Sun raster, XBM, XPM, MSP, GBR, FITS,
@@ -83,6 +88,7 @@ chunks against libwebp's.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import io
 import os
@@ -2887,6 +2893,232 @@ def add_avif_tool_fixtures() -> None:
     print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
 
 
+class AvifImageHead(ctypes.Structure):
+    """The head of libavif's ``avifImage`` (1.3.0 and 1.4.2 alike)."""
+    _fields_ = [(k, ctypes.c_uint32) for k in ("width", "height", "depth")] + [
+        (k, ctypes.c_int) for k in ("yuvFormat", "yuvRange", "chromaSamplePosition")] + [
+        ("planes", ctypes.c_void_p * 3), ("rowBytes", ctypes.c_uint32 * 3),
+        ("ownsPlanes", ctypes.c_int), ("alpha", ctypes.c_void_p), ("alphaRowBytes", ctypes.c_uint32),
+        ("ownsAlpha", ctypes.c_int), ("premultiplied", ctypes.c_int), ("icc", ctypes.c_void_p),
+        ("iccSize", ctypes.c_size_t), ("colorPrimaries", ctypes.c_uint16),
+        ("transferCharacteristics", ctypes.c_uint16), ("matrixCoefficients", ctypes.c_uint16)]
+
+
+AVIF_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}  # avifPixelFormat
+
+
+def libavif_library(which: str) -> ctypes.CDLL:
+    """Pillow's bundled libavif 1.3.0 (``which`` "pillow") or OpenCV's 1.4.2
+    ("opencv") through ctypes, with the argument types of the image calls
+    the fixture writers and the tests make."""
+    import glob
+
+    if which == "pillow":
+        import PIL
+        base = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    else:
+        import cv2
+        base = os.path.join(os.path.dirname(cv2.__file__), os.pardir, "opencv_python.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(base, "libavif-*"))[0])
+    lib.avifImageCreate.restype = lib.avifEncoderCreate.restype = ctypes.c_void_p
+    lib.avifImageCreate.argtypes = (ctypes.c_uint32,) * 3 + (ctypes.c_int,)
+    lib.avifImageAllocatePlanes.argtypes = (ctypes.c_void_p, ctypes.c_int)
+    lib.avifImageDestroy.argtypes = lib.avifEncoderDestroy.argtypes = (ctypes.c_void_p,)
+    lib.avifImageYUVToRGB.argtypes = lib.avifRGBImageSetDefaults.argtypes = (ctypes.c_void_p,) * 2
+    lib.avifEncoderSetCodecSpecificOption.argtypes = (ctypes.c_void_p,) + (ctypes.c_char_p,) * 2
+    return lib
+
+
+def libavif_image(lib: ctypes.CDLL, planes: list, alpha, depth: int, subsampling: str,
+                  full: bool = True, matrix: int = 6) -> int:
+    """A new ``avifImage`` (its address) holding YUV ``planes`` of ``depth``
+    bits (and ``alpha``), BT.709 primaries and sRGB transfer; the caller
+    destroys it."""
+    h, w = planes[0].shape
+    img = lib.avifImageCreate(w, h, depth, AVIF_FORMATS[subsampling])
+    im = AvifImageHead.from_address(img)
+    im.yuvRange, im.matrixCoefficients = int(full), matrix
+    im.colorPrimaries, im.transferCharacteristics = 1, 13
+    assert lib.avifImageAllocatePlanes(img, 1 | (2 if alpha is not None else 0)) == 0
+    dt = np.uint16 if depth > 8 else np.uint8
+
+    def put(ptr, row_bytes, a):
+        buf = (ctypes.c_uint8 * (row_bytes * a.shape[0])).from_address(ptr)
+        np.frombuffer(buf, dt).reshape(a.shape[0], -1)[:, :a.shape[1]] = a
+
+    for i, plane in enumerate(planes):
+        put(im.planes[i], im.rowBytes[i], plane)
+    if alpha is not None:
+        put(im.alpha, im.alphaRowBytes, alpha)
+    return img
+
+
+def libavif_encode_planes(planes: list, depth: int, subsampling: str, options: dict) -> bytes:
+    """OpenCV's bundled libavif 1.4.2 (over aom) encoding YUV ``planes`` of
+    ``depth`` bits (BT.601, full range) at its defaults with aom's
+    codec-specific ``options`` (``film-grain-test``: the bitstreams with film
+    grain at every depth, which neither Python writer makes), through
+    ctypes."""
+    class RWData(ctypes.Structure):
+        _fields_ = [("data", ctypes.c_void_p), ("size", ctypes.c_size_t)]
+
+    lib = libavif_library("opencv")
+    lib.avifEncoderWrite.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(RWData))
+    lib.avifRWDataFree.argtypes = (ctypes.POINTER(RWData),)
+    img = libavif_image(lib, planes, None, depth, subsampling)
+    enc = lib.avifEncoderCreate()
+    out = RWData()
+    try:
+        for k, v in options.items():
+            assert lib.avifEncoderSetCodecSpecificOption(enc, k.encode(), str(v).encode()) == 0
+        assert lib.avifEncoderWrite(enc, img, ctypes.byref(out)) == 0
+        return ctypes.string_at(out.data, out.size)
+    finally:
+        lib.avifRWDataFree(ctypes.byref(out))
+        lib.avifEncoderDestroy(enc)
+        lib.avifImageDestroy(img)
+
+
+def make_avif_cv2_fixtures() -> dict[str, bytes]:
+    """The files of ``AVIF_CV2_FILES``: ``avif_cv2_sources()`` through their
+    writers (OpenCV's ``imwrite``, Pillow's ``save``, OpenCV's libavif on
+    YUV planes), then ``avif_cv2_variants()``'s patched ``colr`` boxes."""
+    import cv2
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import (avif_cv2_sources, avif_cv2_variants,
+                                                            patch_colr)
+
+    files = {}
+    for name, (writer, pixels, opts) in avif_cv2_sources().items():
+        if writer == "cv2":
+            params = []
+            for k, v in opts.items():
+                params += [getattr(cv2, f"IMWRITE_AVIF_{k}"), v]
+            files[name] = _cv2_file(pixels, ".avif", params)
+        elif writer == "pillow":
+            files[name] = pillow_file(pixels, name, **opts)
+        else:
+            files[name] = libavif_encode_planes(
+                pixels, opts["depth"], opts["subsampling"],
+                {k: v for k, v in opts.items() if k not in ("depth", "subsampling")})
+    for name, (src, matrix, full) in avif_cv2_variants().items():
+        files[name] = patch_colr(files[src], matrix, full)
+    return files
+
+
+def add_avif_cv2_fixtures() -> None:
+    """Writes ``make_avif_cv2_fixtures()``'s files and rewrites
+    ``digests.py`` with their entries added to ``AVIF_FILE``,
+    ``AVIF_DECODE`` and ``AVIF_DECODE_CV2`` and every other entry as it
+    stands (``--avif-cv2``: no other fixture is made again)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import digests as current
+
+    files = make_avif_cv2_fixtures()
+    for name, data in files.items():
+        with open(os.path.join(FIXTURES, name), "wb") as f:
+            f.write(data)
+    tables = {k: dict(v) for k, v in vars(current).items() if k.isupper() and isinstance(v, dict)}
+    for key, table in avif_digests(files).items():
+        tables[key].update(table)
+    with open(os.path.join(FIXTURES, "digests.py"), "w") as f:
+        f.write(digest_module(tables))
+    print({k: len(v) for k, v in files.items()}, sum(map(len, files.values())))
+
+
+def avif_cv2_sweep_case(i: int) -> tuple[str, object, dict]:
+    """Seeded case ``i`` of ``avif_cv2_sweep`` as (writer, pixels, options)
+    of ``avif_cv2_sources()``: OpenCV's ``imwrite`` of grey, BGR or BGRA at
+    depth 8, 10 or 12 and quality 0-100 (sizes 1 to 160 a side; smooth,
+    random or few-colour content), or Pillow's 4:0:0 RGB or RGBA, or its
+    quantizer matrices at random ``qm-min`` <= ``qm-max`` (speeds 0-6)."""
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets.image_fixtures import _deep, _few_colours
+
+    rng = np.random.default_rng(20000 + i)
+    h, w = (int(v) for v in rng.integers(1, 161, 2))
+    kind = int(rng.integers(0, 3))
+    c = int(rng.choice([1, 3, 4]))
+    a = (rng.integers(0, 256, (h, w, 3)).astype(np.uint8) if kind == 0 else smooth(h, w, 3, i)
+         if kind == 1 else _few_colours(h, w, i, n=int(rng.integers(2, 6))))
+    if c == 4:
+        a = np.concatenate([a, smooth(h, w, 1, i + 1)], -1)
+    writer = str(rng.choice(["cv2", "cv2", "pillow"]))
+    if writer == "cv2":
+        depth = int(rng.choice([8, 10, 12]))
+        px = a[..., 0] if c == 1 else np.ascontiguousarray(a[..., [2, 1, 0, 3][:c]])
+        if depth > 8:
+            px = _deep(px, depth, i)
+        opts = {"QUALITY": int(rng.integers(0, 101))}
+        if depth > 8:
+            opts["DEPTH"] = depth
+        return writer, px, opts
+    px = a if c != 1 else a[..., :3]
+    kw = {"quality": int(rng.integers(10, 100)), "speed": int(rng.integers(0, 7)) if max(h, w) < 80
+          else int(rng.integers(4, 7))}
+    if rng.random() < 0.5:
+        kw["subsampling"] = "4:0:0"
+    else:
+        lo = int(rng.integers(0, 16))
+        kw["advanced"] = {"enable-qm": "1", "qm-min": str(lo),
+                          "qm-max": str(int(rng.integers(lo, 16)))}
+    return writer, px, kw
+
+
+def avif_cv2_sweep_one(i: int) -> tuple[int, str]:
+    """Case ``i`` written, then read by the port as Pillow and OpenCV read
+    it (values, dtype, shape): (i, "" or what differed)."""
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, ROOT)
+    from stillleben_tpu_torch.assets import avif
+
+    writer, px, opts = avif_cv2_sweep_case(i)
+    if writer == "cv2":
+        params = []
+        for k, v in opts.items():
+            params += [getattr(cv2, f"IMWRITE_AVIF_{k}"), v]
+        d = _cv2_file(px, ".avif", params)
+    else:
+        d = pillow_file(px, "x.avif", **opts)
+    what = f"{writer} {px.dtype} {px.shape} {opts}"
+    try:
+        pil = avif.decode_avif(d)
+        ref = np.asarray(Image.open(io.BytesIO(d)).convert("RGBA"))
+        ok_pil = pil.dtype == ref.dtype and np.array_equal(pil, ref)
+        with tempfile.NamedTemporaryFile(suffix=".avif") as f:
+            f.write(d)
+            f.flush()
+            ref = cv2.imread(f.name, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        got = avif.decode_avif_cv2(d)
+        ok_cv = (got is None and ref is None) or (got is not None and ref is not None and
+                                                   got.dtype == ref.dtype and got.shape == ref.shape
+                                                   and np.array_equal(got, ref))
+    except Exception as e:  # noqa: BLE001  (a refusal is a difference too)
+        return i, f"{what}: {type(e).__name__}: {e}"
+    return i, "" if ok_pil and ok_cv else f"{what}: Pillow {ok_pil}, OpenCV {ok_cv}"
+
+
+def avif_cv2_sweep(n: int, start: int = 0, workers: int = 3) -> list[str]:
+    """``--avif-cv2-sweep N [START]``: cases START .. START + N - 1 of
+    ``avif_cv2_sweep_case`` through their writers and the port's readings;
+    prints and returns what differed."""
+    import multiprocessing
+
+    bad = []
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for i, diff in pool.imap_unordered(avif_cv2_sweep_one, range(start, start + n)):
+            if diff:
+                bad.append(f"case {i}: {diff}")
+                print(bad[-1], flush=True)
+    print(f"{n} cases from {start}: {n - len(bad)} read as Pillow and OpenCV read them")
+    return bad
+
+
 def avif_sweep_case(i: int) -> tuple[np.ndarray, dict]:
     """Seeded case ``i`` of ``avif_sweep``: an array (random, smooth, a cut
     of the 640x480 frame, or few colours; RGB or RGBA; up to 199 a side, 79
@@ -3425,6 +3657,13 @@ if __name__ == "__main__":
         k = sys.argv.index("--avif-sweep")
         args = [int(v) for v in sys.argv[k + 1:k + 3]]
         sys.exit(1 if avif_sweep(*args) else 0)
+    if "--avif-cv2" in sys.argv:
+        add_avif_cv2_fixtures()
+        sys.exit(0)
+    if "--avif-cv2-sweep" in sys.argv:
+        k = sys.argv.index("--avif-cv2-sweep")
+        args = [int(v) for v in sys.argv[k + 1:k + 3]]
+        sys.exit(1 if avif_cv2_sweep(*args) else 0)
     files = make_fixtures()
     webp_files = make_webp_fixtures()
     encode_files = make_encode_fixtures()
@@ -3432,7 +3671,7 @@ if __name__ == "__main__":
     jpeg_files = make_jpeg_variant_fixtures()
     icon_files = make_icon_fixtures()
     j2k_files = make_jpeg2000_fixtures()
-    avif_files = {**make_avif_fixtures(), **make_avif_tool_fixtures()}
+    avif_files = {**make_avif_fixtures(), **make_avif_tool_fixtures(), **make_avif_cv2_fixtures()}
     rare_files = make_pillow_format_fixtures()
     if "--write" in sys.argv:
         for name, data in {**files, **webp_files, **encode_files, **plain_files,
